@@ -259,12 +259,14 @@ def phase_serve(dev, params):
     counts = kernels.launch_counts()
     check_results(results, reqs)
     ntok = sum(len(r.tokens) for r in results)
+    steps = stats["decode_steps"] + stats["prefills"]
     log("phase 3 served %d requests, %d tokens in %.3f s: %.1f generated "
-        "tokens/s; prefix_hits %d cow_forks %d prefill_chunks %d "
-        "decode_steps %d; launches %s"
+        "tokens/s, %.3f ms per step; prefix_hits %d cow_forks %d "
+        "prefill_chunks %d decode_steps %d chunk_steps %d; launches %s"
         % (len(results), ntok, seconds, ntok / seconds,
-           stats["prefix_hits"], stats["cow_forks"],
-           stats["prefill_chunks"], stats["decode_steps"], counts))
+           seconds * 1e3 / steps, stats["prefix_hits"], stats["cow_forks"],
+           stats["prefill_chunks"], stats["decode_steps"],
+           stats["prefills"], counts))
     for name in kernels.KERNELS:
         if counts[name] <= 0:
             raise SystemExit("chip_smoke: %s never launched on the main "
@@ -411,8 +413,9 @@ def phase_times(dev, card, errs, counts):
         lib_err = (library_paged(q, kp, vp, tbl, pos, bs) -
                    paged_attention.paged_attention_reference(
                        q, kp, vp, tbl, pos, bs)).abs().max().item()
-        log("phase 5 library yardstick (gather + SDPA) Lq=%d vs plain: "
-            "max_abs_err %.3e" % (lq, lib_err))
+        log("phase 5 library yardstick for paged attention: table gather + "
+            "scaled_dot_product_attention, the gather inside the timing; "
+            "Lq=%d vs plain: max_abs_err %.3e" % (lq, lib_err))
         nbytes, flops = paged_work(tbl, pos, lq)
         record("flash_attention_paged",
                "B=%d H=%d Lq=%d D=%d bs=%d T=%d" % (

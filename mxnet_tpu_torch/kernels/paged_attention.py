@@ -53,9 +53,10 @@ def paged_attention_reference(q, k_pool, v_pool, tables, positions,
 
 def _check(q, k_pool, v_pool, tables, positions, bs):
     B, H, Lq, D = q.shape
-    if D > MAX_HEAD_DIM:
-        raise ValueError("flash_attention_paged: head_dim %d > %d is not "
-                         "supported by the CUDA kernel" % (D, MAX_HEAD_DIM))
+    if D > MAX_HEAD_DIM or D % 4:
+        raise ValueError("flash_attention_paged: the CUDA kernel takes a "
+                         "head_dim that is a multiple of 4 up to %d, got %d"
+                         % (MAX_HEAD_DIM, D))
     for name, t, dtype in (("q", q, torch.float32),
                            ("k_pool", k_pool, torch.float32),
                            ("v_pool", v_pool, torch.float32),
@@ -75,6 +76,9 @@ def _check(q, k_pool, v_pool, tables, positions, bs):
         raise ValueError("flash_attention_paged: pools must be (H=%d, rows, "
                          "D=%d), got %s / %s" % (H, D, tuple(k_pool.shape),
                                                  tuple(v_pool.shape)))
+    if k_pool.data_ptr() % 16 or v_pool.data_ptr() % 16:
+        raise ValueError("flash_attention_paged: pools must be 16-byte "
+                         "aligned")
     if k_pool.shape[1] % bs:
         raise ValueError("flash_attention_paged: pool length %d is not a "
                          "multiple of block_size %d" % (k_pool.shape[1], bs))
@@ -90,7 +94,8 @@ def flash_attention_paged(q, k_pool, v_pool, tables, positions, block_size,
     ``positions[b] + r``; table entries past a sequence's frontier must
     point at a valid block (conventionally the trash block 0) — their
     keys are masked either way.  The CUDA kernel takes fp32 q and pools,
-    int32 tables and positions, all contiguous, and D <= 256."""
+    int32 tables and positions, all contiguous, 16-byte aligned pools and
+    a head dim D that is a multiple of 4 up to 256."""
     bs = int(block_size)
     D = q.shape[-1]
     if scale is None:

@@ -139,7 +139,7 @@ def test_paged_kernel_argument_checks():
         check(q, kp[:, :60].contiguous(), vp[:, :60].contiguous(), tbl,
               pos, 8)
     big = torch.zeros(2, 2, 1, 264)
-    with pytest.raises(ValueError, match="256"):
+    with pytest.raises(ValueError, match="multiple of 4 up to 256"):
         check(big, kp, vp, tbl, pos, 8)
     with pytest.raises(ValueError, match="float32"):
         norm._check_rows("rms_norm", torch.zeros(2, 4, dtype=torch.float64),
