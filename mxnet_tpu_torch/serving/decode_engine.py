@@ -357,10 +357,8 @@ class GenerationEngine:
     :class:`GenerationResult`.  One engine serves every generative model
     in the registry; a step never mixes models."""
 
-    def __init__(self, registry, max_active=None, max_inflight=None):
+    def __init__(self, registry, max_inflight=None):
         self._registry = registry
-        self._max_active = (int(max_active) if max_active is not None
-                            else None)
         if max_inflight is None:
             max_inflight = int(get_env("MXNET_SERVE_MAX_INFLIGHT"))
         self._max_inflight = max(0, int(max_inflight))  # 0 = unbounded
@@ -589,8 +587,6 @@ class GenerationEngine:
         st = self._paged_state(model, store)
         bs = store.kv_block
         cap = store.max_slots()
-        if self._max_active is not None:
-            cap = min(cap, self._max_active)
         admitted = 0
         while dq:
             now = time.monotonic()

@@ -95,8 +95,6 @@ class GenerativeProgramStore:
     an fp32 paged KV pool: another ``compute_dtype`` or ``kv_dtype``, or
     ``paged=False``, raises :class:`MXNetError`."""
 
-    paged = True
-
     def __init__(self, params, spec, name="lm", batch_buckets=None,
                  prompt_buckets=None, kv_block=None, kv_max=None,
                  compute_dtype=None, kv_dtype=None, paged=None,
@@ -155,14 +153,6 @@ class GenerativeProgramStore:
     def spec(self):
         return dict(self._spec)
 
-    @property
-    def batch_edges(self):
-        return self._batch_edges
-
-    @property
-    def prompt_edges(self):
-        return self._prompt_edges
-
     def max_slots(self):
         return self._batch_edges[-1]
 
@@ -194,12 +184,11 @@ class GenerativeProgramStore:
                 % (blocks, self.pool_blocks - 1))
 
     # -- pool ----------------------------------------------------------
-    def new_pool(self, num_blocks=None):
-        """Zeroed K/V pool pair, ``(num_layers, num_heads, num_blocks *
-        kv_block, head_dim)`` fp32 on the store's device (``num_blocks``
-        defaults to the store's ``pool_blocks``)."""
-        nb = self.pool_blocks if num_blocks is None else int(num_blocks)
-        return init_pool(self._spec, nb, self.kv_block, device=self.device)
+    def new_pool(self):
+        """Zeroed K/V pool pair, ``(num_layers, num_heads, pool_blocks *
+        kv_block, head_dim)`` fp32 on the store's device."""
+        return init_pool(self._spec, self.pool_blocks, self.kv_block,
+                         device=self.device)
 
     def copy_block(self, pool_k, pool_v, src, dst):
         """Copy-on-write fork: copy physical block ``src``'s rows into
@@ -238,14 +227,15 @@ class GenerativeProgramStore:
 
     def warmup(self, kv_depth=None):
         """Run one decode step (lq=1) and one prefill-chunk step per
-        batch bucket before traffic, on a scratch pool holding only the
-        trash block (every write and read of an all-zero table lands
-        there).  On a CUDA device this builds the kernels and surfaces
-        any launch fault.  ``kv_depth`` is accepted for the reference's
-        signature: the table width is a store constant, so depth never
-        changes a step."""
+        batch bucket before traffic, on a throwaway full-size pool with
+        all-zero tables (every write and read lands in the trash block).
+        On a CUDA device this builds the kernels, surfaces any launch
+        fault and leaves the pool's memory in PyTorch's caching
+        allocator, so the engine's first request does not pay for it.
+        ``kv_depth`` is accepted for the reference's signature: the table
+        width is a store constant, so depth never changes a step."""
         del kv_depth
-        pk, pv = self.new_pool(num_blocks=1)
+        pk, pv = self.new_pool()
         tb = self.table_width()
         for bb in self._batch_edges:
             for lq in sorted({1, self.prefill_chunk}):
