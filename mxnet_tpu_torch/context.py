@@ -11,7 +11,19 @@ import torch
 
 from .base import MXNetError
 
-__all__ = ["default_device"]
+__all__ = ["default_device", "cpu", "gpu"]
+
+
+def cpu(device_id=0):
+    """The host, as a ``torch.device`` (``device_id`` is accepted for the
+    reference's signature and ignored)."""
+    return torch.device("cpu")
+
+
+def gpu(device_id=0):
+    """CUDA device ``device_id`` as a ``torch.device``; raises without
+    CUDA, like :func:`default_device`."""
+    return default_device(torch.device("cuda", int(device_id)))
 
 
 def default_device(device=None):

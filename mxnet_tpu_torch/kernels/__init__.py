@@ -14,7 +14,9 @@ import threading
 __all__ = ["launch_counts", "reset_launch_counts", "KERNELS"]
 
 # wrapper name -> launches of its CUDA kernel since the last reset
-KERNELS = ("rms_norm", "layer_norm", "flash_attention_paged")
+KERNELS = ("rms_norm", "layer_norm", "flash_attention_paged",
+           "rms_norm_bwd", "layer_norm_bwd", "softmax_rows",
+           "xent_grad_from_probs", "flash_attention")
 _counts = dict.fromkeys(KERNELS, 0)
 _counts_lock = threading.Lock()
 

@@ -11,7 +11,9 @@ process, all started together, and one more ``nvcc`` call links them.
 Every C entry point takes raw device pointers, plain ints and floats and
 the CUDA stream, launches on that stream without synchronising, and
 returns ``cudaGetLastError()``; :func:`check` turns a non-zero code into
-:class:`KernelError`.
+:class:`KernelError`.  The wrappers route by device with :func:`route`,
+refuse what a kernel does not take with :func:`check_args`, and call an
+entry point with :func:`launch`, which counts the launch.
 """
 from __future__ import annotations
 
@@ -25,9 +27,13 @@ import tempfile
 import threading
 import time
 
-from ..base import MXNetError
+import torch
 
-__all__ = ["KernelError", "library", "check", "build_info"]
+from ..base import MXNetError
+from . import count_launch
+
+__all__ = ["KernelError", "library", "check", "build_info", "route",
+           "check_args", "launch"]
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _CSRC = os.path.join(_HERE, "csrc")
@@ -43,6 +49,18 @@ _SIGNATURES = {
     "mxt_rms_norm_f32": (_P, _P, _P, _I, _I, _F, _P),
     # x, gamma, beta, y, rows, width, eps, stream
     "mxt_layer_norm_f32": (_P, _P, _P, _P, _I, _I, _F, _P),
+    # x, gamma, dy, dx, dgamma_partials, rows, width, eps, stream
+    "mxt_rms_norm_bwd_f32": (_P, _P, _P, _P, _P, _I, _I, _F, _P),
+    # x, gamma, dy, dx, dgamma_partials, dbeta_partials, rows, width, eps,
+    # stream
+    "mxt_layer_norm_bwd_f32": (_P, _P, _P, _P, _P, _P, _I, _I, _F, _P),
+    # x, p, rows, cols, stream
+    "mxt_softmax_rows_f32": (_P, _P, _I, _I, _P),
+    # p, label, grad, rows, cols, scale, stream
+    "mxt_xent_grad_from_probs_f32": (_P, _P, _P, _I, _I, _F, _P),
+    # q, k, v, out, B*H, Lq, Lk, D, causal, scale, stream
+    "mxt_flash_attention_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
+                                _P),
     # q, k_pool, v_pool, tables, positions, out,
     # B, H, Lq, D, T, block_size, pool_rows, scale, stream
     "mxt_paged_attention_f32": (_P, _P, _P, _P, _P, _P,
@@ -54,8 +72,9 @@ _lib = None
 _info = {}
 
 
-class KernelError(MXNetError):
-    """A kernel failed to build, load or launch."""
+class KernelError(MXNetError, ValueError):
+    """A kernel failed to build, load or launch, or was handed tensors it
+    does not take (a ``ValueError`` as well, for the argument checks)."""
 
 
 def _sources():
@@ -154,3 +173,38 @@ def check(code, name):
     """Raise KernelError when a C entry point returned a CUDA error."""
     if code != 0:
         raise KernelError("%s: CUDA error %d at launch" % (name, code))
+
+
+def route(name, x):
+    """True for the CUDA kernel (``x`` on a CUDA device), False for the
+    plain version (``x`` on the CPU); any other device raises."""
+    if x.device.type == "cpu":
+        return False
+    if x.device.type != "cuda":
+        raise KernelError("%s: no kernel for device %s" % (name, x.device))
+    return True
+
+
+def check_args(name, *tensors):
+    """Refuse what a CUDA kernel does not take: tensors on different
+    devices, a dtype other than float32, a non-contiguous layout."""
+    dev = tensors[0].device
+    for t in tensors:
+        if t.device != dev:
+            raise KernelError("%s: all tensors must be on %s, got %s"
+                              % (name, dev, t.device))
+        if t.dtype != torch.float32:
+            raise KernelError("%s: the CUDA kernel takes float32, got %s"
+                              % (name, t.dtype))
+        if not t.is_contiguous():
+            raise KernelError("%s: tensors must be contiguous" % name)
+
+
+def launch(x, name, entry, *args):
+    """Call C entry point ``entry`` on ``x``'s device and current stream,
+    raise on a CUDA error, and count one launch of ``name``."""
+    lib = library()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        check(getattr(lib, entry)(*args, stream), name)
+    count_launch(name)

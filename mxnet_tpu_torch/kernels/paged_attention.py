@@ -15,7 +15,7 @@ from __future__ import annotations
 
 import torch
 
-from . import _build, count_launch
+from ._build import launch, route
 
 __all__ = ["flash_attention_paged", "paged_attention_reference"]
 
@@ -100,22 +100,14 @@ def flash_attention_paged(q, k_pool, v_pool, tables, positions, block_size,
     D = q.shape[-1]
     if scale is None:
         scale = 1.0 / (D ** 0.5)
-    if q.device.type == "cpu":
+    if not route("flash_attention_paged", q):
         return paged_attention_reference(q, k_pool, v_pool, tables,
                                          positions, bs, scale)
-    if q.device.type != "cuda":
-        raise ValueError("flash_attention_paged: no kernel for device %s"
-                         % q.device)
     _check(q, k_pool, v_pool, tables, positions, bs)
     B, H, Lq, _ = q.shape
     out = torch.empty_like(q)
-    lib = _build.library()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        _build.check(lib.mxt_paged_attention_f32(
-            q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-            tables.data_ptr(), positions.data_ptr(), out.data_ptr(),
-            B, H, Lq, D, tables.shape[1], bs, k_pool.shape[1],
-            float(scale), stream), "flash_attention_paged")
-    count_launch("flash_attention_paged")
+    launch(q, "flash_attention_paged", "mxt_paged_attention_f32",
+           q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+           tables.data_ptr(), positions.data_ptr(), out.data_ptr(), B, H, Lq,
+           D, tables.shape[1], bs, k_pool.shape[1], float(scale))
     return out

@@ -1,27 +1,96 @@
-"""Decoder-only transformer LM for the paged serving plane, in PyTorch.
+"""Decoder-only transformer LM in PyTorch: the training symbol and the
+paged serving step.
 
-Counterpart of ``mxnet_tpu/models/transformer_lm.py``: the same weights
-under the reference's Symbol argument names, applied one paged step at
-a time (:func:`paged_step_apply`).  Pre-norm blocks (RMSNorm), learned
+Counterpart of ``mxnet_tpu/models/transformer_lm.py``.  :func:`get_symbol`
+builds the one-shot training graph (a copy of the reference's), and
+:func:`paged_step_apply` applies the same weights, under the same
+argument names, one paged step at a time, so a model trained by
+``Module`` is served as it is.  Pre-norm blocks (RMSNorm), learned
 q/k/v/proj projections without biases, a ReLU FFN at 4x width, a final
-LayerNorm and the ``pred`` head.  RMSNorm, LayerNorm and the paged
-attention go through the kernel wrappers (CUDA kernel on a CUDA tensor,
-plain version on a CPU tensor); the large matrix products stay
+LayerNorm and the ``pred`` head.  RMSNorm, LayerNorm, the attention and
+the loss head go through the kernel wrappers (CUDA kernel on a CUDA
+tensor, plain version on a CPU tensor); the large matrix products stay
 ``torch.matmul``, as the reference left them to XLA.
+
+The module is callable: ``models.transformer_lm(seq_len, ...)`` is
+:func:`get_symbol`, as the reference's ``models.transformer_lm``.
 """
 from __future__ import annotations
+
+import sys
+import types
 
 import numpy as np
 import torch
 from torch import nn
 
+from .. import symbol as sym
 from ..base import MXNetError
 from ..context import default_device
 from ..ops.attention import sdp_attention_paged
 from ..ops.nn import layer_norm, rms_norm
 
-__all__ = ["lm_spec", "param_shapes", "random_params", "init_pool",
-           "paged_step_apply", "lm_matmul_weights", "TransformerLM"]
+__all__ = ["get_symbol", "lm_spec", "param_shapes", "random_params",
+           "init_pool", "paged_step_apply", "lm_matmul_weights",
+           "TransformerLM"]
+
+
+def _attention_block(x, seq_len, num_hidden, num_heads, name):
+    """Pre-norm causal self-attention with residual. x: (B, L, D)."""
+    head_dim = num_hidden // num_heads
+    a = sym.RMSNorm(x, name=name + "_ln1")
+    a2 = sym.Reshape(a, shape=(-1, num_hidden))
+
+    def heads(t, tag):
+        proj = sym.FullyConnected(t, num_hidden=num_hidden, no_bias=True,
+                                  name="%s_%s" % (name, tag))
+        h = sym.Reshape(proj, shape=(-1, seq_len, num_heads, head_dim))
+        return sym.transpose(h, axes=(0, 2, 1, 3))   # (B, H, L, dh)
+
+    att = sym.DotProductAttention(heads(a2, "q"), heads(a2, "k"),
+                                  heads(a2, "v"), causal=True,
+                                  name=name + "_attn")
+    att = sym.Reshape(sym.transpose(att, axes=(0, 2, 1, 3)),
+                      shape=(-1, num_hidden))
+    proj = sym.FullyConnected(att, num_hidden=num_hidden, no_bias=True,
+                              name=name + "_proj")
+    return x + sym.Reshape(proj, shape=(-1, seq_len, num_hidden))
+
+
+def _ffn_block(x, seq_len, num_hidden, name):
+    """Pre-norm ReLU FFN (4x) with residual."""
+    f = sym.RMSNorm(x, name=name + "_ln2")
+    f = sym.Reshape(f, shape=(-1, num_hidden))
+    f = sym.FullyConnected(f, num_hidden=4 * num_hidden,
+                           name=name + "_ffn1")
+    f = sym.Activation(f, act_type="relu")
+    f = sym.FullyConnected(f, num_hidden=num_hidden, name=name + "_ffn2")
+    return x + sym.Reshape(f, shape=(-1, seq_len, num_hidden))
+
+
+def get_symbol(seq_len, num_layers=2, num_hidden=64, num_heads=4,
+               vocab_size=256, **kwargs):
+    """Causal transformer LM symbol for one sequence length.
+
+    data: (batch, seq_len) token ids; softmax_label: (batch, seq_len)
+    next-token ids.  Loss head: SoftmaxOutput over the flattened
+    (batch*seq_len, vocab) logits."""
+    if num_hidden % num_heads:
+        raise ValueError("num_hidden %d must divide into num_heads %d"
+                         % (num_hidden, num_heads))
+    data = sym.Variable("data")
+    label = sym.Variable("softmax_label")
+    x = sym.Embedding(data, input_dim=vocab_size, output_dim=num_hidden,
+                      name="embed")
+    for i in range(num_layers):
+        name = "blk%d" % i
+        x = _attention_block(x, seq_len, num_hidden, num_heads, name)
+        x = _ffn_block(x, seq_len, num_hidden, name)
+    h = sym.LayerNorm(x, name="final_ln")
+    logits = sym.FullyConnected(sym.Reshape(h, shape=(-1, num_hidden)),
+                                num_hidden=vocab_size, name="pred")
+    return sym.SoftmaxOutput(logits, sym.Reshape(label, shape=(-1,)),
+                             name="softmax")
 
 _BLOCK_KEYS = ("ln1_gamma", "q_weight", "k_weight", "v_weight",
                "proj_weight", "ln2_gamma", "ffn1_weight", "ffn1_bias",
@@ -227,3 +296,13 @@ class TransformerLM(nn.Module):
         return paged_step_apply(self.params(), pool_k, pool_v, tables,
                                 tokens, positions, valid, self.spec,
                                 block_size, all_logits=all_logits)
+
+
+class _CallableModule(types.ModuleType):
+    """``transformer_lm(...)`` builds the training symbol."""
+
+    def __call__(self, *args, **kwargs):
+        return get_symbol(*args, **kwargs)
+
+
+sys.modules[__name__].__class__ = _CallableModule

@@ -1,1 +1,5 @@
-"""Functional operator doors of the port."""
+"""Operators of the port.  Importing the package registers every op."""
+from . import attention, elemwise, indexing, nn, registry, softmax, tensor
+
+__all__ = ["attention", "elemwise", "indexing", "nn", "registry", "softmax",
+           "tensor"]
