@@ -7,20 +7,34 @@ Needs one CUDA device and ``nvcc``; builds the port's kernels from the
 sources in this checkout on first use.  Phases, each fatal on failure:
 
 1. build the CUDA kernels (``mxnet_tpu_torch/kernels/csrc/*.cu``);
-2. run each kernel at the serving path's shapes and hold it against its
-   plain PyTorch version on the card (norms: rows 32 and 1024, width
-   512, tolerance 1e-5 x max|ref|; paged attention: B=32, H=8, D=64,
-   block 64, 16-block tables, Lq 1 and 32, ragged positions, shared
-   blocks and trash-block entries, tolerance 1e-4 absolute);
+2. run each kernel at the serving paths' shapes and hold it against its
+   plain PyTorch version on the card (norms: rows 32, 1024 and 4096,
+   width 512, tolerance 1e-5 x max|ref|; paged attention, fp32 and int8
+   pools with a scale per (head, block): B=32, H=8, D=64, block 64,
+   16-block tables, Lq 1 and 32, ragged positions, shared blocks and
+   trash-block entries, tolerance 1e-4 absolute; dequant_matmul: M 32
+   and 1024 against every (N, K) of the LM's products, 1e-5 x max|ref|;
+   flash_attention_offset: B=32, H=8, Lq 1 over a 1024-key cache with
+   ragged offsets, 1e-4 absolute);
 3. serve the transformer LM at full width (4 layers, hidden 512, 8
    heads, vocab 8192, random weights from seed 0) through
    ``ModelRegistry`` + ``GenerationEngine`` with the default knobs: 16
    requests, four sharing a 128-token prefix, two sampled; every kernel
-   must have launched during the run;
+   of the path must have launched during the run;
+3b. the same mix on int8 weights and an int8 paged KV pool
+   (``compute_dtype="int8", kv_dtype="int8"``): ``dequant_matmul`` and
+   the int8 paged kernel launch, the fp32 paged kernel does not; weight
+   bytes and pool bytes per token against phase 3's store (the
+   reference's gate: at most 0.3x);
+3c. the same mix on the contiguous plane (``paged=False``, prompt
+   buckets up to 512): ``flash_attention`` (prefill) and
+   ``flash_attention_offset`` (decode) launch; the greedy streams equal
+   phase 3's but where the CPU's top-2 logit margin is below 1e-3;
 4. the card against the CPU: one prefill chunk and one decode step of
    ``paged_step_apply`` (logits within 1e-3), then the greedy streams of
    phase 3 against a CPU engine (a stream may differ only where the CPU's
    top-2 logit margin is below 1e-3);
+4b. the same for phase 3b's int8 store;
 5. time each kernel, its plain version and one PyTorch library call with
    CUDA events (median of 60 launches queued behind a GPU spin, so each
    event pair brackets device time), beside the kernel's bound;
@@ -58,8 +72,8 @@ import torch
 
 import mxnet_tpu_torch as mx
 from mxnet_tpu_torch import kernels
-from mxnet_tpu_torch.kernels import (_build, flash_attention, norm,
-                                     paged_attention, softmax_xent)
+from mxnet_tpu_torch.kernels import (_build, dequant_matmul, flash_attention,
+                                     norm, paged_attention, softmax_xent)
 from mxnet_tpu_torch.models import transformer_lm as tlm
 from mxnet_tpu_torch.serving import GenerationEngine, ModelRegistry, TokenStream
 
@@ -69,9 +83,16 @@ TRAIN_BATCH, TRAIN_SEQ = 16, 256
 TRAIN_ROWS = TRAIN_BATCH * TRAIN_SEQ
 TRAIN_ATT = (TRAIN_BATCH, SPEC["num_heads"], TRAIN_SEQ,
              SPEC["num_hidden"] // SPEC["num_heads"])
-NORM_ROWS, NORM_W = (32, 1024), 512
+# serving rows (decode bucket, prefill chunk) and the training width
+NORM_ROWS, NORM_W = (32, 1024, 4096), 512
 PA = dict(B=32, H=8, D=64, bs=64, T=16, num_blocks=513)
 PA_LQ = (1, 32)
+# dequant_matmul: M is the decode bucket and a 32 x 32 prefill chunk;
+# (N, K) of q/k/v/proj, ffn1, ffn2 and pred at full width
+DQ_M = (32, 1024)
+DQ_NK = ((512, 512), (2048, 512), (512, 2048), (8192, 512))
+# flash_attention_offset at decode: one query row over a full cache
+OFS = dict(B=32, H=8, Lk=1024, D=64)
 MAX_TOKENS = 64
 SOURCES = {
     "rms_norm": ("mxnet_tpu_torch/kernels/csrc/norm.cu",
@@ -90,8 +111,28 @@ SOURCES = {
                              "mxnet_tpu/pallas_ops/softmax_xent.py:82"),
     "flash_attention": ("mxnet_tpu_torch/kernels/csrc/flash_attention.cu",
                         "mxnet_tpu/pallas_ops/flash_attention.py:62"),
+    "dequant_matmul": ("mxnet_tpu_torch/kernels/csrc/dequant_matmul.cu",
+                       "mxnet_tpu/pallas_ops/dequant_matmul.py:141"),
+    "flash_attention_paged_int8": (
+        "mxnet_tpu_torch/kernels/csrc/paged_attention.cu",
+        "mxnet_tpu/pallas_ops/paged_attention.py:41"),
+    "flash_attention_offset": (
+        "mxnet_tpu_torch/kernels/csrc/flash_attention.cu",
+        "mxnet_tpu/pallas_ops/flash_attention.py:222"),
 }
-SERVE_KERNELS = ("rms_norm", "layer_norm", "flash_attention_paged")
+# serving phase -> (store arguments, kernels that must launch, kernels
+# that must not)
+SERVE_PHASES = {
+    "3": ({}, ("rms_norm", "layer_norm", "flash_attention_paged"), ()),
+    "3b": (dict(compute_dtype="int8", kv_dtype="int8"),
+           ("rms_norm", "layer_norm", "dequant_matmul",
+            "flash_attention_paged_int8"), ("flash_attention_paged",)),
+    "3c": (dict(paged=False, prompt_buckets=(16, 32, 64, 128, 256, 512)),
+           ("rms_norm", "layer_norm", "flash_attention",
+            "flash_attention_offset"),
+           ("flash_attention_paged", "flash_attention_paged_int8")),
+}
+MARGIN = 1e-3   # a card stream may leave the CPU's only at a near tie
 # kernel launches of one training step of the 4-layer LM: two RMSNorms
 # and one attention per block, the final LayerNorm, the loss head
 TRAIN_LAUNCHES_PER_STEP = {
@@ -164,22 +205,76 @@ def paged_inputs(lq, dev):
     return [torch.from_numpy(a).to(dev) for a in (q, kp, vp, tables, pos)]
 
 
-def paged_work(tables, pos, lq):
+def int8_paged_inputs(lq, dev):
+    """paged_inputs' tables and queries over int8 code pools, with a
+    scale per (head, physical block) that puts the dequantized values
+    near unit size."""
+    q, _, _, tbl, pos = paged_inputs(lq, dev)
+    H, D, nb, bs = PA["H"], PA["D"], PA["num_blocks"], PA["bs"]
+    rs = np.random.RandomState(200 + lq)
+    kc, vc = (rs.randint(-127, 128, (H, nb * bs, D)).astype(np.int8)
+              for _ in range(2))
+    sk, sv = (rs.uniform(0.005, 0.02, (H, nb)).astype(np.float32)
+              for _ in range(2))
+    return [q] + [torch.from_numpy(a).to(dev) for a in (kc, vc)] + \
+        [tbl, pos] + [torch.from_numpy(a).to(dev) for a in (sk, sv)]
+
+
+def paged_work(tables, pos, lq, elem=4):
     """(bytes, flops) this case needs: q and out once, each K/V pool row
-    some query can see once (shared blocks counted once), tables and
-    positions; 4*D flops per visible (query row, key, head)."""
+    some query can see once (shared blocks counted once, ``elem`` bytes
+    an element), tables and positions, and for int8 pools (``elem`` 1)
+    the fp32 scale of each visible (head, block) and a dequantizing
+    multiply per visible element; 4*D flops per visible (query row,
+    key, head)."""
     B, H, D, bs = PA["B"], PA["H"], PA["D"], PA["bs"]
     tables, pos = tables.cpu().numpy(), pos.cpu().numpy()
-    rows = set()
+    rows, blocks = set(), set()
     keys = 0
     for b in range(B):
         last = int(pos[b]) + lq - 1
         for p in range(last + 1):
             rows.add(int(tables[b, p // bs]) * bs + p % bs)
+            blocks.add(int(tables[b, p // bs]))
         keys += sum(int(pos[b]) + r + 1 for r in range(lq))
-    nbytes = 4 * (2 * B * H * lq * D + 2 * len(rows) * H * D +
-                  tables.size + pos.size)
-    return nbytes, 4 * D * H * keys
+    nbytes = (4 * (2 * B * H * lq * D + tables.size + pos.size) +
+              elem * 2 * len(rows) * H * D)
+    flops = 4 * D * H * keys
+    if elem == 1:
+        nbytes += 4 * 2 * len(blocks) * H
+        flops += 2 * len(rows) * H * D
+    return nbytes, flops
+
+
+def dq_inputs(M, N, K, dev):
+    """x (M, K), the int8 codes and row scales of a weight (N, K) drawn
+    at the LM's init scale, and that weight dequantized (for the
+    library yardstick)."""
+    rs = np.random.RandomState(M + N + K)
+    x = rs.randn(M, K).astype(np.float32)
+    codes, scales = dequant_matmul.quantize_int8(
+        rs.uniform(-0.1, 0.1, (N, K)).astype(np.float32), "row")
+    w = dequant_matmul.dequantize_int8(codes, scales)
+    return [torch.from_numpy(a).to(dev) for a in (x, codes, scales, w)]
+
+
+def offset_inputs(dev):
+    """One decode query row per sequence over a full cache, ragged
+    offsets."""
+    B, H, Lk, D = (OFS[k] for k in ("B", "H", "Lk", "D"))
+    rs = np.random.RandomState(300)
+    q = rs.randn(B, H, 1, D).astype(np.float32)
+    k, v = (rs.randn(B, H, Lk, D).astype(np.float32) for _ in range(2))
+    ofs = rs.randint(0, Lk, B).astype(np.int32)
+    return [torch.from_numpy(a).to(dev) for a in (q, k, v, ofs)]
+
+
+def offset_work(ofs):
+    """(bytes, flops): q, out and offsets once, each visible cache row
+    of K and V once; 4*D flops per visible (query row, key, head)."""
+    B, H, D = OFS["B"], OFS["H"], OFS["D"]
+    keys = int((ofs.cpu().long() + 1).sum())
+    return 4 * (2 * B * H * D + 2 * keys * H * D + B), 4 * D * H * keys
 
 
 # ---------------------------------------------------------------------------
@@ -233,7 +328,46 @@ def phase_compare(dev):
             raise SystemExit("chip_smoke: flash_attention_paged disagrees "
                              "with its plain version")
         errs[("flash_attention_paged", lq)] = err
+    for lq in PA_LQ:
+        q, kc, vc, tbl, pos, sk, sv = int8_paged_inputs(lq, dev)
+        got = paged_attention.flash_attention_paged(
+            q, kc, vc, tbl, pos, PA["bs"], kv_scales=(sk, sv))
+        want = paged_attention.paged_attention_reference(
+            q, kc, vc, tbl, pos, PA["bs"], kv_scales=(sk, sv))
+        errs[("flash_attention_paged_int8", lq)] = agree(
+            "flash_attention_paged_int8", "B=%d H=%d Lq=%d D=%d bs=%d T=%d"
+            % (PA["B"], PA["H"], lq, PA["D"], PA["bs"], PA["T"]), got, want,
+            1e-4)
+    for M in DQ_M:
+        for N, K in DQ_NK:
+            x, c, s, _w = dq_inputs(M, N, K, dev)
+            want = dequant_matmul.dequant_matmul_dense(x, c, s)
+            errs[("dequant_matmul", M, N, K)] = agree(
+                "dequant_matmul", "M=%d N=%d K=%d" % (M, N, K),
+                dequant_matmul.dequant_matmul(x, c, s), want,
+                1e-5 * want.abs().max().item())
+    q, k, v, ofs = offset_inputs(dev)
+    errs["flash_attention_offset"] = agree(
+        "flash_attention_offset", "B=%d H=%d Lq=1 Lk=%d D=%d"
+        % (OFS["B"], OFS["H"], OFS["Lk"], OFS["D"]),
+        flash_attention.flash_attention_offset(q, k, v, ofs),
+        flash_attention.offset_attention_reference(q, k, v, ofs), 1e-4)
     return errs
+
+
+def agree(name, shape, got, want, tol):
+    """Log and return max|got - want|; fatal past ``tol`` or when the
+    kernel gave a non-finite value."""
+    torch.cuda.synchronize()
+    if not bool(torch.isfinite(got).all()):
+        raise SystemExit("chip_smoke: %s gave non-finite values" % name)
+    err = (got - want).abs().max().item()
+    log("phase 2 %s %s: max_abs_err %.3e (tol %.3e)" % (name, shape, err,
+                                                         tol))
+    if not err <= tol:
+        raise SystemExit("chip_smoke: %s disagrees with its plain version"
+                         % name)
+    return err
 
 
 def train_kernel_inputs(dev):
@@ -338,11 +472,11 @@ def make_requests():
     return reqs
 
 
-def serve(reg, reqs):
-    """Submit ``reqs``; the three later sharers of the 128-token prefix go
-    in once the first sharer's prompt is prefilled (its first token is
-    out), so they can adopt its blocks.  Returns (results, seconds,
-    engine stats)."""
+def serve(reg, name, reqs):
+    """Submit ``reqs`` to model ``name``; the three later sharers of the
+    128-token prefix go in once the first sharer's prompt is prefilled
+    (its first token is out), so they can adopt its blocks.  Returns
+    (results, seconds, engine stats)."""
     late = (6, 9, 12)
     eng = GenerationEngine(reg)
     try:
@@ -351,11 +485,11 @@ def serve(reg, reqs):
         futs = {}
         for i, kw in enumerate(reqs):
             if i not in late:
-                futs[i] = eng.submit("lm", stream=stream if i == 3 else None,
+                futs[i] = eng.submit(name, stream=stream if i == 3 else None,
                                      **kw)
         next(stream)
         for i in late:
-            futs[i] = eng.submit("lm", **reqs[i])
+            futs[i] = eng.submit(name, **reqs[i])
         results = [futs[i].result(600) for i in range(len(reqs))]
         seconds = time.perf_counter() - tic
         stats = eng.stats()
@@ -371,101 +505,169 @@ def check_results(results, reqs):
             raise SystemExit("chip_smoke: bad generation %r" % (r,))
 
 
-def phase_serve(params):
+def phase_serve(tag, name, params, reqs):
+    """Serve ``reqs`` on a new registry with phase ``tag``'s store
+    arguments (``SERVE_PHASES``), the launch counts set to 0 just before
+    and read just after; fatal when a kernel of the path did not launch
+    or one that must not did.  Returns a dict of the run."""
+    kw, must, must_not = SERVE_PHASES[tag]
     tic = time.perf_counter()
     reg = ModelRegistry()
-    store = reg.add_generative_model("lm", params, SPEC)
-    log("phase 3 registry + warmup on %s: %.2f s; pool %d blocks of %d "
-        "tokens, %.1f MB"
-        % (store.device, time.perf_counter() - tic, store.pool_blocks,
-           store.kv_block,
-           2 * 4 * SPEC["num_layers"] * SPEC["num_hidden"] *
-           store.pool_blocks * store.kv_block / 1e6))
-    reqs = make_requests()
+    store = reg.add_generative_model(name, params, SPEC, **kw)
+    st = store.stats()
+    log("phase %s registry + warmup on %s: %.2f s; compute %s, kv %s, "
+        "paged %s, %d weight bytes %s"
+        % (tag, store.device, time.perf_counter() - tic,
+           st["compute_dtype"] or "float32", st["kv_dtype"], st["paged"],
+           st["weight_bytes"]["total"], st["weight_bytes"]["by_dtype"]))
     kernels.reset_launch_counts()
-    results, seconds, stats = serve(reg, reqs)
+    results, seconds, stats = serve(reg, name, reqs)
     torch.cuda.synchronize()
     counts = kernels.launch_counts()
     check_results(results, reqs)
     ntok = sum(len(r.tokens) for r in results)
     steps = stats["decode_steps"] + stats["prefills"]
-    log("phase 3 served %d requests, %d tokens in %.3f s: %.1f generated "
+    log("phase %s served %d requests, %d tokens in %.3f s: %.1f generated "
         "tokens/s, %.3f ms per step; prefix_hits %d cow_forks %d "
-        "prefill_chunks %d decode_steps %d chunk_steps %d; launches %s"
-        % (len(results), ntok, seconds, ntok / seconds,
+        "prefills %d prefill_chunks %d decode_steps %d cache_grows %d; "
+        "launches %s"
+        % (tag, len(results), ntok, seconds, ntok / seconds,
            seconds * 1e3 / steps, stats["prefix_hits"], stats["cow_forks"],
-           stats["prefill_chunks"], stats["decode_steps"],
-           stats["prefills"], counts))
-    for name in SERVE_KERNELS:
-        if counts[name] <= 0:
-            raise SystemExit("chip_smoke: %s never launched on the serving "
-                             "path" % name)
-    if stats["prefix_hits"] < 3 or stats["cow_forks"] < 1:
+           stats["prefills"], stats["prefill_chunks"], stats["decode_steps"],
+           stats["cache_grows"], counts))
+    for k in must:
+        if counts[k] <= 0:
+            raise SystemExit("chip_smoke: %s never launched in phase %s"
+                             % (k, tag))
+    for k in must_not:
+        if counts[k] != 0:
+            raise SystemExit("chip_smoke: %s launched in phase %s" % (k, tag))
+    if store.paged and (stats["prefix_hits"] < 3 or stats["cow_forks"] < 1):
         raise SystemExit("chip_smoke: the shared-prefix requests did not "
-                         "share blocks")
-    return reg, reqs, results, counts, ntok / seconds
+                         "share blocks in phase %s" % tag)
+    return dict(reg=reg, store=store, results=results, counts=counts,
+                tok_s=ntok / seconds,
+                cache=stats["cache_hwm"].get(name, {}))
 
 
-def top2_margin(model_cpu, tokens):
+def phase_int8_bytes(fp, i8):
+    """Phase 3b's memory against phase 3's: weight bytes, and pool bytes
+    per token with the scale pools counted (the reference's gate for
+    the latter: at most 0.3x)."""
+    wb = [r["store"].stats()["weight_bytes"]["total"] for r in (fp, i8)]
+    pt = [r["cache"]["pool_bytes_per_token"] for r in (fp, i8)]
+    log("phase 3b weight_bytes int8 %d vs fp32 %d (%.4fx); "
+        "pool_bytes_per_token int8 %.1f vs fp32 %.1f (%.4fx, gate 0.3x)"
+        % (wb[1], wb[0], wb[1] / wb[0], pt[1], pt[0], pt[1] / pt[0]))
+    if not pt[1] <= 0.3 * pt[0]:
+        raise SystemExit("chip_smoke: the int8 pool holds a token in more "
+                         "than 0.3x the fp32 pool's bytes")
+
+
+def top2_margin(model_cpu, prompt, gen, int8=False):
     """CPU logit margin between the best and second-best next token
-    after ``tokens`` (one sequence, one chunk)."""
+    after ``prompt + gen`` (one sequence).  fp32 pools: one chunk.  int8
+    pools, whose codes depend on the order of the writes: the engine's
+    schedule, the prompt in 32-token prefill chunks and then one
+    generated token a step."""
+    tokens = prompt + gen
     bs = 64
     T = -(-len(tokens) // bs)
-    pk, pv = tlm.init_pool(SPEC, T + 1, bs)
     tables = np.arange(1, T + 1, dtype=np.int32)[None]
-    logits, _, _ = model_cpu(pk, pv, tables, np.asarray([tokens], np.int32),
-                             np.zeros(1, np.int32),
-                             np.asarray([len(tokens)], np.int32), bs)
+    if not int8:
+        pk, pv = tlm.init_pool(SPEC, T + 1, bs)
+        logits = model_cpu(pk, pv, tables, np.asarray([tokens], np.int32),
+                           np.zeros(1, np.int32),
+                           np.asarray([len(tokens)], np.int32), bs)[0]
+    else:
+        pk, pv = tlm.init_pool(SPEC, T + 1, bs, dtype=torch.int8)
+        scales = tlm.init_scale_pool(SPEC, T + 1)
+        feeds = [(p0, prompt[p0:p0 + 32]) for p0 in range(0, len(prompt), 32)]
+        feeds += [(len(prompt) + i, [t]) for i, t in enumerate(gen)]
+        for p0, toks in feeds:
+            logits = model_cpu(pk, pv, tables, np.asarray([toks], np.int32),
+                               np.asarray([p0], np.int32),
+                               np.asarray([len(toks)], np.int32), bs,
+                               scales=scales)[0]
     top = torch.topk(logits[0], 2).values
     return (top[0] - top[1]).item()
 
 
-def phase_card_vs_cpu(params, reg, reqs, gpu_results):
-    model_gpu = reg.gen_store("lm").model
-    model_cpu = tlm.TransformerLM.from_numpy(params, SPEC, device="cpu")
+def compare_streams(tag, got, want, reqs, margin):
+    """Greedy streams ``got`` against ``want``; a stream may differ only
+    where ``margin(i, prefix)`` (the CPU's top-2 margin after the
+    common prefix) is below MARGIN."""
+    same = 0
+    greedy = [i for i, kw in enumerate(reqs) if "temperature" not in kw]
+    for i in greedy:
+        a, b = got[i].tokens, want[i].tokens
+        if a == b:
+            same += 1
+            continue
+        k = next(j for j in range(len(a)) if a[j] != b[j])
+        m = margin(i, b[:k])
+        log("phase %s stream %d differs at step %d: CPU top-2 margin %.3e"
+            % (tag, i, k, m))
+        if not m < MARGIN:
+            raise SystemExit("chip_smoke: phase %s greedy stream %d differs "
+                             "where the CPU is not near a tie" % (tag, i))
+    return same, len(greedy)
+
+
+def phase_contiguous_vs_paged(served, paged, reqs, model_cpu):
+    """Phase 3c's streams against phase 3's: both planes compute the
+    same function."""
+    same, n = compare_streams(
+        "3c", served["results"], paged["results"], reqs,
+        lambda i, gen: top2_margin(model_cpu, reqs[i]["tokens"], gen))
+    log("phase 3c greedy streams contiguous == paged: %d of %d" % (same, n))
+
+
+def phase_card_vs_cpu(tag, name, params, served, reqs, serve_tag):
+    """One prefill chunk and one decode step of ``paged_step_apply`` on
+    the card and on the CPU (logits within 1e-3), then the greedy
+    streams of phase ``serve_tag`` (run as ``served``) against a CPU
+    engine's with the same store arguments."""
+    kw = SERVE_PHASES[serve_tag][0]
+    int8 = kw.get("kv_dtype") == "int8"
+    cpu_reg = ModelRegistry()
+    cpu_reg.add_generative_model(name, params, SPEC, device="cpu",
+                                 warmup=False, **kw)
+    model_cpu = cpu_reg.gen_store(name).model
+    model_gpu = served["store"].model
     bs, B, T = 64, 4, 4
     rs = np.random.RandomState(7)
     tables = np.arange(1, B * T + 1, dtype=np.int32).reshape(B, T)
     chunk = rs.randint(0, SPEC["vocab_size"], (B, 32)).astype(np.int32)
     valid = np.array([32, 20, 7, 32], np.int32)
-    pools = {}
+    pools, scales = {}, {}
     for m in (model_gpu, model_cpu):
-        pools[m] = tlm.init_pool(SPEC, B * T + 1, bs, device=m.device)
-    for tag, toks, pos, val in (
+        pools[m] = tlm.init_pool(SPEC, B * T + 1, bs, device=m.device,
+                                 dtype=torch.int8 if int8 else torch.float32)
+        scales[m] = tlm.init_scale_pool(SPEC, B * T + 1, device=m.device) \
+            if int8 else None
+    for what, toks, pos, val in (
             ("prefill chunk", chunk, np.zeros(B, np.int32), valid),
             ("decode step", chunk[:, :1], valid, np.ones(B, np.int32))):
         out = {}
         for m in (model_gpu, model_cpu):
             with torch.no_grad():
-                logits, _, _ = m(*pools[m], tables, toks, pos, val, bs)
+                logits = m(*pools[m], tables, toks, pos, val, bs,
+                           scales=scales[m])[0]
             out[m] = logits.cpu()
         err = (out[model_gpu] - out[model_cpu]).abs().max().item()
-        log("phase 4 %s logits card vs CPU: max_abs_err %.3e (tol 1e-3)"
-            % (tag, err))
+        log("phase %s %s logits card vs CPU: max_abs_err %.3e (tol 1e-3)"
+            % (tag, what, err))
         if not (err <= 1e-3 and bool(torch.isfinite(out[model_gpu]).all())):
             raise SystemExit("chip_smoke: card and CPU logits disagree")
-    cpu_reg = ModelRegistry()
-    cpu_reg.add_generative_model("lm", params, SPEC, device="cpu")
     tic = time.perf_counter()
-    cpu_results, _, _ = serve(cpu_reg, reqs)
+    cpu_results, _, _ = serve(cpu_reg, name, reqs)
     check_results(cpu_results, reqs)
-    same = 0
-    greedy = [i for i, kw in enumerate(reqs) if "temperature" not in kw]
-    for i in greedy:
-        a, b = gpu_results[i].tokens, cpu_results[i].tokens
-        if a == b:
-            same += 1
-            continue
-        k = next(j for j in range(len(a)) if a[j] != b[j])
-        margin = top2_margin(model_cpu, reqs[i]["tokens"] + b[:k])
-        log("phase 4 stream %d differs at step %d: CPU top-2 margin %.3e"
-            % (i, k, margin))
-        if not margin < 1e-3:
-            raise SystemExit("chip_smoke: greedy stream %d differs from the "
-                             "CPU engine's where the CPU is not near a tie"
-                             % i)
-    log("phase 4 greedy streams card == CPU: %d of %d (CPU engine %.1f s)"
-        % (same, len(greedy), time.perf_counter() - tic))
+    same, n = compare_streams(
+        tag, served["results"], cpu_results, reqs,
+        lambda i, gen: top2_margin(model_cpu, reqs[i]["tokens"], gen, int8))
+    log("phase %s greedy streams card == CPU: %d of %d (CPU engine %.1f s)"
+        % (tag, same, n, time.perf_counter() - tic))
 
 
 def train_data(n):
@@ -658,16 +860,21 @@ def time_ms(fn, n=60):
     return statistics.median(s.elapsed_time(e) for s, e in zip(starts, ends))
 
 
-def library_paged(q, kp, vp, tbl, pos, bs):
-    """Gather K/V through the tables, then one
-    ``scaled_dot_product_attention`` with the offset-causal mask (the
-    gather is inside the timing)."""
+def library_paged(q, kp, vp, tbl, pos, bs, kv_scales=None):
+    """Gather K/V through the tables (int8 pools: and dequantize them),
+    then one ``scaled_dot_product_attention`` with the offset-causal
+    mask (the gather is inside the timing)."""
     B, H, Lq, D = q.shape
     T = tbl.shape[1]
     idx = (tbl.long()[:, :, None] * bs +
            torch.arange(bs, device=q.device)).reshape(B, T * bs)
     k = kp[:, idx].permute(1, 0, 2, 3)
     v = vp[:, idx].permute(1, 0, 2, 3)
+    if kv_scales is not None:
+        sk, sv = (torch.repeat_interleave(s[:, tbl.long()], bs, dim=2)
+                  .permute(1, 0, 2)[..., None] for s in kv_scales)
+        k = k.float() * sk
+        v = v.float() * sv
     mask = (pos.long()[:, None, None] +
             torch.arange(Lq, device=q.device)[:, None]) >= \
         torch.arange(T * bs, device=q.device)
@@ -735,6 +942,38 @@ def phase_times(dev, card, errs):
                    q, kp, vp, tbl, pos, bs),
                lambda: library_paged(q, kp, vp, tbl, pos, bs),
                nbytes, flops, errs[("flash_attention_paged", lq)])
+    for lq in PA_LQ:
+        q, kc, vc, tbl, pos, sk, sv = int8_paged_inputs(lq, dev)
+        bs = PA["bs"]
+        nbytes, flops = paged_work(tbl, pos, lq, elem=1)
+        record("flash_attention_paged_int8",
+               "B=%d H=%d Lq=%d D=%d bs=%d T=%d int8" % (
+                   PA["B"], PA["H"], lq, PA["D"], bs, PA["T"]),
+               lambda: paged_attention.flash_attention_paged(
+                   q, kc, vc, tbl, pos, bs, kv_scales=(sk, sv)),
+               lambda: paged_attention.paged_attention_reference(
+                   q, kc, vc, tbl, pos, bs, kv_scales=(sk, sv)),
+               lambda: library_paged(q, kc, vc, tbl, pos, bs, (sk, sv)),
+               nbytes, flops, errs[("flash_attention_paged_int8", lq)])
+    for M in DQ_M:
+        for N, K in DQ_NK:
+            x, c, sc, w = dq_inputs(M, N, K, dev)
+            record("dequant_matmul", "M=%d N=%d K=%d" % (M, N, K),
+                   lambda: dequant_matmul.dequant_matmul(x, c, sc),
+                   lambda: dequant_matmul.dequant_matmul_dense(x, c, sc),
+                   lambda: torch.matmul(x, w.t()),
+                   4 * M * K + N * K + 4 * N + 4 * M * N, 2 * M * N * K,
+                   errs[("dequant_matmul", M, N, K)])
+    q, k, v, ofs = offset_inputs(dev)
+    mask = (ofs.long()[:, None, None, None] >=
+            torch.arange(OFS["Lk"], device=dev))          # (B, 1, 1, Lk)
+    nbytes, flops = offset_work(ofs)
+    record("flash_attention_offset", "B=%d H=%d Lq=1 Lk=%d D=%d" % (
+        OFS["B"], OFS["H"], OFS["Lk"], OFS["D"]),
+        lambda: flash_attention.flash_attention_offset(q, k, v, ofs),
+        lambda: flash_attention.offset_attention_reference(q, k, v, ofs),
+        lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask),
+        nbytes, flops, errs["flash_attention_offset"])
     return entries
 
 
@@ -789,23 +1028,26 @@ def phase_times_train(dev, card, errs):
     return entries
 
 
-def kernel_rows(entries, counts, per_step=None):
+def kernel_rows(entries, counts):
     """The ``kernels`` JSON rows: the first shape of each kernel (the
-    path's own) at the top level, every timed shape under ``shapes``."""
+    path's own) at the top level, every timed shape under ``shapes``;
+    ``launches`` sums the main paths' runs (``counts``: phase -> launch
+    counts of that run alone), ``launches_by_phase`` splits them."""
     out = []
     for name, rows in entries.items():
         head = rows[0]
         src, replaces = SOURCES[name]
-        row = {"name": name, "route": "cuda", "source": src,
-               "replaces": replaces, "launches": counts[name],
-               "max_abs_err": max(r["max_abs_err"] for r in rows),
-               "ms": head["ms"], "plain_ms": head["plain_ms"],
-               "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
-               "library_ms": head["library_ms"], "shape": head["shape"],
-               "shapes": rows}
-        if per_step is not None:
-            row["launches_per_step"] = per_step[name]
-        out.append(row)
+        by_phase = {ph: c[name] for ph, c in counts.items()}
+        out.append({
+            "name": name, "route": "cuda", "source": src,
+            "replaces": replaces, "launches": sum(by_phase.values()),
+            "launches_by_phase": by_phase,
+            "train_launches_per_step": TRAIN_LAUNCHES_PER_STEP.get(name, 0),
+            "max_abs_err": max(r["max_abs_err"] for r in rows),
+            "ms": head["ms"], "plain_ms": head["plain_ms"],
+            "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+            "library_ms": head["library_ms"], "shape": head["shape"],
+            "shapes": rows})
     return out
 
 
@@ -827,21 +1069,26 @@ def main(argv):
     errs = phase_compare(dev)
     errs.update(phase_compare_train(dev))
     params = tlm.random_params(SPEC, seed=0)
-    reg, reqs, results, counts, tok_s = phase_serve(params)
-    phase_card_vs_cpu(params, reg, reqs, results)
-    train_counts, step_ms = phase_train(dev, card)
+    reqs = make_requests()
+    served = {tag: phase_serve(tag, name, params, reqs)
+              for tag, name in (("3", "lm"), ("3b", "lm8"), ("3c", "lmc"))}
+    phase_int8_bytes(served["3"], served["3b"])
+    phase_contiguous_vs_paged(
+        served["3c"], served["3"], reqs,
+        tlm.TransformerLM.from_numpy(params, SPEC, device="cpu"))
+    phase_card_vs_cpu("4", "lm", params, served["3"], reqs, "3")
+    phase_card_vs_cpu("4b", "lm8", params, served["3b"], reqs, "3b")
+    counts = {"serve_" + tag: served[tag]["counts"] for tag in served}
+    counts["train"], step_ms = phase_train(dev, card)
     if argv:
         profile_train(dev, card, step_ms)
     phase_train_vs_cpu(dev)
     kern = kernel_rows(phase_times(dev, card, errs), counts)
-    for row in kern:
-        row["train_launches"] = train_counts[row["name"]]
-        row["train_launches_per_step"] = TRAIN_LAUNCHES_PER_STEP.get(
-            row["name"], 0)
-    kern += kernel_rows(phase_times_train(dev, card, errs), train_counts,
-                        TRAIN_LAUNCHES_PER_STEP)
-    log("phase 5 engine: %.1f generated tokens/s at full width [%s]"
-        % (tok_s, card))
+    kern += kernel_rows(phase_times_train(dev, card, errs), counts)
+    for tag, what in (("3", "paged fp32"), ("3b", "paged int8"),
+                      ("3c", "contiguous fp32")):
+        log("phase 5 engine %s: %.1f generated tokens/s at full width [%s]"
+            % (what, served[tag]["tok_s"], card))
     print(json.dumps({"kernels": kern}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -15,7 +15,7 @@ ported.  Training the transformer LM through ``Module.fit``:
             initializer=mx.init.Xavier(),
             eval_metric=mx.metric.Perplexity(ignore_label=None))
 
-and serving it on the paged KV plane:
+and serving it, on the paged KV plane by default:
 
     from mxnet_tpu_torch.models import transformer_lm
     from mxnet_tpu_torch.serving import ModelRegistry, GenerationEngine
@@ -27,11 +27,15 @@ and serving it on the paged KV plane:
     with GenerationEngine(reg) as eng:
         print(eng.submit("lm", [1, 2, 3], max_tokens=8).result().tokens)
 
-Entry points run on ``cuda:0`` unless the caller passes ``mx.cpu()`` /
-``device="cpu"``.  RMSNorm and LayerNorm (forward and backward), flash
-and paged attention and the SoftmaxOutput head run as hand-written CUDA
-kernels on a CUDA tensor (``mxnet_tpu_torch/kernels``) and as their
-plain PyTorch versions on a CPU tensor.
+``add_generative_model(..., compute_dtype="int8", kv_dtype="int8")``
+serves int8 weights over an int8 paged pool, ``paged=False`` the
+contiguous KV plane.  Entry points run on ``cuda:0`` unless the caller
+passes ``mx.cpu()`` / ``device="cpu"``.  RMSNorm and LayerNorm (forward
+and backward), flash attention (causal and offset-causal), paged
+attention (fp32 and int8 pools), the int8 dequant-matmul and the
+SoftmaxOutput head run as hand-written CUDA kernels on a CUDA tensor
+(``mxnet_tpu_torch/kernels``) and as their plain PyTorch versions on a
+CPU tensor.
 """
 from . import (initializer, io, kernels, metric, models, ndarray, optimizer,
                random, symbol)

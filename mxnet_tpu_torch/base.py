@@ -2,9 +2,9 @@
 typed environment-variable registry.
 
 Counterpart of ``mxnet_tpu/base.py``, reduced to what the port reads.
-Only the ``MXNET_SERVE_*`` knobs of the paged serving path are
-registered, with the reference package's names and defaults; they are
-documented in ``docs/port/env_vars.md``.
+Only the ``MXNET_SERVE_*`` knobs of the serving path are registered,
+with the reference package's names and defaults; they are documented
+in ``docs/port/env_vars.md``.
 """
 from __future__ import annotations
 
@@ -66,8 +66,24 @@ register_env("MXNET_SERVE_BUCKETS", str, "1,2,4,8,16,32",
              "smallest edge >= the number of live sequences.")
 register_env("MXNET_SERVE_DTYPE", str, "",
              "Default serving compute dtype of models registered without "
-             "an explicit compute_dtype.  The port serves fp32 only; "
-             "any other value is refused.")
+             "an explicit compute_dtype: empty or 'float32' serves fp32 "
+             "weights, 'int8' int8 weight-only codes through the "
+             "dequant_matmul kernel; 'bfloat16' is refused.")
+register_env("MXNET_SERVE_KV_DTYPE", str, "float32",
+             "KV-cache element dtype of generative models registered "
+             "without an explicit kv_dtype: 'float32', or 'int8' (paged "
+             "plane only): int8 pool codes with per-(layer, head, block) "
+             "fp32 absmax scales, dequantized inside the paged attention "
+             "kernel.  'bfloat16' is refused.")
+register_env("MXNET_SERVE_PAGED", int, 1,
+             "1 (default): the paged KV plane (a global block pool, "
+             "chunked prefill, copy-on-write prefix sharing).  0: the "
+             "contiguous plane (one cache rectangle per slot, one "
+             "prefill per admitted group, then decode steps).")
+register_env("MXNET_SERVE_INT8_GRANULARITY", str, "row",
+             "Scale granularity of int8 weight-only serving: 'row' (one "
+             "fp32 scale per output row) or 'tensor' (one scalar per "
+             "weight).")
 register_env("MXNET_SERVE_KV_BLOCK", int, 64,
              "Tokens per paged KV-pool block.")
 register_env("MXNET_SERVE_KV_MAX", int, 1024,
@@ -83,9 +99,11 @@ register_env("MXNET_SERVE_KV_POOL_BLOCKS", int, 0,
              "batch bucket at full depth: max_bucket * ceil(kv_max / "
              "kv_block) + 1.")
 register_env("MXNET_SERVE_PROMPT_BUCKETS", str, "16,32,64,128",
-             "Comma-separated prompt-length bucket edges.  The paged "
-             "plane chunks prompts, so only the check that the largest "
-             "edge fits MXNET_SERVE_KV_MAX reads them.")
+             "Comma-separated prompt-length bucket edges.  The contiguous "
+             "plane pads each prefill to the smallest edge that holds "
+             "its longest prompt and refuses longer prompts; the paged "
+             "plane chunks prompts and only checks that the largest edge "
+             "fits MXNET_SERVE_KV_MAX.")
 register_env("MXNET_SERVE_MAX_INFLIGHT", int, 0,
              "Admission budget of a generation engine: accepted but "
              "unresolved requests beyond it are shed with "

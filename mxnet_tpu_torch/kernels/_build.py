@@ -61,10 +61,19 @@ _SIGNATURES = {
     # q, k, v, out, B*H, Lq, Lk, D, causal, scale, stream
     "mxt_flash_attention_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
                                 _P),
+    # q, k, v, offsets, out, B, H, Lq, Lk, D, scale, stream
+    "mxt_flash_attention_offset_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                       _I, _F, _P),
     # q, k_pool, v_pool, tables, positions, out,
     # B, H, Lq, D, T, block_size, pool_rows, scale, stream
     "mxt_paged_attention_f32": (_P, _P, _P, _P, _P, _P,
                                 _I, _I, _I, _I, _I, _I, _I, _F, _P),
+    # q, k_codes, v_codes, k_scale, v_scale, tables, positions, out,
+    # B, H, Lq, D, T, block_size, pool_rows, scale, stream
+    "mxt_paged_attention_i8": (_P, _P, _P, _P, _P, _P, _P, _P,
+                               _I, _I, _I, _I, _I, _I, _I, _F, _P),
+    # x, codes, scales, out, M, N, K, stream
+    "mxt_dequant_matmul_f32": (_P, _P, _P, _P, _I, _I, _I, _P),
 }
 
 _lock = threading.Lock()

@@ -1,23 +1,33 @@
 // Flash attention forward for Hopper (sm_90a), fp32, over contiguous
-// [B, H, L, D] tensors, causal or not.
+// [B, H, L, D] tensors: causal or not, and offset-causal.
 //
-// Replaces the TPU kernel _fa_kernel of
-// mxnet_tpu/pallas_ops/flash_attention.py (the forward of
-// flash_attention; its backward is XLA code there and plain PyTorch in
-// the port).  Query row i attends to key j when the mask allows it
-// (causal: i >= j, top-left aligned as in the TPU kernel), with the
-// online-softmax recurrence in fp32.
+// Replaces two TPU kernels of mxnet_tpu/pallas_ops/flash_attention.py:
+//  * _fa_kernel (the forward of flash_attention; its backward is XLA
+//    code there and plain PyTorch in the port).  Query row i attends to
+//    key j when the mask allows it (causal: i >= j, top-left aligned as
+//    in the TPU kernel);
+//  * _fa_offset_kernel (flash_attention_offset, the contiguous serving
+//    plane's decode attention).  Query row r of sequence b sits at
+//    position offsets[b] + r of a [B, H, Lk, D] cache and attends to key
+//    positions up to and including its own.  The causal kernel is the
+//    case where every offset is 0, so both share one body: `offsets` is
+//    null for flash_attention.
+// Both run the online-softmax recurrence in fp32.
 //
 // Bound: at the training shape (B16 H8 L256 D64, causal) the work is
 // about 1.07 GFLOP against 33.5 MB of q/k/v/out, so operations bound it
-// on the fp32 CUDA cores.  This first version is written to be right
-// and simple, in the layout of the port's paged kernel:
+// on the fp32 CUDA cores; at decode (Lq 1 over a cache of up to 1024
+// keys) each key row read feeds 4*D flops, so the cache's bytes bound
+// it.  This first version is written to be right and simple, in the
+// layout of the port's paged kernel:
 //  * one 128-thread block per (q-tile, b*h); a q-tile is up to 32 query
 //    rows, warp w owning rows w, w+4, ..., w+28;
 //  * the TPU's sequential k-block grid axis becomes a loop inside the
-//    block over 32-key tiles; in causal mode keys past the tile's last
-//    query row are never read, which skips every tile that lies wholly
-//    above the diagonal (and the masked tail of the last one);
+//    block over 32-key tiles; in causal and offset mode keys past the
+//    tile's last query position are never read, which skips every tile
+//    that lies wholly above the (offset) diagonal and the masked tail of
+//    the last one (the dynamic block skip of the offset kernel, :238, at
+//    key granularity);
 //  * all four warps stage each K/V tile with 16-byte cp.async copies,
 //    double-buffered: tile t+1's copies are in flight while tile t is
 //    computed.  K rows are padded to D+4 floats so lane k's 16-byte
@@ -26,10 +36,12 @@
 //    registers per row and the output accumulator is spread over the
 //    lanes, D/32 floats each; p is broadcast lane to lane with shuffles
 //    for the P.V product;
-//  * the TPU kernel's semantics are kept: masked scores are -1e30 and
+//  * the TPU kernels' semantics are kept: masked scores are -1e30 and
 //    masked p is forced to 0; the output is acc / (l > 0 ? l : 1).
 // Requires D % 4 == 0 (16-byte rows) and D <= 256.  No tensor cores:
 // TF32 would not hold the fp32 tolerance; faster tiles are later work.
+// At decode only one of the four warps has a query row: a tile shaped
+// for one row is later work too.
 #include <cuda_runtime.h>
 
 namespace {
@@ -75,8 +87,9 @@ __device__ __forceinline__ void cp_async_wait() {
 template <int DPL>
 __global__ void __launch_bounds__(kThreads) flash_attention_kernel(
     const float* __restrict__ q, const float* __restrict__ k,
-    const float* __restrict__ v, float* __restrict__ out, int Lq, int Lk,
-    int D, int causal, float scale) {
+    const float* __restrict__ v, const int* __restrict__ offsets,
+    float* __restrict__ out, int H, int Lq, int Lk, int D, int causal,
+    float scale) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const int warp = threadIdx.x / 32;
@@ -93,7 +106,11 @@ __global__ void __launch_bounds__(kThreads) flash_attention_kernel(
   float* stages = qs + kBlockQ * D;
   const int stage = kKeyTile * (ks_stride + D);
 
-  const int n_keys = causal ? min(q0 + nq, Lk) : Lk;
+  // global position of query row 0: offsets[b] in offset mode (which
+  // is causal), 0 otherwise
+  const int ofs = offsets != nullptr ? offsets[bh / H] : 0;
+  const bool masked = causal || offsets != nullptr;
+  const int n_keys = masked ? min(ofs + q0 + nq, Lk) : Lk;
   const int n_tiles = (n_keys + kKeyTile - 1) / kKeyTile;
   const float* kh = k + bh * Lk * D;
   const float* vh = v + bh * Lk * D;
@@ -145,8 +162,8 @@ __global__ void __launch_bounds__(kThreads) flash_attention_kernel(
     for (int rr = 0; rr < kRowsPerWarp; ++rr) {
       const int r = warp + rr * kWarps;
       if (r < nq) {                          // uniform across the warp
-        const int qpos = q0 + r;
-        const bool vis = lane < nk && (!causal || qpos >= kpos);
+        const int qpos = ofs + q0 + r;
+        const bool vis = lane < nk && (!masked || qpos >= kpos);
         float s = kNeg;
         if (lane < nk) {
           const float4* q4 = reinterpret_cast<const float4*>(qs + r * D);
@@ -200,9 +217,9 @@ __global__ void __launch_bounds__(kThreads) flash_attention_kernel(
 }
 
 template <int DPL>
-int launch(const float* q, const float* k, const float* v, float* out,
-           int BH, int Lq, int Lk, int D, int causal, float scale,
-           cudaStream_t stream) {
+int launch(const float* q, const float* k, const float* v,
+           const int* offsets, float* out, int BH, int H, int Lq, int Lk,
+           int D, int causal, float scale, cudaStream_t stream) {
   const size_t smem =
       sizeof(float) * (static_cast<size_t>(kBlockQ) * D +
                        2 * static_cast<size_t>(kKeyTile) * (D + kKPad) +
@@ -216,8 +233,24 @@ int launch(const float* q, const float* k, const float* v, float* out,
   }
   const dim3 grid((Lq + kBlockQ - 1) / kBlockQ, BH);
   flash_attention_kernel<DPL><<<grid, kThreads, smem, stream>>>(
-      q, k, v, out, Lq, Lk, D, causal, scale);
+      q, k, v, offsets, out, H, Lq, Lk, D, causal, scale);
   return static_cast<int>(cudaGetLastError());
+}
+
+int dispatch(const float* q, const float* k, const float* v,
+             const int* offsets, float* out, int BH, int H, int Lq, int Lk,
+             int D, int causal, float scale, cudaStream_t stream) {
+  if (D <= 32)
+    return launch<1>(q, k, v, offsets, out, BH, H, Lq, Lk, D, causal, scale,
+                     stream);
+  if (D <= 64)
+    return launch<2>(q, k, v, offsets, out, BH, H, Lq, Lk, D, causal, scale,
+                     stream);
+  if (D <= 128)
+    return launch<4>(q, k, v, offsets, out, BH, H, Lq, Lk, D, causal, scale,
+                     stream);
+  return launch<8>(q, k, v, offsets, out, BH, H, Lq, Lk, D, causal, scale,
+                   stream);
 }
 
 }  // namespace
@@ -230,11 +263,19 @@ extern "C" int mxt_flash_attention_f32(const float* q, const float* k,
   if (BH <= 0 || Lq <= 0) return static_cast<int>(cudaGetLastError());
   if (D <= 0 || D > 256 || D % 4 != 0 || Lk <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (D <= 32)
-    return launch<1>(q, k, v, out, BH, Lq, Lk, D, causal, scale, stream);
-  if (D <= 64)
-    return launch<2>(q, k, v, out, BH, Lq, Lk, D, causal, scale, stream);
-  if (D <= 128)
-    return launch<4>(q, k, v, out, BH, Lq, Lk, D, causal, scale, stream);
-  return launch<8>(q, k, v, out, BH, Lq, Lk, D, causal, scale, stream);
+  return dispatch(q, k, v, nullptr, out, BH, 1, Lq, Lk, D, causal, scale,
+                  stream);
+}
+
+// flash_attention_offset: q (B*H, Lq, D); k, v (B*H, Lk, D); offsets (B,)
+// int32; out like q.  All contiguous (fp32 but the offsets).
+extern "C" int mxt_flash_attention_offset_f32(
+    const float* q, const float* k, const float* v, const int* offsets,
+    float* out, int B, int H, int Lq, int Lk, int D, float scale,
+    cudaStream_t stream) {
+  if (B <= 0 || H <= 0 || Lq <= 0) return static_cast<int>(cudaGetLastError());
+  if (D <= 0 || D > 256 || D % 4 != 0 || Lk <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return dispatch(q, k, v, offsets, out, B * H, H, Lq, Lk, D, 1, scale,
+                  stream);
 }

@@ -1,10 +1,12 @@
-// Paged flash attention forward for Hopper (sm_90a), fp32 pools.
+// Paged flash attention forward for Hopper (sm_90a): fp32 pools, and
+// int8 code pools with per-(head, physical block) fp32 scales.
 //
-// Replaces the TPU kernel _paged_kernel (int8=False) of
-// mxnet_tpu/pallas_ops/paged_attention.py.  Query row r of sequence b
-// sits at global position positions[b] + r and attends, offset-causally,
-// to every key position <= its own.  Logical key position p of sequence
-// b lives at pool row tables[b, p / bs] * bs + p % bs of the per-head
+// Replaces the TPU kernel _paged_kernel of
+// mxnet_tpu/pallas_ops/paged_attention.py, both of its variants
+// (int8=False and int8=True).  Query row r of sequence b sits at global
+// position positions[b] + r and attends, offset-causally, to every key
+// position <= its own.  Logical key position p of sequence b lives at
+// pool row tables[b, p / bs] * bs + p % bs of the per-head
 // (H, pool_rows, D) K and V pools.
 //
 // Bound: bytes.  At decode (one query row) each key row read from the
@@ -21,12 +23,20 @@
 //    physical blocks and any block size works;
 //  * all four warps stage each K/V tile with 16-byte cp.async copies,
 //    double-buffered: tile t+1's copies are in flight while tile t is
-//    computed.  K rows are padded to D+4 floats so that lane k's 16-byte
-//    reads of key k are free of bank conflicts;
+//    computed.  K rows are padded by 16 bytes (4 floats, or 16 int8
+//    codes) so that lane k's 16-byte reads of key k are free of bank
+//    conflicts;
 //  * scores: lane k computes query-row . key-k; the online softmax keeps
 //    m, l in fp32 registers per row and the output accumulator spread
 //    over the lanes, D/32 floats each; p is broadcast lane to lane with
 //    shuffles for the P.V product;
+//  * int8 pools (the kv_scales variant) stage the codes, a quarter of
+//    the fp32 bytes, and dequantize on the tile before any product, as
+//    the TPU kernel does (:82-86): lane k looks up its key's scales
+//    scale[h, tables[b, p / bs]] (per key, not per tile: a tile may span
+//    two physical blocks), K codes become codes * scale_k before the dot
+//    with q, and in the P.V loop each V code becomes code * scale_v of
+//    its key, the scale shuffled from the key's lane;
 //  * semantics kept from the TPU kernel: keys past the tile's last query
 //    position are never read (the dynamic block skip of
 //    paged_attention.py:75, at key granularity: skipped keys would have
@@ -34,9 +44,13 @@
 //    (:93-98); the output is acc / (l > 0 ? l : 1) (:108-109).  Table
 //    entries past the frontier point at the trash block 0; their keys are
 //    always masked, so nothing from them leaks.
-// Requires D % 4 == 0 (16-byte rows) and D <= 256.  No tensor cores and
-// no split of one sequence's keys over several blocks: later work.
+// Requires D <= 256 and D % 4 == 0 (fp32: 16-byte rows) or D % 16 == 0
+// (int8).  No tensor cores and no split of one sequence's keys over
+// several blocks: later work.
 #include <cuda_runtime.h>
+#include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -45,7 +59,7 @@ constexpr int kWarps = 4;
 constexpr int kThreads = 32 * kWarps;
 constexpr int kMaxRowsPerWarp = 4;
 constexpr int kMaxBlockQ = kMaxRowsPerWarp * kWarps;
-constexpr int kKPad = 4;            // K row stride D + 4 floats
+constexpr int kKPadBytes = 16;      // K row stride D * sizeof(E) + 16 bytes
 constexpr float kNeg = -1e30f;      // the TPU kernel's mask constant
 constexpr unsigned kFull = 0xffffffffu;
 
@@ -77,14 +91,25 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-// DPL: head-dim elements each lane accumulates (D <= 32 * DPL).
-template <int DPL>
+__device__ __forceinline__ float code_at(uint32_t word, int e) {
+  // byte e of a little-endian word, sign-extended
+  return static_cast<float>(static_cast<int32_t>(word << (24 - 8 * e)) >>
+                            24);
+}
+
+// E: pool element, float or int8_t (codes, with k_scale/v_scale (H,
+// num_blocks) fp32; null for float).  DPL: head-dim elements each lane
+// accumulates (D <= 32 * DPL).
+template <typename E, int DPL>
 __global__ void __launch_bounds__(kThreads) paged_attention_kernel(
-    const float* __restrict__ q, const float* __restrict__ k_pool,
-    const float* __restrict__ v_pool, const int* __restrict__ tables,
+    const float* __restrict__ q, const E* __restrict__ k_pool,
+    const E* __restrict__ v_pool, const float* __restrict__ k_scale,
+    const float* __restrict__ v_scale, const int* __restrict__ tables,
     const int* __restrict__ positions, float* __restrict__ out, int H,
-    int Lq, int D, int T, int bs, int pool_rows, int block_q,
-    float scale) {
+    int Lq, int D, int T, int bs, int pool_rows, int num_blocks,
+    int block_q, float scale) {
+  constexpr bool kInt8 = std::is_same<E, int8_t>::value;
+  constexpr int kVec = 16 / sizeof(E);   // elements per 16-byte copy
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const int warp = threadIdx.x / 32;
@@ -93,37 +118,37 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(
   const int b = blockIdx.z;
   const int q0 = blockIdx.x * block_q;
   const int nq = min(block_q, Lq - q0);
-  const int D4 = D / 4;
-  const int ks_stride = D + kKPad;
+  const int DV = D / kVec;                // 16-byte chunks per row
+  const int ks_stride = D + kKPadBytes / static_cast<int>(sizeof(E));
 
-  // shared memory: Q [block_q][D], then two stages of K [kKeyTile][D + 4]
-  // followed by V [kKeyTile][D]
+  // shared memory: Q [block_q][D] fp32, then two stages of
+  // K [kKeyTile][D + pad] followed by V [kKeyTile][D], in E
   float* qs = smem;
-  float* stages = qs + block_q * D;
+  E* stages = reinterpret_cast<E*>(qs + block_q * D);
   const int stage = kKeyTile * (ks_stride + D);
 
   const int ofs = positions[b];
   const int q_last = ofs + q0 + nq - 1;   // global position, last row
   const int n_keys = min(q_last + 1, T * bs);
   const int n_tiles = (n_keys + kKeyTile - 1) / kKeyTile;
-  const float* kh = k_pool + static_cast<size_t>(h) * pool_rows * D;
-  const float* vh = v_pool + static_cast<size_t>(h) * pool_rows * D;
+  const E* kh = k_pool + static_cast<size_t>(h) * pool_rows * D;
+  const E* vh = v_pool + static_cast<size_t>(h) * pool_rows * D;
   const int* tbl = tables + static_cast<size_t>(b) * T;
 
-  // stage tile t's K and V rows: kKeyTile keys x D4 16-byte chunks each
+  // stage tile t's K and V rows: kKeyTile keys x DV 16-byte chunks each
   auto issue = [&](int t, int buf) {
     const int base = t * kKeyTile;
     const int nk = min(kKeyTile, n_keys - base);
-    for (int i = threadIdx.x; i < nk * D4; i += kThreads) {
-      const int k = i / D4;
-      const int c = i - k * D4;
+    for (int i = threadIdx.x; i < nk * DV; i += kThreads) {
+      const int k = i / DV;
+      const int c = i - k * DV;
       const int p = base + k;
       const size_t row =
           static_cast<size_t>(tbl[p / bs]) * bs + static_cast<size_t>(p % bs);
-      float* ks = stages + buf * stage;
-      cp_async16(ks + k * ks_stride + 4 * c, kh + row * D + 4 * c);
-      cp_async16(ks + kKeyTile * ks_stride + k * D + 4 * c,
-                 vh + row * D + 4 * c);
+      E* ks = stages + buf * stage;
+      cp_async16(ks + k * ks_stride + kVec * c, kh + row * D + kVec * c);
+      cp_async16(ks + kKeyTile * ks_stride + k * D + kVec * c,
+                 vh + row * D + kVec * c);
     }
     cp_async_commit();
   };
@@ -154,8 +179,18 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(
     __syncthreads();         // tile t (and Q) visible to every warp
     const int nk = min(kKeyTile, n_keys - t * kKeyTile);
     const int kpos = t * kKeyTile + lane;     // this lane's key position
-    const float* ks = stages + buf * stage;
-    const float* vs = ks + kKeyTile * ks_stride;
+    const E* ks = stages + buf * stage;
+    const E* vs = ks + kKeyTile * ks_stride;
+    // int8: this lane's key's scales (lanes past nk hold 0, unused)
+    float sk = 0.f, sv = 0.f;
+    if constexpr (kInt8) {
+      if (lane < nk) {
+        const size_t sidx = static_cast<size_t>(h) * num_blocks +
+                            static_cast<size_t>(tbl[kpos / bs]);
+        sk = k_scale[sidx];
+        sv = v_scale[sidx];
+      }
+    }
 #pragma unroll
     for (int rr = 0; rr < kMaxRowsPerWarp; ++rr) {
       const int r = warp + rr * kWarps;
@@ -165,16 +200,34 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(
         float s = kNeg;
         if (lane < nk) {
           const float4* q4 = reinterpret_cast<const float4*>(qs + r * D);
-          const float4* k4 =
-              reinterpret_cast<const float4*>(ks + lane * ks_stride);
           float d0 = 0.f, d1 = 0.f, d2 = 0.f, d3 = 0.f;
-          for (int j = 0; j < D4; ++j) {
-            const float4 a = q4[j];
-            const float4 c = k4[j];
-            d0 += a.x * c.x;
-            d1 += a.y * c.y;
-            d2 += a.z * c.z;
-            d3 += a.w * c.w;
+          if constexpr (kInt8) {
+            // 16 codes a chunk, each dequantized before its product
+            const uint4* k16 =
+                reinterpret_cast<const uint4*>(ks + lane * ks_stride);
+            for (int j = 0; j < DV; ++j) {
+              const uint4 w = k16[j];
+              const uint32_t words[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+              for (int u = 0; u < 4; ++u) {
+                const float4 a = q4[4 * j + u];
+                d0 += a.x * (code_at(words[u], 0) * sk);
+                d1 += a.y * (code_at(words[u], 1) * sk);
+                d2 += a.z * (code_at(words[u], 2) * sk);
+                d3 += a.w * (code_at(words[u], 3) * sk);
+              }
+            }
+          } else {
+            const float4* k4 =
+                reinterpret_cast<const float4*>(ks + lane * ks_stride);
+            for (int j = 0; j < DV; ++j) {
+              const float4 a = q4[j];
+              const float4 c = k4[j];
+              d0 += a.x * c.x;
+              d1 += a.y * c.y;
+              d2 += a.z * c.z;
+              d3 += a.w * c.w;
+            }
           }
           if (vis) s = ((d0 + d1) + (d2 + d3)) * scale;
         }
@@ -187,11 +240,21 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(
         for (int e = 0; e < DPL; ++e) acc[rr][e] *= alpha;
         for (int k = 0; k < nk; ++k) {
           const float pk = __shfl_sync(kFull, p, k);
-          const float* vr = vs + k * D;
+          const E* vr = vs + k * D;
+          if constexpr (kInt8) {
+            const float svk = __shfl_sync(kFull, sv, k);
 #pragma unroll
-          for (int e = 0; e < DPL; ++e) {
-            const int d = lane + 32 * e;
-            if (d < D) acc[rr][e] += pk * vr[d];
+            for (int e = 0; e < DPL; ++e) {
+              const int d = lane + 32 * e;
+              if (d < D)
+                acc[rr][e] += pk * (static_cast<float>(vr[d]) * svk);
+            }
+          } else {
+#pragma unroll
+            for (int e = 0; e < DPL; ++e) {
+              const int d = lane + 32 * e;
+              if (d < D) acc[rr][e] += pk * vr[d];
+            }
           }
         }
       }
@@ -214,28 +277,53 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(
   }
 }
 
-template <int DPL>
-int launch(const float* q, const float* k_pool, const float* v_pool,
-           const int* tables, const int* positions, float* out, int B,
-           int H, int Lq, int D, int T, int bs, int pool_rows, float scale,
+template <typename E, int DPL>
+int launch(const float* q, const E* k_pool, const E* v_pool,
+           const float* k_scale, const float* v_scale, const int* tables,
+           const int* positions, float* out, int B, int H, int Lq, int D,
+           int T, int bs, int pool_rows, int num_blocks, float scale,
            cudaStream_t stream) {
   const int block_q = Lq < kMaxBlockQ ? Lq : kMaxBlockQ;
   const size_t smem =
-      sizeof(float) * (static_cast<size_t>(block_q) * D +
-                       2 * static_cast<size_t>(kKeyTile) * (D + kKPad) +
-                       2 * static_cast<size_t>(kKeyTile) * D);
+      sizeof(float) * static_cast<size_t>(block_q) * D +
+      sizeof(E) * (2 * static_cast<size_t>(kKeyTile) *
+                       (D + kKPadBytes / sizeof(E)) +
+                   2 * static_cast<size_t>(kKeyTile) * D);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        paged_attention_kernel<DPL>,
+        paged_attention_kernel<E, DPL>,
         cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   const dim3 grid((Lq + block_q - 1) / block_q, H, B);
-  paged_attention_kernel<DPL><<<grid, kThreads, smem, stream>>>(
-      q, k_pool, v_pool, tables, positions, out, H, Lq, D, T, bs,
-      pool_rows, block_q, scale);
+  paged_attention_kernel<E, DPL><<<grid, kThreads, smem, stream>>>(
+      q, k_pool, v_pool, k_scale, v_scale, tables, positions, out, H, Lq,
+      D, T, bs, pool_rows, num_blocks, block_q, scale);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename E>
+int dispatch(const float* q, const E* k_pool, const E* v_pool,
+             const float* k_scale, const float* v_scale, const int* tables,
+             const int* positions, float* out, int B, int H, int Lq, int D,
+             int T, int bs, int pool_rows, int num_blocks, float scale,
+             cudaStream_t stream) {
+  if (D <= 32)
+    return launch<E, 1>(q, k_pool, v_pool, k_scale, v_scale, tables,
+                        positions, out, B, H, Lq, D, T, bs, pool_rows,
+                        num_blocks, scale, stream);
+  if (D <= 64)
+    return launch<E, 2>(q, k_pool, v_pool, k_scale, v_scale, tables,
+                        positions, out, B, H, Lq, D, T, bs, pool_rows,
+                        num_blocks, scale, stream);
+  if (D <= 128)
+    return launch<E, 4>(q, k_pool, v_pool, k_scale, v_scale, tables,
+                        positions, out, B, H, Lq, D, T, bs, pool_rows,
+                        num_blocks, scale, stream);
+  return launch<E, 8>(q, k_pool, v_pool, k_scale, v_scale, tables,
+                      positions, out, B, H, Lq, D, T, bs, pool_rows,
+                      num_blocks, scale, stream);
 }
 
 }  // namespace
@@ -249,15 +337,23 @@ extern "C" int mxt_paged_attention_f32(
     return static_cast<int>(cudaGetLastError());
   if (D <= 0 || D > 256 || D % 4 != 0 || T <= 0 || bs <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (D <= 32)
-    return launch<1>(q, k_pool, v_pool, tables, positions, out, B, H, Lq,
-                     D, T, bs, pool_rows, scale, stream);
-  if (D <= 64)
-    return launch<2>(q, k_pool, v_pool, tables, positions, out, B, H, Lq,
-                     D, T, bs, pool_rows, scale, stream);
-  if (D <= 128)
-    return launch<4>(q, k_pool, v_pool, tables, positions, out, B, H, Lq,
-                     D, T, bs, pool_rows, scale, stream);
-  return launch<8>(q, k_pool, v_pool, tables, positions, out, B, H, Lq, D,
-                   T, bs, pool_rows, scale, stream);
+  return dispatch<float>(q, k_pool, v_pool, nullptr, nullptr, tables,
+                         positions, out, B, H, Lq, D, T, bs, pool_rows,
+                         pool_rows / bs, scale, stream);
+}
+
+// The kv_scales variant: k_pool/v_pool int8 codes (H, pool_rows, D),
+// k_scale/v_scale (H, pool_rows / bs) fp32; D % 16 == 0.
+extern "C" int mxt_paged_attention_i8(
+    const float* q, const int8_t* k_pool, const int8_t* v_pool,
+    const float* k_scale, const float* v_scale, const int* tables,
+    const int* positions, float* out, int B, int H, int Lq, int D, int T,
+    int bs, int pool_rows, float scale, cudaStream_t stream) {
+  if (B <= 0 || H <= 0 || Lq <= 0)
+    return static_cast<int>(cudaGetLastError());
+  if (D <= 0 || D > 256 || D % 16 != 0 || T <= 0 || bs <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return dispatch<int8_t>(q, k_pool, v_pool, k_scale, v_scale, tables,
+                          positions, out, B, H, Lq, D, T, bs, pool_rows,
+                          pool_rows / bs, scale, stream);
 }

@@ -1,13 +1,18 @@
 """Flash attention over contiguous ``[B, H, L, D]`` tensors: the CUDA
-forward kernel and its plain version.
+forward kernels and their plain versions.
 
-Counterpart of ``flash_attention`` in
+Counterpart of ``flash_attention`` and ``flash_attention_offset`` in
 ``mxnet_tpu/pallas_ops/flash_attention.py``.  ``flash_attention`` runs
 the forward: on a CPU tensor the plain version
 :func:`blockwise_attention` (the online-softmax recurrence over key
 blocks, with the reference's ``-1e30`` mask, masked ``p`` forced to 0
 and ``acc / (l > 0 ? l : 1)``), on a CUDA tensor
-``csrc/flash_attention.cu`` or an error.
+``csrc/flash_attention.cu`` or an error.  ``flash_attention_offset`` is
+the decode attention of the contiguous serving plane, forward only: on
+a CPU tensor the plain :func:`offset_attention_reference` (dense
+offset-causal attention, the reference's
+``ops/attention._dense_attention(q_offsets=)``), on a CUDA tensor the
+same kernel in its offset mode.
 
 :class:`FlashAttention` is the ``torch.autograd.Function``.  Its
 backward is not a kernel, because the reference's is not one either:
@@ -25,6 +30,7 @@ import torch
 from ._build import KernelError, check_args, launch, route
 
 __all__ = ["flash_attention", "blockwise_attention", "FlashAttention",
+           "flash_attention_offset", "offset_attention_reference",
            "KEY_TILE", "BACKWARD_BLOCK"]
 
 _NEG = -1e30      # the TPU kernel's mask constant, shared for parity
@@ -101,6 +107,48 @@ def flash_attention(q, k, v, causal=False, scale=None):
     launch(q, "flash_attention", "mxt_flash_attention_f32", q.data_ptr(),
            k.data_ptr(), v.data_ptr(), out.data_ptr(), B * H, Lq,
            k.shape[2], D, int(bool(causal)), float(scale))
+    return out
+
+
+def offset_attention_reference(q, k, v, offsets, scale=None):
+    """Plain PyTorch offset-causal attention: query row r of sequence b
+    (``q`` [B, H, Lq, D]) sits at position ``offsets[b] + r`` and sees
+    key positions up to its own in ``k``, ``v`` [B, H, Lk, D]; masked
+    scores are ``-1e30``, the softmax and both products fp32."""
+    Lq, Lk = q.shape[2], k.shape[2]
+    if scale is None:
+        scale = 1.0 / (q.shape[-1] ** 0.5)
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
+    ofs = offsets.to(device=q.device, dtype=torch.long).reshape(-1)
+    qpos = ofs[:, None, None] + torch.arange(Lq, device=q.device)[:, None]
+    visible = qpos >= torch.arange(Lk, device=q.device)       # (B, Lq, Lk)
+    s = torch.where(visible[:, None], s, torch.full_like(s, _NEG))
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhqk,bhkd->bhqd", p, v.float()).to(q.dtype)
+
+
+def flash_attention_offset(q, k, v, offsets, scale=None):
+    """Offset-causal attention of ``q`` [B, H, Lq, D] over a [B, H, Lk,
+    D] cache: row r of sequence b sits at position ``offsets[b] + r``
+    and attends to key positions ``<= offsets[b] + r``.  ``offsets``:
+    (B,) int.  Forward only.  The CUDA kernel takes contiguous, 16-byte
+    aligned fp32 tensors, int32 offsets and a head dim that is a
+    multiple of 4 up to 256."""
+    if scale is None:
+        scale = 1.0 / (q.shape[-1] ** 0.5)
+    if not route("flash_attention_offset", q):
+        return offset_attention_reference(q, k, v, offsets, scale)
+    _check(q, k, v)
+    B, H, Lq, D = q.shape
+    if offsets.device != q.device or offsets.dtype != torch.int32 or \
+            tuple(offsets.shape) != (B,) or not offsets.is_contiguous():
+        raise KernelError("flash_attention_offset: offsets must be a "
+                          "contiguous (B,) = (%d,) int32 tensor on %s"
+                          % (B, q.device))
+    out = torch.empty_like(q)
+    launch(q, "flash_attention_offset", "mxt_flash_attention_offset_f32",
+           q.data_ptr(), k.data_ptr(), v.data_ptr(), offsets.data_ptr(),
+           out.data_ptr(), B, H, Lq, k.shape[2], D, float(scale))
     return out
 
 

@@ -1,15 +1,19 @@
 """Paged flash attention: block-table indirection over a global KV pool.
 
-Counterpart of ``mxnet_tpu/pallas_ops/paged_attention.py`` for fp32
-pools, forward only.  Logical token position ``p`` of sequence ``b``
-lives at pool row ``tables[b, p // bs] * bs + p % bs``, so sequences
-share physical blocks (prefix reuse) and grow one block at a time.
+Counterpart of ``mxnet_tpu/pallas_ops/paged_attention.py``, forward
+only, for fp32 pools and for int8 code pools with per-(head, physical
+block) fp32 scales (``kv_scales``).  Logical token position ``p`` of
+sequence ``b`` lives at pool row ``tables[b, p // bs] * bs + p % bs``,
+so sequences share physical blocks (prefix reuse) and grow one block at
+a time.
 
 ``flash_attention_paged`` routes by device: a CPU tensor runs
 ``paged_attention_reference`` (gather the pool rows through the same
-table arithmetic, then dense offset-causal attention with the same
-``-1e30`` mask constant and fp32 accumulation); a CUDA tensor launches
-``csrc/paged_attention.cu`` or raises.
+table arithmetic, dequantize int8 rows as ``codes * scale[h, tbl[b,
+j]]``, then dense offset-causal attention with the same ``-1e30`` mask
+constant and fp32 accumulation); a CUDA tensor launches
+``csrc/paged_attention.cu`` (its fp32 or its int8 kernel, counted as
+``flash_attention_paged`` and ``flash_attention_paged_int8``) or raises.
 """
 from __future__ import annotations
 
@@ -24,12 +28,13 @@ MAX_HEAD_DIM = 256
 
 
 def paged_attention_reference(q, k_pool, v_pool, tables, positions,
-                              block_size, scale=None):
+                              block_size, scale=None, kv_scales=None):
     """Plain PyTorch twin of :func:`flash_attention_paged`.
 
     q: (B, H, Lq, D); k_pool/v_pool: (H, num_blocks * block_size, D);
-    tables: (B, T) int; positions: (B,) int.  Returns (B, H, Lq, D) in
-    q's dtype."""
+    tables: (B, T) int; positions: (B,) int; ``kv_scales``: ``(scale_k,
+    scale_v)``, each (H, num_blocks) fp32, for int8 code pools.  Returns
+    (B, H, Lq, D) in q's dtype."""
     B, H, Lq, D = q.shape
     T = tables.shape[1]
     bs = int(block_size)
@@ -42,6 +47,14 @@ def paged_attention_reference(q, k_pool, v_pool, tables, positions,
                                                                      T * bs)
     k = k_pool[:, idx].permute(1, 0, 2, 3).float()        # (B, H, T*bs, D)
     v = v_pool[:, idx].permute(1, 0, 2, 3).float()
+    if kv_scales is not None:
+        # scale[h, tbl[b, j]] covers the bs gathered rows of logical
+        # block j: the kernel's per-key lookup
+        sk, sv = (torch.repeat_interleave(
+            s.to(q.device).float()[:, tbl], bs, dim=2).permute(1, 0, 2)
+            for s in kv_scales)                            # (B, H, T*bs)
+        k = k * sk[..., None]
+        v = v * sv[..., None]
     s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k) * scale
     qpos = torch.arange(Lq, device=q.device)[:, None]
     kpos = torch.arange(T * bs, device=q.device)[None, :]
@@ -51,17 +64,21 @@ def paged_attention_reference(q, k_pool, v_pool, tables, positions,
     return torch.einsum("bhqk,bhkd->bhqd", p, v).to(q.dtype)
 
 
-def _check(q, k_pool, v_pool, tables, positions, bs):
+def _check(q, k_pool, v_pool, tables, positions, bs, kv_scales=None):
     B, H, Lq, D = q.shape
-    if D > MAX_HEAD_DIM or D % 4:
+    mult = 4 if kv_scales is None else 16   # one 16-byte copy of a row
+    if D > MAX_HEAD_DIM or D % mult:
         raise ValueError("flash_attention_paged: the CUDA kernel takes a "
-                         "head_dim that is a multiple of 4 up to %d, got %d"
-                         % (MAX_HEAD_DIM, D))
-    for name, t, dtype in (("q", q, torch.float32),
-                           ("k_pool", k_pool, torch.float32),
-                           ("v_pool", v_pool, torch.float32),
-                           ("tables", tables, torch.int32),
-                           ("positions", positions, torch.int32)):
+                         "head_dim that is a multiple of %d up to %d, got "
+                         "%d" % (mult, MAX_HEAD_DIM, D))
+    pool_dtype = torch.float32 if kv_scales is None else torch.int8
+    args = [("q", q, torch.float32), ("k_pool", k_pool, pool_dtype),
+            ("v_pool", v_pool, pool_dtype), ("tables", tables, torch.int32),
+            ("positions", positions, torch.int32)]
+    if kv_scales is not None:
+        args += [("scale_k", kv_scales[0], torch.float32),
+                 ("scale_v", kv_scales[1], torch.float32)]
+    for name, t, dtype in args:
         if t.device != q.device:
             raise ValueError("flash_attention_paged: %s on %s, q on %s"
                              % (name, t.device, q.device))
@@ -85,29 +102,47 @@ def _check(q, k_pool, v_pool, tables, positions, bs):
     if tables.dim() != 2 or tables.shape[0] != B or positions.shape != (B,):
         raise ValueError("flash_attention_paged: tables (B, T) and "
                          "positions (B,) must match batch %d" % B)
+    if kv_scales is not None:
+        want = (H, k_pool.shape[1] // bs)
+        for t in kv_scales:
+            if tuple(t.shape) != want:
+                raise ValueError("flash_attention_paged: kv_scales must be "
+                                 "(H, num_blocks) = %s, got %s"
+                                 % (want, tuple(t.shape)))
 
 
 def flash_attention_paged(q, k_pool, v_pool, tables, positions, block_size,
-                          scale=None):
+                          scale=None, kv_scales=None):
     """Offset-causal attention of ``q`` (B, H, Lq, D) against a paged KV
     pool.  Query row r of sequence b sits at global position
     ``positions[b] + r``; table entries past a sequence's frontier must
     point at a valid block (conventionally the trash block 0) — their
-    keys are masked either way.  The CUDA kernel takes fp32 q and pools,
-    int32 tables and positions, all contiguous, 16-byte aligned pools and
-    a head dim D that is a multiple of 4 up to 256."""
+    keys are masked either way.  ``kv_scales`` — ``(scale_k, scale_v)``,
+    each (H, num_blocks) fp32 — marks the pools as int8 codes, each
+    physical block dequantized with its head's scale.  The CUDA kernels
+    take fp32 q, fp32 pools (or int8 pools and fp32 scales), int32
+    tables and positions, all contiguous, 16-byte aligned pools and a
+    head dim D up to 256 that is a multiple of 4 (fp32 pools) or of 16
+    (int8 pools)."""
     bs = int(block_size)
     D = q.shape[-1]
     if scale is None:
         scale = 1.0 / (D ** 0.5)
     if not route("flash_attention_paged", q):
         return paged_attention_reference(q, k_pool, v_pool, tables,
-                                         positions, bs, scale)
-    _check(q, k_pool, v_pool, tables, positions, bs)
+                                         positions, bs, scale, kv_scales)
+    _check(q, k_pool, v_pool, tables, positions, bs, kv_scales)
     B, H, Lq, _ = q.shape
     out = torch.empty_like(q)
-    launch(q, "flash_attention_paged", "mxt_paged_attention_f32",
-           q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-           tables.data_ptr(), positions.data_ptr(), out.data_ptr(), B, H, Lq,
-           D, tables.shape[1], bs, k_pool.shape[1], float(scale))
+    if kv_scales is None:
+        launch(q, "flash_attention_paged", "mxt_paged_attention_f32",
+               q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+               tables.data_ptr(), positions.data_ptr(), out.data_ptr(), B,
+               H, Lq, D, tables.shape[1], bs, k_pool.shape[1], float(scale))
+    else:
+        launch(q, "flash_attention_paged_int8", "mxt_paged_attention_i8",
+               q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+               kv_scales[0].data_ptr(), kv_scales[1].data_ptr(),
+               tables.data_ptr(), positions.data_ptr(), out.data_ptr(), B,
+               H, Lq, D, tables.shape[1], bs, k_pool.shape[1], float(scale))
     return out

@@ -1,16 +1,19 @@
 """Decoder-only transformer LM in PyTorch: the training symbol and the
-paged serving step.
+serving steps.
 
 Counterpart of ``mxnet_tpu/models/transformer_lm.py``.  :func:`get_symbol`
-builds the one-shot training graph (a copy of the reference's), and
-:func:`paged_step_apply` applies the same weights, under the same
-argument names, one paged step at a time, so a model trained by
-``Module`` is served as it is.  Pre-norm blocks (RMSNorm), learned
-q/k/v/proj projections without biases, a ReLU FFN at 4x width, a final
-LayerNorm and the ``pred`` head.  RMSNorm, LayerNorm, the attention and
-the loss head go through the kernel wrappers (CUDA kernel on a CUDA
-tensor, plain version on a CPU tensor); the large matrix products stay
-``torch.matmul``, as the reference left them to XLA.
+builds the one-shot training graph (a copy of the reference's), and the
+serving steps apply the same weights, under the same argument names, so
+a model trained by ``Module`` is served as it is: :func:`paged_step_apply`
+on the paged KV plane (fp32 or int8 pools), :func:`prefill_apply` and
+:func:`decode_apply` on the contiguous plane.  Pre-norm blocks
+(RMSNorm), learned q/k/v/proj projections without biases, a ReLU FFN at
+4x width, a final LayerNorm and the ``pred`` head.  RMSNorm, LayerNorm,
+the attention and the loss head go through the kernel wrappers (CUDA
+kernel on a CUDA tensor, plain version on a CPU tensor); the large fp32
+matrix products stay ``torch.matmul``, as the reference left them to
+XLA, and int8 weights (:func:`quantize_lm_params`) go through the
+``dequant_matmul`` kernel.
 
 The module is callable: ``models.transformer_lm(seq_len, ...)`` is
 :func:`get_symbol`, as the reference's ``models.transformer_lm``.
@@ -22,17 +25,19 @@ import types
 
 import numpy as np
 import torch
-from torch import nn
 
 from .. import symbol as sym
 from ..base import MXNetError
 from ..context import default_device
-from ..ops.attention import sdp_attention_paged
+from ..kernels.dequant_matmul import (QuantizedWeight, dequant_matmul,
+                                      quantize_int8)
+from ..ops.attention import sdp_attention, sdp_attention_paged
 from ..ops.nn import layer_norm, rms_norm
 
 __all__ = ["get_symbol", "lm_spec", "param_shapes", "random_params",
-           "init_pool", "paged_step_apply", "lm_matmul_weights",
-           "TransformerLM"]
+           "init_pool", "init_scale_pool", "init_cache", "paged_step_apply",
+           "prefill_apply", "decode_apply", "lm_matmul_weights",
+           "quantize_lm_params", "TransformerLM"]
 
 
 def _attention_block(x, seq_len, num_hidden, num_heads, name):
@@ -134,7 +139,8 @@ def random_params(spec, seed=0, scale=0.1):
 
 
 def lm_matmul_weights(spec):
-    """The 2D matmul weights of the LM argument set."""
+    """The 2D matmul weights of the LM argument set: the params int8
+    weight-only serving quantizes (norm scales and biases stay fp32)."""
     names = ["embed_weight", "pred_weight"]
     for i in range(spec["num_layers"]):
         names += ["blk%d_%s" % (i, k) for k in
@@ -143,12 +149,44 @@ def lm_matmul_weights(spec):
     return names
 
 
+def _quant_pair(value):
+    """``(codes, scales)`` of an int8 weight — a :class:`QuantizedWeight`,
+    the JAX package's carrier (``.codes``/``.scales``) or a pair — or
+    None for a plain array."""
+    if isinstance(value, tuple) and len(value) == 2:
+        return value
+    if hasattr(value, "codes") and hasattr(value, "scales"):
+        return value.codes, value.scales
+    return None
+
+
+def quantize_lm_params(params, spec, granularity=None):
+    """int8 weight-only transform of an LM param dict: every fp32 matmul
+    weight (:func:`lm_matmul_weights`) becomes a
+    :class:`~..kernels.dequant_matmul.QuantizedWeight` of CPU tensors,
+    quantized by :func:`~..kernels.dequant_matmul.quantize_int8` (the
+    reference's codes, bit for bit); int8 weights already given and
+    everything else pass through.  The input dict is not mutated."""
+    quant = set(lm_matmul_weights(spec))
+    out = {}
+    for k, v in params.items():
+        if k in quant and _quant_pair(v) is None:
+            if isinstance(v, torch.Tensor):
+                v = v.detach().cpu().numpy()
+            codes, scales = quantize_int8(v, granularity)
+            out[k] = QuantizedWeight(torch.from_numpy(codes),
+                                     torch.from_numpy(scales))
+        else:
+            out[k] = v
+    return out
+
+
 def init_pool(spec, num_blocks, block_size, dtype=torch.float32,
               device=None):
     """Zeroed paged KV pool pair, each ``(num_layers, num_heads,
     num_blocks * block_size, head_dim)``.  Block 0 is the reserved trash
     block: pad writes land there and no real table entry points at
-    it."""
+    it.  ``dtype=torch.int8`` makes the int8 plane's code pools."""
     dh = spec["num_hidden"] // spec["num_heads"]
     shape = (spec["num_layers"], spec["num_heads"],
              int(num_blocks) * int(block_size), dh)
@@ -156,17 +194,47 @@ def init_pool(spec, num_blocks, block_size, dtype=torch.float32,
             torch.zeros(shape, dtype=dtype, device=device))
 
 
+def init_scale_pool(spec, num_blocks, device=None):
+    """Per-(layer, head, physical block) fp32 absmax scale pools of the
+    int8 paged plane: a ``(num_layers, num_heads, num_blocks)`` pair of
+    ones (``quantize_int8``'s empty-block convention; zero codes
+    dequantize to zero under any scale)."""
+    shape = (spec["num_layers"], spec["num_heads"], int(num_blocks))
+    return (torch.ones(shape, dtype=torch.float32, device=device),
+            torch.ones(shape, dtype=torch.float32, device=device))
+
+
+def init_cache(spec, batch, cache_len, device=None):
+    """Zeroed fp32 contiguous KV cache pair, each ``(num_layers, batch,
+    num_heads, cache_len, head_dim)``."""
+    dh = spec["num_hidden"] // spec["num_heads"]
+    shape = (spec["num_layers"], int(batch), spec["num_heads"],
+             int(cache_len), dh)
+    return (torch.zeros(shape, device=device),
+            torch.zeros(shape, device=device))
+
+
 def _block_params(params, i):
     return {k: params["blk%d_%s" % (i, k)] for k in _BLOCK_KEYS}
 
 
 def _mm(x2d, w):
-    """``x @ w^T``: one plain matrix product."""
+    """``x @ w^T``: a :class:`QuantizedWeight` goes through the
+    ``dequant_matmul`` kernel, a plain weight is one ``torch.matmul``."""
+    if isinstance(w, QuantizedWeight):
+        return dequant_matmul(x2d.contiguous(), w.codes, w.scales)
     return torch.matmul(x2d, w.t())
 
 
 def _embed(w, tokens):
-    return torch.nn.functional.embedding(tokens.long(), w)
+    """Embedding gather; quantized rows are gathered as codes and
+    multiplied by their row's scale (plain torch, as the reference has
+    no kernel here)."""
+    ids = tokens.long()
+    if isinstance(w, QuantizedWeight):
+        scales = w.scales.float().reshape(-1).expand(w.codes.shape[0])
+        return w.codes[ids].float() * scales[ids][..., None]
+    return torch.nn.functional.embedding(ids, w)
 
 
 def _ffn(x2d, bp):
@@ -174,8 +242,66 @@ def _ffn(x2d, bp):
     return _mm(f, bp["ffn2_weight"]) + bp["ffn2_bias"]
 
 
+def _logits(params, h2d):
+    return _mm(h2d, params["pred_weight"]) + params["pred_bias"]
+
+
+def _requant_plan(tables, pos, valid, Lq, bs):
+    """Index plan of the int8 block requantization: the physical blocks
+    each row's write touches (``phys_flat``, ``(B*A,)``, 0 where a slot
+    of the static bound ``A`` is unused), their pool rows (``ws_rows``)
+    and where each fresh row lands in the gathered working set (``loc``;
+    pad rows land on a dummy row past its end)."""
+    B, T = tables.shape
+    dev = tables.device
+    r = torch.arange(Lq, device=dev)
+    p = pos[:, None] + r[None, :]
+    # static bound on the blocks one row's write can touch: the chunk
+    # may start on a block's last row
+    A = (Lq + bs - 2) // bs + 1
+    first_log = pos // bs
+    aff_log = first_log[:, None] + torch.arange(A, device=dev)[None, :]
+    last_log = (pos + valid - 1) // bs
+    aff_ok = (aff_log <= last_log[:, None]) & (aff_log < T)
+    phys = torch.where(aff_ok, tables.gather(1, aff_log.clamp(0, T - 1)),
+                       torch.zeros_like(aff_log))
+    phys_flat = phys.reshape(-1)
+    ws_rows = (phys_flat[:, None] * bs +
+               torch.arange(bs, device=dev)[None, :]).reshape(-1)
+    loc = (torch.arange(B, device=dev)[:, None] * (A * bs) +
+           (p // bs - first_log[:, None]) * bs + p % bs)
+    loc = torch.where(r[None, :] < valid[:, None], loc,
+                      torch.full_like(loc, B * A * bs)).reshape(-1)
+    return phys_flat, ws_rows, loc
+
+
+def _requant_write(pool_i, scale_i, fresh, plan, bs):
+    """Requantize, in place, the blocks one layer's write touches:
+    dequantize each block, overlay the fresh fp32 rows ``(B*Lq, H,
+    dh)``, pick its absmax scale again and re-encode.  The reference's
+    arithmetic: ``scale = absmax / 127`` (1.0 for an empty block) and
+    ``codes = clamp(round(block / scale), -127, 127)``, a division and
+    round-half-to-even."""
+    phys_flat, ws_rows, loc = plan
+    H, dh = pool_i.shape[0], pool_i.shape[2]
+    old = pool_i[:, ws_rows, :].permute(1, 0, 2).float()  # (B*A*bs, H, dh)
+    sc = torch.repeat_interleave(scale_i[:, phys_flat], bs, dim=1)
+    ws = torch.cat([old * sc.t()[:, :, None],
+                    old.new_zeros((1, H, dh))])
+    ws[loc] = fresh
+    blk = ws[:-1].reshape(-1, bs, H, dh)                   # (B*A, bs, H, dh)
+    absmax = blk.abs().amax(dim=(1, 3))                    # (B*A, H)
+    new_sc = torch.where(absmax > 0, absmax / 127.0,
+                         torch.ones_like(absmax))
+    codes = torch.clamp(torch.round(blk / new_sc[:, None, :, None]),
+                        -127, 127).to(torch.int8)
+    pool_i[:, ws_rows, :] = codes.reshape(-1, H, dh).permute(1, 0, 2)
+    scale_i[:, phys_flat] = new_sc.t()
+
+
 def paged_step_apply(params, pool_k, pool_v, tables, tokens, positions,
-                     valid, spec, block_size, all_logits=False):
+                     valid, spec, block_size, scales=None,
+                     all_logits=False):
     """One paged step: a prefill chunk (``Lq > 1``) or a decode step
     (``Lq = 1``) of the paged KV plane.
 
@@ -186,6 +312,7 @@ def paged_step_apply(params, pool_k, pool_v, tables, tokens, positions,
     :func:`init_pool`.  Table entries past a sequence's frontier must
     point at a valid block, conventionally the trash block 0.  Inputs may
     be numpy arrays or tensors; they are moved to the pools' device.
+    Params may hold :class:`QuantizedWeight` pairs (int8 weights).
 
     Each layer writes the chunk's K/V to pool rows ``tables[b, p // bs] *
     bs + p % bs`` and attends through :func:`sdp_attention_paged`; pad
@@ -196,9 +323,19 @@ def paged_step_apply(params, pool_k, pool_v, tables, tokens, positions,
     same pool row in one step may only ever be pad rows in the trash
     block, or recomputed prompt rows writing identical values.
 
-    Returns ``(logits, pool_k, pool_v)``: fp32 logits ``(B, vocab)`` at
-    each row's last valid position, or ``(B, Lq, vocab)`` for every row
-    with ``all_logits=True``."""
+    ``scales`` — ``(scale_k, scale_v)`` from :func:`init_scale_pool` —
+    selects the int8 pool layout: the pools hold int8 codes with
+    per-(layer, head, physical block) fp32 scales, the cache write
+    becomes a block requantization (:func:`_requant_write`, in place on
+    codes and scales), attention dequantizes through the ``kv_scales``
+    door, and the return gains the scale pools.  Blocks a row writes
+    must be its own (the engine forks shared ones first); the trash
+    block takes garbage from several rows.
+
+    Returns ``(logits, pool_k, pool_v)`` (int8 KV: ``(logits, pool_k,
+    pool_v, scale_k, scale_v)``): fp32 logits ``(B, vocab)`` at each
+    row's last valid position, or ``(B, Lq, vocab)`` for every row with
+    ``all_logits=True``."""
     L, D = spec["num_layers"], spec["num_hidden"]
     H = spec["num_heads"]
     dh = D // H
@@ -214,11 +351,16 @@ def paged_step_apply(params, pool_k, pool_v, tables, tokens, positions,
     T = tables32.shape[1]
     r = torch.arange(Lq, device=dev)
     p = pos32.long()[:, None] + r[None, :]                   # (B, Lq)
-    # a pad row's logical block may lie past the table: clamp the lookup
-    # (its destination is replaced by the trash block just below)
-    blk = tables32.long().gather(1, torch.clamp(p // bs, max=T - 1))
-    dest = torch.where(r[None, :] < valid[:, None], blk * bs + p % bs,
-                       p % bs).reshape(-1)                   # (B*Lq,)
+    int8_kv = scales is not None
+    if int8_kv:
+        scale_k, scale_v = scales
+        plan = _requant_plan(tables32.long(), pos32.long(), valid, Lq, bs)
+    else:
+        # a pad row's logical block may lie past the table: clamp the
+        # lookup (its destination is replaced by the trash block below)
+        blk = tables32.long().gather(1, torch.clamp(p // bs, max=T - 1))
+        dest = torch.where(r[None, :] < valid[:, None], blk * bs + p % bs,
+                           p % bs).reshape(-1)               # (B*Lq,)
 
     x = _embed(params["embed_weight"], tokens)               # (B, Lq, D)
     for i in range(L):
@@ -227,11 +369,21 @@ def paged_step_apply(params, pool_k, pool_v, tables, tokens, positions,
         q = _mm(a2, bp["q_weight"]).reshape(B, Lq, H, dh)
         k = _mm(a2, bp["k_weight"]).reshape(B * Lq, H, dh)
         v = _mm(a2, bp["v_weight"]).reshape(B * Lq, H, dh)
-        # (H, rows, dh) viewed as (rows, H, dh): row-indexed in-place write
-        pool_k[i].transpose(0, 1).index_put_((dest,), k.to(pool_k.dtype))
-        pool_v[i].transpose(0, 1).index_put_((dest,), v.to(pool_v.dtype))
-        att = sdp_attention_paged(q.permute(0, 2, 1, 3).contiguous(),
-                                  pool_k[i], pool_v[i], tables32, pos32, bs)
+        q = q.permute(0, 2, 1, 3).contiguous()
+        if int8_kv:
+            _requant_write(pool_k[i], scale_k[i], k.float(), plan, bs)
+            _requant_write(pool_v[i], scale_v[i], v.float(), plan, bs)
+            att = sdp_attention_paged(q, pool_k[i], pool_v[i], tables32,
+                                      pos32, bs,
+                                      kv_scales=(scale_k[i], scale_v[i]))
+        else:
+            # (H, rows, dh) viewed as (rows, H, dh): row-indexed write
+            pool_k[i].transpose(0, 1).index_put_((dest,),
+                                                 k.to(pool_k.dtype))
+            pool_v[i].transpose(0, 1).index_put_((dest,),
+                                                 v.to(pool_v.dtype))
+            att = sdp_attention_paged(q, pool_k[i], pool_v[i], tables32,
+                                      pos32, bs)
         att = att.permute(0, 2, 1, 3).reshape(-1, D)
         x = x + _mm(att, bp["proj_weight"]).reshape(B, Lq, D)
         f = rms_norm(x, bp["ln2_gamma"], 1e-6).reshape(-1, D)
@@ -239,63 +391,178 @@ def paged_step_apply(params, pool_k, pool_v, tables, tokens, positions,
     h = layer_norm(x, params["final_ln_gamma"], params["final_ln_beta"],
                    1e-5)
     if all_logits:
-        logits = (_mm(h.reshape(-1, D), params["pred_weight"]) +
-                  params["pred_bias"]).reshape(B, Lq, spec["vocab_size"])
+        logits = _logits(params, h.reshape(-1, D)).reshape(
+            B, Lq, spec["vocab_size"])
     else:
         last = h[torch.arange(B, device=dev), valid - 1]     # (B, D)
-        logits = _mm(last, params["pred_weight"]) + params["pred_bias"]
+        logits = _logits(params, last)
+    if int8_kv:
+        return logits.float(), pool_k, pool_v, scale_k, scale_v
     return logits.float(), pool_k, pool_v
 
 
-class TransformerLM(nn.Module):
-    """The LM's weights as buffers named by the reference's argument
-    names (``embed_weight``, ``blk0_q_weight``, ...), on one device."""
+def prefill_apply(params, tokens, lengths, cache_len, spec):
+    """Contiguous plane: run a padded prompt batch once and fill a KV
+    cache.
 
-    def __init__(self, spec, tensors):
-        super().__init__()
+    tokens: (B, P) int, zero-padded past each sequence's length (the
+    lengths do not enter the computation: causal attention keeps every
+    real position from seeing the pad).  Returns ``(logits (B, P, vocab)
+    fp32, k_cache, v_cache)``, the caches ``(L, B, H, cache_len, dh)``
+    holding K/V for positions 0..P-1 and zeros past P.  Pad positions
+    write junk K/V inside 0..P-1, which the decode steps overwrite from
+    each sequence's length on and the offset-causal mask hides until
+    then.  Attention is the causal ``flash_attention``."""
+    del lengths
+    L, D = spec["num_layers"], spec["num_hidden"]
+    H = spec["num_heads"]
+    dh = D // H
+    dev = params["final_ln_gamma"].device
+    tokens = torch.as_tensor(tokens, device=dev)
+    B, P = tokens.shape
+    x = _embed(params["embed_weight"], tokens)               # (B, P, D)
+    ks, vs = [], []
+    for i in range(L):
+        bp = _block_params(params, i)
+        a2 = rms_norm(x, bp["ln1_gamma"], 1e-6).reshape(-1, D)
+        q, k, v = (_mm(a2, bp[t]).reshape(B, P, H, dh).permute(0, 2, 1, 3)
+                   for t in ("q_weight", "k_weight", "v_weight"))
+        pad = (0, 0, 0, int(cache_len) - P)
+        ks.append(torch.nn.functional.pad(k, pad))
+        vs.append(torch.nn.functional.pad(v, pad))
+        att = sdp_attention(q, k, v, causal=True)
+        att = att.permute(0, 2, 1, 3).reshape(-1, D)
+        x = x + _mm(att, bp["proj_weight"]).reshape(B, P, D)
+        f = rms_norm(x, bp["ln2_gamma"], 1e-6).reshape(-1, D)
+        x = x + _ffn(f, bp).reshape(B, P, D)
+    h = layer_norm(x, params["final_ln_gamma"], params["final_ln_beta"],
+                   1e-5)
+    logits = _logits(params, h.reshape(-1, D)).reshape(
+        B, P, spec["vocab_size"])
+    return logits.float(), torch.stack(ks), torch.stack(vs)
+
+
+def decode_apply(params, cache_k, cache_v, tokens, lengths, spec):
+    """Contiguous plane: one decode step.  Embed one token per sequence,
+    write its K/V at each sequence's cache frontier, attend
+    offset-causally over the cache (``flash_attention_offset``) and
+    emit next-token logits.
+
+    tokens: (B,) int; lengths: (B,) int cache frontiers (the new token's
+    position, ``< cache_len``); caches ``(L, B, H, cache_len, dh)`` from
+    :func:`prefill_apply` / :func:`init_cache`, updated IN PLACE (the
+    reference donates them).  Returns ``(logits (B, vocab) fp32,
+    cache_k, cache_v)``."""
+    L, D = spec["num_layers"], spec["num_hidden"]
+    H = spec["num_heads"]
+    dh = D // H
+    dev = cache_k.device
+    tokens = torch.as_tensor(tokens, device=dev)
+    B = tokens.shape[0]
+    lengths32 = torch.as_tensor(lengths, device=dev).to(torch.int32)
+    lengths32 = lengths32.contiguous()
+    rows = torch.arange(B, device=dev)
+    cols = lengths32.long()
+    x = _embed(params["embed_weight"], tokens)               # (B, D)
+    for i in range(L):
+        bp = _block_params(params, i)
+        a = rms_norm(x, bp["ln1_gamma"], 1e-6)
+        q, k, v = (_mm(a, bp[t]).reshape(B, H, 1, dh)
+                   for t in ("q_weight", "k_weight", "v_weight"))
+        # (B, H, C, dh) indexed [b, :, lengths[b]]: (B, H, dh) in place
+        cache_k[i][rows, :, cols] = k[:, :, 0].to(cache_k.dtype)
+        cache_v[i][rows, :, cols] = v[:, :, 0].to(cache_v.dtype)
+        att = sdp_attention(q, cache_k[i], cache_v[i], q_offsets=lengths32)
+        x = x + _mm(att.reshape(B, D), bp["proj_weight"])
+        f = rms_norm(x, bp["ln2_gamma"], 1e-6)
+        x = x + _ffn(f, bp)
+    h = layer_norm(x, params["final_ln_gamma"], params["final_ln_beta"],
+                   1e-5)
+    return _logits(params, h).float(), cache_k, cache_v
+
+
+def _as_weight(name, value, shape, dev):
+    """One parameter onto ``dev``: an fp32 array or tensor, or int8
+    ``(codes, scales)`` — a :class:`QuantizedWeight`, a JAX-side
+    carrier's ``.codes``/``.scales``, or a pair of arrays — taken as
+    they are."""
+    pair = _quant_pair(value)
+    if pair is None:
+        if isinstance(value, torch.Tensor):
+            value = value.detach().cpu().numpy()
+        arr = np.asarray(value, np.float32)
+        if arr.shape != tuple(shape):
+            raise MXNetError("param %r has shape %s, want %s"
+                             % (name, arr.shape, tuple(shape)))
+        return torch.from_numpy(arr.copy()).to(dev)
+    c, s = (t.detach().cpu() if isinstance(t, torch.Tensor)
+            else torch.from_numpy(np.array(t)) for t in pair)
+    if tuple(c.shape) != tuple(shape) or c.dtype != torch.int8:
+        raise MXNetError("param %r: int8 codes of shape %s expected, got "
+                         "%s %s" % (name, tuple(shape), c.dtype,
+                                    tuple(c.shape)))
+    if s.dtype != torch.float32 or tuple(s.shape) not in ((shape[0],), ()):
+        raise MXNetError("param %r: fp32 scales of shape (%d,) or () "
+                         "expected, got %s %s" % (name, shape[0], s.dtype,
+                                                  tuple(s.shape)))
+    return QuantizedWeight(c.contiguous().to(dev), s.contiguous().to(dev))
+
+
+class TransformerLM:
+    """The LM's weights by the reference's argument names
+    (``embed_weight``, ``blk0_q_weight``, ...) on one device: fp32
+    tensors, and :class:`QuantizedWeight` pairs for int8 matmul
+    weights."""
+
+    def __init__(self, spec, params):
         self.spec = lm_spec(**dict(spec))
-        for name, _shape in param_shapes(self.spec):
-            self.register_buffer(name, tensors[name])
+        self._params = dict(params)
 
     @classmethod
     def from_numpy(cls, params, spec, device=None):
         """Carry the reference package's parameter dict (name -> numpy
         array, e.g. its ``random_params`` or a checkpoint's arg_params)
-        into the port.  ``device`` defaults to ``cuda:0``; pass "cpu"
-        for the plain versions."""
+        into the port.  A value may also be int8 ``(codes, scales)``: a
+        :class:`QuantizedWeight`, the JAX package's carrier, or a numpy
+        pair, taken bit for bit.  ``device`` defaults to ``cuda:0``;
+        pass "cpu" for the plain versions."""
         spec = lm_spec(**dict(spec))
         dev = default_device(device)
-        tensors = {}
+        out = {}
         for name, shape in param_shapes(spec):
             if name not in params:
                 raise MXNetError("transformer LM is missing param %r"
                                  % name)
-            arr = params[name]
-            if isinstance(arr, torch.Tensor):
-                arr = arr.detach().cpu().numpy()
-            arr = np.asarray(arr, np.float32)
-            if arr.shape != tuple(shape):
-                raise MXNetError("param %r has shape %s, want %s"
-                                 % (name, arr.shape, tuple(shape)))
-            tensors[name] = torch.from_numpy(arr.copy()).to(dev)
-        return cls(spec, tensors)
+            out[name] = _as_weight(name, params[name], shape, dev)
+        return cls(spec, out)
 
     def params(self):
-        """name -> tensor, the dict :func:`paged_step_apply` takes."""
-        return dict(self.named_buffers())
+        """name -> tensor or QuantizedWeight, the dict the step
+        functions take."""
+        return dict(self._params)
 
     def to_numpy(self):
-        return {k: v.detach().cpu().numpy() for k, v in self.params().items()}
+        """name -> fp32 numpy array, or a ``(codes, scales)`` numpy pair
+        for an int8 weight."""
+        out = {}
+        for k, v in self._params.items():
+            if isinstance(v, QuantizedWeight):
+                out[k] = (v.codes.cpu().numpy(), v.scales.cpu().numpy())
+            else:
+                out[k] = v.detach().cpu().numpy()
+        return out
 
     @property
     def device(self):
-        return self.embed_weight.device
+        return self._params["final_ln_gamma"].device
 
-    def forward(self, pool_k, pool_v, tables, tokens, positions, valid,
-                block_size, all_logits=False):
-        return paged_step_apply(self.params(), pool_k, pool_v, tables,
+    def __call__(self, pool_k, pool_v, tables, tokens, positions, valid,
+                 block_size, all_logits=False, scales=None):
+        """:func:`paged_step_apply` on these weights."""
+        return paged_step_apply(self._params, pool_k, pool_v, tables,
                                 tokens, positions, valid, self.spec,
-                                block_size, all_logits=all_logits)
+                                block_size, scales=scales,
+                                all_logits=all_logits)
 
 
 class _CallableModule(types.ModuleType):

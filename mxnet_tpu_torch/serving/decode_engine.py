@@ -1,9 +1,9 @@
-"""Autoregressive generation engine on the paged KV plane, in PyTorch.
+"""Autoregressive generation engine, in PyTorch.
 
-Counterpart of the paged plane of ``mxnet_tpu/serving/decode_engine.py``
-(continuous batching without metrics, tracing, priority tiers, tenant
-quotas or speculative decoding).  One daemon engine thread owns the
-loop:
+Counterpart of ``mxnet_tpu/serving/decode_engine.py`` (continuous
+batching on the paged and the contiguous KV planes, without metrics,
+tracing, priority tiers, tenant quotas or speculative decoding).  One
+daemon engine thread owns the loop; on the paged plane (the default):
 
 * **pump** — drain the submit queue into per-model FIFO waiting deques
   (blocking only when there is no admitted work at all);
@@ -24,7 +24,18 @@ loop:
   :class:`TokenStream`); its blocks return to the pool.
 
 The KV pool is one global pair of tensors on the model's device,
-``(layers, heads, pool_blocks * kv_block, head_dim)``, updated in place.
+``(layers, heads, pool_blocks * kv_block, head_dim)``, updated in place;
+an int8 pool carries ``(layers, heads, pool_blocks)`` fp32 scale pools
+beside it, and every fork and dispatch moves codes and scales together.
+
+On the contiguous plane (``paged=False``) a model's live batch owns one
+cache rectangle per slot, ``(layers, slots, heads, C, head_dim)``:
+admission prefills each waiting group at once (padded to a prompt
+bucket), samples its first tokens and copies its rows into free slots;
+each tick is ONE decode step over every slot, growing the cache to the
+next ``kv_block`` multiple when a sequence reaches its end.  A tick
+that finds the batch drained drops its cache.
+
 ``close(drain=True)`` finishes every admitted and queued generation
 before the thread exits; ``close(drain=False)`` fails everything fast
 with :class:`~.scheduler.ServeClosed`.
@@ -42,6 +53,7 @@ import numpy as np
 import torch
 
 from ..base import MXNetError, get_env
+from .program_store import sample_tokens
 from .scheduler import (FutureCompleter, ServeClosed, ServeOverloaded,
                         ServeTimeout)
 
@@ -55,7 +67,7 @@ _COUNTERS = ("requests", "prefills", "prefill_seqs", "decode_steps",
              "generated_tokens", "finished", "timeouts", "cancelled",
              "errors", "shed", "slot_grows", "prefix_hits",
              "prefix_hit_blocks", "prefix_hit_tokens", "cow_forks",
-             "prefill_chunks", "shed_pool")
+             "prefill_chunks", "shed_pool", "cache_grows")
 
 
 class GenerationResult:
@@ -293,17 +305,62 @@ class _PrefixStore:
         return False
 
 
+class _ModelState:
+    """Live contiguous decode batch of one model: slot table, the KV
+    cache ``(layers, slots, heads, C, head_dim)`` and per-slot sampling
+    state."""
+
+    paged = False
+
+    def __init__(self, store):
+        self.store = store
+        self.slots = []                        # _GenRequest or None
+        self.lengths = np.zeros(0, np.int32)   # cache frontier per slot
+        self.next_tok = np.zeros(0, np.int32)  # next token to consume
+        self.temps = np.zeros(0, np.float32)   # <= 0 means greedy
+        self.top_ks = np.zeros(0, np.int32)
+        self.gens = []                         # torch.Generator or None
+        self.cache_k = None
+        self.cache_v = None
+        self.C = 0                             # current cache bucket
+
+    def active(self):
+        return [i for i, r in enumerate(self.slots) if r is not None]
+
+    def free_slot(self):
+        for i, r in enumerate(self.slots):
+            if r is None:
+                return i
+        return None
+
+    def describe(self):
+        d = {"slots": len(self.slots), "active": len(self.active()),
+             "paged": False, "cache_len": self.C}
+        if self.cache_k is not None:
+            total = 2 * self.cache_k.numel() * self.cache_k.element_size()
+            d["cache_mb"] = round(total / 2**20, 3)
+            d["cache_dtype"] = str(self.cache_k.dtype).replace("torch.", "")
+            if self.slots:
+                d["cache_bytes_per_slot"] = total // len(self.slots)
+        return d
+
+
 class _PagedModelState:
     """Live paged decode batch of one model: slot table, per-slot block
     tables over the global KV pool, per-slot sampling state and the
     prefix cache.  It persists across batch drains (the prefix cache's
     pinned blocks are the point of keeping it)."""
 
+    paged = True
+
     def __init__(self, store):
         self.store = store
         self.pool = _BlockPool(store.pool_blocks)
         self.prefix = _PrefixStore(self.pool, store.kv_block)
         self.pool_k, self.pool_v = store.new_pool()
+        # int8 plane: the per-(layer, head, block) fp32 scale pools ride
+        # beside the code pools through every fork and dispatch
+        self.scales = store.new_scale_pool() if store.kv_int8 else None
         self.tb = store.table_width()
         self.slots = []                        # _GenRequest or None
         self.tables = np.zeros((0, self.tb), np.int32)
@@ -330,21 +387,30 @@ class _PagedModelState:
         return int(self.resv.sum())
 
     def describe(self):
+        # an int8 pool counts its fp32 scale pools: a block decodes only
+        # as codes and scale together
         pool_bytes = 2 * self.pool_k.numel() * self.pool_k.element_size()
+        if self.scales is not None:
+            pool_bytes += 2 * self.scales[0].numel() * \
+                self.scales[0].element_size()
         per_block = pool_bytes // self.store.pool_blocks
+        used = self.pool.used()
         return {"slots": len(self.slots), "active": len(self.active()),
                 "paged": True,
                 "block_size": self.store.kv_block,
                 "prefill_chunk": self.store.prefill_chunk,
                 "pool_blocks": self.pool.capacity(),
-                "pool_blocks_used": self.pool.used(),
+                "pool_blocks_used": used,
                 "pool_blocks_hwm": self.pool.hwm,
                 "pool_blocks_shared": self.pool.shared(),
                 "pool_blocks_reserved": self.reserved_total(),
                 "prefix_entries": len(self.prefix),
+                "cache_mb": round(pool_bytes / 2**20, 3),
                 "pool_bytes": pool_bytes,
+                "pool_bytes_used": used * per_block,
+                "pool_bytes_per_token": per_block / self.store.kv_block,
                 "block_bytes": per_block,
-                "cache_dtype": str(self.pool_k.dtype)}
+                "cache_dtype": str(self.pool_k.dtype).replace("torch.", "")}
 
 
 class GenerationEngine:
@@ -373,6 +439,7 @@ class GenerationEngine:
         self._stats_lock = threading.Lock()
         self._stats = dict.fromkeys(_COUNTERS, 0)
         self._max_active_seen = 0
+        self._cache_hwm = {}   # model -> describe() at its largest cache
         self._completer = FutureCompleter("mxtt-gen-done")
         self._thread = threading.Thread(target=self._serve_loop,
                                         name="mxtt-gen", daemon=True)
@@ -452,10 +519,12 @@ class GenerationEngine:
     def stats(self):
         """Counters (``requests``, ``decode_steps``, ``generated_tokens``,
         ``finished``, ``prefix_hits``, ``cow_forks``, ``prefill_chunks``,
-        ``shed_pool``, ...) plus per-model pool state."""
+        ``shed_pool``, ``cache_grows``, ...), per-model KV state and each
+        model's KV state at its largest cache (``cache_hwm``)."""
         with self._stats_lock:
             out = dict(self._stats)
             out["max_active"] = self._max_active_seen
+            out["cache_hwm"] = dict(self._cache_hwm)
         with self._submit_lock:
             out["inflight"] = self._inflight
         out["max_inflight"] = self._max_inflight
@@ -554,7 +623,10 @@ class GenerationEngine:
                     while dq:
                         self._fail_request(dq.popleft(), e)
                 else:
-                    self._admit_paged(model, dq, store)
+                    if store.paged:
+                        self._admit_paged(model, dq, store)
+                    else:
+                        self._admit_contiguous(model, dq, store)
             if not self._waiting.get(model):
                 self._waiting.pop(model, None)
 
@@ -628,7 +700,7 @@ class GenerationEngine:
                 continue
             slot = st.free_slot()
             if slot is None:
-                self._grow_slots(st, store.batch_bucket(
+                self._grow_paged_slots(st, store.batch_bucket(
                     len(st.active()) + 1))
                 slot = st.free_slot()
             row = st.tables[slot]
@@ -658,11 +730,7 @@ class GenerationEngine:
             st.temps[slot] = r.temperature
             st.top_ks[slot] = r.top_k
             st.resv[slot] = needed
-            st.gens[slot] = None
-            if r.temperature > 0:
-                g = torch.Generator(device=store.device)
-                g.manual_seed(r.seed & 0xFFFFFFFFFFFFFFFF)
-                st.gens[slot] = g
+            st.gens[slot] = self._generator(store, r)
             admitted += 1
         if admitted:
             self._inc("prefill_seqs", admitted)
@@ -670,7 +738,192 @@ class GenerationEngine:
                 self._max_active_seen = max(self._max_active_seen,
                                             len(st.active()))
 
+    # -- contiguous plane ----------------------------------------------
+    def _admit_contiguous(self, model, dq, store):
+        """Prefill every waiting request that a free slot can take, as
+        one padded batch; sample each one's first token and copy the
+        survivors' cache rows into free slots.  FIFO."""
+        st = self._states.get(model)
+        free = store.max_slots() - (len(st.active()) if st else 0)
+        group = []
+        now = time.monotonic()
+        while dq and len(group) < free:
+            r = dq.popleft()
+            if r.deadline is not None and now > r.deadline:
+                self._fail_request(r, ServeTimeout(
+                    "generation request for %r timed out after %.1f ms "
+                    "in queue" % (model, (now - r.t_submit) * 1e3)),
+                    kind="timeouts")
+            elif r.future.set_running_or_notify_cancel():
+                group.append(r)
+            else:
+                self._inc("cancelled")
+        if not group:
+            return
+        toks, lens = store.pad_prompts([r.prompt for r in group])
+        bb = toks.shape[0]
+        gens = [None] * bb
+        temps = np.zeros(bb, np.float32)
+        top_ks = np.zeros(bb, np.int32)
+        for i, r in enumerate(group):
+            temps[i], top_ks[i] = r.temperature, r.top_k
+            gens[i] = self._generator(store, r)
+        try:
+            first_logits, pk, pv = store.run_prefill(toks, lens)
+            with torch.no_grad():
+                first = sample_tokens(
+                    first_logits, temps, top_ks, gens,
+                    np.arange(bb) < len(group)).cpu().numpy()
+        except Exception as e:  # noqa: BLE001 — forwarded to the futures
+            log.error("prefill dispatch failed: %r", e)
+            err = e if isinstance(e, MXNetError) \
+                else MXNetError("prefill dispatch failed: %r" % (e,))
+            for r in group:
+                self._fail_request(r, err, running=True)
+            return
+        self._inc("prefills")
+        self._inc("prefill_seqs", len(group))
+        survivors = []
+        for i, r in enumerate(group):
+            tok = int(first[i])
+            self._push_token(r, tok)
+            reason = self._finished_reason(r, tok)
+            if reason:
+                self._finish(r, reason)
+            else:
+                survivors.append(i)
+        if not survivors:
+            return
+        if st is None:
+            st = self._states[model] = _ModelState(store)
+            store.cache_state = st
+        need = len(st.active()) + len(survivors)
+        if need > len(st.slots):
+            self._grow_slots(st, store.batch_bucket(need))
+        Cp = int(pk.shape[3])
+        if st.cache_k is None:
+            st.cache_k, st.cache_v = store.new_cache(len(st.slots), Cp)
+            st.C = Cp
+        elif Cp > st.C:
+            self._grow_cache(st, store.kv_bucket(Cp))
+        for i in survivors:
+            r = group[i]
+            slot = st.free_slot()
+            self._admit_row(st, pk, pv, i, slot)
+            st.slots[slot] = r
+            st.lengths[slot] = len(r.prompt)
+            st.next_tok[slot] = r.tokens[-1]
+            st.temps[slot] = r.temperature
+            st.top_ks[slot] = r.top_k
+            st.gens[slot] = gens[i]
+        self._note_cache_hwm(model, st)
+        with self._stats_lock:
+            self._max_active_seen = max(self._max_active_seen,
+                                        len(st.active()))
+
+    @staticmethod
+    def _generator(store, r):
+        """The request's own sampling generator, seeded with its seed
+        (None for a greedy request)."""
+        if r.temperature <= 0:
+            return None
+        g = torch.Generator(device=store.device)
+        g.manual_seed(r.seed & 0xFFFFFFFFFFFFFFFF)
+        return g
+
+    def _note_cache_hwm(self, model, st):
+        d = st.describe()
+        with self._stats_lock:
+            prev = self._cache_hwm.get(model)
+            if prev is None or d.get("cache_mb", 0.0) >= \
+                    prev.get("cache_mb", 0.0):
+                self._cache_hwm[model] = d
+
+    @staticmethod
+    def _admit_row(st, pk, pv, row, slot):
+        """Copy row ``row`` of a prefill's caches into decode slot
+        ``slot``, zero past the prefill's length (in place)."""
+        Cp = int(pk.shape[3])
+        for cache, src in ((st.cache_k, pk), (st.cache_v, pv)):
+            cache[:, slot].zero_()
+            cache[:, slot, :, :Cp].copy_(src[:, row])
+
     def _grow_slots(self, st, new_bb):
+        """Contiguous plane: more slots, the cache padded with zero
+        rows."""
+        grow = new_bb - len(st.slots)
+        st.slots.extend([None] * grow)
+        st.gens.extend([None] * grow)
+        for name in ("lengths", "next_tok", "top_ks", "temps"):
+            arr = getattr(st, name)
+            setattr(st, name, np.concatenate(
+                [arr, np.zeros(grow, arr.dtype)]))
+        if st.cache_k is not None:
+            pad = (0, 0, 0, 0, 0, 0, 0, grow)
+            st.cache_k = torch.nn.functional.pad(st.cache_k, pad)
+            st.cache_v = torch.nn.functional.pad(st.cache_v, pad)
+        self._inc("slot_grows")
+
+    def _grow_cache(self, st, new_c):
+        """Contiguous plane: a longer cache, zero past the old length."""
+        pad = (0, 0, 0, new_c - st.C)
+        st.cache_k = torch.nn.functional.pad(st.cache_k, pad)
+        st.cache_v = torch.nn.functional.pad(st.cache_v, pad)
+        st.C = new_c
+        self._inc("cache_grows")
+        self._note_cache_hwm(st.store.name, st)
+
+    def _contiguous_tick(self, model, st):
+        """ONE decode step for every slot of a contiguous batch (empty
+        slots ride along on token 0 at position 0; their output is
+        discarded and a new admission overwrites their row)."""
+        act = st.active()
+        if not act:
+            # batch drained: drop the cache until the next admission
+            self._states.pop(model)
+            st.store.cache_state = None
+            return
+        needed = int(st.lengths[act].max()) + 1
+        if needed > st.C:
+            self._grow_cache(st, st.store.kv_bucket(needed))
+        try:
+            toks_dev, st.cache_k, st.cache_v = st.store.run_decode_sample(
+                st.cache_k, st.cache_v, st.next_tok, st.lengths, st.gens,
+                st.temps, st.top_ks)
+            sampled = toks_dev.cpu().numpy()
+        except Exception as e:  # noqa: BLE001 — forwarded to the futures
+            log.error("decode dispatch failed: %r", e)
+            err = e if isinstance(e, MXNetError) \
+                else MXNetError("decode dispatch failed: %r" % (e,))
+            for i in act:
+                r = st.slots[i]
+                self._clear_slot(st, i)
+                self._fail_request(r, err, running=True)
+            return
+        for i in act:
+            r = st.slots[i]
+            st.lengths[i] += 1
+            tok = int(sampled[i])
+            self._push_token(r, tok)
+            st.next_tok[i] = tok
+            reason = self._finished_reason(r, tok)
+            if reason:
+                self._clear_slot(st, i)
+                self._finish(r, reason)
+        self._inc("decode_steps")
+        self._inc("generated_tokens", len(act))
+
+    @staticmethod
+    def _clear_slot(st, i):
+        st.slots[i] = None
+        st.gens[i] = None
+        st.lengths[i] = 0
+        st.next_tok[i] = 0
+        st.temps[i] = 0.0
+        st.top_ks[i] = 0
+
+    # -- paged plane ---------------------------------------------------
+    def _grow_paged_slots(self, st, new_bb):
         grow = new_bb - len(st.slots)
         st.slots.extend([None] * grow)
         st.gens.extend([None] * grow)
@@ -705,6 +958,9 @@ class GenerationEngine:
     # -- ticks ---------------------------------------------------------
     def _decode_tick(self):
         for model, st in list(self._states.items()):
+            if not st.paged:
+                self._contiguous_tick(model, st)
+                continue
             dec = [i for i in st.active() if st.decoding[i]]
             if dec:
                 self._decode_step(model, st, dec)
@@ -726,7 +982,9 @@ class GenerationEngine:
                 st.resv[i] = max(0, int(st.resv[i]) - 1)
             elif st.pool.refcount(b) > 1:
                 nb = self._paged_alloc(st)
-                st.store.copy_block(st.pool_k, st.pool_v, b, nb)
+                # int8: codes and per-block scales fork together
+                st.store.copy_block(st.pool_k, st.pool_v, b, nb,
+                                    scales=st.scales)
                 st.pool.deref(b)
                 st.tables[i, j] = nb
                 st.resv[i] = max(0, int(st.resv[i]) - 1)
@@ -735,9 +993,12 @@ class GenerationEngine:
     def _dispatch(self, st, tables, toks, pos, val, do):
         """One paged step (decode or prompt chunk) with sampling on the
         device; returns the sampled tokens as a host array."""
-        toks_dev, st.pool_k, st.pool_v = st.store.run_paged_step_sample(
+        out = st.store.run_paged_step_sample(
             st.pool_k, st.pool_v, tables, toks, pos, val, st.gens,
-            st.temps, st.top_ks, do)
+            st.temps, st.top_ks, do, scales=st.scales)
+        toks_dev, st.pool_k, st.pool_v = out[:3]
+        if st.scales is not None:
+            st.scales = out[3:]
         return toks_dev.cpu().numpy()
 
     def _fail_rows(self, st, rows, exc, what):
@@ -838,6 +1099,7 @@ class GenerationEngine:
             else:
                 st.decoding[i] = True
                 st.next_tok[i] = tok
+        self._note_cache_hwm(model, st)
 
     # -- retirement ----------------------------------------------------
     @staticmethod
@@ -882,7 +1144,10 @@ class GenerationEngine:
         for st in list(self._states.values()):
             for i in st.active():
                 r = st.slots[i]
-                self._release_slot(st, i)
+                if st.paged:
+                    self._release_slot(st, i)
+                else:
+                    self._clear_slot(st, i)
                 self._fail_request(r, exc, running=True)
             st.store.cache_state = None
         self._states.clear()

@@ -28,11 +28,16 @@ class ModelRegistry:
         Keyword args (``batch_buckets``, ``prompt_buckets``, ``kv_block``,
         ``kv_max``, ``compute_dtype``, ``kv_dtype``, ``paged``,
         ``prefill_chunk``, ``pool_blocks``, ``device``) pass through to
-        :class:`GenerativeProgramStore`; an unset ``compute_dtype`` falls
-        back to ``MXNET_SERVE_DTYPE``.  ``device`` defaults to ``cuda:0``
-        and raises without a GPU unless ``device="cpu"``.  Unless
-        ``warmup=False``, runs one decode and one prefill-chunk step per
-        batch bucket before returning the store."""
+        :class:`GenerativeProgramStore`: ``compute_dtype='int8'`` serves
+        int8 weights, ``kv_dtype='int8'`` an int8 paged pool,
+        ``paged=False`` the contiguous plane.  An unset ``compute_dtype``
+        falls back to ``MXNET_SERVE_DTYPE``, an unset ``kv_dtype`` to
+        ``MXNET_SERVE_KV_DTYPE`` and an unset ``paged`` to
+        ``MXNET_SERVE_PAGED`` (read by the store).  ``device`` defaults
+        to ``cuda:0`` and raises without a GPU unless ``device="cpu"``.
+        Unless ``warmup=False``, runs every step shape of the store's
+        plane once before returning it (``warmup_kv_depth`` widens the
+        contiguous plane's decode warmup)."""
         if kwargs.get("compute_dtype") is None:
             kwargs["compute_dtype"] = get_env("MXNET_SERVE_DTYPE") or None
         store = GenerativeProgramStore(params, spec, name=name, **kwargs)

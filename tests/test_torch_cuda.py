@@ -12,8 +12,8 @@ import torch
 
 import mxnet_tpu_torch as mx
 from mxnet_tpu_torch import kernels
-from mxnet_tpu_torch.kernels import (flash_attention, norm, paged_attention,
-                                     softmax_xent)
+from mxnet_tpu_torch.kernels import (dequant_matmul, flash_attention, norm,
+                                     paged_attention, softmax_xent)
 from mxnet_tpu_torch.models import transformer_lm as tlm
 from mxnet_tpu_torch.serving import GenerationEngine, ModelRegistry
 
@@ -256,3 +256,163 @@ def test_training_step_on_card_matches_cpu_and_launches(cuda_device):
         assert counts == want
     for a, b in zip(res["cuda"], res["cpu"]):
         assert _rel(a, b) <= 1e-3
+
+
+# ---------------------------------------------------------------------------
+# int8 serving and the contiguous plane
+# ---------------------------------------------------------------------------
+@pytest.mark.cuda
+@pytest.mark.parametrize("granularity", ["row", "tensor"])
+@pytest.mark.parametrize("M,N,K", [(32, 512, 512), (1024, 2048, 512),
+                                   (32, 512, 2048), (32, 8192, 512),
+                                   (7, 50, 48), (1, 8, 16), (65, 70, 80)])
+def test_dequant_matmul_kernel_matches_plain(cuda_device, granularity, M, N,
+                                             K):
+    rs = np.random.RandomState(M + N + K)
+    codes, scales = dequant_matmul.quantize_int8(
+        rs.randn(N, K).astype(np.float32), granularity)
+    x, c, s = _on(cuda_device, rs.randn(M, K).astype(np.float32), codes,
+                  scales)
+    before = kernels.launch_counts()["dequant_matmul"]
+    got = dequant_matmul.dequant_matmul(x, c, s)
+    want = dequant_matmul.dequant_matmul_dense(x, c, s)
+    torch.cuda.synchronize()
+    assert got.shape == (M, N)
+    assert _rel(got, want) <= 1e-5
+    assert kernels.launch_counts()["dequant_matmul"] == before + 1
+
+
+@pytest.mark.cuda
+def test_dequant_matmul_kernel_refuses_ragged_k(cuda_device):
+    x, c, s = _on(cuda_device, np.zeros((3, 24), np.float32),
+                  np.zeros((5, 24), np.int8), np.ones(5, np.float32))
+    with pytest.raises(ValueError, match="multiple of 16"):
+        dequant_matmul.dequant_matmul(x, c, s)
+
+
+def int8_paged_case(seed, B, H, T, D, bs, num_blocks, positions, lq):
+    """paged_case's layout over int8 code pools; every (head, block)
+    has its own scale."""
+    q, _, _, tables, pos = paged_case(seed, B, H, T, D, bs, num_blocks,
+                                      positions, lq)
+    rs = np.random.RandomState(seed + 1000)
+    kc, vc = (rs.randint(-127, 128, (H, num_blocks * bs, D)).astype(np.int8)
+              for _ in range(2))
+    sk, sv = (rs.uniform(0.005, 0.02, (H, num_blocks)).astype(np.float32)
+              for _ in range(2))
+    return q, kc, vc, tables, pos, sk, sv
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [16, 64, 128, 256])
+@pytest.mark.parametrize("seed,lq,positions", PAGED_CASES)
+def test_int8_paged_kernel_matches_plain(cuda_device, D, seed, lq,
+                                         positions):
+    q, kc, vc, tbl, pos, sk, sv = _on(cuda_device, *int8_paged_case(
+        seed, B=3, H=2, T=10, D=D, bs=8, num_blocks=40, positions=positions,
+        lq=lq))
+    before = kernels.launch_counts()
+    got = paged_attention.flash_attention_paged(q, kc, vc, tbl, pos, 8,
+                                                kv_scales=(sk, sv))
+    want = paged_attention.paged_attention_reference(q, kc, vc, tbl, pos, 8,
+                                                     kv_scales=(sk, sv))
+    torch.cuda.synchronize()
+    assert (got - want).abs().max().item() <= 1e-4
+    after = kernels.launch_counts()
+    assert after["flash_attention_paged_int8"] == \
+        before["flash_attention_paged_int8"] + 1
+    assert after["flash_attention_paged"] == before["flash_attention_paged"]
+
+
+@pytest.mark.cuda
+def test_int8_paged_kernel_block_larger_than_key_tile(cuda_device):
+    """A 64-token block spans two 32-key tiles; a 16-token block puts
+    two physical blocks, with two scales, in one tile."""
+    for bs, positions in ((64, [0, 63, 64, 200]), (16, [5, 17, 40, 70])):
+        q, kc, vc, tbl, pos, sk, sv = _on(cuda_device, *int8_paged_case(
+            7, B=4, H=3, T=-(-300 // bs), D=64, bs=bs, num_blocks=80,
+            positions=positions, lq=9))
+        got = paged_attention.flash_attention_paged(q, kc, vc, tbl, pos, bs,
+                                                    kv_scales=(sk, sv))
+        want = paged_attention.paged_attention_reference(
+            q, kc, vc, tbl, pos, bs, kv_scales=(sk, sv))
+        torch.cuda.synchronize()
+        assert (got - want).abs().max().item() <= 1e-4
+
+
+@pytest.mark.cuda
+def test_int8_paged_kernel_refuses_head_dim(cuda_device):
+    q, kc, vc, tbl, pos, sk, sv = _on(cuda_device, *int8_paged_case(
+        0, B=2, H=2, T=4, D=8, bs=8, num_blocks=12, positions=[3, 9], lq=1))
+    with pytest.raises(ValueError, match="multiple of 16"):
+        paged_attention.flash_attention_paged(q, kc, vc, tbl, pos, 8,
+                                              kv_scales=(sk, sv))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,Lq,Lk,D,offsets", [
+    (32, 8, 1, 1024, 64, None), (3, 2, 1, 40, 8, [39, 0, 17]),
+    (2, 3, 5, 70, 100, [0, 60]), (2, 1, 33, 96, 256, [10, 63]),
+    (1, 2, 16, 48, 32, [32])])
+def test_offset_kernel_matches_plain(cuda_device, B, H, Lq, Lk, D, offsets):
+    rs = np.random.RandomState(Lk + D)
+    if offsets is None:
+        offsets = rs.randint(0, Lk, B)
+    q = rs.randn(B, H, Lq, D).astype(np.float32)
+    k, v = (rs.randn(B, H, Lk, D).astype(np.float32) for _ in range(2))
+    q, k, v, ofs = _on(cuda_device, q, k, v, np.asarray(offsets, np.int32))
+    before = kernels.launch_counts()
+    got = flash_attention.flash_attention_offset(q, k, v, ofs)
+    want = flash_attention.offset_attention_reference(q, k, v, ofs)
+    torch.cuda.synchronize()
+    assert (got - want).abs().max().item() <= 1e-4
+    after = kernels.launch_counts()
+    assert after["flash_attention_offset"] == \
+        before["flash_attention_offset"] + 1
+    assert after["flash_attention"] == before["flash_attention"]
+
+
+@pytest.mark.cuda
+def test_offset_kernel_refuses_head_dim(cuda_device):
+    q, ofs = _on(cuda_device, np.zeros((2, 1, 1, 6), np.float32),
+                 np.zeros(2, np.int32))
+    with pytest.raises(ValueError, match="multiple of 4"):
+        flash_attention.flash_attention_offset(q, q, q, ofs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("plane", ["int8", "contiguous"])
+def test_int8_and_contiguous_engines_on_card_match_cpu(cuda_device, plane):
+    spec = tlm.lm_spec(num_layers=2, num_hidden=64, num_heads=4,
+                       vocab_size=97)
+    params = tlm.random_params(spec, seed=5)
+    kw = dict(batch_buckets=(1, 2, 4), prompt_buckets=(8, 24), kv_block=8,
+              kv_max=48, prefill_chunk=8)
+    if plane == "int8":
+        kw.update(compute_dtype="int8", kv_dtype="int8")
+        used = {"rms_norm", "layer_norm", "dequant_matmul",
+                "flash_attention_paged_int8"}
+    else:
+        kw.update(paged=False)
+        used = {"rms_norm", "layer_norm", "flash_attention",
+                "flash_attention_offset"}
+    rs = np.random.RandomState(6)
+    reqs = [dict(tokens=[int(t) for t in rs.randint(0, 97, n)],
+                 max_tokens=mt) for n, mt in ((3, 10), (12, 20), (17, 8))]
+    streams = {}
+    for dev in ("cpu", "cuda"):
+        reg = ModelRegistry()
+        reg.add_generative_model("m", params, spec,
+                                 device=None if dev == "cuda" else "cpu",
+                                 **kw)
+        kernels.reset_launch_counts()
+        eng = GenerationEngine(reg)
+        try:
+            streams[dev] = [f.result(120).tokens for f in
+                            [eng.submit("m", **r) for r in reqs]]
+        finally:
+            eng.close()
+        counts = kernels.launch_counts()
+        assert all((counts[k] > 0) == (dev == "cuda") for k in used)
+        assert all(counts[k] == 0 for k in set(counts) - used)
+    assert streams["cuda"] == streams["cpu"]

@@ -227,11 +227,15 @@ def test_token_stream_submit_validation_and_close():
 
 
 def test_slice_refuses_what_it_does_not_port(monkeypatch):
-    for kw in (dict(compute_dtype="int8"), dict(compute_dtype="bfloat16"),
-               dict(kv_dtype="int8"), dict(paged=False)):
+    """bf16, as weights or as KV, waits for a later slice; an int8 KV
+    cache needs the paged plane, as in the reference."""
+    for kw in (dict(compute_dtype="bfloat16"), dict(kv_dtype="bfloat16")):
         with pytest.raises(MXNetError, match="later serving slice"):
             ModelRegistry().add_generative_model("m", PARAMS, SPEC,
                                                  device="cpu", **kw)
+    with pytest.raises(MXNetError, match="paged KV plane"):
+        ModelRegistry().add_generative_model("m", PARAMS, SPEC, device="cpu",
+                                             kv_dtype="int8", paged=False)
     monkeypatch.setenv("MXNET_SERVE_DTYPE", "bfloat16")
     with pytest.raises(MXNetError, match="later serving slice"):
         ModelRegistry().add_generative_model("m", PARAMS, SPEC, device="cpu")
