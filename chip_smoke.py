@@ -40,8 +40,10 @@ sources in this checkout on first use.  Phases, each fatal on failure:
    event pair brackets device time), beside the kernel's bound;
 2+. the training path's kernels against their plain versions at training
    width: the norm backwards at 4096 x 512, the loss head's softmax and
-   gradient at 4096 x 8192 (1e-5 x max|ref|), flash attention at B16 H8
-   L256 D64, causal and not (1e-4 absolute);
+   gradient, the cross-entropy loss and gradient (labels random, at
+   column 0, at the last column and out of range) and the fused
+   softmax's forward and backward at 4096 x 8192 (1e-5 x max|ref|),
+   flash attention at B16 H8 L256 D64, causal and not (1e-4 absolute);
 6. train the transformer LM at full width (4 layers, hidden 512, 8 heads,
    vocab 8192, seq_len 256, batch 16) through ``Module.fit`` for 20 SGD
    steps (momentum 0.9, learning rate 0.005) on a successor language:
@@ -50,7 +52,19 @@ sources in this checkout on first use.  Phases, each fatal on failure:
 7. one training step from identical parameters on the card and on the
    CPU (TF32 off): probabilities and every gradient within 1e-3 x
    max|ref|;
-5+. the training kernels' times at their training shapes.
+8. train the same LM imperatively (``mx.nd`` ops under
+   ``mx.autograd.record()``, ``mx.nd.softmax_cross_entropy``,
+   ``loss.backward()``, ``mx.nd.sgd_mom_update(..., out=w)``) from phase
+   6's Xavier start on phase 6's data for 20 steps: exact kernel
+   launches per step (the cross-entropy kernels, not SoftmaxOutput's),
+   a finite falling loss, ms per step and samples/s beside phase 6's;
+9. one imperative step from identical parameters on the card against
+   the CPU (TF32 off), and against phase 7's ``Module`` step on the
+   card: every gradient within 1e-3 x max|ref|;
+5+. the training kernels' times at their training shapes, then the
+   imperative plane's: the cross-entropy loss and gradient, the fused
+   softmax's backward and an ``rtc`` kernel (``fma1``, checked in phase
+   2+ against ``torch.addcmul`` within 2 ulp).
 
 ``python3 chip_smoke.py --profile`` adds, after phase 6, a
 ``torch.profiler`` window over five training steps: device time and
@@ -119,6 +133,14 @@ SOURCES = {
     "flash_attention_offset": (
         "mxnet_tpu_torch/kernels/csrc/flash_attention.cu",
         "mxnet_tpu/pallas_ops/flash_attention.py:222"),
+    "softmax_xent_loss": ("mxnet_tpu_torch/kernels/csrc/softmax_xent.cu",
+                          "mxnet_tpu/pallas_ops/softmax_xent.py:91"),
+    "softmax_xent_loss_grad": (
+        "mxnet_tpu_torch/kernels/csrc/softmax_xent.cu",
+        "mxnet_tpu/pallas_ops/softmax_xent.py:102"),
+    "softmax_rows_bwd": ("mxnet_tpu_torch/kernels/csrc/softmax_xent.cu",
+                         "mxnet_tpu/pallas_ops/softmax_xent.py:74"),
+    "rtc": ("mxnet_tpu_torch/rtc.py", "mxnet_tpu/rtc.py:74"),
 }
 # serving phase -> (store arguments, kernels that must launch, kernels
 # that must not)
@@ -145,6 +167,21 @@ TRAIN_STEPS, TRAIN_WARMUP = 20, 5
 # SoftmaxOutput's gradient sums the 256 tokens of each sample, so a rate
 # of 0.005 is 1.28 on the mean over tokens.
 TRAIN_OPT = {"learning_rate": 0.005, "momentum": 0.9}
+# one imperative step: the Module step's kernels with the cross-entropy
+# pair in place of SoftmaxOutput's
+IMPERATIVE_LAUNCHES_PER_STEP = {
+    "rms_norm": 8, "rms_norm_bwd": 8, "layer_norm": 1, "layer_norm_bwd": 1,
+    "softmax_xent_loss": 1, "softmax_xent_loss_grad": 1,
+    "flash_attention": 4}
+# the rtc kernel of phases 2+ and 5+: o = x * y + 1, which nvcc contracts
+# to one fma (torch.addcmul's rounding)
+RTC_FMA1 = r'''
+extern "C" __global__ void fma1(const float* x, const float* y, float* o,
+                                int n) {
+  int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) o[i] = x[i] * y[i] + 1.0f;
+}
+'''
 
 
 def log(*args):
@@ -374,6 +411,7 @@ def train_kernel_inputs(dev):
     """Seeded inputs of the training path's kernels at full width."""
     rs = np.random.RandomState(11)
     B, H, L, D = TRAIN_ATT
+    V = SPEC["vocab_size"]
     out = dict(
         x=rs.randn(TRAIN_ROWS, SPEC["num_hidden"]).astype(np.float32),
         dy=rs.randn(TRAIN_ROWS, SPEC["num_hidden"]).astype(np.float32),
@@ -385,7 +423,12 @@ def train_kernel_inputs(dev):
             np.float32),
         q=rs.randn(B, H, L, D).astype(np.float32),
         k=rs.randn(B, H, L, D).astype(np.float32),
-        v=rs.randn(B, H, L, D).astype(np.float32))
+        v=rs.randn(B, H, L, D).astype(np.float32),
+        dyv=rs.randn(TRAIN_ROWS, V).astype(np.float32),
+        gr=rs.uniform(0.5, 2.0, TRAIN_ROWS).astype(np.float32),
+        label_out=rs.choice(np.float32([-3, -1, V, V + 5]), TRAIN_ROWS))
+    out.update(label_0=np.zeros(TRAIN_ROWS, np.float32),
+               label_last=np.full(TRAIN_ROWS, V - 1, np.float32))
     return {n: torch.from_numpy(a).to(dev) for n, a in out.items()}
 
 
@@ -394,7 +437,7 @@ def train_kernel_cases(t):
     entry point at the training shapes; outputs are tuples."""
     sm = softmax_xent.softmax_rows_reference(t["logits"])
     scale = 1.0 / TRAIN_ROWS
-    return {
+    out = {
         "rms_norm_bwd": (
             lambda: norm.rms_norm_bwd(t["x"], t["g"], t["dy"], 1e-6),
             lambda: norm.rms_norm_bwd_reference(t["x"], t["g"], t["dy"],
@@ -422,7 +465,38 @@ def train_kernel_cases(t):
                                                      False),),
             lambda: (flash_attention.blockwise_attention(
                 t["q"], t["k"], t["v"], False),), "abs"),
+        "softmax_rows_bwd": (
+            lambda: (softmax_xent.softmax_rows_bwd(sm, t["dyv"]),),
+            lambda: (softmax_xent.softmax_rows_bwd_reference(sm, t["dyv"]),),
+            "rel"),
+        "fused_softmax forward and backward": (
+            lambda: fused_softmax_pair(softmax_xent.fused_softmax,
+                                       t["logits"], t["dyv"]),
+            lambda: fused_softmax_pair(softmax_xent.softmax_rows_reference,
+                                       t["logits"], t["dyv"]), "rel"),
     }
+    for tag in ("", "_0", "_last", "_out"):
+        lbl = t["label" + tag]
+        sfx = " labels" + (tag.replace("_", "=") or "=random")
+        out["softmax_xent_loss" + sfx] = (
+            lambda lbl=lbl: (softmax_xent.xent_loss_rows(t["logits"], lbl),),
+            lambda lbl=lbl: (softmax_xent.xent_loss_rows_reference(
+                t["logits"], lbl),), "rel")
+        out["softmax_xent_loss_grad" + sfx] = (
+            lambda lbl=lbl: (softmax_xent.softmax_xent_loss_grad(
+                t["logits"], lbl, t["gr"]),),
+            lambda lbl=lbl: (softmax_xent.softmax_xent_loss_grad_reference(
+                t["logits"], lbl, t["gr"]),), "rel")
+    return out
+
+
+def fused_softmax_pair(softmax, x, dy):
+    """``(p, dx)``: ``softmax(x)`` and its autograd backward for ``dy``
+    (the plain side's backward is autograd over the plain softmax)."""
+    xl = x.detach().clone().requires_grad_(True)
+    p = softmax(xl)
+    (dx,) = torch.autograd.grad(p, xl, dy)
+    return p.detach(), dx
 
 
 def phase_compare_train(dev):
@@ -448,7 +522,41 @@ def phase_compare_train(dev):
             err, tol = max(err, e), max(tol, bound)
         log("phase 2 %s: max_abs_err %.3e (tol %.3e)" % (name, err, tol))
         errs[name.split()[0]] = max(errs.get(name.split()[0], 0.0), err)
+    errs["rtc"] = phase_compare_rtc(t)
     return errs
+
+
+def rtc_fma1(x, y):
+    """The ``fma1`` CudaKernel and the NDArrays of ``o = x * y + 1``
+    over ``x``'s elements."""
+    k = mx.rtc.CudaKernel("fma1", RTC_FMA1)
+    xs, ys = mx.nd.NDArray(x), mx.nd.NDArray(y)
+    return k, xs, ys, mx.nd.NDArray(torch.empty_like(x))
+
+
+def phase_compare_rtc(t):
+    """``fma1`` through ``mx.rtc.CudaKernel`` on 4096 x 8192 elements
+    against ``torch.addcmul``, within 2 ulp of the larger of |result|
+    and |x * y| (each side rounds once, or twice without contraction)."""
+    x, y = t["logits"], t["dyv"]
+    tic = time.perf_counter()
+    k, xs, ys, out = rtc_fma1(x, y)
+    k.push([xs, ys], [out])
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - tic
+    want = torch.addcmul(torch.ones((), device=x.device), x, y)
+    inf = torch.tensor(float("inf"), device=x.device)
+    mag = torch.maximum(want.abs(), (x * y).abs())
+    bound = 2 * (torch.nextafter(mag, inf) - mag)
+    diff = (out._data - want).abs()
+    err = diff.max().item()
+    ulps = (diff / (bound / 2)).max().item()
+    log("phase 2 rtc fma1 %d elements (build and first launch %.2f s): "
+        "max_abs_err %.3e, %.2f ulp (tol 2 ulp)"
+        % (x.numel(), build_s, err, ulps))
+    if not bool((diff <= bound).all()):
+        raise SystemExit("chip_smoke: rtc fma1 disagrees with torch.addcmul")
+    return err
 
 
 def make_requests():
@@ -815,11 +923,12 @@ def one_step(dev, params):
 def phase_train_vs_cpu(dev):
     """One training step from the same parameters and batch on the card
     and on the CPU (the plain versions): probabilities and every
-    gradient within 1e-3 x max|ref|.  The FFN biases are shifted up by 1
-    so that every ReLU input lies far from zero: at a kink, an input
-    that rounding puts on the other side of zero passes or stops a whole
-    gradient term, and single elements then differ by far more than the
-    kernels' rounding."""
+    gradient within 1e-3 x max|ref|; returns the parameters and the
+    card's arrays.  The FFN biases are shifted up by 1 so that every
+    ReLU input lies far from zero: at a kink, an input that rounding
+    puts on the other side of zero passes or stops a whole gradient
+    term, and single elements then differ by far more than the kernels'
+    rounding."""
     params = tlm.random_params(SPEC, seed=3)
     for name in params:
         if name.endswith("_ffn1_bias"):
@@ -841,6 +950,153 @@ def phase_train_vs_cpu(dev):
     log("phase 7 training step card vs CPU: probabilities and %d gradients "
         "agree; worst %s at %.3e x max|ref| (tol 1e-3)"
         % (len(cpu) - 1, worst_name, worst))
+    return params, card
+
+
+def xavier_params():
+    """Phase 6's start as numpy: ``mx.random.seed(0)``, then Xavier over
+    the symbol's parameters in the order ``Module.init_params`` draws
+    them."""
+    net = train_symbol()
+    shapes, _, _ = net.infer_shape(data=(TRAIN_BATCH, TRAIN_SEQ),
+                                   softmax_label=(TRAIN_BATCH, TRAIN_SEQ))
+    attrs = net.attr_dict()
+    init = mx.init.Xavier()
+    mx.random.seed(0)
+    out = {}
+    for name, shape in zip(net.list_arguments(), shapes):
+        if name in ("data", "softmax_label"):
+            continue
+        arr = mx.nd.zeros(shape, ctx=mx.cpu())
+        init(mx.init.InitDesc(name, attrs.get(name)), arr)
+        out[name] = arr.asnumpy()
+    return out
+
+
+def imperative_step(w, mom, X, y):
+    """One imperative training step as a user writes it: the forward of
+    ``transformer_lm.imperative_loss`` under ``autograd.record()``, the
+    backward, then ``sgd_mom_update`` into every weight (``mom`` None:
+    no update).  Returns the summed loss NDArray."""
+    data, label = mx.nd.array(X), mx.nd.array(y)
+    with mx.autograd.record():
+        loss = tlm.imperative_loss(mx.nd, w, data, label, TRAIN_SEQ, SPEC)
+    loss.backward()
+    if mom is not None:
+        for k in w:
+            mx.nd.sgd_mom_update(
+                w[k], w[k].grad, mom[k], lr=TRAIN_OPT["learning_rate"],
+                momentum=TRAIN_OPT["momentum"],
+                rescale_grad=1.0 / TRAIN_BATCH, out=w[k])
+    return loss
+
+
+def phase_imperative(card, step_ms_module):
+    """Phase 6's training written imperatively on ``cuda:0`` (the
+    default context): the same data and Xavier start, SGD momentum 0.9
+    at lr 0.005 with rescale_grad 1/batch, for TRAIN_STEPS steps.  The
+    summed cross-entropy has SoftmaxOutput's gradient, so the two runs
+    take the same steps.  Returns the run's launch counts."""
+    X, y = train_data(TRAIN_STEPS * TRAIN_BATCH)
+    params = xavier_params()
+    w = {k: mx.nd.array(v) for k, v in params.items()}
+    mom = {k: mx.nd.zeros(v.shape) for k, v in params.items()}
+    for v in w.values():
+        v.attach_grad()
+    losses, steps, clock = [], [], {}
+    kernels.reset_launch_counts()
+    last = kernels.launch_counts()
+    tic = time.perf_counter()
+    for i in range(TRAIN_STEPS):
+        lo = i * TRAIN_BATCH
+        loss = imperative_step(w, mom, X[lo:lo + TRAIN_BATCH],
+                               y[lo:lo + TRAIN_BATCH])
+        losses.append(float(loss.asscalar()) / TRAIN_ROWS)   # syncs
+        now = kernels.launch_counts()
+        steps.append({k: now[k] - last[k] for k in now})
+        last = now
+        if i in (TRAIN_WARMUP - 1, TRAIN_STEPS - 1):
+            torch.cuda.synchronize()
+            clock[i] = time.perf_counter()
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    wall = time.perf_counter() - tic
+    want = dict.fromkeys(kernels.KERNELS, 0)
+    want.update(IMPERATIVE_LAUNCHES_PER_STEP)
+    for i, got in enumerate(steps):
+        if got != want:
+            raise SystemExit("chip_smoke: imperative step %d launched %s, "
+                             "want %s" % (i, got, want))
+    if not all(np.isfinite(losses)):
+        raise SystemExit("chip_smoke: imperative training gave a "
+                         "non-finite loss")
+    log("phase 8 mean loss per token per step: %s"
+        % " ".join("%.3f" % v for v in losses))
+    first, final = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+    if not final < first:
+        raise SystemExit("chip_smoke: imperative loss did not fall: first 5 "
+                         "steps %.4f, last 5 %.4f" % (first, final))
+    timed = TRAIN_STEPS - TRAIN_WARMUP
+    sec = clock[TRAIN_STEPS - 1] - clock[TRAIN_WARMUP - 1]
+    step_ms = sec * 1e3 / timed
+    log("phase 8 trained %d imperative steps (%.2f s): mean loss per token "
+        "first 5 steps %.4f (perplexity %.1f), last 5 %.4f (%.1f); "
+        "launches per step %s; steps %d..%d: %.3f ms per step, %.1f "
+        "samples/s; phase 6 (Module.fit) %.3f ms per step, %.1f samples/s "
+        "[%s]"
+        % (TRAIN_STEPS, wall, first, np.exp(first), final, np.exp(final),
+           IMPERATIVE_LAUNCHES_PER_STEP, TRAIN_WARMUP + 1, TRAIN_STEPS,
+           step_ms, timed * TRAIN_BATCH / sec, step_ms_module,
+           TRAIN_BATCH * 1e3 / step_ms_module, card))
+    return counts
+
+
+def imperative_grads(ctx, params):
+    """Loss and every gradient of one imperative step from ``params`` on
+    ``ctx``, as numpy arrays by name."""
+    X, y = train_data(TRAIN_BATCH)
+    tic = time.perf_counter()
+    with ctx:
+        w = {k: mx.nd.array(v) for k, v in params.items()}
+        for v in w.values():
+            v.attach_grad()
+        loss = imperative_step(w, None, X, y)
+        out = {"loss": loss.asnumpy()}
+        out.update((k, v.grad.asnumpy()) for k, v in w.items())
+    log("phase 9 one imperative step on %s: %.2f s"
+        % (ctx, time.perf_counter() - tic))
+    return out
+
+
+def worst_rel(tag, got, want):
+    """Fatal past 1e-3 x max|ref| for any entry; logs the worst."""
+    worst, worst_name = 0.0, None
+    for name, ref in want.items():
+        g = got[name]
+        if not np.isfinite(g).all():
+            raise SystemExit("chip_smoke: %s is not finite (%s)" % (name, tag))
+        rel = float(np.abs(g - ref).max() / max(np.abs(ref).max(), 1e-30))
+        if rel > worst:
+            worst, worst_name = rel, name
+        if not rel <= 1e-3:
+            raise SystemExit("chip_smoke: %s differs (%s): %.3e x max|ref|"
+                             % (name, tag, rel))
+    log("phase 9 %s: %d arrays agree; worst %s at %.3e x max|ref| (tol "
+        "1e-3)" % (tag, len(want), worst_name, worst))
+
+
+def phase_imperative_vs(params, module_card):
+    """Phase 9: one imperative step from phase 7's parameters on the
+    card against the CPU, and its gradients against phase 7's Module
+    step on the card (``module_card``): the imperative plane against
+    the symbolic one."""
+    card = imperative_grads(mx.gpu(0), params)
+    cpu = imperative_grads(mx.cpu(), params)
+    worst_rel("imperative step card vs CPU", card, cpu)
+    worst_rel("imperative vs Module gradients on the card",
+              {k: v for k, v in card.items() if k != "loss"},
+              {k: v for k, v in module_card.items()
+               if k != "probabilities"})
 
 
 def time_ms(fn, n=60):
@@ -1025,6 +1281,28 @@ def phase_times_train(dev, card, errs):
                lambda c=causal: F.scaled_dot_product_attention(
                    t["q"], t["k"], t["v"], is_causal=c),
                4 * 4 * B * H * L * D, 4 * D * pairs)
+    # the imperative plane's kernels; yardsticks F.cross_entropy (its
+    # autograd backward for the gradient), the autograd backward of
+    # torch.softmax, torch.addcmul
+    lbl = t["label"].long()
+    record("softmax_xent_loss", "softmax_xent_loss labels=random", shape_v,
+           lambda: F.cross_entropy(t["logits"], lbl, reduction="none"),
+           4 * (nv + 2 * TRAIN_ROWS), 4 * nv)
+    record("softmax_xent_loss_grad", "softmax_xent_loss_grad labels=random",
+           shape_v, autograd_backward(
+               lambda x: F.cross_entropy(x, lbl, reduction="none"),
+               (t["logits"],), t["gr"]),
+           4 * (2 * nv + 2 * TRAIN_ROWS), 6 * nv)
+    record("softmax_rows_bwd", "softmax_rows_bwd", shape_v,
+           autograd_backward(lambda x: torch.softmax(x, -1), (t["logits"],),
+                             t["dyv"]), 4 * 3 * nv, 4 * nv)
+    k, xs, ys, out = rtc_fma1(t["logits"], t["dyv"])
+    one = torch.ones((), device=dev)
+    entries["rtc"] = [timed_row(
+        "rtc", "fma1 %d elements" % nv, lambda: k.push([xs, ys], [out]),
+        lambda: t["logits"] * t["dyv"] + 1,
+        lambda: torch.addcmul(one, t["logits"], t["dyv"]), 4 * 3 * nv,
+        2 * nv, errs["rtc"], card)]
     return entries
 
 
@@ -1043,6 +1321,8 @@ def kernel_rows(entries, counts):
             "replaces": replaces, "launches": sum(by_phase.values()),
             "launches_by_phase": by_phase,
             "train_launches_per_step": TRAIN_LAUNCHES_PER_STEP.get(name, 0),
+            "imperative_launches_per_step":
+                IMPERATIVE_LAUNCHES_PER_STEP.get(name, 0),
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             "ms": head["ms"], "plain_ms": head["plain_ms"],
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
@@ -1082,7 +1362,9 @@ def main(argv):
     counts["train"], step_ms = phase_train(dev, card)
     if argv:
         profile_train(dev, card, step_ms)
-    phase_train_vs_cpu(dev)
+    params7, module_card = phase_train_vs_cpu(dev)
+    counts["imperative"] = phase_imperative(card, step_ms)
+    phase_imperative_vs(params7, module_card)
     kern = kernel_rows(phase_times(dev, card, errs), counts)
     kern += kernel_rows(phase_times_train(dev, card, errs), counts)
     for tag, what in (("3", "paged fp32"), ("3b", "paged int8"),

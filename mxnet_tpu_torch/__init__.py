@@ -1,7 +1,7 @@
 """PyTorch/CUDA port of ``mxnet_tpu`` for one NVIDIA H100.
 
 The port imports ``torch`` and never ``jax`` or ``mxnet_tpu``; the JAX
-package stays the reference it is tested against.  Two paths are
+package stays the reference it is tested against.  Three paths are
 ported.  Training the transformer LM through ``Module.fit``:
 
     import mxnet_tpu_torch as mx
@@ -14,6 +14,17 @@ ported.  Training the transformer LM through ``Module.fit``:
             optimizer_params={"learning_rate": 0.005, "momentum": 0.9},
             initializer=mx.init.Xavier(),
             eval_metric=mx.metric.Perplexity(ignore_label=None))
+
+training it imperatively, with ``mx.nd`` ops under ``mx.autograd``:
+
+    w = mx.nd.array(weight)            # on the current context, cuda:0
+    w.attach_grad()
+    mom = mx.nd.zeros(w.shape)
+    with mx.autograd.record():
+        logits = mx.nd.FullyConnected(x, w, num_hidden=V, no_bias=True)
+        loss = mx.nd.softmax_cross_entropy(logits, label)
+    loss.backward()
+    mx.nd.sgd_mom_update(w, w.grad, mom, lr=0.005, momentum=0.9, out=w)
 
 and serving it, on the paged KV plane by default:
 
@@ -29,19 +40,22 @@ and serving it, on the paged KV plane by default:
 
 ``add_generative_model(..., compute_dtype="int8", kv_dtype="int8")``
 serves int8 weights over an int8 paged pool, ``paged=False`` the
-contiguous KV plane.  Entry points run on ``cuda:0`` unless the caller
-passes ``mx.cpu()`` / ``device="cpu"``.  RMSNorm and LayerNorm (forward
-and backward), flash attention (causal and offset-causal), paged
-attention (fp32 and int8 pools), the int8 dequant-matmul and the
-SoftmaxOutput head run as hand-written CUDA kernels on a CUDA tensor
-(``mxnet_tpu_torch/kernels``) and as their plain PyTorch versions on a
-CPU tensor.
+contiguous KV plane.  Entry points run on the current context, ``cuda:0``
+unless the caller passes ``mx.cpu()`` / ``device="cpu"`` or runs under
+``with mx.cpu():``; without a GPU they raise.  RMSNorm and LayerNorm
+(forward and backward), flash attention (causal and offset-causal),
+paged attention (fp32 and int8 pools), the int8 dequant-matmul, the
+SoftmaxOutput head, the softmax cross-entropy loss (forward and
+gradient) and the fused softmax's backward run as hand-written CUDA
+kernels on a CUDA tensor (``mxnet_tpu_torch/kernels``) and as their
+plain PyTorch versions on a CPU tensor; ``mx.rtc.CudaKernel`` compiles
+and launches a user's CUDA source on NDArrays.
 """
-from . import (initializer, io, kernels, metric, models, ndarray, optimizer,
-               random, symbol)
+from . import (autograd, contrib, engine, initializer, io, kernels, metric,
+               models, ndarray, optimizer, random, rtc, symbol)
 from . import module
 from .base import MXNetError
-from .context import cpu, gpu
+from .context import Context, cpu, current_context, gpu
 from .models import transformer_lm
 from .module import Module
 from .serving import GenerationEngine, ModelRegistry, TokenStream
@@ -54,4 +68,5 @@ mod = module
 __all__ = ["MXNetError", "ModelRegistry", "GenerationEngine", "TokenStream",
            "transformer_lm", "kernels", "models", "symbol", "sym", "ndarray",
            "nd", "io", "initializer", "init", "metric", "optimizer",
-           "random", "module", "mod", "Module", "cpu", "gpu"]
+           "random", "module", "mod", "Module", "cpu", "gpu", "autograd",
+           "contrib", "rtc", "engine", "Context", "current_context"]

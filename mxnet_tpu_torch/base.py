@@ -1,10 +1,10 @@
 """Shared infrastructure of the PyTorch/CUDA port: the error type and the
 typed environment-variable registry.
 
-Counterpart of ``mxnet_tpu/base.py``, reduced to what the port reads.
-Only the ``MXNET_SERVE_*`` knobs of the serving path are registered,
-with the reference package's names and defaults; they are documented
-in ``docs/port/env_vars.md``.
+Counterpart of ``mxnet_tpu/base.py``, reduced to what the port reads:
+the ``MXNET_SERVE_*`` knobs of the serving path and the engine's
+``MXNET_ENGINE_TYPE``, with the reference package's names and defaults;
+they are documented in ``docs/port/env_vars.md``.
 """
 from __future__ import annotations
 
@@ -60,6 +60,10 @@ def get_env(name, default=None):
     return os.environ.get(name, default)
 
 
+register_env("MXNET_ENGINE_TYPE", str, "ThreadedEnginePerDevice",
+             "Execution mode: 'NaiveEngine' synchronises the device after "
+             "every imperative op (readable backtraces when debugging); "
+             "anything else keeps PyTorch's asynchronous launches.")
 register_env("MXNET_SERVE_BUCKETS", str, "1,2,4,8,16,32",
              "Comma-separated batch-size bucket edges of the generative "
              "program store: the decode engine's slot table grows to the "

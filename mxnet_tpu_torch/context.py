@@ -1,41 +1,113 @@
-"""Device selection for the port (counterpart of ``mxnet_tpu/context.py``).
+"""Device contexts of the port (counterpart of ``mxnet_tpu/context.py``).
 
-Every entry point of the port runs on the first CUDA device unless the
-caller asks for the CPU by name.  Without a GPU and without an explicit
-``"cpu"`` it raises: the port never carries on silently on the CPU,
-where every kernel wrapper would take its plain PyTorch version.
+A :class:`Context` names a device, ``cpu(0)`` or ``gpu(i)``, and works
+both as a value (``ctx=``, ``context=``, ``device=``) and as a ``with``
+scope that sets the thread's current context.  Outside any scope the
+current context is ``gpu(0)``: every entry point of the port runs on the
+first CUDA device unless the caller asks for the CPU by name, and
+without a GPU resolving it raises.  The port never carries on silently
+on the CPU, where every kernel wrapper would take its plain PyTorch
+version.
 """
 from __future__ import annotations
+
+import threading
 
 import torch
 
 from .base import MXNetError
 
-__all__ = ["default_device", "cpu", "gpu"]
+__all__ = ["Context", "cpu", "gpu", "current_context", "default_device"]
+
+
+class Context:
+    """A device: type ``"cpu"`` or ``"gpu"`` and an id.  ``with ctx:``
+    makes it the thread's current context."""
+
+    devtype2str = {1: "cpu", 2: "gpu"}
+    devstr2type = {"cpu": 1, "gpu": 2}
+    _default_ctx = threading.local()
+
+    __slots__ = ("device_typeid", "device_id", "_old_ctx")
+
+    def __init__(self, device_type, device_id=0):
+        if isinstance(device_type, Context):
+            device_type, device_id = (device_type.device_type,
+                                      device_type.device_id)
+        if device_type not in Context.devstr2type:
+            raise MXNetError("unknown device type %r" % (device_type,))
+        self.device_typeid = Context.devstr2type[device_type]
+        self.device_id = int(device_id)
+        self._old_ctx = None
+
+    @property
+    def device_type(self):
+        return Context.devtype2str[self.device_typeid]
+
+    def __hash__(self):
+        return hash((self.device_typeid, self.device_id))
+
+    def __eq__(self, other):
+        return (isinstance(other, Context)
+                and self.device_typeid == other.device_typeid
+                and self.device_id == other.device_id)
+
+    def __str__(self):
+        return "%s(%d)" % (self.device_type, self.device_id)
+
+    __repr__ = __str__
+
+    def __enter__(self):
+        self._old_ctx = getattr(Context._default_ctx, "value", None)
+        Context._default_ctx.value = self
+        return self
+
+    def __exit__(self, ptype, value, trace):
+        Context._default_ctx.value = self._old_ctx
 
 
 def cpu(device_id=0):
-    """The host, as a ``torch.device`` (``device_id`` is accepted for the
-    reference's signature and ignored)."""
-    return torch.device("cpu")
+    """The host context (``device_id`` is kept for the reference's
+    signature; there is one host)."""
+    return Context("cpu", device_id)
 
 
 def gpu(device_id=0):
-    """CUDA device ``device_id`` as a ``torch.device``; raises without
-    CUDA, like :func:`default_device`."""
-    return default_device(torch.device("cuda", int(device_id)))
+    """CUDA device ``device_id``."""
+    return Context("gpu", device_id)
+
+
+def current_context():
+    """The context of the innermost ``with`` scope of this thread, else
+    ``gpu(0)``."""
+    ctx = getattr(Context._default_ctx, "value", None)
+    return gpu(0) if ctx is None else ctx
+
+
+def context_of(device):
+    """The :class:`Context` of a ``torch.device``."""
+    if device.type == "cpu":
+        return cpu(0)
+    return gpu(0 if device.index is None else device.index)
 
 
 def default_device(device=None):
     """Resolve ``device`` to a ``torch.device``.
 
-    ``None`` means ``cuda:0``; ``"cpu"`` (or a CPU ``torch.device``) is
-    honoured as asked.  A CUDA device raises :class:`MXNetError` when
-    CUDA is unavailable.  Choosing a CUDA device also pins fp32 matrix
-    products to full fp32 (``torch.backends.cuda.matmul.allow_tf32 =
-    False``, PyTorch's default, set explicitly), so the projections the
-    port leaves to ``torch.matmul`` keep fp32 precision."""
-    dev = torch.device("cuda", 0) if device is None else torch.device(device)
+    ``None`` means the current context (``cuda:0`` outside any ``with``
+    scope); a :class:`Context`, a ``torch.device`` or a string is taken
+    as asked.  A CUDA device raises :class:`MXNetError` when CUDA is
+    unavailable.  Choosing a CUDA device also pins fp32 matrix products
+    to full fp32 (``torch.backends.cuda.matmul.allow_tf32 = False``,
+    PyTorch's default, set explicitly), so the projections the port
+    leaves to ``torch.matmul`` keep fp32 precision."""
+    if device is None:
+        device = current_context()
+    if isinstance(device, Context):
+        if device.device_type == "cpu":
+            return torch.device("cpu")
+        device = torch.device("cuda", device.device_id)
+    dev = torch.device(device)
     if dev.type == "cpu":
         return dev
     if dev.type != "cuda":
@@ -43,7 +115,8 @@ def default_device(device=None):
                          % (device,))
     if not torch.cuda.is_available():
         raise MXNetError(
-            "no CUDA device is available; pass device='cpu' to run the "
+            "no CUDA device is available; pass device='cpu' (or "
+            "ctx=mx.cpu(), or run under 'with mx.cpu():') to run the "
             "port's plain PyTorch versions on the CPU")
     if dev.index is None:
         dev = torch.device("cuda", 0)

@@ -17,6 +17,7 @@ from __future__ import annotations
 import torch
 
 from .base import MXNetError
+from .context import default_device
 from .ndarray import NDArray
 
 __all__ = ["Executor"]
@@ -25,7 +26,7 @@ __all__ = ["Executor"]
 class Executor:
     def __init__(self, symbol, ctx, args, grads, reqs):
         self._symbol = symbol
-        self._ctx = torch.device(ctx)
+        self._ctx = default_device(ctx)
         self._arg_names = symbol.list_arguments()
         self._output_names = symbol.list_outputs()
         if len(args) != len(self._arg_names):

@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from .. import random as _random
+from ..context import cpu
 from ..ndarray import NDArray, array
 
 __all__ = ["DataDesc", "DataBatch", "DataIter", "NDArrayIter"]
@@ -161,12 +162,14 @@ class NDArrayIter(DataIter):
             else:
                 sel = np.concatenate((self._order[self.cursor:],
                                       self._order[:end - self.num_data]))
-            return [array(v.take(sel, axis=0)) for _, v in data_source]
+            return [array(v.take(sel, axis=0), ctx=cpu())
+                    for _, v in data_source]
         if end <= self.num_data:
-            return [array(v[self.cursor:end]) for _, v in data_source]
+            return [array(v[self.cursor:end], ctx=cpu())
+                    for _, v in data_source]
         pad = end - self.num_data
-        return [array(np.concatenate((v[self.cursor:], v[:pad]), axis=0))
-                for _, v in data_source]
+        return [array(np.concatenate((v[self.cursor:], v[:pad]), axis=0),
+                      ctx=cpu()) for _, v in data_source]
 
     def getdata(self):
         return self._getdata(self.data)

@@ -17,7 +17,9 @@ __all__ = ["launch_counts", "reset_launch_counts", "KERNELS"]
 KERNELS = ("rms_norm", "layer_norm", "flash_attention_paged",
            "rms_norm_bwd", "layer_norm_bwd", "softmax_rows",
            "xent_grad_from_probs", "flash_attention", "dequant_matmul",
-           "flash_attention_paged_int8", "flash_attention_offset")
+           "flash_attention_paged_int8", "flash_attention_offset",
+           "softmax_xent_loss", "softmax_xent_loss_grad", "softmax_rows_bwd",
+           "rtc")
 _counts = dict.fromkeys(KERNELS, 0)
 _counts_lock = threading.Lock()
 

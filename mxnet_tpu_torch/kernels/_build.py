@@ -58,6 +58,12 @@ _SIGNATURES = {
     "mxt_softmax_rows_f32": (_P, _P, _I, _I, _P),
     # p, label, grad, rows, cols, scale, stream
     "mxt_xent_grad_from_probs_f32": (_P, _P, _P, _I, _I, _F, _P),
+    # x, label, loss, rows, cols, stream
+    "mxt_softmax_xent_loss_f32": (_P, _P, _P, _I, _I, _P),
+    # x, label, g, grad, rows, cols, stream
+    "mxt_softmax_xent_loss_grad_f32": (_P, _P, _P, _P, _I, _I, _P),
+    # p, dy, dx, rows, cols, stream
+    "mxt_softmax_rows_bwd_f32": (_P, _P, _P, _I, _I, _P),
     # q, k, v, out, B*H, Lq, Lk, D, causal, scale, stream
     "mxt_flash_attention_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
                                 _P),

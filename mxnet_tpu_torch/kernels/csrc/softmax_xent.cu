@@ -1,26 +1,36 @@
-// The SoftmaxOutput loss head for Hopper (sm_90a), fp32: row softmax
-// forward and the implicit-loss gradient (p - onehot(label)) * scale.
+// The softmax / cross-entropy row kernels for Hopper (sm_90a), fp32.
 //
-// Replaces the TPU kernels _softmax_fwd_kernel and
-// _xent_grad_from_probs_kernel of mxnet_tpu/pallas_ops/softmax_xent.py
-// (the pair behind softmax_output_head):
-//   softmax:  m = max(x); e = exp(x - m); p = e / sum(e)     per row
-//   grad:     g = (p - (col == int(label))) * scale           per row
-// The label arrives as float32 and is truncated to int32, as the TPU
-// kernel's astype(int32) does.
+// Replaces the TPU kernels of mxnet_tpu/pallas_ops/softmax_xent.py:
+//   _softmax_fwd_kernel            p = exp(x - max(x)) / sum(...)  per row
+//   _xent_grad_from_probs_kernel   (p - onehot(label)) * scale       per row
+//   _softmax_bwd_kernel            dx = p * (dy - sum(dy * p))       per row
+//   _xent_loss_kernel              logsumexp(x) - x[label]           per row
+//   _xent_loss_grad_kernel         (softmax(x) - onehot(label)) * g  per row
+// The first two are SoftmaxOutput's head, the third is fused_softmax's
+// vjp, the last two softmax_xent_loss's forward and gradient.  Labels
+// arrive as float32 and are truncated to int32, as the TPU kernels'
+// astype(int32) does; a label outside [0, cols) matches no column
+// (loss lse - 0, gradient p * g).
 //
-// Bound: bytes.  Both read and write every element once with a few
-// flops each.  At the training head (4096 rows x 8192 classes) a row is
+// Bound: bytes.  Every kernel reads and writes each element once with a
+// few flops.  At the training head (4096 rows x 8192 classes) a row is
 // 32 KB, so each row gets a whole 256-thread block: consecutive threads
-// read consecutive floats (coalesced), the row max and sum are block
-// reductions (warp shuffles, then one shared-memory round across the
-// eight warps).  The softmax reads its row three times (max, sum,
-// write); the second and third reads hit L1/L2, since the block's 32 KB
-// row was just read.  The TPU kernel's (block_rows, classes) VMEM tile
-// has no counterpart here: one block is one row.
+// read consecutive floats (the last three kernels as 16-byte float4
+// loads when every row start is 16-byte aligned), and the row
+// reductions are block reductions (warp shuffles, then one
+// shared-memory round across the eight warps).  The loss
+// kernels keep a running (max, sum of exp) pair per thread, rescaled
+// when the max grows (one pass over the row instead of a max pass and a
+// sum pass), and merge the pairs across the block; the loss forward
+// never writes the probabilities.  The other kernels read their row a
+// second (the softmax forward a third) time to write it; those reads
+// hit L1/L2, since the block's 32 KB row was just read.  The TPU
+// kernels' (block_rows, classes) VMEM tile has no counterpart here: one
+// block is one row.
 #include <cuda_runtime.h>
 
 #include <math.h>
+#include <stdint.h>
 
 namespace {
 
@@ -85,6 +95,168 @@ __global__ void __launch_bounds__(kThreads)
     grow[c] = (prow[c] - (c == lbl ? 1.f : 0.f)) * scale;
 }
 
+// ---------------------------------------------------------------------------
+// running (max, sum of exp) pairs: s is the sum of exp(v - m) over the
+// values seen; m == -inf means none seen yet (s == 0)
+// ---------------------------------------------------------------------------
+__device__ __forceinline__ void ms_merge(float& m, float& s, float m2,
+                                         float s2) {
+  const float mm = fmaxf(m, m2);
+  if (mm == -INFINITY) return;   // both empty
+  s = s * expf(m - mm) + s2 * expf(m2 - mm);
+  m = mm;
+}
+
+__device__ __forceinline__ void ms_add4(float& m, float& s, float4 v) {
+  const float cm = fmaxf(fmaxf(v.x, v.y), fmaxf(v.z, v.w));
+  if (cm > m) {
+    s *= expf(m - cm);
+    m = cm;
+  }
+  if (m > -INFINITY)
+    s += expf(v.x - m) + expf(v.y - m) + expf(v.z - m) + expf(v.w - m);
+}
+
+__device__ __forceinline__ void ms_add(float& m, float& s, float v) {
+  if (v > m) {
+    s = s * expf(m - v) + 1.f;
+    m = v;
+  } else if (m > -INFINITY) {
+    s += expf(v - m);
+  }
+}
+
+// every thread gets the row's (max, sum of exp); `sm`, `ss` hold kWarps
+// floats each and are free again when this returns
+__device__ __forceinline__ void block_reduce_ms(float& m, float& s,
+                                                float* sm, float* ss) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    ms_merge(m, s, __shfl_xor_sync(kFull, m, o),
+             __shfl_xor_sync(kFull, s, o));
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (lane == 0) {
+    sm[warp] = m;
+    ss[warp] = s;
+  }
+  __syncthreads();
+  m = lane < kWarps ? sm[lane] : -INFINITY;
+  s = lane < kWarps ? ss[lane] : 0.f;
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    ms_merge(m, s, __shfl_xor_sync(kFull, m, o),
+             __shfl_xor_sync(kFull, s, o));
+  __syncthreads();
+}
+
+// (max, sum of exp) of one row of `cols` floats at `xr`
+__device__ __forceinline__ void row_max_sum(const float* __restrict__ xr,
+                                            int cols, bool vec, float* sm,
+                                            float* ss, float& m, float& s) {
+  m = -INFINITY;
+  s = 0.f;
+  if (vec) {
+    const float4* x4 = reinterpret_cast<const float4*>(xr);
+    for (int c = threadIdx.x; c < cols / 4; c += kThreads)
+      ms_add4(m, s, x4[c]);
+  } else {
+    for (int c = threadIdx.x; c < cols; c += kThreads) ms_add(m, s, xr[c]);
+  }
+  block_reduce_ms(m, s, sm, ss);
+}
+
+__global__ void __launch_bounds__(kThreads)
+    xent_loss_kernel(const float* __restrict__ x,
+                     const float* __restrict__ label,
+                     float* __restrict__ loss, int cols, bool vec) {
+  __shared__ float sm[kWarps], ss[kWarps];
+  const float* xr = x + static_cast<size_t>(blockIdx.x) * cols;
+  float m, s;
+  row_max_sum(xr, cols, vec, sm, ss, m, s);
+  if (threadIdx.x == 0) {
+    const int lbl = static_cast<int>(label[blockIdx.x]);   // truncates
+    const float tgt = (lbl >= 0 && lbl < cols) ? xr[lbl] : 0.f;
+    loss[blockIdx.x] = logf(s) + m - tgt;
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+    xent_loss_grad_kernel(const float* __restrict__ x,
+                          const float* __restrict__ label,
+                          const float* __restrict__ g,
+                          float* __restrict__ grad, int cols, bool vec) {
+  __shared__ float sm[kWarps], ss[kWarps];
+  const size_t off = static_cast<size_t>(blockIdx.x) * cols;
+  const float* xr = x + off;
+  float* gr = grad + off;
+  float m, s;
+  row_max_sum(xr, cols, vec, sm, ss, m, s);
+  const int lbl = static_cast<int>(label[blockIdx.x]);     // truncates
+  const float gv = g[blockIdx.x];
+  if (vec) {
+    const float4* x4 = reinterpret_cast<const float4*>(xr);
+    float4* g4 = reinterpret_cast<float4*>(gr);
+    for (int c = threadIdx.x; c < cols / 4; c += kThreads) {
+      const float4 v = x4[c];
+      const int c0 = 4 * c;
+      float4 o;
+      o.x = (expf(v.x - m) / s - (c0 == lbl ? 1.f : 0.f)) * gv;
+      o.y = (expf(v.y - m) / s - (c0 + 1 == lbl ? 1.f : 0.f)) * gv;
+      o.z = (expf(v.z - m) / s - (c0 + 2 == lbl ? 1.f : 0.f)) * gv;
+      o.w = (expf(v.w - m) / s - (c0 + 3 == lbl ? 1.f : 0.f)) * gv;
+      g4[c] = o;
+    }
+  } else {
+    for (int c = threadIdx.x; c < cols; c += kThreads)
+      gr[c] = (expf(xr[c] - m) / s - (c == lbl ? 1.f : 0.f)) * gv;
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+    softmax_bwd_kernel(const float* __restrict__ p,
+                       const float* __restrict__ dy, float* __restrict__ dx,
+                       int cols, bool vec) {
+  __shared__ float scratch[kWarps];
+  const size_t off = static_cast<size_t>(blockIdx.x) * cols;
+  const float* pr = p + off;
+  const float* dyr = dy + off;
+  float* dxr = dx + off;
+  float dot = 0.f;
+  if (vec) {
+    const float4* p4 = reinterpret_cast<const float4*>(pr);
+    const float4* d4 = reinterpret_cast<const float4*>(dyr);
+    for (int c = threadIdx.x; c < cols / 4; c += kThreads) {
+      const float4 a = p4[c], b = d4[c];
+      dot += a.x * b.x + a.y * b.y + a.z * b.z + a.w * b.w;
+    }
+  } else {
+    for (int c = threadIdx.x; c < cols; c += kThreads) dot += pr[c] * dyr[c];
+  }
+  dot = block_reduce<false>(dot, scratch);
+  if (vec) {
+    const float4* p4 = reinterpret_cast<const float4*>(pr);
+    const float4* d4 = reinterpret_cast<const float4*>(dyr);
+    float4* o4 = reinterpret_cast<float4*>(dxr);
+    for (int c = threadIdx.x; c < cols / 4; c += kThreads) {
+      const float4 a = p4[c], b = d4[c];
+      o4[c] = make_float4(a.x * (b.x - dot), a.y * (b.y - dot),
+                          a.z * (b.z - dot), a.w * (b.w - dot));
+    }
+  } else {
+    for (int c = threadIdx.x; c < cols; c += kThreads)
+      dxr[c] = pr[c] * (dyr[c] - dot);
+  }
+}
+
+// float4 access needs every row start 16-byte aligned
+__host__ bool rows_vectorizable(int cols, const void* a, const void* b,
+                                const void* c) {
+  return cols % 4 == 0 && reinterpret_cast<uintptr_t>(a) % 16 == 0 &&
+         reinterpret_cast<uintptr_t>(b) % 16 == 0 &&
+         reinterpret_cast<uintptr_t>(c) % 16 == 0;
+}
+
 }  // namespace
 
 extern "C" int mxt_softmax_rows_f32(const float* x, float* p, int rows,
@@ -101,5 +273,34 @@ extern "C" int mxt_xent_grad_from_probs_f32(const float* p,
   if (rows > 0 && cols > 0)
     xent_grad_kernel<<<rows, kThreads, 0, stream>>>(p, label, grad, cols,
                                                     scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int mxt_softmax_xent_loss_f32(const float* x, const float* label,
+                                         float* loss, int rows, int cols,
+                                         cudaStream_t stream) {
+  if (rows > 0 && cols > 0)
+    xent_loss_kernel<<<rows, kThreads, 0, stream>>>(
+        x, label, loss, cols, rows_vectorizable(cols, x, x, x));
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int mxt_softmax_xent_loss_grad_f32(const float* x,
+                                              const float* label,
+                                              const float* g, float* grad,
+                                              int rows, int cols,
+                                              cudaStream_t stream) {
+  if (rows > 0 && cols > 0)
+    xent_loss_grad_kernel<<<rows, kThreads, 0, stream>>>(
+        x, label, g, grad, cols, rows_vectorizable(cols, x, grad, grad));
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int mxt_softmax_rows_bwd_f32(const float* p, const float* dy,
+                                        float* dx, int rows, int cols,
+                                        cudaStream_t stream) {
+  if (rows > 0 && cols > 0)
+    softmax_bwd_kernel<<<rows, kThreads, 0, stream>>>(
+        p, dy, dx, cols, rows_vectorizable(cols, p, dy, dx));
   return static_cast<int>(cudaGetLastError());
 }

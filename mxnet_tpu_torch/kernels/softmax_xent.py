@@ -1,14 +1,22 @@
-"""The SoftmaxOutput loss head: CUDA kernels and their plain versions.
+"""Softmax and cross-entropy row kernels and their plain versions
+(counterpart of ``mxnet_tpu/pallas_ops/softmax_xent.py``).
 
-Counterpart of ``softmax_output_head`` in
-``mxnet_tpu/pallas_ops/softmax_xent.py``.  ``softmax_rows`` is the row
-softmax of a 2D ``(rows, classes)`` fp32 tensor; ``xent_grad_from_probs``
-is the implicit-loss gradient ``(p - onehot(label)) * scale`` with
-float32 labels truncated to int32.  A CPU tensor runs the plain version
-beside each; a CUDA tensor launches ``csrc/softmax_xent.cu`` or raises.
-:class:`SoftmaxOutputHead` pairs them as one ``torch.autograd.Function``
-with the reference's contract: the backward ignores the incoming
-cotangent and gives the label no gradient.
+Every entry point takes a 2D ``(rows, classes)`` fp32 tensor and
+float32 labels truncated to int32; a label outside ``[0, classes)``
+matches no column.  A CPU tensor runs the plain version beside each; a
+CUDA tensor launches ``csrc/softmax_xent.cu`` or raises.
+
+* ``softmax_rows`` / ``xent_grad_from_probs``: SoftmaxOutput's head,
+  paired by :class:`SoftmaxOutputHead` with the reference's contract
+  (the backward ignores the incoming cotangent and emits ``(p -
+  onehot(label)) * scale``; no gradient for the label);
+* ``softmax_rows`` / ``softmax_rows_bwd``: :func:`fused_softmax`, the
+  row softmax with the classic vjp ``p * (dy - sum(dy * p))``;
+* ``xent_loss_rows`` / ``softmax_xent_loss_grad``:
+  :func:`softmax_xent_loss`, per-row ``logsumexp(x) - x[label]``
+  (``(rows,)`` float32; the probabilities are never written) whose
+  backward recomputes the softmax from the logits and writes
+  ``(softmax(x) - onehot(label)) * g``.
 """
 from __future__ import annotations
 
@@ -18,7 +26,11 @@ from ._build import KernelError, check_args, launch, route
 
 __all__ = ["softmax_rows", "xent_grad_from_probs", "softmax_rows_reference",
            "xent_grad_from_probs_reference", "SoftmaxOutputHead",
-           "softmax_output_head"]
+           "softmax_output_head", "softmax_rows_bwd",
+           "softmax_rows_bwd_reference", "FusedSoftmax", "fused_softmax",
+           "xent_loss_rows", "xent_loss_rows_reference",
+           "softmax_xent_loss_grad", "softmax_xent_loss_grad_reference",
+           "SoftmaxXentLoss", "softmax_xent_loss"]
 
 
 def softmax_rows_reference(x):
@@ -35,6 +47,38 @@ def xent_grad_from_probs_reference(p, label, scale=1.0):
     cols = torch.arange(p.shape[1], dtype=torch.int32, device=p.device)
     onehot = (cols[None, :] == lbl).to(torch.float32)
     return ((p.float() - onehot) * scale).to(p.dtype)
+
+
+def softmax_rows_bwd_reference(p, dy):
+    """Plain PyTorch ``p * (dy - sum(dy * p))`` per row."""
+    pf, dyf = p.float(), dy.float()
+    dot = torch.sum(dyf * pf, dim=-1, keepdim=True)
+    return (pf * (dyf - dot)).to(p.dtype)
+
+
+def _onehot_rows(x, label):
+    lbl = label.reshape(-1, 1).to(torch.int32)
+    cols = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
+    return cols[None, :] == lbl
+
+
+def xent_loss_rows_reference(x, label):
+    """Plain PyTorch per-row ``logsumexp(x) - x[int32(label)]``, float32;
+    a label outside ``[0, classes)`` picks no column (``lse - 0``)."""
+    xf = x.float()
+    m = torch.amax(xf, dim=-1, keepdim=True)
+    lse = torch.log(torch.sum(torch.exp(xf - m), dim=-1, keepdim=True)) + m
+    tgt = torch.sum(torch.where(_onehot_rows(x, label), xf,
+                                torch.zeros((), device=x.device)),
+                    dim=-1, keepdim=True)
+    return (lse - tgt)[:, 0]
+
+
+def softmax_xent_loss_grad_reference(x, label, g):
+    """Plain PyTorch ``(softmax(x) - onehot(int32(label))) * g[row]``."""
+    p = softmax_rows_reference(x.float())
+    onehot = _onehot_rows(x, label).to(torch.float32)
+    return ((p - onehot) * g.reshape(-1, 1).float()).to(x.dtype)
 
 
 def _check_2d(name, x):
@@ -72,6 +116,57 @@ def xent_grad_from_probs(p, label, scale=1.0):
     return grad
 
 
+def _check_labels(name, x, label, *per_row):
+    for t in (label,) + per_row:
+        if t.shape != (x.shape[0],):
+            raise KernelError("%s: per-row vector of shape %s, want (%d,)"
+                              % (name, tuple(t.shape), x.shape[0]))
+
+
+def softmax_rows_bwd(p, dy):
+    """``p * (dy - sum(dy * p))`` per row of 2D ``p`` and ``dy``."""
+    if not route("softmax_rows_bwd", p):
+        return softmax_rows_bwd_reference(p, dy)
+    _check_2d("softmax_rows_bwd", p)
+    check_args("softmax_rows_bwd", p, dy)
+    if dy.shape != p.shape:
+        raise KernelError("softmax_rows_bwd: dy shape %s, want %s"
+                          % (tuple(dy.shape), tuple(p.shape)))
+    dx = torch.empty_like(p)
+    launch(p, "softmax_rows_bwd", "mxt_softmax_rows_bwd_f32", p.data_ptr(),
+           dy.data_ptr(), dx.data_ptr(), p.shape[0], p.shape[1])
+    return dx
+
+
+def xent_loss_rows(x, label):
+    """Per-row ``logsumexp(x) - x[label]`` of 2D ``x``: ``(rows,)``
+    float32."""
+    if not route("softmax_xent_loss", x):
+        return xent_loss_rows_reference(x, label)
+    _check_2d("softmax_xent_loss", x)
+    check_args("softmax_xent_loss", x, label)
+    _check_labels("softmax_xent_loss", x, label)
+    loss = torch.empty(x.shape[0], dtype=torch.float32, device=x.device)
+    launch(x, "softmax_xent_loss", "mxt_softmax_xent_loss_f32", x.data_ptr(),
+           label.data_ptr(), loss.data_ptr(), x.shape[0], x.shape[1])
+    return loss
+
+
+def softmax_xent_loss_grad(x, label, g):
+    """``(softmax(x) - onehot(label)) * g[row]`` for 2D logits ``x``,
+    recomputed from ``x``."""
+    if not route("softmax_xent_loss_grad", x):
+        return softmax_xent_loss_grad_reference(x, label, g)
+    _check_2d("softmax_xent_loss_grad", x)
+    check_args("softmax_xent_loss_grad", x, label, g)
+    _check_labels("softmax_xent_loss_grad", x, label, g)
+    grad = torch.empty_like(x)
+    launch(x, "softmax_xent_loss_grad", "mxt_softmax_xent_loss_grad_f32",
+           x.data_ptr(), label.data_ptr(), g.data_ptr(), grad.data_ptr(),
+           x.shape[0], x.shape[1])
+    return grad
+
+
 class SoftmaxOutputHead(torch.autograd.Function):
     """``SoftmaxOutputHead.apply(data, label, scale)``: forward the row
     softmax, backward ``(p - onehot(label)) * scale`` from the saved
@@ -95,3 +190,48 @@ def softmax_output_head(data, label, scale=1.0):
     """SoftmaxOutput's plain 2D head: probabilities forward, the implicit
     cross-entropy gradient backward."""
     return SoftmaxOutputHead.apply(data, label, float(scale))
+
+
+class FusedSoftmax(torch.autograd.Function):
+    """``FusedSoftmax.apply(x)``: row softmax forward, the classic vjp
+    ``p * (dy - sum(dy * p))`` backward from the saved ``p``."""
+
+    @staticmethod
+    def forward(ctx, x):
+        p = softmax_rows(x)
+        ctx.save_for_backward(p)
+        return p
+
+    @staticmethod
+    def backward(ctx, dy):
+        (p,) = ctx.saved_tensors
+        return softmax_rows_bwd(p, dy.contiguous())
+
+
+def fused_softmax(x):
+    """Row softmax of 2D ``x`` with a kernel backward."""
+    return FusedSoftmax.apply(x)
+
+
+class SoftmaxXentLoss(torch.autograd.Function):
+    """``SoftmaxXentLoss.apply(logits, label)``: per-row cross entropy
+    forward; backward ``(softmax(x) - onehot(label)) * g`` recomputed
+    from the saved logits; no gradient for the label."""
+
+    @staticmethod
+    def forward(ctx, logits, label):
+        ctx.save_for_backward(logits, label)
+        return xent_loss_rows(logits, label)
+
+    @staticmethod
+    def backward(ctx, g):
+        logits, label = ctx.saved_tensors
+        return softmax_xent_loss_grad(logits, label,
+                                      g.float().contiguous()), None
+
+
+def softmax_xent_loss(logits, label):
+    """Per-row softmax cross entropy ``logsumexp(x) - x[label]`` of 2D
+    logits, ``(rows,)`` float32; neither pass writes the ``(rows,
+    classes)`` probabilities."""
+    return SoftmaxXentLoss.apply(logits, label)

@@ -2,8 +2,10 @@
 serving steps.
 
 Counterpart of ``mxnet_tpu/models/transformer_lm.py``.  :func:`get_symbol`
-builds the one-shot training graph (a copy of the reference's), and the
-serving steps apply the same weights, under the same argument names, so
+builds the one-shot training graph (a copy of the reference's),
+:func:`imperative_loss` the same graph from ``mx.nd`` ops with a
+``softmax_cross_entropy`` loss (the imperative plane), and the serving
+steps apply the same weights, under the same argument names, so
 a model trained by ``Module`` is served as it is: :func:`paged_step_apply`
 on the paged KV plane (fp32 or int8 pools), :func:`prefill_apply` and
 :func:`decode_apply` on the contiguous plane.  Pre-norm blocks
@@ -37,7 +39,7 @@ from ..ops.nn import layer_norm, rms_norm
 __all__ = ["get_symbol", "lm_spec", "param_shapes", "random_params",
            "init_pool", "init_scale_pool", "init_cache", "paged_step_apply",
            "prefill_apply", "decode_apply", "lm_matmul_weights",
-           "quantize_lm_params", "TransformerLM"]
+           "quantize_lm_params", "TransformerLM", "imperative_loss"]
 
 
 def _attention_block(x, seq_len, num_hidden, num_heads, name):
@@ -96,6 +98,50 @@ def get_symbol(seq_len, num_layers=2, num_hidden=64, num_heads=4,
                                 num_hidden=vocab_size, name="pred")
     return sym.SoftmaxOutput(logits, sym.Reshape(label, shape=(-1,)),
                              name="softmax")
+
+
+def imperative_loss(nd, params, data, label, seq_len, spec):
+    """The graph of :func:`get_symbol` built imperatively from ``nd``'s
+    ops (``mx.nd``; any module with the reference's ``nd`` op functions),
+    ending in ``nd.softmax_cross_entropy`` over the flattened logits
+    instead of the SoftmaxOutput head: the summed loss, shape ``(1,)``,
+    whose gradient per token is SoftmaxOutput's ``p - onehot``.
+    ``params`` maps :func:`get_symbol`'s argument names to NDArrays;
+    ``data`` and ``label`` are ``(batch, seq_len)`` token grids."""
+    D, H = spec["num_hidden"], spec["num_heads"]
+    x = nd.Embedding(data, params["embed_weight"],
+                     input_dim=spec["vocab_size"], output_dim=D)
+    for i in range(spec["num_layers"]):
+        p = {k: params["blk%d_%s" % (i, k)] for k in _BLOCK_KEYS}
+        a = nd.Reshape(nd.RMSNorm(x, p["ln1_gamma"]), shape=(-1, D))
+
+        def heads(tag, a=a, p=p):
+            proj = nd.FullyConnected(a, p[tag + "_weight"], num_hidden=D,
+                                     no_bias=True)
+            return nd.transpose(nd.Reshape(proj, shape=(-1, seq_len, H,
+                                                        D // H)),
+                                axes=(0, 2, 1, 3))
+
+        att = nd.DotProductAttention(heads("q"), heads("k"), heads("v"),
+                                     causal=True)
+        att = nd.Reshape(nd.transpose(att, axes=(0, 2, 1, 3)),
+                         shape=(-1, D))
+        proj = nd.FullyConnected(att, p["proj_weight"], num_hidden=D,
+                                 no_bias=True)
+        x = x + nd.Reshape(proj, shape=(-1, seq_len, D))
+        f = nd.Reshape(nd.RMSNorm(x, p["ln2_gamma"]), shape=(-1, D))
+        f = nd.Activation(nd.FullyConnected(f, p["ffn1_weight"],
+                                            p["ffn1_bias"],
+                                            num_hidden=4 * D),
+                          act_type="relu")
+        f = nd.FullyConnected(f, p["ffn2_weight"], p["ffn2_bias"],
+                              num_hidden=D)
+        x = x + nd.Reshape(f, shape=(-1, seq_len, D))
+    h = nd.LayerNorm(x, params["final_ln_gamma"], params["final_ln_beta"])
+    logits = nd.FullyConnected(nd.Reshape(h, shape=(-1, D)),
+                               params["pred_weight"], params["pred_bias"],
+                               num_hidden=spec["vocab_size"])
+    return nd.softmax_cross_entropy(logits, nd.Reshape(label, shape=(-1,)))
 
 _BLOCK_KEYS = ("ln1_gamma", "q_weight", "k_weight", "v_weight",
                "proj_weight", "ln2_gamma", "ffn1_weight", "ffn1_bias",

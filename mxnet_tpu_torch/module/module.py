@@ -21,7 +21,7 @@ import torch
 from .. import ndarray as nd
 from .. import optimizer as opt
 from ..base import MXNetError
-from ..context import default_device
+from ..context import cpu, default_device
 from ..initializer import InitDesc, Uniform
 from ..io.io import DataDesc
 from ..symbol import load as load_symbol
@@ -143,7 +143,7 @@ class Module(BaseModule):
         assert self.binded and self.params_initialized
         if self._params_dirty:
             self._arg_params = {
-                n: nd.array(a._data) for n, a in
+                n: nd.array(a._data, ctx=cpu()) for n, a in
                 zip(self._param_names, self._exec_group.param_arrays)}
             self._params_dirty = False
         return self._arg_params, {}
@@ -159,7 +159,7 @@ class Module(BaseModule):
             initializer = Uniform(0.01)
         if self._arg_params is None:
             self._arg_params = {
-                n: nd.zeros(a.shape, dtype=str(a.dtype)) for n, a in
+                n: nd.zeros(a.shape, cpu(), dtype=str(a.dtype)) for n, a in
                 zip(self._param_names, self._exec_group.param_arrays)}
         attrs = self._symbol.attr_dict()
         for name, arr in self._arg_params.items():

@@ -1,5 +1,6 @@
 """Operators of the port.  Importing the package registers every op."""
-from . import attention, elemwise, indexing, nn, registry, softmax, tensor
+from . import (attention, elemwise, indexing, nn, optimizer_op, reduce,
+               registry, softmax, tensor)
 
-__all__ = ["attention", "elemwise", "indexing", "nn", "registry", "softmax",
-           "tensor"]
+__all__ = ["attention", "elemwise", "indexing", "nn", "optimizer_op",
+           "reduce", "registry", "softmax", "tensor"]

@@ -1,10 +1,12 @@
-"""Elementwise operators that ``Symbol.__add__`` emits (counterpart of
-``elemwise_add`` and ``_plus_scalar`` in ``mxnet_tpu/ops/elemwise.py``)."""
+"""Elementwise operators (counterpart of ``mxnet_tpu/ops/elemwise.py``):
+``elemwise_add`` and ``_plus_scalar``, which ``Symbol.__add__`` emits,
+unary math, and the gradient-control ops ``BlockGrad`` /
+``stop_gradient``, ``make_loss`` and ``MakeLoss``."""
 from __future__ import annotations
 
 import torch
 
-from .registry import Float, register, register_alias
+from .registry import Float, Str, register, register_alias
 
 register("elemwise_add", fcompute=lambda attrs, a, b: torch.add(a, b),
          arguments=("lhs", "rhs"),
@@ -16,3 +18,64 @@ register("_plus_scalar",
          fcompute=lambda attrs, x: x + attrs["scalar"],
          attrs={"scalar": Float(required=True)},
          doc="Elementwise `add(x, scalar)`.")
+
+
+def _unary(name, fn):
+    register(name, fcompute=lambda attrs, x: fn(x),
+             doc="Elementwise `%s(x)`." % name)
+
+
+for _name, _fn in (("relu", torch.relu), ("sigmoid", torch.sigmoid),
+                   ("tanh", torch.tanh), ("negative", torch.neg),
+                   ("abs", torch.abs), ("square", torch.square),
+                   ("sqrt", torch.sqrt), ("exp", torch.exp),
+                   ("log", torch.log), ("sin", torch.sin),
+                   ("cos", torch.cos)):
+    _unary(_name, _fn)
+
+
+register("BlockGrad", fcompute=lambda attrs, x: x.detach(),
+         doc="Output = input; the gradient is blocked.")
+register_alias("BlockGrad", "stop_gradient")
+
+
+class _MakeLoss(torch.autograd.Function):
+    """Identity forward; the backward ignores the head gradient and
+    emits ``scale * ones`` (the reference's make_loss-inl.h)."""
+
+    @staticmethod
+    def forward(ctx, x, scale):
+        ctx.scale = scale
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, head):
+        one = torch.ones((), dtype=head.dtype, device=head.device)
+        return (one * ctx.scale).expand(head.shape), None
+
+
+register("make_loss",
+         fcompute=lambda attrs, x: _MakeLoss.apply(x, attrs["grad_scale"]),
+         attrs={"grad_scale": Float(1.0)},
+         doc="Treat the input as a loss head: the backward emits "
+             "grad_scale * ones.")
+
+
+def _make_loss_layer_fc(attrs, data):
+    """``MakeLoss`` with ``normalization``: ``batch`` divides the scale
+    by the batch size, ``valid`` by the count of elements whose
+    magnitude exceeds ``valid_thresh`` (at least 1)."""
+    scale = attrs["grad_scale"]
+    norm = attrs["normalization"]
+    if norm == "batch":
+        scale = scale / data.shape[0]
+    elif norm == "valid":
+        valid = torch.sum(torch.abs(data.detach()) > attrs["valid_thresh"])
+        scale = scale / torch.clamp(valid, min=1).to(data.dtype)
+    return _MakeLoss.apply(data, scale)
+
+
+register("MakeLoss", fcompute=_make_loss_layer_fc,
+         attrs={"grad_scale": Float(1.0), "valid_thresh": Float(0.0),
+                "normalization": Str("null")},
+         doc="Loss-head layer with batch/valid normalization.")

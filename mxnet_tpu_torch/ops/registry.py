@@ -8,9 +8,12 @@ JSON holds, and shape inference for ``simple_bind``.  Gradients are not
 registered: the executor differentiates ``fcompute`` with
 ``torch.autograd``, and ops whose backward is not the derivative of
 their forward (SoftmaxOutput) or runs a kernel (the norms, attention)
-wrap an ``autograd.Function``.  The attribute parsing, naming and
-inference rules are copied from the reference, which keeps them free of
-JAX.
+wrap an ``autograd.Function``.  An op may compute more outputs than it
+shows (``num_outputs``): ``mutate`` pairs ``(out_idx, arg_idx)`` name
+the extra outputs the imperative plane writes back into state inputs
+(the optimizer updates' momentum and moments, the reference's
+FMutateInputs).  The attribute parsing, naming and inference rules are
+copied from the reference, which keeps them free of JAX.
 """
 from __future__ import annotations
 
@@ -93,7 +96,8 @@ class OpDef:
 
     def __init__(self, name, fcompute, attrs=None, arguments=("data",),
                  outputs=("output",), infer_shape=None,
-                 infer_shape_backward=None, doc=""):
+                 infer_shape_backward=None, num_outputs=1, mutate=(),
+                 doc=""):
         self.name = name
         self.fcompute = fcompute
         self.attr_specs = dict(attrs or {})
@@ -101,6 +105,9 @@ class OpDef:
         self._outputs = outputs
         self._infer_shape = infer_shape
         self._infer_shape_backward = infer_shape_backward
+        self._num_outputs = num_outputs
+        # ((out_idx, arg_idx), ...): outputs written back into inputs
+        self.mutate = tuple(mutate)
         self.doc = doc
 
     def parse_attrs(self, raw):
@@ -144,7 +151,7 @@ class OpDef:
         return list(self._outputs)
 
     def num_outputs(self, attrs):
-        return len(self._outputs)
+        return self._num_outputs
 
     def infer_shape(self, attrs, in_shapes):
         """``(in_shapes, out_shapes, aux_shapes)``; entries may stay None

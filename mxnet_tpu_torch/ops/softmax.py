@@ -1,7 +1,18 @@
-"""``SoftmaxOutput``: softmax forward, implicit cross-entropy gradient
-backward (counterpart of ``mxnet_tpu/ops/softmax.py``).
+"""Softmax operators (counterpart of ``mxnet_tpu/ops/softmax.py``):
+the plain ``softmax`` / ``log_softmax`` / ``SoftmaxActivation``, the
+``softmax_cross_entropy`` loss and the ``SoftmaxOutput`` head.
 
-The backward ignores the incoming head gradient and emits
+``softmax_cross_entropy(data, label)`` returns ``sum(loss)`` with shape
+``(1,)`` in ``data``'s dtype.  Under the reference's kernel condition
+(``data`` 2D, ``label`` 1D, at least two classes, a float dtype) it runs
+:func:`~..kernels.softmax_xent.softmax_xent_loss`, per row
+``logsumexp(x) - x[label]`` (a label outside the classes adds the row's
+``logsumexp``: the kernel's rule), forward and gradient as kernels on a
+CUDA tensor; other shapes take the reference's plain formula
+``-sum(onehot(label) * log_softmax(data))``.
+
+``SoftmaxOutput``: softmax forward, implicit cross-entropy gradient
+backward.  The backward ignores the incoming head gradient and emits
 ``softmax(x) - onehot(label)`` (times the normalisation and
 ``grad_scale``), the reference ``softmax_output.cc`` contract.  The
 plain 2D head, under exactly the reference's conditions, goes to the
@@ -15,8 +26,51 @@ from __future__ import annotations
 
 import torch
 
-from ..kernels.softmax_xent import softmax_output_head
-from .registry import Bool, Float, Str, register, register_alias
+from ..kernels.softmax_xent import softmax_output_head, softmax_xent_loss
+from .registry import Bool, Float, Int, Str, register, register_alias
+
+_FLOAT_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
+
+register("softmax",
+         fcompute=lambda attrs, x: torch.softmax(
+             x / attrs["temperature"], dim=attrs["axis"]),
+         attrs={"axis": Int(-1), "temperature": Float(1.0)},
+         doc="Softmax over `axis` of `x / temperature`.")
+register("log_softmax",
+         fcompute=lambda attrs, x: torch.log_softmax(
+             x / attrs["temperature"], dim=attrs["axis"]),
+         attrs={"axis": Int(-1), "temperature": Float(1.0)},
+         doc="Log-softmax over `axis` of `x / temperature`.")
+
+
+def _softmax_act_fc(attrs, x):
+    if attrs["mode"] == "channel":
+        return torch.softmax(x, dim=1)
+    return torch.softmax(x.reshape(x.shape[0], -1), dim=-1).reshape(x.shape)
+
+
+register("SoftmaxActivation", fcompute=_softmax_act_fc,
+         attrs={"mode": Str("instance")},
+         doc="Softmax over each instance (all axes but the first) or "
+             "over the channel axis.")
+
+
+def _sce_fc(attrs, data, label):
+    if (data.dim() == 2 and label.dim() == 1 and data.shape[1] >= 2
+            and data.dtype in _FLOAT_DTYPES):
+        loss = softmax_xent_loss(data.contiguous(),
+                                 label.to(torch.float32).contiguous())
+        return torch.sum(loss).to(data.dtype).reshape(1)
+    logp = torch.log_softmax(data, dim=-1)
+    onehot = _onehot(label, data.shape[-1], data.dtype)
+    return torch.sum(-onehot * logp).reshape(1)
+
+
+register("softmax_cross_entropy", fcompute=_sce_fc,
+         arguments=("data", "label"),
+         infer_shape=lambda attrs, ins: (ins, [(1,)], []),
+         doc="Summed softmax cross entropy of `data` against integer "
+             "`label`s, shape (1,).")
 
 
 def _softmax_value(cfg, data):

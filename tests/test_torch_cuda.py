@@ -416,3 +416,180 @@ def test_int8_and_contiguous_engines_on_card_match_cpu(cuda_device, plane):
         assert all((counts[k] > 0) == (dev == "cuda") for k in used)
         assert all(counts[k] == 0 for k in set(counts) - used)
     assert streams["cuda"] == streams["cpu"]
+
+
+# ---------------------------------------------------------------------------
+# the imperative plane: softmax_xent_loss, fused_softmax, rtc
+# ---------------------------------------------------------------------------
+def _xent_labels(rs, rows, classes):
+    """Random labels, then the edges: column 0, the last column, out of
+    range on both sides and a fraction."""
+    lbl = rs.randint(0, classes, rows).astype(np.float32)
+    edges = [0.0, classes - 1.0, -1.0, float(classes), classes + 7.0, 1.5]
+    lbl[:min(rows, len(edges))] = edges[:rows]
+    return lbl
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,classes", [(4096, 8192), (3, 1000), (6, 7),
+                                          (5, 8), (2, 2)])
+def test_softmax_xent_loss_kernels_match_plain(cuda_device, rows, classes):
+    rs = np.random.RandomState(rows + classes)
+    x, lbl, g = _on(cuda_device,
+                    (3 * rs.randn(rows, classes)).astype(np.float32),
+                    _xent_labels(rs, rows, classes),
+                    rs.uniform(0.5, 2.0, rows).astype(np.float32))
+    before = kernels.launch_counts()
+    loss = softmax_xent.xent_loss_rows(x, lbl)
+    grad = softmax_xent.softmax_xent_loss_grad(x, lbl, g)
+    torch.cuda.synchronize()
+    assert _rel(loss, softmax_xent.xent_loss_rows_reference(x, lbl)) <= 1e-5
+    assert _rel(grad, softmax_xent.softmax_xent_loss_grad_reference(
+        x, lbl, g)) <= 1e-5
+    after = kernels.launch_counts()
+    for name in ("softmax_xent_loss", "softmax_xent_loss_grad"):
+        assert after[name] == before[name] + 1
+
+
+@pytest.mark.cuda
+def test_softmax_xent_loss_kernels_take_unaligned_rows(cuda_device):
+    """A row start off 16 bytes takes the scalar loop."""
+    rs = np.random.RandomState(9)
+    (base,) = _on(cuda_device, rs.randn(5 * 8 + 1).astype(np.float32))
+    x = base[1:].reshape(5, 8)
+    lbl = torch.tensor([0.0, 7.0, 3.0, 9.0, -2.0], device=cuda_device)
+    g = torch.ones(5, device=cuda_device)
+    assert _rel(softmax_xent.xent_loss_rows(x, lbl),
+                softmax_xent.xent_loss_rows_reference(x, lbl)) <= 1e-5
+    assert _rel(softmax_xent.softmax_xent_loss_grad(x, lbl, g),
+                softmax_xent.softmax_xent_loss_grad_reference(x, lbl,
+                                                              g)) <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,classes", [(4096, 8192), (3, 1000), (5, 7)])
+def test_fused_softmax_kernels_match_plain(cuda_device, rows, classes):
+    rs = np.random.RandomState(rows * 3 + classes)
+    x, dy = _on(cuda_device, (3 * rs.randn(rows, classes)).astype(np.float32),
+                rs.randn(rows, classes).astype(np.float32))
+    xl = x.clone().requires_grad_(True)
+    p = softmax_xent.fused_softmax(xl)
+    (dx,) = torch.autograd.grad(p, xl, dy)
+    pr = softmax_xent.softmax_rows_reference(x)
+    assert _rel(p, pr) <= 1e-5
+    assert _rel(dx, softmax_xent.softmax_rows_bwd_reference(p.detach(),
+                                                            dy)) <= 1e-5
+
+
+@pytest.mark.cuda
+def test_softmax_cross_entropy_op_on_card_matches_cpu(cuda_device):
+    rs = np.random.RandomState(4)
+    x = (3 * rs.randn(64, 300)).astype(np.float32)
+    lbl = _xent_labels(rs, 64, 300)
+    res = {}
+    for ctx in (mx.gpu(0), mx.cpu()):
+        data, label = mx.nd.array(x, ctx=ctx), mx.nd.array(lbl, ctx=ctx)
+        data.attach_grad()
+        with mx.autograd.record():
+            loss = mx.nd.softmax_cross_entropy(data, label)
+        loss.backward()
+        res[ctx.device_type] = (loss._data.cpu(), data.grad._data.cpu())
+    for a, b in zip(res["gpu"], res["cpu"]):
+        assert _rel(a, b) <= 1e-5
+
+
+@pytest.mark.cuda
+def test_imperative_lm_step_on_card_matches_cpu_and_launches(cuda_device):
+    spec = tlm.lm_spec(2, 64, 2, 97)
+    params = tlm.random_params(spec, seed=6)
+    rs = np.random.RandomState(7)
+    X = rs.randint(0, 97, (4, 32)).astype(np.float32)
+    y = ((X + 1) % 97).astype(np.float32)
+    res = {}
+    for ctx in (mx.gpu(0), mx.cpu()):
+        with ctx:
+            w = {k: mx.nd.array(v) for k, v in params.items()}
+            for v in w.values():
+                v.attach_grad()
+            kernels.reset_launch_counts()
+            with mx.autograd.record():
+                loss = tlm.imperative_loss(mx.nd, w, mx.nd.array(X),
+                                           mx.nd.array(y), 32, spec)
+            loss.backward()
+            mx.nd.waitall()
+            counts = kernels.launch_counts()
+        res[ctx.device_type] = [loss._data.cpu()] + [
+            w[k].grad._data.cpu() for k in sorted(w)]
+        want = dict.fromkeys(counts, 0)
+        if ctx.device_type == "gpu":
+            want.update(rms_norm=4, rms_norm_bwd=4, layer_norm=1,
+                        layer_norm_bwd=1, softmax_xent_loss=1,
+                        softmax_xent_loss_grad=1, flash_attention=2)
+        assert counts == want
+    for a, b in zip(res["gpu"], res["cpu"]):
+        assert _rel(a, b) <= 1e-3
+
+
+RTC_FMA1 = r'''
+extern "C" __global__ void fma1(const float* x, const float* y, float* o,
+                                int n) {
+  int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) o[i] = x[i] * y[i] + 1.0f;
+}
+'''
+
+RTC_SPLIT = r'''
+extern "C" __global__ void split(const int* a, float* lo, int* hi, int n) {
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += gridDim.x * blockDim.x) {
+    lo[i] = static_cast<float>(a[i] & 0xff);
+    hi[i] = a[i] >> 8;
+  }
+}
+'''
+
+
+@pytest.mark.cuda
+def test_rtc_kernel_launches_and_matches_addcmul(cuda_device):
+    rs = np.random.RandomState(8)
+    with mx.gpu(0):
+        x = mx.nd.array(rs.randn(1000, 7).astype(np.float32))
+        y = mx.nd.array(rs.randn(1000, 7).astype(np.float32))
+        k = mx.rtc.CudaKernel("fma1", RTC_FMA1)
+        before = kernels.launch_counts()["rtc"]
+        out = k.push([x, y], [mx.nd.empty(x.shape)])
+        called = k(x, y)
+        grid = k.push([x, y], mx.nd.zeros(x.shape), grid_dims=(7,),
+                      block_dims=(1000,))
+    want = torch.addcmul(torch.ones_like(x._data), x._data, y._data)
+    ulp = torch.nextafter(want.abs(), torch.tensor(float("inf"),
+                                                   device=cuda_device)) - \
+        want.abs()
+    prod = (x._data * y._data).abs()
+    bound = 2 * torch.maximum(ulp, torch.nextafter(
+        prod, torch.tensor(float("inf"), device=cuda_device)) - prod)
+    for got in (out, called, grid):
+        assert bool(((got._data - want).abs() <= bound).all())
+    assert kernels.launch_counts()["rtc"] == before + 3
+
+
+@pytest.mark.cuda
+def test_rtc_kernel_with_int_inputs_and_two_outputs(cuda_device):
+    a = np.arange(-300, 700, dtype=np.int32) * 37
+    with mx.gpu(0):
+        k = mx.rtc.CudaKernel("split", RTC_SPLIT)
+        lo, hi = k.push(mx.nd.array(a), [mx.nd.zeros(a.shape),
+                                         mx.nd.zeros(a.shape,
+                                                     dtype="int32")],
+                        grid_dims=(2,), block_dims=(64,))
+    assert np.array_equal(lo.asnumpy(), (a & 0xff).astype(np.float32))
+    assert np.array_equal(hi.asnumpy(), a >> 8)
+
+
+@pytest.mark.cuda
+def test_rtc_kernel_of_the_wrong_arity_fails_to_build(cuda_device):
+    with mx.gpu(0):
+        k = mx.rtc.CudaKernel("fma1", RTC_FMA1)
+        x = mx.nd.ones((4,))
+        with pytest.raises(kernels._build.KernelError, match="nvcc failed"):
+            k.push([x], [x])

@@ -37,7 +37,7 @@ def _run(pkg, build, shapes, values, head_grads):
         ex.arg_dict[name][:] = val
     ex.forward(is_train=True)
     outs = [o.asnumpy() for o in ex.outputs]
-    ex.backward([pkg.nd.array(g) for g in head_grads])
+    ex.backward([pkg.nd.array(g, ctx=pkg.cpu()) for g in head_grads])
     grads = {n: g.asnumpy() for n, g in ex.grad_dict.items()}
     return outs, grads
 

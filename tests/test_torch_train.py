@@ -181,8 +181,8 @@ def test_metrics_match_jax():
              (tmx.metric.create("acc"), jmx.metric.create("acc"))]
     for t, j in cases:
         for lo, hi in ((0, 16), (16, 40)):
-            t.update([tmx.nd.array(label[lo:hi])],
-                     [tmx.nd.array(prob[lo:hi])])
+            t.update([tmx.nd.array(label[lo:hi], ctx=tmx.cpu())],
+                     [tmx.nd.array(prob[lo:hi], ctx=tmx.cpu())])
             j.update([jmx.nd.array(label[lo:hi])],
                      [jmx.nd.array(prob[lo:hi])])
         (tn, tv), (jn, jv) = t.get(), j.get()
@@ -233,9 +233,9 @@ def test_sgd_step_arithmetic_matches_jax(clip):
                                  clip_gradient=clip,
                                  param_idx2name={0: "fc_weight"})
         up = pkg.optimizer.get_updater(o)
-        w = pkg.nd.array(w0)
+        w = pkg.nd.array(w0, ctx=pkg.cpu())
         for _ in range(2):
-            up(0, pkg.nd.array(g), w)
+            up(0, pkg.nd.array(g, ctx=pkg.cpu()), w)
         out[pkg] = w.asnumpy()
     assert np.abs(out[tmx] - out[jmx]).max() <= 1e-6
 
@@ -248,7 +248,7 @@ def test_xavier_bound_and_statistics():
         assert tmx.initializer.xavier_scale(shape, ft) == \
             pytest.approx(np.sqrt(3.0 / fan))
     tmx.random.seed(0)
-    arr = tmx.nd.zeros(shape)
+    arr = tmx.nd.zeros(shape, ctx=tmx.cpu())
     tmx.initializer.Xavier()(tmx.initializer.InitDesc("fc_weight"), arr)
     a = arr.asnumpy()
     assert np.abs(a).max() <= scale
@@ -258,9 +258,9 @@ def test_xavier_bound_and_statistics():
     ref = jmx.nd.zeros(shape)
     jmx.initializer.Xavier()(jmx.initializer.InitDesc("fc_weight"), ref)
     assert np.abs(ref.asnumpy()).max() <= scale
-    g = tmx.nd.zeros((3,))
+    g = tmx.nd.zeros((3,), ctx=tmx.cpu())
     tmx.initializer.Xavier()(tmx.initializer.InitDesc("ln_gamma"), g)
-    b = tmx.nd.ones((3,))
+    b = tmx.nd.ones((3,), ctx=tmx.cpu())
     tmx.initializer.Xavier()(tmx.initializer.InitDesc("fc_bias"), b)
     assert g.asnumpy().tolist() == [1, 1, 1]
     assert b.asnumpy().tolist() == [0, 0, 0]
@@ -306,7 +306,7 @@ def test_ndarray_save_load_crosses_packages(tmp_path):
     for k, v in arrs.items():
         assert np.array_equal(got[k].asnumpy(), v)
     tmx.nd.save(str(tmp_path / "t.params"),
-                [tmx.nd.array(v) for v in arrs.values()])
+                [tmx.nd.array(v, ctx=tmx.cpu()) for v in arrs.values()])
     back = jmx.nd.load(str(tmp_path / "t.params"))
     assert [b.asnumpy().tolist() for b in back] == \
         [v.tolist() for v in arrs.values()]
