@@ -12,7 +12,9 @@ sources in this checkout on first use.  Phases, each fatal on failure:
    width 512, tolerance 1e-5 x max|ref|; paged attention, fp32 and int8
    pools with a scale per (head, block): B=32, H=8, D=64, block 64,
    16-block tables, Lq 1 and 32, ragged positions, shared blocks and
-   trash-block entries, tolerance 1e-4 absolute; dequant_matmul: M 32
+   trash-block entries, tolerance 1e-4 absolute; the bf16 norms and
+   bf16 paged attention at the same shapes, within one bf16 ulp of
+   max|ref| (plus 1e-4 for attention); dequant_matmul: M 32
    and 1024 against every (N, K) of the LM's products, 1e-5 x max|ref|;
    flash_attention_offset: B=32, H=8, Lq 1 over a 1024-key cache with
    ragged offsets, 1e-4 absolute);
@@ -34,10 +36,18 @@ sources in this checkout on first use.  Phases, each fatal on failure:
    ``paged_step_apply`` (logits within 1e-3), then the greedy streams of
    phase 3 against a CPU engine (a stream may differ only where the CPU's
    top-2 logit margin is below 1e-3);
+3d. the same mix on bf16 weights and a bf16 paged KV pool
+   (``compute_dtype="bfloat16", kv_dtype="bfloat16"``): the bf16 norms
+   and the bf16 paged kernel launch, their fp32 forms do not; weight
+   bytes and pool bytes per token exactly half of phase 3's store;
 4b. the same for phase 3b's int8 store;
+4c. the same for phase 3d's bf16 store, with the bounds of bf16: logits
+   within 2e-2 x max|ref|, and a stream may differ only where the CPU's
+   top-2 margin is below 2e-2 x |top logit|;
 5. time each kernel, its plain version and one PyTorch library call with
    CUDA events (median of 60 launches queued behind a GPU spin, so each
-   event pair brackets device time), beside the kernel's bound;
+   event pair brackets device time), beside the kernel's bound (bf16
+   kernels: bf16 bytes, and the bf16 tensor-core rate for operations);
 2+. the training path's kernels against their plain versions at training
    width: the norm backwards at 4096 x 512, the loss head's softmax and
    gradient, the cross-entropy loss and gradient (labels random, at
@@ -141,6 +151,13 @@ SOURCES = {
     "softmax_rows_bwd": ("mxnet_tpu_torch/kernels/csrc/softmax_xent.cu",
                          "mxnet_tpu/pallas_ops/softmax_xent.py:74"),
     "rtc": ("mxnet_tpu_torch/rtc.py", "mxnet_tpu/rtc.py:74"),
+    "rms_norm_bf16": ("mxnet_tpu_torch/kernels/csrc/norm.cu",
+                      "mxnet_tpu/pallas_ops/norm.py:47"),
+    "layer_norm_bf16": ("mxnet_tpu_torch/kernels/csrc/norm.cu",
+                        "mxnet_tpu/pallas_ops/norm.py:110"),
+    "flash_attention_paged_bf16": (
+        "mxnet_tpu_torch/kernels/csrc/paged_attention.cu",
+        "mxnet_tpu/pallas_ops/paged_attention.py:41"),
 }
 # serving phase -> (store arguments, kernels that must launch, kernels
 # that must not)
@@ -153,8 +170,16 @@ SERVE_PHASES = {
            ("rms_norm", "layer_norm", "flash_attention",
             "flash_attention_offset"),
            ("flash_attention_paged", "flash_attention_paged_int8")),
+    "3d": (dict(compute_dtype="bfloat16", kv_dtype="bfloat16"),
+           ("rms_norm_bf16", "layer_norm_bf16", "flash_attention_paged_bf16"),
+           ("rms_norm", "layer_norm", "flash_attention_paged")),
 }
 MARGIN = 1e-3   # a card stream may leave the CPU's only at a near tie
+# card vs CPU (phase 4*): serving phase, and the logits' bound and the
+# near-tie margin, absolute (fp32 and int8 stores) or relative to the
+# largest |logit| (bf16: a few bf16 ulps of the logits)
+CARD_VS_CPU = {"4": ("3", "abs", 1e-3), "4b": ("3b", "abs", 1e-3),
+               "4c": ("3d", "rel", 2e-2)}
 # kernel launches of one training step of the 4-layer LM: two RMSNorms
 # and one attention per block, the final LayerNorm, the loss head
 TRAIN_LAUNCHES_PER_STEP = {
@@ -194,6 +219,18 @@ def card_line():
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def bf16_ulp(x):
+    """One bf16 ulp at magnitude ``x``: ``2**(floor(log2 x) - 7)`` (8
+    significant bits), between 2**-8 and 2**-7 of ``x``."""
+    return float(2.0 ** (np.floor(np.log2(max(float(x), 1e-30))) - 7))
+
+
+def bf16_rate(name):
+    """The card's dense bf16 tensor-core rate (NVIDIA's data sheets):
+    H100 SXM 989 TFLOP/s, PCIe 756 TFLOP/s."""
+    return 756e12 if "PCIe" in name else 989e12
 
 
 def card_rates(name):
@@ -258,12 +295,13 @@ def int8_paged_inputs(lq, dev):
 
 
 def paged_work(tables, pos, lq, elem=4):
-    """(bytes, flops) this case needs: q and out once, each K/V pool row
-    some query can see once (shared blocks counted once, ``elem`` bytes
-    an element), tables and positions, and for int8 pools (``elem`` 1)
-    the fp32 scale of each visible (head, block) and a dequantizing
-    multiply per visible element; 4*D flops per visible (query row,
-    key, head)."""
+    """(bytes, flops) this case needs: q and out once (bf16, ``elem``
+    2: two bytes an element, else four), each K/V pool row some query
+    can see once (shared blocks counted once, ``elem`` bytes an
+    element), tables and positions, and for int8 pools (``elem`` 1) the
+    fp32 scale of each visible (head, block) and a dequantizing multiply
+    per visible element; 4*D flops per visible (query row, key,
+    head)."""
     B, H, D, bs = PA["B"], PA["H"], PA["D"], PA["bs"]
     tables, pos = tables.cpu().numpy(), pos.cpu().numpy()
     rows, blocks = set(), set()
@@ -274,8 +312,8 @@ def paged_work(tables, pos, lq, elem=4):
             rows.add(int(tables[b, p // bs]) * bs + p % bs)
             blocks.add(int(tables[b, p // bs]))
         keys += sum(int(pos[b]) + r + 1 for r in range(lq))
-    nbytes = (4 * (2 * B * H * lq * D + tables.size + pos.size) +
-              elem * 2 * len(rows) * H * D)
+    nbytes = ((2 if elem == 2 else 4) * 2 * B * H * lq * D +
+              4 * (tables.size + pos.size) + elem * 2 * len(rows) * H * D)
     flops = 4 * D * H * keys
     if elem == 1:
         nbytes += 4 * 2 * len(blocks) * H
@@ -375,6 +413,7 @@ def phase_compare(dev):
             "flash_attention_paged_int8", "B=%d H=%d Lq=%d D=%d bs=%d T=%d"
             % (PA["B"], PA["H"], lq, PA["D"], PA["bs"], PA["T"]), got, want,
             1e-4)
+    errs.update(phase_compare_bf16(dev))
     for M in DQ_M:
         for N, K in DQ_NK:
             x, c, s, _w = dq_inputs(M, N, K, dev)
@@ -389,6 +428,50 @@ def phase_compare(dev):
         % (OFS["B"], OFS["H"], OFS["Lk"], OFS["D"]),
         flash_attention.flash_attention_offset(q, k, v, ofs),
         flash_attention.offset_attention_reference(q, k, v, ofs), 1e-4)
+    return errs
+
+
+def bf16_inputs(*tensors):
+    return [t.to(torch.bfloat16) for t in tensors]
+
+
+def phase_compare_bf16(dev):
+    """The bf16 kernels against their plain versions at the serving
+    shapes, within one bf16 ulp of max|ref| (attention: plus 1e-4):
+    both sides widen to fp32, sum in another order and round once.
+    The log gives each error in units of 2**-8 x max|ref| as well."""
+    errs = {}
+
+    def check(name, shape, got, want, extra=0.0):
+        ref = want.float().abs().max().item()
+        err = agree(name, shape, got.float(), want.float(),
+                    bf16_ulp(ref) + extra)
+        log("phase 2 %s %s: %.3f x 2**-8 max|ref| (max|ref| %.4g)"
+            % (name, shape, err / (2.0 ** -8 * ref), ref))
+        return err
+
+    for rows in NORM_ROWS:
+        x, g, b = bf16_inputs(*norm_inputs(rows, dev))
+        shape = "rows=%d width=%d bf16" % (rows, NORM_W)
+        errs[("rms_norm_bf16", rows)] = check(
+            "rms_norm_bf16", shape, norm.rms_norm(x, g, 1e-6),
+            norm.rms_norm_reference(x, g, 1e-6))
+        errs[("layer_norm_bf16", rows)] = check(
+            "layer_norm_bf16", shape, norm.layer_norm(x, g, b, 1e-5),
+            norm.layer_norm_reference(x, g, b, 1e-5))
+    for lq in PA_LQ:
+        q, kp, vp, tbl, pos = paged_inputs(lq, dev)
+        q, kp, vp = bf16_inputs(q, kp, vp)
+        got = paged_attention.flash_attention_paged(q, kp, vp, tbl, pos,
+                                                    PA["bs"])
+        if got.dtype != torch.bfloat16:
+            raise SystemExit("chip_smoke: bf16 paged attention wrote %s"
+                             % got.dtype)
+        errs[("flash_attention_paged_bf16", lq)] = check(
+            "flash_attention_paged_bf16", "B=%d H=%d Lq=%d D=%d bs=%d T=%d "
+            "bf16" % (PA["B"], PA["H"], lq, PA["D"], PA["bs"], PA["T"]),
+            got, paged_attention.paged_attention_reference(
+                q, kp, vp, tbl, pos, PA["bs"]), 1e-4)
     return errs
 
 
@@ -672,39 +755,54 @@ def phase_int8_bytes(fp, i8):
                          "than 0.3x the fp32 pool's bytes")
 
 
-def top2_margin(model_cpu, prompt, gen, int8=False):
+def phase_bf16_bytes(fp, b16):
+    """Phase 3d's memory against phase 3's: weight bytes and pool bytes
+    per token must be exactly half (the reference's gate for the pool,
+    ``tests/test_quant_serving.py``); tokens/s beside them."""
+    wb = [r["store"].stats()["weight_bytes"]["total"] for r in (fp, b16)]
+    pt = [r["cache"]["pool_bytes_per_token"] for r in (fp, b16)]
+    log("phase 3d weight_bytes bf16 %d vs fp32 %d (%.4fx); "
+        "pool_bytes_per_token bf16 %.1f vs fp32 %.1f (%.4fx); generated "
+        "tokens/s bf16 %.1f vs fp32 %.1f"
+        % (wb[1], wb[0], wb[1] / wb[0], pt[1], pt[0], pt[1] / pt[0],
+           b16["tok_s"], fp["tok_s"]))
+    if wb[1] * 2 != wb[0] or pt[1] * 2 != pt[0]:
+        raise SystemExit("chip_smoke: bf16 weights or pool are not exactly "
+                         "half of fp32's bytes")
+
+
+def top2_margin(model_cpu, prompt, gen, kv_dtype=torch.float32):
     """CPU logit margin between the best and second-best next token
-    after ``prompt + gen`` (one sequence).  fp32 pools: one chunk.  int8
-    pools, whose codes depend on the order of the writes: the engine's
-    schedule, the prompt in 32-token prefill chunks and then one
-    generated token a step."""
+    after ``prompt + gen`` (one sequence), and the largest |logit|.
+    fp32 pools: one chunk.  int8 and bf16 pools, whose contents depend
+    on the order of the writes (int8 codes) or on the rows each product
+    saw (bf16): the engine's schedule, the prompt in 32-token prefill
+    chunks and then one generated token a step."""
     tokens = prompt + gen
     bs = 64
     T = -(-len(tokens) // bs)
     tables = np.arange(1, T + 1, dtype=np.int32)[None]
-    if not int8:
-        pk, pv = tlm.init_pool(SPEC, T + 1, bs)
-        logits = model_cpu(pk, pv, tables, np.asarray([tokens], np.int32),
-                           np.zeros(1, np.int32),
-                           np.asarray([len(tokens)], np.int32), bs)[0]
+    pk, pv = tlm.init_pool(SPEC, T + 1, bs, dtype=kv_dtype)
+    scales = tlm.init_scale_pool(SPEC, T + 1) \
+        if kv_dtype == torch.int8 else None
+    if kv_dtype == torch.float32:
+        feeds = [(0, tokens)]
     else:
-        pk, pv = tlm.init_pool(SPEC, T + 1, bs, dtype=torch.int8)
-        scales = tlm.init_scale_pool(SPEC, T + 1)
         feeds = [(p0, prompt[p0:p0 + 32]) for p0 in range(0, len(prompt), 32)]
         feeds += [(len(prompt) + i, [t]) for i, t in enumerate(gen)]
-        for p0, toks in feeds:
-            logits = model_cpu(pk, pv, tables, np.asarray([toks], np.int32),
-                               np.asarray([p0], np.int32),
-                               np.asarray([len(toks)], np.int32), bs,
-                               scales=scales)[0]
+    for p0, toks in feeds:
+        logits = model_cpu(pk, pv, tables, np.asarray([toks], np.int32),
+                           np.asarray([p0], np.int32),
+                           np.asarray([len(toks)], np.int32), bs,
+                           scales=scales)[0]
     top = torch.topk(logits[0], 2).values
-    return (top[0] - top[1]).item()
+    return (top[0] - top[1]).item(), logits.abs().max().item()
 
 
 def compare_streams(tag, got, want, reqs, margin):
     """Greedy streams ``got`` against ``want``; a stream may differ only
-    where ``margin(i, prefix)`` (the CPU's top-2 margin after the
-    common prefix) is below MARGIN."""
+    where ``margin(i, prefix)`` gives ``(m, bound)`` with the CPU's
+    top-2 margin ``m`` after the common prefix below ``bound``."""
     same = 0
     greedy = [i for i, kw in enumerate(reqs) if "temperature" not in kw]
     for i in greedy:
@@ -713,10 +811,10 @@ def compare_streams(tag, got, want, reqs, margin):
             same += 1
             continue
         k = next(j for j in range(len(a)) if a[j] != b[j])
-        m = margin(i, b[:k])
-        log("phase %s stream %d differs at step %d: CPU top-2 margin %.3e"
-            % (tag, i, k, m))
-        if not m < MARGIN:
+        m, bound = margin(i, b[:k])
+        log("phase %s stream %d differs at step %d: CPU top-2 margin %.3e "
+            "(near-tie bound %.3e)" % (tag, i, k, m, bound))
+        if not m < bound:
             raise SystemExit("chip_smoke: phase %s greedy stream %d differs "
                              "where the CPU is not near a tie" % (tag, i))
     return same, len(greedy)
@@ -727,17 +825,19 @@ def phase_contiguous_vs_paged(served, paged, reqs, model_cpu):
     same function."""
     same, n = compare_streams(
         "3c", served["results"], paged["results"], reqs,
-        lambda i, gen: top2_margin(model_cpu, reqs[i]["tokens"], gen))
+        lambda i, gen: (top2_margin(model_cpu, reqs[i]["tokens"], gen)[0],
+                        MARGIN))
     log("phase 3c greedy streams contiguous == paged: %d of %d" % (same, n))
 
 
-def phase_card_vs_cpu(tag, name, params, served, reqs, serve_tag):
+def phase_card_vs_cpu(tag, name, params, served, reqs):
     """One prefill chunk and one decode step of ``paged_step_apply`` on
-    the card and on the CPU (logits within 1e-3), then the greedy
-    streams of phase ``serve_tag`` (run as ``served``) against a CPU
-    engine's with the same store arguments."""
+    the card and on the CPU, then the greedy streams of the serving
+    phase (run as ``served``) against a CPU engine's with the same store
+    arguments; bounds from ``CARD_VS_CPU``."""
+    serve_tag, kind, bound = CARD_VS_CPU[tag]
     kw = SERVE_PHASES[serve_tag][0]
-    int8 = kw.get("kv_dtype") == "int8"
+    kv_dtype = served["store"].kv_dtype
     cpu_reg = ModelRegistry()
     cpu_reg.add_generative_model(name, params, SPEC, device="cpu",
                                  warmup=False, **kw)
@@ -751,9 +851,9 @@ def phase_card_vs_cpu(tag, name, params, served, reqs, serve_tag):
     pools, scales = {}, {}
     for m in (model_gpu, model_cpu):
         pools[m] = tlm.init_pool(SPEC, B * T + 1, bs, device=m.device,
-                                 dtype=torch.int8 if int8 else torch.float32)
+                                 dtype=kv_dtype)
         scales[m] = tlm.init_scale_pool(SPEC, B * T + 1, device=m.device) \
-            if int8 else None
+            if kv_dtype == torch.int8 else None
     for what, toks, pos, val in (
             ("prefill chunk", chunk, np.zeros(B, np.int32), valid),
             ("decode step", chunk[:, :1], valid, np.ones(B, np.int32))):
@@ -764,16 +864,21 @@ def phase_card_vs_cpu(tag, name, params, served, reqs, serve_tag):
                            scales=scales[m])[0]
             out[m] = logits.cpu()
         err = (out[model_gpu] - out[model_cpu]).abs().max().item()
-        log("phase %s %s logits card vs CPU: max_abs_err %.3e (tol 1e-3)"
-            % (tag, what, err))
-        if not (err <= 1e-3 and bool(torch.isfinite(out[model_gpu]).all())):
+        ref = out[model_cpu].abs().max().item()
+        tol = bound * ref if kind == "rel" else bound
+        log("phase %s %s logits card vs CPU: max_abs_err %.3e (tol %.3e; "
+            "%.3e x max|ref| %.4g)" % (tag, what, err, tol, err / ref, ref))
+        if not (err <= tol and bool(torch.isfinite(out[model_gpu]).all())):
             raise SystemExit("chip_smoke: card and CPU logits disagree")
     tic = time.perf_counter()
     cpu_results, _, _ = serve(cpu_reg, name, reqs)
     check_results(cpu_results, reqs)
-    same, n = compare_streams(
-        tag, served["results"], cpu_results, reqs,
-        lambda i, gen: top2_margin(model_cpu, reqs[i]["tokens"], gen, int8))
+
+    def margin(i, gen):
+        m, top = top2_margin(model_cpu, reqs[i]["tokens"], gen, kv_dtype)
+        return m, bound * top if kind == "rel" else bound
+    same, n = compare_streams(tag, served["results"], cpu_results, reqs,
+                              margin)
     log("phase %s greedy streams card == CPU: %d of %d (CPU engine %.1f s)"
         % (tag, same, n, time.perf_counter() - tic))
 
@@ -1138,11 +1243,17 @@ def library_paged(q, kp, vp, tbl, pos, bs, kv_scales=None):
         q, k, v, attn_mask=mask[:, None])
 
 
-def timed_row(name, shape, fn, plain, library, nbytes, flops, err, card):
+def timed_row(name, shape, fn, plain, library, nbytes, flops, err, card,
+              bf16=False):
     """Time ``fn``, its plain version and the library call (None where
     there is no single-call yardstick) beside the bound: the larger of
-    ``nbytes`` over the memory rate and ``flops`` over the fp32 rate."""
-    mem_rate, flop_rate, rate_name = card_rates(torch.cuda.get_device_name(0))
+    ``nbytes`` over the memory rate and ``flops`` over the fp32 rate
+    (``bf16``: over the bf16 tensor-core rate, the peak for bf16
+    inputs)."""
+    dev_name = torch.cuda.get_device_name(0)
+    mem_rate, flop_rate, rate_name = card_rates(dev_name)
+    if bf16:
+        flop_rate, rate_name = bf16_rate(dev_name), rate_name + " bf16"
     ms, plain_ms = time_ms(fn), time_ms(plain)
     lib_ms = None if library is None else time_ms(library)
     t_bytes, t_ops = nbytes / mem_rate * 1e3, flops / flop_rate * 1e3
@@ -1163,8 +1274,9 @@ def phase_times(dev, card, errs):
     F = torch.nn.functional
     entries = {}
 
-    def record(name, *args):
-        entries.setdefault(name, []).append(timed_row(name, *args, card))
+    def record(name, *args, bf16=False):
+        entries.setdefault(name, []).append(timed_row(name, *args, card,
+                                                      bf16=bf16))
 
     for rows in NORM_ROWS:
         x, g, b = norm_inputs(rows, dev)
@@ -1211,6 +1323,38 @@ def phase_times(dev, card, errs):
                    q, kc, vc, tbl, pos, bs, kv_scales=(sk, sv)),
                lambda: library_paged(q, kc, vc, tbl, pos, bs, (sk, sv)),
                nbytes, flops, errs[("flash_attention_paged_int8", lq)])
+    # bf16: the same shapes, bytes at two an element (the tables and
+    # positions stay int32)
+    for rows in NORM_ROWS:
+        x, g, b = bf16_inputs(*norm_inputs(rows, dev))
+        n = rows * NORM_W
+        shape = "rows=%d width=%d bf16" % (rows, NORM_W)
+        record("rms_norm_bf16", shape, lambda: norm.rms_norm(x, g, 1e-6),
+               lambda: norm.rms_norm_reference(x, g, 1e-6),
+               lambda: F.rms_norm(x, (NORM_W,), g, 1e-6),
+               2 * (2 * n + NORM_W), 4 * n, errs[("rms_norm_bf16", rows)],
+               bf16=True)
+        record("layer_norm_bf16", shape,
+               lambda: norm.layer_norm(x, g, b, 1e-5),
+               lambda: norm.layer_norm_reference(x, g, b, 1e-5),
+               lambda: F.layer_norm(x, (NORM_W,), g, b, 1e-5),
+               2 * (2 * n + 2 * NORM_W), 8 * n,
+               errs[("layer_norm_bf16", rows)], bf16=True)
+    for lq in PA_LQ:
+        q, kp, vp, tbl, pos = paged_inputs(lq, dev)
+        q, kp, vp = bf16_inputs(q, kp, vp)
+        bs = PA["bs"]
+        nbytes, flops = paged_work(tbl, pos, lq, elem=2)
+        record("flash_attention_paged_bf16",
+               "B=%d H=%d Lq=%d D=%d bs=%d T=%d bf16" % (
+                   PA["B"], PA["H"], lq, PA["D"], bs, PA["T"]),
+               lambda: paged_attention.flash_attention_paged(
+                   q, kp, vp, tbl, pos, bs),
+               lambda: paged_attention.paged_attention_reference(
+                   q, kp, vp, tbl, pos, bs),
+               lambda: library_paged(q, kp, vp, tbl, pos, bs),
+               nbytes, flops, errs[("flash_attention_paged_bf16", lq)],
+               bf16=True)
     for M in DQ_M:
         for N, K in DQ_NK:
             x, c, sc, w = dq_inputs(M, N, K, dev)
@@ -1351,13 +1495,16 @@ def main(argv):
     params = tlm.random_params(SPEC, seed=0)
     reqs = make_requests()
     served = {tag: phase_serve(tag, name, params, reqs)
-              for tag, name in (("3", "lm"), ("3b", "lm8"), ("3c", "lmc"))}
+              for tag, name in (("3", "lm"), ("3b", "lm8"), ("3c", "lmc"),
+                                ("3d", "lm16"))}
     phase_int8_bytes(served["3"], served["3b"])
+    phase_bf16_bytes(served["3"], served["3d"])
     phase_contiguous_vs_paged(
         served["3c"], served["3"], reqs,
         tlm.TransformerLM.from_numpy(params, SPEC, device="cpu"))
-    phase_card_vs_cpu("4", "lm", params, served["3"], reqs, "3")
-    phase_card_vs_cpu("4b", "lm8", params, served["3b"], reqs, "3b")
+    for tag, name in (("4", "lm"), ("4b", "lm8"), ("4c", "lm16")):
+        phase_card_vs_cpu(tag, name, params,
+                          served[CARD_VS_CPU[tag][0]], reqs)
     counts = {"serve_" + tag: served[tag]["counts"] for tag in served}
     counts["train"], step_ms = phase_train(dev, card)
     if argv:
@@ -1368,7 +1515,7 @@ def main(argv):
     kern = kernel_rows(phase_times(dev, card, errs), counts)
     kern += kernel_rows(phase_times_train(dev, card, errs), counts)
     for tag, what in (("3", "paged fp32"), ("3b", "paged int8"),
-                      ("3c", "contiguous fp32")):
+                      ("3c", "contiguous fp32"), ("3d", "paged bf16")):
         log("phase 5 engine %s: %.1f generated tokens/s at full width [%s]"
             % (what, served[tag]["tok_s"], card))
     print(json.dumps({"kernels": kern}))

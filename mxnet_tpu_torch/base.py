@@ -71,14 +71,15 @@ register_env("MXNET_SERVE_BUCKETS", str, "1,2,4,8,16,32",
 register_env("MXNET_SERVE_DTYPE", str, "",
              "Default serving compute dtype of models registered without "
              "an explicit compute_dtype: empty or 'float32' serves fp32 "
-             "weights, 'int8' int8 weight-only codes through the "
-             "dequant_matmul kernel; 'bfloat16' is refused.")
+             "weights, 'bfloat16' bf16 weights and activations (paged "
+             "plane), 'int8' int8 weight-only codes through the "
+             "dequant_matmul kernel.")
 register_env("MXNET_SERVE_KV_DTYPE", str, "float32",
              "KV-cache element dtype of generative models registered "
-             "without an explicit kv_dtype: 'float32', or 'int8' (paged "
-             "plane only): int8 pool codes with per-(layer, head, block) "
-             "fp32 absmax scales, dequantized inside the paged attention "
-             "kernel.  'bfloat16' is refused.")
+             "without an explicit kv_dtype: 'float32', 'bfloat16' (paged "
+             "plane: half the bytes a token) or 'int8' (paged plane): "
+             "int8 pool codes with per-(layer, head, block) fp32 absmax "
+             "scales, dequantized inside the paged attention kernel.")
 register_env("MXNET_SERVE_PAGED", int, 1,
              "1 (default): the paged KV plane (a global block pool, "
              "chunked prefill, copy-on-write prefix sharing).  0: the "

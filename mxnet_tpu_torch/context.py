@@ -100,7 +100,10 @@ def default_device(device=None):
     unavailable.  Choosing a CUDA device also pins fp32 matrix products
     to full fp32 (``torch.backends.cuda.matmul.allow_tf32 = False``,
     PyTorch's default, set explicitly), so the projections the port
-    leaves to ``torch.matmul`` keep fp32 precision."""
+    leaves to ``torch.matmul`` keep fp32 precision, and makes bf16
+    products accumulate in fp32 to the end
+    (``torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+    = False``), as the reference's bf16 products do."""
     if device is None:
         device = current_context()
     if isinstance(device, Context):
@@ -121,4 +124,5 @@ def default_device(device=None):
     if dev.index is None:
         dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     return dev

@@ -19,7 +19,8 @@ KERNELS = ("rms_norm", "layer_norm", "flash_attention_paged",
            "xent_grad_from_probs", "flash_attention", "dequant_matmul",
            "flash_attention_paged_int8", "flash_attention_offset",
            "softmax_xent_loss", "softmax_xent_loss_grad", "softmax_rows_bwd",
-           "rtc")
+           "rtc", "rms_norm_bf16", "layer_norm_bf16",
+           "flash_attention_paged_bf16")
 _counts = dict.fromkeys(KERNELS, 0)
 _counts_lock = threading.Lock()
 

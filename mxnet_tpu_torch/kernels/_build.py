@@ -49,6 +49,9 @@ _SIGNATURES = {
     "mxt_rms_norm_f32": (_P, _P, _P, _I, _I, _F, _P),
     # x, gamma, beta, y, rows, width, eps, stream
     "mxt_layer_norm_f32": (_P, _P, _P, _P, _I, _I, _F, _P),
+    # the same in bf16 (x, gamma, beta and y all bf16)
+    "mxt_rms_norm_bf16": (_P, _P, _P, _I, _I, _F, _P),
+    "mxt_layer_norm_bf16": (_P, _P, _P, _P, _I, _I, _F, _P),
     # x, gamma, dy, dx, dgamma_partials, rows, width, eps, stream
     "mxt_rms_norm_bwd_f32": (_P, _P, _P, _P, _P, _I, _I, _F, _P),
     # x, gamma, dy, dx, dgamma_partials, dbeta_partials, rows, width, eps,
@@ -74,6 +77,9 @@ _SIGNATURES = {
     # B, H, Lq, D, T, block_size, pool_rows, scale, stream
     "mxt_paged_attention_f32": (_P, _P, _P, _P, _P, _P,
                                 _I, _I, _I, _I, _I, _I, _I, _F, _P),
+    # the same with bf16 q, pools and out
+    "mxt_paged_attention_bf16": (_P, _P, _P, _P, _P, _P,
+                                 _I, _I, _I, _I, _I, _I, _I, _F, _P),
     # q, k_codes, v_codes, k_scale, v_scale, tables, positions, out,
     # B, H, Lq, D, T, block_size, pool_rows, scale, stream
     "mxt_paged_attention_i8": (_P, _P, _P, _P, _P, _P, _P, _P,
@@ -200,17 +206,21 @@ def route(name, x):
     return True
 
 
-def check_args(name, *tensors):
+def check_args(name, *tensors, dtypes=(torch.float32,)):
     """Refuse what a CUDA kernel does not take: tensors on different
-    devices, a dtype other than float32, a non-contiguous layout."""
-    dev = tensors[0].device
+    devices, a dtype outside ``dtypes`` or other than the first
+    tensor's (a kernel has one element type), a non-contiguous
+    layout."""
+    dev, dtype = tensors[0].device, tensors[0].dtype
     for t in tensors:
         if t.device != dev:
             raise KernelError("%s: all tensors must be on %s, got %s"
                               % (name, dev, t.device))
-        if t.dtype != torch.float32:
-            raise KernelError("%s: the CUDA kernel takes float32, got %s"
-                              % (name, t.dtype))
+        if t.dtype not in dtypes or t.dtype != dtype:
+            raise KernelError(
+                "%s: the CUDA kernel takes %s, all of one dtype, got %s"
+                % (name, " or ".join(str(d).replace("torch.", "")
+                                     for d in dtypes), t.dtype))
         if not t.is_contiguous():
             raise KernelError("%s: tensors must be contiguous" % name)
 

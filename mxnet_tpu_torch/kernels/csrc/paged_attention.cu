@@ -1,5 +1,6 @@
-// Paged flash attention forward for Hopper (sm_90a): fp32 pools, and
-// int8 code pools with per-(head, physical block) fp32 scales.
+// Paged flash attention forward for Hopper (sm_90a): fp32 pools, bf16
+// pools (with bf16 q and output), and int8 code pools with per-(head,
+// physical block) fp32 scales.
 //
 // Replaces the TPU kernel _paged_kernel of
 // mxnet_tpu/pallas_ops/paged_attention.py, both of its variants
@@ -23,9 +24,9 @@
 //    physical blocks and any block size works;
 //  * all four warps stage each K/V tile with 16-byte cp.async copies,
 //    double-buffered: tile t+1's copies are in flight while tile t is
-//    computed.  K rows are padded by 16 bytes (4 floats, or 16 int8
-//    codes) so that lane k's 16-byte reads of key k are free of bank
-//    conflicts;
+//    computed.  K rows are padded by 16 bytes (4 floats, 8 bf16 values
+//    or 16 int8 codes) so that lane k's 16-byte reads of key k are free
+//    of bank conflicts;
 //  * scores: lane k computes query-row . key-k; the online softmax keeps
 //    m, l in fp32 registers per row and the output accumulator spread
 //    over the lanes, D/32 floats each; p is broadcast lane to lane with
@@ -37,6 +38,14 @@
 //    two physical blocks), K codes become codes * scale_k before the dot
 //    with q, and in the P.V loop each V code becomes code * scale_v of
 //    its key, the scale shuffled from the key's lane;
+//  * bf16 pools (the TPU kernel's tiles in bf16, widened at :79-81)
+//    stage half the fp32 bytes with the same 16-byte copies, 8 values
+//    each, and widen each key and value element to fp32 at its product
+//    (a bf16 is the top half of an fp32, so widening is a shift); q is
+//    widened into the fp32 Q tile once.  Scores, the online softmax
+//    and the accumulator stay fp32, and the output is rounded to bf16
+//    to nearest even (__float2bfloat16_rn), the TPU kernel's
+//    astype(o_ref.dtype) at :108-109;
 //  * semantics kept from the TPU kernel: keys past the tile's last query
 //    position are never read (the dynamic block skip of
 //    paged_attention.py:75, at key granularity: skipped keys would have
@@ -44,9 +53,10 @@
 //    (:93-98); the output is acc / (l > 0 ? l : 1) (:108-109).  Table
 //    entries past the frontier point at the trash block 0; their keys are
 //    always masked, so nothing from them leaks.
-// Requires D <= 256 and D % 4 == 0 (fp32: 16-byte rows) or D % 16 == 0
-// (int8).  No tensor cores and no split of one sequence's keys over
-// several blocks: later work.
+// Requires D <= 256 and a 16-byte row: D % 4 == 0 (fp32), D % 8 == 0
+// (bf16) or D % 16 == 0 (int8).  No tensor cores and no split of one
+// sequence's keys over several blocks: later work.
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -91,24 +101,44 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
+// element loads widened to fp32, and the output narrowed to its type
+__device__ __forceinline__ float widen(float v) { return v; }
+__device__ __forceinline__ float widen(int8_t v) {
+  return static_cast<float>(v);
+}
+__device__ __forceinline__ float widen(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+__device__ __forceinline__ void narrow(float* p, float v) { *p = v; }
+__device__ __forceinline__ void narrow(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16_rn(v);
+}
+
+// bf16 element e (0: low half) of a little-endian word, widened
+__device__ __forceinline__ float bf16_at(uint32_t word, int e) {
+  return __uint_as_float(e == 0 ? word << 16 : word & 0xffff0000u);
+}
+
 __device__ __forceinline__ float code_at(uint32_t word, int e) {
   // byte e of a little-endian word, sign-extended
   return static_cast<float>(static_cast<int32_t>(word << (24 - 8 * e)) >>
                             24);
 }
 
-// E: pool element, float or int8_t (codes, with k_scale/v_scale (H,
-// num_blocks) fp32; null for float).  DPL: head-dim elements each lane
+// E: pool element, float, __nv_bfloat16 or int8_t (codes, with
+// k_scale/v_scale (H, num_blocks) fp32; null otherwise).  Q: q and out
+// element, float or __nv_bfloat16.  DPL: head-dim elements each lane
 // accumulates (D <= 32 * DPL).
-template <typename E, int DPL>
+template <typename E, typename Q, int DPL>
 __global__ void __launch_bounds__(kThreads) paged_attention_kernel(
-    const float* __restrict__ q, const E* __restrict__ k_pool,
+    const Q* __restrict__ q, const E* __restrict__ k_pool,
     const E* __restrict__ v_pool, const float* __restrict__ k_scale,
     const float* __restrict__ v_scale, const int* __restrict__ tables,
-    const int* __restrict__ positions, float* __restrict__ out, int H,
+    const int* __restrict__ positions, Q* __restrict__ out, int H,
     int Lq, int D, int T, int bs, int pool_rows, int num_blocks,
     int block_q, float scale) {
   constexpr bool kInt8 = std::is_same<E, int8_t>::value;
+  constexpr bool kBf16 = std::is_same<E, __nv_bfloat16>::value;
   constexpr int kVec = 16 / sizeof(E);   // elements per 16-byte copy
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
@@ -155,8 +185,8 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(
 
   issue(0, 0);
   const size_t bh = static_cast<size_t>(b) * H + h;
-  const float* qg = q + (bh * Lq + q0) * D;
-  for (int i = threadIdx.x; i < nq * D; i += kThreads) qs[i] = qg[i];
+  const Q* qg = q + (bh * Lq + q0) * D;
+  for (int i = threadIdx.x; i < nq * D; i += kThreads) qs[i] = widen(qg[i]);
 
   float m[kMaxRowsPerWarp], l[kMaxRowsPerWarp];
   float acc[kMaxRowsPerWarp][DPL];
@@ -217,6 +247,23 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(
                 d3 += a.w * (code_at(words[u], 3) * sk);
               }
             }
+          } else if constexpr (kBf16) {
+            // 8 values a chunk, two q float4s
+            const uint4* k16 =
+                reinterpret_cast<const uint4*>(ks + lane * ks_stride);
+            for (int j = 0; j < DV; ++j) {
+              const uint4 w = k16[j];
+              const float4 a = q4[2 * j];
+              const float4 c = q4[2 * j + 1];
+              d0 += a.x * bf16_at(w.x, 0);
+              d1 += a.y * bf16_at(w.x, 1);
+              d2 += a.z * bf16_at(w.y, 0);
+              d3 += a.w * bf16_at(w.y, 1);
+              d0 += c.x * bf16_at(w.z, 0);
+              d1 += c.y * bf16_at(w.z, 1);
+              d2 += c.z * bf16_at(w.w, 0);
+              d3 += c.w * bf16_at(w.w, 1);
+            }
           } else {
             const float4* k4 =
                 reinterpret_cast<const float4*>(ks + lane * ks_stride);
@@ -247,13 +294,13 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(
             for (int e = 0; e < DPL; ++e) {
               const int d = lane + 32 * e;
               if (d < D)
-                acc[rr][e] += pk * (static_cast<float>(vr[d]) * svk);
+                acc[rr][e] += pk * (widen(vr[d]) * svk);
             }
           } else {
 #pragma unroll
             for (int e = 0; e < DPL; ++e) {
               const int d = lane + 32 * e;
-              if (d < D) acc[rr][e] += pk * vr[d];
+              if (d < D) acc[rr][e] += pk * widen(vr[d]);
             }
           }
         }
@@ -267,20 +314,20 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(
     const int r = warp + rr * kWarps;
     if (r < nq) {
       const float denom = l[rr] > 0.f ? l[rr] : 1.f;
-      float* orow = out + (bh * Lq + q0 + r) * D;
+      Q* orow = out + (bh * Lq + q0 + r) * D;
 #pragma unroll
       for (int e = 0; e < DPL; ++e) {
         const int d = lane + 32 * e;
-        if (d < D) orow[d] = acc[rr][e] / denom;
+        if (d < D) narrow(orow + d, acc[rr][e] / denom);
       }
     }
   }
 }
 
-template <typename E, int DPL>
-int launch(const float* q, const E* k_pool, const E* v_pool,
+template <typename E, typename Q, int DPL>
+int launch(const Q* q, const E* k_pool, const E* v_pool,
            const float* k_scale, const float* v_scale, const int* tables,
-           const int* positions, float* out, int B, int H, int Lq, int D,
+           const int* positions, Q* out, int B, int H, int Lq, int D,
            int T, int bs, int pool_rows, int num_blocks, float scale,
            cudaStream_t stream) {
   const int block_q = Lq < kMaxBlockQ ? Lq : kMaxBlockQ;
@@ -291,39 +338,39 @@ int launch(const float* q, const E* k_pool, const E* v_pool,
                    2 * static_cast<size_t>(kKeyTile) * D);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        paged_attention_kernel<E, DPL>,
+        paged_attention_kernel<E, Q, DPL>,
         cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   const dim3 grid((Lq + block_q - 1) / block_q, H, B);
-  paged_attention_kernel<E, DPL><<<grid, kThreads, smem, stream>>>(
+  paged_attention_kernel<E, Q, DPL><<<grid, kThreads, smem, stream>>>(
       q, k_pool, v_pool, k_scale, v_scale, tables, positions, out, H, Lq,
       D, T, bs, pool_rows, num_blocks, block_q, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename E>
-int dispatch(const float* q, const E* k_pool, const E* v_pool,
+template <typename E, typename Q>
+int dispatch(const Q* q, const E* k_pool, const E* v_pool,
              const float* k_scale, const float* v_scale, const int* tables,
-             const int* positions, float* out, int B, int H, int Lq, int D,
+             const int* positions, Q* out, int B, int H, int Lq, int D,
              int T, int bs, int pool_rows, int num_blocks, float scale,
              cudaStream_t stream) {
   if (D <= 32)
-    return launch<E, 1>(q, k_pool, v_pool, k_scale, v_scale, tables,
-                        positions, out, B, H, Lq, D, T, bs, pool_rows,
-                        num_blocks, scale, stream);
+    return launch<E, Q, 1>(q, k_pool, v_pool, k_scale, v_scale, tables,
+                           positions, out, B, H, Lq, D, T, bs, pool_rows,
+                           num_blocks, scale, stream);
   if (D <= 64)
-    return launch<E, 2>(q, k_pool, v_pool, k_scale, v_scale, tables,
-                        positions, out, B, H, Lq, D, T, bs, pool_rows,
-                        num_blocks, scale, stream);
+    return launch<E, Q, 2>(q, k_pool, v_pool, k_scale, v_scale, tables,
+                           positions, out, B, H, Lq, D, T, bs, pool_rows,
+                           num_blocks, scale, stream);
   if (D <= 128)
-    return launch<E, 4>(q, k_pool, v_pool, k_scale, v_scale, tables,
-                        positions, out, B, H, Lq, D, T, bs, pool_rows,
-                        num_blocks, scale, stream);
-  return launch<E, 8>(q, k_pool, v_pool, k_scale, v_scale, tables,
-                      positions, out, B, H, Lq, D, T, bs, pool_rows,
-                      num_blocks, scale, stream);
+    return launch<E, Q, 4>(q, k_pool, v_pool, k_scale, v_scale, tables,
+                           positions, out, B, H, Lq, D, T, bs, pool_rows,
+                           num_blocks, scale, stream);
+  return launch<E, Q, 8>(q, k_pool, v_pool, k_scale, v_scale, tables,
+                         positions, out, B, H, Lq, D, T, bs, pool_rows,
+                         num_blocks, scale, stream);
 }
 
 }  // namespace
@@ -337,9 +384,24 @@ extern "C" int mxt_paged_attention_f32(
     return static_cast<int>(cudaGetLastError());
   if (D <= 0 || D > 256 || D % 4 != 0 || T <= 0 || bs <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  return dispatch<float>(q, k_pool, v_pool, nullptr, nullptr, tables,
-                         positions, out, B, H, Lq, D, T, bs, pool_rows,
-                         pool_rows / bs, scale, stream);
+  return dispatch<float, float>(q, k_pool, v_pool, nullptr, nullptr,
+                                tables, positions, out, B, H, Lq, D, T, bs,
+                                pool_rows, pool_rows / bs, scale, stream);
+}
+
+// bf16 q, pools and out; D % 8 == 0.
+extern "C" int mxt_paged_attention_bf16(
+    const __nv_bfloat16* q, const __nv_bfloat16* k_pool,
+    const __nv_bfloat16* v_pool, const int* tables, const int* positions,
+    __nv_bfloat16* out, int B, int H, int Lq, int D, int T, int bs,
+    int pool_rows, float scale, cudaStream_t stream) {
+  if (B <= 0 || H <= 0 || Lq <= 0)
+    return static_cast<int>(cudaGetLastError());
+  if (D <= 0 || D > 256 || D % 8 != 0 || T <= 0 || bs <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return dispatch<__nv_bfloat16, __nv_bfloat16>(
+      q, k_pool, v_pool, nullptr, nullptr, tables, positions, out, B, H, Lq,
+      D, T, bs, pool_rows, pool_rows / bs, scale, stream);
 }
 
 // The kv_scales variant: k_pool/v_pool int8 codes (H, pool_rows, D),
@@ -353,7 +415,7 @@ extern "C" int mxt_paged_attention_i8(
     return static_cast<int>(cudaGetLastError());
   if (D <= 0 || D > 256 || D % 16 != 0 || T <= 0 || bs <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  return dispatch<int8_t>(q, k_pool, v_pool, k_scale, v_scale, tables,
-                          positions, out, B, H, Lq, D, T, bs, pool_rows,
-                          pool_rows / bs, scale, stream);
+  return dispatch<int8_t, float>(q, k_pool, v_pool, k_scale, v_scale,
+                                 tables, positions, out, B, H, Lq, D, T, bs,
+                                 pool_rows, pool_rows / bs, scale, stream);
 }

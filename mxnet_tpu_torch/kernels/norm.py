@@ -2,13 +2,16 @@
 plain versions.
 
 Counterpart of ``mxnet_tpu/pallas_ops/norm.py``.  ``rms_norm`` and
-``layer_norm`` take a 2D ``(rows, width)`` fp32 tensor and normalise
-each row over its last axis with fp32 statistics; ``rms_norm_bwd`` and
-``layer_norm_bwd`` return ``dx`` and the weight gradients.  A CPU tensor
-runs the plain version beside each; a CUDA tensor launches
-``csrc/norm.cu`` or raises.  :class:`RMSNorm` and :class:`LayerNorm`
-pair each forward with its backward as one ``torch.autograd.Function``
-whose residuals are ``(x, gamma)``, as the reference's ``custom_vjp``.
+``layer_norm`` take a 2D ``(rows, width)`` fp32 or bf16 tensor (its
+parameters in the same dtype) and normalise each row over its last axis
+with fp32 statistics, writing the output in the input's dtype; the bf16
+launches count as ``rms_norm_bf16`` and ``layer_norm_bf16``.
+``rms_norm_bwd`` and ``layer_norm_bwd`` (fp32) return ``dx`` and the
+weight gradients.  A CPU tensor runs the plain version beside each; a
+CUDA tensor launches ``csrc/norm.cu`` or raises.  :class:`RMSNorm` and
+:class:`LayerNorm` pair each forward with its backward as one
+``torch.autograd.Function`` whose residuals are ``(x, gamma)``, as the
+reference's ``custom_vjp``.
 """
 from __future__ import annotations
 
@@ -22,6 +25,8 @@ __all__ = ["rms_norm", "layer_norm", "rms_norm_bwd", "layer_norm_bwd",
            "RMSNorm", "LayerNorm"]
 
 BWD_ROWS_PER_BLOCK = 16   # kBwdRowsPerBlock of csrc/norm.cu
+# forward dtype -> (launch-count suffix, C entry point suffix)
+_FWD = {torch.float32: ("", "_f32"), torch.bfloat16: ("_bf16", "_bf16")}
 
 
 def rms_norm_reference(x, gamma, eps=1e-6):
@@ -68,11 +73,11 @@ def layer_norm_bwd_reference(x, gamma, dy, eps=1e-5):
             torch.sum(d, dim=0).to(gamma.dtype))
 
 
-def _check_rows(name, x, *vecs, like=()):
+def _check_rows(name, x, *vecs, like=(), dtypes=(torch.float32,)):
     if x.dim() != 2:
         raise KernelError("%s takes a 2D (rows, width) tensor, got shape %s"
                           % (name, tuple(x.shape)))
-    check_args(name, x, *vecs, *like)
+    check_args(name, x, *vecs, *like, dtypes=dtypes)
     for v in vecs:
         if v.shape != (x.shape[1],):
             raise KernelError("%s: parameter shape %s does not match width "
@@ -88,9 +93,10 @@ def rms_norm(x, gamma, eps=1e-6):
     ``gamma``."""
     if not route("rms_norm", x):
         return rms_norm_reference(x, gamma, eps)
-    _check_rows("rms_norm", x, gamma)
+    _check_rows("rms_norm", x, gamma, dtypes=tuple(_FWD))
+    tag, sfx = _FWD[x.dtype]
     y = torch.empty_like(x)
-    launch(x, "rms_norm", "mxt_rms_norm_f32", x.data_ptr(),
+    launch(x, "rms_norm" + tag, "mxt_rms_norm" + sfx, x.data_ptr(),
            gamma.data_ptr(), y.data_ptr(), x.shape[0], x.shape[1],
            float(eps))
     return y
@@ -101,9 +107,10 @@ def layer_norm(x, gamma, beta, eps=1e-5):
     ``gamma``/``beta``."""
     if not route("layer_norm", x):
         return layer_norm_reference(x, gamma, beta, eps)
-    _check_rows("layer_norm", x, gamma, beta)
+    _check_rows("layer_norm", x, gamma, beta, dtypes=tuple(_FWD))
+    tag, sfx = _FWD[x.dtype]
     y = torch.empty_like(x)
-    launch(x, "layer_norm", "mxt_layer_norm_f32", x.data_ptr(),
+    launch(x, "layer_norm" + tag, "mxt_layer_norm" + sfx, x.data_ptr(),
            gamma.data_ptr(), beta.data_ptr(), y.data_ptr(), x.shape[0],
            x.shape[1], float(eps))
     return y

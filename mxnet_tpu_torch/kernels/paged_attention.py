@@ -1,19 +1,23 @@
 """Paged flash attention: block-table indirection over a global KV pool.
 
 Counterpart of ``mxnet_tpu/pallas_ops/paged_attention.py``, forward
-only, for fp32 pools and for int8 code pools with per-(head, physical
-block) fp32 scales (``kv_scales``).  Logical token position ``p`` of
-sequence ``b`` lives at pool row ``tables[b, p // bs] * bs + p % bs``,
-so sequences share physical blocks (prefix reuse) and grow one block at
-a time.
+only, for fp32 pools, bf16 pools (with a bf16 q) and int8 code pools
+with per-(head, physical block) fp32 scales (``kv_scales``).  Logical
+token position ``p`` of sequence ``b`` lives at pool row ``tables[b, p
+// bs] * bs + p % bs``, so sequences share physical blocks (prefix
+reuse) and grow one block at a time.
 
 ``flash_attention_paged`` routes by device: a CPU tensor runs
 ``paged_attention_reference`` (gather the pool rows through the same
 table arithmetic, dequantize int8 rows as ``codes * scale[h, tbl[b,
 j]]``, then dense offset-causal attention with the same ``-1e30`` mask
 constant and fp32 accumulation); a CUDA tensor launches
-``csrc/paged_attention.cu`` (its fp32 or its int8 kernel, counted as
-``flash_attention_paged`` and ``flash_attention_paged_int8``) or raises.
+``csrc/paged_attention.cu`` (its fp32, bf16 or int8 kernel, counted as
+``flash_attention_paged``, ``flash_attention_paged_bf16`` and
+``flash_attention_paged_int8``) or raises.  Over an int8 pool a bf16 q
+is widened to fp32 for the int8 kernel (exactly) and its output cast
+back to bf16, as the reference's int8 kernel takes a bf16 q and writes
+a bf16 output.
 """
 from __future__ import annotations
 
@@ -25,6 +29,15 @@ __all__ = ["flash_attention_paged", "paged_attention_reference"]
 
 _NEG = -1e30  # the TPU kernel's mask constant, shared for parity
 MAX_HEAD_DIM = 256
+# pool dtype -> (launch name, C entry point, head-dim multiple: one
+# 16-byte copy of a row)
+_VARIANTS = {
+    torch.float32: ("flash_attention_paged", "mxt_paged_attention_f32", 4),
+    torch.bfloat16: ("flash_attention_paged_bf16",
+                     "mxt_paged_attention_bf16", 8),
+    torch.int8: ("flash_attention_paged_int8", "mxt_paged_attention_i8",
+                 16),
+}
 
 
 def paged_attention_reference(q, k_pool, v_pool, tables, positions,
@@ -65,14 +78,19 @@ def paged_attention_reference(q, k_pool, v_pool, tables, positions,
 
 
 def _check(q, k_pool, v_pool, tables, positions, bs, kv_scales=None):
+    """Refuse what the kernel for ``k_pool``'s dtype does not take: the
+    pools fp32 or bf16 with q in the same dtype, or int8 codes (with
+    ``kv_scales``) and an fp32 q."""
     B, H, Lq, D = q.shape
-    mult = 4 if kv_scales is None else 16   # one 16-byte copy of a row
+    pool_dtype = torch.int8 if kv_scales is not None else (
+        k_pool.dtype if k_pool.dtype == torch.bfloat16 else torch.float32)
+    mult = _VARIANTS[pool_dtype][2]
     if D > MAX_HEAD_DIM or D % mult:
         raise ValueError("flash_attention_paged: the CUDA kernel takes a "
                          "head_dim that is a multiple of %d up to %d, got "
                          "%d" % (mult, MAX_HEAD_DIM, D))
-    pool_dtype = torch.float32 if kv_scales is None else torch.int8
-    args = [("q", q, torch.float32), ("k_pool", k_pool, pool_dtype),
+    q_dtype = torch.float32 if kv_scales is not None else pool_dtype
+    args = [("q", q, q_dtype), ("k_pool", k_pool, pool_dtype),
             ("v_pool", v_pool, pool_dtype), ("tables", tables, torch.int32),
             ("positions", positions, torch.int32)]
     if kv_scales is not None:
@@ -119,11 +137,12 @@ def flash_attention_paged(q, k_pool, v_pool, tables, positions, block_size,
     point at a valid block (conventionally the trash block 0) — their
     keys are masked either way.  ``kv_scales`` — ``(scale_k, scale_v)``,
     each (H, num_blocks) fp32 — marks the pools as int8 codes, each
-    physical block dequantized with its head's scale.  The CUDA kernels
-    take fp32 q, fp32 pools (or int8 pools and fp32 scales), int32
-    tables and positions, all contiguous, 16-byte aligned pools and a
-    head dim D up to 256 that is a multiple of 4 (fp32 pools) or of 16
-    (int8 pools)."""
+    physical block dequantized with its head's scale.  The output is in
+    q's dtype.  The CUDA kernels take fp32 q and pools, bf16 q and
+    pools, or int8 pools with fp32 scales and an fp32 or bf16 q (a bf16
+    q is widened for that kernel), int32 tables and positions, all
+    contiguous, 16-byte aligned pools and a head dim D up to 256 that
+    is a multiple of 4 (fp32 pools), 8 (bf16) or 16 (int8)."""
     bs = int(block_size)
     D = q.shape[-1]
     if scale is None:
@@ -131,18 +150,18 @@ def flash_attention_paged(q, k_pool, v_pool, tables, positions, block_size,
     if not route("flash_attention_paged", q):
         return paged_attention_reference(q, k_pool, v_pool, tables,
                                          positions, bs, scale, kv_scales)
+    if kv_scales is not None and q.dtype == torch.bfloat16:
+        return flash_attention_paged(q.float(), k_pool, v_pool, tables,
+                                     positions, bs, scale,
+                                     kv_scales).to(q.dtype)
     _check(q, k_pool, v_pool, tables, positions, bs, kv_scales)
     B, H, Lq, _ = q.shape
+    name, entry, _mult = _VARIANTS[k_pool.dtype]
+    scale_ptrs = () if kv_scales is None else (kv_scales[0].data_ptr(),
+                                               kv_scales[1].data_ptr())
     out = torch.empty_like(q)
-    if kv_scales is None:
-        launch(q, "flash_attention_paged", "mxt_paged_attention_f32",
-               q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-               tables.data_ptr(), positions.data_ptr(), out.data_ptr(), B,
-               H, Lq, D, tables.shape[1], bs, k_pool.shape[1], float(scale))
-    else:
-        launch(q, "flash_attention_paged_int8", "mxt_paged_attention_i8",
-               q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-               kv_scales[0].data_ptr(), kv_scales[1].data_ptr(),
-               tables.data_ptr(), positions.data_ptr(), out.data_ptr(), B,
-               H, Lq, D, tables.shape[1], bs, k_pool.shape[1], float(scale))
+    launch(q, name, entry, q.data_ptr(), k_pool.data_ptr(),
+           v_pool.data_ptr(), *scale_ptrs, tables.data_ptr(),
+           positions.data_ptr(), out.data_ptr(), B, H, Lq, D,
+           tables.shape[1], bs, k_pool.shape[1], float(scale))
     return out

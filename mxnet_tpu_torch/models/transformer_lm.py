@@ -7,7 +7,7 @@ builds the one-shot training graph (a copy of the reference's),
 ``softmax_cross_entropy`` loss (the imperative plane), and the serving
 steps apply the same weights, under the same argument names, so
 a model trained by ``Module`` is served as it is: :func:`paged_step_apply`
-on the paged KV plane (fp32 or int8 pools), :func:`prefill_apply` and
+on the paged KV plane (fp32, bf16 or int8 pools), :func:`prefill_apply` and
 :func:`decode_apply` on the contiguous plane.  Pre-norm blocks
 (RMSNorm), learned q/k/v/proj projections without biases, a ReLU FFN at
 4x width, a final LayerNorm and the ``pred`` head.  RMSNorm, LayerNorm,
@@ -232,7 +232,8 @@ def init_pool(spec, num_blocks, block_size, dtype=torch.float32,
     """Zeroed paged KV pool pair, each ``(num_layers, num_heads,
     num_blocks * block_size, head_dim)``.  Block 0 is the reserved trash
     block: pad writes land there and no real table entry points at
-    it.  ``dtype=torch.int8`` makes the int8 plane's code pools."""
+    it.  ``dtype=torch.bfloat16`` halves the bytes of a token;
+    ``dtype=torch.int8`` makes the int8 plane's code pools."""
     dh = spec["num_hidden"] // spec["num_heads"]
     shape = (spec["num_layers"], spec["num_heads"],
              int(num_blocks) * int(block_size), dh)
@@ -358,7 +359,8 @@ def paged_step_apply(params, pool_k, pool_v, tables, tokens, positions,
     :func:`init_pool`.  Table entries past a sequence's frontier must
     point at a valid block, conventionally the trash block 0.  Inputs may
     be numpy arrays or tensors; they are moved to the pools' device.
-    Params may hold :class:`QuantizedWeight` pairs (int8 weights).
+    Params may hold :class:`QuantizedWeight` pairs (int8 weights) or be
+    bf16 (bf16 compute: the activations follow the weights' dtype).
 
     Each layer writes the chunk's K/V to pool rows ``tables[b, p // bs] *
     bs + p % bs`` and attends through :func:`sdp_attention_paged`; pad
@@ -368,6 +370,11 @@ def paged_step_apply(params, pool_k, pool_v, tables, tokens, positions,
     arguments — and returned for symmetry with it.  Rows that index the
     same pool row in one step may only ever be pad rows in the trash
     block, or recomputed prompt rows writing identical values.
+
+    On a float pool (fp32 or bf16) the K/V rows are written in the
+    pool's dtype and the queries attend in it; the attention output is
+    cast to the activations' dtype before the ``proj`` product, as the
+    reference casts (``q.astype(cdt)``, ``att.astype(x.dtype)``).
 
     ``scales`` — ``(scale_k, scale_v)`` from :func:`init_scale_pool` —
     selects the int8 pool layout: the pools hold int8 codes with
@@ -428,9 +435,10 @@ def paged_step_apply(params, pool_k, pool_v, tables, tokens, positions,
                                                  k.to(pool_k.dtype))
             pool_v[i].transpose(0, 1).index_put_((dest,),
                                                  v.to(pool_v.dtype))
-            att = sdp_attention_paged(q, pool_k[i], pool_v[i], tables32,
-                                      pos32, bs)
-        att = att.permute(0, 2, 1, 3).reshape(-1, D)
+            # q in the pool's dtype, as the reference's q.astype(cdt)
+            att = sdp_attention_paged(q.to(pool_k.dtype), pool_k[i],
+                                      pool_v[i], tables32, pos32, bs)
+        att = att.permute(0, 2, 1, 3).reshape(-1, D).to(x.dtype)
         x = x + _mm(att, bp["proj_weight"]).reshape(B, Lq, D)
         f = rms_norm(x, bp["ln2_gamma"], 1e-6).reshape(-1, D)
         x = x + _ffn(f, bp).reshape(B, Lq, D)
@@ -587,15 +595,25 @@ class TransformerLM:
         functions take."""
         return dict(self._params)
 
+    def astype(self, dtype):
+        """A model whose floating tensors are cast to ``dtype`` (bf16
+        serving casts every floating weight once, at load, as the
+        reference's store does); int8 codes and their fp32 scales stay
+        as they are."""
+        return type(self)(self.spec, {
+            k: v.to(dtype) if isinstance(v, torch.Tensor) and
+            v.is_floating_point() else v
+            for k, v in self._params.items()})
+
     def to_numpy(self):
-        """name -> fp32 numpy array, or a ``(codes, scales)`` numpy pair
-        for an int8 weight."""
+        """name -> fp32 numpy array (bf16 weights widened), or a
+        ``(codes, scales)`` numpy pair for an int8 weight."""
         out = {}
         for k, v in self._params.items():
             if isinstance(v, QuantizedWeight):
                 out[k] = (v.codes.cpu().numpy(), v.scales.cpu().numpy())
             else:
-                out[k] = v.detach().cpu().numpy()
+                out[k] = v.detach().float().cpu().numpy()
         return out
 
     @property

@@ -301,7 +301,10 @@ class NDArray:
 
     def _ibinary(self, o, fn, name):
         """In-place arithmetic: recorded as a new value while recording
-        (the reference's rebinding), in place under no_grad otherwise."""
+        (the reference's rebinding).  Otherwise the result is written
+        into the tensor (views see it) when its dtype and shape are
+        ``self``'s, and rebound as in the reference when they differ
+        (int32 ``+= 0.5`` is float32, a broadcast grows the shape)."""
         if _autograd.is_recording() or (self._data.requires_grad
                                         and not self._data.is_leaf):
             res = _eager(name, fn, self, o)
@@ -309,7 +312,12 @@ class NDArray:
             return self
         other = o._data if isinstance(o, NDArray) else o
         with torch.no_grad():
-            self._data.copy_(fn(self._data, other))
+            res = fn(self._data, other)
+            if res.dtype == self._data.dtype and \
+                    res.shape == self._data.shape:
+                self._data.copy_(res)
+            else:
+                self._data = res
         return self
 
     def __iadd__(self, o): return self._ibinary(o, torch.add, "iadd")

@@ -14,10 +14,18 @@ register("elemwise_add", fcompute=lambda attrs, a, b: torch.add(a, b),
 register_alias("elemwise_add", "_plus")
 register_alias("elemwise_add", "_add")
 
-register("_plus_scalar",
-         fcompute=lambda attrs, x: x + attrs["scalar"],
-         attrs={"scalar": Float(required=True)},
-         doc="Elementwise `add(x, scalar)`.")
+
+def _scalar(name, fn, doc):
+    """A ``*_scalar`` op: the scalar is cast to ``x``'s dtype first, as
+    the reference's ``jnp.asarray(scalar, dtype=x.dtype)`` (an int32
+    ``x`` plus 2.7 adds 2 and stays int32)."""
+    register(name,
+             fcompute=lambda attrs, x: fn(x, torch.tensor(
+                 attrs["scalar"], dtype=torch.float64).to(x.dtype)),
+             attrs={"scalar": Float(required=True)}, doc=doc)
+
+
+_scalar("_plus_scalar", torch.add, "Elementwise `add(x, scalar)`.")
 
 
 def _unary(name, fn):

@@ -36,13 +36,30 @@ def _reduce_infer(attrs, in_shapes):
     return in_shapes, [out], []
 
 
-def _int_dtype(x):
-    # integer sums and products stay in their dtype, as jnp's
-    return None if x.is_floating_point() else x.dtype
+# jnp's accumulation dtypes: a sum or product of a narrow signed int or
+# of bool is int32, of a narrow unsigned int uint32
+_ACC_DTYPES = {torch.bool: torch.int32, torch.int8: torch.int32,
+               torch.int16: torch.int32, torch.uint8: torch.uint32,
+               torch.uint16: torch.uint32}
+
+
+def _int_reduce(reduce, x):
+    """``reduce(x, dtype)`` of an integer or bool ``x`` in jnp's result
+    dtype: accumulated in int64 (torch sums no uint32) and cast down,
+    which wraps as an accumulation in the narrower type would."""
+    return reduce(x, torch.int64).to(_ACC_DTYPES.get(x.dtype, x.dtype))
 
 
 def _sum(x, axes, keepdim):
-    return torch.sum(x, dim=axes, keepdim=keepdim, dtype=_int_dtype(x))
+    def reduce(t, dtype=None):
+        return torch.sum(t, dim=axes, keepdim=keepdim, dtype=dtype)
+    return reduce(x) if x.is_floating_point() else _int_reduce(reduce, x)
+
+
+def _nansum(x, axes, keepdim):
+    if not x.is_floating_point():
+        return _sum(x, axes, keepdim)
+    return torch.nansum(x, dim=axes, keepdim=keepdim)
 
 
 def _mean(x, axes, keepdim):
@@ -56,7 +73,11 @@ def _prod(x, axes, keepdim):
     rest = [i for i in range(x.dim()) if i not in axes]
     flat = x.permute(rest + list(axes)).reshape(
         [x.shape[i] for i in rest] + [-1])
-    out = torch.prod(flat, dim=-1, dtype=_int_dtype(x))
+
+    def reduce(t, dtype=None):
+        return torch.prod(t, dim=-1, dtype=dtype)
+    out = reduce(flat) if x.is_floating_point() else \
+        _int_reduce(reduce, flat)
     if keepdim:
         out = out.reshape([1 if i in axes else d
                            for i, d in enumerate(x.shape)])
@@ -73,6 +94,11 @@ def _register_reduce(name, fn, aliases=()):
         axes = _norm_axes(attrs["axis"], x.dim())
         if attrs["exclude"]:
             axes = tuple(i for i in range(x.dim()) if i not in axes)
+        if not axes:
+            # no axis left: jnp's axis=() reduces nothing (torch's dim=()
+            # would reduce all); a new unit axis gives the input in the
+            # reduction's result dtype
+            return fn(x[..., None], (x.dim(),), False)
         return fn(x, axes, attrs["keepdims"])
 
     register(name, fcompute=fc,
@@ -87,8 +113,7 @@ def _register_reduce(name, fn, aliases=()):
 _register_reduce("sum", _sum, aliases=("sum_axis",))
 _register_reduce("mean", _mean)
 _register_reduce("prod", _prod)
-_register_reduce("nansum", lambda x, a, k: torch.nansum(
-    x, dim=a, keepdim=k, dtype=_int_dtype(x)))
+_register_reduce("nansum", _nansum)
 _register_reduce("nanprod", _nanprod)
 _register_reduce("max", lambda x, a, k: torch.amax(x, dim=a, keepdim=k),
                  aliases=("max_axis",))

@@ -12,7 +12,9 @@ ahead of time; the port runs eagerly, so a "program" here is one call of
 the weights (fp32, or int8 codes with ``compute_dtype='int8'``), the
 bucket geometry and the request checks; the KV pool or cache is made by
 the store (``new_pool`` / ``new_scale_pool`` / ``new_cache``) and owned
-by the decode engine's per-model state.
+by the decode engine's per-model state.  bf16 weights
+(``compute_dtype='bfloat16'``) and a bf16 pool (``kv_dtype='bfloat16'``)
+serve on the paged plane, alone or beside int8, as in the reference.
 
 Sampling runs on the logits' device: greedy rows are an argmax (first
 index on ties); temperature / top-k rows draw from per-slot
@@ -38,7 +40,9 @@ __all__ = ["GenerativeProgramStore", "bucket_edges", "bucket_for",
            "sample_tokens"]
 
 _LATER = ("arrives with a later serving slice of the port (ROADMAP.md, "
-          "Queue 1: bf16 serving)")
+          "Queue 1: bf16 on the contiguous plane)")
+_KV_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+              "int8": torch.int8}
 
 
 def _weight_bytes(params):
@@ -113,15 +117,19 @@ class GenerativeProgramStore:
     ``"cpu"`` for the plain versions).
 
     ``compute_dtype``: ``None``/``'float32'`` serves the fp32 weights;
-    ``'int8'`` quantizes every matmul weight (``quantize_lm_params``,
-    ``MXNET_SERVE_INT8_GRANULARITY``) and runs its products through the
-    ``dequant_matmul`` kernel.  ``kv_dtype`` (default
-    ``MXNET_SERVE_KV_DTYPE``): ``'float32'``, or ``'int8'`` — int8 pool
-    codes with per-(layer, head, block) fp32 scale pools, paged plane
-    only.  ``paged`` (default ``MXNET_SERVE_PAGED``): the paged KV plane,
-    or ``False`` for the contiguous plane (per-slot cache rectangles,
-    one prefill per admitted group, decode steps through
-    ``flash_attention_offset``).  bf16, in either dtype, raises
+    ``'bfloat16'`` casts every floating weight to bf16 once at load, so
+    the activations and the norms run in bf16 (the logits come back
+    fp32); ``'int8'`` quantizes every matmul weight
+    (``quantize_lm_params``, ``MXNET_SERVE_INT8_GRANULARITY``) and runs
+    its products through the ``dequant_matmul`` kernel.  ``kv_dtype``
+    (default ``MXNET_SERVE_KV_DTYPE``): ``'float32'``, ``'bfloat16'``
+    (half the bytes a token) or ``'int8'`` — int8 pool codes with
+    per-(layer, head, block) fp32 scale pools.  ``paged`` (default
+    ``MXNET_SERVE_PAGED``): the paged KV plane, or ``False`` for the
+    contiguous plane (per-slot cache rectangles, one prefill per
+    admitted group, decode steps through ``flash_attention_offset``).
+    The contiguous plane takes neither int8 KV (as in the reference)
+    nor, for now, bf16 in either dtype: both raise
     :class:`MXNetError`."""
 
     def __init__(self, params, spec, name="lm", batch_buckets=None,
@@ -135,22 +143,18 @@ class GenerativeProgramStore:
             c = str(compute_dtype).lower()
             if c in ("float32", "fp32"):
                 c = None
-            elif c == "bfloat16":
-                raise MXNetError("compute_dtype 'bfloat16' %s" % _LATER)
-            elif c != "int8":
+            elif c not in ("bfloat16", "int8"):
                 raise MXNetError(
                     "generative compute_dtype must be None/'float32'/"
-                    "'int8', got %r" % compute_dtype)
+                    "'bfloat16'/'int8', got %r" % compute_dtype)
             self._compute = c
         kv = str(kv_dtype if kv_dtype is not None
                  else get_env("MXNET_SERVE_KV_DTYPE") or "float32")
-        if kv == "bfloat16":
-            raise MXNetError("kv_dtype 'bfloat16' %s" % _LATER)
-        if kv not in ("float32", "int8"):
-            raise MXNetError("kv_dtype must be 'float32' or 'int8', got %r"
-                             % kv)
+        if kv not in _KV_DTYPES:
+            raise MXNetError("kv_dtype must be 'float32', 'bfloat16' or "
+                             "'int8', got %r" % kv)
         self.kv_int8 = kv == "int8"
-        self.kv_dtype = torch.int8 if self.kv_int8 else torch.float32
+        self.kv_dtype = _KV_DTYPES[kv]
         self.device = default_device(device)
         self._batch_edges = bucket_edges(batch_buckets)
         self._prompt_edges = bucket_edges(
@@ -173,6 +177,10 @@ class GenerativeProgramStore:
                 "kv_dtype='int8' needs the paged KV plane (the scales "
                 "are per pool block); set MXNET_SERVE_PAGED=1 or use "
                 "'float32' on the contiguous plane")
+        if not self.paged and "bfloat16" in (self._compute, kv):
+            raise MXNetError("bfloat16 on the contiguous plane (paged="
+                             "False) %s; serve it on the paged plane"
+                             % _LATER)
         chunk = int(prefill_chunk if prefill_chunk is not None
                     else get_env("MXNET_SERVE_PREFILL_CHUNK"))
         if chunk < 1:
@@ -192,12 +200,17 @@ class GenerativeProgramStore:
         self.pool_blocks = nb
         self.model = TransformerLM.from_numpy(self._load_params(params),
                                               self._spec, self.device)
+        if self._compute == "bfloat16":
+            # numpy has no bf16: the weights cross as fp32 and are cast
+            # once here, as the reference's store casts them at load
+            self.model = self.model.astype(torch.bfloat16)
         # live decode state, attached by the GenerationEngine
         self.cache_state = None
 
     def _load_params(self, params):
         """The weight dict through the serving dtype policy: fp32 as
-        given, or (``compute_dtype='int8'``) every fp32 matmul weight
+        given (bf16 is cast after the crossing, in ``__init__``), or
+        (``compute_dtype='int8'``) every fp32 matmul weight
         quantized by the port's copy of the reference's codec; int8
         ``(codes, scales)`` already given pass as they are."""
         if self._compute != "int8":
@@ -265,8 +278,8 @@ class GenerativeProgramStore:
     # -- KV state ------------------------------------------------------
     def new_pool(self):
         """Zeroed K/V pool pair, ``(num_layers, num_heads, pool_blocks *
-        kv_block, head_dim)`` in the store's KV dtype (fp32, or int8
-        codes) on its device."""
+        kv_block, head_dim)`` in the store's KV dtype (fp32, bf16, or
+        int8 codes) on its device."""
         return init_pool(self._spec, self.pool_blocks, self.kv_block,
                          dtype=self.kv_dtype, device=self.device)
 
@@ -437,7 +450,7 @@ class GenerativeProgramStore:
                "prompt_buckets": list(self._prompt_edges),
                "kv_block": self.kv_block, "kv_max": self.kv_max,
                "compute_dtype": self._compute,
-               "kv_dtype": "int8" if self.kv_int8 else "float32",
+               "kv_dtype": str(self.kv_dtype).replace("torch.", ""),
                "weight_bytes": _weight_bytes(self.model.params())}
         if self.paged:
             out.update(prefill_chunk=self.prefill_chunk,

@@ -28,9 +28,10 @@ class ModelRegistry:
         Keyword args (``batch_buckets``, ``prompt_buckets``, ``kv_block``,
         ``kv_max``, ``compute_dtype``, ``kv_dtype``, ``paged``,
         ``prefill_chunk``, ``pool_blocks``, ``device``) pass through to
-        :class:`GenerativeProgramStore`: ``compute_dtype='int8'`` serves
-        int8 weights, ``kv_dtype='int8'`` an int8 paged pool,
-        ``paged=False`` the contiguous plane.  An unset ``compute_dtype``
+        :class:`GenerativeProgramStore`: ``compute_dtype='bfloat16'`` or
+        ``'int8'`` serves bf16 or int8 weights, ``kv_dtype='bfloat16'``
+        or ``'int8'`` a bf16 or int8 paged pool, ``paged=False`` the
+        contiguous plane (fp32 only).  An unset ``compute_dtype``
         falls back to ``MXNET_SERVE_DTYPE``, an unset ``kv_dtype`` to
         ``MXNET_SERVE_KV_DTYPE`` and an unset ``paged`` to
         ``MXNET_SERVE_PAGED`` (read by the store).  ``device`` defaults

@@ -56,6 +56,12 @@ def paged_case(seed, B, H, T, D, bs, num_blocks, positions, lq):
     return q, k_pool, v_pool, tables, pos
 
 
+def bf16_ulp(x):
+    """One bf16 ulp at magnitude ``x``: ``2**(floor(log2 x) - 7)`` (8
+    significant bits), between 2**-8 and 2**-7 of ``x``."""
+    return float(2.0 ** (np.floor(np.log2(max(float(x), 1e-30))) - 7))
+
+
 def _on(dev, *arrays):
     return [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
             for a in arrays]
@@ -593,3 +599,168 @@ def test_rtc_kernel_of_the_wrong_arity_fails_to_build(cuda_device):
         x = mx.nd.ones((4,))
         with pytest.raises(kernels._build.KernelError, match="nvcc failed"):
             k.push([x], [x])
+
+
+# ---------------------------------------------------------------------------
+# bf16 serving: the bf16 norms and paged attention, and the Embedding rule
+# ---------------------------------------------------------------------------
+def _bf16_on(dev, *arrays):
+    return [t.to(torch.bfloat16) for t in _on(dev, *arrays)]
+
+
+def _within_bf16_ulp(got, want, extra=0.0):
+    """max|got - want| within one bf16 ulp of max|want| (plus
+    ``extra``): the kernel and its plain version sum in another order
+    before the one rounding to bf16."""
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all())
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= bf16_ulp(want.float().abs().max().item()) + extra, err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,width,offset", [
+    (16, 64, 0), (6, 40, 0), (32, 512, 0), (4096, 512, 0), (1, 7, 0),
+    (33, 1000, 0), (5, 16, 1)])
+def test_bf16_norm_kernels_match_plain(cuda_device, rows, width, offset):
+    """bf16 RMSNorm and LayerNorm forward, the 16-byte path (width a
+    multiple of 8) and the element path (width 7, or rows that start
+    off a 16-byte boundary), counted under their bf16 names."""
+    rs = np.random.RandomState(rows * width)
+    xa, g, b = _bf16_on(cuda_device,
+                        rs.randn(rows + offset, width).astype(np.float32),
+                        rs.uniform(0.5, 1.5, width).astype(np.float32),
+                        rs.randn(width).astype(np.float32))
+    x = xa[offset:]
+    before = kernels.launch_counts()
+    _within_bf16_ulp(norm.rms_norm(x, g), norm.rms_norm_reference(x, g))
+    x3 = (x.float() + 3.0).to(torch.bfloat16)
+    got = norm.layer_norm(x3, g, b)
+    assert got.dtype == torch.bfloat16
+    _within_bf16_ulp(got, norm.layer_norm_reference(x3, g, b))
+    after = kernels.launch_counts()
+    assert after["rms_norm_bf16"] == before["rms_norm_bf16"] + 1
+    assert after["layer_norm_bf16"] == before["layer_norm_bf16"] + 1
+    assert after["rms_norm"] == before["rms_norm"]
+    assert after["layer_norm"] == before["layer_norm"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [8, 64, 104, 256])
+@pytest.mark.parametrize("seed,lq,positions", PAGED_CASES)
+def test_bf16_paged_kernel_matches_plain(cuda_device, D, seed, lq,
+                                         positions):
+    q, kp, vp = _bf16_on(cuda_device, *paged_case(
+        seed, B=3, H=2, T=10, D=D, bs=8, num_blocks=40,
+        positions=positions, lq=lq)[:3])
+    tbl, pos = _on(cuda_device, *paged_case(
+        seed, B=3, H=2, T=10, D=D, bs=8, num_blocks=40,
+        positions=positions, lq=lq)[3:])
+    before = kernels.launch_counts()
+    got = paged_attention.flash_attention_paged(q, kp, vp, tbl, pos, 8)
+    assert got.dtype == torch.bfloat16
+    _within_bf16_ulp(got, paged_attention.paged_attention_reference(
+        q, kp, vp, tbl, pos, 8), 1e-4)
+    after = kernels.launch_counts()
+    assert after["flash_attention_paged_bf16"] == \
+        before["flash_attention_paged_bf16"] + 1
+    assert after["flash_attention_paged"] == before["flash_attention_paged"]
+
+
+@pytest.mark.cuda
+def test_bf16_paged_kernel_block_larger_than_key_tile(cuda_device):
+    case = paged_case(7, B=4, H=3, T=5, D=64, bs=64, num_blocks=20,
+                      positions=[0, 63, 64, 200], lq=9)
+    q, kp, vp = _bf16_on(cuda_device, *case[:3])
+    tbl, pos = _on(cuda_device, *case[3:])
+    _within_bf16_ulp(
+        paged_attention.flash_attention_paged(q, kp, vp, tbl, pos, 64),
+        paged_attention.paged_attention_reference(q, kp, vp, tbl, pos, 64),
+        1e-4)
+
+
+@pytest.mark.cuda
+def test_int8_pool_takes_a_bf16_query(cuda_device):
+    """bf16 compute over an int8 pool: q is widened for the int8 kernel
+    (exactly) and the output rounded back to bf16."""
+    q, _, _, tbl, pos = paged_case(1, B=3, H=2, T=10, D=64, bs=8,
+                                   num_blocks=40, positions=[0, 3, 12], lq=4)
+    rs = np.random.RandomState(3)
+    kc, vc = (rs.randint(-127, 128, (2, 320, 64)).astype(np.int8)
+              for _ in range(2))
+    sk, sv = (rs.uniform(0.005, 0.02, (2, 40)).astype(np.float32)
+              for _ in range(2))
+    (qb,) = _bf16_on(cuda_device, q)
+    kc, vc, tbl, pos, sk, sv = _on(cuda_device, kc, vc, tbl, pos, sk, sv)
+    before = kernels.launch_counts()
+    got = paged_attention.flash_attention_paged(qb, kc, vc, tbl, pos, 8,
+                                                kv_scales=(sk, sv))
+    want = paged_attention.flash_attention_paged(qb.float(), kc, vc, tbl, pos,
+                                                 8, kv_scales=(sk, sv))
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16
+    assert torch.equal(got, want.to(torch.bfloat16))
+    after = kernels.launch_counts()
+    assert after["flash_attention_paged_int8"] == \
+        before["flash_attention_paged_int8"] + 2
+    assert after["flash_attention_paged_bf16"] == \
+        before["flash_attention_paged_bf16"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("compute,kv", [("bfloat16", "bfloat16"),
+                                        ("bfloat16", "int8"),
+                                        ("int8", "bfloat16")])
+def test_bf16_paged_step_on_card_matches_cpu(cuda_device, compute, kv):
+    """One prefill chunk and one decode step of a bf16 store on the card
+    and on the CPU: logits within 2e-2 x max|ref|, the bf16 kernels
+    launched and their fp32 forms not."""
+    spec = tlm.lm_spec(num_layers=2, num_hidden=64, num_heads=4,
+                       vocab_size=97)
+    params = tlm.random_params(spec, seed=5)
+    kw = dict(batch_buckets=(4,), prompt_buckets=(8,), kv_block=8, kv_max=48,
+              prefill_chunk=8, compute_dtype=compute, kv_dtype=kv,
+              warmup=False)
+    rs = np.random.RandomState(9)
+    tables = np.arange(1, 4 * 6 + 1, dtype=np.int32).reshape(4, 6)
+    chunk = rs.randint(0, 97, (4, 8)).astype(np.int32)
+    valid = np.array([8, 5, 1, 8], np.int32)
+    logits = {}
+    for dev in ("cpu", "cuda"):
+        store = ModelRegistry().add_generative_model(
+            "m", params, spec, device=None if dev == "cuda" else "cpu", **kw)
+        pools = store.new_pool()
+        scales = store.new_scale_pool() if kv == "int8" else None
+        kernels.reset_launch_counts()
+        out = []
+        for toks, p0, val in ((chunk, np.zeros(4, np.int32), valid),
+                              (chunk[:, :1], valid, np.ones(4, np.int32))):
+            res = store.run_paged_step(*pools, tables, toks, p0, val,
+                                       scales=scales)
+            out.append(res[0].cpu())
+        logits[dev] = out
+        counts = kernels.launch_counts()
+    for a, b in zip(logits["cuda"], logits["cpu"]):
+        assert bool(torch.isfinite(a).all())
+        assert _rel(a, b) <= 2e-2
+    used = {"rms_norm_bf16", "layer_norm_bf16"} if compute == "bfloat16" \
+        else {"rms_norm", "layer_norm", "dequant_matmul"}
+    used.add("flash_attention_paged_bf16" if kv == "bfloat16"
+             else "flash_attention_paged_int8")
+    assert all(counts[k] > 0 for k in used)
+    assert all(counts[k] == 0 for k in set(counts) - used)
+
+
+@pytest.mark.cuda
+def test_embedding_ids_outside_the_table_on_card(cuda_device):
+    """Ids outside [0, n) are clamped before the gather (no device-side
+    assert): [-n, 0) wraps, anything else is a NaN row."""
+    table = np.arange(12, dtype=np.float32).reshape(4, 3) + 1
+    ids = np.array([-5, -4, -1, 0, 3, 4], np.float32)
+    with mx.gpu(0):
+        out = mx.nd.Embedding(mx.nd.array(ids), mx.nd.array(table),
+                              input_dim=4, output_dim=3).asnumpy()
+        after = (mx.nd.array(table) * 2).asnumpy()     # the context lives
+    assert np.array_equal(out[1:5], table[[0, 3, 0, 3]])
+    assert np.isnan(out[0]).all() and np.isnan(out[5]).all()
+    assert np.array_equal(after, table * 2)

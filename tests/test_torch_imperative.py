@@ -270,6 +270,113 @@ def test_integer_and_arg_reductions_match_jax():
         pkg.nd.array(x).max(axis=0, keepdims=True), pkg.nd.array(x).min()])
 
 
+@pytest.mark.parametrize("op,dtype,n,value", [
+    ("sum", np.uint8, 300, 200), ("prod", np.int8, 4, 100),
+    ("sum", np.bool_, 3, True), ("nansum", np.int16, 40000, 3),
+    ("sum", np.uint16, 5, 60000), ("prod", np.int32, 3, 3000)])
+def test_narrow_integer_reductions_match_jax(op, dtype, n, value):
+    """jnp's promotion: a sum or product of int8/int16/bool is int32, of
+    uint8/uint16 uint32, so 300 uint8 200s sum to 60000, not 96."""
+    x = np.full((n,), value, dtype)
+    got, want = _both(lambda pkg: [getattr(pkg.nd, op)(pkg.nd.array(
+        x, dtype=x.dtype))])
+    _close(got, want)
+    assert got[0].dtype == want[0].dtype
+    pinned = {("sum", np.uint8): 60000, ("prod", np.int8): 100000000,
+              ("sum", np.bool_): 3}
+    if (op, dtype) in pinned:
+        assert int(got[0]) == pinned[op, dtype]
+
+
+@pytest.mark.parametrize("op", ["sum", "mean", "max", "min", "prod"])
+@pytest.mark.parametrize("keepdims", [False, True])
+def test_exclude_of_every_axis_reduces_nothing(op, keepdims):
+    """``exclude=True`` naming every axis leaves no axis to reduce: the
+    input comes back as it is, as jnp's ``axis=()``."""
+    x = _x(12, (3, 4))
+    xi = np.arange(12, dtype=np.int8).reshape(3, 4)
+    _check(lambda pkg: [getattr(pkg.nd, op)(pkg.nd.array(a, dtype=a.dtype),
+                                            axis=(0, 1), exclude=True,
+                                            keepdims=keepdims)
+                        for a in (x, xi)])
+
+
+@pytest.mark.parametrize("case", ["iadd_half", "idiv", "imul", "broadcast",
+                                  "same_dtype_view"])
+def test_inplace_arithmetic_outside_record_matches_jax(case):
+    """Outside ``record()`` a result of another dtype or shape rebinds
+    the array, as the reference does; a result of the same dtype and
+    shape is written in place, so a view sees it."""
+    xi = np.array([[3, -4], [1, 5]], np.int32)
+
+    def run(pkg):
+        if case == "iadd_half":
+            a = pkg.nd.array(xi, dtype=xi.dtype)
+            a += 0.5
+        elif case == "idiv":
+            a = pkg.nd.array(xi, dtype=xi.dtype)
+            a /= 2
+        elif case == "imul":
+            a = pkg.nd.array(xi, dtype=xi.dtype)
+            a *= 1.5
+        elif case == "broadcast":
+            a = pkg.nd.array(np.array([[1.0, 2.0]], np.float32))
+            a += pkg.nd.array(_x(13, (2, 2)))
+        else:
+            a = pkg.nd.array(xi, dtype=xi.dtype)
+            a += 2
+        return [a]
+    got, want = _both(run)
+    _close(got, want)
+    if case == "iadd_half":
+        assert got[0].dtype == np.float32
+        assert got[0].ravel().tolist() == [3.5, -3.5, 1.5, 5.5]
+    with tmx.cpu():
+        a = tmx.nd.array(xi, dtype=xi.dtype)
+        view = a[0]
+        a += 2
+        assert view.asnumpy().tolist() == [5, -2]
+
+
+def test_scalar_ops_cast_the_scalar_to_the_input_dtype():
+    """``_plus_scalar`` (and ``Symbol.__add__``, which emits it) casts
+    the scalar to x's dtype: int32 x plus 2.7 is int32 x + 2."""
+    xi = np.array([[3, -4], [1, 5]], np.int32)
+    x = _x(14, (2, 2))
+    _check(lambda pkg: [
+        pkg.nd._plus_scalar(pkg.nd.array(xi, dtype=xi.dtype), scalar=2.7),
+        pkg.nd._plus_scalar(pkg.nd.array(xi, dtype=xi.dtype), scalar=-2.7),
+        pkg.nd._plus_scalar(pkg.nd.array(x), scalar=2.7)])
+    got = tmx.nd._plus_scalar(tmx.nd.array(xi, dtype=xi.dtype, ctx=tmx.cpu()),
+                              scalar=2.7).asnumpy()
+    assert got.dtype == np.int32 and np.array_equal(got, xi + 2)
+    for pkg in PKGS:
+        sym = pkg.sym.Variable("x") + 2.7
+        with pkg.cpu():
+            exe = sym.bind(pkg.cpu(), {"x": pkg.nd.array(xi, dtype=xi.dtype)})
+            out = exe.forward()[0].asnumpy()
+        assert out.dtype == np.int32 and np.array_equal(out, xi + 2), pkg
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.int32])
+def test_embedding_ids_outside_the_table_follow_jnp_take(dtype):
+    """Ids in [-n, 0) wrap to row n + id; other ids outside [0, n) give a
+    NaN row (INT32_MIN for an int32 table), as ``jnp.take``."""
+    table = (np.arange(12).reshape(4, 3) + 1).astype(dtype)
+    ids = np.array([-5, -4, -1, 0, 3, 4], np.float32)
+    got, want = _both(lambda pkg: [pkg.nd.Embedding(
+        pkg.nd.array(ids), pkg.nd.array(table, dtype=table.dtype),
+        input_dim=4, output_dim=3)])
+    _close(got, want)
+    rows = got[0]
+    assert np.array_equal(rows[1:5], table[[0, 3, 0, 3]])
+    for r in (rows[0], rows[5]):
+        if dtype == np.float32:
+            assert np.isnan(r).all()
+        else:
+            assert (r == np.iinfo(np.int32).min).all()
+
+
 def test_imperative_invoke_out_and_named_inputs_match_jax():
     x, w, b = _x(7, (4, 6)), _x(8, (3, 6)), _x(9, (3,))
 

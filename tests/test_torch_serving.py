@@ -227,18 +227,27 @@ def test_token_stream_submit_validation_and_close():
 
 
 def test_slice_refuses_what_it_does_not_port(monkeypatch):
-    """bf16, as weights or as KV, waits for a later slice; an int8 KV
-    cache needs the paged plane, as in the reference."""
+    """bf16, as weights or as KV, serves on the paged plane; on the
+    contiguous plane it waits for a later slice.  An int8 KV cache needs
+    the paged plane, as in the reference."""
     for kw in (dict(compute_dtype="bfloat16"), dict(kv_dtype="bfloat16")):
         with pytest.raises(MXNetError, match="later serving slice"):
             ModelRegistry().add_generative_model("m", PARAMS, SPEC,
-                                                 device="cpu", **kw)
+                                                 device="cpu", paged=False,
+                                                 warmup=False, **kw)
     with pytest.raises(MXNetError, match="paged KV plane"):
         ModelRegistry().add_generative_model("m", PARAMS, SPEC, device="cpu",
                                              kv_dtype="int8", paged=False)
     monkeypatch.setenv("MXNET_SERVE_DTYPE", "bfloat16")
     with pytest.raises(MXNetError, match="later serving slice"):
-        ModelRegistry().add_generative_model("m", PARAMS, SPEC, device="cpu")
+        ModelRegistry().add_generative_model("m", PARAMS, SPEC, device="cpu",
+                                             paged=False, warmup=False)
+    monkeypatch.setenv("MXNET_SERVE_PAGED", "0")
+    monkeypatch.setenv("MXNET_SERVE_KV_DTYPE", "bfloat16")
+    monkeypatch.delenv("MXNET_SERVE_DTYPE")
+    with pytest.raises(MXNetError, match="later serving slice"):
+        ModelRegistry().add_generative_model("m", PARAMS, SPEC, device="cpu",
+                                             warmup=False)
 
 
 def test_no_silent_cpu(monkeypatch):
