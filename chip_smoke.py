@@ -14,8 +14,10 @@ sources in this checkout on first use.  Phases, each fatal on failure:
    16-block tables, Lq 1 and 32, ragged positions, shared blocks and
    trash-block entries, tolerance 1e-4 absolute; the bf16 norms and
    bf16 paged attention at the same shapes, within one bf16 ulp of
-   max|ref| (plus 1e-4 for attention); dequant_matmul: M 32
-   and 1024 against every (N, K) of the LM's products, 1e-5 x max|ref|;
+   max|ref| (plus 1e-4 for attention); dequant_matmul: M 1, 16, 32,
+   256, 512 and 1024 (both regimes: the decode GEMV and the prefill
+   tensor-core tile) against every (N, K) of the LM's products, 1e-5 x
+   max|ref|;
    flash_attention_offset: B=32, H=8, Lq 1 over a 1024-key cache with
    ragged offsets, 1e-4 absolute);
 3. serve the transformer LM at full width (4 layers, hidden 512, 8
@@ -25,9 +27,9 @@ sources in this checkout on first use.  Phases, each fatal on failure:
    of the path must have launched during the run;
 3b. the same mix on int8 weights and an int8 paged KV pool
    (``compute_dtype="int8", kv_dtype="int8"``): ``dequant_matmul`` and
-   the int8 paged kernel launch, the fp32 paged kernel does not; weight
-   bytes and pool bytes per token against phase 3's store (the
-   reference's gate: at most 0.3x);
+   the int8 paged kernel launch, the fp32 paged kernel does not; its
+   launches by M and by (N, K); weight bytes and pool bytes per token
+   against phase 3's store (the reference's gate: at most 0.3x);
 3c. the same mix on the contiguous plane (``paged=False``, prompt
    buckets up to 512): ``flash_attention`` (prefill) and
    ``flash_attention_offset`` (decode) launch; the greedy streams equal
@@ -47,7 +49,10 @@ sources in this checkout on first use.  Phases, each fatal on failure:
 5. time each kernel, its plain version and one PyTorch library call with
    CUDA events (median of 60 launches queued behind a GPU spin, so each
    event pair brackets device time), beside the kernel's bound (bf16
-   kernels: bf16 bytes, and the bf16 tensor-core rate for operations);
+   kernels: bf16 bytes, and the bf16 tensor-core rate for operations;
+   dequant_matmul: the TF32 tensor-core rate, the card's peak for fp32
+   inputs, and beside it the fp32 CUDA-core bound of earlier runs), and
+   phase 3b's ms per step beside phase 3's;
 2+. the training path's kernels against their plain versions at training
    width: the norm backwards at 4096 x 512, the loss head's softmax and
    gradient, the cross-entropy loss and gradient (labels random, at
@@ -85,6 +90,8 @@ The last lines are a JSON object of per-kernel numbers, the card's name
 and power limit as nvidia-smi reports them, and the result object.
 Exits non-zero, printing no result, without a CUDA device.
 """
+import collections
+import contextlib
 import json
 import statistics
 import subprocess
@@ -111,9 +118,11 @@ TRAIN_ATT = (TRAIN_BATCH, SPEC["num_heads"], TRAIN_SEQ,
 NORM_ROWS, NORM_W = (32, 1024, 4096), 512
 PA = dict(B=32, H=8, D=64, bs=64, T=16, num_blocks=513)
 PA_LQ = (1, 32)
-# dequant_matmul: M is the decode bucket and a 32 x 32 prefill chunk;
-# (N, K) of q/k/v/proj, ffn1, ffn2 and pred at full width
-DQ_M = (32, 1024)
+# dequant_matmul: M is a decode bucket (1, 16 and 32: the GEMV regime)
+# or a prefill chunk of 8, 16 or 32 sequences x 32 tokens (256, 512 and
+# 1024: the tensor-core tile; phase 3b runs 16 and 512); (N, K) of
+# q/k/v/proj, ffn1, ffn2 and pred at full width
+DQ_M = (1, 16, 32, 256, 512, 1024)
 DQ_NK = ((512, 512), (2048, 512), (512, 2048), (8192, 512))
 # flash_attention_offset at decode: one query row over a full cache
 OFS = dict(B=32, H=8, Lk=1024, D=64)
@@ -231,6 +240,12 @@ def bf16_rate(name):
     """The card's dense bf16 tensor-core rate (NVIDIA's data sheets):
     H100 SXM 989 TFLOP/s, PCIe 756 TFLOP/s."""
     return 756e12 if "PCIe" in name else 989e12
+
+
+def tf32_rate(name):
+    """The card's dense TF32 tensor-core rate (NVIDIA's data sheets):
+    H100 SXM 494.7 TFLOP/s, PCIe 378 TFLOP/s."""
+    return 378e12 if "PCIe" in name else 494.7e12
 
 
 def card_rates(name):
@@ -696,6 +711,24 @@ def check_results(results, reqs):
             raise SystemExit("chip_smoke: bad generation %r" % (r,))
 
 
+@contextlib.contextmanager
+def dq_census():
+    """Count the (M, N, K) of each ``dequant_matmul`` launch: the wrapper
+    plans every launch it makes, once, so a counting shim around its
+    planner sees them all (a dict update each, on the host)."""
+    shapes, plan = collections.Counter(), dequant_matmul._plan
+
+    def counted(M, N, K, sm_count):
+        shapes[M, N, K] += 1
+        return plan(M, N, K, sm_count)
+
+    dequant_matmul._plan = counted
+    try:
+        yield shapes
+    finally:
+        dequant_matmul._plan = plan
+
+
 def phase_serve(tag, name, params, reqs):
     """Serve ``reqs`` on a new registry with phase ``tag``'s store
     arguments (``SERVE_PHASES``), the launch counts set to 0 just before
@@ -712,8 +745,9 @@ def phase_serve(tag, name, params, reqs):
            st["compute_dtype"] or "float32", st["kv_dtype"], st["paged"],
            st["weight_bytes"]["total"], st["weight_bytes"]["by_dtype"]))
     kernels.reset_launch_counts()
-    results, seconds, stats = serve(reg, name, reqs)
-    torch.cuda.synchronize()
+    with dq_census() as shapes:
+        results, seconds, stats = serve(reg, name, reqs)
+        torch.cuda.synchronize()
     counts = kernels.launch_counts()
     check_results(results, reqs)
     ntok = sum(len(r.tokens) for r in results)
@@ -726,6 +760,18 @@ def phase_serve(tag, name, params, reqs):
            seconds * 1e3 / steps, stats["prefix_hits"], stats["cow_forks"],
            stats["prefills"], stats["prefill_chunks"], stats["decode_steps"],
            stats["cache_grows"], counts))
+    if shapes:
+        by_m, by_nk = collections.Counter(), collections.Counter()
+        for (m, n, k), c in shapes.items():
+            by_m[m] += c
+            by_nk["N=%d K=%d" % (n, k)] += c
+        log("phase %s dequant_matmul launches by M %s, by (N, K) %s"
+            % (tag, dict(sorted(by_m.items())), dict(by_nk)))
+        if sum(shapes.values()) != counts["dequant_matmul"]:
+            raise SystemExit("chip_smoke: %d dequant_matmul plans, %d "
+                             "launches in phase %s"
+                             % (sum(shapes.values()),
+                                counts["dequant_matmul"], tag))
     for k in must:
         if counts[k] <= 0:
             raise SystemExit("chip_smoke: %s never launched in phase %s"
@@ -737,7 +783,7 @@ def phase_serve(tag, name, params, reqs):
         raise SystemExit("chip_smoke: the shared-prefix requests did not "
                          "share blocks in phase %s" % tag)
     return dict(reg=reg, store=store, results=results, counts=counts,
-                tok_s=ntok / seconds,
+                tok_s=ntok / seconds, step_ms=seconds * 1e3 / steps,
                 cache=stats["cache_hwm"].get(name, {}))
 
 
@@ -1244,28 +1290,38 @@ def library_paged(q, kp, vp, tbl, pos, bs, kv_scales=None):
 
 
 def timed_row(name, shape, fn, plain, library, nbytes, flops, err, card,
-              bf16=False):
+              bf16=False, tf32=False):
     """Time ``fn``, its plain version and the library call (None where
     there is no single-call yardstick) beside the bound: the larger of
     ``nbytes`` over the memory rate and ``flops`` over the fp32 rate
     (``bf16``: over the bf16 tensor-core rate, the peak for bf16
-    inputs)."""
+    inputs; ``tf32``: over the TF32 tensor-core rate, the peak for fp32
+    inputs, with the fp32 CUDA-core bound kept as
+    ``bound_cuda_core_ms``)."""
     dev_name = torch.cuda.get_device_name(0)
     mem_rate, flop_rate, rate_name = card_rates(dev_name)
+    t_bytes = nbytes / mem_rate * 1e3
+    cuda_core_ms = max(t_bytes, flops / flop_rate * 1e3)
     if bf16:
         flop_rate, rate_name = bf16_rate(dev_name), rate_name + " bf16"
+    if tf32:
+        flop_rate, rate_name = tf32_rate(dev_name), rate_name + " TF32"
     ms, plain_ms = time_ms(fn), time_ms(plain)
     lib_ms = None if library is None else time_ms(library)
-    t_bytes, t_ops = nbytes / mem_rate * 1e3, flops / flop_rate * 1e3
+    t_ops = flops / flop_rate * 1e3
     row = {"shape": shape, "ms": ms, "plain_ms": plain_ms,
            "library_ms": lib_ms, "bound_ms": max(t_bytes, t_ops),
            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
            "bytes": nbytes, "flops": flops, "max_abs_err": err}
-    log("phase 5 %s %s: kernel %.4f ms, plain %.4f ms, library %s, "
-        "bound %.4f ms (%s, %s rates) [%s]"
+    cc = ""
+    if tf32:
+        row["bound_cuda_core_ms"] = cuda_core_ms
+        cc = "; fp32 CUDA-core bound %.6f ms" % cuda_core_ms
+    log("phase 5 %s %s: kernel %.6f ms, plain %.6f ms, library %s, "
+        "bound %.6f ms (%s, %s rates)%s [%s]"
         % (name, shape, ms, plain_ms,
-           "none" if lib_ms is None else "%.4f ms" % lib_ms,
-           row["bound_ms"], row["bound_by"], rate_name, card))
+           "none" if lib_ms is None else "%.6f ms" % lib_ms,
+           row["bound_ms"], row["bound_by"], rate_name, cc, card))
     return row
 
 
@@ -1274,9 +1330,9 @@ def phase_times(dev, card, errs):
     F = torch.nn.functional
     entries = {}
 
-    def record(name, *args, bf16=False):
-        entries.setdefault(name, []).append(timed_row(name, *args, card,
-                                                      bf16=bf16))
+    def record(name, *args, bf16=False, tf32=False):
+        entries.setdefault(name, []).append(timed_row(
+            name, *args, card, bf16=bf16, tf32=tf32))
 
     for rows in NORM_ROWS:
         x, g, b = norm_inputs(rows, dev)
@@ -1363,7 +1419,7 @@ def phase_times(dev, card, errs):
                    lambda: dequant_matmul.dequant_matmul_dense(x, c, sc),
                    lambda: torch.matmul(x, w.t()),
                    4 * M * K + N * K + 4 * N + 4 * M * N, 2 * M * N * K,
-                   errs[("dequant_matmul", M, N, K)])
+                   errs[("dequant_matmul", M, N, K)], tf32=True)
     q, k, v, ofs = offset_inputs(dev)
     mask = (ofs.long()[:, None, None, None] >=
             torch.arange(OFS["Lk"], device=dev))          # (B, 1, 1, Lk)
@@ -1472,6 +1528,8 @@ def kernel_rows(entries, counts):
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
             "library_ms": head["library_ms"], "shape": head["shape"],
             "shapes": rows})
+        if "bound_cuda_core_ms" in head:
+            out[-1]["bound_cuda_core_ms"] = head["bound_cuda_core_ms"]
     return out
 
 
@@ -1497,6 +1555,9 @@ def main(argv):
     served = {tag: phase_serve(tag, name, params, reqs)
               for tag, name in (("3", "lm"), ("3b", "lm8"), ("3c", "lmc"),
                                 ("3d", "lm16"))}
+    log("phase 3b %.3f ms per step (int8 weights through dequant_matmul) "
+        "vs phase 3 %.3f ms per step (fp32) [%s]"
+        % (served["3b"]["step_ms"], served["3"]["step_ms"], card))
     phase_int8_bytes(served["3"], served["3b"])
     phase_bf16_bytes(served["3"], served["3d"])
     phase_contiguous_vs_paged(

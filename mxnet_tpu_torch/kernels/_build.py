@@ -84,8 +84,9 @@ _SIGNATURES = {
     # B, H, Lq, D, T, block_size, pool_rows, scale, stream
     "mxt_paged_attention_i8": (_P, _P, _P, _P, _P, _P, _P, _P,
                                _I, _I, _I, _I, _I, _I, _I, _F, _P),
-    # x, codes, scales, out, M, N, K, stream
-    "mxt_dequant_matmul_f32": (_P, _P, _P, _P, _I, _I, _I, _P),
+    # x, codes, scales, out, M, N, K, k_slice, splits, stream (the decode
+    # GEMV's split of K; k_slice 0: the prefill tile)
+    "mxt_dequant_matmul_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
 }
 
 _lock = threading.Lock()

@@ -15,9 +15,14 @@ per weight (``'tensor'``, ``MXNET_SERVE_INT8_GRANULARITY``).
   per-row scale applied once after the K reduction.  A CPU tensor runs
   the plain version :func:`dequant_matmul_dense` (the same association:
   the scale multiplies the finished product); a CUDA tensor launches
-  ``csrc/dequant_matmul.cu`` or raises.  Forward only.
+  ``csrc/dequant_matmul.cu`` or raises.  Forward only.  The kernel has
+  two regimes, which :func:`_plan` picks from the shape: a split-K GEMV
+  for M <= 32 (the decode buckets) and a 2xTF32 tensor-core tile above.
 """
 from __future__ import annotations
+
+import collections
+import functools
 
 import numpy as np
 import torch
@@ -29,6 +34,31 @@ __all__ = ["scale_granularity", "quantize_int8", "dequantize_int8",
            "QuantizedWeight", "dequant_matmul", "dequant_matmul_dense"]
 
 K_MULTIPLE = 16   # the kernel stages 16-byte rows of codes
+GEMV_MAX_M = 32   # the largest decode bucket
+GEMV_COLS = 16    # output columns of a GEMV CTA
+GEMV_MAX_SPLITS = 8   # a slab's slices form one cluster: at most 8 CTAs
+
+Plan = collections.namedtuple("Plan", "k_slice splits")
+
+
+def _plan(M, N, K, sm_count):
+    """The split of one ``dequant_matmul`` launch with M, N, K > 0.  For
+    M <= 32, the GEMV's K slice (a multiple of 16; the last slice may be
+    shorter) and slice count, at most 8: enough slices of each 16-column
+    slab to fill one wave of ``sm_count`` SMs where 8 slices can.  Above,
+    ``Plan(0, 1)``: the tensor-core tile, which does not split K."""
+    if M > GEMV_MAX_M:
+        return Plan(0, 1)
+    slabs = -(-N // GEMV_COLS)
+    want = min(GEMV_MAX_SPLITS, -(-sm_count // slabs))
+    k_slice = -(-K // want)                        # rounded up to 16
+    k_slice = -(-k_slice // K_MULTIPLE) * K_MULTIPLE
+    return Plan(k_slice, -(-K // k_slice))
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index):
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def scale_granularity():
@@ -109,9 +139,10 @@ def _check(x, codes, scales):
                           "expected, got %s / %s"
                           % (tuple(x.shape), tuple(codes.shape)))
     K = x.shape[1]
-    if K % K_MULTIPLE:
+    if K == 0 or K % K_MULTIPLE:
         raise KernelError("dequant_matmul: the CUDA kernel takes K a "
-                          "multiple of %d, got %d" % (K_MULTIPLE, K))
+                          "positive multiple of %d, got %d"
+                          % (K_MULTIPLE, K))
     for name, t, dtype in (("x", x, torch.float32),
                            ("codes", codes, torch.int8),
                            ("scales", scales, torch.float32)):
@@ -146,6 +177,10 @@ def dequant_matmul(x, codes, scales):
     _check(x, codes, scales)
     M, K = x.shape
     out = torch.empty((M, N), dtype=torch.float32, device=x.device)
+    if M * N == 0:
+        return out
+    plan = _plan(M, N, K, _sm_count(x.device.index))
     launch(x, "dequant_matmul", "mxt_dequant_matmul_f32", x.data_ptr(),
-           codes.data_ptr(), scales.data_ptr(), out.data_ptr(), M, N, K)
+           codes.data_ptr(), scales.data_ptr(), out.data_ptr(), M, N, K,
+           plan.k_slice, plan.splits)
     return out

@@ -267,18 +267,29 @@ def test_training_step_on_card_matches_cpu_and_launches(cuda_device):
 # ---------------------------------------------------------------------------
 # int8 serving and the contiguous plane
 # ---------------------------------------------------------------------------
-@pytest.mark.cuda
-@pytest.mark.parametrize("granularity", ["row", "tensor"])
-@pytest.mark.parametrize("M,N,K", [(32, 512, 512), (1024, 2048, 512),
-                                   (32, 512, 2048), (32, 8192, 512),
-                                   (7, 50, 48), (1, 8, 16), (65, 70, 80)])
-def test_dequant_matmul_kernel_matches_plain(cuda_device, granularity, M, N,
-                                             K):
+# (N, K) of the LM's q/k/v/proj, ffn1, ffn2 and pred products at full width
+LM_NK = [(512, 512), (2048, 512), (512, 2048), (8192, 512)]
+# both regimes of the kernel: the decode GEMV (M <= 32) and the prefill
+# tensor-core tile, at the LM's shapes, odd shapes and K tails of 16
+DQ_SHAPES = [(M, N, K) for M in (1, 2, 8, 16, 31, 32, 33, 64, 256, 512,
+                                  1024)
+             for N, K in LM_NK] + [(7, 50, 48), (1, 8, 16), (65, 70, 80),
+                                   (40, 136, 1040), (3, 100, 1040)]
+
+
+def _dq_case(dev, granularity, M, N, K):
     rs = np.random.RandomState(M + N + K)
     codes, scales = dequant_matmul.quantize_int8(
         rs.randn(N, K).astype(np.float32), granularity)
-    x, c, s = _on(cuda_device, rs.randn(M, K).astype(np.float32), codes,
-                  scales)
+    return _on(dev, rs.randn(M, K).astype(np.float32), codes, scales)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("granularity", ["row", "tensor"])
+@pytest.mark.parametrize("M,N,K", DQ_SHAPES)
+def test_dequant_matmul_kernel_matches_plain(cuda_device, granularity, M, N,
+                                             K):
+    x, c, s = _dq_case(cuda_device, granularity, M, N, K)
     before = kernels.launch_counts()["dequant_matmul"]
     got = dequant_matmul.dequant_matmul(x, c, s)
     want = dequant_matmul.dequant_matmul_dense(x, c, s)
@@ -289,11 +300,37 @@ def test_dequant_matmul_kernel_matches_plain(cuda_device, granularity, M, N,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("M,N,K", [(1, 8192, 512), (32, 512, 2048),
+                                   (7, 50, 48), (1024, 512, 2048),
+                                   (65, 70, 80)])
+def test_dequant_matmul_kernel_is_deterministic(cuda_device, M, N, K):
+    """The split-K GEMV adds its slices in a fixed order and the tile its
+    k tiles, so every launch on the same inputs gives the same bits."""
+    x, c, s = _dq_case(cuda_device, "row", M, N, K)
+    first = dequant_matmul.dequant_matmul(x, c, s)
+    for _ in range(4):
+        assert torch.equal(dequant_matmul.dequant_matmul(x, c, s), first)
+
+
+@pytest.mark.cuda
 def test_dequant_matmul_kernel_refuses_ragged_k(cuda_device):
     x, c, s = _on(cuda_device, np.zeros((3, 24), np.float32),
                   np.zeros((5, 24), np.int8), np.ones(5, np.float32))
     with pytest.raises(ValueError, match="multiple of 16"):
         dequant_matmul.dequant_matmul(x, c, s)
+
+
+@pytest.mark.cuda
+def test_dequant_matmul_kernel_empty_output_and_k_zero(cuda_device):
+    before = kernels.launch_counts()["dequant_matmul"]
+    x, c, s = _on(cuda_device, np.zeros((3, 32), np.float32),
+                  np.zeros((0, 32), np.int8), np.ones(0, np.float32))
+    assert dequant_matmul.dequant_matmul(x, c, s).shape == (3, 0)
+    x, c, s = _on(cuda_device, np.zeros((3, 0), np.float32),
+                  np.zeros((5, 0), np.int8), np.ones(5, np.float32))
+    with pytest.raises(ValueError, match="positive multiple of 16"):
+        dequant_matmul.dequant_matmul(x, c, s)
+    assert kernels.launch_counts()["dequant_matmul"] == before
 
 
 def int8_paged_case(seed, B, H, T, D, bs, num_blocks, positions, lq):
