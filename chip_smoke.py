@@ -32,8 +32,9 @@ sources in this checkout on first use.  Phases, each fatal on failure:
    against phase 3's store (the reference's gate: at most 0.3x);
 3c. the same mix on the contiguous plane (``paged=False``, prompt
    buckets up to 512): ``flash_attention`` (prefill) and
-   ``flash_attention_offset`` (decode) launch; the greedy streams equal
-   phase 3's but where the CPU's top-2 logit margin is below 1e-3;
+   ``flash_attention_offset`` (decode) launch, the former counted by
+   (B*H, Lq, Lk, D, causal); the greedy streams equal phase 3's but
+   where the CPU's top-2 logit margin is below 1e-3;
 4. the card against the CPU: one prefill chunk and one decode step of
    ``paged_step_apply`` (logits within 1e-3), then the greedy streams of
    phase 3 against a CPU engine (a stream may differ only where the CPU's
@@ -50,9 +51,9 @@ sources in this checkout on first use.  Phases, each fatal on failure:
    CUDA events (median of 60 launches queued behind a GPU spin, so each
    event pair brackets device time), beside the kernel's bound (bf16
    kernels: bf16 bytes, and the bf16 tensor-core rate for operations;
-   dequant_matmul: the TF32 tensor-core rate, the card's peak for fp32
-   inputs, and beside it the fp32 CUDA-core bound of earlier runs), and
-   phase 3b's ms per step beside phase 3's;
+   dequant_matmul and flash_attention: the TF32 tensor-core rate, the
+   card's peak for fp32 inputs, and beside it the fp32 CUDA-core bound
+   of earlier runs), and phase 3b's ms per step beside phase 3's;
 2+. the training path's kernels against their plain versions at training
    width: the norm backwards at 4096 x 512, the loss head's softmax and
    gradient, the cross-entropy loss and gradient (labels random, at
@@ -76,10 +77,14 @@ sources in this checkout on first use.  Phases, each fatal on failure:
 9. one imperative step from identical parameters on the card against
    the CPU (TF32 off), and against phase 7's ``Module`` step on the
    card: every gradient within 1e-3 x max|ref|;
-5+. the training kernels' times at their training shapes, then the
-   imperative plane's: the cross-entropy loss and gradient, the fused
-   softmax's backward and an ``rtc`` kernel (``fma1``, checked in phase
-   2+ against ``torch.addcmul`` within 2 ulp).
+5+. the training kernels' times at their training shapes
+   (flash_attention also at each shape of phase 3c's prefill launches,
+   and beside each of its rows the v1 body, which
+   ``flash_attention_offset`` still runs, at offsets that give the same
+   attention), then the imperative plane's: the cross-entropy loss and
+   gradient, the fused softmax's backward and an ``rtc`` kernel
+   (``fma1``, checked in phase 2+ against ``torch.addcmul`` within 2
+   ulp).
 
 ``python3 chip_smoke.py --profile`` adds, after phase 6, a
 ``torch.profiler`` window over five training steps: device time and
@@ -729,6 +734,25 @@ def dq_census():
         dequant_matmul._plan = plan
 
 
+@contextlib.contextmanager
+def fa_census():
+    """Count the (B*H, Lq, Lk, D, causal) of each ``flash_attention``
+    launch: a counting shim around the wrapper's ``launch`` sees every
+    launch it makes (a dict update each, on the host)."""
+    shapes, launch = collections.Counter(), flash_attention.launch
+
+    def counted(x, name, entry, *args):
+        if name == "flash_attention":   # q, k, v, out, B*H, Lq, Lk, D, causal
+            shapes[tuple(args[4:9])] += 1
+        return launch(x, name, entry, *args)
+
+    flash_attention.launch = counted
+    try:
+        yield shapes
+    finally:
+        flash_attention.launch = launch
+
+
 def phase_serve(tag, name, params, reqs):
     """Serve ``reqs`` on a new registry with phase ``tag``'s store
     arguments (``SERVE_PHASES``), the launch counts set to 0 just before
@@ -745,7 +769,7 @@ def phase_serve(tag, name, params, reqs):
            st["compute_dtype"] or "float32", st["kv_dtype"], st["paged"],
            st["weight_bytes"]["total"], st["weight_bytes"]["by_dtype"]))
     kernels.reset_launch_counts()
-    with dq_census() as shapes:
+    with dq_census() as shapes, fa_census() as fa_shapes:
         results, seconds, stats = serve(reg, name, reqs)
         torch.cuda.synchronize()
     counts = kernels.launch_counts()
@@ -772,6 +796,14 @@ def phase_serve(tag, name, params, reqs):
                              "launches in phase %s"
                              % (sum(shapes.values()),
                                 counts["dequant_matmul"], tag))
+    if fa_shapes:
+        log("phase %s flash_attention launches by (B*H, Lq, Lk, D, causal) "
+            "%s" % (tag, dict(fa_shapes)))
+        if sum(fa_shapes.values()) != counts["flash_attention"]:
+            raise SystemExit("chip_smoke: %d flash_attention shapes, %d "
+                             "launches in phase %s"
+                             % (sum(fa_shapes.values()),
+                                counts["flash_attention"], tag))
     for k in must:
         if counts[k] <= 0:
             raise SystemExit("chip_smoke: %s never launched in phase %s"
@@ -783,6 +815,7 @@ def phase_serve(tag, name, params, reqs):
         raise SystemExit("chip_smoke: the shared-prefix requests did not "
                          "share blocks in phase %s" % tag)
     return dict(reg=reg, store=store, results=results, counts=counts,
+                fa_shapes=fa_shapes,
                 tok_s=ntok / seconds, step_ms=seconds * 1e3 / steps,
                 cache=stats["cache_hwm"].get(name, {}))
 
@@ -1441,11 +1474,61 @@ def autograd_backward(forward, inputs, cot):
     return lambda: torch.autograd.grad(out, leaves, cot, retain_graph=True)
 
 
-def phase_times_train(dev, card, errs):
-    """The training kernels at the training path's shapes.  Yardsticks:
-    the autograd backward of ``F.rms_norm`` / ``F.layer_norm``,
-    ``torch.softmax`` and ``F.scaled_dot_product_attention`` in fp32;
-    ``xent_grad_from_probs`` has no single-call yardstick."""
+def flash_row(dev, card, shape, q, k, v, causal, err):
+    """Time ``flash_attention`` on ``q`` [B, H, Lq, D] over ``k``, ``v``
+    against its plain version and fp32 SDPA, under the TF32 tensor-core
+    bound (the body's 3xTF32 products take fp32 inputs); beside them the
+    v1 body, which ``flash_attention_offset`` still runs, at offsets 0
+    (causal) or Lk - 1 (every key visible): v1's arithmetic and grid."""
+    B, H, Lq, D = q.shape
+    Lk = k.shape[2]
+    pairs = B * H * (sum(min(i + 1, Lk) for i in range(Lq)) if causal
+                     else Lq * Lk)
+    row = timed_row(
+        "flash_attention", shape,
+        lambda: flash_attention.flash_attention(q, k, v, causal),
+        lambda: flash_attention.blockwise_attention(q, k, v, causal),
+        lambda: torch.nn.functional.scaled_dot_product_attention(
+            q, k, v, is_causal=causal),
+        4 * B * H * D * (2 * Lq + 2 * Lk), 4 * D * pairs, err, card,
+        tf32=True)
+    ofs = torch.full((B,), 0 if causal else Lk - 1, dtype=torch.int32,
+                     device=dev)
+    v1_err = (flash_attention.flash_attention_offset(q, k, v, ofs) -
+              flash_attention.blockwise_attention(q, k, v, causal)
+              ).abs().max().item()
+    if not v1_err <= 1e-4:
+        raise SystemExit("chip_smoke: the v1 body disagrees at %s" % shape)
+    row["v1_ms"] = time_ms(
+        lambda: flash_attention.flash_attention_offset(q, k, v, ofs))
+    log("phase 5 flash_attention %s: v1 body %.6f ms (max_abs_err %.3e), "
+        "kernel %.6f ms, library %.6f ms [%s]"
+        % (shape, row["v1_ms"], v1_err, row["ms"], row["library_ms"], card))
+    return row
+
+
+def prefill_flash_inputs(fa_shapes, dev):
+    """Seeded ``((q, k, v), causal, launches)`` at each (B*H, Lq, Lk, D,
+    causal) of phase 3c's ``flash_attention`` launches (its prefills'),
+    the most frequent first."""
+    H = SPEC["num_heads"]
+    rs = np.random.RandomState(13)
+    for (bh, lq, lk, d, causal), n in sorted(
+            fa_shapes.items(), key=lambda kv: (-kv[1], kv[0])):
+        q = rs.randn(bh // H, H, lq, d).astype(np.float32)
+        k, v = (rs.randn(bh // H, H, lk, d).astype(np.float32)
+                for _ in range(2))
+        yield ([torch.from_numpy(a).to(dev) for a in (q, k, v)],
+               bool(causal), n)
+
+
+def phase_times_train(dev, card, errs, fa_shapes):
+    """The training kernels at the training path's shapes, and
+    ``flash_attention`` at the shapes of phase 3c's prefill launches
+    (``fa_shapes``, their census).  Yardsticks: the autograd backward of
+    ``F.rms_norm`` / ``F.layer_norm``, ``torch.softmax`` and
+    ``F.scaled_dot_product_attention`` in fp32; ``xent_grad_from_probs``
+    has no single-call yardstick."""
     F = torch.nn.functional
     t = train_kernel_inputs(dev)
     W, V = SPEC["num_hidden"], SPEC["vocab_size"]
@@ -1473,14 +1556,24 @@ def phase_times_train(dev, card, errs):
            lambda: torch.softmax(t["logits"], -1), 4 * 2 * nv, 5 * nv)
     record("xent_grad_from_probs", "xent_grad_from_probs", shape_v, None,
            4 * (2 * nv + TRAIN_ROWS), 2 * nv)
+    rows = entries.setdefault("flash_attention", [])
     for causal in (True, False):
-        pairs = B * H * (L * (L + 1) // 2 if causal else L * L)
-        record("flash_attention",
-               "flash_attention" if causal else "flash_attention non-causal",
-               "B=%d H=%d L=%d D=%d causal=%s" % (B, H, L, D, causal),
-               lambda c=causal: F.scaled_dot_product_attention(
-                   t["q"], t["k"], t["v"], is_causal=c),
-               4 * 4 * B * H * L * D, 4 * D * pairs)
+        rows.append(flash_row(
+            dev, card, "B=%d H=%d L=%d D=%d causal=%s" % (B, H, L, D, causal),
+            t["q"], t["k"], t["v"], causal, errs["flash_attention"]))
+    for (q, k, v), causal, n in prefill_flash_inputs(fa_shapes, dev):
+        err = (flash_attention.flash_attention(q, k, v, causal) -
+               flash_attention.blockwise_attention(q, k, v, causal)
+               ).abs().max().item()
+        if not err <= 1e-4:
+            raise SystemExit("chip_smoke: flash_attention disagrees with "
+                             "its plain version at phase 3c's prefill "
+                             "shape: %.3e" % err)
+        rows.append(flash_row(
+            dev, card, "B=%d H=%d Lq=%d Lk=%d D=%d causal=%s (phase 3c "
+            "prefill, %d of its launches)" % (
+                *q.shape[:3], k.shape[2], q.shape[3], causal, n),
+            q, k, v, causal, err))
     # the imperative plane's kernels; yardsticks F.cross_entropy (its
     # autograd backward for the gradient), the autograd backward of
     # torch.softmax, torch.addcmul
@@ -1528,8 +1621,9 @@ def kernel_rows(entries, counts):
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
             "library_ms": head["library_ms"], "shape": head["shape"],
             "shapes": rows})
-        if "bound_cuda_core_ms" in head:
-            out[-1]["bound_cuda_core_ms"] = head["bound_cuda_core_ms"]
+        for key in ("bound_cuda_core_ms", "v1_ms"):
+            if key in head:
+                out[-1][key] = head[key]
     return out
 
 
@@ -1574,7 +1668,8 @@ def main(argv):
     counts["imperative"] = phase_imperative(card, step_ms)
     phase_imperative_vs(params7, module_card)
     kern = kernel_rows(phase_times(dev, card, errs), counts)
-    kern += kernel_rows(phase_times_train(dev, card, errs), counts)
+    kern += kernel_rows(phase_times_train(dev, card, errs,
+                                          served["3c"]["fa_shapes"]), counts)
     for tag, what in (("3", "paged fp32"), ("3b", "paged int8"),
                       ("3c", "contiguous fp32"), ("3d", "paged bf16")):
         log("phase 5 engine %s: %.1f generated tokens/s at full width [%s]"

@@ -7,12 +7,17 @@ the forward: on a CPU tensor the plain version
 :func:`blockwise_attention` (the online-softmax recurrence over key
 blocks, with the reference's ``-1e30`` mask, masked ``p`` forced to 0
 and ``acc / (l > 0 ? l : 1)``), on a CUDA tensor
-``csrc/flash_attention.cu`` or an error.  ``flash_attention_offset`` is
+``csrc/flash_attention.cu`` or an error: for a head dim up to 128 a
+tensor-core body whose products run in 3xTF32 (each operand split in
+two TF32 parts, three ``mma.sync`` a k-step: fp32 accuracy, one TF32
+pass would miss the 1e-4 tolerance), above 128 the CUDA-core body that
+``flash_attention_offset`` runs.  The C entry point picks the body; one
+call is one launch either way.  ``flash_attention_offset`` is
 the decode attention of the contiguous serving plane, forward only: on
 a CPU tensor the plain :func:`offset_attention_reference` (dense
 offset-causal attention, the reference's
 ``ops/attention._dense_attention(q_offsets=)``), on a CUDA tensor the
-same kernel in its offset mode.
+CUDA-core body in its offset mode.
 
 :class:`FlashAttention` is the ``torch.autograd.Function``.  Its
 backward is not a kernel, because the reference's is not one either:
@@ -34,7 +39,7 @@ __all__ = ["flash_attention", "blockwise_attention", "FlashAttention",
            "KEY_TILE", "BACKWARD_BLOCK"]
 
 _NEG = -1e30      # the TPU kernel's mask constant, shared for parity
-KEY_TILE = 32     # kKeyTile of csrc/flash_attention.cu
+KEY_TILE = 32     # the plain version's key block (the CUDA-core body's)
 BACKWARD_BLOCK = 128   # the reference's key block for the recompute
 MAX_HEAD_DIM = 256
 

@@ -200,17 +200,60 @@ def test_loss_head_kernels_match_plain(cuda_device, rows, classes):
                                          (2, 3, 40, 40, 8),
                                          (1, 2, 70, 70, 100),
                                          (2, 1, 33, 33, 256),
-                                         (1, 2, 16, 48, 32)])
+                                         (1, 2, 16, 48, 32),
+                                         (2, 3, 40, 40, 12),
+                                         (1, 2, 70, 70, 128),
+                                         (1, 2, 1024, 1024, 64),
+                                         (2, 2, 64, 256, 64)])
 def test_flash_attention_kernel_matches_plain(cuda_device, causal, B, H, Lq,
                                               Lk, D):
-    rs = np.random.RandomState(Lq + D)
-    q = rs.randn(B, H, Lq, D).astype(np.float32)
-    k, v = (rs.randn(B, H, Lk, D).astype(np.float32) for _ in range(2))
-    q, k, v = _on(cuda_device, q, k, v)
+    """D <= 128 runs the 3xTF32 tensor-core body, D 256 the CUDA-core
+    one; lengths off the 64-row and 64-key tiles, and Lq != Lk."""
+    q, k, v = _flash_case(cuda_device, B, H, Lq, Lk, D)
     got = flash_attention.flash_attention(q, k, v, causal)
     want = flash_attention.blockwise_attention(q, k, v, causal)
     torch.cuda.synchronize()
     assert (got - want).abs().max().item() <= 1e-4
+
+
+def _flash_case(dev, B, H, Lq, Lk, D):
+    rs = np.random.RandomState(Lq + D)
+    q = rs.randn(B, H, Lq, D).astype(np.float32)
+    k, v = (rs.randn(B, H, Lk, D).astype(np.float32) for _ in range(2))
+    return _on(dev, q, k, v)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("D", [64, 100])
+def test_flash_attention_kernel_is_deterministic(cuda_device, causal, D):
+    """A fixed order of every sum, no atomics and no split of the keys:
+    two launches on the same inputs give the same bits."""
+    q, k, v = _flash_case(cuda_device, 4, 8, 256, 256, D)
+    first = flash_attention.flash_attention(q, k, v, causal)
+    assert torch.equal(flash_attention.flash_attention(q, k, v, causal),
+                       first)
+
+
+@pytest.mark.cuda
+def test_flash_attention_is_one_launch_a_call(cuda_device):
+    q, k, v = _flash_case(cuda_device, 2, 2, 200, 200, 64)
+    for causal in (True, False):
+        before = kernels.launch_counts()["flash_attention"]
+        flash_attention.flash_attention(q, k, v, causal)
+        assert kernels.launch_counts()["flash_attention"] == before + 1
+
+
+@pytest.mark.cuda
+def test_flash_attention_leaves_the_offset_count(cuda_device):
+    """flash_attention_offset keeps its own body and count: a
+    flash_attention call at any D moves neither."""
+    before = kernels.launch_counts()["flash_attention_offset"]
+    for D in (12, 64, 128, 256):
+        q, k, v = _flash_case(cuda_device, 1, 2, 33, 33, D)
+        flash_attention.flash_attention(q, k, v, True)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["flash_attention_offset"] == before
 
 
 @pytest.mark.cuda
