@@ -55,10 +55,13 @@ sources in this checkout on first use.  Phases, each fatal on failure:
    card's peak for fp32 inputs, and beside it the fp32 CUDA-core bound
    of earlier runs), and phase 3b's ms per step beside phase 3's;
 2+. the training path's kernels against their plain versions at training
-   width: the norm backwards at 4096 x 512, the loss head's softmax and
-   gradient, the cross-entropy loss and gradient (labels random, at
-   column 0, at the last column and out of range) and the fused
-   softmax's forward and backward at 4096 x 8192 (1e-5 x max|ref|),
+   width: the norm backwards at 4096 x 512 and at each edge of their two
+   paths (the register cap, width 1024, and 1028; width 1000; width 1002,
+   not a multiple of 4; 4097 rows; rows 4 bytes off 16-byte alignment;
+   dx and the weight gradients within 1e-5 x max|ref|), the loss head's
+   softmax and gradient, the cross-entropy loss and gradient (labels
+   random, at column 0, at the last column and out of range) and the
+   fused softmax's forward and backward at 4096 x 8192 (1e-5 x max|ref|),
    flash attention at B16 H8 L256 D64, causal and not (1e-4 absolute);
 6. train the transformer LM at full width (4 layers, hidden 512, 8 heads,
    vocab 8192, seq_len 256, batch 16) through ``Module.fit`` for 20 SGD
@@ -77,8 +80,11 @@ sources in this checkout on first use.  Phases, each fatal on failure:
 9. one imperative step from identical parameters on the card against
    the CPU (TF32 off), and against phase 7's ``Module`` step on the
    card: every gradient within 1e-3 x max|ref|;
-5+. the training kernels' times at their training shapes
-   (flash_attention also at each shape of phase 3c's prefill launches,
+5+. the training kernels' times at their training shapes (the norm
+   backwards also with L2 cold, ``ms_cold``: a 256 MB buffer written
+   before each launch, outside the events, and their v1 path beside them,
+   ``v1_ms``, on the same inputs 4 bytes off alignment;
+   flash_attention also at each shape of phase 3c's prefill launches,
    and beside each of its rows the v1 body, which
    ``flash_attention_offset`` still runs, at offsets that give the same
    attention), then the imperative plane's: the cross-entropy loss and
@@ -121,6 +127,13 @@ TRAIN_ATT = (TRAIN_BATCH, SPEC["num_heads"], TRAIN_SEQ,
              SPEC["num_hidden"] // SPEC["num_heads"])
 # serving rows (decode bucket, prefill chunk) and the training width
 NORM_ROWS, NORM_W = (32, 1024, 4096), 512
+# the norm backwards' path edges (rows, width, 4-byte offset): the v2
+# register cap and one float4 past it, a ragged last float4 chunk, a
+# width not a multiple of 4, one row past 4096, unaligned rows
+NORM_BWD_EDGES = ((64, 1024, 0), (64, 1028, 0), (33, 1000, 0),
+                  (9, 1002, 0), (4097, 512, 0), (300, 512, 1))
+# bytes written before each cold-L2 launch: five times the H100's 50 MB L2
+COLD_L2_BYTES = 256 << 20
 PA = dict(B=32, H=8, D=64, bs=64, T=16, num_blocks=513)
 PA_LQ = (1, 32)
 # dequant_matmul: M is a decode bucket (1, 16 and 32: the GEMV regime)
@@ -381,9 +394,14 @@ def phase_build():
     info = _build.build_info()
     log("phase 1 build: %.2f s (compiled=%s) -> %s"
         % (time.perf_counter() - tic, info["built"], info["path"]))
+    entry = ""
     for line in info["log"].splitlines():
-        if "registers" in line or "spill" in line or line.startswith("=="):
+        if "Compiling entry function" in line:
+            entry = line.split("'")[1]
+        elif line.startswith("=="):
             log("  ptxas:", line.strip())
+        elif "registers" in line or "spill" in line:
+            log("  ptxas: %s: %s" % (entry, line.split(":", 1)[-1].strip()))
 
 
 def phase_compare(dev):
@@ -625,7 +643,50 @@ def phase_compare_train(dev):
             err, tol = max(err, e), max(tol, bound)
         log("phase 2 %s: max_abs_err %.3e (tol %.3e)" % (name, err, tol))
         errs[name.split()[0]] = max(errs.get(name.split()[0], 0.0), err)
+    for name, err in phase_compare_norm_bwd_edges(dev).items():
+        errs[name] = max(errs[name], err)
     errs["rtc"] = phase_compare_rtc(t)
+    return errs
+
+
+def offset_copy(t, offset):
+    """A contiguous copy of ``t`` whose storage starts ``offset`` floats
+    into a larger buffer (4 bytes off 16-byte alignment for offset 1)."""
+    buf = torch.empty(t.numel() + offset, dtype=t.dtype, device=t.device)
+    out = buf[offset:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+def norm_bwd_edge_inputs(rows, width, offset, dev):
+    rs = np.random.RandomState(rows * 7 + width)
+    x, dy = (torch.from_numpy(rs.randn(rows, width).astype(np.float32))
+             .to(dev) for _ in range(2))
+    g = torch.from_numpy(rs.uniform(0.5, 1.5, width).astype(np.float32))
+    return offset_copy(x + 3.0, offset), g.to(dev), offset_copy(dy, offset)
+
+
+def phase_compare_norm_bwd_edges(dev):
+    """Both norm backwards against their plain versions at each edge of
+    their paths (``NORM_BWD_EDGES``): dx and every weight gradient within
+    1e-5 x max|ref|."""
+    errs = {}
+    for rows, width, offset in NORM_BWD_EDGES:
+        x, g, dy = norm_bwd_edge_inputs(rows, width, offset, dev)
+        plan = norm._bwd_plan(rows, width, offset == 0,
+                              _build.sm_count(dev.index))
+        for name, got, want in (
+                ("rms_norm_bwd", norm.rms_norm_bwd(x, g, dy, 1e-6),
+                 norm.rms_norm_bwd_reference(x, g, dy, 1e-6)),
+                ("layer_norm_bwd", norm.layer_norm_bwd(x, g, dy, 1e-5),
+                 norm.layer_norm_bwd_reference(x, g, dy, 1e-5))):
+            err = max(agree("%s %s" % (name, out), "rows=%d width=%d "
+                            "offset=%d (%s, %d CTAs)" % (
+                                rows, width, offset, plan.path, plan.ctas),
+                            a, b, 1e-5 * b.abs().max().item())
+                      for out, a, b in zip(("dx", "dgamma", "dbeta"), got,
+                                           want))
+            errs[name] = max(errs.get(name, 0.0), err)
     return errs
 
 
@@ -1283,9 +1344,10 @@ def phase_imperative_vs(params, module_card):
                if k != "probabilities"})
 
 
-def time_ms(fn, n=60):
+def time_ms(fn, n=60, flush=None):
     """Median device milliseconds of ``fn`` over ``n`` launches, queued
-    behind a GPU spin so the launches run back to back."""
+    behind a GPU spin so the launches run back to back; ``flush``: a call
+    made before each launch, outside its events."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
@@ -1293,11 +1355,36 @@ def time_ms(fn, n=60):
     ends = [torch.cuda.Event(enable_timing=True) for _ in range(n)]
     torch.cuda._sleep(200_000_000)
     for s, e in zip(starts, ends):
+        if flush is not None:
+            flush()
         s.record()
         fn()
         e.record()
     torch.cuda.synchronize()
     return statistics.median(s.elapsed_time(e) for s, e in zip(starts, ends))
+
+
+def norm_bwd_cold_and_v1(row, kern, library, t, eps, card):
+    """Add ``ms_cold`` and ``library_ms_cold`` to a norm backward's row,
+    timed with L2 cold: ``COLD_L2_BYTES`` written before each launch,
+    outside its events (which leaves L2 full of dirty lines); and
+    ``v1_ms``: the v1 path, which the planner gives the same inputs 4
+    bytes off 16-byte alignment."""
+    x1, dy1 = offset_copy(t["x"], 1), offset_copy(t["dy"], 1)
+    fn = getattr(norm, kern)
+    for a, b in zip(fn(x1, t["g"], dy1, eps), fn(t["x"], t["g"], t["dy"],
+                                                 eps)):
+        agree(kern + " v1 vs v2", row["shape"], a, b,
+              1e-5 * b.abs().max().item())
+    scratch = torch.empty(COLD_L2_BYTES // 4, device=t["x"].device)
+    row["ms_cold"] = time_ms(lambda: fn(t["x"], t["g"], t["dy"], eps),
+                             flush=scratch.zero_)
+    row["library_ms_cold"] = time_ms(library, flush=scratch.zero_)
+    row["v1_ms"] = time_ms(lambda: fn(x1, t["g"], dy1, eps))
+    log("phase 5 %s %s: L2 cold: kernel %.6f ms, library %.6f ms; v1 path "
+        "%.6f ms (warm) beside the kernel's %.6f [%s]"
+        % (kern, row["shape"], row["ms_cold"], row["library_ms_cold"],
+           row["v1_ms"], row["ms"], card))
 
 
 def library_paged(q, kp, vp, tbl, pos, bs, kv_scales=None):
@@ -1546,12 +1633,19 @@ def phase_times_train(dev, card, errs, fa_shapes):
             card))
 
     # bytes: each input read once, each output written once
-    record("rms_norm_bwd", "rms_norm_bwd", shape_n, autograd_backward(
+    lib_rms = autograd_backward(
         lambda x, g: F.rms_norm(x, (W,), g, 1e-6), (t["x"], t["g"]),
-        t["dy"]), 4 * (3 * n + 2 * W), 12 * n)
-    record("layer_norm_bwd", "layer_norm_bwd", shape_n, autograd_backward(
+        t["dy"])
+    lib_ln = autograd_backward(
         lambda x, g, b: F.layer_norm(x, (W,), g, b, 1e-5),
-        (t["x"], t["g"], t["b"]), t["dy"]), 4 * (3 * n + 3 * W), 16 * n)
+        (t["x"], t["g"], t["b"]), t["dy"])
+    record("rms_norm_bwd", "rms_norm_bwd", shape_n, lib_rms,
+           4 * (3 * n + 2 * W), 12 * n)
+    record("layer_norm_bwd", "layer_norm_bwd", shape_n, lib_ln,
+           4 * (3 * n + 3 * W), 16 * n)
+    for kern, library, eps in (("rms_norm_bwd", lib_rms, 1e-6),
+                               ("layer_norm_bwd", lib_ln, 1e-5)):
+        norm_bwd_cold_and_v1(entries[kern][0], kern, library, t, eps, card)
     record("softmax_rows", "softmax_rows", shape_v,
            lambda: torch.softmax(t["logits"], -1), 4 * 2 * nv, 5 * nv)
     record("xent_grad_from_probs", "xent_grad_from_probs", shape_v, None,
@@ -1621,7 +1715,8 @@ def kernel_rows(entries, counts):
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
             "library_ms": head["library_ms"], "shape": head["shape"],
             "shapes": rows})
-        for key in ("bound_cuda_core_ms", "v1_ms"):
+        for key in ("bound_cuda_core_ms", "v1_ms", "ms_cold",
+                    "library_ms_cold"):
             if key in head:
                 out[-1][key] = head[key]
     return out

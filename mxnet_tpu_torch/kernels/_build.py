@@ -18,6 +18,7 @@ entry point with :func:`launch`, which counts the launch.
 from __future__ import annotations
 
 import ctypes
+import functools
 import glob
 import hashlib
 import os
@@ -33,7 +34,7 @@ from ..base import MXNetError
 from . import count_launch
 
 __all__ = ["KernelError", "library", "check", "build_info", "route",
-           "check_args", "launch"]
+           "check_args", "launch", "sm_count"]
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _CSRC = os.path.join(_HERE, "csrc")
@@ -52,11 +53,14 @@ _SIGNATURES = {
     # the same in bf16 (x, gamma, beta and y all bf16)
     "mxt_rms_norm_bf16": (_P, _P, _P, _I, _I, _F, _P),
     "mxt_layer_norm_bf16": (_P, _P, _P, _P, _I, _I, _F, _P),
-    # x, gamma, dy, dx, dgamma_partials, rows, width, eps, stream
-    "mxt_rms_norm_bwd_f32": (_P, _P, _P, _P, _P, _I, _I, _F, _P),
-    # x, gamma, dy, dx, dgamma_partials, dbeta_partials, rows, width, eps,
-    # stream
-    "mxt_layer_norm_bwd_f32": (_P, _P, _P, _P, _P, _P, _I, _I, _F, _P),
+    # x, gamma, dy, dx, dgamma, dgamma_partials, rows, width, eps, path,
+    # rows_per_warp, stream (norm.py::_bwd_plan)
+    "mxt_rms_norm_bwd_f32": (_P, _P, _P, _P, _P, _P, _I, _I, _F, _I, _I,
+                             _P),
+    # x, gamma, dy, dx, dgamma, dbeta, dgamma_partials, dbeta_partials,
+    # rows, width, eps, path, rows_per_warp, stream
+    "mxt_layer_norm_bwd_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _F,
+                               _I, _I, _P),
     # x, p, rows, cols, stream
     "mxt_softmax_rows_f32": (_P, _P, _I, _I, _P),
     # p, label, grad, rows, cols, scale, stream
@@ -224,6 +228,12 @@ def check_args(name, *tensors, dtypes=(torch.float32,)):
                                      for d in dtypes), t.dtype))
         if not t.is_contiguous():
             raise KernelError("%s: tensors must be contiguous" % name)
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index):
+    """Streaming multiprocessors of CUDA device ``index``."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def launch(x, name, entry, *args):

@@ -35,12 +35,27 @@
 // element a lane (the fp32 access pattern of PR 1, unchanged).  bf16
 // halves the bytes, so its bound halves with them.
 //
-// The backward's weight gradients are per-block partial sums, one
-// (width,) row per block of kBwdRowsPerBlock rows, which the caller sums
-// (as the TPU caller sums its per-row-block partials): each warp adds
-// its rows' contributions into its own shared-memory row, then the block
-// adds the four warp rows in a fixed order.  No atomics, so the result
-// is the same on every run.
+// The backwards (fp32) are bound by bytes too: x and dy read once, dx
+// written once.  Two paths, which the wrapper's planner picks
+// (kernels/norm.py::_bwd_plan) and the entry point checks:
+//   v2, for rows of width <= 1024, width % 4 == 0 and every pointer
+//     16-byte aligned: a warp holds its row of x and dy in registers,
+//     loaded as float4 (lane l owns the 4-column chunks l, l + 32, ...),
+//     issues all of a row's loads before its first reduction and the
+//     next row's before the current row's reductions, and computes the
+//     statistics, mean(w) and mean(w*xhat) from registers; gamma is
+//     loaded once a warp.  A warp takes rows_per_warp rows, kV2Warps
+//     apart, so at each step a CTA's warps read neighbouring rows.
+//   v1, any other row: a warp per row, lanes 32 floats apart with scalar
+//     loads, rows_per_warp consecutive rows a warp, the row re-read from
+//     L1/L2 for each pass.
+// The weight gradients stay out of device memory until a CTA's end: each
+// lane sums dgamma (and dbeta) over its rows for its own columns, the
+// CTA adds its warps' rows in warp order through shared memory and
+// writes one partial row, and sum_partials_kernel, launched by the same
+// entry point, adds the CTAs' rows column by column in a fixed order.
+// No floating-point atomics, so the same inputs give the same bits on
+// every launch.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -49,9 +64,10 @@
 
 namespace {
 
-constexpr int kWarpsPerBlock = 4;
-constexpr int kBwdRowsPerWarp = 4;
-constexpr int kBwdRowsPerBlock = kWarpsPerBlock * kBwdRowsPerWarp;
+constexpr int kWarpsPerBlock = 4;   // forwards and the v1 backward
+constexpr int kV2Warps = 8;         // the v2 backward's CTA
+constexpr int kV2MaxChunks = 8;     // float4 chunks a lane: width <= 1024
+constexpr int kSumWarps = 16;       // sum_partials_kernel's CTA
 constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -192,113 +208,328 @@ __global__ void layer_norm_kernel(const E* __restrict__ x,
            (widen(xr[c]) - mu) * r * widen(gamma[c]) + widen(beta[c]));
 }
 
-// dgamma (and dbeta) partials: the block's kWarpsPerBlock warp rows of
-// shared memory, summed in warp order into row blockIdx.x of `out`
-__device__ __forceinline__ void write_partial(const float* part, float* out,
-                                              int width) {
-  __syncthreads();
-  for (int c = threadIdx.x; c < width; c += 32 * kWarpsPerBlock) {
+// ---- backward ----------------------------------------------------------
+
+// the two sums of a row reduced side by side: two independent shuffle
+// chains, one round of latency
+__device__ __forceinline__ void warp_sum2(float& a, float& b) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    a += __shfl_xor_sync(kFull, a, o);
+    b += __shfl_xor_sync(kFull, b, o);
+  }
+}
+
+// let the entry point's sum_partials_kernel launch now (programmatic
+// dependent launch); it waits for this grid to finish before reading
+__device__ __forceinline__ void release_dependents() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
+__device__ __forceinline__ void wait_for_primary() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+}
+
+// a lane's NV float4 chunks of a row (chunk c = lane + 32 j of n4);
+// chunks past the row read as 0
+template <int NV>
+__device__ __forceinline__ void load_chunks(const float4* __restrict__ src,
+                                            int n4, int lane,
+                                            float (&v)[NV][4]) {
+#pragma unroll
+  for (int j = 0; j < NV; ++j) {
+    const int c = lane + 32 * j;
+    const float4 a = c < n4 ? src[c] : make_float4(0.f, 0.f, 0.f, 0.f);
+    v[j][0] = a.x;
+    v[j][1] = a.y;
+    v[j][2] = a.z;
+    v[j][3] = a.w;
+  }
+}
+
+template <int NV>
+__device__ __forceinline__ void store_chunks(float4* dst, int n4, int lane,
+                                             const float (&v)[NV][4]) {
+#pragma unroll
+  for (int j = 0; j < NV; ++j) {
+    const int c = lane + 32 * j;
+    if (c < n4) dst[c] = make_float4(v[j][0], v[j][1], v[j][2], v[j][3]);
+  }
+}
+
+// v2: one row of dx from the row held in registers (xv, dv; gamma g),
+// adding the row's dgamma (ag) and dbeta (ab, LayerNorm) contributions
+// to the lane's column sums.  Chunks past the row hold x = dy = 0, which
+// add nothing to any sum but (x - mu)^2, where they are masked.
+template <int NV, bool LN>
+__device__ __forceinline__ void bwd_row_v2(const float (&xv)[NV][4],
+                                           const float (&dv)[NV][4],
+                                           const float (&g)[NV][4],
+                                           float (&ag)[NV][4],
+                                           float (&ab)[NV][4], float4* dxr,
+                                           int n4, int lane, int width,
+                                           float eps) {
+  float o[NV][4];
+  if constexpr (LN) {
     float s = 0.f;
 #pragma unroll
-    for (int w = 0; w < kWarpsPerBlock; ++w) s += part[w * width + c];
-    out[static_cast<size_t>(blockIdx.x) * width + c] = s;
+    for (int j = 0; j < NV; ++j)
+#pragma unroll
+      for (int k = 0; k < 4; ++k) s += xv[j][k];
+    const float mu = warp_sum(s) / width;
+    float sq = 0.f;
+#pragma unroll
+    for (int j = 0; j < NV; ++j)
+      if (lane + 32 * j < n4) {
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          const float d = xv[j][k] - mu;
+          sq += d * d;
+        }
+      }
+    const float r = rsqrtf(warp_sum(sq) / width + eps);
+    float sw = 0.f, swx = 0.f;
+#pragma unroll
+    for (int j = 0; j < NV; ++j)
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const float w = dv[j][k] * g[j][k];
+        sw += w;
+        swx += w * ((xv[j][k] - mu) * r);
+      }
+    warp_sum2(sw, swx);
+    const float mw = sw / width;
+    const float mwx = swx / width;
+#pragma unroll
+    for (int j = 0; j < NV; ++j)
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const float d = dv[j][k];
+        const float xhat = (xv[j][k] - mu) * r;
+        o[j][k] = r * (d * g[j][k] - mw - xhat * mwx);
+        ag[j][k] += d * xhat;
+        ab[j][k] += d;
+      }
+  } else {
+    float ss = 0.f, swx = 0.f;
+#pragma unroll
+    for (int j = 0; j < NV; ++j)
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const float v = xv[j][k];
+        ss += v * v;
+        swx += dv[j][k] * g[j][k] * v;
+      }
+    warp_sum2(ss, swx);
+    const float r = rsqrtf(ss / width + eps);
+    const float mwx = swx / width;
+    const float r3 = r * r * r;
+#pragma unroll
+    for (int j = 0; j < NV; ++j)
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const float v = xv[j][k];
+        const float d = dv[j][k];
+        o[j][k] = r * (d * g[j][k]) - r3 * v * mwx;
+        ag[j][k] += d * v * r;
+      }
   }
+  store_chunks<NV>(dxr, n4, lane, o);
 }
 
-__global__ void rms_norm_bwd_kernel(const float* __restrict__ x,
-                                    const float* __restrict__ gamma,
-                                    const float* __restrict__ dy,
-                                    float* __restrict__ dx,
-                                    float* __restrict__ dg_part, int rows,
-                                    int width, float eps) {
-  extern __shared__ float part[];     // [kWarpsPerBlock][width]
+// v2 (see the head of the file).  Warp w of CTA b takes rows
+// b * kV2Warps * rows_per_warp + w + i * kV2Warps, i < rows_per_warp;
+// the CTA writes partial row b of dg_part (and db_part).  NV: float4
+// chunks a lane, a power of two with 128 NV >= width.
+template <int NV, bool LN>
+__global__ void __launch_bounds__(32 * kV2Warps)
+norm_bwd_v2_kernel(const float* __restrict__ x,
+                   const float* __restrict__ gamma,
+                   const float* __restrict__ dy, float* __restrict__ dx,
+                   float* __restrict__ dg_part, float* __restrict__ db_part,
+                   int rows, int width, float eps, int rows_per_warp) {
+  extern __shared__ float4 wrows[];   // [LN ? 2 : 1][kV2Warps][width / 4]
+  release_dependents();
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
-  float* wpart = part + warp * width;
-  for (int c = lane; c < width; c += 32) wpart[c] = 0.f;
-  const int row0 = blockIdx.x * kBwdRowsPerBlock + warp * kBwdRowsPerWarp;
-  for (int i = 0; i < kBwdRowsPerWarp && row0 + i < rows; ++i) {
-    const size_t off = static_cast<size_t>(row0 + i) * width;
-    const float* xr = x + off;
-    const float* dyr = dy + off;
-    float* dxr = dx + off;
-    float ss = 0.f, swx = 0.f;
-    for (int c = lane; c < width; c += 32) {
-      const float v = xr[c];
-      ss += v * v;
-      swx += dyr[c] * gamma[c] * v;
+  const int n4 = width / 4;
+  const float4* x4 = reinterpret_cast<const float4*>(x);
+  const float4* dy4 = reinterpret_cast<const float4*>(dy);
+  float g[NV][4], ag[NV][4], ab[NV][4], xv[NV][4], dv[NV][4];
+  load_chunks<NV>(reinterpret_cast<const float4*>(gamma), n4, lane, g);
+#pragma unroll
+  for (int j = 0; j < NV; ++j)
+#pragma unroll
+    for (int k = 0; k < 4; ++k) ag[j][k] = ab[j][k] = 0.f;
+  int row = blockIdx.x * kV2Warps * rows_per_warp + warp;
+  if (row < rows) {
+    load_chunks<NV>(x4 + static_cast<size_t>(row) * n4, n4, lane, xv);
+    load_chunks<NV>(dy4 + static_cast<size_t>(row) * n4, n4, lane, dv);
+  }
+  for (int i = 0; i < rows_per_warp && row < rows; ++i, row += kV2Warps) {
+    const int next = row + kV2Warps;
+    const bool more = i + 1 < rows_per_warp && next < rows;
+    float xn[NV][4], dn[NV][4];
+    if (more) {   // in flight while this row reduces
+      load_chunks<NV>(x4 + static_cast<size_t>(next) * n4, n4, lane, xn);
+      load_chunks<NV>(dy4 + static_cast<size_t>(next) * n4, n4, lane, dn);
     }
-    const float r = rsqrtf(warp_sum(ss) / width + eps);
-    const float mwx = warp_sum(swx) / width;
-    const float r3 = r * r * r;
-    for (int c = lane; c < width; c += 32) {
-      const float v = xr[c];
-      const float d = dyr[c];
-      const float w = d * gamma[c];
-      dxr[c] = r * w - r3 * v * mwx;
-      wpart[c] += d * v * r;
+    bwd_row_v2<NV, LN>(xv, dv, g, ag, ab,
+                       reinterpret_cast<float4*>(dx) +
+                           static_cast<size_t>(row) * n4,
+                       n4, lane, width, eps);
+    if (more) {
+#pragma unroll
+      for (int j = 0; j < NV; ++j)
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          xv[j][k] = xn[j][k];
+          dv[j][k] = dn[j][k];
+        }
     }
   }
-  write_partial(part, dg_part, width);
+  store_chunks<NV>(wrows + warp * n4, n4, lane, ag);
+  if constexpr (LN) store_chunks<NV>(wrows + (kV2Warps + warp) * n4, n4,
+                                     lane, ab);
+  __syncthreads();
+  for (int c = threadIdx.x; c < n4; c += 32 * kV2Warps) {
+#pragma unroll
+    for (int t = 0; t < (LN ? 2 : 1); ++t) {
+      const float4* src = wrows + t * kV2Warps * n4 + c;
+      float4 s = src[0];
+#pragma unroll
+      for (int w = 1; w < kV2Warps; ++w) {
+        const float4 a = src[w * n4];
+        s.x += a.x;
+        s.y += a.y;
+        s.z += a.z;
+        s.w += a.w;
+      }
+      reinterpret_cast<float4*>(t ? db_part : dg_part)
+          [static_cast<size_t>(blockIdx.x) * n4 + c] = s;
+    }
+  }
 }
 
-__global__ void layer_norm_bwd_kernel(const float* __restrict__ x,
-                                      const float* __restrict__ gamma,
-                                      const float* __restrict__ dy,
-                                      float* __restrict__ dx,
-                                      float* __restrict__ dg_part,
-                                      float* __restrict__ db_part, int rows,
-                                      int width, float eps) {
-  extern __shared__ float part[];     // dgamma then dbeta warp rows
+// v1 (see the head of the file): warp w of CTA b takes rows
+// (b * kWarpsPerBlock + w) * rows_per_warp + i, i < rows_per_warp; the
+// CTA writes partial row b of dg_part (and db_part)
+template <bool LN>
+__global__ void norm_bwd_v1_kernel(const float* __restrict__ x,
+                                   const float* __restrict__ gamma,
+                                   const float* __restrict__ dy,
+                                   float* __restrict__ dx,
+                                   float* __restrict__ dg_part,
+                                   float* __restrict__ db_part, int rows,
+                                   int width, float eps, int rows_per_warp) {
+  extern __shared__ float part[];   // dgamma, then dbeta, warp rows
+  release_dependents();
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   float* gpart = part + warp * width;
   float* bpart = part + (kWarpsPerBlock + warp) * width;
   for (int c = lane; c < width; c += 32) {
     gpart[c] = 0.f;
-    bpart[c] = 0.f;
+    if constexpr (LN) bpart[c] = 0.f;
   }
-  const int row0 = blockIdx.x * kBwdRowsPerBlock + warp * kBwdRowsPerWarp;
-  for (int i = 0; i < kBwdRowsPerWarp && row0 + i < rows; ++i) {
+  const int row0 = (blockIdx.x * kWarpsPerBlock + warp) * rows_per_warp;
+  for (int i = 0; i < rows_per_warp && row0 + i < rows; ++i) {
     const size_t off = static_cast<size_t>(row0 + i) * width;
     const float* xr = x + off;
     const float* dyr = dy + off;
     float* dxr = dx + off;
-    float s = 0.f;
-    for (int c = lane; c < width; c += 32) s += xr[c];
-    const float mu = warp_sum(s) / width;
-    float sq = 0.f;
-    for (int c = lane; c < width; c += 32) {
-      const float d = xr[c] - mu;
-      sq += d * d;
-    }
-    const float r = rsqrtf(warp_sum(sq) / width + eps);
-    float sw = 0.f, swx = 0.f;
-    for (int c = lane; c < width; c += 32) {
-      const float w = dyr[c] * gamma[c];
-      sw += w;
-      swx += w * ((xr[c] - mu) * r);
-    }
-    const float mw = warp_sum(sw) / width;
-    const float mwx = warp_sum(swx) / width;
-    for (int c = lane; c < width; c += 32) {
-      const float d = dyr[c];
-      const float xhat = (xr[c] - mu) * r;
-      dxr[c] = r * (d * gamma[c] - mw - xhat * mwx);
-      gpart[c] += d * xhat;
-      bpart[c] += d;
+    if constexpr (LN) {
+      float s = 0.f;
+      for (int c = lane; c < width; c += 32) s += xr[c];
+      const float mu = warp_sum(s) / width;
+      float sq = 0.f;
+      for (int c = lane; c < width; c += 32) {
+        const float d = xr[c] - mu;
+        sq += d * d;
+      }
+      const float r = rsqrtf(warp_sum(sq) / width + eps);
+      float sw = 0.f, swx = 0.f;
+      for (int c = lane; c < width; c += 32) {
+        const float w = dyr[c] * gamma[c];
+        sw += w;
+        swx += w * ((xr[c] - mu) * r);
+      }
+      warp_sum2(sw, swx);
+      const float mw = sw / width;
+      const float mwx = swx / width;
+      for (int c = lane; c < width; c += 32) {
+        const float d = dyr[c];
+        const float xhat = (xr[c] - mu) * r;
+        dxr[c] = r * (d * gamma[c] - mw - xhat * mwx);
+        gpart[c] += d * xhat;
+        bpart[c] += d;
+      }
+    } else {
+      float ss = 0.f, swx = 0.f;
+      for (int c = lane; c < width; c += 32) {
+        const float v = xr[c];
+        ss += v * v;
+        swx += dyr[c] * gamma[c] * v;
+      }
+      warp_sum2(ss, swx);
+      const float r = rsqrtf(ss / width + eps);
+      const float mwx = swx / width;
+      const float r3 = r * r * r;
+      for (int c = lane; c < width; c += 32) {
+        const float v = xr[c];
+        const float d = dyr[c];
+        dxr[c] = r * (d * gamma[c]) - r3 * v * mwx;
+        gpart[c] += d * v * r;
+      }
     }
   }
-  write_partial(part, dg_part, width);
-  write_partial(part + kWarpsPerBlock * width, db_part, width);
+  __syncthreads();
+  for (int c = threadIdx.x; c < width; c += 32 * kWarpsPerBlock) {
+#pragma unroll
+    for (int t = 0; t < (LN ? 2 : 1); ++t) {
+      const float* src = part + t * kWarpsPerBlock * width + c;
+      float s = 0.f;
+#pragma unroll
+      for (int w = 0; w < kWarpsPerBlock; ++w) s += src[w * width];
+      (t ? db_part : dg_part)[static_cast<size_t>(blockIdx.x) * width + c] =
+          s;
+    }
+  }
+}
+
+// out_t[c] = sum over p < parts of part_t[p][c], added in a fixed order:
+// warp w adds rows w, w + kSumWarps, ... in turn, then warp 0 adds the
+// warps' sums in warp order.  blockIdx.x: 32 columns; blockIdx.y: t, the
+// dgamma (0) or dbeta (1) pair.  parts == 0 writes zeros.
+__global__ void __launch_bounds__(32 * kSumWarps)
+sum_partials_kernel(const float* __restrict__ part0,
+                    float* __restrict__ out0,
+                    const float* __restrict__ part1,
+                    float* __restrict__ out1, int parts, int width) {
+  __shared__ float sums[kSumWarps][32];
+  wait_for_primary();
+  const float* part = blockIdx.y ? part1 : part0;
+  float* out = blockIdx.y ? out1 : out0;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int c = blockIdx.x * 32 + lane;
+  float s = 0.f;
+  if (c < width) {
+#pragma unroll 8
+    for (int p = warp; p < parts; p += kSumWarps)
+      s += part[static_cast<size_t>(p) * width + c];
+  }
+  sums[warp][lane] = s;
+  __syncthreads();
+  if (warp == 0 && c < width) {
+    float t = 0.f;
+#pragma unroll
+    for (int w = 0; w < kSumWarps; ++w) t += sums[w][lane];
+    out[c] = t;
+  }
 }
 
 int blocks_for(int rows) {
   return (rows + kWarpsPerBlock - 1) / kWarpsPerBlock;
-}
-
-int bwd_blocks_for(int rows) {
-  return (rows + kBwdRowsPerBlock - 1) / kBwdRowsPerBlock;
 }
 
 // dynamic shared memory above the default 48 KB needs an opt-in
@@ -310,13 +541,16 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
                               static_cast<int>(bytes));
 }
 
-// 16-byte chunks for a bf16 row: the width a multiple of 8 and every
-// pointer 16-byte aligned (then every row start is too)
-bool vec_rows(int width, std::initializer_list<const void*> ptrs) {
-  if (width % kVec != 0) return false;
+bool aligned16(std::initializer_list<const void*> ptrs) {
   for (const void* p : ptrs)
     if (reinterpret_cast<uintptr_t>(p) % 16 != 0) return false;
   return true;
+}
+
+// 16-byte chunks for a bf16 row: the width a multiple of 8 and every
+// pointer 16-byte aligned (then every row start is too)
+bool vec_rows(int width, std::initializer_list<const void*> ptrs) {
+  return width % kVec == 0 && aligned16(ptrs);
 }
 
 template <typename E>
@@ -338,6 +572,82 @@ int layer_norm(const E* x, const E* gamma, const E* beta, E* y, int rows,
                                      vec);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// v2 takes rows of width <= 1024, width % 4 == 0 and 16-byte aligned
+// pointers (then every row start is aligned too)
+bool v2_rows(int width, std::initializer_list<const void*> ptrs) {
+  return width <= 32 * 4 * kV2MaxChunks && width % 4 == 0 && aligned16(ptrs);
+}
+
+template <int NV, bool LN>
+cudaError_t launch_v2(const float* x, const float* gamma, const float* dy,
+                      float* dx, float* dg_part, float* db_part, int rows,
+                      int width, float eps, int rows_per_warp, int ctas,
+                      cudaStream_t stream) {
+  const size_t smem = sizeof(float) * (LN ? 2 : 1) * kV2Warps * width;
+  const cudaError_t err = allow_smem(norm_bwd_v2_kernel<NV, LN>, smem);
+  if (err != cudaSuccess) return err;
+  norm_bwd_v2_kernel<NV, LN><<<ctas, 32 * kV2Warps, smem, stream>>>(
+      x, gamma, dy, dx, dg_part, db_part, rows, width, eps, rows_per_warp);
+  return cudaGetLastError();
+}
+
+// dx, and the (width,) weight gradients dg (and db, LayerNorm): the
+// path's kernel writes one partial row a CTA into dg_part (db_part),
+// then sum_partials_kernel adds them.  path 0: v1, 1: v2; the partial
+// buffers hold ceil(rows / (warps * rows_per_warp)) rows, warps 4 (v1)
+// or 8 (v2).
+template <bool LN>
+int norm_bwd(const float* x, const float* gamma, const float* dy, float* dx,
+             float* dg, float* db, float* dg_part, float* db_part, int rows,
+             int width, float eps, int path, int rows_per_warp,
+             cudaStream_t stream) {
+  if (rows < 0 || width < 0 || rows_per_warp < 1 || (path != 0 && path != 1))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (path == 1 && !v2_rows(width, {x, gamma, dy, dx, dg_part, db_part}))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (width == 0) return static_cast<int>(cudaGetLastError());
+  const int per_cta = (path == 1 ? kV2Warps : kWarpsPerBlock) * rows_per_warp;
+  const int ctas = static_cast<int>((static_cast<long long>(rows) + per_cta -
+                                     1) / per_cta);
+  cudaError_t err = cudaSuccess;
+  if (ctas > 0 && path == 1) {
+    const int chunks = (width / 4 + 31) / 32;
+#define MXT_V2(NV)                                                         \
+  launch_v2<NV, LN>(x, gamma, dy, dx, dg_part, db_part, rows, width, eps,  \
+                    rows_per_warp, ctas, stream)
+    err = chunks <= 1 ? MXT_V2(1) : chunks <= 2 ? MXT_V2(2)
+        : chunks <= 4 ? MXT_V2(4) : MXT_V2(8);
+#undef MXT_V2
+  } else if (ctas > 0) {
+    const size_t smem =
+        sizeof(float) * (LN ? 2 : 1) * kWarpsPerBlock * width;
+    err = allow_smem(norm_bwd_v1_kernel<LN>, smem);
+    if (err == cudaSuccess) {
+      norm_bwd_v1_kernel<LN><<<ctas, 32 * kWarpsPerBlock, smem, stream>>>(
+          x, gamma, dy, dx, dg_part, db_part, rows, width, eps,
+          rows_per_warp);
+      err = cudaGetLastError();
+    }
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // the sums launch early and wait on the grid above (programmatic
+  // dependent launch): no gap between the two
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((width + 31) / 32, LN ? 2 : 1);
+  cfg.blockDim = dim3(32 * kSumWarps);
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, sum_partials_kernel,
+                           static_cast<const float*>(dg_part), dg,
+                           static_cast<const float*>(db_part), db, ctas,
+                           width);
+  return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
 }
 
 }  // namespace
@@ -372,35 +682,24 @@ extern "C" int mxt_layer_norm_bf16(const __nv_bfloat16* x,
                     vec_rows(width, {x, gamma, beta, y}), stream);
 }
 
-// dg_part: (ceil(rows / 16), width) per-block partial sums of dgamma
+// dx and dgamma of rms_norm; dg_part: (ctas, width) scratch, ctas as
+// norm_bwd says
 extern "C" int mxt_rms_norm_bwd_f32(const float* x, const float* gamma,
-                                    const float* dy, float* dx,
+                                    const float* dy, float* dx, float* dg,
                                     float* dg_part, int rows, int width,
-                                    float eps, cudaStream_t stream) {
-  if (rows > 0 && width > 0) {
-    const size_t smem = sizeof(float) * kWarpsPerBlock * width;
-    const cudaError_t err = allow_smem(rms_norm_bwd_kernel, smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    rms_norm_bwd_kernel<<<bwd_blocks_for(rows), 32 * kWarpsPerBlock, smem,
-                          stream>>>(x, gamma, dy, dx, dg_part, rows, width,
-                                    eps);
-  }
-  return static_cast<int>(cudaGetLastError());
+                                    float eps, int path, int rows_per_warp,
+                                    cudaStream_t stream) {
+  return norm_bwd<false>(x, gamma, dy, dx, dg, nullptr, dg_part, nullptr,
+                         rows, width, eps, path, rows_per_warp, stream);
 }
 
-// dg_part, db_part: (ceil(rows / 16), width) partial sums
+// dx, dgamma and dbeta of layer_norm; dg_part, db_part: (ctas, width)
 extern "C" int mxt_layer_norm_bwd_f32(const float* x, const float* gamma,
-                                      const float* dy, float* dx,
-                                      float* dg_part, float* db_part,
-                                      int rows, int width, float eps,
+                                      const float* dy, float* dx, float* dg,
+                                      float* db, float* dg_part,
+                                      float* db_part, int rows, int width,
+                                      float eps, int path, int rows_per_warp,
                                       cudaStream_t stream) {
-  if (rows > 0 && width > 0) {
-    const size_t smem = sizeof(float) * 2 * kWarpsPerBlock * width;
-    const cudaError_t err = allow_smem(layer_norm_bwd_kernel, smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    layer_norm_bwd_kernel<<<bwd_blocks_for(rows), 32 * kWarpsPerBlock, smem,
-                            stream>>>(x, gamma, dy, dx, dg_part, db_part,
-                                      rows, width, eps);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return norm_bwd<true>(x, gamma, dy, dx, dg, db, dg_part, db_part, rows,
+                        width, eps, path, rows_per_warp, stream);
 }

@@ -22,13 +22,12 @@ per weight (``'tensor'``, ``MXNET_SERVE_INT8_GRANULARITY``).
 from __future__ import annotations
 
 import collections
-import functools
 
 import numpy as np
 import torch
 
 from ..base import MXNetError, get_env
-from ._build import KernelError, launch, route
+from ._build import KernelError, launch, route, sm_count as _sm_count
 
 __all__ = ["scale_granularity", "quantize_int8", "dequantize_int8",
            "QuantizedWeight", "dequant_matmul", "dequant_matmul_dense"]
@@ -54,11 +53,6 @@ def _plan(M, N, K, sm_count):
     k_slice = -(-K // want)                        # rounded up to 16
     k_slice = -(-k_slice // K_MULTIPLE) * K_MULTIPLE
     return Plan(k_slice, -(-K // k_slice))
-
-
-@functools.lru_cache(maxsize=None)
-def _sm_count(index):
-    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def scale_granularity():

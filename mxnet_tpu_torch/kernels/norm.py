@@ -7,24 +7,34 @@ parameters in the same dtype) and normalise each row over its last axis
 with fp32 statistics, writing the output in the input's dtype; the bf16
 launches count as ``rms_norm_bf16`` and ``layer_norm_bf16``.
 ``rms_norm_bwd`` and ``layer_norm_bwd`` (fp32) return ``dx`` and the
-weight gradients.  A CPU tensor runs the plain version beside each; a
-CUDA tensor launches ``csrc/norm.cu`` or raises.  :class:`RMSNorm` and
-:class:`LayerNorm` pair each forward with its backward as one
-``torch.autograd.Function`` whose residuals are ``(x, gamma)``, as the
-reference's ``custom_vjp``.
+weight gradients; :func:`_bwd_plan` picks their kernel's path (v2, the
+row in registers, or v1, any row) and grid.  A CPU tensor runs the plain
+version beside each; a CUDA tensor launches ``csrc/norm.cu`` or raises.
+:class:`RMSNorm` and :class:`LayerNorm` pair each forward with its
+backward as one ``torch.autograd.Function`` whose residuals are ``(x,
+gamma)``, as the reference's ``custom_vjp``.
 """
 from __future__ import annotations
 
+import collections
+
 import torch
 
-from ._build import KernelError, check_args, launch, route
+from ._build import KernelError, check_args, launch, route, sm_count
 
 __all__ = ["rms_norm", "layer_norm", "rms_norm_bwd", "layer_norm_bwd",
            "rms_norm_reference", "layer_norm_reference",
            "rms_norm_bwd_reference", "layer_norm_bwd_reference",
            "RMSNorm", "LayerNorm"]
 
-BWD_ROWS_PER_BLOCK = 16   # kBwdRowsPerBlock of csrc/norm.cu
+# the backward's paths (csrc/norm.cu): CTA warps, the widest v2 row (32
+# lanes x 8 float4 chunks in registers), v1's rows a warp and most CTAs
+BWD_WARPS = {"v1": 4, "v2": 8}
+BWD_V2_MAX_WIDTH = 1024
+BWD_V1_ROWS_PER_WARP = 4
+BWD_V1_MAX_CTAS = 1024
+_BWD_PATH = {"v1": 0, "v2": 1}   # the C entry points' path argument
+BwdPlan = collections.namedtuple("BwdPlan", "path ctas rows_per_warp")
 # forward dtype -> (launch-count suffix, C entry point suffix)
 _FWD = {torch.float32: ("", "_f32"), torch.bfloat16: ("_bf16", "_bf16")}
 
@@ -116,35 +126,60 @@ def layer_norm(x, gamma, beta, eps=1e-5):
     return y
 
 
-def _partials(x):
-    nb = -(-x.shape[0] // BWD_ROWS_PER_BLOCK)
-    return torch.empty(nb, x.shape[1], dtype=torch.float32, device=x.device)
+def _bwd_plan(rows, width, aligned, sms):
+    """The launch of a norm backward on ``rows`` x ``width`` fp32 on a
+    card of ``sms`` SMs.  ``path`` ``"v2"`` (the row in registers) for
+    ``width <= 1024``, ``width % 4 == 0`` and 16-byte ``aligned``
+    pointers: one wave of one CTA an SM (at width 512 a v2 thread holds
+    144-169 registers, so one 8-warp CTA fills an SM's register file),
+    each warp taking as many rows as that needs.  Else ``"v1"``: 4 rows a
+    warp, more where the CTAs would pass ``BWD_V1_MAX_CTAS``.  Each CTA
+    writes one partial weight-gradient row, which the entry point
+    sums."""
+    if aligned and width % 4 == 0 and width <= BWD_V2_MAX_WIDTH:
+        path, max_ctas, min_rpw = "v2", sms, 1
+    else:
+        path, max_ctas, min_rpw = "v1", BWD_V1_MAX_CTAS, BWD_V1_ROWS_PER_WARP
+    warps = BWD_WARPS[path]
+    rpw = max(min_rpw, -(-rows // (warps * max_ctas)))
+    ctas = -(-rows // (warps * rpw))
+    return BwdPlan(path, ctas, rpw)
+
+
+def _bwd_launch(name, x, gamma, dy, eps, grads):
+    """One launch of ``name``'s entry point: ``dx`` and the ``grads``
+    (dgamma, or dgamma and dbeta) summed from per-CTA partial rows, all
+    inside the entry point."""
+    rows, width = x.shape
+    plan = _bwd_plan(rows, width, all(t.data_ptr() % 16 == 0
+                                      for t in (x, gamma, dy)),
+                     sm_count(x.device.index))
+    dx = torch.empty_like(x)
+    outs = [torch.empty_like(gamma) for _ in range(grads)]
+    parts = torch.empty(grads, plan.ctas, width, dtype=torch.float32,
+                        device=x.device)
+    launch(x, name, "mxt_%s_f32" % name, x.data_ptr(), gamma.data_ptr(),
+           dy.data_ptr(), dx.data_ptr(), *(o.data_ptr() for o in outs),
+           *(p.data_ptr() for p in parts), rows, width, float(eps),
+           _BWD_PATH[plan.path], plan.rows_per_warp)
+    return (dx, *outs)
 
 
 def rms_norm_bwd(x, gamma, dy, eps=1e-6):
-    """``(dx, dgamma)`` of :func:`rms_norm` for cotangent ``dy``.  The
-    kernel writes per-block partial dgamma rows; they are summed here."""
+    """``(dx, dgamma)`` of :func:`rms_norm` for cotangent ``dy``."""
     if not route("rms_norm_bwd", x):
         return rms_norm_bwd_reference(x, gamma, dy, eps)
     _check_rows("rms_norm_bwd", x, gamma, like=(dy,))
-    dx, dgp = torch.empty_like(x), _partials(x)
-    launch(x, "rms_norm_bwd", "mxt_rms_norm_bwd_f32", x.data_ptr(),
-           gamma.data_ptr(), dy.data_ptr(), dx.data_ptr(), dgp.data_ptr(),
-           x.shape[0], x.shape[1], float(eps))
-    return dx, torch.sum(dgp, dim=0)
+    return _bwd_launch("rms_norm_bwd", x, gamma, dy, eps, 1)
 
 
 def layer_norm_bwd(x, gamma, dy, eps=1e-5):
     """``(dx, dgamma, dbeta)`` of :func:`layer_norm` for cotangent
-    ``dy``; per-block partials summed here."""
+    ``dy``."""
     if not route("layer_norm_bwd", x):
         return layer_norm_bwd_reference(x, gamma, dy, eps)
     _check_rows("layer_norm_bwd", x, gamma, like=(dy,))
-    dx, dgp, dbp = torch.empty_like(x), _partials(x), _partials(x)
-    launch(x, "layer_norm_bwd", "mxt_layer_norm_bwd_f32", x.data_ptr(),
-           gamma.data_ptr(), dy.data_ptr(), dx.data_ptr(), dgp.data_ptr(),
-           dbp.data_ptr(), x.shape[0], x.shape[1], float(eps))
-    return dx, torch.sum(dgp, dim=0), torch.sum(dbp, dim=0)
+    return _bwd_launch("layer_norm_bwd", x, gamma, dy, eps, 2)
 
 
 class RMSNorm(torch.autograd.Function):

@@ -19,8 +19,11 @@ from mxnet_tpu_torch.serving import GenerationEngine, ModelRegistry
 
 NORM_SHAPES = [(16, 64), (6, 40), (32, 512), (1, 7), (33, 1000)]
 SERVE_KERNELS = ("rms_norm", "layer_norm", "flash_attention_paged")
-# (rows, width): the training path's 4096 x 512 and odd sizes
-NORM_BWD_SHAPES = [(4096, 512), (33, 1000), (1, 7), (17, 40)]
+# (rows, width): the training path's 4096 x 512, odd sizes and each edge
+# of the backward's paths: the register cap 1024 (v2) and 1028 (v1), a
+# width not a multiple of 4 (v1), one row past 4096
+NORM_BWD_SHAPES = [(4096, 512), (33, 1000), (1, 7), (17, 40), (64, 1024),
+                   (64, 1028), (9, 1002), (4097, 512)]
 PAGED_CASES = [(0, 1, [5, 9, 17]), (1, 4, [0, 3, 12]), (2, 8, [8, 1, 15]),
                (3, 17, [0, 30, 7]), (4, 32, [2, 0, 40])]
 
@@ -167,16 +170,46 @@ def test_norm_bwd_kernels_match_plain(cuda_device, rows, width):
 
 
 @pytest.mark.cuda
-def test_norm_bwd_is_deterministic(cuda_device):
-    """The weight gradients sum fixed partials, with no atomics: two
-    runs give the same bits."""
+def test_norm_bwd_unaligned_rows_take_v1(cuda_device):
+    """Contiguous rows 4 bytes off 16-byte alignment (a slice of a larger
+    buffer) take the v1 path and agree with the plain versions."""
+    rows, width = 300, 512
+    assert norm._bwd_plan(rows, width, False,
+                          norm.sm_count(cuda_device.index)).path == "v1"
+    rs = np.random.RandomState(3)
+    buf = torch.zeros(2, rows * width + 1, device=cuda_device)
+    x, dy = (b[1:].view(rows, width) for b in buf)
+    x.copy_(torch.from_numpy(rs.randn(rows, width).astype(np.float32)))
+    dy.copy_(torch.from_numpy(rs.randn(rows, width).astype(np.float32)))
+    assert x.is_contiguous() and x.data_ptr() % 16 == 4
+    (g,) = _on(cuda_device, rs.uniform(0.5, 1.5, width).astype(np.float32))
+    before = kernels.launch_counts()
+    for got, want in (
+            (norm.rms_norm_bwd(x, g, dy), norm.rms_norm_bwd_reference(x, g,
+                                                                      dy)),
+            (norm.layer_norm_bwd(x + 3.0, g, dy),
+             norm.layer_norm_bwd_reference(x + 3.0, g, dy))):
+        torch.cuda.synchronize()
+        for a, b in zip(got, want):
+            assert _rel(a, b) <= 1e-5
+    after = kernels.launch_counts()
+    assert after["rms_norm_bwd"] == before["rms_norm_bwd"] + 1
+    assert after["layer_norm_bwd"] == before["layer_norm_bwd"] + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [512, 1002])
+def test_norm_bwd_is_deterministic(cuda_device, width):
+    """The weight gradients sum fixed partials in a fixed order, with no
+    atomics: two launches give the same bits, on either path."""
     rs = np.random.RandomState(0)
-    x, g, dy = _on(cuda_device, rs.randn(4096, 512).astype(np.float32),
-                   rs.rand(512).astype(np.float32),
-                   rs.randn(4096, 512).astype(np.float32))
-    a = norm.layer_norm_bwd(x, g, dy)
-    b = norm.layer_norm_bwd(x, g, dy)
-    assert all(torch.equal(p, q) for p, q in zip(a, b))
+    x, g, dy = _on(cuda_device, rs.randn(4096, width).astype(np.float32),
+                   rs.rand(width).astype(np.float32),
+                   rs.randn(4096, width).astype(np.float32))
+    for bwd in (norm.rms_norm_bwd, norm.layer_norm_bwd):
+        a = bwd(x, g, dy)
+        b = bwd(x, g, dy)
+        assert all(torch.equal(p, q) for p, q in zip(a, b))
 
 
 @pytest.mark.cuda
