@@ -19,12 +19,17 @@ sources in this checkout on first use.  Phases, each fatal on failure:
    tensor-core tile) against every (N, K) of the LM's products, 1e-5 x
    max|ref|;
    flash_attention_offset: B=32, H=8, Lq 1 over a 1024-key cache with
-   ragged offsets, 1e-4 absolute);
+   ragged offsets, 1e-4 absolute); paged attention's bodies at their
+   edges, in each pool dtype: Lq on each side of the decode body's
+   threshold, 32 and 33, blocks of 8 and 64 tokens, positions 0 and
+   T * bs - Lq, with the same bounds;
 3. serve the transformer LM at full width (4 layers, hidden 512, 8
    heads, vocab 8192, random weights from seed 0) through
    ``ModelRegistry`` + ``GenerationEngine`` with the default knobs: 16
    requests, four sharing a 128-token prefix, two sampled; every kernel
-   of the path must have launched during the run;
+   of the path must have launched during the run; paged attention's
+   launches counted by (kernel, B, Lq, body), each on the body
+   ``_plan`` names;
 3b. the same mix on int8 weights and an int8 paged KV pool
    (``compute_dtype="int8", kv_dtype="int8"``): ``dequant_matmul`` and
    the int8 paged kernel launch, the fp32 paged kernel does not; its
@@ -51,9 +56,13 @@ sources in this checkout on first use.  Phases, each fatal on failure:
    CUDA events (median of 60 launches queued behind a GPU spin, so each
    event pair brackets device time), beside the kernel's bound (bf16
    kernels: bf16 bytes, and the bf16 tensor-core rate for operations;
-   dequant_matmul and flash_attention: the TF32 tensor-core rate, the
-   card's peak for fp32 inputs, and beside it the fp32 CUDA-core bound
-   of earlier runs), and phase 3b's ms per step beside phase 3's;
+   dequant_matmul, flash_attention and fp32 or int8 paged attention:
+   the TF32 tensor-core rate, the card's peak for fp32 inputs, and
+   beside it the fp32 CUDA-core bound of earlier runs), and phase 3b's
+   ms per step beside phase 3's; paged attention at each (B, Lq) of the
+   serving phases' launches and at B=32 with Lq 1, 32 and each side of
+   the decode threshold, with v1 (the CUDA-core body of earlier slices)
+   and the other new body (decode or tile) timed beside each row;
 2+. the training path's kernels against their plain versions at training
    width: the norm backwards at 4096 x 512 and at each edge of their two
    paths (the register cap, width 1024, and 1028; width 1000; width 1002,
@@ -134,8 +143,17 @@ NORM_BWD_EDGES = ((64, 1024, 0), (64, 1028, 0), (33, 1000, 0),
                   (9, 1002, 0), (4097, 512, 0), (300, 512, 1))
 # bytes written before each cold-L2 launch: five times the H100's 50 MB L2
 COLD_L2_BYTES = 256 << 20
-PA = dict(B=32, H=8, D=64, bs=64, T=16, num_blocks=513)
+PA = dict(B=32, H=8, D=64, bs=64, T=16)
 PA_LQ = (1, 32)
+# the paged kernel's pool dtypes by launch name; phase 5 times Lq 1, 32
+# and each side of the decode body's threshold (kernels/paged_attention.py
+# DECODE_MAX_LQ), beside v1 and the other body
+PA_DTYPES = {"flash_attention_paged": torch.float32,
+             "flash_attention_paged_bf16": torch.bfloat16,
+             "flash_attention_paged_int8": torch.int8}
+PA_TIMED_LQ = {name: sorted({1, 32, paged_attention.DECODE_MAX_LQ[dt],
+                             paged_attention.DECODE_MAX_LQ[dt] + 1})
+               for name, dt in PA_DTYPES.items()}
 # dequant_matmul: M is a decode bucket (1, 16 and 32: the GEMV regime)
 # or a prefill chunk of 8, 16 or 32 sequences x 32 tokens (256, 512 and
 # 1024: the tensor-core tile; phase 3b runs 16 and 512); (N, K) of
@@ -288,17 +306,28 @@ def norm_inputs(rows, dev):
     return [torch.from_numpy(a).to(dev) for a in (x, g, b)]
 
 
-def paged_inputs(lq, dev):
-    """A paged case at the serving shapes: ragged positions, every
-    sequence after the first sharing sequence 0's first physical block,
-    unused table entries at the trash block 0, junk in every pool row."""
-    B, H, D, bs, T, nb = (PA[k] for k in ("B", "H", "D", "bs", "T",
-                                          "num_blocks"))
+def pa_geometry(bs, B):
+    """(T, num_blocks) of a paged case with ``bs``-token blocks: the
+    serving shapes' 1024 keys a sequence, a block for each key of the B
+    sequences and the trash block."""
+    T = PA["T"] * PA["bs"] // bs
+    return T, B * T + 1
+
+
+def paged_inputs(lq, dev, bs=PA["bs"], edges=False, B=PA["B"]):
+    """A paged case at the serving shapes: ragged positions (``edges``:
+    the first at 0, the second at T * bs - lq), every sequence after the
+    first sharing sequence 0's first physical block, unused table
+    entries at the trash block 0, junk in every pool row."""
+    H, D = PA["H"], PA["D"]
+    T, nb = pa_geometry(bs, B)
     rs = np.random.RandomState(100 + lq)
     q = rs.randn(B, H, lq, D).astype(np.float32)
     kp = rs.randn(H, nb * bs, D).astype(np.float32)
     vp = rs.randn(H, nb * bs, D).astype(np.float32)
     pos = rs.randint(0, T * bs - lq + 1, B).astype(np.int32)
+    if edges:
+        pos[0], pos[1] = 0, T * bs - lq
     tables = np.zeros((B, T), np.int32)
     nxt = 1
     for b in range(B):
@@ -312,12 +341,13 @@ def paged_inputs(lq, dev):
     return [torch.from_numpy(a).to(dev) for a in (q, kp, vp, tables, pos)]
 
 
-def int8_paged_inputs(lq, dev):
+def int8_paged_inputs(lq, dev, bs=PA["bs"], edges=False, B=PA["B"]):
     """paged_inputs' tables and queries over int8 code pools, with a
     scale per (head, physical block) that puts the dequantized values
     near unit size."""
-    q, _, _, tbl, pos = paged_inputs(lq, dev)
-    H, D, nb, bs = PA["H"], PA["D"], PA["num_blocks"], PA["bs"]
+    q, _, _, tbl, pos = paged_inputs(lq, dev, bs, edges, B)
+    H, D = PA["H"], PA["D"]
+    _T, nb = pa_geometry(bs, B)
     rs = np.random.RandomState(200 + lq)
     kc, vc = (rs.randint(-127, 128, (H, nb * bs, D)).astype(np.int8)
               for _ in range(2))
@@ -325,6 +355,19 @@ def int8_paged_inputs(lq, dev):
               for _ in range(2))
     return [q] + [torch.from_numpy(a).to(dev) for a in (kc, vc)] + \
         [tbl, pos] + [torch.from_numpy(a).to(dev) for a in (sk, sv)]
+
+
+def paged_case(name, lq, dev, bs=PA["bs"], edges=False, B=PA["B"]):
+    """(args, kwargs) of one ``flash_attention_paged`` call of kernel
+    ``name`` (its pool dtype, ``PA_DTYPES``) on ``paged_inputs``."""
+    if PA_DTYPES[name] == torch.int8:
+        q, kc, vc, tbl, pos, sk, sv = int8_paged_inputs(lq, dev, bs, edges,
+                                                        B)
+        return (q, kc, vc, tbl, pos, bs), {"kv_scales": (sk, sv)}
+    q, kp, vp, tbl, pos = paged_inputs(lq, dev, bs, edges, B)
+    if PA_DTYPES[name] == torch.bfloat16:
+        q, kp, vp = bf16_inputs(q, kp, vp)
+    return (q, kp, vp, tbl, pos, bs), {}
 
 
 def paged_work(tables, pos, lq, elem=4):
@@ -335,8 +378,10 @@ def paged_work(tables, pos, lq, elem=4):
     fp32 scale of each visible (head, block) and a dequantizing multiply
     per visible element; 4*D flops per visible (query row, key,
     head)."""
-    B, H, D, bs = PA["B"], PA["H"], PA["D"], PA["bs"]
+    H, D, bs = PA["H"], PA["D"], PA["bs"]
     tables, pos = tables.cpu().numpy(), pos.cpu().numpy()
+    B = tables.shape[0]
+    assert tables.shape[1] == PA["T"]
     rows, blocks = set(), set()
     keys = 0
     for b in range(B):
@@ -452,6 +497,7 @@ def phase_compare(dev):
             % (PA["B"], PA["H"], lq, PA["D"], PA["bs"], PA["T"]), got, want,
             1e-4)
     errs.update(phase_compare_bf16(dev))
+    errs.update(phase_compare_paged_edges(dev))
     for M in DQ_M:
         for N, K in DQ_NK:
             x, c, s, _w = dq_inputs(M, N, K, dev)
@@ -479,22 +525,13 @@ def phase_compare_bf16(dev):
     both sides widen to fp32, sum in another order and round once.
     The log gives each error in units of 2**-8 x max|ref| as well."""
     errs = {}
-
-    def check(name, shape, got, want, extra=0.0):
-        ref = want.float().abs().max().item()
-        err = agree(name, shape, got.float(), want.float(),
-                    bf16_ulp(ref) + extra)
-        log("phase 2 %s %s: %.3f x 2**-8 max|ref| (max|ref| %.4g)"
-            % (name, shape, err / (2.0 ** -8 * ref), ref))
-        return err
-
     for rows in NORM_ROWS:
         x, g, b = bf16_inputs(*norm_inputs(rows, dev))
         shape = "rows=%d width=%d bf16" % (rows, NORM_W)
-        errs[("rms_norm_bf16", rows)] = check(
+        errs[("rms_norm_bf16", rows)] = agree_bf16(
             "rms_norm_bf16", shape, norm.rms_norm(x, g, 1e-6),
             norm.rms_norm_reference(x, g, 1e-6))
-        errs[("layer_norm_bf16", rows)] = check(
+        errs[("layer_norm_bf16", rows)] = agree_bf16(
             "layer_norm_bf16", shape, norm.layer_norm(x, g, b, 1e-5),
             norm.layer_norm_reference(x, g, b, 1e-5))
     for lq in PA_LQ:
@@ -505,11 +542,52 @@ def phase_compare_bf16(dev):
         if got.dtype != torch.bfloat16:
             raise SystemExit("chip_smoke: bf16 paged attention wrote %s"
                              % got.dtype)
-        errs[("flash_attention_paged_bf16", lq)] = check(
+        errs[("flash_attention_paged_bf16", lq)] = agree_bf16(
             "flash_attention_paged_bf16", "B=%d H=%d Lq=%d D=%d bs=%d T=%d "
             "bf16" % (PA["B"], PA["H"], lq, PA["D"], PA["bs"], PA["T"]),
             got, paged_attention.paged_attention_reference(
                 q, kp, vp, tbl, pos, PA["bs"]), 1e-4)
+    return errs
+
+
+def agree_bf16(name, shape, got, want, extra=0.0):
+    """``agree`` within one bf16 ulp of max|ref| plus ``extra``; the log
+    gives the error in units of 2**-8 x max|ref| as well."""
+    ref = want.float().abs().max().item()
+    err = agree(name, shape, got.float(), want.float(), bf16_ulp(ref) + extra)
+    log("phase 2 %s %s: %.3f x 2**-8 max|ref| (max|ref| %.4g)"
+        % (name, shape, err / (2.0 ** -8 * ref), ref))
+    return err
+
+
+def agree_paged(name, shape, got, want):
+    """Phase 2's bound for a paged kernel: 1e-4 absolute (fp32 and int8
+    pools), one bf16 ulp of max|ref| plus 1e-4 (bf16)."""
+    if PA_DTYPES[name] == torch.bfloat16:
+        return agree_bf16(name, shape, got, want, 1e-4)
+    return agree(name, shape, got, want, 1e-4)
+
+
+def phase_compare_paged_edges(dev):
+    """The paged kernel's bodies at their edges against the plain
+    version: Lq on each side of the decode body's threshold, 32 and 33
+    (the tile's ragged q-tile), blocks of 8 and 64 tokens, positions 0
+    and T * bs - Lq, sequence 0's first block shared by every other."""
+    errs = {}
+    for name, dtype in PA_DTYPES.items():
+        m = paged_attention.DECODE_MAX_LQ[dtype]
+        for lq in sorted({m, m + 1, 32, 33}):
+            for bs in (8, 64):
+                args, kw = paged_case(name, lq, dev, bs, edges=True)
+                path = paged_attention._plan(
+                    PA["B"], PA["H"], lq, PA["D"], dtype,
+                    _build.sm_count(dev.index)).path
+                errs[(name, "edge", lq, bs)] = agree_paged(
+                    name, "B=%d H=%d Lq=%d D=%d bs=%d T=%d positions 0 and "
+                    "T*bs-Lq (%s)" % (PA["B"], PA["H"], lq, PA["D"], bs,
+                                      args[3].shape[1], path),
+                    paged_attention.flash_attention_paged(*args, **kw),
+                    paged_attention.paged_attention_reference(*args, **kw))
     return errs
 
 
@@ -814,6 +892,46 @@ def fa_census():
         flash_attention.launch = launch
 
 
+@contextlib.contextmanager
+def pa_census():
+    """Count each paged attention launch by (name, B, Lq): a shim around
+    the wrapper's ``launch`` (a dict update each, on the host); fatal
+    when a launch's path and rows are not the ones ``_plan`` names."""
+    shapes, launch = collections.Counter(), paged_attention.launch
+
+    def counted(x, name, entry, *args):
+        # ..., B, H, Lq, D, T, block_size, pool_rows, scale, path, block_q
+        B, H, Lq, D = args[-10:-6]
+        plan = paged_attention._plan(B, H, Lq, D, PA_DTYPES[name],
+                                     _build.sm_count(x.device.index))
+        if tuple(args[-2:]) != (paged_attention._PATH[plan.path],
+                                plan.block_q):
+            raise SystemExit("chip_smoke: %s launched path %s, rows %s; "
+                             "_plan names %s" % (name, args[-2], args[-1],
+                                                 plan))
+        shapes[name, B, Lq, plan.path] += 1
+        return launch(x, name, entry, *args)
+
+    paged_attention.launch = counted
+    try:
+        yield shapes
+    finally:
+        paged_attention.launch = launch
+
+
+@contextlib.contextmanager
+def paged_path(path):
+    """Every paged attention launch inside takes ``path`` ("v1",
+    "decode" or "tile"), with that path's rows and grid."""
+    plan = paged_attention._plan
+    paged_attention._plan = lambda B, H, Lq, D, dtype, sms: \
+        paged_attention._path_plan(path, B, H, Lq, sms)
+    try:
+        yield
+    finally:
+        paged_attention._plan = plan
+
+
 def phase_serve(tag, name, params, reqs):
     """Serve ``reqs`` on a new registry with phase ``tag``'s store
     arguments (``SERVE_PHASES``), the launch counts set to 0 just before
@@ -830,7 +948,8 @@ def phase_serve(tag, name, params, reqs):
            st["compute_dtype"] or "float32", st["kv_dtype"], st["paged"],
            st["weight_bytes"]["total"], st["weight_bytes"]["by_dtype"]))
     kernels.reset_launch_counts()
-    with dq_census() as shapes, fa_census() as fa_shapes:
+    with dq_census() as shapes, fa_census() as fa_shapes, \
+            pa_census() as pa_shapes:
         results, seconds, stats = serve(reg, name, reqs)
         torch.cuda.synchronize()
     counts = kernels.launch_counts()
@@ -865,6 +984,19 @@ def phase_serve(tag, name, params, reqs):
                              "launches in phase %s"
                              % (sum(fa_shapes.values()),
                                 counts["flash_attention"], tag))
+    if pa_shapes:
+        by_path = collections.Counter()
+        for (kname, b, lq, path), c in pa_shapes.items():
+            by_path[kname, path, lq] += c
+        log("phase %s paged attention launches by (name, B, Lq, path) %s; "
+            "by (name, path, Lq) %s"
+            % (tag, dict(sorted(pa_shapes.items())),
+               dict(sorted(by_path.items()))))
+        if sum(pa_shapes.values()) != sum(counts[k] for k in PA_DTYPES):
+            raise SystemExit("chip_smoke: %d paged shapes, %d launches in "
+                             "phase %s" % (sum(pa_shapes.values()),
+                                           sum(counts[k] for k in PA_DTYPES),
+                                           tag))
     for k in must:
         if counts[k] <= 0:
             raise SystemExit("chip_smoke: %s never launched in phase %s"
@@ -876,7 +1008,7 @@ def phase_serve(tag, name, params, reqs):
         raise SystemExit("chip_smoke: the shared-prefix requests did not "
                          "share blocks in phase %s" % tag)
     return dict(reg=reg, store=store, results=results, counts=counts,
-                fa_shapes=fa_shapes,
+                fa_shapes=fa_shapes, pa_shapes=pa_shapes,
                 tok_s=ntok / seconds, step_ms=seconds * 1e3 / steps,
                 cache=stats["cache_hwm"].get(name, {}))
 
@@ -1445,8 +1577,61 @@ def timed_row(name, shape, fn, plain, library, nbytes, flops, err, card,
     return row
 
 
-def phase_times(dev, card, errs):
-    """The serving kernels at the serving path's shapes."""
+def paged_row(dev, card, name, lq, B=PA["B"], note=""):
+    """Time paged attention kernel ``name`` at the serving shapes with B
+    sequences and Lq ``lq`` on the body ``_plan`` picks, against its
+    plain version and
+    the gather + SDPA yardstick (fp32 and int8: under the TF32
+    tensor-core bound, the peak for fp32 q; bf16: the bf16 one), then
+    ``v1_ms`` and ``other_ms``: v1 and the other new body (decode <->
+    tile) on the same inputs, each held to phase 2's bound first."""
+    dtype = PA_DTYPES[name]
+    args, kw = paged_case(name, lq, dev, B=B)
+    q, kp, vp, tbl, pos, bs = args
+    kv = kw.get("kv_scales")
+    plan = paged_attention._plan(B, PA["H"], lq, PA["D"], dtype,
+                                 _build.sm_count(dev.index))
+    shape = "B=%d H=%d Lq=%d D=%d bs=%d T=%d%s (%s, %d rows a CTA)%s" % (
+        B, PA["H"], lq, PA["D"], bs, PA["T"],
+        {torch.float32: "", torch.bfloat16: " bf16",
+         torch.int8: " int8"}[dtype], plan.path, plan.block_q, note)
+
+    def kern():
+        return paged_attention.flash_attention_paged(*args, **kw)
+
+    def plain():
+        return paged_attention.paged_attention_reference(*args, **kw)
+
+    want = plain()
+    err = agree_paged(name, shape, kern(), want)
+    if dtype == torch.float32:
+        log("phase 5 library yardstick for paged attention: table gather + "
+            "scaled_dot_product_attention, the gather inside the timing; "
+            "Lq=%d vs plain: max_abs_err %.3e"
+            % (lq, (library_paged(q, kp, vp, tbl, pos, bs) - want).abs()
+               .max().item()))
+    elem = {torch.float32: 4, torch.bfloat16: 2, torch.int8: 1}[dtype]
+    nbytes, flops = paged_work(tbl, pos, lq, elem=elem)
+    row = timed_row(name, shape, kern, plain,
+                    lambda: library_paged(q, kp, vp, tbl, pos, bs, kv),
+                    nbytes, flops, err, card, bf16=dtype == torch.bfloat16,
+                    tf32=dtype != torch.bfloat16)
+    other = "tile" if plan.path == "decode" else "decode"
+    for key, path in (("v1_ms", "v1"), ("other_ms", other)):
+        with paged_path(path):
+            agree_paged(name, "%s on %s" % (shape, path), kern(), want)
+            row[key] = time_ms(kern)
+    row["path"], row["other_path"] = plan.path, other
+    log("phase 5 %s %s: %s %.6f ms, v1 %.6f ms, %s %.6f ms [%s]"
+        % (name, shape, plan.path, row["ms"], row["v1_ms"], other,
+           row["other_ms"], card))
+    return row
+
+
+def phase_times(dev, card, errs, pa_shapes):
+    """The serving kernels at the serving path's shapes; paged attention
+    also at each (B, Lq) of the serving phases' launches (``pa_shapes``,
+    their census), the most frequent first."""
     F = torch.nn.functional
     entries = {}
 
@@ -1467,38 +1652,6 @@ def phase_times(dev, card, errs):
                lambda: norm.layer_norm_reference(x, g, b, 1e-5),
                lambda: F.layer_norm(x, (NORM_W,), g, b, 1e-5),
                4 * (2 * n + 2 * NORM_W), 8 * n, errs[("layer_norm", rows)])
-    for lq in PA_LQ:
-        q, kp, vp, tbl, pos = paged_inputs(lq, dev)
-        bs = PA["bs"]
-        lib_err = (library_paged(q, kp, vp, tbl, pos, bs) -
-                   paged_attention.paged_attention_reference(
-                       q, kp, vp, tbl, pos, bs)).abs().max().item()
-        log("phase 5 library yardstick for paged attention: table gather + "
-            "scaled_dot_product_attention, the gather inside the timing; "
-            "Lq=%d vs plain: max_abs_err %.3e" % (lq, lib_err))
-        nbytes, flops = paged_work(tbl, pos, lq)
-        record("flash_attention_paged",
-               "B=%d H=%d Lq=%d D=%d bs=%d T=%d" % (
-                   PA["B"], PA["H"], lq, PA["D"], bs, PA["T"]),
-               lambda: paged_attention.flash_attention_paged(
-                   q, kp, vp, tbl, pos, bs),
-               lambda: paged_attention.paged_attention_reference(
-                   q, kp, vp, tbl, pos, bs),
-               lambda: library_paged(q, kp, vp, tbl, pos, bs),
-               nbytes, flops, errs[("flash_attention_paged", lq)])
-    for lq in PA_LQ:
-        q, kc, vc, tbl, pos, sk, sv = int8_paged_inputs(lq, dev)
-        bs = PA["bs"]
-        nbytes, flops = paged_work(tbl, pos, lq, elem=1)
-        record("flash_attention_paged_int8",
-               "B=%d H=%d Lq=%d D=%d bs=%d T=%d int8" % (
-                   PA["B"], PA["H"], lq, PA["D"], bs, PA["T"]),
-               lambda: paged_attention.flash_attention_paged(
-                   q, kc, vc, tbl, pos, bs, kv_scales=(sk, sv)),
-               lambda: paged_attention.paged_attention_reference(
-                   q, kc, vc, tbl, pos, bs, kv_scales=(sk, sv)),
-               lambda: library_paged(q, kc, vc, tbl, pos, bs, (sk, sv)),
-               nbytes, flops, errs[("flash_attention_paged_int8", lq)])
     # bf16: the same shapes, bytes at two an element (the tables and
     # positions stay int32)
     for rows in NORM_ROWS:
@@ -1516,21 +1669,14 @@ def phase_times(dev, card, errs):
                lambda: F.layer_norm(x, (NORM_W,), g, b, 1e-5),
                2 * (2 * n + 2 * NORM_W), 8 * n,
                errs[("layer_norm_bf16", rows)], bf16=True)
-    for lq in PA_LQ:
-        q, kp, vp, tbl, pos = paged_inputs(lq, dev)
-        q, kp, vp = bf16_inputs(q, kp, vp)
-        bs = PA["bs"]
-        nbytes, flops = paged_work(tbl, pos, lq, elem=2)
-        record("flash_attention_paged_bf16",
-               "B=%d H=%d Lq=%d D=%d bs=%d T=%d bf16" % (
-                   PA["B"], PA["H"], lq, PA["D"], bs, PA["T"]),
-               lambda: paged_attention.flash_attention_paged(
-                   q, kp, vp, tbl, pos, bs),
-               lambda: paged_attention.paged_attention_reference(
-                   q, kp, vp, tbl, pos, bs),
-               lambda: library_paged(q, kp, vp, tbl, pos, bs),
-               nbytes, flops, errs[("flash_attention_paged_bf16", lq)],
-               bf16=True)
+    for name in PA_DTYPES:
+        census = sorted(((n, B, lq) for (kname, B, lq, _p), n
+                         in pa_shapes.items() if kname == name),
+                        key=lambda c: (-c[0], c[1:]))
+        entries[name] = [
+            paged_row(dev, card, name, lq, B, " (serving census, %d "
+                      "launches)" % n) for n, B, lq in census] + [
+            paged_row(dev, card, name, lq) for lq in PA_TIMED_LQ[name]]
     for M in DQ_M:
         for N, K in DQ_NK:
             x, c, sc, w = dq_inputs(M, N, K, dev)
@@ -1716,7 +1862,7 @@ def kernel_rows(entries, counts):
             "library_ms": head["library_ms"], "shape": head["shape"],
             "shapes": rows})
         for key in ("bound_cuda_core_ms", "v1_ms", "ms_cold",
-                    "library_ms_cold"):
+                    "library_ms_cold", "path", "other_path", "other_ms"):
             if key in head:
                 out[-1][key] = head[key]
     return out
@@ -1762,7 +1908,10 @@ def main(argv):
     params7, module_card = phase_train_vs_cpu(dev)
     counts["imperative"] = phase_imperative(card, step_ms)
     phase_imperative_vs(params7, module_card)
-    kern = kernel_rows(phase_times(dev, card, errs), counts)
+    pa_shapes = collections.Counter()
+    for tag in ("3", "3b", "3d"):
+        pa_shapes.update(served[tag]["pa_shapes"])
+    kern = kernel_rows(phase_times(dev, card, errs, pa_shapes), counts)
     kern += kernel_rows(phase_times_train(dev, card, errs,
                                           served["3c"]["fa_shapes"]), counts)
     for tag, what in (("3", "paged fp32"), ("3b", "paged int8"),

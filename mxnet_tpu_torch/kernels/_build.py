@@ -77,17 +77,19 @@ _SIGNATURES = {
     # q, k, v, offsets, out, B, H, Lq, Lk, D, scale, stream
     "mxt_flash_attention_offset_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _I,
                                        _I, _F, _P),
-    # q, k_pool, v_pool, tables, positions, out,
-    # B, H, Lq, D, T, block_size, pool_rows, scale, stream
+    # q, k_pool, v_pool, tables, positions, out, B, H, Lq, D, T,
+    # block_size, pool_rows, scale, path, block_q, stream
+    # (paged_attention.py::_plan)
     "mxt_paged_attention_f32": (_P, _P, _P, _P, _P, _P,
-                                _I, _I, _I, _I, _I, _I, _I, _F, _P),
+                                _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P),
     # the same with bf16 q, pools and out
     "mxt_paged_attention_bf16": (_P, _P, _P, _P, _P, _P,
-                                 _I, _I, _I, _I, _I, _I, _I, _F, _P),
+                                 _I, _I, _I, _I, _I, _I, _I, _F, _I, _I,
+                                 _P),
     # q, k_codes, v_codes, k_scale, v_scale, tables, positions, out,
-    # B, H, Lq, D, T, block_size, pool_rows, scale, stream
+    # B, H, Lq, D, T, block_size, pool_rows, scale, path, block_q, stream
     "mxt_paged_attention_i8": (_P, _P, _P, _P, _P, _P, _P, _P,
-                               _I, _I, _I, _I, _I, _I, _I, _F, _P),
+                               _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P),
     # x, codes, scales, out, M, N, K, k_slice, splits, stream (the decode
     # GEMV's split of K; k_slice 0: the prefill tile)
     "mxt_dequant_matmul_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),

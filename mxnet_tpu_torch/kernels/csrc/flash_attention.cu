@@ -84,6 +84,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "attention_common.cuh"
+
 namespace {
 
 constexpr int kKeyTile = 32;        // v1: keys per shared-memory tile
@@ -92,48 +94,6 @@ constexpr int kThreads = 32 * kWarps;
 constexpr int kRowsPerWarp = 8;
 constexpr int kBlockQ = kRowsPerWarp * kWarps;
 constexpr int kKPad = 4;            // K row stride D + 4 floats
-constexpr float kNeg = -1e30f;      // the TPU kernel's mask constant
-constexpr unsigned kFull = 0xffffffffu;
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
-  return v;
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(kFull, v, o));
-  return v;
-}
-
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
-                   smem_addr(smem)),
-               "l"(gmem));
-}
-
-// the same; src_bytes 0 zero-fills the destination
-__device__ __forceinline__ void cp_async16_zfill(void* smem, const void* gmem,
-                                                 int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_addr(smem)),
-               "l"(gmem), "r"(src_bytes));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
 
 // ---------------------------------------------------------------------------
 // v1: CUDA cores (flash_attention_offset; flash_attention with D > 128)
@@ -315,33 +275,6 @@ int dispatch(const float* q, const float* k, const float* v,
 constexpr int kTcWarps = 4;
 constexpr int kTcThreads = 32 * kTcWarps;
 constexpr int kTcBlockQ = 16 * kTcWarps;   // 16 query rows a warp (mma M)
-
-// x = hi + lo for 3xTF32.  hi = tf32(x) rounded to nearest, ties away
-// from zero: the bits cvt.rna.tf32.f32 gives for every finite x, in two
-// integer ops at full rate where cvt is slower.  lo = x - hi is exact
-// in fp32 and goes to the mma as it is: the tensor core reads the top
-// 19 bits of a .tf32 operand, so lo is truncated to TF32 there
-// (|lo| <= 2^-11 |x|, the truncation <= 2^-21 |x|, next to the lo.lo
-// term left out).  tests/test_torch_flash_tf32.py emulates this split.
-__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
-                                           uint32_t& lo) {
-  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-  lo = __float_as_uint(x - __uint_as_float(hi));
-}
-
-// d += a . b on one m16n8k8 tile, TF32 inputs, fp32 accumulator.
-// Fragments (g = lane / 4, t = lane % 4): a0 (g, t), a1 (g+8, t),
-// a2 (g, t+4), a3 (g+8, t+4); b0 (k t, n g), b1 (k t+4, n g);
-// d0 (g, 2t), d1 (g, 2t+1), d2 (g+8, 2t), d3 (g+8, 2t+1).
-__device__ __forceinline__ void mma_tf32(float* d, const uint32_t* a,
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 
 // KSTEPS: k-steps of 8 over the zero-padded head dim (D <= 8 * KSTEPS);
 // KT: keys a shared-memory tile.

@@ -12,23 +12,36 @@ reuse) and grow one block at a time.
 table arithmetic, dequantize int8 rows as ``codes * scale[h, tbl[b,
 j]]``, then dense offset-causal attention with the same ``-1e30`` mask
 constant and fp32 accumulation); a CUDA tensor launches
-``csrc/paged_attention.cu`` (its fp32, bf16 or int8 kernel, counted as
-``flash_attention_paged``, ``flash_attention_paged_bf16`` and
+``csrc/paged_attention.cu`` (its fp32, bf16 or int8 entry point,
+counted as ``flash_attention_paged``, ``flash_attention_paged_bf16`` and
 ``flash_attention_paged_int8``) or raises.  Over an int8 pool a bf16 q
 is widened to fp32 for the int8 kernel (exactly) and its output cast
 back to bf16, as the reference's int8 kernel takes a bf16 q and writes
-a bf16 output.
+a bf16 output.  Each entry point has three bodies; :func:`_plan` picks
+one from the shape: the decode body on CUDA cores for a few query rows,
+the tensor-core tile for a prefill chunk, and v1 for D above 128.
 """
 from __future__ import annotations
 
+import collections
+
 import torch
 
-from ._build import launch, route
+from ._build import launch, route, sm_count
 
 __all__ = ["flash_attention_paged", "paged_attention_reference"]
 
 _NEG = -1e30  # the TPU kernel's mask constant, shared for parity
 MAX_HEAD_DIM = 256
+TILE_MAX_HEAD_DIM = 128  # decode and tile: D zero-padded to 64 or 128
+V1_ROWS = 16             # v1: query rows a CTA at most
+TILE_ROWS = 32           # the tile: query rows a CTA, or half of them
+# the largest Lq that takes the decode body (one query row a CTA, so Lq
+# CTAs a sequence and head), by pool dtype: above it the tile is faster
+# (PERF.md §6, chip_smoke.py phase 5)
+DECODE_MAX_LQ = {torch.float32: 1, torch.bfloat16: 1, torch.int8: 4}
+_PATH = {"v1": 0, "decode": 1, "tile": 2}   # the entry points' path
+Plan = collections.namedtuple("Plan", "path block_q grid")
 # pool dtype -> (launch name, C entry point, head-dim multiple: one
 # 16-byte copy of a row)
 _VARIANTS = {
@@ -75,6 +88,34 @@ def paged_attention_reference(q, k_pool, v_pool, tables, positions,
     s = torch.where(visible[:, None], s, torch.full_like(s, _NEG))
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bhqk,bhkd->bhqd", p, v).to(q.dtype)
+
+
+def _plan(B, H, Lq, D, dtype, sms):
+    """The body and grid of one launch over a ``dtype`` pool (float32,
+    bfloat16 or int8) on a card of ``sms`` SMs: ``"v1"`` for D above
+    128; else ``"decode"`` for Lq up to ``DECODE_MAX_LQ[dtype]`` and
+    ``"tile"`` above."""
+    if D > TILE_MAX_HEAD_DIM:
+        path = "v1"
+    elif Lq <= DECODE_MAX_LQ[dtype]:
+        path = "decode"
+    else:
+        path = "tile"
+    return _path_plan(path, B, H, Lq, sms)
+
+
+def _path_plan(path, B, H, Lq, sms):
+    """``path``'s query rows a CTA and grid (q-tiles, H, B): decode one
+    row; the tile 32, or 16 where 32-row CTAs would not fill ``sms``
+    SMs; v1 up to 16."""
+    if path == "decode":
+        block_q = 1
+    elif path == "tile":
+        block_q = TILE_ROWS if B * H * -(-Lq // TILE_ROWS) >= sms \
+            else TILE_ROWS // 2
+    else:
+        block_q = min(Lq, V1_ROWS)
+    return Plan(path, block_q, (-(-Lq // block_q), H, B))
 
 
 def _check(q, k_pool, v_pool, tables, positions, bs, kv_scales=None):
@@ -157,11 +198,13 @@ def flash_attention_paged(q, k_pool, v_pool, tables, positions, block_size,
     _check(q, k_pool, v_pool, tables, positions, bs, kv_scales)
     B, H, Lq, _ = q.shape
     name, entry, _mult = _VARIANTS[k_pool.dtype]
+    plan = _plan(B, H, Lq, D, k_pool.dtype, sm_count(q.device.index))
     scale_ptrs = () if kv_scales is None else (kv_scales[0].data_ptr(),
                                                kv_scales[1].data_ptr())
     out = torch.empty_like(q)
     launch(q, name, entry, q.data_ptr(), k_pool.data_ptr(),
            v_pool.data_ptr(), *scale_ptrs, tables.data_ptr(),
            positions.data_ptr(), out.data_ptr(), B, H, Lq, D,
-           tables.shape[1], bs, k_pool.shape[1], float(scale))
+           tables.shape[1], bs, k_pool.shape[1], float(scale),
+           _PATH[plan.path], plan.block_q)
     return out

@@ -459,6 +459,66 @@ def test_int8_paged_kernel_block_larger_than_key_tile(cuda_device):
         assert (got - want).abs().max().item() <= 1e-4
 
 
+# head dims of the paged kernel's new bodies (the decode body and the
+# tile: D <= 128) by pool dtype, each a multiple of its 16-byte row; 256
+# takes v1
+PAGED_BODY_DIMS = {torch.float32: (8, 64, 100), torch.bfloat16: (8, 64, 104),
+                   torch.int8: (16, 64, 112)}
+
+
+def _paged_body_cases():
+    """(dtype, D, Lq): each side of the decode body's threshold, the
+    prefill chunk Lq 32 and one past it."""
+    for dtype, dims in PAGED_BODY_DIMS.items():
+        m = paged_attention.DECODE_MAX_LQ[dtype]
+        for D in dims + (256,):
+            for lq in sorted({m, m + 1, 32, 33}):
+                yield dtype, D, lq
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,D,lq", list(_paged_body_cases()))
+def test_paged_bodies_match_plain_v1_and_themselves(cuda_device, monkeypatch,
+                                                    dtype, D, lq):
+    """The body ``_plan`` picks against the plain version (1e-4; bf16: one
+    ulp of max|ref| plus 1e-4) and against v1 on the same inputs, with
+    positions 0 and T * bs - Lq; two launches give the same bits."""
+    B, H, T, bs = 3, 2, 10, 8
+    positions = [0, T * bs - lq, 17]
+    if dtype == torch.int8:
+        q, kp, vp, tbl, pos, sk, sv = _on(cuda_device, *int8_paged_case(
+            lq + D, B, H, T, D, bs, 40, positions, lq))
+        kw = {"kv_scales": (sk, sv)}
+    else:
+        q, kp, vp, tbl, pos = _on(cuda_device, *paged_case(
+            lq + D, B, H, T, D, bs, 40, positions, lq))
+        q, kp, vp = (t.to(dtype) for t in (q, kp, vp))
+        kw = {}
+    name = paged_attention._VARIANTS[dtype][0]
+    path = paged_attention._plan(B, H, lq, D, dtype, 132).path
+    assert path == ("v1" if D > 128 else "decode"
+                    if lq <= paged_attention.DECODE_MAX_LQ[dtype] else "tile")
+    want = paged_attention.paged_attention_reference(q, kp, vp, tbl, pos, bs,
+                                                     **kw).float()
+    tol = (bf16_ulp(want.abs().max().item()) if dtype == torch.bfloat16
+           else 0.0) + 1e-4
+    before = kernels.launch_counts()[name]
+    got = paged_attention.flash_attention_paged(q, kp, vp, tbl, pos, bs, **kw)
+    again = paged_attention.flash_attention_paged(q, kp, vp, tbl, pos, bs,
+                                                  **kw)
+    monkeypatch.setattr(paged_attention, "_plan",
+                        lambda B, H, Lq, D, dt, sms:
+                        paged_attention._path_plan("v1", B, H, Lq, sms))
+    v1 = paged_attention.flash_attention_paged(q, kp, vp, tbl, pos, bs, **kw)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()[name] == before + 3
+    assert got.dtype == q.dtype and bool(torch.isfinite(got).all())
+    assert torch.equal(got, again)
+    assert (got.float() - want).abs().max().item() <= tol
+    assert (v1.float() - want).abs().max().item() <= tol
+    assert (got.float() - v1.float()).abs().max().item() <= tol
+
+
 @pytest.mark.cuda
 def test_int8_paged_kernel_refuses_head_dim(cuda_device):
     q, kc, vc, tbl, pos, sk, sv = _on(cuda_device, *int8_paged_case(
