@@ -22,7 +22,11 @@ sources in this checkout on first use.  Phases, each fatal on failure:
    ragged offsets, 1e-4 absolute); paged attention's bodies at their
    edges, in each pool dtype: Lq on each side of the decode body's
    threshold, 32 and 33, blocks of 8 and 64 tokens, positions 0 and
-   T * bs - Lq, with the same bounds;
+   T * bs - Lq, with the same bounds; every body (decode, tile, v1) of
+   both flash entry points in fp32 and bf16 at phase 3c's shapes: the
+   offset kernel at B32 Lk1024 and B16 Lk512, H8 Lq1 D64, ragged
+   offsets, the causal kernel at B4 and B16 H8 L512 D64 (fp32 1e-4
+   absolute, bf16 one bf16 ulp of max|ref| plus 1e-4);
 3. serve the transformer LM at full width (4 layers, hidden 512, 8
    heads, vocab 8192, random weights from seed 0) through
    ``ModelRegistry`` + ``GenerationEngine`` with the default knobs: 16
@@ -48,10 +52,20 @@ sources in this checkout on first use.  Phases, each fatal on failure:
    (``compute_dtype="bfloat16", kv_dtype="bfloat16"``): the bf16 norms
    and the bf16 paged kernel launch, their fp32 forms do not; weight
    bytes and pool bytes per token exactly half of phase 3's store;
+3e. phase 3c's mix in bf16 (``compute_dtype="bfloat16",
+   kv_dtype="bfloat16"`` on the contiguous plane): the bf16 norms,
+   ``flash_attention_bf16`` and ``flash_attention_offset_bf16`` launch,
+   their fp32 forms do not; weight bytes and cache bytes per slot
+   exactly half of phase 3c's store; both flash entry points' launches
+   in phases 3c and 3e counted by (name, B, H, Lq, Lk, D, causal, body),
+   each on the body ``_plan`` names;
 4b. the same for phase 3b's int8 store;
 4c. the same for phase 3d's bf16 store, with the bounds of bf16: logits
    within 2e-2 x max|ref|, and a stream may differ only where the CPU's
    top-2 margin is below 2e-2 x |top logit|;
+4d. the same for phase 3e's contiguous bf16 store, under 4c's bounds,
+   with ``prefill_apply`` and one ``decode_apply`` step in place of the
+   paged steps;
 5. time each kernel, its plain version and one PyTorch library call with
    CUDA events (median of 60 launches queued behind a GPU spin, so each
    event pair brackets device time), beside the kernel's bound (bf16
@@ -63,6 +77,10 @@ sources in this checkout on first use.  Phases, each fatal on failure:
    serving phases' launches and at B=32 with Lq 1, 32 and each side of
    the decode threshold, with v1 (the CUDA-core body of earlier slices)
    and the other new body (decode or tile) timed beside each row;
+   ``flash_attention_offset`` in fp32 and bf16 at B32 Lk1024 and at each
+   (B, Lk) of phases 3c's and 3e's launches, and at Lq 2 and each
+   side of its decode threshold, with v1 and the other body beside each
+   row (library: SDPA with the offset mask, in the input dtype);
 2+. the training path's kernels against their plain versions at training
    width: the norm backwards at 4096 x 512 and at each edge of their two
    paths (the register cap, width 1024, and 1028; width 1000; width 1002,
@@ -94,9 +112,8 @@ sources in this checkout on first use.  Phases, each fatal on failure:
    before each launch, outside the events, and their v1 path beside them,
    ``v1_ms``, on the same inputs 4 bytes off alignment;
    flash_attention also at each shape of phase 3c's prefill launches,
-   and beside each of its rows the v1 body, which
-   ``flash_attention_offset`` still runs, at offsets that give the same
-   attention), then the imperative plane's: the cross-entropy loss and
+   and in bf16 at each of phase 3e's, with the v1 body beside each row),
+   then the imperative plane's: the cross-entropy loss and
    gradient, the fused softmax's backward and an ``rtc`` kernel
    (``fma1``, checked in phase 2+ against ``torch.addcmul`` within 2
    ulp).
@@ -162,6 +179,16 @@ DQ_M = (1, 16, 32, 256, 512, 1024)
 DQ_NK = ((512, 512), (2048, 512), (512, 2048), (8192, 512))
 # flash_attention_offset at decode: one query row over a full cache
 OFS = dict(B=32, H=8, Lk=1024, D=64)
+# flash attention's launch names -> (dtype, offset entry point); phase 5
+# times the offset kernel at Lq 2 and each side of its decode
+# threshold (kernels/flash_attention.py DECODE_MAX_LQ) beside Lq 1
+FA_NAMES = {"flash_attention": (torch.float32, False),
+            "flash_attention_bf16": (torch.bfloat16, False),
+            "flash_attention_offset": (torch.float32, True),
+            "flash_attention_offset_bf16": (torch.bfloat16, True)}
+OFS_TIMED_LQ = {dt: sorted({1, 2, flash_attention.DECODE_MAX_LQ[dt],
+                            flash_attention.DECODE_MAX_LQ[dt] + 1})
+                for dt in (torch.float32, torch.bfloat16)}
 MAX_TOKENS = 64
 SOURCES = {
     "rms_norm": ("mxnet_tpu_torch/kernels/csrc/norm.cu",
@@ -203,6 +230,11 @@ SOURCES = {
     "flash_attention_paged_bf16": (
         "mxnet_tpu_torch/kernels/csrc/paged_attention.cu",
         "mxnet_tpu/pallas_ops/paged_attention.py:41"),
+    "flash_attention_bf16": ("mxnet_tpu_torch/kernels/csrc/flash_attention.cu",
+                             "mxnet_tpu/pallas_ops/flash_attention.py:62"),
+    "flash_attention_offset_bf16": (
+        "mxnet_tpu_torch/kernels/csrc/flash_attention.cu",
+        "mxnet_tpu/pallas_ops/flash_attention.py:222"),
 }
 # serving phase -> (store arguments, kernels that must launch, kernels
 # that must not)
@@ -214,17 +246,25 @@ SERVE_PHASES = {
     "3c": (dict(paged=False, prompt_buckets=(16, 32, 64, 128, 256, 512)),
            ("rms_norm", "layer_norm", "flash_attention",
             "flash_attention_offset"),
-           ("flash_attention_paged", "flash_attention_paged_int8")),
+           ("flash_attention_paged", "flash_attention_paged_int8",
+            "flash_attention_bf16", "flash_attention_offset_bf16")),
     "3d": (dict(compute_dtype="bfloat16", kv_dtype="bfloat16"),
            ("rms_norm_bf16", "layer_norm_bf16", "flash_attention_paged_bf16"),
            ("rms_norm", "layer_norm", "flash_attention_paged")),
+    "3e": (dict(paged=False, prompt_buckets=(16, 32, 64, 128, 256, 512),
+                compute_dtype="bfloat16", kv_dtype="bfloat16"),
+           ("rms_norm_bf16", "layer_norm_bf16", "flash_attention_bf16",
+            "flash_attention_offset_bf16"),
+           ("rms_norm", "layer_norm", "flash_attention",
+            "flash_attention_offset", "flash_attention_paged",
+            "flash_attention_paged_bf16")),
 }
 MARGIN = 1e-3   # a card stream may leave the CPU's only at a near tie
 # card vs CPU (phase 4*): serving phase, and the logits' bound and the
 # near-tie margin, absolute (fp32 and int8 stores) or relative to the
 # largest |logit| (bf16: a few bf16 ulps of the logits)
 CARD_VS_CPU = {"4": ("3", "abs", 1e-3), "4b": ("3b", "abs", 1e-3),
-               "4c": ("3d", "rel", 2e-2)}
+               "4c": ("3d", "rel", 2e-2), "4d": ("3e", "rel", 2e-2)}
 # kernel launches of one training step of the 4-layer LM: two RMSNorms
 # and one attention per block, the final LayerNorm, the loss head
 TRAIN_LAUNCHES_PER_STEP = {
@@ -411,23 +451,43 @@ def dq_inputs(M, N, K, dev):
     return [torch.from_numpy(a).to(dev) for a in (x, codes, scales, w)]
 
 
-def offset_inputs(dev):
-    """One decode query row per sequence over a full cache, ragged
-    offsets."""
-    B, H, Lk, D = (OFS[k] for k in ("B", "H", "Lk", "D"))
-    rs = np.random.RandomState(300)
-    q = rs.randn(B, H, 1, D).astype(np.float32)
+def offset_inputs(dev, B=OFS["B"], Lk=OFS["Lk"], lq=1, dtype=torch.float32,
+                  edges=False):
+    """``lq`` decode query rows per sequence over a full cache of ``Lk``
+    keys (H8 D64), ragged offsets in [0, Lk - lq] (``edges``: the first
+    at 0, the second at Lk - lq), in ``dtype``; the seed of the earlier
+    slices' B32 Lk1024 Lq1 case for that case."""
+    H, D = OFS["H"], OFS["D"]
+    rs = np.random.RandomState(
+        300 if (B, Lk, lq) == (OFS["B"], OFS["Lk"], 1) else [300, B, Lk, lq])
+    q = rs.randn(B, H, lq, D).astype(np.float32)
     k, v = (rs.randn(B, H, Lk, D).astype(np.float32) for _ in range(2))
-    ofs = rs.randint(0, Lk, B).astype(np.int32)
-    return [torch.from_numpy(a).to(dev) for a in (q, k, v, ofs)]
+    ofs = rs.randint(0, Lk - lq + 1, B).astype(np.int32)
+    if edges:
+        ofs[0], ofs[1] = 0, Lk - lq
+    q, k, v, ofs = (torch.from_numpy(a).to(dev) for a in (q, k, v, ofs))
+    return [t.to(dtype) for t in (q, k, v)] + [ofs]
 
 
-def offset_work(ofs):
-    """(bytes, flops): q, out and offsets once, each visible cache row
-    of K and V once; 4*D flops per visible (query row, key, head)."""
-    B, H, D = OFS["B"], OFS["H"], OFS["D"]
-    keys = int((ofs.cpu().long() + 1).sum())
-    return 4 * (2 * B * H * D + 2 * keys * H * D + B), 4 * D * H * keys
+def offset_work(ofs, lq=1, elem=4):
+    """(bytes, flops): q and out once (``elem`` bytes an element), the
+    offsets, each cache row of K and V some query row sees once; 4*D
+    flops per visible (query row, key, head)."""
+    H, D = OFS["H"], OFS["D"]
+    o = ofs.cpu().long()
+    B = o.numel()
+    rows = int((o + lq).sum())
+    pairs = sum(int((o + r + 1).sum()) for r in range(lq))
+    return (elem * (2 * B * H * lq * D + 2 * rows * H * D) + 4 * B,
+            4 * D * H * pairs)
+
+
+def prefill_inputs(B, dev, dtype=torch.float32, L=512):
+    """q, k, v of a causal prefill at B H8 L D64 from a seed."""
+    rs = np.random.RandomState(500 + B)
+    return [torch.from_numpy(rs.randn(B, OFS["H"], L, OFS["D"])
+                             .astype(np.float32)).to(dev).to(dtype)
+            for _ in range(3)]
 
 
 # ---------------------------------------------------------------------------
@@ -498,6 +558,7 @@ def phase_compare(dev):
             1e-4)
     errs.update(phase_compare_bf16(dev))
     errs.update(phase_compare_paged_edges(dev))
+    errs.update(phase_compare_flash(dev))
     for M in DQ_M:
         for N, K in DQ_NK:
             x, c, s, _w = dq_inputs(M, N, K, dev)
@@ -506,12 +567,6 @@ def phase_compare(dev):
                 "dequant_matmul", "M=%d N=%d K=%d" % (M, N, K),
                 dequant_matmul.dequant_matmul(x, c, s), want,
                 1e-5 * want.abs().max().item())
-    q, k, v, ofs = offset_inputs(dev)
-    errs["flash_attention_offset"] = agree(
-        "flash_attention_offset", "B=%d H=%d Lq=1 Lk=%d D=%d"
-        % (OFS["B"], OFS["H"], OFS["Lk"], OFS["D"]),
-        flash_attention.flash_attention_offset(q, k, v, ofs),
-        flash_attention.offset_attention_reference(q, k, v, ofs), 1e-4)
     return errs
 
 
@@ -588,6 +643,61 @@ def phase_compare_paged_edges(dev):
                                       args[3].shape[1], path),
                     paged_attention.flash_attention_paged(*args, **kw),
                     paged_attention.paged_attention_reference(*args, **kw))
+    return errs
+
+
+def agree_fa(name, shape, got, want):
+    """Phase 2's bound for flash attention in ``want``'s dtype: 1e-4
+    absolute (fp32), one bf16 ulp of max|ref| plus 1e-4 (bf16)."""
+    if want.dtype == torch.bfloat16:
+        if got.dtype != torch.bfloat16:
+            raise SystemExit("chip_smoke: %s wrote %s" % (name, got.dtype))
+        return agree_bf16(name, shape, got, want, 1e-4)
+    return agree(name, shape, got, want, 1e-4)
+
+
+@contextlib.contextmanager
+def flash_path(path):
+    """Every flash attention launch inside takes ``path`` ("v1",
+    "decode" or "tile"), with that path's rows and grid."""
+    plan = flash_attention._plan
+    flash_attention._plan = lambda B, H, Lq, Lk, D, dtype, sms: \
+        flash_attention._path_plan(path, B, H, Lq)
+    try:
+        yield
+    finally:
+        flash_attention._plan = plan
+
+
+def phase_compare_flash(dev):
+    """Every body of both flash entry points, in fp32 and bf16, against
+    the plain versions at phase 3c's shapes: the offset kernel (decode,
+    tile and v1) at B32 Lk1024 and B16 Lk512, H8 Lq1 D64, ragged
+    offsets; the causal kernel (tile and v1) at B4 and B16 H8 L512
+    D64."""
+    errs = {}
+    for name, (dtype, offset) in FA_NAMES.items():
+        tag = " bf16" if dtype == torch.bfloat16 else ""
+        for B, Lk in (((OFS["B"], OFS["Lk"]), (16, 512)) if offset
+                      else ((4, 512), (16, 512))):
+            if offset:
+                args = offset_inputs(dev, B, Lk, dtype=dtype)
+                fn = flash_attention.flash_attention_offset
+                want = flash_attention.offset_attention_reference(*args)
+                shape = "B=%d H=%d Lq=1 Lk=%d D=%d%s" % (B, OFS["H"], Lk,
+                                                         OFS["D"], tag)
+                paths = ("decode", "tile", "v1")
+            else:
+                args = (*prefill_inputs(B, dev, dtype, L=Lk), True)
+                fn = flash_attention.flash_attention
+                want = flash_attention.blockwise_attention(*args)
+                shape = "B=%d H=%d L=%d D=%d causal%s" % (B, OFS["H"], Lk,
+                                                          OFS["D"], tag)
+                paths = ("tile", "v1")
+            for path in paths:
+                with flash_path(path):
+                    errs[(name, B, Lk, path)] = agree_fa(
+                        name, "%s (%s)" % (shape, path), fn(*args), want)
     return errs
 
 
@@ -875,14 +985,27 @@ def dq_census():
 
 @contextlib.contextmanager
 def fa_census():
-    """Count the (B*H, Lq, Lk, D, causal) of each ``flash_attention``
-    launch: a counting shim around the wrapper's ``launch`` sees every
-    launch it makes (a dict update each, on the host)."""
+    """Count each launch of both flash entry points by (name, B, H, Lq,
+    Lk, D, causal, body): a counting shim around the wrapper's
+    ``launch`` sees every launch it makes (a dict update each, on the
+    host); fatal when a launch's body and rows are not the ones
+    ``_plan`` names."""
     shapes, launch = collections.Counter(), flash_attention.launch
 
     def counted(x, name, entry, *args):
-        if name == "flash_attention":   # q, k, v, out, B*H, Lq, Lk, D, causal
-            shapes[tuple(args[4:9])] += 1
+        # flash: ..., out, B*H, Lq, Lk, D, causal, scale, path, block_q;
+        # offset: ..., offsets, out, B, H, Lq, Lk, D, scale, path, block_q
+        B, H, Lq, D = x.shape
+        Lk = args[-5] if FA_NAMES[name][1] else args[-6]
+        causal = 1 if FA_NAMES[name][1] else args[-4]
+        plan = flash_attention._plan(B, H, Lq, Lk, D, x.dtype,
+                                     _build.sm_count(x.device.index))
+        if tuple(args[-2:]) != (flash_attention._PATH[plan.path],
+                                plan.block_q):
+            raise SystemExit("chip_smoke: %s launched path %s, rows %s; "
+                             "_plan names %s" % (name, args[-2], args[-1],
+                                                 plan))
+        shapes[name, B, H, Lq, Lk, D, causal, plan.path] += 1
         return launch(x, name, entry, *args)
 
     flash_attention.launch = counted
@@ -977,13 +1100,13 @@ def phase_serve(tag, name, params, reqs):
                              % (sum(shapes.values()),
                                 counts["dequant_matmul"], tag))
     if fa_shapes:
-        log("phase %s flash_attention launches by (B*H, Lq, Lk, D, causal) "
-            "%s" % (tag, dict(fa_shapes)))
-        if sum(fa_shapes.values()) != counts["flash_attention"]:
-            raise SystemExit("chip_smoke: %d flash_attention shapes, %d "
+        log("phase %s flash attention launches by (name, B, H, Lq, Lk, D, "
+            "causal, body) %s" % (tag, dict(sorted(fa_shapes.items()))))
+        if sum(fa_shapes.values()) != sum(counts[k] for k in FA_NAMES):
+            raise SystemExit("chip_smoke: %d flash attention shapes, %d "
                              "launches in phase %s"
                              % (sum(fa_shapes.values()),
-                                counts["flash_attention"], tag))
+                                sum(counts[k] for k in FA_NAMES), tag))
     if pa_shapes:
         by_path = collections.Counter()
         for (kname, b, lq, path), c in pa_shapes.items():
@@ -1041,6 +1164,48 @@ def phase_bf16_bytes(fp, b16):
     if wb[1] * 2 != wb[0] or pt[1] * 2 != pt[0]:
         raise SystemExit("chip_smoke: bf16 weights or pool are not exactly "
                          "half of fp32's bytes")
+
+
+def phase_contiguous_bf16_bytes(fp, b16):
+    """Phase 3e's memory against phase 3c's: weight bytes and the bytes
+    a slot's cache holds at ``kv_max`` must be exactly half; the served
+    high-water mark's bytes per slot and tokens/s beside them."""
+    wb = [r["store"].stats()["weight_bytes"]["total"] for r in (fp, b16)]
+    slot = [sum(t.numel() * t.element_size()
+                for t in r["store"].new_cache(1, r["store"].kv_max))
+            for r in (fp, b16)]
+    hwm = [(r["cache"]["cache_bytes_per_slot"], r["cache"]["cache_len"])
+           for r in (fp, b16)]
+    log("phase 3e weight_bytes bf16 %d vs fp32 %d (%.4fx); cache bytes a "
+        "slot at kv_max bf16 %d vs fp32 %d (%.4fx); served high-water "
+        "bytes per slot bf16 %d at %d tokens vs fp32 %d at %d; generated "
+        "tokens/s bf16 %.1f vs fp32 %.1f"
+        % (wb[1], wb[0], wb[1] / wb[0], slot[1], slot[0], slot[1] / slot[0],
+           *hwm[1], *hwm[0], b16["tok_s"], fp["tok_s"]))
+    if wb[1] * 2 != wb[0] or slot[1] * 2 != slot[0] or \
+            hwm[1][0] * hwm[0][1] * 2 != hwm[0][0] * hwm[1][1]:
+        raise SystemExit("chip_smoke: bf16 weights or cache are not exactly "
+                         "half of fp32's bytes")
+
+
+def top2_margin_contiguous(model_cpu, prompt, gen, kv_dtype):
+    """``top2_margin`` on the contiguous plane: the prompt in one
+    prefill, then one decode step a generated token (the engine's
+    schedule)."""
+    C = -(-(len(prompt) + len(gen) + 1) // 64) * 64
+    params = model_cpu.params()
+    with torch.no_grad():
+        logits, ck, cv = tlm.prefill_apply(
+            params, np.asarray([prompt], np.int32),
+            np.asarray([len(prompt)], np.int32), C, SPEC,
+            cache_dtype=kv_dtype)
+        logits = logits[:, len(prompt) - 1]
+        for i, t in enumerate(gen):
+            logits, ck, cv = tlm.decode_apply(
+                params, ck, cv, np.asarray([t], np.int32),
+                np.asarray([len(prompt) + i], np.int32), SPEC)
+    top = torch.topk(logits[0], 2).values
+    return (top[0] - top[1]).item(), logits.abs().max().item()
 
 
 def top2_margin(model_cpu, prompt, gen, kv_dtype=torch.float32):
@@ -1126,14 +1291,26 @@ def phase_card_vs_cpu(tag, name, params, served, reqs):
                                  dtype=kv_dtype)
         scales[m] = tlm.init_scale_pool(SPEC, B * T + 1, device=m.device) \
             if kv_dtype == torch.int8 else None
+    paged = served["store"].paged
+    caches = {}
     for what, toks, pos, val in (
-            ("prefill chunk", chunk, np.zeros(B, np.int32), valid),
+            ("prefill chunk" if paged else "prefill", chunk,
+             np.zeros(B, np.int32), valid),
             ("decode step", chunk[:, :1], valid, np.ones(B, np.int32))):
         out = {}
         for m in (model_gpu, model_cpu):
             with torch.no_grad():
-                logits = m(*pools[m], tables, toks, pos, val, bs,
-                           scales=scales[m])[0]
+                if paged:
+                    logits = m(*pools[m], tables, toks, pos, val, bs,
+                               scales=scales[m])[0]
+                elif what == "prefill":
+                    logits, *caches[m] = tlm.prefill_apply(
+                        m.params(), toks, val, 64, SPEC, cache_dtype=kv_dtype)
+                    logits = logits[torch.arange(B), torch.as_tensor(
+                        val, device=logits.device).long() - 1]
+                else:
+                    logits = tlm.decode_apply(m.params(), *caches[m],
+                                              toks[:, 0], pos, SPEC)[0]
             out[m] = logits.cpu()
         err = (out[model_gpu] - out[model_cpu]).abs().max().item()
         ref = out[model_cpu].abs().max().item()
@@ -1147,7 +1324,8 @@ def phase_card_vs_cpu(tag, name, params, served, reqs):
     check_results(cpu_results, reqs)
 
     def margin(i, gen):
-        m, top = top2_margin(model_cpu, reqs[i]["tokens"], gen, kv_dtype)
+        m, top = (top2_margin if paged else top2_margin_contiguous)(
+            model_cpu, reqs[i]["tokens"], gen, kv_dtype)
         return m, bound * top if kind == "rel" else bound
     same, n = compare_streams(tag, served["results"], cpu_results, reqs,
                               margin)
@@ -1628,10 +1806,57 @@ def paged_row(dev, card, name, lq, B=PA["B"], note=""):
     return row
 
 
-def phase_times(dev, card, errs, pa_shapes):
+def offset_row(dev, card, dtype, B, Lk, lq, note=""):
+    """Time ``flash_attention_offset`` in ``dtype`` at B H8 ``lq`` rows
+    over ``Lk`` keys (D64, ragged offsets) on the body ``_plan`` picks,
+    against its plain version and SDPA with the offset mask in the same
+    dtype (bound: bytes at the dtype's width, operations at the fp32
+    CUDA-core rate or, bf16, the bf16 tensor-core rate); then ``v1_ms``
+    and ``other_ms``: v1 and the other new body (decode <-> tile) on the
+    same inputs, each held to phase 2's bound first."""
+    bf16 = dtype == torch.bfloat16
+    name = "flash_attention_offset_bf16" if bf16 else "flash_attention_offset"
+    q, k, v, ofs = offset_inputs(dev, B, Lk, lq, dtype)
+    plan = flash_attention._plan(B, OFS["H"], lq, Lk, OFS["D"], dtype,
+                                 _build.sm_count(dev.index))
+    shape = "B=%d H=%d Lq=%d Lk=%d D=%d%s, ragged offsets (%s)%s" % (
+        B, OFS["H"], lq, Lk, OFS["D"], " bf16" if bf16 else "", plan.path,
+        note)
+
+    def kern():
+        return flash_attention.flash_attention_offset(q, k, v, ofs)
+
+    def plain():
+        return flash_attention.offset_attention_reference(q, k, v, ofs)
+
+    want = plain()
+    err = agree_fa(name, shape, kern(), want)
+    mask = (ofs.long()[:, None, None, None] +
+            torch.arange(lq, device=dev)[:, None] >=
+            torch.arange(Lk, device=dev))              # (B, 1, lq, Lk)
+    nbytes, flops = offset_work(ofs, lq, 2 if bf16 else 4)
+    row = timed_row(name, shape, kern, plain,
+                    lambda: torch.nn.functional.scaled_dot_product_attention(
+                        q, k, v, attn_mask=mask),
+                    nbytes, flops, err, card, bf16=bf16)
+    other = "tile" if plan.path == "decode" else "decode"
+    for key, path in (("v1_ms", "v1"), ("other_ms", other)):
+        with flash_path(path):
+            agree_fa(name, "%s on %s" % (shape, path), kern(), want)
+            row[key] = time_ms(kern)
+    row["path"], row["other_path"] = plan.path, other
+    log("phase 5 %s %s: %s %.6f ms, v1 %.6f ms, %s %.6f ms [%s]"
+        % (name, shape, plan.path, row["ms"], row["v1_ms"], other,
+           row["other_ms"], card))
+    return row
+
+
+def phase_times(dev, card, errs, pa_shapes, fa_shapes):
     """The serving kernels at the serving path's shapes; paged attention
     also at each (B, Lq) of the serving phases' launches (``pa_shapes``,
-    their census), the most frequent first."""
+    their census), the most frequent first; the offset kernel at B32
+    Lk1024, then at each (B, Lk) of phases 3c's and 3e's launches
+    (``fa_shapes``), then at the other Lq of ``OFS_TIMED_LQ``."""
     F = torch.nn.functional
     entries = {}
 
@@ -1686,16 +1911,18 @@ def phase_times(dev, card, errs, pa_shapes):
                    lambda: torch.matmul(x, w.t()),
                    4 * M * K + N * K + 4 * N + 4 * M * N, 2 * M * N * K,
                    errs[("dequant_matmul", M, N, K)], tf32=True)
-    q, k, v, ofs = offset_inputs(dev)
-    mask = (ofs.long()[:, None, None, None] >=
-            torch.arange(OFS["Lk"], device=dev))          # (B, 1, 1, Lk)
-    nbytes, flops = offset_work(ofs)
-    record("flash_attention_offset", "B=%d H=%d Lq=1 Lk=%d D=%d" % (
-        OFS["B"], OFS["H"], OFS["Lk"], OFS["D"]),
-        lambda: flash_attention.flash_attention_offset(q, k, v, ofs),
-        lambda: flash_attention.offset_attention_reference(q, k, v, ofs),
-        lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask),
-        nbytes, flops, errs["flash_attention_offset"])
+    for name, (dtype, offset) in FA_NAMES.items():
+        if not offset:
+            continue
+        census = sorted(((n, B, Lk) for (kname, B, _h, lq, Lk, _d, _c, _p), n
+                         in fa_shapes.items() if kname == name and lq == 1),
+                        key=lambda c: (-c[0], c[1:]))
+        entries[name] = [offset_row(dev, card, dtype, OFS["B"], OFS["Lk"], 1)]
+        entries[name] += [
+            offset_row(dev, card, dtype, B, Lk, 1, " (serving census, %d "
+                       "launches)" % n) for n, B, Lk in census]
+        entries[name] += [offset_row(dev, card, dtype, OFS["B"], OFS["Lk"], lq)
+                          for lq in OFS_TIMED_LQ[dtype] if lq > 1]
     return entries
 
 
@@ -1709,56 +1936,59 @@ def autograd_backward(forward, inputs, cot):
 
 def flash_row(dev, card, shape, q, k, v, causal, err):
     """Time ``flash_attention`` on ``q`` [B, H, Lq, D] over ``k``, ``v``
-    against its plain version and fp32 SDPA, under the TF32 tensor-core
-    bound (the body's 3xTF32 products take fp32 inputs); beside them the
-    v1 body, which ``flash_attention_offset`` still runs, at offsets 0
-    (causal) or Lk - 1 (every key visible): v1's arithmetic and grid."""
+    against its plain version and SDPA in the input dtype, under the
+    tensor-core bound for the inputs (fp32: TF32, the body's 3xTF32
+    products take fp32 inputs; bf16: bf16, bytes at two an element);
+    beside them the v1 body on the same inputs, held to phase 2's bound
+    first."""
+    bf16 = q.dtype == torch.bfloat16
+    name = "flash_attention_bf16" if bf16 else "flash_attention"
     B, H, Lq, D = q.shape
     Lk = k.shape[2]
     pairs = B * H * (sum(min(i + 1, Lk) for i in range(Lq)) if causal
                      else Lq * Lk)
+
+    def kern():
+        return flash_attention.flash_attention(q, k, v, causal)
+
     row = timed_row(
-        "flash_attention", shape,
-        lambda: flash_attention.flash_attention(q, k, v, causal),
+        name, shape, kern,
         lambda: flash_attention.blockwise_attention(q, k, v, causal),
         lambda: torch.nn.functional.scaled_dot_product_attention(
             q, k, v, is_causal=causal),
-        4 * B * H * D * (2 * Lq + 2 * Lk), 4 * D * pairs, err, card,
-        tf32=True)
-    ofs = torch.full((B,), 0 if causal else Lk - 1, dtype=torch.int32,
-                     device=dev)
-    v1_err = (flash_attention.flash_attention_offset(q, k, v, ofs) -
-              flash_attention.blockwise_attention(q, k, v, causal)
-              ).abs().max().item()
-    if not v1_err <= 1e-4:
-        raise SystemExit("chip_smoke: the v1 body disagrees at %s" % shape)
-    row["v1_ms"] = time_ms(
-        lambda: flash_attention.flash_attention_offset(q, k, v, ofs))
-    log("phase 5 flash_attention %s: v1 body %.6f ms (max_abs_err %.3e), "
-        "kernel %.6f ms, library %.6f ms [%s]"
-        % (shape, row["v1_ms"], v1_err, row["ms"], row["library_ms"], card))
+        (2 if bf16 else 4) * B * H * D * (2 * Lq + 2 * Lk), 4 * D * pairs,
+        err, card, bf16=bf16, tf32=not bf16)
+    with flash_path("v1"):
+        v1_err = agree_fa(name, "%s on v1" % shape, kern(),
+                          flash_attention.blockwise_attention(q, k, v,
+                                                              causal))
+        row["v1_ms"] = time_ms(kern)
+    log("phase 5 %s %s: v1 body %.6f ms (max_abs_err %.3e), kernel %.6f "
+        "ms, library %.6f ms [%s]" % (name, shape, row["v1_ms"], v1_err,
+                                      row["ms"], row["library_ms"], card))
     return row
 
 
 def prefill_flash_inputs(fa_shapes, dev):
-    """Seeded ``((q, k, v), causal, launches)`` at each (B*H, Lq, Lk, D,
-    causal) of phase 3c's ``flash_attention`` launches (its prefills'),
-    the most frequent first."""
-    H = SPEC["num_heads"]
+    """Seeded ``(name, (q, k, v), causal, launches)`` at each shape of
+    the serving phases' causal ``flash_attention`` launches (their
+    prefills', fp32 and bf16), the most frequent first."""
     rs = np.random.RandomState(13)
-    for (bh, lq, lk, d, causal), n in sorted(
+    for (name, B, H, lq, lk, d, causal, _p), n in sorted(
             fa_shapes.items(), key=lambda kv: (-kv[1], kv[0])):
-        q = rs.randn(bh // H, H, lq, d).astype(np.float32)
-        k, v = (rs.randn(bh // H, H, lk, d).astype(np.float32)
-                for _ in range(2))
-        yield ([torch.from_numpy(a).to(dev) for a in (q, k, v)],
-               bool(causal), n)
+        dtype, offset = FA_NAMES[name]
+        if offset:
+            continue
+        q = rs.randn(B, H, lq, d).astype(np.float32)
+        k, v = (rs.randn(B, H, lk, d).astype(np.float32) for _ in range(2))
+        yield (name, [torch.from_numpy(a).to(dev).to(dtype)
+                      for a in (q, k, v)], bool(causal), n)
 
 
 def phase_times_train(dev, card, errs, fa_shapes):
     """The training kernels at the training path's shapes, and
-    ``flash_attention`` at the shapes of phase 3c's prefill launches
-    (``fa_shapes``, their census).  Yardsticks: the autograd backward of
+    ``flash_attention`` at the shapes of phases 3c's and 3e's prefill
+    launches (``fa_shapes``, their census; 3e's in bf16).  Yardsticks: the autograd backward of
     ``F.rms_norm`` / ``F.layer_norm``, ``torch.softmax`` and
     ``F.scaled_dot_product_attention`` in fp32; ``xent_grad_from_probs``
     has no single-call yardstick."""
@@ -1801,19 +2031,17 @@ def phase_times_train(dev, card, errs, fa_shapes):
         rows.append(flash_row(
             dev, card, "B=%d H=%d L=%d D=%d causal=%s" % (B, H, L, D, causal),
             t["q"], t["k"], t["v"], causal, errs["flash_attention"]))
-    for (q, k, v), causal, n in prefill_flash_inputs(fa_shapes, dev):
-        err = (flash_attention.flash_attention(q, k, v, causal) -
-               flash_attention.blockwise_attention(q, k, v, causal)
-               ).abs().max().item()
-        if not err <= 1e-4:
-            raise SystemExit("chip_smoke: flash_attention disagrees with "
-                             "its plain version at phase 3c's prefill "
-                             "shape: %.3e" % err)
-        rows.append(flash_row(
-            dev, card, "B=%d H=%d Lq=%d Lk=%d D=%d causal=%s (phase 3c "
-            "prefill, %d of its launches)" % (
-                *q.shape[:3], k.shape[2], q.shape[3], causal, n),
-            q, k, v, causal, err))
+    for name, (q, k, v), causal, n in prefill_flash_inputs(fa_shapes, dev):
+        shape = "B=%d H=%d Lq=%d Lk=%d D=%d causal=%s%s (phase %s prefill, " \
+            "%d of its launches)" % (
+                *q.shape[:3], k.shape[2], q.shape[3], causal,
+                " bf16" if name.endswith("bf16") else "",
+                "3e" if name.endswith("bf16") else "3c", n)
+        err = agree_fa(name, shape, flash_attention.flash_attention(
+            q, k, v, causal), flash_attention.blockwise_attention(
+                q, k, v, causal))
+        entries.setdefault(name, []).append(flash_row(
+            dev, card, shape, q, k, v, causal, err))
     # the imperative plane's kernels; yardsticks F.cross_entropy (its
     # autograd backward for the gradient), the autograd backward of
     # torch.softmax, torch.addcmul
@@ -1889,16 +2117,18 @@ def main(argv):
     reqs = make_requests()
     served = {tag: phase_serve(tag, name, params, reqs)
               for tag, name in (("3", "lm"), ("3b", "lm8"), ("3c", "lmc"),
-                                ("3d", "lm16"))}
+                                ("3d", "lm16"), ("3e", "lmc16"))}
     log("phase 3b %.3f ms per step (int8 weights through dequant_matmul) "
         "vs phase 3 %.3f ms per step (fp32) [%s]"
         % (served["3b"]["step_ms"], served["3"]["step_ms"], card))
     phase_int8_bytes(served["3"], served["3b"])
     phase_bf16_bytes(served["3"], served["3d"])
+    phase_contiguous_bf16_bytes(served["3c"], served["3e"])
     phase_contiguous_vs_paged(
         served["3c"], served["3"], reqs,
         tlm.TransformerLM.from_numpy(params, SPEC, device="cpu"))
-    for tag, name in (("4", "lm"), ("4b", "lm8"), ("4c", "lm16")):
+    for tag, name in (("4", "lm"), ("4b", "lm8"), ("4c", "lm16"),
+                      ("4d", "lmc16")):
         phase_card_vs_cpu(tag, name, params,
                           served[CARD_VS_CPU[tag][0]], reqs)
     counts = {"serve_" + tag: served[tag]["counts"] for tag in served}
@@ -1908,14 +2138,17 @@ def main(argv):
     params7, module_card = phase_train_vs_cpu(dev)
     counts["imperative"] = phase_imperative(card, step_ms)
     phase_imperative_vs(params7, module_card)
-    pa_shapes = collections.Counter()
+    pa_shapes, fa_shapes = collections.Counter(), collections.Counter()
     for tag in ("3", "3b", "3d"):
         pa_shapes.update(served[tag]["pa_shapes"])
-    kern = kernel_rows(phase_times(dev, card, errs, pa_shapes), counts)
-    kern += kernel_rows(phase_times_train(dev, card, errs,
-                                          served["3c"]["fa_shapes"]), counts)
+    for tag in ("3c", "3e"):
+        fa_shapes.update(served[tag]["fa_shapes"])
+    kern = kernel_rows(phase_times(dev, card, errs, pa_shapes, fa_shapes),
+                       counts)
+    kern += kernel_rows(phase_times_train(dev, card, errs, fa_shapes), counts)
     for tag, what in (("3", "paged fp32"), ("3b", "paged int8"),
-                      ("3c", "contiguous fp32"), ("3d", "paged bf16")):
+                      ("3c", "contiguous fp32"), ("3d", "paged bf16"),
+                      ("3e", "contiguous bf16")):
         log("phase 5 engine %s: %.1f generated tokens/s at full width [%s]"
             % (what, served[tag]["tok_s"], card))
     print(json.dumps({"kernels": kern}))

@@ -71,12 +71,19 @@ _SIGNATURES = {
     "mxt_softmax_xent_loss_grad_f32": (_P, _P, _P, _P, _I, _I, _P),
     # p, dy, dx, rows, cols, stream
     "mxt_softmax_rows_bwd_f32": (_P, _P, _P, _I, _I, _P),
-    # q, k, v, out, B*H, Lq, Lk, D, causal, scale, stream
+    # q, k, v, out, B*H, Lq, Lk, D, causal, scale, path, block_q, stream
+    # (flash_attention.py::_plan)
     "mxt_flash_attention_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
-                                _P),
-    # q, k, v, offsets, out, B, H, Lq, Lk, D, scale, stream
+                                _I, _I, _P),
+    # the same with bf16 q, k, v and out
+    "mxt_flash_attention_bf16": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
+                                 _I, _I, _P),
+    # q, k, v, offsets, out, B, H, Lq, Lk, D, scale, path, block_q, stream
     "mxt_flash_attention_offset_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _I,
-                                       _I, _F, _P),
+                                       _I, _F, _I, _I, _P),
+    # the same with bf16 q, k, v and out
+    "mxt_flash_attention_offset_bf16": (_P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                        _I, _F, _I, _I, _P),
     # q, k_pool, v_pool, tables, positions, out, B, H, Lq, D, T,
     # block_size, pool_rows, scale, path, block_q, stream
     # (paged_attention.py::_plan)

@@ -1,5 +1,5 @@
 """Flash attention over contiguous ``[B, H, L, D]`` tensors: the CUDA
-forward kernels and their plain versions.
+forward kernels and their plain versions, in fp32 or bf16.
 
 Counterpart of ``flash_attention`` and ``flash_attention_offset`` in
 ``mxnet_tpu/pallas_ops/flash_attention.py``.  ``flash_attention`` runs
@@ -7,17 +7,21 @@ the forward: on a CPU tensor the plain version
 :func:`blockwise_attention` (the online-softmax recurrence over key
 blocks, with the reference's ``-1e30`` mask, masked ``p`` forced to 0
 and ``acc / (l > 0 ? l : 1)``), on a CUDA tensor
-``csrc/flash_attention.cu`` or an error: for a head dim up to 128 a
-tensor-core body whose products run in 3xTF32 (each operand split in
-two TF32 parts, three ``mma.sync`` a k-step: fp32 accuracy, one TF32
-pass would miss the 1e-4 tolerance), above 128 the CUDA-core body that
-``flash_attention_offset`` runs.  The C entry point picks the body; one
-call is one launch either way.  ``flash_attention_offset`` is
+``csrc/flash_attention.cu`` or an error.  ``flash_attention_offset`` is
 the decode attention of the contiguous serving plane, forward only: on
 a CPU tensor the plain :func:`offset_attention_reference` (dense
 offset-causal attention, the reference's
 ``ops/attention._dense_attention(q_offsets=)``), on a CUDA tensor the
-CUDA-core body in its offset mode.
+same CUDA file.  Both plain versions compute in fp32 and cast back to
+the input dtype, as the TPU kernels upcast their tiles.
+
+Each entry point has three bodies, and :func:`_plan` picks one from the
+shape: the decode body on CUDA cores for a few query rows (one row a
+CTA), the tensor-core tile for more (64 rows a CTA: 3xTF32 in fp32, bf16
+``mma.sync`` in bf16), and the CUDA-core v1 for a head dim above 128.
+One call is one launch, counted as ``flash_attention``,
+``flash_attention_bf16``, ``flash_attention_offset`` or
+``flash_attention_offset_bf16``.
 
 :class:`FlashAttention` is the ``torch.autograd.Function``.  Its
 backward is not a kernel, because the reference's is not one either:
@@ -30,18 +34,39 @@ backward.
 """
 from __future__ import annotations
 
+import collections
+
 import torch
 
-from ._build import KernelError, check_args, launch, route
+from ._build import KernelError, check_args, launch, route, sm_count
 
 __all__ = ["flash_attention", "blockwise_attention", "FlashAttention",
            "flash_attention_offset", "offset_attention_reference",
            "KEY_TILE", "BACKWARD_BLOCK"]
 
 _NEG = -1e30      # the TPU kernel's mask constant, shared for parity
-KEY_TILE = 32     # the plain version's key block (the CUDA-core body's)
+KEY_TILE = 32     # the plain version's key block (v1's key tile)
 BACKWARD_BLOCK = 128   # the reference's key block for the recompute
 MAX_HEAD_DIM = 256
+TILE_MAX_HEAD_DIM = 128  # decode and tile: D zero-padded up to 128
+V1_ROWS = 32             # v1: query rows a CTA
+TILE_ROWS = 64           # the tile: query rows a CTA, 16 a warp
+# the largest Lq that takes the decode body (one query row a CTA, so Lq
+# CTAs a sequence and head), by dtype: above it the tile is faster at
+# B32 Lk1024 (PERF.md §6, chip_smoke.py phase 5)
+DECODE_MAX_LQ = {torch.float32: 6, torch.bfloat16: 6}
+_PATH = {"v1": 0, "decode": 1, "tile": 2}   # the entry points' path
+Plan = collections.namedtuple("Plan", "path block_q grid")
+# dtype -> ((launch name, C entry point) of flash_attention, the same of
+# flash_attention_offset, head-dim multiple: one 16-byte copy of a row)
+_VARIANTS = {
+    torch.float32: (("flash_attention", "mxt_flash_attention_f32"),
+                    ("flash_attention_offset",
+                     "mxt_flash_attention_offset_f32"), 4),
+    torch.bfloat16: (("flash_attention_bf16", "mxt_flash_attention_bf16"),
+                     ("flash_attention_offset_bf16",
+                      "mxt_flash_attention_offset_bf16"), 8),
+}
 
 
 def blockwise_attention(q, k, v, causal=False, scale=None,
@@ -78,41 +103,95 @@ def blockwise_attention(q, k, v, causal=False, scale=None,
     return (o / torch.where(l > 0, l, torch.ones_like(l))).to(q.dtype)
 
 
-def _check(q, k, v):
+def _plan(B, H, Lq, Lk, D, dtype, sms):
+    """The body and grid of one launch in ``dtype`` (float32 or
+    bfloat16): ``"v1"`` for D above 128; else ``"decode"`` for Lq up to
+    ``DECODE_MAX_LQ[dtype]`` and ``"tile"`` above.  ``Lk`` and the card's
+    ``sms`` SMs do not move the choice: no body splits a sequence's keys
+    over CTAs."""
+    del Lk, sms
+    if D > TILE_MAX_HEAD_DIM:
+        path = "v1"
+    elif Lq <= DECODE_MAX_LQ[dtype]:
+        path = "decode"
+    else:
+        path = "tile"
+    return _path_plan(path, B, H, Lq)
+
+
+def _path_plan(path, B, H, Lq):
+    """``path``'s query rows a CTA and grid: decode one row, grid (Lq,
+    B*H); the tile 64, grid (B*H, q-tiles); v1 32, grid (q-tiles,
+    B*H)."""
+    block_q = {"decode": 1, "tile": TILE_ROWS, "v1": V1_ROWS}[path]
+    tiles = -(-Lq // block_q)
+    grid = (B * H, tiles) if path == "tile" else (tiles, B * H)
+    return Plan(path, block_q, grid)
+
+
+def _check(q, k, v, offsets=None):
+    """Refuse what the CUDA kernel does not take: q [B,H,Lq,D], k and v
+    [B,H,Lk,D], all fp32 or all bf16, contiguous and 16-byte aligned,
+    with a head dim up to 256 that is a multiple of 4 (fp32) or 8
+    (bf16); ``offsets`` a contiguous (B,) int32 tensor on q's device."""
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape or \
             q.shape[:2] != k.shape[:2] or q.shape[3] != k.shape[3]:
         raise KernelError("flash_attention: q [B,H,Lq,D] and k, v "
                           "[B,H,Lk,D] expected, got %s / %s / %s"
                           % (tuple(q.shape), tuple(k.shape),
                              tuple(v.shape)))
+    check_args("flash_attention", q, k, v,
+               dtypes=(torch.float32, torch.bfloat16))
     D = q.shape[3]
-    if D > MAX_HEAD_DIM or D % 4:
-        raise KernelError("flash_attention: the CUDA kernel takes a head "
-                          "dim that is a multiple of 4 up to %d, got %d"
-                          % (MAX_HEAD_DIM, D))
-    check_args("flash_attention", q, k, v)
+    mult = _VARIANTS[q.dtype][2]
+    if D > MAX_HEAD_DIM or D % mult:
+        raise KernelError("flash_attention: the CUDA kernel takes a %s "
+                          "head dim that is a multiple of %d up to %d, "
+                          "got %d" % (str(q.dtype).replace("torch.", ""),
+                                      mult, MAX_HEAD_DIM, D))
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.data_ptr() % 16:
             raise KernelError("flash_attention: %s must be 16-byte aligned"
                               % name)
+    B = q.shape[0]
+    if offsets is not None and (
+            offsets.device != q.device or offsets.dtype != torch.int32 or
+            tuple(offsets.shape) != (B,) or not offsets.is_contiguous()):
+        raise KernelError("flash_attention_offset: offsets must be a "
+                          "contiguous (B,) = (%d,) int32 tensor on %s"
+                          % (B, q.device))
+
+
+def _launch(q, k, v, offsets, causal, scale):
+    """One launch of the body ``_plan`` names; returns the output."""
+    _check(q, k, v, offsets)
+    B, H, Lq, D = q.shape
+    Lk = k.shape[2]
+    plan = _plan(B, H, Lq, Lk, D, q.dtype, sm_count(q.device.index))
+    fa, ofs, _mult = _VARIANTS[q.dtype]
+    out = torch.empty_like(q)
+    body = (_PATH[plan.path], plan.block_q)
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr())
+    if offsets is None:
+        launch(q, fa[0], fa[1], *ptrs, out.data_ptr(), B * H, Lq, Lk, D,
+               int(bool(causal)), float(scale), *body)
+    else:
+        launch(q, ofs[0], ofs[1], *ptrs, offsets.data_ptr(), out.data_ptr(),
+               B, H, Lq, Lk, D, float(scale), *body)
+    return out
 
 
 def flash_attention(q, k, v, causal=False, scale=None):
     """Scaled-dot-product attention of ``q`` [B, H, Lq, D] over ``k``,
-    ``v`` [B, H, Lk, D]; ``scale=None`` is ``1/sqrt(D)``.  The CUDA
-    kernel takes contiguous fp32 tensors, 16-byte aligned, with a head
-    dim that is a multiple of 4 up to 256."""
+    ``v`` [B, H, Lk, D]; ``scale=None`` is ``1/sqrt(D)``.  The output is
+    in the input dtype.  The CUDA kernel takes contiguous fp32 or bf16
+    tensors, 16-byte aligned, with a head dim up to 256 that is a
+    multiple of 4 (fp32) or 8 (bf16)."""
     if scale is None:
         scale = 1.0 / (q.shape[-1] ** 0.5)
     if not route("flash_attention", q):
         return blockwise_attention(q, k, v, causal, scale)
-    _check(q, k, v)
-    B, H, Lq, D = q.shape
-    out = torch.empty_like(q)
-    launch(q, "flash_attention", "mxt_flash_attention_f32", q.data_ptr(),
-           k.data_ptr(), v.data_ptr(), out.data_ptr(), B * H, Lq,
-           k.shape[2], D, int(bool(causal)), float(scale))
-    return out
+    return _launch(q, k, v, None, causal, scale)
 
 
 def offset_attention_reference(q, k, v, offsets, scale=None):
@@ -136,25 +215,14 @@ def flash_attention_offset(q, k, v, offsets, scale=None):
     """Offset-causal attention of ``q`` [B, H, Lq, D] over a [B, H, Lk,
     D] cache: row r of sequence b sits at position ``offsets[b] + r``
     and attends to key positions ``<= offsets[b] + r``.  ``offsets``:
-    (B,) int.  Forward only.  The CUDA kernel takes contiguous, 16-byte
-    aligned fp32 tensors, int32 offsets and a head dim that is a
-    multiple of 4 up to 256."""
+    (B,) int.  Forward only; the output is in the input dtype.  The CUDA
+    kernel takes what :func:`flash_attention`'s does, and int32
+    offsets."""
     if scale is None:
         scale = 1.0 / (q.shape[-1] ** 0.5)
     if not route("flash_attention_offset", q):
         return offset_attention_reference(q, k, v, offsets, scale)
-    _check(q, k, v)
-    B, H, Lq, D = q.shape
-    if offsets.device != q.device or offsets.dtype != torch.int32 or \
-            tuple(offsets.shape) != (B,) or not offsets.is_contiguous():
-        raise KernelError("flash_attention_offset: offsets must be a "
-                          "contiguous (B,) = (%d,) int32 tensor on %s"
-                          % (B, q.device))
-    out = torch.empty_like(q)
-    launch(q, "flash_attention_offset", "mxt_flash_attention_offset_f32",
-           q.data_ptr(), k.data_ptr(), v.data_ptr(), offsets.data_ptr(),
-           out.data_ptr(), B, H, Lq, k.shape[2], D, float(scale))
-    return out
+    return _launch(q, k, v, offsets, True, scale)
 
 
 class FlashAttention(torch.autograd.Function):

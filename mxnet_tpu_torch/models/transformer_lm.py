@@ -251,14 +251,15 @@ def init_scale_pool(spec, num_blocks, device=None):
             torch.ones(shape, dtype=torch.float32, device=device))
 
 
-def init_cache(spec, batch, cache_len, device=None):
-    """Zeroed fp32 contiguous KV cache pair, each ``(num_layers, batch,
-    num_heads, cache_len, head_dim)``."""
+def init_cache(spec, batch, cache_len, dtype=torch.float32, device=None):
+    """Zeroed contiguous KV cache pair, each ``(num_layers, batch,
+    num_heads, cache_len, head_dim)``; ``dtype=torch.bfloat16`` halves
+    the bytes of a token."""
     dh = spec["num_hidden"] // spec["num_heads"]
     shape = (spec["num_layers"], int(batch), spec["num_heads"],
              int(cache_len), dh)
-    return (torch.zeros(shape, device=device),
-            torch.zeros(shape, device=device))
+    return (torch.zeros(shape, dtype=dtype, device=device),
+            torch.zeros(shape, dtype=dtype, device=device))
 
 
 def _block_params(params, i):
@@ -455,7 +456,8 @@ def paged_step_apply(params, pool_k, pool_v, tables, tokens, positions,
     return logits.float(), pool_k, pool_v
 
 
-def prefill_apply(params, tokens, lengths, cache_len, spec):
+def prefill_apply(params, tokens, lengths, cache_len, spec,
+                  cache_dtype=torch.float32):
     """Contiguous plane: run a padded prompt batch once and fill a KV
     cache.
 
@@ -463,10 +465,14 @@ def prefill_apply(params, tokens, lengths, cache_len, spec):
     lengths do not enter the computation: causal attention keeps every
     real position from seeing the pad).  Returns ``(logits (B, P, vocab)
     fp32, k_cache, v_cache)``, the caches ``(L, B, H, cache_len, dh)``
-    holding K/V for positions 0..P-1 and zeros past P.  Pad positions
-    write junk K/V inside 0..P-1, which the decode steps overwrite from
-    each sequence's length on and the offset-causal mask hides until
-    then.  Attention is the causal ``flash_attention``."""
+    in ``cache_dtype`` holding K/V for positions 0..P-1 and zeros past
+    P.  Pad positions write junk K/V inside 0..P-1, which the decode
+    steps overwrite from each sequence's length on and the offset-causal
+    mask hides until then.  Attention is the causal ``flash_attention``
+    on the compute-dtype K/V, as in the reference: a bf16 cache rounds
+    only what the decode steps read.  Params may be bf16 (the
+    activations follow the weights' dtype) or int8
+    :class:`QuantizedWeight` pairs."""
     del lengths
     L, D = spec["num_layers"], spec["num_hidden"]
     H = spec["num_heads"]
@@ -482,8 +488,8 @@ def prefill_apply(params, tokens, lengths, cache_len, spec):
         q, k, v = (_mm(a2, bp[t]).reshape(B, P, H, dh).permute(0, 2, 1, 3)
                    for t in ("q_weight", "k_weight", "v_weight"))
         pad = (0, 0, 0, int(cache_len) - P)
-        ks.append(torch.nn.functional.pad(k, pad))
-        vs.append(torch.nn.functional.pad(v, pad))
+        ks.append(torch.nn.functional.pad(k.to(cache_dtype), pad))
+        vs.append(torch.nn.functional.pad(v.to(cache_dtype), pad))
         att = sdp_attention(q, k, v, causal=True)
         att = att.permute(0, 2, 1, 3).reshape(-1, D)
         x = x + _mm(att, bp["proj_weight"]).reshape(B, P, D)
@@ -505,8 +511,12 @@ def decode_apply(params, cache_k, cache_v, tokens, lengths, spec):
     tokens: (B,) int; lengths: (B,) int cache frontiers (the new token's
     position, ``< cache_len``); caches ``(L, B, H, cache_len, dh)`` from
     :func:`prefill_apply` / :func:`init_cache`, updated IN PLACE (the
-    reference donates them).  Returns ``(logits (B, vocab) fp32,
-    cache_k, cache_v)``."""
+    reference donates them).  The caches' dtype rules, as the
+    reference's: the fresh K/V are written in it and q is cast to it
+    before attention (fp32 compute over a bf16 cache rounds q to bf16,
+    bf16 compute over an fp32 cache widens it); the attention output is
+    cast back to the activations' dtype.  Returns ``(logits (B, vocab)
+    fp32, cache_k, cache_v)``."""
     L, D = spec["num_layers"], spec["num_hidden"]
     H = spec["num_heads"]
     dh = D // H
@@ -526,8 +536,9 @@ def decode_apply(params, cache_k, cache_v, tokens, lengths, spec):
         # (B, H, C, dh) indexed [b, :, lengths[b]]: (B, H, dh) in place
         cache_k[i][rows, :, cols] = k[:, :, 0].to(cache_k.dtype)
         cache_v[i][rows, :, cols] = v[:, :, 0].to(cache_v.dtype)
-        att = sdp_attention(q, cache_k[i], cache_v[i], q_offsets=lengths32)
-        x = x + _mm(att.reshape(B, D), bp["proj_weight"])
+        att = sdp_attention(q.to(cache_k.dtype), cache_k[i], cache_v[i],
+                            q_offsets=lengths32)
+        x = x + _mm(att.reshape(B, D).to(x.dtype), bp["proj_weight"])
         f = rms_norm(x, bp["ln2_gamma"], 1e-6)
         x = x + _ffn(f, bp)
     h = layer_norm(x, params["final_ln_gamma"], params["final_ln_beta"],

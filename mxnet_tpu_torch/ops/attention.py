@@ -20,7 +20,9 @@ def sdp_attention(query, key, value, causal=False, scale=0.0,
                   q_offsets=None):
     """Scaled-dot-product attention over [B, H, L, D] through the flash
     kernel's autograd Function; ``scale <= 0`` selects ``1/sqrt(D)``.
-    The inputs are made contiguous first (the kernel's layout).
+    The inputs are made contiguous first (the kernel's layout); fp32 and
+    bf16 take their own kernels, and no dtype is cast here (the model
+    casts q to the cache dtype, as the reference's does).
 
     ``q_offsets`` (a per-sequence int vector) selects the offset-causal
     variant, forward only: query row r of sequence b sits at position

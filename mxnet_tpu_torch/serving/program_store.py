@@ -13,8 +13,9 @@ the weights (fp32, or int8 codes with ``compute_dtype='int8'``), the
 bucket geometry and the request checks; the KV pool or cache is made by
 the store (``new_pool`` / ``new_scale_pool`` / ``new_cache``) and owned
 by the decode engine's per-model state.  bf16 weights
-(``compute_dtype='bfloat16'``) and a bf16 pool (``kv_dtype='bfloat16'``)
-serve on the paged plane, alone or beside int8, as in the reference.
+(``compute_dtype='bfloat16'``) and a bf16 pool or cache
+(``kv_dtype='bfloat16'``) serve on either plane, alone or beside int8,
+as in the reference.
 
 Sampling runs on the logits' device: greedy rows are an argmax (first
 index on ties); temperature / top-k rows draw from per-slot
@@ -39,8 +40,6 @@ from ..models.transformer_lm import (TransformerLM, decode_apply,
 __all__ = ["GenerativeProgramStore", "bucket_edges", "bucket_for",
            "sample_tokens"]
 
-_LATER = ("arrives with a later serving slice of the port (ROADMAP.md, "
-          "Queue 1: bf16 on the contiguous plane)")
 _KV_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
               "int8": torch.int8}
 
@@ -128,9 +127,8 @@ class GenerativeProgramStore:
     ``MXNET_SERVE_PAGED``): the paged KV plane, or ``False`` for the
     contiguous plane (per-slot cache rectangles, one prefill per
     admitted group, decode steps through ``flash_attention_offset``).
-    The contiguous plane takes neither int8 KV (as in the reference)
-    nor, for now, bf16 in either dtype: both raise
-    :class:`MXNetError`."""
+    The contiguous plane takes fp32 and bf16 caches; int8 KV there
+    raises :class:`MXNetError`, as in the reference."""
 
     def __init__(self, params, spec, name="lm", batch_buckets=None,
                  prompt_buckets=None, kv_block=None, kv_max=None,
@@ -177,10 +175,6 @@ class GenerativeProgramStore:
                 "kv_dtype='int8' needs the paged KV plane (the scales "
                 "are per pool block); set MXNET_SERVE_PAGED=1 or use "
                 "'float32' on the contiguous plane")
-        if not self.paged and "bfloat16" in (self._compute, kv):
-            raise MXNetError("bfloat16 on the contiguous plane (paged="
-                             "False) %s; serve it on the paged plane"
-                             % _LATER)
         chunk = int(prefill_chunk if prefill_chunk is not None
                     else get_env("MXNET_SERVE_PREFILL_CHUNK"))
         if chunk < 1:
@@ -291,8 +285,10 @@ class GenerativeProgramStore:
 
     def new_cache(self, batch, cache_len):
         """Zeroed contiguous K/V cache pair, ``(num_layers, batch,
-        num_heads, cache_len, head_dim)`` fp32 on the store's device."""
-        return init_cache(self._spec, batch, cache_len, device=self.device)
+        num_heads, cache_len, head_dim)`` in the store's KV dtype (fp32
+        or bf16) on its device."""
+        return init_cache(self._spec, batch, cache_len, dtype=self.kv_dtype,
+                          device=self.device)
 
     def copy_block(self, pool_k, pool_v, src, dst, scales=None):
         """Copy-on-write fork: copy physical block ``src``'s rows into
@@ -369,12 +365,13 @@ class GenerativeProgramStore:
         """Contiguous plane: one padded prompt batch (``pad_prompts``).
         Returns ``(first_logits (bb, vocab) at each row's last prompt
         position, k_cache, v_cache)``, the caches ``(L, bb, H,
-        kv_bucket(pb), dh)``."""
+        kv_bucket(pb), dh)`` in the store's KV dtype."""
         bb, pb = np.shape(tokens)
         with torch.no_grad():
             logits, ck, cv = prefill_apply(self.model.params(), tokens,
                                            lengths, self.kv_bucket(pb),
-                                           self._spec)
+                                           self._spec,
+                                           cache_dtype=self.kv_dtype)
             last = torch.as_tensor(lengths, device=self.device).long() - 1
             first = logits[torch.arange(bb, device=self.device), last]
         return first, ck, cv

@@ -937,3 +937,166 @@ def test_embedding_ids_outside_the_table_on_card(cuda_device):
     assert np.array_equal(out[1:5], table[[0, 3, 0, 3]])
     assert np.isnan(out[0]).all() and np.isnan(out[5]).all()
     assert np.array_equal(after, table * 2)
+
+
+# ---------------------------------------------------------------------------
+# flash attention's bodies (decode, tile, v1) in fp32 and bf16
+# ---------------------------------------------------------------------------
+FLASH_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def _flash_body_cases():
+    """(dtype, offset entry point, Lq, Lk, D): Lq on each side of the
+    decode threshold and of the tile's 64 rows, Lk off the 64-key tile,
+    D 64 and 128 (decode and tile) and 136 (v1)."""
+    for dtype in FLASH_DTYPES:
+        m = flash_attention.DECODE_MAX_LQ[dtype]
+        for offset in (True, False):
+            for lq in sorted({m, m + 1, 64, 65}):
+                for D in (64, 128, 136):
+                    yield dtype, offset, lq, (lq + 35 if offset else lq), D
+
+
+def _flash_run(offset, q, k, v, ofs):
+    if offset:
+        return flash_attention.flash_attention_offset(q, k, v, ofs)
+    return flash_attention.flash_attention(q, k, v, True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,offset,lq,lk,D", list(_flash_body_cases()))
+def test_flash_bodies_match_plain_v1_and_themselves(cuda_device, monkeypatch,
+                                                    dtype, offset, lq, lk, D):
+    """The body ``_plan`` picks and every other body of the entry point,
+    against the plain version (fp32 1e-4; bf16 one ulp of max|ref| plus
+    1e-4) and against v1, with offsets 0 and Lk - Lq; each launch is one
+    count under its name, and two launches give the same bits."""
+    B, H = 3, 2
+    rs = np.random.RandomState(lq + lk + D)
+    q = rs.randn(B, H, lq, D).astype(np.float32)
+    k, v = (rs.randn(B, H, lk, D).astype(np.float32) for _ in range(2))
+    ofs = np.asarray([0, lk - lq, (lk - lq) // 2], np.int32)
+    q, k, v, ofs = _on(cuda_device, q, k, v, ofs)
+    q, k, v = (t.to(dtype) for t in (q, k, v))
+    want = (flash_attention.offset_attention_reference(q, k, v, ofs)
+            if offset else flash_attention.blockwise_attention(q, k, v, True)
+            ).float()
+    tol = (bf16_ulp(want.abs().max().item()) if dtype == torch.bfloat16
+           else 0.0) + 1e-4
+    name = flash_attention._VARIANTS[dtype][1 if offset else 0][0]
+    plan = flash_attention._plan(B, H, lq, lk, D, dtype, 132)
+    assert plan.path == ("v1" if D > 128 else "decode"
+                         if lq <= flash_attention.DECODE_MAX_LQ[dtype]
+                         else "tile")
+    outs = {}
+    plan_fn = flash_attention._plan
+    for path in ("planned", "v1", "decode", "tile"):
+        if path != "planned":
+            if D > 128 and path != "v1":
+                continue
+            monkeypatch.setattr(
+                flash_attention, "_plan",
+                lambda B, H, Lq, Lk, D, dt, sms, p=path:
+                flash_attention._path_plan(p, B, H, Lq))
+        before = kernels.launch_counts()[name]
+        got = _flash_run(offset, q, k, v, ofs)
+        again = _flash_run(offset, q, k, v, ofs)
+        torch.cuda.synchronize()
+        assert kernels.launch_counts()[name] == before + 2
+        assert got.dtype == dtype and bool(torch.isfinite(got).all())
+        assert torch.equal(got, again), path
+        assert (got.float() - want).abs().max().item() <= tol, path
+        outs[path] = got.float()
+        monkeypatch.setattr(flash_attention, "_plan", plan_fn)
+    for path, got in outs.items():
+        assert (got - outs["v1"]).abs().max().item() <= tol, path
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,Lk", [(32, 1024), (16, 512)])
+def test_fp32_offset_decode_body_agrees_with_v1(cuda_device, monkeypatch, B,
+                                               Lk):
+    """At the serving shapes (H8 Lq1 D64, ragged offsets) the fp32
+    decode body agrees with v1, the body of earlier slices, within
+    1e-4, and the bf16 decode body with the bf16 plain version."""
+    rs = np.random.RandomState(B + Lk)
+    q = rs.randn(B, 8, 1, 64).astype(np.float32)
+    k, v = (rs.randn(B, 8, Lk, 64).astype(np.float32) for _ in range(2))
+    ofs = rs.randint(0, Lk, B).astype(np.int32)
+    q, k, v, ofs = _on(cuda_device, q, k, v, ofs)
+    assert flash_attention._plan(B, 8, 1, Lk, 64, torch.float32,
+                                 132).path == "decode"
+    got = flash_attention.flash_attention_offset(q, k, v, ofs)
+    monkeypatch.setattr(flash_attention, "_plan",
+                        lambda B, H, Lq, Lk, D, dt, sms:
+                        flash_attention._path_plan("v1", B, H, Lq))
+    v1 = flash_attention.flash_attention_offset(q, k, v, ofs)
+    torch.cuda.synchronize()
+    assert (got - v1).abs().max().item() <= 1e-4
+    qb, kb, vb = (t.to(torch.bfloat16) for t in (q, k, v))
+    monkeypatch.undo()
+    _within_bf16_ulp(flash_attention.flash_attention_offset(qb, kb, vb, ofs),
+                     flash_attention.offset_attention_reference(qb, kb, vb,
+                                                                ofs), 1e-4)
+
+
+@pytest.mark.cuda
+def test_bf16_flash_kernel_refuses_head_dim(cuda_device):
+    q, ofs = _on(cuda_device, np.zeros((2, 1, 1, 12), np.float32),
+                 np.zeros(2, np.int32))
+    q = q.to(torch.bfloat16)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        flash_attention.flash_attention_offset(q, q, q, ofs)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        flash_attention.flash_attention(q, q, q, True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("compute,kv", [("bfloat16", "bfloat16"),
+                                        ("float32", "bfloat16"),
+                                        ("bfloat16", "float32"),
+                                        ("int8", "bfloat16")])
+def test_bf16_contiguous_engine_on_card(cuda_device, compute, kv):
+    """The contiguous plane in every bf16 mix on the card: one prefill
+    and three decode steps against the CPU's (logits within 2e-2 x
+    max|ref|), and the kernels of the mix launched, their other forms
+    not."""
+    spec = tlm.lm_spec(num_layers=2, num_hidden=64, num_heads=4,
+                       vocab_size=97)
+    params = tlm.random_params(spec, seed=5)
+    kw = dict(batch_buckets=(4,), prompt_buckets=(8,), kv_block=8,
+              kv_max=48, paged=False, compute_dtype=compute, kv_dtype=kv,
+              warmup=False)
+    rs = np.random.RandomState(9)
+    tokens = rs.randint(0, 97, (4, 8)).astype(np.int32)
+    lengths = np.array([8, 5, 1, 8], np.int32)
+    logits = {}
+    for dev in ("cpu", "cuda"):
+        store = ModelRegistry().add_generative_model(
+            "m", params, spec, device=None if dev == "cuda" else "cpu", **kw)
+        kernels.reset_launch_counts()
+        first, ck, cv = store.run_prefill(tokens, lengths)
+        assert ck.dtype == cv.dtype == getattr(torch, kv)
+        # room for three more tokens past the prompt bucket
+        ck, cv = (torch.nn.functional.pad(c, (0, 0, 0, 8)) for c in (ck, cv))
+        out = [first.cpu()]
+        lens = lengths.copy()
+        for step in range(3):
+            res, ck, cv = store.run_decode(ck, cv, tokens[:, step], lens)
+            out.append(res.cpu())
+            lens = lens + 1
+        logits[dev] = out
+        counts = kernels.launch_counts()
+    for a, b in zip(logits["cuda"], logits["cpu"]):
+        assert bool(torch.isfinite(a).all())
+        assert _rel(a, b) <= 2e-2
+    used = {"rms_norm_bf16", "layer_norm_bf16"} if compute == "bfloat16" \
+        else {"rms_norm", "layer_norm"}
+    if compute == "int8":
+        used.add("dequant_matmul")
+    used.add("flash_attention_bf16" if compute == "bfloat16"
+             else "flash_attention")
+    used.add("flash_attention_offset_bf16" if kv == "bfloat16"
+             else "flash_attention_offset")
+    assert all(counts[k] > 0 for k in used)
+    assert all(counts[k] == 0 for k in set(counts) - used)

@@ -227,27 +227,35 @@ def test_token_stream_submit_validation_and_close():
 
 
 def test_slice_refuses_what_it_does_not_port(monkeypatch):
-    """bf16, as weights or as KV, serves on the paged plane; on the
-    contiguous plane it waits for a later slice.  An int8 KV cache needs
-    the paged plane, as in the reference."""
-    for kw in (dict(compute_dtype="bfloat16"), dict(kv_dtype="bfloat16")):
-        with pytest.raises(MXNetError, match="later serving slice"):
-            ModelRegistry().add_generative_model("m", PARAMS, SPEC,
-                                                 device="cpu", paged=False,
-                                                 warmup=False, **kw)
+    """bf16, as weights or as KV, serves on both planes: on the
+    contiguous plane the store builds with the dtypes asked for, by
+    argument or by the MXNET_SERVE_* knobs.  An int8 KV cache needs the
+    paged plane, as in the reference."""
+    for kw, compute, kv in ((dict(compute_dtype="bfloat16"), "bfloat16",
+                             torch.float32),
+                            (dict(kv_dtype="bfloat16"), None,
+                             torch.bfloat16)):
+        store = ModelRegistry().add_generative_model(
+            "m", PARAMS, SPEC, device="cpu", paged=False, warmup=False, **kw)
+        assert store.stats()["compute_dtype"] == compute
+        assert store.new_cache(2, 8)[0].dtype == kv
     with pytest.raises(MXNetError, match="paged KV plane"):
         ModelRegistry().add_generative_model("m", PARAMS, SPEC, device="cpu",
                                              kv_dtype="int8", paged=False)
     monkeypatch.setenv("MXNET_SERVE_DTYPE", "bfloat16")
-    with pytest.raises(MXNetError, match="later serving slice"):
-        ModelRegistry().add_generative_model("m", PARAMS, SPEC, device="cpu",
-                                             paged=False, warmup=False)
+    store = ModelRegistry().add_generative_model("m", PARAMS, SPEC,
+                                                 device="cpu", paged=False,
+                                                 warmup=False)
+    assert store.stats()["compute_dtype"] == "bfloat16"
+    assert store.model.params()["embed_weight"].dtype == torch.bfloat16
     monkeypatch.setenv("MXNET_SERVE_PAGED", "0")
     monkeypatch.setenv("MXNET_SERVE_KV_DTYPE", "bfloat16")
     monkeypatch.delenv("MXNET_SERVE_DTYPE")
-    with pytest.raises(MXNetError, match="later serving slice"):
-        ModelRegistry().add_generative_model("m", PARAMS, SPEC, device="cpu",
-                                             warmup=False)
+    store = ModelRegistry().add_generative_model("m", PARAMS, SPEC,
+                                                 device="cpu", warmup=False)
+    assert not store.paged and store.stats()["compute_dtype"] is None
+    assert store.stats()["kv_dtype"] == "bfloat16"
+    assert store.new_cache(2, 8)[1].dtype == torch.bfloat16
 
 
 def test_no_silent_cpu(monkeypatch):
