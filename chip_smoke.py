@@ -90,14 +90,29 @@ sources in this checkout on first use.  Phases, each fatal on failure:
    random, at column 0, at the last column and out of range) and the
    fused softmax's forward and backward at 4096 x 8192 (1e-5 x max|ref|),
    flash attention at B16 H8 L256 D64, causal and not (1e-4 absolute);
+   the bf16 training kernels within one bf16 ulp of max|ref|: both norm
+   backwards at widths 4, 512 and 1024 (v2, also 8 bytes off 16-byte
+   alignment) and 513, 1028 and rows 2 bytes off (v1), dx, dgamma and
+   dbeta; the head's bf16 softmax and gradient at 2, 8192 and 8193
+   classes, float32 labels random, at the last column and outside;
 6. train the transformer LM at full width (4 layers, hidden 512, 8 heads,
    vocab 8192, seq_len 256, batch 16) through ``Module.fit`` for 20 SGD
    steps (momentum 0.9, learning rate 0.005) on a successor language:
    exact kernel launches per step, finite loss, falling perplexity, ms
    per step and samples/s;
+6b. phase 6 under ``Module(compute_dtype='bfloat16')``: fp32 master
+   weights, bf16 forward and backward; exact bf16 kernel launches per
+   step, none of the fp32 ones, and no wrapper's plain version reached;
+   perplexity falling; outputs bf16, and the parameters, gradients,
+   momenta and ``get_params`` float32 after the fit; ms per step,
+   samples/s and tokens/s beside phase 6's;
 7. one training step from identical parameters on the card and on the
    CPU (TF32 off): probabilities and every gradient within 1e-3 x
    max|ref|;
+7b. phase 7 in bf16: probabilities within 2e-2 x max|ref| and every
+   gradient within 5e-2 x its max|ref| (``BF16_STEP_TOL``), or within
+   the CPU's own bf16-vs-fp32 distance where that is larger, each
+   array's ratio to its bound printed;
 8. train the same LM imperatively (``mx.nd`` ops under
    ``mx.autograd.record()``, ``mx.nd.softmax_cross_entropy``,
    ``loss.backward()``, ``mx.nd.sgd_mom_update(..., out=w)``) from phase
@@ -113,15 +128,18 @@ sources in this checkout on first use.  Phases, each fatal on failure:
    ``v1_ms``, on the same inputs 4 bytes off alignment;
    flash_attention also at each shape of phase 3c's prefill launches,
    and in bf16 at each of phase 3e's, with the v1 body beside each row),
-   then the imperative plane's: the cross-entropy loss and
+   phase 6b's bf16 kernels at its shapes (the norm backwards at 4096 x
+   512 with their v1 path beside, the head's two bodies at 4096 x 8192,
+   ``flash_attention_bf16`` at B16 H8 L256 D64 causal; library calls in
+   bf16), then the imperative plane's: the cross-entropy loss and
    gradient, the fused softmax's backward and an ``rtc`` kernel
    (``fma1``, checked in phase 2+ against ``torch.addcmul`` within 2
    ulp).
 
-``python3 chip_smoke.py --profile`` adds, after phase 6, a
-``torch.profiler`` window over five training steps: device time and
-launches per step, the device's busy share, and the ops with the most
-device time.
+``python3 chip_smoke.py --profile`` adds, after phases 6 and 6b, a
+``torch.profiler`` window over five training steps of each: device time
+and launches per step, the device's busy share, and the ops with the
+most device time.
 
 The last lines are a JSON object of per-kernel numbers, the card's name
 and power limit as nvidia-smi reports them, and the result object.
@@ -235,6 +253,15 @@ SOURCES = {
     "flash_attention_offset_bf16": (
         "mxnet_tpu_torch/kernels/csrc/flash_attention.cu",
         "mxnet_tpu/pallas_ops/flash_attention.py:222"),
+    "rms_norm_bwd_bf16": ("mxnet_tpu_torch/kernels/csrc/norm.cu",
+                          "mxnet_tpu/pallas_ops/norm.py:54"),
+    "layer_norm_bwd_bf16": ("mxnet_tpu_torch/kernels/csrc/norm.cu",
+                            "mxnet_tpu/pallas_ops/norm.py:120"),
+    "softmax_rows_bf16": ("mxnet_tpu_torch/kernels/csrc/softmax_xent.cu",
+                          "mxnet_tpu/pallas_ops/softmax_xent.py:67"),
+    "xent_grad_from_probs_bf16": (
+        "mxnet_tpu_torch/kernels/csrc/softmax_xent.cu",
+        "mxnet_tpu/pallas_ops/softmax_xent.py:82"),
 }
 # serving phase -> (store arguments, kernels that must launch, kernels
 # that must not)
@@ -270,6 +297,25 @@ CARD_VS_CPU = {"4": ("3", "abs", 1e-3), "4b": ("3b", "abs", 1e-3),
 TRAIN_LAUNCHES_PER_STEP = {
     "rms_norm": 8, "rms_norm_bwd": 8, "layer_norm": 1, "layer_norm_bwd": 1,
     "softmax_rows": 1, "xent_grad_from_probs": 1, "flash_attention": 4}
+# the same step under Module(compute_dtype='bfloat16'): every kernel
+# under its bf16 name, none of the fp32 ones
+TRAIN_BF16_LAUNCHES_PER_STEP = {
+    "rms_norm_bf16": 8, "rms_norm_bwd_bf16": 8, "layer_norm_bf16": 1,
+    "layer_norm_bwd_bf16": 1, "softmax_rows_bf16": 1,
+    "xent_grad_from_probs_bf16": 1, "flash_attention_bf16": 4}
+# phase 7b's tolerances, of each array's max|ref| (card vs CPU, one
+# bf16 step): the repo's bf16 logits bound for the probabilities, 5e-2
+# for each gradient; an array that bf16 itself moves further from fp32
+# on the CPU is held to that distance instead (phase_train_bf16_vs_cpu)
+BF16_STEP_TOL = {"probabilities": 2e-2, "gradient": 5e-2}
+# phase 2's bf16 norm backward edges (rows, width, element offset): v2
+# at widths 4, 512 and 1024 and 8 bytes off 16-byte alignment; v1 at
+# widths 513 and 1028 and rows 2 bytes off
+NORM_BWD_BF16_EDGES = ((64, 4, 0), (4096, 512, 0), (64, 1024, 0),
+                       (33, 513, 0), (64, 1028, 0), (300, 512, 4),
+                       (300, 512, 1))
+# phase 2's bf16 head: (rows, classes) at 2, 8192 and 8193 classes
+HEAD_BF16_CASES = ((4096, 2), (TRAIN_ROWS, 8192), (64, 8193))
 TRAIN_STEPS, TRAIN_WARMUP = 20, 5
 # bench.py's SGD with momentum 0.9, at a tenth of its learning rate: its
 # 0.05 was set for random tokens, whose loss nobody reads; on the
@@ -833,7 +879,69 @@ def phase_compare_train(dev):
         errs[name.split()[0]] = max(errs.get(name.split()[0], 0.0), err)
     for name, err in phase_compare_norm_bwd_edges(dev).items():
         errs[name] = max(errs[name], err)
+    errs.update(phase_compare_train_bf16(dev))
     errs["rtc"] = phase_compare_rtc(t)
+    return errs
+
+
+def bf16_offset_copy(t, offset):
+    """A contiguous bf16 copy of ``t`` starting ``offset`` elements into
+    a larger buffer (8 bytes off 16-byte alignment for offset 4, 2 for
+    offset 1)."""
+    return offset_copy(t.to(torch.bfloat16), offset)
+
+
+def phase_compare_train_bf16(dev):
+    """The bf16 training kernels against their plain versions, within one
+    bf16 ulp of max|ref|: both norm backwards at each edge of their two
+    paths (``NORM_BWD_BF16_EDGES``: dx, dgamma and dbeta), the head's
+    softmax and its gradient (``HEAD_BF16_CASES``; labels random, at the
+    last column and outside the classes, float32; the gradient from the
+    kernel's own p)."""
+    errs = {}
+    for rows, width, offset in NORM_BWD_BF16_EDGES:
+        x, g, dy = norm_bwd_edge_inputs(rows, width, 0, dev)
+        x, dy = bf16_offset_copy(x, offset), bf16_offset_copy(dy, offset)
+        g = g.to(torch.bfloat16)
+        plan = norm._bwd_plan(rows, width, norm._bwd_aligned(x, g, dy),
+                              _build.sm_count(dev.index))
+        for name, got, want in (
+                ("rms_norm_bwd_bf16", norm.rms_norm_bwd(x, g, dy, 1e-6),
+                 norm.rms_norm_bwd_reference(x, g, dy, 1e-6)),
+                ("layer_norm_bwd_bf16", norm.layer_norm_bwd(x, g, dy, 1e-5),
+                 norm.layer_norm_bwd_reference(x, g, dy, 1e-5))):
+            if any(a.dtype != torch.bfloat16 for a in got):
+                raise SystemExit("chip_smoke: %s wrote %s" % (
+                    name, [a.dtype for a in got]))
+            err = max(agree_bf16("%s %s" % (name, out), "rows=%d width=%d "
+                                 "offset=%d bf16 (%s, %d CTAs)" % (
+                                     rows, width, 2 * offset, plan.path,
+                                     plan.ctas), a, b)
+                      for out, a, b in zip(("dx", "dgamma", "dbeta"), got,
+                                           want))
+            errs[name] = max(errs.get(name, 0.0), err)
+    rs = np.random.RandomState(17)
+    for rows, classes in HEAD_BF16_CASES:
+        x = torch.from_numpy((3 * rs.randn(rows, classes)).astype(
+            np.float32)).to(dev).to(torch.bfloat16)
+        lbl = rs.randint(0, classes, rows).astype(np.float32)
+        lbl[::7], lbl[1::7] = classes - 1, classes + 5
+        lbl = torch.from_numpy(lbl).to(dev)
+        shape = "rows=%d classes=%d bf16" % (rows, classes)
+        p = softmax_xent.softmax_rows(x)
+        if p.dtype != torch.bfloat16:
+            raise SystemExit("chip_smoke: softmax_rows_bf16 wrote %s"
+                             % p.dtype)
+        err = agree_bf16("softmax_rows_bf16", shape, p,
+                         softmax_xent.softmax_rows_reference(x))
+        errs["softmax_rows_bf16"] = max(errs.get("softmax_rows_bf16", 0.0),
+                                        err)
+        err = agree_bf16(
+            "xent_grad_from_probs_bf16", shape + " labels random, last, "
+            "outside", softmax_xent.xent_grad_from_probs(p, lbl, 1.0 / rows),
+            softmax_xent.xent_grad_from_probs_reference(p, lbl, 1.0 / rows))
+        errs["xent_grad_from_probs_bf16"] = max(
+            errs.get("xent_grad_from_probs_bf16", 0.0), err)
     return errs
 
 
@@ -1347,15 +1455,46 @@ def train_symbol():
     return mx.models.transformer_lm(seq_len=TRAIN_SEQ, **SPEC)
 
 
-def phase_train(dev, card):
+@contextlib.contextmanager
+def plain_guard():
+    """Count every wrapper call that takes its plain version (``route``
+    answering False) inside, by wrapper name: a CUDA tensor never
+    should."""
+    mods = (norm, softmax_xent, flash_attention, paged_attention,
+            dequant_matmul)
+    saved = [m.route for m in mods]
+    plain = collections.Counter()
+
+    def guarded(name, x):
+        on_card = _build.route(name, x)
+        if not on_card:
+            plain[name] += 1
+        return on_card
+
+    for m in mods:
+        m.route = guarded
+    try:
+        yield plain
+    finally:
+        for m, r in zip(mods, saved):
+            m.route = r
+
+
+def phase_train(dev, card, compute_dtype=None, step_ms_fp32=None):
     """``Module.fit`` at full width for TRAIN_STEPS SGD steps, set up as
     the repo's on-chip training row (bench.py) but for the learning rate
     (see TRAIN_OPT); returns the launch counts of the whole run and the
-    ms per step after the warmup."""
+    ms per step after the warmup.  ``compute_dtype='bfloat16'`` is phase
+    6b: the bf16 launch table, no plain version reached, and float32
+    parameters, gradients and momentum after the fit; its times beside
+    phase 6's (``step_ms_fp32``)."""
+    tag = "6b" if compute_dtype else "6"
+    table = (TRAIN_BF16_LAUNCHES_PER_STEP if compute_dtype
+             else TRAIN_LAUNCHES_PER_STEP)
     X, y = train_data(TRAIN_STEPS * TRAIN_BATCH)
     it = mx.io.NDArrayIter(X, y, batch_size=TRAIN_BATCH)
     mx.random.seed(0)
-    mod = mx.Module(train_symbol(), context=dev)
+    mod = mx.Module(train_symbol(), context=dev, compute_dtype=compute_dtype)
     ppl, steps, clock = [], [], {}
     last = {}
 
@@ -1374,56 +1513,95 @@ def phase_train(dev, card):
     kernels.reset_launch_counts()
     last.update(kernels.launch_counts())
     tic = time.perf_counter()
-    mod.fit(it, num_epoch=1, optimizer="sgd",
-            optimizer_params=TRAIN_OPT, initializer=mx.init.Xavier(),
-            eval_metric=mx.metric.Perplexity(ignore_label=None),
-            batch_end_callback=on_batch)
-    torch.cuda.synchronize()
+    with plain_guard() as plain:
+        mod.fit(it, num_epoch=1, optimizer="sgd",
+                optimizer_params=TRAIN_OPT, initializer=mx.init.Xavier(),
+                eval_metric=mx.metric.Perplexity(ignore_label=None),
+                batch_end_callback=on_batch)
+        torch.cuda.synchronize()
     counts = kernels.launch_counts()
     wall = time.perf_counter() - tic
+    if plain:
+        raise SystemExit("chip_smoke: phase %s reached plain versions: %s"
+                         % (tag, dict(plain)))
     want = dict.fromkeys(kernels.KERNELS, 0)
-    want.update(TRAIN_LAUNCHES_PER_STEP)
+    want.update(table)
     if len(steps) != TRAIN_STEPS:
         raise SystemExit("chip_smoke: fit ran %d steps, not %d"
                          % (len(steps), TRAIN_STEPS))
     for i, got in enumerate(steps):
         if got != want:
-            raise SystemExit("chip_smoke: training step %d launched %s, "
-                             "want %s" % (i, got, want))
+            raise SystemExit("chip_smoke: phase %s training step %d "
+                             "launched %s, want %s" % (tag, i, got, want))
     if counts != {k: v * TRAIN_STEPS for k, v in want.items()}:
         raise SystemExit("chip_smoke: training launches %s" % counts)
     probs = mod.get_outputs()[0]._data
     if not (all(np.isfinite(ppl)) and bool(torch.isfinite(probs).all())):
         raise SystemExit("chip_smoke: training gave a non-finite loss")
+    if compute_dtype:
+        check_master_fp32(mod, probs)
     first, final = (float(np.mean(ppl[:5])), float(np.mean(ppl[-5:])))
-    log("phase 6 perplexity per step: %s" % " ".join("%.1f" % p for p in ppl))
+    log("phase %s perplexity per step: %s"
+        % (tag, " ".join("%.1f" % p for p in ppl)))
     if not final < first:
         raise SystemExit("chip_smoke: perplexity did not fall: first 5 "
                          "steps %.2f, last 5 %.2f" % (first, final))
     timed = TRAIN_STEPS - TRAIN_WARMUP
     sec = clock[TRAIN_STEPS - 1] - clock[TRAIN_WARMUP - 1]
     step_ms = sec * 1e3 / timed
-    log("phase 6 trained %d steps (fit %.2f s with bind and init): "
+    beside = "" if step_ms_fp32 is None else (
+        "; phase 6 (fp32) %.3f ms per step, %.1f samples/s, %.0f tokens/s; "
+        "ratio %.3f" % (step_ms_fp32, TRAIN_BATCH * 1e3 / step_ms_fp32,
+                        TRAIN_ROWS * 1e3 / step_ms_fp32,
+                        step_ms / step_ms_fp32))
+    log("phase %s trained %d steps%s (fit %.2f s with bind and init): "
         "perplexity first 5 steps %.2f, last 5 %.2f; launches per step %s; "
-        "steps %d..%d: %.3f ms per step, %.1f samples/s, %.0f tokens/s [%s]"
-        % (TRAIN_STEPS, wall, first, final, TRAIN_LAUNCHES_PER_STEP,
-           TRAIN_WARMUP + 1, TRAIN_STEPS, step_ms,
-           timed * TRAIN_BATCH / sec, timed * TRAIN_BATCH * TRAIN_SEQ / sec,
-           card))
+        "steps %d..%d: %.3f ms per step, %.1f samples/s, %.0f tokens/s%s "
+        "[%s]"
+        % (tag, TRAIN_STEPS, " in %s" % compute_dtype if compute_dtype
+           else "", wall, first, final, table, TRAIN_WARMUP + 1, TRAIN_STEPS,
+           step_ms, timed * TRAIN_BATCH / sec,
+           timed * TRAIN_BATCH * TRAIN_SEQ / sec, beside, card))
     return counts, step_ms
 
 
-def profile_train(dev, card, step_ms, warmup=3, steps=5):
+def check_master_fp32(mod, probs):
+    """Phase 6b: the outputs bf16; the bound parameters, their gradients,
+    the optimizer's momentum and ``get_params`` float32."""
+    if probs.dtype != torch.bfloat16:
+        raise SystemExit("chip_smoke: phase 6b output is %s" % probs.dtype)
+    group = mod._exec_group
+    arrays = {"parameter " + n: a._data for n, a in
+              zip(group.param_names, group.param_arrays)}
+    arrays.update(("gradient " + n, g._data) for n, g in
+                  zip(group.param_names, group.grad_arrays))
+    arrays.update(("momentum %d" % i, st._data) for i, st in
+                  mod._updater.states.items() if st is not None)
+    arrays.update(("get_params " + n, a._data) for n, a in
+                  mod.get_params()[0].items())
+    wrong = {k: t.dtype for k, t in arrays.items()
+             if t.dtype != torch.float32}
+    if wrong:
+        raise SystemExit("chip_smoke: phase 6b master arrays not float32: "
+                         "%s" % wrong)
+    log("phase 6b: outputs bf16; %d parameters, gradients, momenta and "
+        "get_params arrays float32" % len(arrays))
+
+
+def profile_train(dev, card, step_ms, compute_dtype=None, warmup=3,
+                  steps=5):
     """``--profile``: ``torch.profiler`` over ``steps`` steps of
-    ``Module.fit`` after ``warmup`` (the setup of phase 6).  Prints the
-    device time and launches per step, the device's busy share of
-    phase 6's unprofiled ``step_ms``, and the ops with the most device
-    time.  Host times under the profiler are inflated by its own
-    overhead, so none is printed but the window's."""
+    ``Module.fit`` after ``warmup`` (the setup of phase 6, or 6b with
+    ``compute_dtype``).  Prints the device time and launches per step,
+    the device's busy share of the phase's unprofiled ``step_ms``, and
+    the ops with the most device time.  Host times under the profiler
+    are inflated by its own overhead, so none is printed but the
+    window's."""
+    tag = "6b" if compute_dtype else "6"
     X, y = train_data((warmup + steps) * TRAIN_BATCH)
     it = mx.io.NDArrayIter(X, y, batch_size=TRAIN_BATCH)
     mx.random.seed(0)
-    mod = mx.Module(train_symbol(), context=dev)
+    mod = mx.Module(train_symbol(), context=dev, compute_dtype=compute_dtype)
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     prof = torch.profiler.profile(activities=acts)
@@ -1445,49 +1623,123 @@ def profile_train(dev, card, step_ms, warmup=3, steps=5):
                if e.device_type == torch.autograd.DeviceType.CUDA]
     dev_ms = sum(e.device_time_total for e in on_card) / 1e3 / steps
     launches = sum(e.count for e in on_card) / steps
-    log("profile %d steps: device %.3f ms per step in %.0f kernels and "
-        "copies, %.1f%% of phase 6's %.3f ms per step (%.3f ms per step "
-        "under the profiler) [%s]"
-        % (steps, dev_ms, launches, 100 * dev_ms / step_ms, step_ms,
-           window_ms, card))
+    log("profile %s, %d steps: device %.3f ms per step in %.0f kernels "
+        "and copies, %.1f%% of phase %s's %.3f ms per step (%.3f ms per "
+        "step under the profiler) [%s]"
+        % (tag, steps, dev_ms, launches, 100 * dev_ms / step_ms, tag,
+           step_ms, window_ms, card))
     ops = [e for e in avgs if e not in on_card]
     for e in sorted(ops, key=lambda e: e.self_device_time_total,
                     reverse=True)[:15]:
-        log("profile op: %8.3f ms device per step, %6.1f calls per step: %s"
-            % (e.self_device_time_total / 1e3 / steps, e.count / steps,
-               e.key[:80]))
+        log("profile %s op: %8.3f ms device per step, %6.1f calls per "
+            "step: %s" % (tag, e.self_device_time_total / 1e3 / steps,
+                          e.count / steps, e.key[:80]))
+    # the host side (inflated by the profiler's own overhead): where the
+    # step's host time goes, by self and by inclusive time
+    for key, what in (("self_cpu_time_total", "self"),
+                      ("cpu_time_total", "total")):
+        for e in sorted(ops, key=lambda e: getattr(e, key),
+                        reverse=True)[:8]:
+            log("profile %s host %s: %8.3f ms per step, %6.1f calls per "
+                "step: %s" % (tag, what, getattr(e, key) / 1e3 / steps,
+                              e.count / steps, e.key[:80]))
 
 
-def one_step(dev, params):
+def one_step(dev, params, compute_dtype=None, phase="7"):
     """Probabilities and every gradient of one training step on ``dev``,
-    as numpy arrays by name."""
+    as numpy arrays by name (bf16 probabilities widened to float32, the
+    gradients float32 in either dtype)."""
     X, y = train_data(TRAIN_BATCH)
     it = mx.io.NDArrayIter(X, y, batch_size=TRAIN_BATCH)
-    mod = mx.Module(train_symbol(), context=dev)
+    mod = mx.Module(train_symbol(), context=dev, compute_dtype=compute_dtype)
     mod.bind(it.provide_data, it.provide_label)
     mod.init_params(arg_params=params)
     tic = time.perf_counter()
     mod.forward_backward(next(iter(it)))
     ex = mod._exec_group.executor
+    out_dtype = ex.outputs[0]._data.dtype
+    grad_dtypes = {g._data.dtype for g in ex.grad_dict.values()}
+    if out_dtype != (torch.bfloat16 if compute_dtype else torch.float32) \
+            or grad_dtypes != {torch.float32}:
+        raise SystemExit("chip_smoke: a %s step gave %s outputs and %s "
+                         "gradients" % (compute_dtype or "float32",
+                                        out_dtype, grad_dtypes))
     out = {"probabilities": ex.outputs[0].asnumpy()}
     out.update((n, g.asnumpy()) for n, g in ex.grad_dict.items())
-    log("phase 7 one step on %s: %.2f s" % (dev, time.perf_counter() - tic))
+    log("phase %s one %s step on %s: %.2f s" % (
+        phase, compute_dtype or "float32", dev, time.perf_counter() - tic))
     return out
+
+
+def step_params():
+    """Phase 7's parameters.  The FFN biases are shifted up by 1 so that
+    every ReLU input lies far from zero: at a kink, an input that
+    rounding puts on the other side of zero passes or stops a whole
+    gradient term, and single elements then differ by far more than the
+    kernels' rounding."""
+    params = tlm.random_params(SPEC, seed=3)
+    for name in params:
+        if name.endswith("_ffn1_bias"):
+            params[name] = params[name] + np.float32(1.0)
+    return params
+
+
+def phase_train_bf16_vs_cpu(dev, params):
+    """Phase 7b: one ``compute_dtype='bfloat16'`` step from phase 7's
+    parameters and batch on the card and on the CPU.  Each array is held
+    to its ``BF16_STEP_TOL`` x max|ref| (probabilities 2e-2, every
+    gradient 5e-2), or, where bf16 itself moves it further than that
+    (the CPU's bf16 step against its fp32 step, in this run), to that
+    distance: the card's bf16 step may be no further from the CPU's than
+    bf16 is from fp32.  bf16 rounds at other places on the two devices
+    (the card's tensor cores truncate their fp32 sums, the CPU rounds
+    its products correctly more often; the kernels against the plain
+    versions), and at this width the q/k gradients of blocks 1-3, near
+    1e-7 with attention near uniform, carry about 10% of bf16 noise on
+    either device (PERF.md, section 6)."""
+    card = one_step(dev, params, "bfloat16", "7b")
+    cpu = one_step(torch.device("cpu"), params, "bfloat16", "7b")
+    cpu32 = one_step(torch.device("cpu"), params, phase="7b")
+    worst, worst_name, failed, floored = 0.0, None, [], []
+    for name, ref in cpu.items():
+        got = card[name]
+        if not np.isfinite(got).all():
+            raise SystemExit("chip_smoke: %s is not finite on the card "
+                             "(phase 7b)" % name)
+        tol = BF16_STEP_TOL["probabilities" if name == "probabilities"
+                            else "gradient"]
+        scale = max(np.abs(ref).max(), 1e-30)
+        rel = float(np.abs(got - ref).max() / scale)
+        own = float(np.abs(ref - cpu32[name]).max() / scale)
+        bound = max(tol, own)
+        if own > tol:
+            floored.append(name)
+        log("phase 7b %s: card vs CPU %.3e x max|ref|, %.3f of its bound "
+            "%.3e (%s); CPU bf16 vs fp32 %.3e; max|ref| %.3e"
+            % (name, rel, rel / bound, bound,
+               "bf16's own distance" if own > tol else "tolerance", own,
+               scale))
+        if rel / bound > worst:
+            worst, worst_name = rel / bound, name
+        if not rel <= bound:
+            failed.append(name)
+    if failed:
+        raise SystemExit("chip_smoke: %s differ between card and CPU in "
+                         "bf16 past their bounds (phase 7b)" % failed)
+    log("phase 7b bf16 training step card vs CPU: probabilities (tol %.0e "
+        "x max|ref|) and %d gradients (tol %.0e x max|ref| each) agree; "
+        "held to bf16's own distance from fp32 instead: %s; worst %s at "
+        "%.3f of its bound"
+        % (BF16_STEP_TOL["probabilities"], len(cpu) - 1,
+           BF16_STEP_TOL["gradient"], floored or "none", worst_name, worst))
 
 
 def phase_train_vs_cpu(dev):
     """One training step from the same parameters and batch on the card
     and on the CPU (the plain versions): probabilities and every
     gradient within 1e-3 x max|ref|; returns the parameters and the
-    card's arrays.  The FFN biases are shifted up by 1 so that every
-    ReLU input lies far from zero: at a kink, an input that rounding
-    puts on the other side of zero passes or stops a whole gradient
-    term, and single elements then differ by far more than the kernels'
-    rounding."""
-    params = tlm.random_params(SPEC, seed=3)
-    for name in params:
-        if name.endswith("_ffn1_bias"):
-            params[name] = params[name] + np.float32(1.0)
+    card's arrays."""
+    params = step_params()
     card = one_step(dev, params)
     cpu = one_step(torch.device("cpu"), params)
     worst, worst_name = 0.0, None
@@ -2042,6 +2294,7 @@ def phase_times_train(dev, card, errs, fa_shapes):
                 q, k, v, causal))
         entries.setdefault(name, []).append(flash_row(
             dev, card, shape, q, k, v, causal, err))
+    bf16_train_rows(dev, card, errs, t, entries)
     # the imperative plane's kernels; yardsticks F.cross_entropy (its
     # autograd backward for the gradient), the autograd backward of
     # torch.softmax, torch.addcmul
@@ -2067,6 +2320,73 @@ def phase_times_train(dev, card, errs, fa_shapes):
     return entries
 
 
+def bf16_train_rows(dev, card, errs, t, entries):
+    """Phase 6b's kernels at its shapes, in bf16 (two bytes an element;
+    the bf16 tensor-core rate for operations): the norm backwards at
+    4096 x 512 beside their v1 path (rows 2 bytes off alignment), the
+    head's softmax and gradient at 4096 x 8192, ``flash_attention_bf16``
+    at B16 H8 L256 D64 causal.  Yardsticks in bf16: the autograd
+    backward of ``F.rms_norm`` / ``F.layer_norm``, ``torch.softmax``,
+    SDPA; the gradient has no single-call yardstick."""
+    F = torch.nn.functional
+    W, V = SPEC["num_hidden"], SPEC["vocab_size"]
+    n, nv = TRAIN_ROWS * W, TRAIN_ROWS * V
+    b = {k: t[k].to(torch.bfloat16) for k in ("x", "dy", "g", "b", "logits",
+                                              "q", "k", "v")}
+    p = softmax_xent.softmax_rows(b["logits"])
+    scale = 1.0 / TRAIN_ROWS
+    shape_n = "rows=%d width=%d bf16" % (TRAIN_ROWS, W)
+    shape_v = "rows=%d classes=%d bf16" % (TRAIN_ROWS, V)
+    for name, eps, lib, nbytes, flops in (
+            ("rms_norm_bwd", 1e-6, autograd_backward(
+                lambda x, g: F.rms_norm(x, (W,), g, 1e-6),
+                (b["x"], b["g"]), b["dy"]), 2 * (3 * n + 2 * W), 12 * n),
+            ("layer_norm_bwd", 1e-5, autograd_backward(
+                lambda x, g, bb: F.layer_norm(x, (W,), g, bb, 1e-5),
+                (b["x"], b["g"], b["b"]), b["dy"]), 2 * (3 * n + 3 * W),
+             16 * n)):
+        fn = getattr(norm, name)
+        plain = getattr(norm, name + "_reference")
+        row = timed_row(name + "_bf16", shape_n,
+                        lambda fn=fn, eps=eps: fn(b["x"], b["g"], b["dy"],
+                                                  eps),
+                        lambda plain=plain, eps=eps: plain(
+                            b["x"], b["g"], b["dy"], eps),
+                        lib, nbytes, flops, errs[name + "_bf16"], card,
+                        bf16=True)
+        x1, dy1 = offset_copy(b["x"], 1), offset_copy(b["dy"], 1)
+        for a, ref in zip(fn(x1, b["g"], dy1, eps),
+                          fn(b["x"], b["g"], b["dy"], eps)):
+            agree_bf16(name + "_bf16 v1 vs v2", shape_n, a, ref)
+        row["v1_ms"] = time_ms(lambda fn=fn, eps=eps: fn(x1, b["g"], dy1,
+                                                         eps))
+        log("phase 5 %s_bf16 %s: v1 path %.6f ms beside the kernel's %.6f "
+            "[%s]" % (name, shape_n, row["v1_ms"], row["ms"], card))
+        entries[name + "_bf16"] = [row]
+    entries["softmax_rows_bf16"] = [timed_row(
+        "softmax_rows_bf16", shape_v,
+        lambda: softmax_xent.softmax_rows(b["logits"]),
+        lambda: softmax_xent.softmax_rows_reference(b["logits"]),
+        lambda: torch.softmax(b["logits"], -1), 2 * 2 * nv, 5 * nv,
+        errs["softmax_rows_bf16"], card, bf16=True)]
+    entries["xent_grad_from_probs_bf16"] = [timed_row(
+        "xent_grad_from_probs_bf16", shape_v,
+        lambda: softmax_xent.xent_grad_from_probs(p, t["label"], scale),
+        lambda: softmax_xent.xent_grad_from_probs_reference(p, t["label"],
+                                                            scale),
+        None, 2 * 2 * nv + 4 * TRAIN_ROWS, 2 * nv,
+        errs["xent_grad_from_probs_bf16"], card, bf16=True)]
+    B, H, L, D = TRAIN_ATT
+    shape = "B=%d H=%d L=%d D=%d causal=True bf16 (phase 6b)" % (B, H, L, D)
+    err = agree_fa("flash_attention_bf16", shape,
+                   flash_attention.flash_attention(b["q"], b["k"], b["v"],
+                                                   True),
+                   flash_attention.blockwise_attention(b["q"], b["k"],
+                                                       b["v"], True))
+    entries.setdefault("flash_attention_bf16", []).append(flash_row(
+        dev, card, shape, b["q"], b["k"], b["v"], True, err))
+
+
 def kernel_rows(entries, counts):
     """The ``kernels`` JSON rows: the first shape of each kernel (the
     path's own) at the top level, every timed shape under ``shapes``;
@@ -2082,6 +2402,8 @@ def kernel_rows(entries, counts):
             "replaces": replaces, "launches": sum(by_phase.values()),
             "launches_by_phase": by_phase,
             "train_launches_per_step": TRAIN_LAUNCHES_PER_STEP.get(name, 0),
+            "train_bf16_launches_per_step":
+                TRAIN_BF16_LAUNCHES_PER_STEP.get(name, 0),
             "imperative_launches_per_step":
                 IMPERATIVE_LAUNCHES_PER_STEP.get(name, 0),
             "max_abs_err": max(r["max_abs_err"] for r in rows),
@@ -2135,7 +2457,12 @@ def main(argv):
     counts["train"], step_ms = phase_train(dev, card)
     if argv:
         profile_train(dev, card, step_ms)
+    counts["train_bf16"], step_ms_bf16 = phase_train(dev, card, "bfloat16",
+                                                     step_ms)
+    if argv:
+        profile_train(dev, card, step_ms_bf16, "bfloat16")
     params7, module_card = phase_train_vs_cpu(dev)
+    phase_train_bf16_vs_cpu(dev, params7)
     counts["imperative"] = phase_imperative(card, step_ms)
     phase_imperative_vs(params7, module_card)
     pa_shapes, fa_shapes = collections.Counter(), collections.Counter()

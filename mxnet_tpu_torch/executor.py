@@ -11,6 +11,15 @@ memory; a loss head (SoftmaxOutput) ignores it either way.  The residuals
 of the train forward live in the autograd graph until ``backward``
 frees them.  None of the reference's jit, segment or donation machinery
 has a counterpart here: PyTorch runs eagerly.
+
+``compute_dtype`` (``'bfloat16'``) runs the graph in mixed precision, as
+the reference's does: the bound argument and gradient arrays stay in
+their master dtype (fp32), each floating argument not named in
+``keep_dtype`` is cast to the compute dtype on entry to every forward,
+after the fp32 leaves are made, so the cast's backward hands fp32
+gradients to ``grad_dict``; the outputs stay in the compute dtype.  The
+port has no auxiliary states yet, so the reference's ``_cast_aux`` /
+``_uncast_aux`` have no counterpart.
 """
 from __future__ import annotations
 
@@ -18,15 +27,19 @@ import torch
 
 from .base import MXNetError
 from .context import default_device
-from .ndarray import NDArray
+from .ndarray import NDArray, _torch_dtype
 
 __all__ = ["Executor"]
 
 
 class Executor:
-    def __init__(self, symbol, ctx, args, grads, reqs):
+    def __init__(self, symbol, ctx, args, grads, reqs, compute_dtype=None,
+                 keep_dtype=()):
         self._symbol = symbol
         self._ctx = default_device(ctx)
+        self._compute_dtype = (_torch_dtype(compute_dtype)
+                               if compute_dtype else None)
+        self._keep_dtype = frozenset(keep_dtype)
         self._arg_names = symbol.list_arguments()
         self._output_names = symbol.list_outputs()
         if len(args) != len(self._arg_names):
@@ -57,6 +70,16 @@ class Executor:
             vals[(id(node), 0)] = out
         return [vals[k] for k in self._heads]
 
+    def _cast_args(self, vals):
+        """The compute dtype's view of the arguments: every floating one
+        not in ``keep_dtype`` cast (differentiably) to ``compute_dtype``."""
+        cdt = self._compute_dtype
+        if cdt is None:
+            return vals
+        return [v.to(cdt) if v.is_floating_point() and v.dtype != cdt and
+                name not in self._keep_dtype else v
+                for name, v in zip(self._arg_names, vals)]
+
     def forward(self, is_train=False, **kwargs):
         """Evaluate the graph; ``kwargs`` copy new values into named
         arguments first.  Returns the output NDArrays."""
@@ -72,11 +95,11 @@ class Executor:
             for i, t in leaves.items():
                 arg_vals[i] = t
             with torch.enable_grad():
-                outs = self._evaluate(arg_vals)
+                outs = self._evaluate(self._cast_args(arg_vals))
             self._train = (outs, leaves)
         else:
             with torch.no_grad():
-                outs = self._evaluate(arg_vals)
+                outs = self._evaluate(self._cast_args(arg_vals))
         self.outputs = [NDArray(o.detach()) for o in outs]
         return self.outputs
 

@@ -34,7 +34,7 @@ from ..base import MXNetError
 from . import count_launch
 
 __all__ = ["KernelError", "library", "check", "build_info", "route",
-           "check_args", "launch", "sm_count"]
+           "check_args", "launch", "sm_count", "SUFFIX"]
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _CSRC = os.path.join(_HERE, "csrc")
@@ -44,6 +44,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# dtype -> (launch-count suffix, C entry point suffix) of the row kernels
+# that take fp32 and bf16 (the norms, SoftmaxOutput's head)
+SUFFIX = {torch.float32: ("", "_f32"), torch.bfloat16: ("_bf16", "_bf16")}
 # C entry point -> argtypes; every entry point returns a cudaError_t
 _SIGNATURES = {
     # x, gamma, y, rows, width, eps, stream
@@ -61,10 +64,19 @@ _SIGNATURES = {
     # rows, width, eps, path, rows_per_warp, stream
     "mxt_layer_norm_bwd_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _F,
                                _I, _I, _P),
+    # the same two in bf16 (x, gamma, dy, dx and the weight gradients
+    # bf16, the partials fp32)
+    "mxt_rms_norm_bwd_bf16": (_P, _P, _P, _P, _P, _P, _I, _I, _F, _I, _I,
+                              _P),
+    "mxt_layer_norm_bwd_bf16": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _F,
+                                _I, _I, _P),
     # x, p, rows, cols, stream
     "mxt_softmax_rows_f32": (_P, _P, _I, _I, _P),
     # p, label, grad, rows, cols, scale, stream
     "mxt_xent_grad_from_probs_f32": (_P, _P, _P, _I, _I, _F, _P),
+    # the same two with bf16 x, p and grad (the label float32)
+    "mxt_softmax_rows_bf16": (_P, _P, _I, _I, _P),
+    "mxt_xent_grad_from_probs_bf16": (_P, _P, _P, _I, _I, _F, _P),
     # x, label, loss, rows, cols, stream
     "mxt_softmax_xent_loss_f32": (_P, _P, _P, _I, _I, _P),
     # x, label, g, grad, rows, cols, stream

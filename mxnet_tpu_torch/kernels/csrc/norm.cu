@@ -1,5 +1,5 @@
 // Row-wise RMSNorm and LayerNorm, forward and backward, for Hopper
-// (sm_90a): the forwards in fp32 and bf16, the backwards in fp32.
+// (sm_90a), in fp32 and bf16.
 //
 // Replaces the TPU kernels _rms_fwd_kernel, _rms_bwd_kernel,
 // _ln_fwd_kernel and _ln_bwd_kernel of mxnet_tpu/pallas_ops/norm.py.
@@ -35,12 +35,14 @@
 // element a lane (the fp32 access pattern of PR 1, unchanged).  bf16
 // halves the bytes, so its bound halves with them.
 //
-// The backwards (fp32) are bound by bytes too: x and dy read once, dx
-// written once.  Two paths, which the wrapper's planner picks
+// The backwards are bound by bytes too: x and dy read once, dx written
+// once.  Two paths, which the wrapper's planner picks
 // (kernels/norm.py::_bwd_plan) and the entry point checks:
-//   v2, for rows of width <= 1024, width % 4 == 0 and every pointer
-//     16-byte aligned: a warp holds its row of x and dy in registers,
-//     loaded as float4 (lane l owns the 4-column chunks l, l + 32, ...),
+//   v2, for rows of width <= 1024, width % 4 == 0 and every pointer on
+//     a 4-element chunk (16 bytes fp32, 8 bytes bf16): a warp holds its
+//     row of x and dy in registers as fp32, loaded a 4-column chunk at a
+//     time (float4, or 8 bytes of bf16 widened in registers; lane l owns
+//     the chunks l, l + 32, ...),
 //     issues all of a row's loads before its first reduction and the
 //     next row's before the current row's reductions, and computes the
 //     statistics, mean(w) and mean(w*xhat) from registers; gamma is
@@ -56,11 +58,22 @@
 // entry point, adds the CTAs' rows column by column in a fixed order.
 // No floating-point atomics, so the same inputs give the same bits on
 // every launch.
+//
+// The backwards are templated on the element type E of x, gamma, dy, dx
+// and the weight gradients, as the forwards are.  bf16 (the TPU kernels
+// _rms_bwd_kernel / _ln_bwd_kernel on bf16 tiles, norm.py:85 _rms_bwd
+// and :158 _ln_bwd) widens every element to fp32 on load and runs the
+// fp32 body's arithmetic in the same order; dx is rounded to nearest
+// even once, the per-CTA partials stay fp32, and sum_partials_kernel
+// rounds dgamma and dbeta once after the fp32 sum, as the reference
+// takes jnp.sum(partials).astype(gamma.dtype).  The row held in
+// registers is the widened fp32 row, so v2's register budget is fp32's.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <initializer_list>
+#include <type_traits>
 
 namespace {
 
@@ -229,30 +242,60 @@ __device__ __forceinline__ void wait_for_primary() {
   asm volatile("griddepcontrol.wait;\n" ::: "memory");
 }
 
-// a lane's NV float4 chunks of a row (chunk c = lane + 32 j of n4);
-// chunks past the row read as 0
-template <int NV>
-__device__ __forceinline__ void load_chunks(const float4* __restrict__ src,
+// a 4-element chunk of a row: a float4, or 8 bytes of bf16
+template <typename E>
+using chunk_t = std::conditional_t<sizeof(E) == 4, float4, uint2>;
+
+__device__ __forceinline__ void unpack(const float4& a, float (&v)[4]) {
+  v[0] = a.x;
+  v[1] = a.y;
+  v[2] = a.z;
+  v[3] = a.w;
+}
+// a bf16 is the top half of an fp32: widening is a shift
+__device__ __forceinline__ void unpack(const uint2& a, float (&v)[4]) {
+  v[0] = __uint_as_float(a.x << 16);
+  v[1] = __uint_as_float(a.x & 0xffff0000u);
+  v[2] = __uint_as_float(a.y << 16);
+  v[3] = __uint_as_float(a.y & 0xffff0000u);
+}
+__device__ __forceinline__ void pack(const float (&v)[4], float4& a) {
+  a = make_float4(v[0], v[1], v[2], v[3]);
+}
+// round to nearest even, as astype(bfloat16)
+__device__ __forceinline__ void pack(const float (&v)[4], uint2& a) {
+  const __nv_bfloat162 lo = __floats2bfloat162_rn(v[0], v[1]);
+  const __nv_bfloat162 hi = __floats2bfloat162_rn(v[2], v[3]);
+  a.x = *reinterpret_cast<const uint32_t*>(&lo);
+  a.y = *reinterpret_cast<const uint32_t*>(&hi);
+}
+
+// a lane's NV 4-element chunks of a row (chunk c = lane + 32 j of n4),
+// widened to fp32; chunks past the row read as 0
+template <int NV, typename C>
+__device__ __forceinline__ void load_chunks(const C* __restrict__ src,
                                             int n4, int lane,
                                             float (&v)[NV][4]) {
 #pragma unroll
   for (int j = 0; j < NV; ++j) {
     const int c = lane + 32 * j;
-    const float4 a = c < n4 ? src[c] : make_float4(0.f, 0.f, 0.f, 0.f);
-    v[j][0] = a.x;
-    v[j][1] = a.y;
-    v[j][2] = a.z;
-    v[j][3] = a.w;
+    C a = {};
+    if (c < n4) a = src[c];
+    unpack(a, v[j]);
   }
 }
 
-template <int NV>
-__device__ __forceinline__ void store_chunks(float4* dst, int n4, int lane,
+template <int NV, typename C>
+__device__ __forceinline__ void store_chunks(C* dst, int n4, int lane,
                                              const float (&v)[NV][4]) {
 #pragma unroll
   for (int j = 0; j < NV; ++j) {
     const int c = lane + 32 * j;
-    if (c < n4) dst[c] = make_float4(v[j][0], v[j][1], v[j][2], v[j][3]);
+    if (c < n4) {
+      C a;
+      pack(v[j], a);
+      dst[c] = a;   // one 16- or 8-byte store
+    }
   }
 }
 
@@ -260,12 +303,12 @@ __device__ __forceinline__ void store_chunks(float4* dst, int n4, int lane,
 // adding the row's dgamma (ag) and dbeta (ab, LayerNorm) contributions
 // to the lane's column sums.  Chunks past the row hold x = dy = 0, which
 // add nothing to any sum but (x - mu)^2, where they are masked.
-template <int NV, bool LN>
+template <int NV, bool LN, typename C>
 __device__ __forceinline__ void bwd_row_v2(const float (&xv)[NV][4],
                                            const float (&dv)[NV][4],
                                            const float (&g)[NV][4],
                                            float (&ag)[NV][4],
-                                           float (&ab)[NV][4], float4* dxr,
+                                           float (&ab)[NV][4], C* dxr,
                                            int n4, int lane, int width,
                                            float eps) {
   float o[NV][4];
@@ -338,24 +381,24 @@ __device__ __forceinline__ void bwd_row_v2(const float (&xv)[NV][4],
 
 // v2 (see the head of the file).  Warp w of CTA b takes rows
 // b * kV2Warps * rows_per_warp + w + i * kV2Warps, i < rows_per_warp;
-// the CTA writes partial row b of dg_part (and db_part).  NV: float4
+// the CTA writes partial row b of dg_part (and db_part).  NV: 4-element
 // chunks a lane, a power of two with 128 NV >= width.
-template <int NV, bool LN>
+template <int NV, bool LN, typename E>
 __global__ void __launch_bounds__(32 * kV2Warps)
-norm_bwd_v2_kernel(const float* __restrict__ x,
-                   const float* __restrict__ gamma,
-                   const float* __restrict__ dy, float* __restrict__ dx,
+norm_bwd_v2_kernel(const E* __restrict__ x, const E* __restrict__ gamma,
+                   const E* __restrict__ dy, E* __restrict__ dx,
                    float* __restrict__ dg_part, float* __restrict__ db_part,
                    int rows, int width, float eps, int rows_per_warp) {
+  using C = chunk_t<E>;
   extern __shared__ float4 wrows[];   // [LN ? 2 : 1][kV2Warps][width / 4]
   release_dependents();
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   const int n4 = width / 4;
-  const float4* x4 = reinterpret_cast<const float4*>(x);
-  const float4* dy4 = reinterpret_cast<const float4*>(dy);
+  const C* x4 = reinterpret_cast<const C*>(x);
+  const C* dy4 = reinterpret_cast<const C*>(dy);
   float g[NV][4], ag[NV][4], ab[NV][4], xv[NV][4], dv[NV][4];
-  load_chunks<NV>(reinterpret_cast<const float4*>(gamma), n4, lane, g);
+  load_chunks<NV>(reinterpret_cast<const C*>(gamma), n4, lane, g);
 #pragma unroll
   for (int j = 0; j < NV; ++j)
 #pragma unroll
@@ -374,7 +417,7 @@ norm_bwd_v2_kernel(const float* __restrict__ x,
       load_chunks<NV>(dy4 + static_cast<size_t>(next) * n4, n4, lane, dn);
     }
     bwd_row_v2<NV, LN>(xv, dv, g, ag, ab,
-                       reinterpret_cast<float4*>(dx) +
+                       reinterpret_cast<C*>(dx) +
                            static_cast<size_t>(row) * n4,
                        n4, lane, width, eps);
     if (more) {
@@ -413,11 +456,11 @@ norm_bwd_v2_kernel(const float* __restrict__ x,
 // v1 (see the head of the file): warp w of CTA b takes rows
 // (b * kWarpsPerBlock + w) * rows_per_warp + i, i < rows_per_warp; the
 // CTA writes partial row b of dg_part (and db_part)
-template <bool LN>
-__global__ void norm_bwd_v1_kernel(const float* __restrict__ x,
-                                   const float* __restrict__ gamma,
-                                   const float* __restrict__ dy,
-                                   float* __restrict__ dx,
+template <bool LN, typename E>
+__global__ void norm_bwd_v1_kernel(const E* __restrict__ x,
+                                   const E* __restrict__ gamma,
+                                   const E* __restrict__ dy,
+                                   E* __restrict__ dx,
                                    float* __restrict__ dg_part,
                                    float* __restrict__ db_part, int rows,
                                    int width, float eps, int rows_per_warp) {
@@ -434,50 +477,50 @@ __global__ void norm_bwd_v1_kernel(const float* __restrict__ x,
   const int row0 = (blockIdx.x * kWarpsPerBlock + warp) * rows_per_warp;
   for (int i = 0; i < rows_per_warp && row0 + i < rows; ++i) {
     const size_t off = static_cast<size_t>(row0 + i) * width;
-    const float* xr = x + off;
-    const float* dyr = dy + off;
-    float* dxr = dx + off;
+    const E* xr = x + off;
+    const E* dyr = dy + off;
+    E* dxr = dx + off;
     if constexpr (LN) {
       float s = 0.f;
-      for (int c = lane; c < width; c += 32) s += xr[c];
+      for (int c = lane; c < width; c += 32) s += widen(xr[c]);
       const float mu = warp_sum(s) / width;
       float sq = 0.f;
       for (int c = lane; c < width; c += 32) {
-        const float d = xr[c] - mu;
+        const float d = widen(xr[c]) - mu;
         sq += d * d;
       }
       const float r = rsqrtf(warp_sum(sq) / width + eps);
       float sw = 0.f, swx = 0.f;
       for (int c = lane; c < width; c += 32) {
-        const float w = dyr[c] * gamma[c];
+        const float w = widen(dyr[c]) * widen(gamma[c]);
         sw += w;
-        swx += w * ((xr[c] - mu) * r);
+        swx += w * ((widen(xr[c]) - mu) * r);
       }
       warp_sum2(sw, swx);
       const float mw = sw / width;
       const float mwx = swx / width;
       for (int c = lane; c < width; c += 32) {
-        const float d = dyr[c];
-        const float xhat = (xr[c] - mu) * r;
-        dxr[c] = r * (d * gamma[c] - mw - xhat * mwx);
+        const float d = widen(dyr[c]);
+        const float xhat = (widen(xr[c]) - mu) * r;
+        narrow(dxr + c, r * (d * widen(gamma[c]) - mw - xhat * mwx));
         gpart[c] += d * xhat;
         bpart[c] += d;
       }
     } else {
       float ss = 0.f, swx = 0.f;
       for (int c = lane; c < width; c += 32) {
-        const float v = xr[c];
+        const float v = widen(xr[c]);
         ss += v * v;
-        swx += dyr[c] * gamma[c] * v;
+        swx += widen(dyr[c]) * widen(gamma[c]) * v;
       }
       warp_sum2(ss, swx);
       const float r = rsqrtf(ss / width + eps);
       const float mwx = swx / width;
       const float r3 = r * r * r;
       for (int c = lane; c < width; c += 32) {
-        const float v = xr[c];
-        const float d = dyr[c];
-        dxr[c] = r * (d * gamma[c]) - r3 * v * mwx;
+        const float v = widen(xr[c]);
+        const float d = widen(dyr[c]);
+        narrow(dxr + c, r * (d * widen(gamma[c])) - r3 * v * mwx);
         gpart[c] += d * v * r;
       }
     }
@@ -498,17 +541,18 @@ __global__ void norm_bwd_v1_kernel(const float* __restrict__ x,
 
 // out_t[c] = sum over p < parts of part_t[p][c], added in a fixed order:
 // warp w adds rows w, w + kSumWarps, ... in turn, then warp 0 adds the
-// warps' sums in warp order.  blockIdx.x: 32 columns; blockIdx.y: t, the
-// dgamma (0) or dbeta (1) pair.  parts == 0 writes zeros.
+// warps' sums in warp order, and rounds the fp32 sum once to E.
+// blockIdx.x: 32 columns; blockIdx.y: t, the dgamma (0) or dbeta (1)
+// pair.  parts == 0 writes zeros.
+template <typename E>
 __global__ void __launch_bounds__(32 * kSumWarps)
-sum_partials_kernel(const float* __restrict__ part0,
-                    float* __restrict__ out0,
-                    const float* __restrict__ part1,
-                    float* __restrict__ out1, int parts, int width) {
+sum_partials_kernel(const float* __restrict__ part0, E* __restrict__ out0,
+                    const float* __restrict__ part1, E* __restrict__ out1,
+                    int parts, int width) {
   __shared__ float sums[kSumWarps][32];
   wait_for_primary();
   const float* part = blockIdx.y ? part1 : part0;
-  float* out = blockIdx.y ? out1 : out0;
+  E* out = blockIdx.y ? out1 : out0;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   const int c = blockIdx.x * 32 + lane;
@@ -524,7 +568,7 @@ sum_partials_kernel(const float* __restrict__ part0,
     float t = 0.f;
 #pragma unroll
     for (int w = 0; w < kSumWarps; ++w) t += sums[w][lane];
-    out[c] = t;
+    narrow(out + c, t);
   }
 }
 
@@ -541,10 +585,14 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
                               static_cast<int>(bytes));
 }
 
-bool aligned16(std::initializer_list<const void*> ptrs) {
+bool aligned(std::initializer_list<const void*> ptrs, uintptr_t bytes) {
   for (const void* p : ptrs)
-    if (reinterpret_cast<uintptr_t>(p) % 16 != 0) return false;
+    if (reinterpret_cast<uintptr_t>(p) % bytes != 0) return false;
   return true;
+}
+
+bool aligned16(std::initializer_list<const void*> ptrs) {
+  return aligned(ptrs, 16);
 }
 
 // 16-byte chunks for a bf16 row: the width a multiple of 8 and every
@@ -574,38 +622,42 @@ int layer_norm(const E* x, const E* gamma, const E* beta, E* y, int rows,
   return static_cast<int>(cudaGetLastError());
 }
 
-// v2 takes rows of width <= 1024, width % 4 == 0 and 16-byte aligned
-// pointers (then every row start is aligned too)
-bool v2_rows(int width, std::initializer_list<const void*> ptrs) {
-  return width <= 32 * 4 * kV2MaxChunks && width % 4 == 0 && aligned16(ptrs);
+// v2 takes rows of width <= 1024, width % 4 == 0 and the row tensors
+// (x, gamma, dy, dx) on 4-element chunks, 16 bytes fp32 and 8 bytes
+// bf16 (then every row start is too); the fp32 partials 16 bytes
+template <typename E>
+bool v2_rows(int width, std::initializer_list<const void*> row_ptrs,
+             std::initializer_list<const void*> part_ptrs) {
+  return width <= 32 * 4 * kV2MaxChunks && width % 4 == 0 &&
+         aligned(row_ptrs, 4 * sizeof(E)) && aligned16(part_ptrs);
 }
 
-template <int NV, bool LN>
-cudaError_t launch_v2(const float* x, const float* gamma, const float* dy,
-                      float* dx, float* dg_part, float* db_part, int rows,
-                      int width, float eps, int rows_per_warp, int ctas,
+template <int NV, bool LN, typename E>
+cudaError_t launch_v2(const E* x, const E* gamma, const E* dy, E* dx,
+                      float* dg_part, float* db_part, int rows, int width,
+                      float eps, int rows_per_warp, int ctas,
                       cudaStream_t stream) {
   const size_t smem = sizeof(float) * (LN ? 2 : 1) * kV2Warps * width;
-  const cudaError_t err = allow_smem(norm_bwd_v2_kernel<NV, LN>, smem);
+  const cudaError_t err = allow_smem(norm_bwd_v2_kernel<NV, LN, E>, smem);
   if (err != cudaSuccess) return err;
-  norm_bwd_v2_kernel<NV, LN><<<ctas, 32 * kV2Warps, smem, stream>>>(
+  norm_bwd_v2_kernel<NV, LN, E><<<ctas, 32 * kV2Warps, smem, stream>>>(
       x, gamma, dy, dx, dg_part, db_part, rows, width, eps, rows_per_warp);
   return cudaGetLastError();
 }
 
 // dx, and the (width,) weight gradients dg (and db, LayerNorm): the
-// path's kernel writes one partial row a CTA into dg_part (db_part),
-// then sum_partials_kernel adds them.  path 0: v1, 1: v2; the partial
-// buffers hold ceil(rows / (warps * rows_per_warp)) rows, warps 4 (v1)
-// or 8 (v2).
-template <bool LN>
-int norm_bwd(const float* x, const float* gamma, const float* dy, float* dx,
-             float* dg, float* db, float* dg_part, float* db_part, int rows,
-             int width, float eps, int path, int rows_per_warp,
-             cudaStream_t stream) {
+// path's kernel writes one fp32 partial row a CTA into dg_part
+// (db_part), then sum_partials_kernel adds them and rounds once to E.
+// path 0: v1, 1: v2; the partial buffers hold ceil(rows / (warps *
+// rows_per_warp)) rows, warps 4 (v1) or 8 (v2).
+template <bool LN, typename E>
+int norm_bwd(const E* x, const E* gamma, const E* dy, E* dx, E* dg, E* db,
+             float* dg_part, float* db_part, int rows, int width, float eps,
+             int path, int rows_per_warp, cudaStream_t stream) {
   if (rows < 0 || width < 0 || rows_per_warp < 1 || (path != 0 && path != 1))
     return static_cast<int>(cudaErrorInvalidValue);
-  if (path == 1 && !v2_rows(width, {x, gamma, dy, dx, dg_part, db_part}))
+  if (path == 1 &&
+      !v2_rows<E>(width, {x, gamma, dy, dx}, {dg_part, db_part}))
     return static_cast<int>(cudaErrorInvalidValue);
   if (width == 0) return static_cast<int>(cudaGetLastError());
   const int per_cta = (path == 1 ? kV2Warps : kWarpsPerBlock) * rows_per_warp;
@@ -615,19 +667,20 @@ int norm_bwd(const float* x, const float* gamma, const float* dy, float* dx,
   if (ctas > 0 && path == 1) {
     const int chunks = (width / 4 + 31) / 32;
 #define MXT_V2(NV)                                                         \
-  launch_v2<NV, LN>(x, gamma, dy, dx, dg_part, db_part, rows, width, eps,  \
-                    rows_per_warp, ctas, stream)
+  launch_v2<NV, LN, E>(x, gamma, dy, dx, dg_part, db_part, rows, width,    \
+                       eps, rows_per_warp, ctas, stream)
     err = chunks <= 1 ? MXT_V2(1) : chunks <= 2 ? MXT_V2(2)
         : chunks <= 4 ? MXT_V2(4) : MXT_V2(8);
 #undef MXT_V2
   } else if (ctas > 0) {
     const size_t smem =
         sizeof(float) * (LN ? 2 : 1) * kWarpsPerBlock * width;
-    err = allow_smem(norm_bwd_v1_kernel<LN>, smem);
+    err = allow_smem(norm_bwd_v1_kernel<LN, E>, smem);
     if (err == cudaSuccess) {
-      norm_bwd_v1_kernel<LN><<<ctas, 32 * kWarpsPerBlock, smem, stream>>>(
-          x, gamma, dy, dx, dg_part, db_part, rows, width, eps,
-          rows_per_warp);
+      norm_bwd_v1_kernel<LN, E><<<ctas, 32 * kWarpsPerBlock, smem,
+                                  stream>>>(x, gamma, dy, dx, dg_part,
+                                            db_part, rows, width, eps,
+                                            rows_per_warp);
       err = cudaGetLastError();
     }
   }
@@ -643,7 +696,7 @@ int norm_bwd(const float* x, const float* gamma, const float* dy, float* dx,
   attr[0].val.programmaticStreamSerializationAllowed = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, sum_partials_kernel,
+  err = cudaLaunchKernelEx(&cfg, sum_partials_kernel<E>,
                            static_cast<const float*>(dg_part), dg,
                            static_cast<const float*>(db_part), db, ctas,
                            width);
@@ -689,8 +742,9 @@ extern "C" int mxt_rms_norm_bwd_f32(const float* x, const float* gamma,
                                     float* dg_part, int rows, int width,
                                     float eps, int path, int rows_per_warp,
                                     cudaStream_t stream) {
-  return norm_bwd<false>(x, gamma, dy, dx, dg, nullptr, dg_part, nullptr,
-                         rows, width, eps, path, rows_per_warp, stream);
+  return norm_bwd<false, float>(x, gamma, dy, dx, dg, nullptr, dg_part,
+                                nullptr, rows, width, eps, path,
+                                rows_per_warp, stream);
 }
 
 // dx, dgamma and dbeta of layer_norm; dg_part, db_part: (ctas, width)
@@ -700,6 +754,34 @@ extern "C" int mxt_layer_norm_bwd_f32(const float* x, const float* gamma,
                                       float* db_part, int rows, int width,
                                       float eps, int path, int rows_per_warp,
                                       cudaStream_t stream) {
-  return norm_bwd<true>(x, gamma, dy, dx, dg, db, dg_part, db_part, rows,
-                        width, eps, path, rows_per_warp, stream);
+  return norm_bwd<true, float>(x, gamma, dy, dx, dg, db, dg_part, db_part,
+                               rows, width, eps, path, rows_per_warp, stream);
+}
+
+// the same in bf16: x, gamma, dy, dx and the weight gradients bf16, the
+// partials fp32 (v2 takes x, gamma, dy and dx 8-byte aligned)
+extern "C" int mxt_rms_norm_bwd_bf16(const __nv_bfloat16* x,
+                                     const __nv_bfloat16* gamma,
+                                     const __nv_bfloat16* dy,
+                                     __nv_bfloat16* dx, __nv_bfloat16* dg,
+                                     float* dg_part, int rows, int width,
+                                     float eps, int path, int rows_per_warp,
+                                     cudaStream_t stream) {
+  return norm_bwd<false, __nv_bfloat16>(x, gamma, dy, dx, dg, nullptr,
+                                        dg_part, nullptr, rows, width, eps,
+                                        path, rows_per_warp, stream);
+}
+
+extern "C" int mxt_layer_norm_bwd_bf16(const __nv_bfloat16* x,
+                                       const __nv_bfloat16* gamma,
+                                       const __nv_bfloat16* dy,
+                                       __nv_bfloat16* dx, __nv_bfloat16* dg,
+                                       __nv_bfloat16* db, float* dg_part,
+                                       float* db_part, int rows, int width,
+                                       float eps, int path,
+                                       int rows_per_warp,
+                                       cudaStream_t stream) {
+  return norm_bwd<true, __nv_bfloat16>(x, gamma, dy, dx, dg, db, dg_part,
+                                       db_part, rows, width, eps, path,
+                                       rows_per_warp, stream);
 }

@@ -1,4 +1,5 @@
-// The softmax / cross-entropy row kernels for Hopper (sm_90a), fp32.
+// The softmax / cross-entropy row kernels for Hopper (sm_90a), fp32;
+// SoftmaxOutput's head (the first two below) in bf16 as well.
 //
 // Replaces the TPU kernels of mxnet_tpu/pallas_ops/softmax_xent.py:
 //   _softmax_fwd_kernel            p = exp(x - max(x)) / sum(...)  per row
@@ -27,6 +28,20 @@
 // hit L1/L2, since the block's 32 KB row was just read.  The TPU
 // kernels' (block_rows, classes) VMEM tile has no counterpart here: one
 // block is one row.
+//
+// bf16 (SoftmaxOutput's head under Module(compute_dtype='bfloat16'):
+// _softmax_fwd_kernel and _xent_grad_from_probs_kernel on bf16 tiles,
+// softmax_xent.py:162 softmax_output_head): every element widens to
+// fp32, the max, the sum of exp and the division are fp32, and the
+// output is rounded to nearest even once, as the TPU kernels cast
+// their fp32 tile to o_ref.dtype; the labels stay float32.  A bf16 row
+// of the training head is 16 KB (8192 classes), so where the width is
+// a multiple of 8, at most 8192, and the rows 16-byte aligned, the
+// softmax holds its row in registers (8 values a 16-byte load, up to 4
+// loads a thread) and reads it from device memory once; the gradient
+// reads p and writes the gradient 16 bytes at a time.  Other rows take
+// the scalar loops of the fp32 kernels, widening each element.
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <math.h>
@@ -66,33 +81,137 @@ __device__ __forceinline__ float block_reduce(float v, float* scratch) {
   return r;
 }
 
+__device__ __forceinline__ float widen(float v) { return v; }
+__device__ __forceinline__ float widen(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+__device__ __forceinline__ void narrow(float* p, float v) { *p = v; }
+__device__ __forceinline__ void narrow(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16_rn(v);
+}
+
+// 8 bf16 values a 16-byte access: widen on load (a bf16 is the top half
+// of an fp32), round to nearest even on store
+constexpr int kVec = 8;
+constexpr int kMaxVecLoads = 4;   // the registers row: cols <= 8192
+
+__device__ __forceinline__ void load8(const uint4& u, float (&v)[kVec]) {
+  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    v[2 * i] = __uint_as_float(w[i] << 16);
+    v[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+  }
+}
+
+__device__ __forceinline__ uint4 store8(const float (&v)[kVec]) {
+  uint4 u;
+  uint32_t* w = reinterpret_cast<uint32_t*>(&u);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
+    w[i] = *reinterpret_cast<const uint32_t*>(&h);
+  }
+  return u;
+}
+
+// three passes over the row: max, sum of exp, write
+template <typename E>
 __global__ void __launch_bounds__(kThreads)
-    softmax_rows_kernel(const float* __restrict__ x, float* __restrict__ p,
+    softmax_rows_kernel(const E* __restrict__ x, E* __restrict__ p,
                         int cols) {
   __shared__ float scratch[kWarps];
   const size_t off = static_cast<size_t>(blockIdx.x) * cols;
-  const float* xr = x + off;
-  float* pr = p + off;
+  const E* xr = x + off;
+  E* pr = p + off;
   float m = -INFINITY;
-  for (int c = threadIdx.x; c < cols; c += kThreads) m = fmaxf(m, xr[c]);
+  for (int c = threadIdx.x; c < cols; c += kThreads)
+    m = fmaxf(m, widen(xr[c]));
   m = block_reduce<true>(m, scratch);
   float s = 0.f;
-  for (int c = threadIdx.x; c < cols; c += kThreads) s += expf(xr[c] - m);
+  for (int c = threadIdx.x; c < cols; c += kThreads)
+    s += expf(widen(xr[c]) - m);
   s = block_reduce<false>(s, scratch);
   for (int c = threadIdx.x; c < cols; c += kThreads)
-    pr[c] = expf(xr[c] - m) / s;
+    narrow(pr + c, expf(widen(xr[c]) - m) / s);
 }
 
+// bf16 rows of cols % 8 == 0, cols <= 8 * kThreads * NL, 16-byte
+// aligned: thread t holds the 8-value chunks t, t + kThreads, ... (NL
+// of them) in registers, so the row is read once
+template <int NL>
 __global__ void __launch_bounds__(kThreads)
-    xent_grad_kernel(const float* __restrict__ p,
+    softmax_rows_bf16_regs_kernel(const __nv_bfloat16* __restrict__ x,
+                                  __nv_bfloat16* __restrict__ p, int cols) {
+  __shared__ float scratch[kWarps];
+  const size_t off = static_cast<size_t>(blockIdx.x) * cols;
+  const uint4* x8 = reinterpret_cast<const uint4*>(x + off);
+  uint4* p8 = reinterpret_cast<uint4*>(p + off);
+  const int n8 = cols / kVec;
+  float v[NL][kVec];
+  float m = -INFINITY;
+#pragma unroll
+  for (int j = 0; j < NL; ++j) {
+    const int c = threadIdx.x + j * kThreads;
+    if (c < n8) {
+      load8(x8[c], v[j]);
+#pragma unroll
+      for (int i = 0; i < kVec; ++i) m = fmaxf(m, v[j][i]);
+    }
+  }
+  m = block_reduce<true>(m, scratch);
+  float s = 0.f;
+#pragma unroll
+  for (int j = 0; j < NL; ++j) {
+    if (threadIdx.x + j * kThreads < n8) {
+#pragma unroll
+      for (int i = 0; i < kVec; ++i) {
+        v[j][i] = expf(v[j][i] - m);
+        s += v[j][i];
+      }
+    }
+  }
+  s = block_reduce<false>(s, scratch);
+#pragma unroll
+  for (int j = 0; j < NL; ++j) {
+    const int c = threadIdx.x + j * kThreads;
+    if (c < n8) {
+#pragma unroll
+      for (int i = 0; i < kVec; ++i) v[j][i] = v[j][i] / s;
+      p8[c] = store8(v[j]);
+    }
+  }
+}
+
+// (p - onehot(label)) * scale; vec: bf16 rows read and written 16 bytes
+// at a time (cols % 8 == 0, 16-byte aligned)
+template <typename E>
+__global__ void __launch_bounds__(kThreads)
+    xent_grad_kernel(const E* __restrict__ p,
                      const float* __restrict__ label,
-                     float* __restrict__ grad, int cols, float scale) {
+                     E* __restrict__ grad, int cols, float scale,
+                     bool vec) {
   const size_t off = static_cast<size_t>(blockIdx.x) * cols;
   const int lbl = static_cast<int>(label[blockIdx.x]);   // truncates
-  const float* prow = p + off;
-  float* grow = grad + off;
+  const E* prow = p + off;
+  E* grow = grad + off;
+  if constexpr (sizeof(E) == 2) {
+    if (vec) {
+      const uint4* p8 = reinterpret_cast<const uint4*>(prow);
+      uint4* g8 = reinterpret_cast<uint4*>(grow);
+      for (int c = threadIdx.x; c < cols / kVec; c += kThreads) {
+        float v[kVec];
+        load8(p8[c], v);
+#pragma unroll
+        for (int i = 0; i < kVec; ++i)
+          v[i] = (v[i] - (c * kVec + i == lbl ? 1.f : 0.f)) * scale;
+        g8[c] = store8(v);
+      }
+      return;
+    }
+  }
   for (int c = threadIdx.x; c < cols; c += kThreads)
-    grow[c] = (prow[c] - (c == lbl ? 1.f : 0.f)) * scale;
+    narrow(grow + c, (widen(prow[c]) - (c == lbl ? 1.f : 0.f)) * scale);
 }
 
 // ---------------------------------------------------------------------------
@@ -262,7 +381,7 @@ __host__ bool rows_vectorizable(int cols, const void* a, const void* b,
 extern "C" int mxt_softmax_rows_f32(const float* x, float* p, int rows,
                                     int cols, cudaStream_t stream) {
   if (rows > 0 && cols > 0)
-    softmax_rows_kernel<<<rows, kThreads, 0, stream>>>(x, p, cols);
+    softmax_rows_kernel<float><<<rows, kThreads, 0, stream>>>(x, p, cols);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -271,8 +390,45 @@ extern "C" int mxt_xent_grad_from_probs_f32(const float* p,
                                             int rows, int cols, float scale,
                                             cudaStream_t stream) {
   if (rows > 0 && cols > 0)
-    xent_grad_kernel<<<rows, kThreads, 0, stream>>>(p, label, grad, cols,
-                                                    scale);
+    xent_grad_kernel<float><<<rows, kThreads, 0, stream>>>(
+        p, label, grad, cols, scale, false);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// bf16 x and p; the registers kernel where the row fits it
+extern "C" int mxt_softmax_rows_bf16(const __nv_bfloat16* x,
+                                     __nv_bfloat16* p, int rows, int cols,
+                                     cudaStream_t stream) {
+  if (rows <= 0 || cols <= 0) return static_cast<int>(cudaGetLastError());
+  const int loads = (cols / kVec + kThreads - 1) / kThreads;
+  if (cols % kVec == 0 && loads <= kMaxVecLoads &&
+      rows_vectorizable(cols, x, p, p)) {
+    if (loads <= 1)
+      softmax_rows_bf16_regs_kernel<1><<<rows, kThreads, 0, stream>>>(
+          x, p, cols);
+    else if (loads <= 2)
+      softmax_rows_bf16_regs_kernel<2><<<rows, kThreads, 0, stream>>>(
+          x, p, cols);
+    else
+      softmax_rows_bf16_regs_kernel<4><<<rows, kThreads, 0, stream>>>(
+          x, p, cols);
+  } else {
+    softmax_rows_kernel<__nv_bfloat16><<<rows, kThreads, 0, stream>>>(
+        x, p, cols);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// bf16 p and grad, float32 labels
+extern "C" int mxt_xent_grad_from_probs_bf16(const __nv_bfloat16* p,
+                                             const float* label,
+                                             __nv_bfloat16* grad, int rows,
+                                             int cols, float scale,
+                                             cudaStream_t stream) {
+  if (rows > 0 && cols > 0)
+    xent_grad_kernel<__nv_bfloat16><<<rows, kThreads, 0, stream>>>(
+        p, label, grad, cols, scale,
+        cols % kVec == 0 && rows_vectorizable(cols, p, grad, grad));
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -6,10 +6,13 @@ Counterpart of ``mxnet_tpu/pallas_ops/norm.py``.  ``rms_norm`` and
 parameters in the same dtype) and normalise each row over its last axis
 with fp32 statistics, writing the output in the input's dtype; the bf16
 launches count as ``rms_norm_bf16`` and ``layer_norm_bf16``.
-``rms_norm_bwd`` and ``layer_norm_bwd`` (fp32) return ``dx`` and the
-weight gradients; :func:`_bwd_plan` picks their kernel's path (v2, the
-row in registers, or v1, any row) and grid.  A CPU tensor runs the plain
-version beside each; a CUDA tensor launches ``csrc/norm.cu`` or raises.
+``rms_norm_bwd`` and ``layer_norm_bwd`` take the same dtypes and return
+``dx`` in the input's dtype and the weight gradients in gamma's, summed
+in fp32 and rounded once (the bf16 launches count as
+``rms_norm_bwd_bf16`` and ``layer_norm_bwd_bf16``); :func:`_bwd_plan`
+picks their kernel's path (v2, the row in registers, or v1, any row) and
+grid.  A CPU tensor runs the plain version beside each; a CUDA tensor
+launches ``csrc/norm.cu`` or raises.
 :class:`RMSNorm` and :class:`LayerNorm` pair each forward with its
 backward as one ``torch.autograd.Function`` whose residuals are ``(x,
 gamma)``, as the reference's ``custom_vjp``.
@@ -20,6 +23,7 @@ import collections
 
 import torch
 
+from ._build import SUFFIX as _FWD
 from ._build import KernelError, check_args, launch, route, sm_count
 
 __all__ = ["rms_norm", "layer_norm", "rms_norm_bwd", "layer_norm_bwd",
@@ -35,8 +39,6 @@ BWD_V1_ROWS_PER_WARP = 4
 BWD_V1_MAX_CTAS = 1024
 _BWD_PATH = {"v1": 0, "v2": 1}   # the C entry points' path argument
 BwdPlan = collections.namedtuple("BwdPlan", "path ctas rows_per_warp")
-# forward dtype -> (launch-count suffix, C entry point suffix)
-_FWD = {torch.float32: ("", "_f32"), torch.bfloat16: ("_bf16", "_bf16")}
 
 
 def rms_norm_reference(x, gamma, eps=1e-6):
@@ -126,11 +128,19 @@ def layer_norm(x, gamma, beta, eps=1e-5):
     return y
 
 
+def _bwd_aligned(*tensors):
+    """True when every tensor starts on a v2 chunk, 4 elements: 16 bytes
+    in fp32, 8 in bf16 (the kernel widens a bf16 chunk in registers, so
+    its row and its arithmetic are fp32's)."""
+    return all(t.data_ptr() % (4 * t.element_size()) == 0 for t in tensors)
+
+
 def _bwd_plan(rows, width, aligned, sms):
-    """The launch of a norm backward on ``rows`` x ``width`` fp32 on a
-    card of ``sms`` SMs.  ``path`` ``"v2"`` (the row in registers) for
-    ``width <= 1024``, ``width % 4 == 0`` and 16-byte ``aligned``
-    pointers: one wave of one CTA an SM (at width 512 a v2 thread holds
+    """The launch of a norm backward on ``rows`` x ``width`` on a card
+    of ``sms`` SMs, fp32 or bf16.  ``path`` ``"v2"`` (the row in
+    registers) for ``width <= 1024``, ``width % 4 == 0`` and ``aligned``
+    pointers (:func:`_bwd_aligned`, which knows the dtype's chunk):
+    one wave of one CTA an SM (at width 512 a v2 thread holds
     144-169 registers, so one 8-warp CTA fills an SM's register file),
     each warp taking as many rows as that needs.  Else ``"v1"``: 4 rows a
     warp, more where the CTAs would pass ``BWD_V1_MAX_CTAS``.  Each CTA
@@ -151,17 +161,18 @@ def _bwd_launch(name, x, gamma, dy, eps, grads):
     (dgamma, or dgamma and dbeta) summed from per-CTA partial rows, all
     inside the entry point."""
     rows, width = x.shape
-    plan = _bwd_plan(rows, width, all(t.data_ptr() % 16 == 0
-                                      for t in (x, gamma, dy)),
+    plan = _bwd_plan(rows, width, _bwd_aligned(x, gamma, dy),
                      sm_count(x.device.index))
     dx = torch.empty_like(x)
     outs = [torch.empty_like(gamma) for _ in range(grads)]
     parts = torch.empty(grads, plan.ctas, width, dtype=torch.float32,
                         device=x.device)
-    launch(x, name, "mxt_%s_f32" % name, x.data_ptr(), gamma.data_ptr(),
-           dy.data_ptr(), dx.data_ptr(), *(o.data_ptr() for o in outs),
-           *(p.data_ptr() for p in parts), rows, width, float(eps),
-           _BWD_PATH[plan.path], plan.rows_per_warp)
+    tag, sfx = _FWD[x.dtype]
+    launch(x, name + tag, "mxt_%s%s" % (name, sfx), x.data_ptr(),
+           gamma.data_ptr(), dy.data_ptr(), dx.data_ptr(),
+           *(o.data_ptr() for o in outs), *(p.data_ptr() for p in parts),
+           rows, width, float(eps), _BWD_PATH[plan.path],
+           plan.rows_per_warp)
     return (dx, *outs)
 
 
@@ -169,7 +180,7 @@ def rms_norm_bwd(x, gamma, dy, eps=1e-6):
     """``(dx, dgamma)`` of :func:`rms_norm` for cotangent ``dy``."""
     if not route("rms_norm_bwd", x):
         return rms_norm_bwd_reference(x, gamma, dy, eps)
-    _check_rows("rms_norm_bwd", x, gamma, like=(dy,))
+    _check_rows("rms_norm_bwd", x, gamma, like=(dy,), dtypes=tuple(_FWD))
     return _bwd_launch("rms_norm_bwd", x, gamma, dy, eps, 1)
 
 
@@ -178,7 +189,8 @@ def layer_norm_bwd(x, gamma, dy, eps=1e-5):
     ``dy``."""
     if not route("layer_norm_bwd", x):
         return layer_norm_bwd_reference(x, gamma, dy, eps)
-    _check_rows("layer_norm_bwd", x, gamma, like=(dy,))
+    _check_rows("layer_norm_bwd", x, gamma, like=(dy,),
+                dtypes=tuple(_FWD))
     return _bwd_launch("layer_norm_bwd", x, gamma, dy, eps, 2)
 
 

@@ -3,15 +3,20 @@
 
 Every entry point takes a 2D ``(rows, classes)`` fp32 tensor and
 float32 labels truncated to int32; a label outside ``[0, classes)``
-matches no column.  A CPU tensor runs the plain version beside each; a
-CUDA tensor launches ``csrc/softmax_xent.cu`` or raises.
+matches no column.  SoftmaxOutput's head (``softmax_rows``,
+``xent_grad_from_probs``) takes bf16 as well: fp32 arithmetic, the
+output rounded once to bf16, the label still float32; its bf16
+launches count as ``softmax_rows_bf16`` and
+``xent_grad_from_probs_bf16``.  A CPU tensor runs the plain version
+beside each; a CUDA tensor launches ``csrc/softmax_xent.cu`` or raises.
 
 * ``softmax_rows`` / ``xent_grad_from_probs``: SoftmaxOutput's head,
   paired by :class:`SoftmaxOutputHead` with the reference's contract
   (the backward ignores the incoming cotangent and emits ``(p -
   onehot(label)) * scale``; no gradient for the label);
 * ``softmax_rows`` / ``softmax_rows_bwd``: :func:`fused_softmax`, the
-  row softmax with the classic vjp ``p * (dy - sum(dy * p))``;
+  row softmax with the classic vjp ``p * (dy - sum(dy * p))`` (fp32
+  only on the card);
 * ``xent_loss_rows`` / ``softmax_xent_loss_grad``:
   :func:`softmax_xent_loss`, per-row ``logsumexp(x) - x[label]``
   (``(rows,)`` float32; the probabilities are never written) whose
@@ -22,7 +27,7 @@ from __future__ import annotations
 
 import torch
 
-from ._build import KernelError, check_args, launch, route
+from ._build import SUFFIX, KernelError, check_args, launch, route
 
 __all__ = ["softmax_rows", "xent_grad_from_probs", "softmax_rows_reference",
            "xent_grad_from_probs_reference", "SoftmaxOutputHead",
@@ -87,32 +92,46 @@ def _check_2d(name, x):
                           "%s" % (name, tuple(x.shape)))
 
 
+def _check_head_label(name, p, label):
+    """The head's label on its own: float32 whatever ``p``'s dtype (class
+    ids past 256 do not fit bf16), on ``p``'s device, contiguous, one a
+    row."""
+    check_args(name, label)
+    if label.device != p.device:
+        raise KernelError("%s: all tensors must be on %s, got %s"
+                          % (name, p.device, label.device))
+    if label.shape != (p.shape[0],):
+        raise KernelError("%s: label shape %s, want (%d,)"
+                          % (name, tuple(label.shape), p.shape[0]))
+
+
 def softmax_rows(x):
-    """Row softmax of 2D ``x``."""
+    """Row softmax of 2D ``x`` (fp32 or bf16), in ``x``'s dtype."""
     if not route("softmax_rows", x):
         return softmax_rows_reference(x)
     _check_2d("softmax_rows", x)
-    check_args("softmax_rows", x)
+    check_args("softmax_rows", x, dtypes=tuple(SUFFIX))
+    tag, sfx = SUFFIX[x.dtype]
     p = torch.empty_like(x)
-    launch(x, "softmax_rows", "mxt_softmax_rows_f32", x.data_ptr(),
+    launch(x, "softmax_rows" + tag, "mxt_softmax_rows" + sfx, x.data_ptr(),
            p.data_ptr(), x.shape[0], x.shape[1])
     return p
 
 
 def xent_grad_from_probs(p, label, scale=1.0):
-    """``(p - onehot(label)) * scale`` for 2D probabilities ``p`` and a
-    ``(rows,)`` float32 label vector."""
+    """``(p - onehot(label)) * scale`` for 2D probabilities ``p`` (fp32
+    or bf16; the gradient in ``p``'s dtype) and a ``(rows,)`` float32
+    label vector."""
     if not route("xent_grad_from_probs", p):
         return xent_grad_from_probs_reference(p, label, scale)
     _check_2d("xent_grad_from_probs", p)
-    check_args("xent_grad_from_probs", p, label)
-    if label.shape != (p.shape[0],):
-        raise KernelError("xent_grad_from_probs: label shape %s, want (%d,)"
-                          % (tuple(label.shape), p.shape[0]))
+    check_args("xent_grad_from_probs", p, dtypes=tuple(SUFFIX))
+    _check_head_label("xent_grad_from_probs", p, label)
+    tag, sfx = SUFFIX[p.dtype]
     grad = torch.empty_like(p)
-    launch(p, "xent_grad_from_probs", "mxt_xent_grad_from_probs_f32",
-           p.data_ptr(), label.data_ptr(), grad.data_ptr(), p.shape[0],
-           p.shape[1], float(scale))
+    launch(p, "xent_grad_from_probs" + tag,
+           "mxt_xent_grad_from_probs" + sfx, p.data_ptr(), label.data_ptr(),
+           grad.data_ptr(), p.shape[0], p.shape[1], float(scale))
     return grad
 
 
@@ -171,7 +190,9 @@ class SoftmaxOutputHead(torch.autograd.Function):
     """``SoftmaxOutputHead.apply(data, label, scale)``: forward the row
     softmax, backward ``(p - onehot(label)) * scale`` from the saved
     ``(p, label)`` whatever cotangent arrives; no gradient for the
-    label."""
+    label.  ``p`` is saved in ``data``'s dtype, so a bf16 head's
+    gradient reads the rounded probabilities, as the reference's
+    ``_head_fwd`` keeps them."""
 
     @staticmethod
     def forward(ctx, data, label, scale):
@@ -198,6 +219,8 @@ class FusedSoftmax(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x):
+        if route("fused_softmax", x):   # its backward kernel is fp32 only
+            check_args("fused_softmax", x)
         p = softmax_rows(x)
         ctx.save_for_backward(p)
         return p

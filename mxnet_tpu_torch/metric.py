@@ -13,7 +13,7 @@ from __future__ import annotations
 import numpy as _np
 import torch
 
-from .ndarray import NDArray
+from .ndarray import NDArray, host_numpy
 
 __all__ = ["EvalMetric", "Accuracy", "Perplexity", "CrossEntropy",
            "create"]
@@ -42,7 +42,7 @@ def _label_probs(label, pred):
     lbl = _tensor(label).reshape(-1).to(torch.int32)
     probs = p[torch.arange(p.shape[0], device=p.device),
               lbl.to(device=p.device, dtype=torch.int64)]
-    return lbl.cpu().numpy(), probs.detach().cpu().numpy()
+    return lbl.cpu().numpy(), host_numpy(probs)
 
 
 class EvalMetric:
@@ -86,8 +86,8 @@ class Accuracy(EvalMetric):
             pred = _tensor(pred)
             if tuple(pred.shape) != tuple(label.shape):
                 pred = torch.argmax(pred, dim=self.axis)
-            pred_label = pred.detach().cpu().numpy().astype("int32")
-            label = label.detach().cpu().numpy().astype("int32")
+            pred_label = host_numpy(pred).astype("int32")
+            label = host_numpy(label).astype("int32")
             pred_label, label = pred_label.flatten(), label.flatten()
             if pred_label.shape != label.shape:
                 raise ValueError("Shape of labels {} does not match shape "

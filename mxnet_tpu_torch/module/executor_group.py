@@ -2,7 +2,13 @@
 ``mxnet_tpu/module/executor_group.py``), for one device: it binds one
 executor, loads batches into it, and exposes the parameter and gradient
 arrays the optimizer updates.  Splitting a batch over several devices
-is later work."""
+is later work.
+
+``compute_dtype`` threads the module's mixed-precision policy into the
+executor; the labels keep their master dtype, as in the reference, and
+so do the arguments the graph reads only as indices
+(:meth:`Symbol.list_index_arguments`: token ids into ``Embedding``),
+where the reference rounds them to the compute dtype."""
 from __future__ import annotations
 
 __all__ = ["DataParallelExecutorGroup"]
@@ -15,7 +21,7 @@ class DataParallelExecutorGroup:
 
     def __init__(self, symbol, context, data_shapes, label_shapes,
                  param_names, for_training, inputs_need_grad,
-                 fixed_param_names=(), grad_req="write"):
+                 fixed_param_names=(), grad_req="write", compute_dtype=None):
         self.symbol = symbol
         self.context = context
         self.param_names = param_names
@@ -37,8 +43,10 @@ class DataParallelExecutorGroup:
                 self.grad_req[k] = "null"
         shapes = {d.name: tuple(d.shape)
                   for d in list(data_shapes) + self.label_shapes}
-        self.executor = symbol.simple_bind(context, grad_req=self.grad_req,
-                                           **shapes)
+        self.executor = symbol.simple_bind(
+            context, grad_req=self.grad_req, compute_dtype=compute_dtype,
+            keep_dtype=self.label_names + symbol.list_index_arguments(),
+            **shapes)
         args = self.executor.arg_dict
         self.param_arrays = [args[n] for n in param_names]
 

@@ -11,6 +11,15 @@ moves between the packages in both directions.
 
 Without a context the module runs on ``cuda:0`` and raises when there is
 no GPU; pass ``context=cpu()`` for the plain versions on the host.
+
+``compute_dtype='bfloat16'`` trains in mixed precision, as the
+reference's ``Module(compute_dtype=...)``: the parameters, their
+gradients, the optimizer state, ``get_params`` and checkpoints stay
+float32, and every step casts the parameters to bf16 for the forward
+and backward (kernels and products in bf16; the outputs bf16).  The
+reference applies it on its fused path and its executor-group path;
+the port has the executor-group path only (the reference's
+``MXNET_MODULE_FUSED=0``).
 """
 from __future__ import annotations
 
@@ -58,8 +67,9 @@ def _as_data_desc(x):
 class Module(BaseModule):
     def __init__(self, symbol, data_names=("data",),
                  label_names=("softmax_label",), logger=logging,
-                 context=None, fixed_param_names=None):
+                 context=None, fixed_param_names=None, compute_dtype=None):
         super().__init__(logger=logger)
+        self._compute_dtype = compute_dtype
         if isinstance(context, (list, tuple)):
             if len(context) != 1:
                 raise MXNetError("the port's Module runs on one device, "
@@ -191,7 +201,8 @@ class Module(BaseModule):
         self._exec_group = DataParallelExecutorGroup(
             self._symbol, self._context, self._data_shapes,
             self._label_shapes, self._param_names, for_training,
-            inputs_need_grad, self._fixed_param_names, grad_req)
+            inputs_need_grad, self._fixed_param_names, grad_req,
+            self._compute_dtype)
         self.binded = True
         if self.params_initialized:
             self._exec_group.set_params(self._arg_params)

@@ -68,6 +68,17 @@ def _torch_dtype(dtype):
     return found
 
 
+def host_numpy(t):
+    """A host numpy copy of tensor ``t``.  numpy has no bfloat16, so a
+    bf16 tensor widens to float32 on the way, which is exact (every bf16
+    is an fp32); the JAX package returns an ``ml_dtypes`` bfloat16
+    array there."""
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        t = t.float()
+    return t.numpy().copy()
+
+
 def _eager(name, fn, *args):
     """Run ``fn`` on the tensors of NDArray ``args`` (other arguments
     pass as they are) with grad enabled only while recording."""
@@ -144,8 +155,9 @@ class NDArray:
             torch.cuda.synchronize(self._data.device)
 
     def asnumpy(self):
-        """A host numpy copy (waits for the device)."""
-        return self._data.detach().cpu().numpy().copy()
+        """A host numpy copy (waits for the device); bfloat16 comes back
+        as float32 (:func:`host_numpy`)."""
+        return host_numpy(self._data)
 
     def asscalar(self):
         """The single element of a size-1 array as a Python scalar."""

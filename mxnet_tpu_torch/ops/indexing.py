@@ -2,7 +2,10 @@
 gather whose gradient PyTorch scatter-adds into the table.  Token ids
 arrive as float32, as an ``NDArrayIter`` over token grids yields them,
 and are truncated to integers as the reference's ``astype(int32)``; ids
-outside the table follow ``jnp.take``'s rule (:func:`_embedding_fc`)."""
+outside the table follow ``jnp.take``'s rule (:func:`_embedding_fc`).
+``data`` is registered as an index input, so a module in bf16 hands the
+ids to ``Embedding`` in their master dtype (the reference rounds them to
+bf16, which changes ids past 256)."""
 from __future__ import annotations
 
 import torch
@@ -40,4 +43,4 @@ register("Embedding", fcompute=_embedding_fc,
          arguments=("data", "weight"),
          attrs={"input_dim": Int(required=True),
                 "output_dim": Int(required=True), "dtype": Dtype("float32")},
-         infer_shape=_embedding_infer)
+         infer_shape=_embedding_infer, index_inputs=("data",))

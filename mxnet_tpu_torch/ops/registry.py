@@ -12,8 +12,11 @@ wrap an ``autograd.Function``.  An op may compute more outputs than it
 shows (``num_outputs``): ``mutate`` pairs ``(out_idx, arg_idx)`` name
 the extra outputs the imperative plane writes back into state inputs
 (the optimizer updates' momentum and moments, the reference's
-FMutateInputs).  The attribute parsing, naming and inference rules are
-copied from the reference, which keeps them free of JAX.
+FMutateInputs).  ``index_inputs`` names the arguments an op reads as
+integer indices (``Embedding``'s ``data``): a graph argument read only
+there keeps its master dtype under a module's ``compute_dtype``.  The
+attribute parsing, naming and inference rules are copied from the
+reference, which keeps them free of JAX.
 """
 from __future__ import annotations
 
@@ -97,7 +100,7 @@ class OpDef:
     def __init__(self, name, fcompute, attrs=None, arguments=("data",),
                  outputs=("output",), infer_shape=None,
                  infer_shape_backward=None, num_outputs=1, mutate=(),
-                 doc=""):
+                 index_inputs=(), doc=""):
         self.name = name
         self.fcompute = fcompute
         self.attr_specs = dict(attrs or {})
@@ -108,6 +111,8 @@ class OpDef:
         self._num_outputs = num_outputs
         # ((out_idx, arg_idx), ...): outputs written back into inputs
         self.mutate = tuple(mutate)
+        # argument names read as integer indices, never cast
+        self.index_inputs = frozenset(index_inputs)
         self.doc = doc
 
     def parse_attrs(self, raw):

@@ -127,6 +127,24 @@ class Symbol:
                                         node.op.outputs(node.attrs)[oi]))
         return names
 
+    def list_index_arguments(self):
+        """Arguments that every reader takes as integer indices (an
+        op's ``index_inputs``, such as ``Embedding``'s ``data``) and no
+        output returns as they are."""
+        readers = {}   # argument name -> [index read?]
+        for node in self._nodes():
+            if node.is_variable:
+                continue
+            names = node.op.arguments(node.attrs)
+            for pos, (inp, _oi) in enumerate(node.inputs):
+                if inp.is_variable:
+                    readers.setdefault(inp.name, []).append(
+                        pos < len(names) and
+                        names[pos] in node.op.index_inputs)
+        heads = {n.name for n, _ in self._outputs if n.is_variable}
+        return [n for n in self.list_arguments()
+                if n not in heads and readers.get(n) and all(readers[n])]
+
     def list_auxiliary_states(self):
         """Auxiliary states; no op of the port has any yet."""
         return []
@@ -199,9 +217,12 @@ class Symbol:
             f.write(self.tojson())
 
     # -- binding ------------------------------------------------------------
-    def simple_bind(self, ctx, grad_req="write", type_dict=None, **kwargs):
+    def simple_bind(self, ctx, grad_req="write", type_dict=None,
+                    compute_dtype=None, keep_dtype=(), **kwargs):
         """Infer every argument's shape from the given input shapes,
-        allocate arguments and gradients on ``ctx`` and bind."""
+        allocate arguments and gradients on ``ctx`` and bind;
+        ``compute_dtype`` and ``keep_dtype`` as :class:`Executor`'s (the
+        arrays stay in their own dtypes, float32 by default)."""
         from . import ndarray as nd
         from .executor import Executor
         arg_shapes, _, _ = self.infer_shape(**kwargs)
@@ -213,11 +234,14 @@ class Symbol:
         grads = {n: nd.zeros(s, ctx, dtype=type_dict.get(n, "float32"))
                  for n, s in zip(arg_names, arg_shapes)
                  if reqs.get(n, "null") != "null"}
-        return Executor(self, ctx, args, grads, reqs)
+        return Executor(self, ctx, args, grads, reqs, compute_dtype,
+                        keep_dtype)
 
-    def bind(self, ctx, args, args_grad=None, grad_req="write"):
+    def bind(self, ctx, args, args_grad=None, grad_req="write",
+             compute_dtype=None, keep_dtype=()):
         """Bind caller-provided argument arrays (a list in
-        ``list_arguments`` order or a dict by name)."""
+        ``list_arguments`` order or a dict by name); ``compute_dtype``
+        and ``keep_dtype`` as :class:`Executor`'s."""
         from .executor import Executor
         arg_names = self.list_arguments()
         if isinstance(args, dict):
@@ -230,7 +254,8 @@ class Symbol:
             grads = {n: g for n, g in zip(arg_names, args_grad)
                      if g is not None}
         return Executor(self, ctx, list(args), grads,
-                        _grad_reqs(arg_names, grad_req))
+                        _grad_reqs(arg_names, grad_req), compute_dtype,
+                        keep_dtype)
 
     def __repr__(self):
         return "<Symbol %s>" % (self.name or self.list_outputs())

@@ -100,6 +100,31 @@ def test_card_route_is_one_launch_of_the_plan(card_route, offset, path):
     assert dg.shape == dg2.shape == db2.shape == (width,)
 
 
+@pytest.mark.parametrize("offset,path", [(0, 1), (4, 1), (2, 0), (1, 0)])
+def test_bf16_card_route_takes_v2_on_8_byte_chunks(card_route, offset,
+                                                   path):
+    """bf16 rows take v2 when every row tensor starts on a 4-element
+    chunk, 8 bytes (offsets 0 and 4 elements), else v1 (2 and 1); each
+    launch is one call of the bf16 entry point under the bf16 name, and
+    the outputs are bf16."""
+    rows, width = 33, 512
+    buf = torch.zeros(2, rows * width + offset, dtype=torch.bfloat16)
+    x, dy = (b[offset:].view(rows, width) for b in buf)
+    g = torch.ones(width, dtype=torch.bfloat16)
+    assert norm._bwd_aligned(x, g, dy) == (path == 1)
+    # 8 bytes in: a bf16 chunk, not an fp32 one (16 bytes)
+    assert norm._bwd_aligned(torch.zeros(9, dtype=torch.bfloat16)[4:])
+    assert not norm._bwd_aligned(torch.zeros(9)[2:])
+    outs = norm.rms_norm_bwd(x, g, dy) + norm.layer_norm_bwd(x, g, dy)
+    assert [a[1:3] for a in card_route] == [
+        ("rms_norm_bwd_bf16", "mxt_rms_norm_bwd_bf16"),
+        ("layer_norm_bwd_bf16", "mxt_layer_norm_bwd_bf16")]
+    plan = norm._bwd_plan(rows, width, path == 1, H100_SMS)
+    for args in card_route:
+        assert args[-2:] == (path, plan.rows_per_warp)
+    assert all(t.dtype == torch.bfloat16 for t in outs)
+
+
 def _layout(path, width):
     """``idx[lane, k]``: the column a lane holds k-th, in the order it
     sums them (-1 past the row).  v1: columns lane, lane + 32, ...; v2:
