@@ -94,7 +94,12 @@ sources in this checkout on first use.  Phases, each fatal on failure:
    backwards at widths 4, 512 and 1024 (v2, also 8 bytes off 16-byte
    alignment) and 513, 1028 and rows 2 bytes off (v1), dx, dgamma and
    dbeta; the head's bf16 softmax and gradient at 2, 8192 and 8193
-   classes, float32 labels random, at the last column and outside;
+   classes, float32 labels random, at the last column and outside; the
+   bf16 cross-entropy loss and gradient at 4096 x 8192 (the registers
+   body), 64 x 8193 and 4096 x 2 (scalar and narrow) and rows 2 bytes
+   off 16-byte alignment, float32 labels random, at 0, at the last
+   column and outside (-1 and the class count): the loss within 1e-5 x
+   max|ref|, the gradient within one bf16 ulp of max|ref|;
 6. train the transformer LM at full width (4 layers, hidden 512, 8 heads,
    vocab 8192, seq_len 256, batch 16) through ``Module.fit`` for 20 SGD
    steps (momentum 0.9, learning rate 0.005) on a successor language:
@@ -119,9 +124,21 @@ sources in this checkout on first use.  Phases, each fatal on failure:
    6's Xavier start on phase 6's data for 20 steps: exact kernel
    launches per step (the cross-entropy kernels, not SoftmaxOutput's),
    a finite falling loss, ms per step and samples/s beside phase 6's;
+8b. phase 8 in bf16 (``imperative_loss(..., compute_dtype='bfloat16')``:
+   every weight through ``mx.nd.Cast`` inside ``record()``, the loss
+   ``softmax_cross_entropy`` on bf16 logits): exact bf16 kernel launches
+   per step (the bf16 cross-entropy pair), none of the fp32 ones, no
+   wrapper's plain version reached, a finite falling loss, the weights,
+   gradients and momenta float32 after the run; ms per step and
+   samples/s beside phases 8 and 6b;
 9. one imperative step from identical parameters on the card against
    the CPU (TF32 off), and against phase 7's ``Module`` step on the
    card: every gradient within 1e-3 x max|ref|;
+9b. phase 9 in bf16: the card's imperative bf16 step against the CPU's,
+   and against phase 7b's ``Module`` bf16 step on the card, under
+   phase 7b's bounds (the loss 2e-2, each gradient 5e-2 x its max|ref|,
+   or bf16's own distance from phase 9's fp32 step where that is
+   larger), each array's ratio to its bound printed;
 5+. the training kernels' times at their training shapes (the norm
    backwards also with L2 cold, ``ms_cold``: a 256 MB buffer written
    before each launch, outside the events, and their v1 path beside them,
@@ -132,9 +149,11 @@ sources in this checkout on first use.  Phases, each fatal on failure:
    512 with their v1 path beside, the head's two bodies at 4096 x 8192,
    ``flash_attention_bf16`` at B16 H8 L256 D64 causal; library calls in
    bf16), then the imperative plane's: the cross-entropy loss and
-   gradient, the fused softmax's backward and an ``rtc`` kernel
-   (``fma1``, checked in phase 2+ against ``torch.addcmul`` within 2
-   ulp).
+   gradient, the fused softmax's backward, phase 8b's bf16 loss and
+   gradient at 4096 x 8192 (yardstick bf16 ``F.cross_entropy`` and its
+   backward; the fp32 rows of this call beside them) and an ``rtc``
+   kernel (``fma1``, checked in phase 2+ against ``torch.addcmul``
+   within 2 ulp).
 
 ``python3 chip_smoke.py --profile`` adds, after phases 6 and 6b, a
 ``torch.profiler`` window over five training steps of each: device time
@@ -262,6 +281,11 @@ SOURCES = {
     "xent_grad_from_probs_bf16": (
         "mxnet_tpu_torch/kernels/csrc/softmax_xent.cu",
         "mxnet_tpu/pallas_ops/softmax_xent.py:82"),
+    "softmax_xent_loss_bf16": ("mxnet_tpu_torch/kernels/csrc/softmax_xent.cu",
+                               "mxnet_tpu/pallas_ops/softmax_xent.py:91"),
+    "softmax_xent_loss_grad_bf16": (
+        "mxnet_tpu_torch/kernels/csrc/softmax_xent.cu",
+        "mxnet_tpu/pallas_ops/softmax_xent.py:102"),
 }
 # serving phase -> (store arguments, kernels that must launch, kernels
 # that must not)
@@ -303,11 +327,11 @@ TRAIN_BF16_LAUNCHES_PER_STEP = {
     "rms_norm_bf16": 8, "rms_norm_bwd_bf16": 8, "layer_norm_bf16": 1,
     "layer_norm_bwd_bf16": 1, "softmax_rows_bf16": 1,
     "xent_grad_from_probs_bf16": 1, "flash_attention_bf16": 4}
-# phase 7b's tolerances, of each array's max|ref| (card vs CPU, one
-# bf16 step): the repo's bf16 logits bound for the probabilities, 5e-2
-# for each gradient; an array that bf16 itself moves further from fp32
-# on the CPU is held to that distance instead (phase_train_bf16_vs_cpu)
-BF16_STEP_TOL = {"probabilities": 2e-2, "gradient": 5e-2}
+# phase 7b's and 9b's tolerances, of each array's max|ref| (one bf16
+# step): the repo's bf16 logits bound for the probabilities and the
+# loss, 5e-2 for each gradient; an array that bf16 itself moves further
+# from fp32 is held to that distance instead (hold_bf16)
+BF16_STEP_TOL = {"probabilities": 2e-2, "loss": 2e-2, "gradient": 5e-2}
 # phase 2's bf16 norm backward edges (rows, width, element offset): v2
 # at widths 4, 512 and 1024 and 8 bytes off 16-byte alignment; v1 at
 # widths 513 and 1028 and rows 2 bytes off
@@ -316,6 +340,11 @@ NORM_BWD_BF16_EDGES = ((64, 4, 0), (4096, 512, 0), (64, 1024, 0),
                        (300, 512, 1))
 # phase 2's bf16 head: (rows, classes) at 2, 8192 and 8193 classes
 HEAD_BF16_CASES = ((4096, 2), (TRAIN_ROWS, 8192), (64, 8193))
+# phase 2's bf16 cross-entropy loss and gradient (rows, classes, element
+# offset): the registers body at 8192, the scalar loops at 8193, narrow
+# rows, and rows 2 bytes off 16-byte alignment
+XENT_BF16_CASES = ((TRAIN_ROWS, 8192, 0), (64, 8193, 0), (4096, 2, 0),
+                   (300, 8192, 1))
 TRAIN_STEPS, TRAIN_WARMUP = 20, 5
 # bench.py's SGD with momentum 0.9, at a tenth of its learning rate: its
 # 0.05 was set for random tokens, whose loss nobody reads; on the
@@ -329,6 +358,12 @@ IMPERATIVE_LAUNCHES_PER_STEP = {
     "rms_norm": 8, "rms_norm_bwd": 8, "layer_norm": 1, "layer_norm_bwd": 1,
     "softmax_xent_loss": 1, "softmax_xent_loss_grad": 1,
     "flash_attention": 4}
+# the same step in bf16 (imperative_loss(..., compute_dtype='bfloat16'):
+# every weight through mx.nd.Cast): the bf16 names, none of the fp32 ones
+IMPERATIVE_BF16_LAUNCHES_PER_STEP = {
+    "rms_norm_bf16": 8, "rms_norm_bwd_bf16": 8, "layer_norm_bf16": 1,
+    "layer_norm_bwd_bf16": 1, "flash_attention_bf16": 4,
+    "softmax_xent_loss_bf16": 1, "softmax_xent_loss_grad_bf16": 1}
 # the rtc kernel of phases 2+ and 5+: o = x * y + 1, which nvcc contracts
 # to one fma (torch.addcmul's rounding)
 RTC_FMA1 = r'''
@@ -897,7 +932,7 @@ def phase_compare_train_bf16(dev):
     paths (``NORM_BWD_BF16_EDGES``: dx, dgamma and dbeta), the head's
     softmax and its gradient (``HEAD_BF16_CASES``; labels random, at the
     last column and outside the classes, float32; the gradient from the
-    kernel's own p)."""
+    kernel's own p), then ``phase_compare_xent_bf16``."""
     errs = {}
     for rows, width, offset in NORM_BWD_BF16_EDGES:
         x, g, dy = norm_bwd_edge_inputs(rows, width, 0, dev)
@@ -942,6 +977,45 @@ def phase_compare_train_bf16(dev):
             softmax_xent.xent_grad_from_probs_reference(p, lbl, 1.0 / rows))
         errs["xent_grad_from_probs_bf16"] = max(
             errs.get("xent_grad_from_probs_bf16", 0.0), err)
+    errs.update(phase_compare_xent_bf16(dev))
+    return errs
+
+
+def phase_compare_xent_bf16(dev):
+    """The bf16 cross-entropy loss and gradient against their plain
+    versions at ``XENT_BF16_CASES``, float32 labels random, at 0, at the
+    last column and outside (-1 and the class count), float32 g: the
+    loss float32 within 1e-5 x max|ref|, the gradient bf16 within one
+    bf16 ulp of max|ref|."""
+    errs = {}
+    rs = np.random.RandomState(19)
+    for rows, classes, offset in XENT_BF16_CASES:
+        x = torch.from_numpy((3 * rs.randn(rows, classes)).astype(
+            np.float32)).to(dev)
+        x = bf16_offset_copy(x, offset)
+        lbl = rs.randint(0, classes, rows).astype(np.float32)
+        lbl[0::5], lbl[1::5], lbl[2::5], lbl[3::5] = 0, classes - 1, -1, \
+            classes
+        lbl = torch.from_numpy(lbl).to(dev)
+        g = torch.from_numpy(rs.uniform(0.5, 2.0, rows).astype(
+            np.float32)).to(dev)
+        shape = ("rows=%d classes=%d offset=%d bf16 labels random, 0, last, "
+                 "-1, classes" % (rows, classes, 2 * offset))
+        loss = softmax_xent.xent_loss_rows(x, lbl)
+        grad = softmax_xent.softmax_xent_loss_grad(x, lbl, g)
+        if loss.dtype != torch.float32 or grad.dtype != torch.bfloat16:
+            raise SystemExit("chip_smoke: the bf16 loss kernels wrote %s "
+                             "and %s" % (loss.dtype, grad.dtype))
+        want = softmax_xent.xent_loss_rows_reference(x, lbl)
+        err = agree("softmax_xent_loss_bf16", shape, loss, want,
+                    1e-5 * want.abs().max().item())
+        errs["softmax_xent_loss_bf16"] = max(
+            errs.get("softmax_xent_loss_bf16", 0.0), err)
+        err = agree_bf16("softmax_xent_loss_grad_bf16", shape, grad,
+                         softmax_xent.softmax_xent_loss_grad_reference(
+                             x, lbl, g))
+        errs["softmax_xent_loss_grad_bf16"] = max(
+            errs.get("softmax_xent_loss_grad_bf16", 0.0), err)
     return errs
 
 
@@ -1684,6 +1758,44 @@ def step_params():
     return params
 
 
+def hold_bf16(phase, what, got, ref, ref32):
+    """Each array of a bf16 step (``got``) against ``ref``: within its
+    ``BF16_STEP_TOL`` x max|ref| or, where bf16 itself moves ``ref``
+    further than that from the fp32 step ``ref32`` (in this run), within
+    that distance.  Logs each array's ratio to its bound; fatal past
+    it."""
+    worst, worst_name, failed, floored = 0.0, None, [], []
+    for name, r in ref.items():
+        g = got[name]
+        if not np.isfinite(g).all():
+            raise SystemExit("chip_smoke: %s is not finite (phase %s, %s)"
+                             % (name, phase, what))
+        tol = BF16_STEP_TOL.get(name, BF16_STEP_TOL["gradient"])
+        scale = max(np.abs(r).max(), 1e-30)
+        rel = float(np.abs(g - r).max() / scale)
+        own = float(np.abs(r - ref32[name]).max() / scale)
+        bound = max(tol, own)
+        if own > tol:
+            floored.append(name)
+        log("phase %s %s %s: %.3e x max|ref|, %.3f of its bound %.3e (%s); "
+            "bf16 vs fp32 %.3e; max|ref| %.3e"
+            % (phase, what, name, rel, rel / bound, bound,
+               "bf16's own distance" if own > tol else "tolerance", own,
+               scale))
+        if rel / bound > worst:
+            worst, worst_name = rel / bound, name
+        if not rel <= bound:
+            failed.append(name)
+    if failed:
+        raise SystemExit("chip_smoke: %s differ past their bounds (phase "
+                         "%s, %s)" % (failed, phase, what))
+    log("phase %s %s: %d arrays agree (tol %s x max|ref|); held to bf16's "
+        "own distance from fp32 instead: %s; %s"
+        % (phase, what, len(ref), BF16_STEP_TOL, floored or "none",
+           "worst %s at %.3f of its bound" % (worst_name, worst)
+           if worst_name else "every array equal"))
+
+
 def phase_train_bf16_vs_cpu(dev, params):
     """Phase 7b: one ``compute_dtype='bfloat16'`` step from phase 7's
     parameters and batch on the card and on the CPU.  Each array is held
@@ -1696,42 +1808,12 @@ def phase_train_bf16_vs_cpu(dev, params):
     its products correctly more often; the kernels against the plain
     versions), and at this width the q/k gradients of blocks 1-3, near
     1e-7 with attention near uniform, carry about 10% of bf16 noise on
-    either device (PERF.md, section 6)."""
+    either device (PERF.md, section 6).  Returns the card's arrays."""
     card = one_step(dev, params, "bfloat16", "7b")
     cpu = one_step(torch.device("cpu"), params, "bfloat16", "7b")
     cpu32 = one_step(torch.device("cpu"), params, phase="7b")
-    worst, worst_name, failed, floored = 0.0, None, [], []
-    for name, ref in cpu.items():
-        got = card[name]
-        if not np.isfinite(got).all():
-            raise SystemExit("chip_smoke: %s is not finite on the card "
-                             "(phase 7b)" % name)
-        tol = BF16_STEP_TOL["probabilities" if name == "probabilities"
-                            else "gradient"]
-        scale = max(np.abs(ref).max(), 1e-30)
-        rel = float(np.abs(got - ref).max() / scale)
-        own = float(np.abs(ref - cpu32[name]).max() / scale)
-        bound = max(tol, own)
-        if own > tol:
-            floored.append(name)
-        log("phase 7b %s: card vs CPU %.3e x max|ref|, %.3f of its bound "
-            "%.3e (%s); CPU bf16 vs fp32 %.3e; max|ref| %.3e"
-            % (name, rel, rel / bound, bound,
-               "bf16's own distance" if own > tol else "tolerance", own,
-               scale))
-        if rel / bound > worst:
-            worst, worst_name = rel / bound, name
-        if not rel <= bound:
-            failed.append(name)
-    if failed:
-        raise SystemExit("chip_smoke: %s differ between card and CPU in "
-                         "bf16 past their bounds (phase 7b)" % failed)
-    log("phase 7b bf16 training step card vs CPU: probabilities (tol %.0e "
-        "x max|ref|) and %d gradients (tol %.0e x max|ref| each) agree; "
-        "held to bf16's own distance from fp32 instead: %s; worst %s at "
-        "%.3f of its bound"
-        % (BF16_STEP_TOL["probabilities"], len(cpu) - 1,
-           BF16_STEP_TOL["gradient"], floored or "none", worst_name, worst))
+    hold_bf16("7b", "bf16 training step card vs CPU", card, cpu, cpu32)
+    return card
 
 
 def phase_train_vs_cpu(dev):
@@ -1780,14 +1862,16 @@ def xavier_params():
     return out
 
 
-def imperative_step(w, mom, X, y):
+def imperative_step(w, mom, X, y, compute_dtype=None):
     """One imperative training step as a user writes it: the forward of
-    ``transformer_lm.imperative_loss`` under ``autograd.record()``, the
+    ``transformer_lm.imperative_loss`` under ``autograd.record()`` (with
+    ``compute_dtype``: every weight through ``mx.nd.Cast`` first), the
     backward, then ``sgd_mom_update`` into every weight (``mom`` None:
     no update).  Returns the summed loss NDArray."""
     data, label = mx.nd.array(X), mx.nd.array(y)
     with mx.autograd.record():
-        loss = tlm.imperative_loss(mx.nd, w, data, label, TRAIN_SEQ, SPEC)
+        loss = tlm.imperative_loss(mx.nd, w, data, label, TRAIN_SEQ, SPEC,
+                                   compute_dtype=compute_dtype)
     loss.backward()
     if mom is not None:
         for k in w:
@@ -1798,12 +1882,21 @@ def imperative_step(w, mom, X, y):
     return loss
 
 
-def phase_imperative(card, step_ms_module):
+def phase_imperative(card, step_ms_module, compute_dtype=None,
+                     step_ms_fp32=None):
     """Phase 6's training written imperatively on ``cuda:0`` (the
     default context): the same data and Xavier start, SGD momentum 0.9
     at lr 0.005 with rescale_grad 1/batch, for TRAIN_STEPS steps.  The
     summed cross-entropy has SoftmaxOutput's gradient, so the two runs
-    take the same steps.  Returns the run's launch counts."""
+    take the same steps.  ``compute_dtype='bfloat16'`` is phase 8b: the
+    weights through ``mx.nd.Cast`` inside ``record()``, the bf16 launch
+    table, no wrapper's plain version reached, and float32 weights,
+    gradients and momenta after the run; its times beside phase 8's
+    (``step_ms_fp32``) and phase 6b's (``step_ms_module``).  Returns the
+    run's launch counts and its ms per step."""
+    tag = "8b" if compute_dtype else "8"
+    table = (IMPERATIVE_BF16_LAUNCHES_PER_STEP if compute_dtype
+             else IMPERATIVE_LAUNCHES_PER_STEP)
     X, y = train_data(TRAIN_STEPS * TRAIN_BATCH)
     params = xavier_params()
     w = {k: mx.nd.array(v) for k, v in params.items()}
@@ -1814,64 +1907,96 @@ def phase_imperative(card, step_ms_module):
     kernels.reset_launch_counts()
     last = kernels.launch_counts()
     tic = time.perf_counter()
-    for i in range(TRAIN_STEPS):
-        lo = i * TRAIN_BATCH
-        loss = imperative_step(w, mom, X[lo:lo + TRAIN_BATCH],
-                               y[lo:lo + TRAIN_BATCH])
-        losses.append(float(loss.asscalar()) / TRAIN_ROWS)   # syncs
-        now = kernels.launch_counts()
-        steps.append({k: now[k] - last[k] for k in now})
-        last = now
-        if i in (TRAIN_WARMUP - 1, TRAIN_STEPS - 1):
-            torch.cuda.synchronize()
-            clock[i] = time.perf_counter()
-    torch.cuda.synchronize()
+    with plain_guard() as plain:
+        for i in range(TRAIN_STEPS):
+            lo = i * TRAIN_BATCH
+            loss = imperative_step(w, mom, X[lo:lo + TRAIN_BATCH],
+                                   y[lo:lo + TRAIN_BATCH], compute_dtype)
+            losses.append(float(loss.asscalar()) / TRAIN_ROWS)   # syncs
+            now = kernels.launch_counts()
+            steps.append({k: now[k] - last[k] for k in now})
+            last = now
+            if i in (TRAIN_WARMUP - 1, TRAIN_STEPS - 1):
+                torch.cuda.synchronize()
+                clock[i] = time.perf_counter()
+        torch.cuda.synchronize()
     counts = kernels.launch_counts()
     wall = time.perf_counter() - tic
+    if plain:
+        raise SystemExit("chip_smoke: phase %s reached plain versions: %s"
+                         % (tag, dict(plain)))
     want = dict.fromkeys(kernels.KERNELS, 0)
-    want.update(IMPERATIVE_LAUNCHES_PER_STEP)
+    want.update(table)
     for i, got in enumerate(steps):
         if got != want:
-            raise SystemExit("chip_smoke: imperative step %d launched %s, "
-                             "want %s" % (i, got, want))
+            raise SystemExit("chip_smoke: phase %s imperative step %d "
+                             "launched %s, want %s" % (tag, i, got, want))
     if not all(np.isfinite(losses)):
         raise SystemExit("chip_smoke: imperative training gave a "
-                         "non-finite loss")
-    log("phase 8 mean loss per token per step: %s"
-        % " ".join("%.3f" % v for v in losses))
+                         "non-finite loss (phase %s)" % tag)
+    if compute_dtype:
+        if loss._data.dtype != torch.bfloat16:
+            raise SystemExit("chip_smoke: phase 8b loss is %s"
+                             % loss._data.dtype)
+        arrays = {"weight " + k: v._data for k, v in w.items()}
+        arrays.update(("gradient " + k, v.grad._data) for k, v in w.items())
+        arrays.update(("momentum " + k, v._data) for k, v in mom.items())
+        wrong = {k: t.dtype for k, t in arrays.items()
+                 if t.dtype != torch.float32}
+        if wrong:
+            raise SystemExit("chip_smoke: phase 8b master arrays not "
+                             "float32: %s" % wrong)
+        log("phase 8b: loss bf16; %d weights, gradients and momenta float32"
+            % len(arrays))
+    log("phase %s mean loss per token per step: %s"
+        % (tag, " ".join("%.3f" % v for v in losses)))
     first, final = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
     if not final < first:
-        raise SystemExit("chip_smoke: imperative loss did not fall: first 5 "
-                         "steps %.4f, last 5 %.4f" % (first, final))
+        raise SystemExit("chip_smoke: imperative loss did not fall (phase "
+                         "%s): first 5 steps %.4f, last 5 %.4f"
+                         % (tag, first, final))
     timed = TRAIN_STEPS - TRAIN_WARMUP
     sec = clock[TRAIN_STEPS - 1] - clock[TRAIN_WARMUP - 1]
     step_ms = sec * 1e3 / timed
-    log("phase 8 trained %d imperative steps (%.2f s): mean loss per token "
-        "first 5 steps %.4f (perplexity %.1f), last 5 %.4f (%.1f); "
+    beside = "; phase %s (Module.fit%s) %.3f ms per step, %.1f samples/s" % (
+        "6b" if compute_dtype else "6", " bf16" if compute_dtype else "",
+        step_ms_module, TRAIN_BATCH * 1e3 / step_ms_module)
+    if step_ms_fp32 is not None:
+        beside += ("; phase 8 (fp32) %.3f ms per step, %.1f samples/s; "
+                   "ratio %.3f" % (step_ms_fp32, TRAIN_BATCH * 1e3
+                                   / step_ms_fp32, step_ms / step_ms_fp32))
+    log("phase %s trained %d imperative steps%s (%.2f s): mean loss per "
+        "token first 5 steps %.4f (perplexity %.1f), last 5 %.4f (%.1f); "
         "launches per step %s; steps %d..%d: %.3f ms per step, %.1f "
-        "samples/s; phase 6 (Module.fit) %.3f ms per step, %.1f samples/s "
-        "[%s]"
-        % (TRAIN_STEPS, wall, first, np.exp(first), final, np.exp(final),
-           IMPERATIVE_LAUNCHES_PER_STEP, TRAIN_WARMUP + 1, TRAIN_STEPS,
-           step_ms, timed * TRAIN_BATCH / sec, step_ms_module,
-           TRAIN_BATCH * 1e3 / step_ms_module, card))
-    return counts
+        "samples/s%s [%s]"
+        % (tag, TRAIN_STEPS, " in %s" % compute_dtype if compute_dtype
+           else "", wall, first, np.exp(first), final, np.exp(final), table,
+           TRAIN_WARMUP + 1, TRAIN_STEPS, step_ms, timed * TRAIN_BATCH / sec,
+           beside, card))
+    return counts, step_ms
 
 
-def imperative_grads(ctx, params):
+def imperative_grads(ctx, params, compute_dtype=None):
     """Loss and every gradient of one imperative step from ``params`` on
-    ``ctx``, as numpy arrays by name."""
+    ``ctx``, as numpy arrays by name (a bf16 loss widened to float32,
+    the gradients float32 in either dtype)."""
     X, y = train_data(TRAIN_BATCH)
     tic = time.perf_counter()
     with ctx:
         w = {k: mx.nd.array(v) for k, v in params.items()}
         for v in w.values():
             v.attach_grad()
-        loss = imperative_step(w, None, X, y)
+        loss = imperative_step(w, None, X, y, compute_dtype)
+        dtypes = {v.grad._data.dtype for v in w.values()}
+        if dtypes != {torch.float32}:
+            raise SystemExit("chip_smoke: a %s imperative step gave %s "
+                             "gradients" % (compute_dtype or "float32",
+                                            dtypes))
         out = {"loss": loss.asnumpy()}
         out.update((k, v.grad.asnumpy()) for k, v in w.items())
-    log("phase 9 one imperative step on %s: %.2f s"
-        % (ctx, time.perf_counter() - tic))
+    log("phase %s one imperative %s step on %s: %.2f s"
+        % ("9b" if compute_dtype else "9", compute_dtype or "float32", ctx,
+           time.perf_counter() - tic))
     return out
 
 
@@ -1896,7 +2021,7 @@ def phase_imperative_vs(params, module_card):
     """Phase 9: one imperative step from phase 7's parameters on the
     card against the CPU, and its gradients against phase 7's Module
     step on the card (``module_card``): the imperative plane against
-    the symbolic one."""
+    the symbolic one.  Returns the CPU's arrays."""
     card = imperative_grads(mx.gpu(0), params)
     cpu = imperative_grads(mx.cpu(), params)
     worst_rel("imperative step card vs CPU", card, cpu)
@@ -1904,6 +2029,25 @@ def phase_imperative_vs(params, module_card):
               {k: v for k, v in card.items() if k != "loss"},
               {k: v for k, v in module_card.items()
                if k != "probabilities"})
+    return cpu
+
+
+def phase_imperative_bf16_vs(params, module_card_bf16, cpu32):
+    """Phase 9b: one imperative bf16 step (every weight through
+    ``mx.nd.Cast``) from phase 7's parameters on the card against the
+    CPU, and its gradients against phase 7b's ``Module`` bf16 step on
+    the card (``module_card_bf16``), each array under ``hold_bf16``'s
+    bounds with phase 9's CPU fp32 step (``cpu32``) as the fp32 side.
+    The Module's head rounds p to bf16 before ``p - onehot``; the
+    imperative gradient rounds once after, so the two planes agree to
+    bf16's bounds, not to phase 9's 1e-3."""
+    card = imperative_grads(mx.gpu(0), params, "bfloat16")
+    cpu = imperative_grads(mx.cpu(), params, "bfloat16")
+    hold_bf16("9b", "imperative bf16 step card vs CPU", card, cpu, cpu32)
+    hold_bf16("9b", "imperative vs Module bf16 gradients on the card",
+              {k: v for k, v in card.items() if k != "loss"},
+              {k: v for k, v in module_card_bf16.items()
+               if k != "probabilities"}, cpu32)
 
 
 def time_ms(fn, n=60, flush=None):
@@ -2240,10 +2384,11 @@ def prefill_flash_inputs(fa_shapes, dev):
 def phase_times_train(dev, card, errs, fa_shapes):
     """The training kernels at the training path's shapes, and
     ``flash_attention`` at the shapes of phases 3c's and 3e's prefill
-    launches (``fa_shapes``, their census; 3e's in bf16).  Yardsticks: the autograd backward of
-    ``F.rms_norm`` / ``F.layer_norm``, ``torch.softmax`` and
-    ``F.scaled_dot_product_attention`` in fp32; ``xent_grad_from_probs``
-    has no single-call yardstick."""
+    launches (``fa_shapes``, their census; 3e's in bf16), then the bf16
+    rows (``bf16_train_rows``, ``xent_bf16_rows``).  Yardsticks: the
+    autograd backward of ``F.rms_norm`` / ``F.layer_norm``,
+    ``torch.softmax`` and ``F.scaled_dot_product_attention`` in fp32;
+    ``xent_grad_from_probs`` has no single-call yardstick."""
     F = torch.nn.functional
     t = train_kernel_inputs(dev)
     W, V = SPEC["num_hidden"], SPEC["vocab_size"]
@@ -2310,6 +2455,7 @@ def phase_times_train(dev, card, errs, fa_shapes):
     record("softmax_rows_bwd", "softmax_rows_bwd", shape_v,
            autograd_backward(lambda x: torch.softmax(x, -1), (t["logits"],),
                              t["dyv"]), 4 * 3 * nv, 4 * nv)
+    xent_bf16_rows(card, errs, t, entries)
     k, xs, ys, out = rtc_fma1(t["logits"], t["dyv"])
     one = torch.ones((), device=dev)
     entries["rtc"] = [timed_row(
@@ -2387,6 +2533,43 @@ def bf16_train_rows(dev, card, errs, t, entries):
         dev, card, shape, b["q"], b["k"], b["v"], True, err))
 
 
+def xent_bf16_rows(card, errs, t, entries):
+    """Phase 8b's loss kernels at 4096 x 8192 bf16 (float32 labels, g and
+    loss: 4 bytes a row each), each beside the fp32 row 11 timed in the
+    same call (``fp32_ms``).  Yardsticks: bf16 ``F.cross_entropy(...,
+    reduction='none')`` and its autograd backward."""
+    F = torch.nn.functional
+    V = SPEC["vocab_size"]
+    nv = TRAIN_ROWS * V
+    x = t["logits"].to(torch.bfloat16)
+    lbl, gr = t["label"], t["gr"]
+    lbl_long = lbl.long()
+    shape = "rows=%d classes=%d bf16" % (TRAIN_ROWS, V)
+    for name, fn, plain, library, nbytes, flops in (
+            ("softmax_xent_loss_bf16",
+             lambda: softmax_xent.xent_loss_rows(x, lbl),
+             lambda: softmax_xent.xent_loss_rows_reference(x, lbl),
+             lambda: F.cross_entropy(x, lbl_long, reduction="none"),
+             2 * nv + 4 * 2 * TRAIN_ROWS, 4 * nv),
+            ("softmax_xent_loss_grad_bf16",
+             lambda: softmax_xent.softmax_xent_loss_grad(x, lbl, gr),
+             lambda: softmax_xent.softmax_xent_loss_grad_reference(x, lbl,
+                                                                   gr),
+             autograd_backward(
+                 lambda a: F.cross_entropy(a, lbl_long, reduction="none"),
+                 (x,), gr.to(torch.bfloat16)),
+             2 * 2 * nv + 4 * 2 * TRAIN_ROWS, 6 * nv)):
+        row = timed_row(name, shape, fn, plain, library, nbytes, flops,
+                        errs[name], card, bf16=True)
+        row["fp32_ms"] = entries[name[:-len("_bf16")]][0]["ms"]
+        log("phase 5 %s %s: kernel %.6f ms beside the fp32 row's %.6f ms in "
+            "this call (%.3f of it) [%s]" % (name, shape, row["ms"],
+                                             row["fp32_ms"],
+                                             row["ms"] / row["fp32_ms"],
+                                             card))
+        entries[name] = [row]
+
+
 def kernel_rows(entries, counts):
     """The ``kernels`` JSON rows: the first shape of each kernel (the
     path's own) at the top level, every timed shape under ``shapes``;
@@ -2406,13 +2589,16 @@ def kernel_rows(entries, counts):
                 TRAIN_BF16_LAUNCHES_PER_STEP.get(name, 0),
             "imperative_launches_per_step":
                 IMPERATIVE_LAUNCHES_PER_STEP.get(name, 0),
+            "imperative_bf16_launches_per_step":
+                IMPERATIVE_BF16_LAUNCHES_PER_STEP.get(name, 0),
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             "ms": head["ms"], "plain_ms": head["plain_ms"],
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
             "library_ms": head["library_ms"], "shape": head["shape"],
             "shapes": rows})
         for key in ("bound_cuda_core_ms", "v1_ms", "ms_cold",
-                    "library_ms_cold", "path", "other_path", "other_ms"):
+                    "library_ms_cold", "path", "other_path", "other_ms",
+                    "fp32_ms"):
             if key in head:
                 out[-1][key] = head[key]
     return out
@@ -2462,9 +2648,12 @@ def main(argv):
     if argv:
         profile_train(dev, card, step_ms_bf16, "bfloat16")
     params7, module_card = phase_train_vs_cpu(dev)
-    phase_train_bf16_vs_cpu(dev, params7)
-    counts["imperative"] = phase_imperative(card, step_ms)
-    phase_imperative_vs(params7, module_card)
+    module_card_bf16 = phase_train_bf16_vs_cpu(dev, params7)
+    counts["imperative"], step_ms_imp = phase_imperative(card, step_ms)
+    counts["imperative_bf16"], _ = phase_imperative(
+        card, step_ms_bf16, "bfloat16", step_ms_imp)
+    cpu32 = phase_imperative_vs(params7, module_card)
+    phase_imperative_bf16_vs(params7, module_card_bf16, cpu32)
     pa_shapes, fa_shapes = collections.Counter(), collections.Counter()
     for tag in ("3", "3b", "3d"):
         pa_shapes.update(served[tag]["pa_shapes"])

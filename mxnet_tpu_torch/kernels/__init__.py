@@ -23,7 +23,8 @@ KERNELS = ("rms_norm", "layer_norm", "flash_attention_paged",
            "flash_attention_paged_bf16", "flash_attention_bf16",
            "flash_attention_offset_bf16", "rms_norm_bwd_bf16",
            "layer_norm_bwd_bf16", "softmax_rows_bf16",
-           "xent_grad_from_probs_bf16")
+           "xent_grad_from_probs_bf16", "softmax_xent_loss_bf16",
+           "softmax_xent_loss_grad_bf16")
 _counts = dict.fromkeys(KERNELS, 0)
 _counts_lock = threading.Lock()
 

@@ -45,7 +45,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # dtype -> (launch-count suffix, C entry point suffix) of the row kernels
-# that take fp32 and bf16 (the norms, SoftmaxOutput's head)
+# that take fp32 and bf16 (the norms, SoftmaxOutput's head,
+# softmax_xent_loss)
 SUFFIX = {torch.float32: ("", "_f32"), torch.bfloat16: ("_bf16", "_bf16")}
 # C entry point -> argtypes; every entry point returns a cudaError_t
 _SIGNATURES = {
@@ -81,6 +82,9 @@ _SIGNATURES = {
     "mxt_softmax_xent_loss_f32": (_P, _P, _P, _I, _I, _P),
     # x, label, g, grad, rows, cols, stream
     "mxt_softmax_xent_loss_grad_f32": (_P, _P, _P, _P, _I, _I, _P),
+    # the same two with bf16 x and grad (label, loss and g float32)
+    "mxt_softmax_xent_loss_bf16": (_P, _P, _P, _I, _I, _P),
+    "mxt_softmax_xent_loss_grad_bf16": (_P, _P, _P, _P, _I, _I, _P),
     # p, dy, dx, rows, cols, stream
     "mxt_softmax_rows_bwd_f32": (_P, _P, _P, _I, _I, _P),
     # q, k, v, out, B*H, Lq, Lk, D, causal, scale, path, block_q, stream

@@ -1,5 +1,6 @@
 // The softmax / cross-entropy row kernels for Hopper (sm_90a), fp32;
-// SoftmaxOutput's head (the first two below) in bf16 as well.
+// SoftmaxOutput's head (the first two below) and softmax_xent_loss
+// (the last two) in bf16 as well.
 //
 // Replaces the TPU kernels of mxnet_tpu/pallas_ops/softmax_xent.py:
 //   _softmax_fwd_kernel            p = exp(x - max(x)) / sum(...)  per row
@@ -41,6 +42,22 @@
 // loads a thread) and reads it from device memory once; the gradient
 // reads p and writes the gradient 16 bytes at a time.  Other rows take
 // the scalar loops of the fp32 kernels, widening each element.
+//
+// bf16 softmax_xent_loss (the imperative plane's mx.nd.softmax_cross_
+// entropy on bf16 logits: _xent_loss_kernel and _xent_loss_grad_kernel
+// on bf16 tiles, softmax_xent.py:194): the same fp32 arithmetic; the
+// loss is written as fp32 (one float a row), the gradient
+// (p - onehot) * g rounded to bf16 once; labels and g stay float32.
+// Both hold their row in registers under the head's softmax conditions
+// (width a multiple of 8, at most 8192, rows 16-byte aligned), so each
+// reads the row from device memory once: a max pass and a sum-of-exp
+// pass over the registers with plain block reductions, then the loss
+// writes one float a row and the gradient writes its row 16 bytes at a
+// time.  At 4096 x 8192 the loss took 0.030496 ms this way, against
+// 0.038592 ms for the fp32 kernel's one running (max, sum of exp) pass
+// over 16-byte loads, whose merges cost two exps a shuffle step
+// (chip_smoke.py phase 5 on an H100 80GB HBM3 at 700 W, PERF.md).
+// Other rows take the scalar loops.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -136,20 +153,14 @@ __global__ void __launch_bounds__(kThreads)
     narrow(pr + c, expf(widen(xr[c]) - m) / s);
 }
 
-// bf16 rows of cols % 8 == 0, cols <= 8 * kThreads * NL, 16-byte
-// aligned: thread t holds the 8-value chunks t, t + kThreads, ... (NL
-// of them) in registers, so the row is read once
+// one bf16 row of n8 8-value chunks at x8, read once: thread t loads
+// the chunks t, t + kThreads, ... (NL of them) into v; every thread gets
+// the row's max m and sum of exp s, and v holds exp(x - m)
 template <int NL>
-__global__ void __launch_bounds__(kThreads)
-    softmax_rows_bf16_regs_kernel(const __nv_bfloat16* __restrict__ x,
-                                  __nv_bfloat16* __restrict__ p, int cols) {
-  __shared__ float scratch[kWarps];
-  const size_t off = static_cast<size_t>(blockIdx.x) * cols;
-  const uint4* x8 = reinterpret_cast<const uint4*>(x + off);
-  uint4* p8 = reinterpret_cast<uint4*>(p + off);
-  const int n8 = cols / kVec;
-  float v[NL][kVec];
-  float m = -INFINITY;
+__device__ __forceinline__ void regs_row_exp_sum(
+    const uint4* __restrict__ x8, int n8, float (&v)[NL][kVec],
+    float* scratch, float& m, float& s) {
+  m = -INFINITY;
 #pragma unroll
   for (int j = 0; j < NL; ++j) {
     const int c = threadIdx.x + j * kThreads;
@@ -160,7 +171,7 @@ __global__ void __launch_bounds__(kThreads)
     }
   }
   m = block_reduce<true>(m, scratch);
-  float s = 0.f;
+  s = 0.f;
 #pragma unroll
   for (int j = 0; j < NL; ++j) {
     if (threadIdx.x + j * kThreads < n8) {
@@ -172,6 +183,22 @@ __global__ void __launch_bounds__(kThreads)
     }
   }
   s = block_reduce<false>(s, scratch);
+}
+
+// bf16 rows of cols % 8 == 0, cols <= 8 * kThreads * NL, 16-byte
+// aligned, each held in registers by regs_row_exp_sum
+template <int NL>
+__global__ void __launch_bounds__(kThreads)
+    softmax_rows_bf16_regs_kernel(const __nv_bfloat16* __restrict__ x,
+                                  __nv_bfloat16* __restrict__ p, int cols) {
+  __shared__ float scratch[kWarps];
+  const size_t off = static_cast<size_t>(blockIdx.x) * cols;
+  const uint4* x8 = reinterpret_cast<const uint4*>(x + off);
+  uint4* p8 = reinterpret_cast<uint4*>(p + off);
+  const int n8 = cols / kVec;
+  float v[NL][kVec];
+  float m, s;
+  regs_row_exp_sum<NL>(x8, n8, v, scratch, m, s);
 #pragma unroll
   for (int j = 0; j < NL; ++j) {
     const int c = threadIdx.x + j * kThreads;
@@ -269,8 +296,11 @@ __device__ __forceinline__ void block_reduce_ms(float& m, float& s,
   __syncthreads();
 }
 
-// (max, sum of exp) of one row of `cols` floats at `xr`
-__device__ __forceinline__ void row_max_sum(const float* __restrict__ xr,
+// (max, sum of exp) of one row of `cols` elements at `xr`; vec: fp32
+// rows as float4, every row start 16-byte aligned (bf16 rows that allow
+// 16-byte access take the registers kernels instead)
+template <typename E>
+__device__ __forceinline__ void row_max_sum(const E* __restrict__ xr,
                                             int cols, bool vec, float* sm,
                                             float* ss, float& m, float& s) {
   m = -INFINITY;
@@ -280,35 +310,39 @@ __device__ __forceinline__ void row_max_sum(const float* __restrict__ xr,
     for (int c = threadIdx.x; c < cols / 4; c += kThreads)
       ms_add4(m, s, x4[c]);
   } else {
-    for (int c = threadIdx.x; c < cols; c += kThreads) ms_add(m, s, xr[c]);
+    for (int c = threadIdx.x; c < cols; c += kThreads)
+      ms_add(m, s, widen(xr[c]));
   }
   block_reduce_ms(m, s, sm, ss);
 }
 
+template <typename E>
 __global__ void __launch_bounds__(kThreads)
-    xent_loss_kernel(const float* __restrict__ x,
+    xent_loss_kernel(const E* __restrict__ x,
                      const float* __restrict__ label,
                      float* __restrict__ loss, int cols, bool vec) {
   __shared__ float sm[kWarps], ss[kWarps];
-  const float* xr = x + static_cast<size_t>(blockIdx.x) * cols;
+  const E* xr = x + static_cast<size_t>(blockIdx.x) * cols;
   float m, s;
   row_max_sum(xr, cols, vec, sm, ss, m, s);
   if (threadIdx.x == 0) {
     const int lbl = static_cast<int>(label[blockIdx.x]);   // truncates
-    const float tgt = (lbl >= 0 && lbl < cols) ? xr[lbl] : 0.f;
+    const float tgt = (lbl >= 0 && lbl < cols) ? widen(xr[lbl]) : 0.f;
     loss[blockIdx.x] = logf(s) + m - tgt;
   }
 }
 
+// vec: fp32 rows read and written as float4
+template <typename E>
 __global__ void __launch_bounds__(kThreads)
-    xent_loss_grad_kernel(const float* __restrict__ x,
+    xent_loss_grad_kernel(const E* __restrict__ x,
                           const float* __restrict__ label,
                           const float* __restrict__ g,
-                          float* __restrict__ grad, int cols, bool vec) {
+                          E* __restrict__ grad, int cols, bool vec) {
   __shared__ float sm[kWarps], ss[kWarps];
   const size_t off = static_cast<size_t>(blockIdx.x) * cols;
-  const float* xr = x + off;
-  float* gr = grad + off;
+  const E* xr = x + off;
+  E* gr = grad + off;
   float m, s;
   row_max_sum(xr, cols, vec, sm, ss, m, s);
   const int lbl = static_cast<int>(label[blockIdx.x]);     // truncates
@@ -326,9 +360,61 @@ __global__ void __launch_bounds__(kThreads)
       o.w = (expf(v.w - m) / s - (c0 + 3 == lbl ? 1.f : 0.f)) * gv;
       g4[c] = o;
     }
-  } else {
-    for (int c = threadIdx.x; c < cols; c += kThreads)
-      gr[c] = (expf(xr[c] - m) / s - (c == lbl ? 1.f : 0.f)) * gv;
+    return;
+  }
+  for (int c = threadIdx.x; c < cols; c += kThreads)
+    narrow(gr + c,
+           (expf(widen(xr[c]) - m) / s - (c == lbl ? 1.f : 0.f)) * gv);
+}
+
+// the same rows: logsumexp(x) - x[label]
+template <int NL>
+__global__ void __launch_bounds__(kThreads)
+    xent_loss_bf16_regs_kernel(const __nv_bfloat16* __restrict__ x,
+                               const float* __restrict__ label,
+                               float* __restrict__ loss, int cols) {
+  __shared__ float scratch[kWarps];
+  const size_t off = static_cast<size_t>(blockIdx.x) * cols;
+  const uint4* x8 = reinterpret_cast<const uint4*>(x + off);
+  const int n8 = cols / kVec;
+  float v[NL][kVec];
+  float m, s;
+  regs_row_exp_sum<NL>(x8, n8, v, scratch, m, s);
+  if (threadIdx.x == 0) {
+    const int lbl = static_cast<int>(label[blockIdx.x]);   // truncates
+    const float tgt = (lbl >= 0 && lbl < cols) ? widen(x[off + lbl]) : 0.f;
+    loss[blockIdx.x] = logf(s) + m - tgt;
+  }
+}
+
+// the same rows: (softmax(x) - onehot(label)) * g, rounded once, written
+// 16 bytes at a time
+template <int NL>
+__global__ void __launch_bounds__(kThreads)
+    xent_loss_grad_bf16_regs_kernel(const __nv_bfloat16* __restrict__ x,
+                                    const float* __restrict__ label,
+                                    const float* __restrict__ g,
+                                    __nv_bfloat16* __restrict__ grad,
+                                    int cols) {
+  __shared__ float scratch[kWarps];
+  const size_t off = static_cast<size_t>(blockIdx.x) * cols;
+  const uint4* x8 = reinterpret_cast<const uint4*>(x + off);
+  uint4* g8 = reinterpret_cast<uint4*>(grad + off);
+  const int n8 = cols / kVec;
+  const int lbl = static_cast<int>(label[blockIdx.x]);     // truncates
+  const float gv = g[blockIdx.x];
+  float v[NL][kVec];
+  float m, s;
+  regs_row_exp_sum<NL>(x8, n8, v, scratch, m, s);
+#pragma unroll
+  for (int j = 0; j < NL; ++j) {
+    const int c = threadIdx.x + j * kThreads;
+    if (c < n8) {
+#pragma unroll
+      for (int i = 0; i < kVec; ++i)
+        v[j][i] = (v[j][i] / s - (c * kVec + i == lbl ? 1.f : 0.f)) * gv;
+      g8[c] = store8(v[j]);
+    }
   }
 }
 
@@ -376,6 +462,17 @@ __host__ bool rows_vectorizable(int cols, const void* a, const void* b,
          reinterpret_cast<uintptr_t>(c) % 16 == 0;
 }
 
+// the 16-byte loads a thread makes when a bf16 registers kernel takes
+// the rows at `a` and `b` (cols % 8 == 0, at most 8192, 16-byte
+// aligned); 0 when it does not
+__host__ int bf16_row_loads(int cols, const void* a, const void* b) {
+  const int loads = (cols / kVec + kThreads - 1) / kThreads;
+  return cols % kVec == 0 && loads <= kMaxVecLoads &&
+                 rows_vectorizable(cols, a, b, b)
+             ? loads
+             : 0;
+}
+
 }  // namespace
 
 extern "C" int mxt_softmax_rows_f32(const float* x, float* p, int rows,
@@ -400,22 +497,19 @@ extern "C" int mxt_softmax_rows_bf16(const __nv_bfloat16* x,
                                      __nv_bfloat16* p, int rows, int cols,
                                      cudaStream_t stream) {
   if (rows <= 0 || cols <= 0) return static_cast<int>(cudaGetLastError());
-  const int loads = (cols / kVec + kThreads - 1) / kThreads;
-  if (cols % kVec == 0 && loads <= kMaxVecLoads &&
-      rows_vectorizable(cols, x, p, p)) {
-    if (loads <= 1)
-      softmax_rows_bf16_regs_kernel<1><<<rows, kThreads, 0, stream>>>(
-          x, p, cols);
-    else if (loads <= 2)
-      softmax_rows_bf16_regs_kernel<2><<<rows, kThreads, 0, stream>>>(
-          x, p, cols);
-    else
-      softmax_rows_bf16_regs_kernel<4><<<rows, kThreads, 0, stream>>>(
-          x, p, cols);
-  } else {
+  const int loads = bf16_row_loads(cols, x, p);
+  if (loads == 1)
+    softmax_rows_bf16_regs_kernel<1><<<rows, kThreads, 0, stream>>>(
+        x, p, cols);
+  else if (loads == 2)
+    softmax_rows_bf16_regs_kernel<2><<<rows, kThreads, 0, stream>>>(
+        x, p, cols);
+  else if (loads > 2)
+    softmax_rows_bf16_regs_kernel<4><<<rows, kThreads, 0, stream>>>(
+        x, p, cols);
+  else
     softmax_rows_kernel<__nv_bfloat16><<<rows, kThreads, 0, stream>>>(
         x, p, cols);
-  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -436,7 +530,7 @@ extern "C" int mxt_softmax_xent_loss_f32(const float* x, const float* label,
                                          float* loss, int rows, int cols,
                                          cudaStream_t stream) {
   if (rows > 0 && cols > 0)
-    xent_loss_kernel<<<rows, kThreads, 0, stream>>>(
+    xent_loss_kernel<float><<<rows, kThreads, 0, stream>>>(
         x, label, loss, cols, rows_vectorizable(cols, x, x, x));
   return static_cast<int>(cudaGetLastError());
 }
@@ -447,8 +541,56 @@ extern "C" int mxt_softmax_xent_loss_grad_f32(const float* x,
                                               int rows, int cols,
                                               cudaStream_t stream) {
   if (rows > 0 && cols > 0)
-    xent_loss_grad_kernel<<<rows, kThreads, 0, stream>>>(
+    xent_loss_grad_kernel<float><<<rows, kThreads, 0, stream>>>(
         x, label, g, grad, cols, rows_vectorizable(cols, x, grad, grad));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// bf16 x, float32 label and loss; the registers kernel where the row
+// fits it
+extern "C" int mxt_softmax_xent_loss_bf16(const __nv_bfloat16* x,
+                                          const float* label, float* loss,
+                                          int rows, int cols,
+                                          cudaStream_t stream) {
+  if (rows <= 0 || cols <= 0) return static_cast<int>(cudaGetLastError());
+  const int loads = bf16_row_loads(cols, x, x);
+  if (loads == 1)
+    xent_loss_bf16_regs_kernel<1><<<rows, kThreads, 0, stream>>>(
+        x, label, loss, cols);
+  else if (loads == 2)
+    xent_loss_bf16_regs_kernel<2><<<rows, kThreads, 0, stream>>>(
+        x, label, loss, cols);
+  else if (loads > 2)
+    xent_loss_bf16_regs_kernel<4><<<rows, kThreads, 0, stream>>>(
+        x, label, loss, cols);
+  else
+    xent_loss_kernel<__nv_bfloat16><<<rows, kThreads, 0, stream>>>(
+        x, label, loss, cols, false);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// bf16 x and grad, float32 label and g; the registers kernel where the
+// row fits it
+extern "C" int mxt_softmax_xent_loss_grad_bf16(const __nv_bfloat16* x,
+                                               const float* label,
+                                               const float* g,
+                                               __nv_bfloat16* grad, int rows,
+                                               int cols,
+                                               cudaStream_t stream) {
+  if (rows <= 0 || cols <= 0) return static_cast<int>(cudaGetLastError());
+  const int loads = bf16_row_loads(cols, x, grad);
+  if (loads == 1)
+    xent_loss_grad_bf16_regs_kernel<1><<<rows, kThreads, 0, stream>>>(
+        x, label, g, grad, cols);
+  else if (loads == 2)
+    xent_loss_grad_bf16_regs_kernel<2><<<rows, kThreads, 0, stream>>>(
+        x, label, g, grad, cols);
+  else if (loads > 2)
+    xent_loss_grad_bf16_regs_kernel<4><<<rows, kThreads, 0, stream>>>(
+        x, label, g, grad, cols);
+  else
+    xent_loss_grad_kernel<__nv_bfloat16><<<rows, kThreads, 0, stream>>>(
+        x, label, g, grad, cols, false);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -4,11 +4,13 @@
 Every entry point takes a 2D ``(rows, classes)`` fp32 tensor and
 float32 labels truncated to int32; a label outside ``[0, classes)``
 matches no column.  SoftmaxOutput's head (``softmax_rows``,
-``xent_grad_from_probs``) takes bf16 as well: fp32 arithmetic, the
-output rounded once to bf16, the label still float32; its bf16
-launches count as ``softmax_rows_bf16`` and
-``xent_grad_from_probs_bf16``.  A CPU tensor runs the plain version
-beside each; a CUDA tensor launches ``csrc/softmax_xent.cu`` or raises.
+``xent_grad_from_probs``) and the cross-entropy loss
+(``xent_loss_rows``, ``softmax_xent_loss_grad``) take bf16 as well:
+fp32 arithmetic, a bf16 output rounded once, the label (and the loss's
+per-row ``g`` and the loss itself) still float32; their bf16 launches
+count under the name with ``_bf16`` appended.  A CPU tensor runs the
+plain version beside each; a CUDA tensor launches
+``csrc/softmax_xent.cu`` or raises.
 
 * ``softmax_rows`` / ``xent_grad_from_probs``: SoftmaxOutput's head,
   paired by :class:`SoftmaxOutputHead` with the reference's contract
@@ -68,8 +70,9 @@ def _onehot_rows(x, label):
 
 
 def xent_loss_rows_reference(x, label):
-    """Plain PyTorch per-row ``logsumexp(x) - x[int32(label)]``, float32;
-    a label outside ``[0, classes)`` picks no column (``lse - 0``)."""
+    """Plain PyTorch per-row ``logsumexp(x) - x[int32(label)]``, float32
+    for fp32 or bf16 ``x`` (widened first); a label outside ``[0,
+    classes)`` picks no column (``lse - 0``)."""
     xf = x.float()
     m = torch.amax(xf, dim=-1, keepdim=True)
     lse = torch.log(torch.sum(torch.exp(xf - m), dim=-1, keepdim=True)) + m
@@ -80,7 +83,9 @@ def xent_loss_rows_reference(x, label):
 
 
 def softmax_xent_loss_grad_reference(x, label, g):
-    """Plain PyTorch ``(softmax(x) - onehot(int32(label))) * g[row]``."""
+    """Plain PyTorch ``(softmax(x) - onehot(int32(label))) * g[row]`` in
+    ``x``'s dtype: computed in fp32 from the widened ``x`` and rounded
+    once, as the TPU kernel casts its fp32 tile."""
     p = softmax_rows_reference(x.float())
     onehot = _onehot_rows(x, label).to(torch.float32)
     return ((p - onehot) * g.reshape(-1, 1).float()).to(x.dtype)
@@ -103,6 +108,20 @@ def _check_head_label(name, p, label):
     if label.shape != (p.shape[0],):
         raise KernelError("%s: label shape %s, want (%d,)"
                           % (name, tuple(label.shape), p.shape[0]))
+
+
+def _check_loss_args(name, x, label, *per_row):
+    """The loss kernels' arguments: 2D ``x`` in fp32 or bf16; the label
+    and each per-row vector (``g``) float32 whatever ``x``'s dtype, as
+    the head's label, on ``x``'s device, one a row."""
+    _check_2d(name, x)
+    check_args(name, x, dtypes=tuple(SUFFIX))
+    for t in (label,) + per_row:
+        check_args(name, t)
+        if t.device != x.device:
+            raise KernelError("%s: all tensors must be on %s, got %s"
+                              % (name, x.device, t.device))
+    _check_labels(name, x, label, *per_row)
 
 
 def softmax_rows(x):
@@ -158,31 +177,32 @@ def softmax_rows_bwd(p, dy):
 
 
 def xent_loss_rows(x, label):
-    """Per-row ``logsumexp(x) - x[label]`` of 2D ``x``: ``(rows,)``
-    float32."""
+    """Per-row ``logsumexp(x) - x[label]`` of 2D ``x`` (fp32 or bf16)
+    and a ``(rows,)`` float32 label: ``(rows,)`` float32."""
     if not route("softmax_xent_loss", x):
         return xent_loss_rows_reference(x, label)
-    _check_2d("softmax_xent_loss", x)
-    check_args("softmax_xent_loss", x, label)
-    _check_labels("softmax_xent_loss", x, label)
+    _check_loss_args("softmax_xent_loss", x, label)
+    tag, sfx = SUFFIX[x.dtype]
     loss = torch.empty(x.shape[0], dtype=torch.float32, device=x.device)
-    launch(x, "softmax_xent_loss", "mxt_softmax_xent_loss_f32", x.data_ptr(),
-           label.data_ptr(), loss.data_ptr(), x.shape[0], x.shape[1])
+    launch(x, "softmax_xent_loss" + tag, "mxt_softmax_xent_loss" + sfx,
+           x.data_ptr(), label.data_ptr(), loss.data_ptr(), x.shape[0],
+           x.shape[1])
     return loss
 
 
 def softmax_xent_loss_grad(x, label, g):
-    """``(softmax(x) - onehot(label)) * g[row]`` for 2D logits ``x``,
-    recomputed from ``x``."""
+    """``(softmax(x) - onehot(label)) * g[row]`` for 2D logits ``x``
+    (fp32 or bf16; the gradient in ``x``'s dtype), recomputed from
+    ``x``; ``label`` and ``g`` are ``(rows,)`` float32."""
     if not route("softmax_xent_loss_grad", x):
         return softmax_xent_loss_grad_reference(x, label, g)
-    _check_2d("softmax_xent_loss_grad", x)
-    check_args("softmax_xent_loss_grad", x, label, g)
-    _check_labels("softmax_xent_loss_grad", x, label, g)
+    _check_loss_args("softmax_xent_loss_grad", x, label, g)
+    tag, sfx = SUFFIX[x.dtype]
     grad = torch.empty_like(x)
-    launch(x, "softmax_xent_loss_grad", "mxt_softmax_xent_loss_grad_f32",
-           x.data_ptr(), label.data_ptr(), g.data_ptr(), grad.data_ptr(),
-           x.shape[0], x.shape[1])
+    launch(x, "softmax_xent_loss_grad" + tag,
+           "mxt_softmax_xent_loss_grad" + sfx, x.data_ptr(),
+           label.data_ptr(), g.data_ptr(), grad.data_ptr(), x.shape[0],
+           x.shape[1])
     return grad
 
 

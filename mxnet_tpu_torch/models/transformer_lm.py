@@ -100,14 +100,26 @@ def get_symbol(seq_len, num_layers=2, num_hidden=64, num_heads=4,
                              name="softmax")
 
 
-def imperative_loss(nd, params, data, label, seq_len, spec):
+def imperative_loss(nd, params, data, label, seq_len, spec,
+                    compute_dtype=None):
     """The graph of :func:`get_symbol` built imperatively from ``nd``'s
     ops (``mx.nd``; any module with the reference's ``nd`` op functions),
     ending in ``nd.softmax_cross_entropy`` over the flattened logits
     instead of the SoftmaxOutput head: the summed loss, shape ``(1,)``,
     whose gradient per token is SoftmaxOutput's ``p - onehot``.
     ``params`` maps :func:`get_symbol`'s argument names to NDArrays;
-    ``data`` and ``label`` are ``(batch, seq_len)`` token grids."""
+    ``data`` and ``label`` are ``(batch, seq_len)`` token grids.
+
+    ``compute_dtype`` (``'bfloat16'``): mixed precision as a user writes
+    it, each floating parameter through ``nd.Cast`` before use, so the
+    forward and backward run in that dtype while the gradients reach
+    the master parameters in theirs; the loss comes back in it.
+    ``data`` (read only as indices) and ``label`` keep their dtype, the
+    rule of ``Module(compute_dtype=...)``."""
+    if compute_dtype is not None:
+        params = {k: nd.Cast(v, dtype=compute_dtype)
+                  if str(v.dtype).startswith(("float", "bfloat")) else v
+                  for k, v in params.items()}
     D, H = spec["num_hidden"], spec["num_heads"]
     x = nd.Embedding(data, params["embed_weight"],
                      input_dim=spec["vocab_size"], output_dim=D)

@@ -68,6 +68,34 @@ def _torch_dtype(dtype):
     return found
 
 
+class NamedDtype(str):
+    """``NDArray.dtype`` of a bf16 array where ``ml_dtypes`` is not
+    imported (numpy has no bfloat16 of its own): the name, equal to
+    ``'bfloat16'``, with numpy's ``name`` and ``itemsize``; every call
+    that takes a dtype takes it back."""
+
+    __slots__ = ()
+    itemsize = 2
+
+    @property
+    def name(self):
+        return str(self)
+
+
+def _numpy_dtype(torch_dtype):
+    """The numpy dtype of a torch dtype, as the reference's
+    ``NDArray.dtype``: bfloat16 is ``ml_dtypes``' where that imports,
+    else a :class:`NamedDtype`."""
+    name = str(torch_dtype).replace("torch.", "")
+    if name != "bfloat16":
+        return np.dtype(name)
+    try:
+        import ml_dtypes
+    except ImportError:
+        return NamedDtype(name)
+    return np.dtype(ml_dtypes.bfloat16)
+
+
 def host_numpy(t):
     """A host numpy copy of tensor ``t``.  numpy has no bfloat16, so a
     bf16 tensor widens to float32 on the way, which is exact (every bf16
@@ -134,7 +162,9 @@ class NDArray:
 
     @property
     def dtype(self):
-        return np.dtype(str(self._data.dtype).replace("torch.", ""))
+        """The element type as numpy's dtype (bfloat16:
+        :func:`_numpy_dtype`)."""
+        return _numpy_dtype(self._data.dtype)
 
     @property
     def context(self):
@@ -192,9 +222,11 @@ class NDArray:
         return _eager("reshape", lambda t: t.reshape(tuple(shape)), self)
 
     def astype(self, dtype):
-        """A copy converted to ``dtype``."""
-        dt = _torch_dtype(dtype)
-        return _eager("astype", lambda t: t.to(dt, copy=True), self)
+        """A copy converted to ``dtype``, outside the tape as the
+        reference's: no gradient flows through it under ``record()``
+        (``Cast`` is the recorded cast)."""
+        return NDArray(self._data.detach().to(_torch_dtype(dtype),
+                                              copy=True))
 
     def broadcast_to(self, shape):
         """A copy broadcast to ``shape`` (a 0 keeps this array's

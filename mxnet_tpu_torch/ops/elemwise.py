@@ -1,12 +1,12 @@
 """Elementwise operators (counterpart of ``mxnet_tpu/ops/elemwise.py``):
 ``elemwise_add`` and ``_plus_scalar``, which ``Symbol.__add__`` emits,
-unary math, and the gradient-control ops ``BlockGrad`` /
-``stop_gradient``, ``make_loss`` and ``MakeLoss``."""
+unary math, ``Cast`` / ``cast``, and the gradient-control ops
+``BlockGrad`` / ``stop_gradient``, ``make_loss`` and ``MakeLoss``."""
 from __future__ import annotations
 
 import torch
 
-from .registry import Float, Str, register, register_alias
+from .registry import Dtype, Float, Str, register, register_alias
 
 register("elemwise_add", fcompute=lambda attrs, a, b: torch.add(a, b),
          arguments=("lhs", "rhs"),
@@ -40,6 +40,18 @@ for _name, _fn in (("relu", torch.relu), ("sigmoid", torch.sigmoid),
                    ("log", torch.log), ("sin", torch.sin),
                    ("cos", torch.cos)):
     _unary(_name, _fn)
+
+
+# the recorded cast (NDArray.astype is a copy outside the tape); its
+# backward casts the cotangent back to the input's dtype, so an fp32
+# leaf cast to bf16 gets an fp32 gradient
+register("Cast",
+         fcompute=lambda attrs, x: x.to(getattr(torch, attrs["dtype"]),
+                                        copy=True),
+         attrs={"dtype": Dtype(required=True)},
+         doc="Cast `data` to `dtype`; the gradient is cast back to the "
+             "input's dtype.")
+register_alias("Cast", "cast")
 
 
 register("BlockGrad", fcompute=lambda attrs, x: x.detach(),

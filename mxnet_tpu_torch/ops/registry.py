@@ -53,8 +53,13 @@ def _parse_shape(v):
 
 
 def _parse_dtype(v):
+    """A dtype's name.  ``'bfloat16'`` (or ``NDArray.dtype`` of a bf16
+    array) passes as it is: numpy names it only where ``ml_dtypes`` is
+    imported."""
     if v is None or v == "None":
         return None
+    if v == "bfloat16":
+        return "bfloat16"
     return np.dtype(v).name
 
 

@@ -8,7 +8,10 @@ the plain ``softmax`` / ``log_softmax`` / ``SoftmaxActivation``, the
 :func:`~..kernels.softmax_xent.softmax_xent_loss`, per row
 ``logsumexp(x) - x[label]`` (a label outside the classes adds the row's
 ``logsumexp``: the kernel's rule), forward and gradient as kernels on a
-CUDA tensor; other shapes take the reference's plain formula
+CUDA tensor (fp32 or bf16 logits as they are, the label as float32;
+the per-row loss is float32 and its sum is cast to ``data``'s dtype, as
+the reference's ``jnp.sum(loss).astype(data.dtype)``; fp16 raises);
+other shapes take the reference's plain formula
 ``-sum(onehot(label) * log_softmax(data))``.
 
 ``SoftmaxOutput``: softmax forward, implicit cross-entropy gradient

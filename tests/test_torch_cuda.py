@@ -1244,3 +1244,106 @@ def test_bf16_training_step_on_card_matches_cpu_and_launches(cuda_device):
     assert _rel(res["cuda"][0].float(), res["cpu"][0].float()) <= 2e-2
     for a, b in zip(res["cuda"][1:], res["cpu"][1:]):
         assert _rel(a, b) <= 5e-2
+
+
+# ---------------------------------------------------------------------------
+# the imperative plane in bf16: softmax_xent_loss on bf16 logits
+# ---------------------------------------------------------------------------
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,classes,offset", [
+    (4096, 8192, 0), (64, 8193, 0), (4096, 2, 0), (5, 8, 0), (3, 2048, 0),
+    (7, 1000, 0), (9, 8200, 0), (33, 512, 1), (33, 8192, 1)])
+def test_bf16_softmax_xent_loss_kernels_match_plain(cuda_device, rows,
+                                                    classes, offset):
+    """``softmax_xent_loss`` on bf16 logits with float32 labels and g: the
+    loss float32 within 1e-5 x max|ref|, the gradient bf16 within one
+    bf16 ulp of max|ref| (the row in registers for widths a multiple of
+    8 up to 8192 and 16-byte aligned rows; the scalar loops for 8193,
+    8200, 1000 and rows 2 bytes off, ``offset`` 1); labels random, at 0,
+    the last column, outside on both sides and a fraction."""
+    rs = np.random.RandomState(rows * 3 + classes)
+    (x,) = _bf16_on(cuda_device,
+                    (3 * rs.randn(rows * classes + offset)).astype(np.float32))
+    x = x[offset:].view(rows, classes)
+    lbl, g = _on(cuda_device, _xent_labels(rs, rows, classes),
+                 rs.uniform(0.5, 2.0, rows).astype(np.float32))
+    before = kernels.launch_counts()
+    loss = softmax_xent.xent_loss_rows(x, lbl)
+    grad = softmax_xent.softmax_xent_loss_grad(x, lbl, g)
+    torch.cuda.synchronize()
+    assert loss.dtype == torch.float32 and grad.dtype == torch.bfloat16
+    assert bool(torch.isfinite(loss).all())
+    assert _rel(loss, softmax_xent.xent_loss_rows_reference(x, lbl)) <= 1e-5
+    _within_bf16_ulp(grad, softmax_xent.softmax_xent_loss_grad_reference(
+        x, lbl, g))
+    after = kernels.launch_counts()
+    assert {k: after[k] - before[k] for k in after if after[k] != before[k]} \
+        == {"softmax_xent_loss_bf16": 1, "softmax_xent_loss_grad_bf16": 1}
+
+
+@pytest.mark.cuda
+def test_loss_kernels_refuse_fp16_and_a_bf16_label(cuda_device):
+    """fp16 logits are refused naming the dtype; a bf16 label or g beside
+    bf16 logits too; the op on fp16 logits raises rather than fall back."""
+    x = torch.zeros(4, 8, device=cuda_device)
+    lbl = torch.zeros(4, device=cuda_device)
+    for call in (lambda: softmax_xent.xent_loss_rows(x.half(), lbl),
+                 lambda: softmax_xent.softmax_xent_loss_grad(x.half(), lbl,
+                                                             lbl),
+                 lambda: mx.nd.softmax_cross_entropy(
+                     mx.nd.NDArray(x.half()), mx.nd.NDArray(lbl))):
+        with pytest.raises(ValueError, match="float16"):
+            call()
+    b = x.to(torch.bfloat16)
+    for call in (lambda: softmax_xent.xent_loss_rows(b, lbl.bfloat16()),
+                 lambda: softmax_xent.softmax_xent_loss_grad(
+                     b, lbl, lbl.bfloat16())):
+        with pytest.raises(ValueError, match="float32.*bfloat16"):
+            call()
+
+
+@pytest.mark.cuda
+def test_imperative_bf16_lm_step_on_card_matches_cpu_and_launches(
+        cuda_device):
+    """One imperative bf16 step (``imperative_loss(...,
+    compute_dtype='bfloat16')``) of a small LM on the card and on the
+    CPU: the loss bf16 within 2e-2 x |ref|, every gradient float32
+    within 5e-2 x its max|ref|, and exactly the bf16 kernels
+    launched."""
+    spec = tlm.lm_spec(2, 64, 2, 97)
+    params = tlm.random_params(spec, seed=6)
+    for name in params:
+        if name.endswith("_ffn1_bias"):
+            params[name] = params[name] + np.float32(1.0)
+    rs = np.random.RandomState(7)
+    X = rs.randint(0, 97, (4, 32)).astype(np.float32)
+    y = ((X + 1) % 97).astype(np.float32)
+    res = {}
+    for ctx in (mx.gpu(0), mx.cpu()):
+        with ctx:
+            w = {k: mx.nd.array(v) for k, v in params.items()}
+            for v in w.values():
+                v.attach_grad()
+            kernels.reset_launch_counts()
+            with mx.autograd.record():
+                loss = tlm.imperative_loss(mx.nd, w, mx.nd.array(X),
+                                           mx.nd.array(y), 32, spec,
+                                           compute_dtype="bfloat16")
+            loss.backward()
+            mx.nd.waitall()
+            counts = kernels.launch_counts()
+        assert loss._data.dtype == torch.bfloat16
+        assert all(v.grad._data.dtype == torch.float32 for v in w.values())
+        res[ctx.device_type] = [loss._data.cpu().float()] + [
+            w[k].grad._data.cpu() for k in sorted(w)]
+        want = dict.fromkeys(counts, 0)
+        if ctx.device_type == "gpu":
+            want.update(rms_norm_bf16=4, rms_norm_bwd_bf16=4,
+                        layer_norm_bf16=1, layer_norm_bwd_bf16=1,
+                        softmax_xent_loss_bf16=1,
+                        softmax_xent_loss_grad_bf16=1,
+                        flash_attention_bf16=2)
+        assert counts == want
+    assert _rel(res["gpu"][0], res["cpu"][0]) <= 2e-2
+    for a, b in zip(res["gpu"][1:], res["cpu"][1:]):
+        assert _rel(a, b) <= 5e-2
