@@ -22,11 +22,15 @@ sources in this checkout on first use.  Phases, each fatal on failure:
    ragged offsets, 1e-4 absolute); paged attention's bodies at their
    edges, in each pool dtype: Lq on each side of the decode body's
    threshold, 32 and 33, blocks of 8 and 64 tokens, positions 0 and
-   T * bs - Lq, with the same bounds; every body (decode, tile, v1) of
-   both flash entry points in fp32 and bf16 at phase 3c's shapes: the
-   offset kernel at B32 Lk1024 and B16 Lk512, H8 Lq1 D64, ragged
-   offsets, the causal kernel at B4 and B16 H8 L512 D64 (fp32 1e-4
-   absolute, bf16 one bf16 ulp of max|ref| plus 1e-4);
+   T * bs - Lq, with the same bounds; every body (decode, tile, v1 and,
+   bf16 ``flash_attention``, wgmma) of both flash entry points in fp32
+   and bf16 at phase 3c's shapes: the offset kernel at B32 Lk1024 and
+   B16 Lk512, H8 Lq1 D64, ragged offsets, the causal kernel at B4 and
+   B16 H8 L512 D64 (fp32 1e-4 absolute, bf16 one bf16 ulp of max|ref|
+   plus 1e-4); the wgmma body at phase 3e's and 6b's shapes (B16 L256
+   causal and not) and at its ragged edges
+   (Lq 70, 33, 20, 130 and 7; Lk 100 and 300; D 16, 104 and 128), two
+   launches bit-equal;
 3. serve the transformer LM at full width (4 layers, hidden 512, 8
    heads, vocab 8192, random weights from seed 0) through
    ``ModelRegistry`` + ``GenerationEngine`` with the default knobs: 16
@@ -58,7 +62,9 @@ sources in this checkout on first use.  Phases, each fatal on failure:
    their fp32 forms do not; weight bytes and cache bytes per slot
    exactly half of phase 3c's store; both flash entry points' launches
    in phases 3c and 3e counted by (name, B, H, Lq, Lk, D, causal, body),
-   each on the body ``_plan`` names;
+   each on the body ``_plan`` names, every bf16 ``flash_attention``
+   launch above the decode threshold on wgmma (the same census runs
+   over phases 6, 6b, 8 and 8b);
 4b. the same for phase 3b's int8 store;
 4c. the same for phase 3d's bf16 store, with the bounds of bf16: logits
    within 2e-2 x max|ref|, and a stream may differ only where the CPU's
@@ -144,7 +150,9 @@ sources in this checkout on first use.  Phases, each fatal on failure:
    before each launch, outside the events, and their v1 path beside them,
    ``v1_ms``, on the same inputs 4 bytes off alignment;
    flash_attention also at each shape of phase 3c's prefill launches,
-   and in bf16 at each of phase 3e's, with the v1 body beside each row),
+   and in bf16 at each of phase 3e's, with the v1 body beside each row;
+   bf16 rows also with the bf16 mma.sync tile (``tile_ms``) and the
+   wrapper's host microseconds a call on wgmma and on the tile),
    phase 6b's bf16 kernels at its shapes (the norm backwards at 4096 x
    512 with their v1 path beside, the head's two bodies at 4096 x 8192,
    ``flash_attention_bf16`` at B16 H8 L256 D64 causal; library calls in
@@ -223,6 +231,15 @@ FA_NAMES = {"flash_attention": (torch.float32, False),
             "flash_attention_bf16": (torch.bfloat16, False),
             "flash_attention_offset": (torch.float32, True),
             "flash_attention_offset_bf16": (torch.bfloat16, True)}
+# phase 2's wgmma cases (B, H, Lq, Lk, D, causal): phase 3e's prefills,
+# phase 6b's step causal and not, and the ragged edges (rows past Lq in a
+# CTA, keys past a 64-key tile, D padded 16 -> 64 and 104 -> 128, one
+# row past the decode threshold)
+WGMMA_EDGES = ((4, 8, 512, 512, 64, True), (16, 8, 512, 512, 64, True),
+               (16, 8, 256, 256, 64, True), (16, 8, 256, 256, 64, False),
+               (2, 2, 70, 70, 16, True), (2, 2, 33, 100, 64, False),
+               (2, 2, 20, 20, 128, True), (3, 2, 130, 300, 104, False),
+               (2, 2, 7, 7, 64, True))
 OFS_TIMED_LQ = {dt: sorted({1, 2, flash_attention.DECODE_MAX_LQ[dt],
                             flash_attention.DECODE_MAX_LQ[dt] + 1})
                 for dt in (torch.float32, torch.bfloat16)}
@@ -740,9 +757,10 @@ def agree_fa(name, shape, got, want):
 @contextlib.contextmanager
 def flash_path(path):
     """Every flash attention launch inside takes ``path`` ("v1",
-    "decode" or "tile"), with that path's rows and grid."""
+    "decode", "tile" or, bf16 ``flash_attention`` only, "wgmma"), with
+    that path's rows and grid."""
     plan = flash_attention._plan
-    flash_attention._plan = lambda B, H, Lq, Lk, D, dtype, sms: \
+    flash_attention._plan = lambda B, H, Lq, Lk, D, dtype, sms, offset=False: \
         flash_attention._path_plan(path, B, H, Lq)
     try:
         yield
@@ -754,9 +772,10 @@ def phase_compare_flash(dev):
     """Every body of both flash entry points, in fp32 and bf16, against
     the plain versions at phase 3c's shapes: the offset kernel (decode,
     tile and v1) at B32 Lk1024 and B16 Lk512, H8 Lq1 D64, ragged
-    offsets; the causal kernel (tile and v1) at B4 and B16 H8 L512
-    D64."""
-    errs = {}
+    offsets; the causal kernel (wgmma in bf16, tile and v1) at B4 and
+    B16 H8 L512 D64; then the wgmma body at its edges
+    (``phase_compare_wgmma``)."""
+    errs = phase_compare_wgmma(dev)
     for name, (dtype, offset) in FA_NAMES.items():
         tag = " bf16" if dtype == torch.bfloat16 else ""
         for B, Lk in (((OFS["B"], OFS["Lk"]), (16, 512)) if offset
@@ -774,11 +793,41 @@ def phase_compare_flash(dev):
                 want = flash_attention.blockwise_attention(*args)
                 shape = "B=%d H=%d L=%d D=%d causal%s" % (B, OFS["H"], Lk,
                                                           OFS["D"], tag)
-                paths = ("tile", "v1")
+                paths = ("wgmma", "tile", "v1") if tag else ("tile", "v1")
             for path in paths:
                 with flash_path(path):
                     errs[(name, B, Lk, path)] = agree_fa(
                         name, "%s (%s)" % (shape, path), fn(*args), want)
+    return errs
+
+
+def phase_compare_wgmma(dev):
+    """bf16 ``flash_attention``'s wgmma body against the plain version,
+    within one bf16 ulp of max|ref| plus 1e-4, at the paths' shapes and
+    the ragged edges (``WGMMA_EDGES``); two launches give the same
+    bits."""
+    errs = {}
+    rs = np.random.RandomState(14)
+    for B, H, Lq, Lk, D, causal in WGMMA_EDGES:
+        q = rs.randn(B, H, Lq, D).astype(np.float32)
+        k, v = (rs.randn(B, H, Lk, D).astype(np.float32) for _ in range(2))
+        q, k, v = (torch.from_numpy(a).to(dev).to(torch.bfloat16)
+                   for a in (q, k, v))
+        plan = flash_attention._plan(B, H, Lq, Lk, D, torch.bfloat16,
+                                     _build.sm_count(dev.index))
+        if plan.path != "wgmma":
+            raise SystemExit("chip_smoke: _plan gave %s for bf16 "
+                             "flash_attention at Lq %d D %d" % (plan, Lq, D))
+        got = flash_attention.flash_attention(q, k, v, causal)
+        again = flash_attention.flash_attention(q, k, v, causal)
+        shape = "B=%d H=%d Lq=%d Lk=%d D=%d causal=%s bf16 (wgmma)" % (
+            B, H, Lq, Lk, D, causal)
+        errs[("flash_attention_bf16", "wgmma", B, Lq, Lk, D, causal)] = \
+            agree_fa("flash_attention_bf16", shape, got,
+                     flash_attention.blockwise_attention(q, k, v, causal))
+        if not torch.equal(got, again):
+            raise SystemExit("chip_smoke: the wgmma body gave other bits on "
+                             "a second launch (%s)" % shape)
     return errs
 
 
@@ -1181,7 +1230,8 @@ def fa_census():
         Lk = args[-5] if FA_NAMES[name][1] else args[-6]
         causal = 1 if FA_NAMES[name][1] else args[-4]
         plan = flash_attention._plan(B, H, Lq, Lk, D, x.dtype,
-                                     _build.sm_count(x.device.index))
+                                     _build.sm_count(x.device.index),
+                                     offset=FA_NAMES[name][1])
         if tuple(args[-2:]) != (flash_attention._PATH[plan.path],
                                 plan.block_q):
             raise SystemExit("chip_smoke: %s launched path %s, rows %s; "
@@ -1195,6 +1245,29 @@ def fa_census():
         yield shapes
     finally:
         flash_attention.launch = launch
+
+
+def check_fa_census(tag, fa_shapes, counts):
+    """Log phase ``tag``'s flash attention launches by (name, B, H, Lq,
+    Lk, D, causal, body); fatal when the census missed a launch or a
+    bf16 ``flash_attention`` launch above the decode threshold ran on
+    another body than wgmma (``fa_census`` already held each launch to
+    ``_plan``)."""
+    if not fa_shapes:
+        return
+    log("phase %s flash attention launches by (name, B, H, Lq, Lk, D, "
+        "causal, body) %s" % (tag, dict(sorted(fa_shapes.items()))))
+    if sum(fa_shapes.values()) != sum(counts[k] for k in FA_NAMES):
+        raise SystemExit("chip_smoke: %d flash attention shapes, %d "
+                         "launches in phase %s"
+                         % (sum(fa_shapes.values()),
+                            sum(counts[k] for k in FA_NAMES), tag))
+    off = {k: n for k, n in fa_shapes.items()
+           if k[0] == "flash_attention_bf16" and k[-1] != "wgmma"
+           and k[3] > flash_attention.DECODE_MAX_LQ[torch.bfloat16]}
+    if off:
+        raise SystemExit("chip_smoke: phase %s bf16 flash_attention "
+                         "launches off the wgmma body: %s" % (tag, off))
 
 
 @contextlib.contextmanager
@@ -1281,14 +1354,7 @@ def phase_serve(tag, name, params, reqs):
                              "launches in phase %s"
                              % (sum(shapes.values()),
                                 counts["dequant_matmul"], tag))
-    if fa_shapes:
-        log("phase %s flash attention launches by (name, B, H, Lq, Lk, D, "
-            "causal, body) %s" % (tag, dict(sorted(fa_shapes.items()))))
-        if sum(fa_shapes.values()) != sum(counts[k] for k in FA_NAMES):
-            raise SystemExit("chip_smoke: %d flash attention shapes, %d "
-                             "launches in phase %s"
-                             % (sum(fa_shapes.values()),
-                                sum(counts[k] for k in FA_NAMES), tag))
+    check_fa_census(tag, fa_shapes, counts)
     if pa_shapes:
         by_path = collections.Counter()
         for (kname, b, lq, path), c in pa_shapes.items():
@@ -1587,13 +1653,14 @@ def phase_train(dev, card, compute_dtype=None, step_ms_fp32=None):
     kernels.reset_launch_counts()
     last.update(kernels.launch_counts())
     tic = time.perf_counter()
-    with plain_guard() as plain:
+    with plain_guard() as plain, fa_census() as fa_shapes:
         mod.fit(it, num_epoch=1, optimizer="sgd",
                 optimizer_params=TRAIN_OPT, initializer=mx.init.Xavier(),
                 eval_metric=mx.metric.Perplexity(ignore_label=None),
                 batch_end_callback=on_batch)
         torch.cuda.synchronize()
     counts = kernels.launch_counts()
+    check_fa_census(tag, fa_shapes, counts)
     wall = time.perf_counter() - tic
     if plain:
         raise SystemExit("chip_smoke: phase %s reached plain versions: %s"
@@ -1907,7 +1974,7 @@ def phase_imperative(card, step_ms_module, compute_dtype=None,
     kernels.reset_launch_counts()
     last = kernels.launch_counts()
     tic = time.perf_counter()
-    with plain_guard() as plain:
+    with plain_guard() as plain, fa_census() as fa_shapes:
         for i in range(TRAIN_STEPS):
             lo = i * TRAIN_BATCH
             loss = imperative_step(w, mom, X[lo:lo + TRAIN_BATCH],
@@ -1922,6 +1989,7 @@ def phase_imperative(card, step_ms_module, compute_dtype=None,
         torch.cuda.synchronize()
     counts = kernels.launch_counts()
     wall = time.perf_counter() - tic
+    check_fa_census(tag, fa_shapes, counts)
     if plain:
         raise SystemExit("chip_smoke: phase %s reached plain versions: %s"
                          % (tag, dict(plain)))
@@ -2330,13 +2398,29 @@ def autograd_backward(forward, inputs, cot):
     return lambda: torch.autograd.grad(out, leaves, cot, retain_graph=True)
 
 
+def host_us(fn, n=200):
+    """Host microseconds a call of ``fn`` takes to return (the wrapper's
+    checks, the tensor maps' encoding, the launch; the device runs
+    behind)."""
+    fn()
+    torch.cuda.synchronize()
+    tic = time.perf_counter()
+    for _ in range(n):
+        fn()
+    us = (time.perf_counter() - tic) * 1e6 / n
+    torch.cuda.synchronize()
+    return us
+
+
 def flash_row(dev, card, shape, q, k, v, causal, err):
     """Time ``flash_attention`` on ``q`` [B, H, Lq, D] over ``k``, ``v``
     against its plain version and SDPA in the input dtype, under the
     tensor-core bound for the inputs (fp32: TF32, the body's 3xTF32
     products take fp32 inputs; bf16: bf16, bytes at two an element);
     beside them the v1 body on the same inputs, held to phase 2's bound
-    first."""
+    first.  bf16 (the wgmma body): also the mma.sync tile of earlier
+    PRs (``tile_ms``) and the wrapper's host microseconds a call on
+    wgmma and on the tile (``host_us``, ``tile_host_us``)."""
     bf16 = q.dtype == torch.bfloat16
     name = "flash_attention_bf16" if bf16 else "flash_attention"
     B, H, Lq, D = q.shape
@@ -2362,6 +2446,20 @@ def flash_row(dev, card, shape, q, k, v, causal, err):
     log("phase 5 %s %s: v1 body %.6f ms (max_abs_err %.3e), kernel %.6f "
         "ms, library %.6f ms [%s]" % (name, shape, row["v1_ms"], v1_err,
                                       row["ms"], row["library_ms"], card))
+    row["path"] = flash_attention._plan(B, H, Lq, Lk, D, q.dtype,
+                                        _build.sm_count(dev.index)).path
+    if row["path"] != "wgmma":
+        return row
+    with flash_path("tile"):
+        agree_fa(name, "%s on tile" % shape, kern(),
+                 flash_attention.blockwise_attention(q, k, v, causal))
+        row["tile_ms"] = time_ms(kern)
+        row["tile_host_us"] = host_us(kern)
+    row["host_us"] = host_us(kern)
+    log("phase 5 %s %s: wgmma %.6f ms, mma.sync tile %.6f ms, v1 %.6f ms, "
+        "bf16 SDPA %.6f ms; wrapper host %.2f us a call (tile: %.2f) [%s]"
+        % (name, shape, row["ms"], row["tile_ms"], row["v1_ms"],
+           row["library_ms"], row["host_us"], row["tile_host_us"], card))
     return row
 
 
@@ -2598,7 +2696,7 @@ def kernel_rows(entries, counts):
             "shapes": rows})
         for key in ("bound_cuda_core_ms", "v1_ms", "ms_cold",
                     "library_ms_cold", "path", "other_path", "other_ms",
-                    "fp32_ms"):
+                    "fp32_ms", "tile_ms", "host_us", "tile_host_us"):
             if key in head:
                 out[-1][key] = head[key]
     return out

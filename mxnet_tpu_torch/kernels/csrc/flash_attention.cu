@@ -23,13 +23,51 @@
 // atomics and no split of the keys over CTAs: a launch gives the same
 // bits every time.
 //
-// Three bodies behind each entry point; kernels/flash_attention.py::_plan
-// picks the body (path) and the query rows a CTA (block_q) from the
-// shape, and the entry point refuses a pair the shape does not allow.
+// Three bodies behind each entry point, and a fourth (wgmma) behind bf16
+// flash_attention; kernels/flash_attention.py::_plan picks the body
+// (path) and the query rows a CTA (block_q) from the shape, and the entry
+// point refuses a pair the shape does not allow.
 //
+// * wgmma (path 3: bf16 flash_attention, Lq above the decode body's
+//   threshold, D <= 128; the contiguous plane's bf16 prefill and the bf16
+//   training forward), Hopper's warpgroup MMA.  At B16 H8 L512 D64 causal
+//   the work is 1.1 GFLOP against 16.8 MB of bf16 q/k/v/out: the bytes
+//   bound it, yet at these sizes each CTA's chain of tiles, not the card's
+//   rates, sets the time (PERF.md §6 row 6b).
+//   - A CTA is one producer warp and one consumer warpgroup of 64 query
+//     rows (wgmma's M), three CTAs an SM at D 64; grid (B*H, q-tiles),
+//     the last q-tiles first in causal mode.  Two warpgroups of 64 rows
+//     sharing each stage were as fast or slower at every path shape.
+//   - Loads by TMA, issued by one thread of the producer warp: Q once,
+//     then K and V a 64-key stage at a time into a
+//     ring of 4 stages (3 at D > 64), 128-byte swizzled boxes of 64 rows x
+//     64 columns (one 128-byte bf16 row at D 64); K full, V full and
+//     empty mbarriers a stage.  TMA zero-fills rows past Lq and Lk and
+//     columns past D (D padded to 64 or 128); tiles wholly above the
+//     diagonal are never loaded.  The three tensor maps are encoded per
+//     launch through the driver's cuTensorMapEncodeTiled (reached with
+//     cudaGetDriverEntryPoint: the library links no libcuda) and passed
+//     as __grid_constant__ parameters.
+//   - S = Q K^T: wgmma m64n64k16 from shared memory, K K-major; P V:
+//     wgmma with P from registers (S's C layout is the A fragment as it
+//     stands) and V MN-major from shared memory (the transpose bit), so no
+//     ldmatrix and no second copy of V.  P in two bf16 terms (hi =
+//     bf16(p), lo = bf16(p - hi)), two wgmmas a k-step into one fp32
+//     accumulator, as the mma.sync tile has it: P rounded once errs more
+//     (tests/test_torch_fa_wgmma_plan.py records both).
+//   - The online softmax runs on the accumulator fragments in registers
+//     (a row's max over the 4 lanes that hold it), the scale folded into
+//     one FMA before ex2; the mask costs two instructions a score and no
+//     branch.  S of tile t+1 is issued before P V of tile t, and tile
+//     t+1's softmax overlaps that P V; the loop is peeled so that no
+//     branch lies inside a window where a wgmma is in flight (a branch
+//     there makes ptxas serialize every wgmma).
+//   - Epilogue: O / l in fp32, rounded once to bf16, stored from
+//     registers (rows past Lq and columns past D are not stored).
 // * tile (path 2: Lq above the decode body's threshold, D <= 128; the
-//   prefill's causal attention and the training forward), tensor cores
-//   (mma.sync).  At the training shape (B16 H8 L256 D64, causal) the work
+//   fp32 prefill's causal attention and training forward, and the offset
+//   kernel in both dtypes; bf16 flash_attention takes wgmma instead),
+//   tensor cores (mma.sync).  At the training shape (B16 H8 L256 D64, causal) the work
 //   is about 1.07 GFLOP against 33.5 MB of fp32 q/k/v/out: the bytes bound
 //   it at the tensor-core rates.
 //   - A CTA is 4 warps and 64 query rows, 16 a warp (the mma's M); the
@@ -98,6 +136,7 @@
 #include <type_traits>
 
 #include "attention_common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -107,6 +146,7 @@ constexpr int kThreads = 32 * kWarps;
 constexpr int kPathV1 = 0;
 constexpr int kPathDecode = 1;
 constexpr int kPathTile = 2;
+constexpr int kPathWgmma = 3;
 
 // ---------------------------------------------------------------------------
 // v1: CUDA cores, one key a lane
@@ -932,6 +972,363 @@ int launch_tc(const E* q, const E* k, const E* v, const int* offsets,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---------------------------------------------------------------------------
+// wgmma: bf16 on Hopper's warpgroup MMA, TMA loads, a producer warp
+// ---------------------------------------------------------------------------
+constexpr int kWgRows = 64;      // query rows a consumer warpgroup (wgmma M)
+constexpr int kWgKeys = 64;      // keys a K/V stage (S's N)
+constexpr int kBoxCols = 64;     // bf16 columns a TMA box: one 128-byte row
+constexpr int kBoxBytes = 64 * 128;   // a 64-row box
+
+constexpr int kWgThreads = 128 + 32;   // a consumer warpgroup + a producer warp
+
+// Shared memory of one CTA (1024-byte aligned): the Q rows as DP / 64
+// boxes of [64 rows][64 columns], then the ring's stages, each the K
+// boxes of 64 keys followed by the V boxes, then the barriers (K full,
+// V full and empty a stage, then Q's).  Every box is in the 128-byte
+// swizzle that TMA writes and wgmma reads.  The ring holds 4 stages at D
+// 64, 3 at D 128: 74 KB a CTA at D 64, so three CTAs fit an SM, as
+// their registers do (at most 136 a thread, __launch_bounds__).
+template <int DP>
+struct WgLayout {
+  static constexpr int kStages = DP == 64 ? 4 : 3;
+  static constexpr int kSub = DP / kBoxCols;   // boxes a row
+  static constexpr int kQBytes = kSub * kBoxBytes;
+  static constexpr int kHalfBytes = kSub * kBoxBytes;   // a stage's K (or V)
+  static constexpr int kStageBytes = 2 * kHalfBytes;
+  static constexpr int kBar = kQBytes + kStages * kStageBytes;
+  static constexpr int kBytes = kBar + 8 * (3 * kStages + 1);
+  static_assert(kWgKeys * 128 == kBoxBytes, "a stage's box is 64 keys");
+};
+
+// The online softmax of one 64 x 64 S tile in wgmma's C layout, in
+// place: sc (this lane's raw scores q.k of rows g and g + 8 of its warp,
+// keys k0 + 8j + 2tq + (e & 1) at sc[4j + e]) becomes p; the running max
+// m (of raw scores) and this lane's partial l move on; alpha receives
+// each row's rescale factor.  vis[h]: the keys row h of the pair sees,
+// counted from k0 + 2tq (a score is visible when 8j + (e & 1) < vis[h]),
+// so the mask is two instructions a score and no branch.  A masked score
+// is -1e30 and its p underflows to exactly 0 (every row sees key 0 in
+// the first tile, so m is finite from there on).  p = 2^(s * scale log2
+// e - m * scale log2 e): one FMA and one ex2 a score.
+__device__ __forceinline__ void wg_softmax(float* sc, float* m, float* l,
+                                           float* alpha, const int* vis,
+                                           float scale_log2) {
+  float mx[2] = {m[0], m[1]};
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float& x = sc[4 * j + e];
+      x = 8 * j + (e & 1) < vis[e >> 1] ? x : kNeg;
+      mx[e >> 1] = fmaxf(mx[e >> 1], x);
+    }
+  float ms[2], rsum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    mx[h] = fmaxf(mx[h], __shfl_xor_sync(kFull, mx[h], 1));
+    mx[h] = fmaxf(mx[h], __shfl_xor_sync(kFull, mx[h], 2));
+    alpha[h] = exp2f((m[h] - mx[h]) * scale_log2);
+    m[h] = mx[h];
+    ms[h] = mx[h] * scale_log2;
+  }
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float p = exp2f(fmaf(sc[4 * j + e], scale_log2, -ms[e >> 1]));
+      sc[4 * j + e] = p;
+      rsum[e >> 1] += p;
+    }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) l[h] = l[h] * alpha[h] + rsum[h];
+}
+
+// One consumer warpgroup of 64 query rows and one producer warp; grid
+// (B*H, q-tiles of 64 rows), the last q-tiles first in causal mode.  DP:
+// D zero-padded to 64 or 128 (by TMA's out-of-bounds fill).  Three CTAs
+// an SM at D 64: the 136-register cap leaves ptxas enough with no spill,
+// where its free choice fitted two CTAs and ran slower (PERF.md §6 row
+// 6b); two at D 128.
+template <int DP>
+__global__ void __launch_bounds__(kWgThreads, DP == 64 ? 3 : 2)
+    flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                                 const __grid_constant__ CUtensorMap tm_k,
+                                 const __grid_constant__ CUtensorMap tm_v,
+                                 __nv_bfloat16* __restrict__ out, int Lq,
+                                 int Lk, int D, int causal,
+                                 float scale_log2) {
+  using L = WgLayout<DP>;
+  constexpr int NS = L::kStages;
+  constexpr int NO = DP / 8;               // the output's n-blocks
+  extern __shared__ __align__(1024) unsigned char wg_smem[];
+  // the swizzle's period starts on a 1024-byte shared address
+  const uint32_t raw = smem_addr(wg_smem);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  const uint32_t bars = base + L::kBar;
+  auto kfull = [&](int s) { return bars + 8 * s; };
+  auto vfull = [&](int s) { return bars + 8 * (NS + s); };
+  auto empty = [&](int s) { return bars + 8 * (2 * NS + s); };
+  const uint32_t qbar = bars + 8 * 3 * NS;
+  auto k_at = [&](int s) { return base + L::kQBytes + s * L::kStageBytes; };
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int bh = blockIdx.x;
+  const int qt = causal ? static_cast<int>(gridDim.y - 1 - blockIdx.y)
+                        : static_cast<int>(blockIdx.y);
+  const int q0 = qt * kWgRows;
+  // keys the CTA's rows can see: tiles [0, n_tiles)
+  const int n_keys = causal ? min(min(q0 + kWgRows, Lq), Lk) : Lk;
+  const int n_tiles = (n_keys + kWgKeys - 1) / kWgKeys;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < NS; ++s) {
+      mbar_init(kfull(s), 1);              // the producer's expect_tx
+      mbar_init(vfull(s), 1);
+      mbar_init(empty(s), 4);              // one arrival a consumer warp
+    }
+    mbar_init(qbar, 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (warp == 4) {
+    // the producer: one thread issues every copy; Q once, then K and V
+    // tile by tile into the ring, each stage once the consumers freed it
+    if (lane == 0) {
+      tma_prefetch(&tm_q);
+      tma_prefetch(&tm_k);
+      tma_prefetch(&tm_v);
+      mbar_expect_tx(qbar, L::kQBytes);
+      for (int c = 0; c < L::kSub; ++c)
+        tma_load_3d(base + c * kBoxBytes, &tm_q, qbar, c * kBoxCols, q0, bh);
+      for (int t = 0; t < n_tiles; ++t) {
+        const int s = t % NS;
+        mbar_wait(empty(s), ((t / NS) & 1) ^ 1);
+        mbar_expect_tx(kfull(s), L::kHalfBytes);
+        for (int c = 0; c < L::kSub; ++c)
+          tma_load_3d(k_at(s) + c * kBoxBytes, &tm_k, kfull(s), c * kBoxCols,
+                      t * kWgKeys, bh);
+        mbar_expect_tx(vfull(s), L::kHalfBytes);
+        for (int c = 0; c < L::kSub; ++c)
+          tma_load_3d(k_at(s) + L::kHalfBytes + c * kBoxBytes, &tm_v,
+                      vfull(s), c * kBoxCols, t * kWgKeys, bh);
+      }
+    }
+    return;
+  }
+
+  // the consumer warpgroup: warp w of it holds rows rw..rw + 15
+  const int g = lane / 4;
+  const int tq = lane % 4;
+  const int rw = q0 + 16 * warp;
+  const uint32_t q_s = base;
+
+  // S = Q K^T of tile t into sc, issued and committed as one group:
+  // DP / 16 k-steps, step kk 32 bytes into box kk / 4 of Q and of K
+  float sc[32];
+  auto issue_s = [&](int t) {
+    const int s = t % NS;
+    mbar_wait(kfull(s), (t / NS) & 1);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < DP / 16; ++kk) {
+      const uint32_t off = (kk / 4) * kBoxBytes + (kk % 4) * 32;
+      wgmma_ss_n64(sc, sw128_desc(q_s + off, 16),
+                   sw128_desc(k_at(s) + off, 16), kk > 0);
+    }
+    wgmma_commit();
+  };
+  // the keys rows g and g + 8 of the warp see in tile t, from k0 + 2tq:
+  // all of them but in the CTA's last tile, where the diagonal and the
+  // end of the keys fall
+  auto visible = [&](int t, int* vis) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = rw + g + 8 * h;
+      vis[h] = (causal ? min(row + 1, Lk) : Lk) - t * kWgKeys - 2 * tq;
+    }
+  };
+
+  // rows g and g+8 of the warp: running max of raw scores, this lane's
+  // partial sum, the rescale of the tile in hand; O in wgmma's C layout,
+  // 4 values an n-block
+  float m[2] = {kNeg, kNeg};
+  float l[2] = {0.f, 0.f};
+  float alpha[2];
+  int vis[2];
+  float o[4 * NO];
+#pragma unroll
+  for (int i = 0; i < 4 * NO; ++i) o[i] = 0.f;
+
+  // tile t's P (sc) to two bf16 terms and O *= alpha; then, with tile
+  // t+1 (`next`), S of tile t+1 is issued before O += P V, and tile t+1's
+  // softmax runs while P V is in flight.  The steady loop runs `next`
+  // and the last tile is peeled, so no branch lies inside the in-flight
+  // window (a branch there makes ptxas serialize every wgmma).
+  uint32_t ph[4][4], pl[4][4];
+  auto step = [&](int t, auto next) {
+    const int s = t % NS;
+    // P in n-blocks 2kk and 2kk+1 of S's C layout is wgmma's A fragment
+    // of keys 16kk.. as it stands; hi = bf16(p), lo = bf16(p - hi)
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        split_bf16x2(sc[8 * kk + 2 * i], sc[8 * kk + 2 * i + 1], ph[kk][i],
+                     pl[kk][i]);
+#pragma unroll
+    for (int i = 0; i < 4 * NO; ++i) {
+      o[i] *= alpha[(i >> 1) & 1];
+      reg_fence(o[i]);                     // before the wgmmas, not after
+    }
+    if constexpr (decltype(next)::value) issue_s(t + 1);
+    // O += P V, lo first: V MN-major from its boxes (k-step kk 16 rows =
+    // 2048 bytes in; the next 64 columns one box on)
+    mbar_wait(vfull(s), (t / NS) & 1);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const uint64_t dv =
+          sw128_desc(k_at(s) + L::kHalfBytes + kk * 2048, kBoxBytes);
+      if constexpr (DP == 64) {
+        wgmma_rs_n64(o, pl[kk], dv);
+        wgmma_rs_n64(o, ph[kk], dv);
+      } else {
+        wgmma_rs_n128(o, pl[kk], dv);
+        wgmma_rs_n128(o, ph[kk], dv);
+      }
+    }
+    wgmma_commit();
+    if constexpr (decltype(next)::value) {
+      wgmma_wait<1>();                     // S of tile t+1 (the older group)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) reg_fence(sc[i]);
+      visible(t + 1, vis);
+      wg_softmax(sc, m, l, alpha, vis, scale_log2);
+    }
+    wgmma_wait<0>();                       // P V of tile t
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        reg_hold(ph[kk][i]);
+        reg_hold(pl[kk][i]);
+      }
+#pragma unroll
+    for (int i = 0; i < 4 * NO; ++i) reg_fence(o[i]);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) reg_fence(sc[i]);
+    if (lane == 0) mbar_arrive(empty(s));  // the stage is free
+  };
+
+  mbar_wait(qbar, 0);
+  issue_s(0);
+  wgmma_wait<0>();
+#pragma unroll
+  for (int i = 0; i < 32; ++i) reg_fence(sc[i]);
+  visible(0, vis);
+  wg_softmax(sc, m, l, alpha, vis, scale_log2);
+  for (int t = 0; t + 1 < n_tiles; ++t) step(t, std::true_type());
+  step(n_tiles - 1, std::false_type());
+
+  // the row sums of the 4 lanes of a row, then acc / (l > 0 ? l : 1),
+  // rounded once to bf16; rows past Lq and columns past D are not stored
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l[h] += __shfl_xor_sync(kFull, l[h], 1);
+    l[h] += __shfl_xor_sync(kFull, l[h], 2);
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = rw + g + 8 * h;
+    if (row < Lq) {
+      const float denom = l[h] > 0.f ? l[h] : 1.f;
+      __nv_bfloat16* orow = out + (static_cast<size_t>(bh) * Lq + row) * D;
+#pragma unroll
+      for (int n = 0; n < NO; ++n) {
+        const int col = 8 * n + 2 * tq;      // D even: col + 1 < D too
+        if (col < D)
+          store2(orow + col, o[4 * n + 2 * h] / denom,
+                 o[4 * n + 2 * h + 1] / denom);
+      }
+    }
+  }
+}
+
+// cuTensorMapEncodeTiled from the driver, found through the runtime (the
+// library links no libcuda); null where the driver lacks it
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// The map of a contiguous bf16 (BH, L, D) tensor as 64-row x 64-column
+// boxes in the 128-byte swizzle; rows past L and columns past D read as
+// zeros.  Returns false when the driver refuses it.
+bool encode_rows(EncodeTiled fn, CUtensorMap* map, const __nv_bfloat16* x,
+                 int BH, int L, int D) {
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(D),
+                              static_cast<cuuint64_t>(L),
+                              static_cast<cuuint64_t>(BH)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(D) * 2,
+                                 static_cast<cuuint64_t>(L) * D * 2};
+  const cuuint32_t box[3] = {kBoxCols, 64, 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+            const_cast<__nv_bfloat16*>(x), dims, strides, box, unit,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int DP>
+int launch_wgmma(const __nv_bfloat16* q, const __nv_bfloat16* k,
+                 const __nv_bfloat16* v, __nv_bfloat16* out, int BH, int Lq,
+                 int Lk, int D, int causal, float scale,
+                 cudaStream_t stream) {
+  using L = WgLayout<DP>;
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  CUtensorMap tm_q, tm_k, tm_v;
+  if (!encode_rows(fn, &tm_q, q, BH, Lq, D) ||
+      !encode_rows(fn, &tm_k, k, BH, Lk, D) ||
+      !encode_rows(fn, &tm_v, v, BH, Lk, D))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int smem = L::kBytes + 1024;       // + the alignment slack
+  const cudaError_t err = cudaFuncSetAttribute(
+      flash_attention_wgmma_kernel<DP>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int n_qt = (Lq + kWgRows - 1) / kWgRows;
+  if (n_qt > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(BH, n_qt);
+  flash_attention_wgmma_kernel<DP><<<grid, kWgThreads, smem, stream>>>(
+      tm_q, tm_k, tm_v, out, Lq, Lk, D, causal,
+      scale * 1.4426950408889634f);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // One launch of `path` with `block_q` query rows a CTA; refuses a pair
 // the shape does not allow.  q (BH, Lq, D); k, v (BH, Lk, D); out like
 // q; offsets (BH / H,) int32 or null.
@@ -967,6 +1364,16 @@ int run(int path, int block_q, const E* q, const E* k, const E* v,
     return launch_tc<E, 128, 32>(q, k, v, offsets, out, BH, H, Lq, Lk, D,
                                  causal, scale, stream);
   }
+  if constexpr (std::is_same<E, __nv_bfloat16>::value) {
+    if (path == kPathWgmma && D <= 128 && offsets == nullptr &&
+        block_q == kWgRows) {
+      if (D <= 64)
+        return launch_wgmma<64>(q, k, v, out, BH, Lq, Lk, D, causal, scale,
+                                stream);
+      return launch_wgmma<128>(q, k, v, out, BH, Lq, Lk, D, causal, scale,
+                               stream);
+    }
+  }
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -983,7 +1390,7 @@ extern "C" int mxt_flash_attention_f32(const float* q, const float* k,
                     causal, scale, stream);
 }
 
-// the same in bf16 (q, k, v and out); D % 8 == 0
+// the same in bf16 (q, k, v and out); D % 8 == 0; also path 3, wgmma
 extern "C" int mxt_flash_attention_bf16(
     const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat16* v,
     __nv_bfloat16* out, int BH, int Lq, int Lk, int D, int causal,

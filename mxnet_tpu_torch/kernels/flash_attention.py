@@ -19,9 +19,12 @@ Each entry point has three bodies, and :func:`_plan` picks one from the
 shape: the decode body on CUDA cores for a few query rows (one row a
 CTA), the tensor-core tile for more (64 rows a CTA: 3xTF32 in fp32, bf16
 ``mma.sync`` in bf16), and the CUDA-core v1 for a head dim above 128.
-One call is one launch, counted as ``flash_attention``,
-``flash_attention_bf16``, ``flash_attention_offset`` or
-``flash_attention_offset_bf16``.
+bf16 ``flash_attention`` has a fourth, ``"wgmma"``, which takes the
+tile's place: Hopper's warpgroup MMA fed by TMA from a producer warp,
+64 query rows a CTA (the bf16 offset kernel keeps the ``mma.sync``
+tile).  One call is one launch, counted as
+``flash_attention``, ``flash_attention_bf16``, ``flash_attention_offset``
+or ``flash_attention_offset_bf16``.
 
 :class:`FlashAttention` is the ``torch.autograd.Function``.  Its
 backward is not a kernel, because the reference's is not one either:
@@ -51,11 +54,13 @@ MAX_HEAD_DIM = 256
 TILE_MAX_HEAD_DIM = 128  # decode and tile: D zero-padded up to 128
 V1_ROWS = 32             # v1: query rows a CTA
 TILE_ROWS = 64           # the tile: query rows a CTA, 16 a warp
+WGMMA_ROWS = 64          # wgmma: query rows a CTA, its consumer warpgroup
 # the largest Lq that takes the decode body (one query row a CTA, so Lq
 # CTAs a sequence and head), by dtype: above it the tile is faster at
 # B32 Lk1024 (PERF.md §6, chip_smoke.py phase 5)
 DECODE_MAX_LQ = {torch.float32: 6, torch.bfloat16: 6}
-_PATH = {"v1": 0, "decode": 1, "tile": 2}   # the entry points' path
+# the entry points' path argument
+_PATH = {"v1": 0, "decode": 1, "tile": 2, "wgmma": 3}
 Plan = collections.namedtuple("Plan", "path block_q grid")
 # dtype -> ((launch name, C entry point) of flash_attention, the same of
 # flash_attention_offset, head-dim multiple: one 16-byte copy of a row)
@@ -103,17 +108,20 @@ def blockwise_attention(q, k, v, causal=False, scale=None,
     return (o / torch.where(l > 0, l, torch.ones_like(l))).to(q.dtype)
 
 
-def _plan(B, H, Lq, Lk, D, dtype, sms):
+def _plan(B, H, Lq, Lk, D, dtype, sms, offset=False):
     """The body and grid of one launch in ``dtype`` (float32 or
     bfloat16): ``"v1"`` for D above 128; else ``"decode"`` for Lq up to
-    ``DECODE_MAX_LQ[dtype]`` and ``"tile"`` above.  ``Lk`` and the card's
-    ``sms`` SMs do not move the choice: no body splits a sequence's keys
-    over CTAs."""
+    ``DECODE_MAX_LQ[dtype]``; above it ``"wgmma"`` for bf16
+    ``flash_attention`` and ``"tile"`` otherwise (fp32, and the
+    ``offset`` entry point).  ``Lk`` and the card's ``sms`` SMs do not
+    move the choice: no body splits a sequence's keys over CTAs."""
     del Lk, sms
     if D > TILE_MAX_HEAD_DIM:
         path = "v1"
     elif Lq <= DECODE_MAX_LQ[dtype]:
         path = "decode"
+    elif dtype == torch.bfloat16 and not offset:
+        path = "wgmma"
     else:
         path = "tile"
     return _path_plan(path, B, H, Lq)
@@ -121,11 +129,12 @@ def _plan(B, H, Lq, Lk, D, dtype, sms):
 
 def _path_plan(path, B, H, Lq):
     """``path``'s query rows a CTA and grid: decode one row, grid (Lq,
-    B*H); the tile 64, grid (B*H, q-tiles); v1 32, grid (q-tiles,
-    B*H)."""
-    block_q = {"decode": 1, "tile": TILE_ROWS, "v1": V1_ROWS}[path]
+    B*H); the tile and wgmma 64 (wgmma: one consumer warpgroup), grid
+    (B*H, q-tiles); v1 32, grid (q-tiles, B*H)."""
+    block_q = {"decode": 1, "tile": TILE_ROWS, "wgmma": WGMMA_ROWS,
+               "v1": V1_ROWS}[path]
     tiles = -(-Lq // block_q)
-    grid = (B * H, tiles) if path == "tile" else (tiles, B * H)
+    grid = (B * H, tiles) if path in ("tile", "wgmma") else (tiles, B * H)
     return Plan(path, block_q, grid)
 
 
@@ -167,7 +176,8 @@ def _launch(q, k, v, offsets, causal, scale):
     _check(q, k, v, offsets)
     B, H, Lq, D = q.shape
     Lk = k.shape[2]
-    plan = _plan(B, H, Lq, Lk, D, q.dtype, sm_count(q.device.index))
+    plan = _plan(B, H, Lq, Lk, D, q.dtype, sm_count(q.device.index),
+                 offset=offsets is not None)
     fa, ofs, _mult = _VARIANTS[q.dtype]
     out = torch.empty_like(q)
     body = (_PATH[plan.path], plan.block_q)

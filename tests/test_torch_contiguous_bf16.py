@@ -6,9 +6,10 @@ the JAX package, on the CPU.
   against the Pallas ``flash_attention_offset`` / ``flash_attention`` in
   interpret mode on the same bf16 arrays, within one bf16 ulp of
   max|ref| (both widen to fp32, sum in another order and round once).
-* ``flash_attention``'s launch planner ``_plan`` (decode body, tile, v1)
-  and the CUDA route's argument checks, and the card route's one launch
-  with the plan's body.  Pure Python: no card.
+* ``flash_attention``'s launch planner ``_plan`` (decode body, tile,
+  wgmma for bf16 ``flash_attention``, v1) and the CUDA route's argument
+  checks, and the card route's one launch with the plan's body.  Pure
+  Python: no card.
 * The bf16 tile's arithmetic emulated in torch as
   ``csrc/flash_attention.cu`` takes it (Q K^T exact in 16-wide k-steps,
   P split in two bf16 terms for P.V, 64-key tiles, one warp's online
@@ -122,24 +123,29 @@ def test_causal_plain_bf16_matches_pallas_interpret(L, D):
 @pytest.mark.parametrize("Lq,D,dtype,want", [
     (1, 64, F32, ("decode", 1)), (6, 64, F32, ("decode", 1)),
     (7, 64, F32, ("tile", 64)), (6, 64, BF16, ("decode", 1)),
-    (7, 64, BF16, ("tile", 64)),
-    (512, 64, BF16, ("tile", 64)), (65, 128, F32, ("tile", 64)),
+    (7, 64, BF16, ("wgmma", 64)),
+    (512, 64, BF16, ("wgmma", 64)), (65, 128, F32, ("tile", 64)),
     (1, 128, BF16, ("decode", 1)), (1, 136, F32, ("v1", 32)),
     (64, 256, BF16, ("v1", 32))])
 def test_plan_body_and_grid(Lq, D, dtype, want):
+    """bf16 flash_attention takes the wgmma body above the decode
+    threshold (tests/test_torch_fa_wgmma_plan.py has its rows rule)."""
     B, H = 3, 2
     plan = fa._plan(B, H, Lq, 96, D, dtype, H100_SMS)
     assert (plan.path, plan.block_q) == want
     tiles = -(-Lq // plan.block_q)
-    assert plan.grid == ((B * H, tiles) if plan.path == "tile"
+    assert plan.grid == ((B * H, tiles) if plan.path in ("tile", "wgmma")
                          else (tiles, B * H))
 
 
 @pytest.mark.parametrize("dtype", [F32, BF16])
 def test_plan_threshold_splits_lq(dtype):
     m = fa.DECODE_MAX_LQ[dtype]
+    above = "wgmma" if dtype == BF16 else "tile"
     assert fa._plan(2, 8, m, 1024, 64, dtype, H100_SMS).path == "decode"
-    assert fa._plan(2, 8, m + 1, 1024, 64, dtype, H100_SMS).path == "tile"
+    assert fa._plan(2, 8, m + 1, 1024, 64, dtype, H100_SMS).path == above
+    assert fa._plan(2, 8, m + 1, 1024, 64, dtype, H100_SMS,
+                    offset=True).path == "tile"
 
 
 def _qkv(D, dtype, B=2, Lq=1, Lk=8):
@@ -186,8 +192,10 @@ def test_card_route_makes_one_launch_with_the_plan(card_route, dtype, lq, D):
     B, H, Lk = 3, 2, 40
     q, k, v = (torch.zeros(B, H, L, D, dtype=dtype) for L in (lq, Lk, Lk))
     ofs = torch.zeros(B, dtype=torch.int32)
-    plan = fa._plan(B, H, lq, Lk, D, dtype, H100_SMS)
-    body = (fa._PATH[plan.path], plan.block_q)
+    body, ofs_body = (
+        (fa._PATH[p.path], p.block_q) for p in (
+            fa._plan(B, H, lq, Lk, D, dtype, H100_SMS, offset=o)
+            for o in (False, True)))
     out = fa.flash_attention(q, k, v, causal=True)
     assert out.shape == q.shape and out.dtype == dtype
     out = fa.flash_attention_offset(q, k, v, ofs)
@@ -199,7 +207,7 @@ def test_card_route_makes_one_launch_with_the_plan(card_route, dtype, lq, D):
     assert flash[-8:-3] == (B * H, lq, Lk, D, 1) and flash[-2:] == body
     # offset: ..., offsets, out, B, H, Lq, Lk, D, scale, path, block_q
     assert offset[1:3] == names[1]
-    assert offset[-8:-3] == (B, H, lq, Lk, D) and offset[-2:] == body
+    assert offset[-8:-3] == (B, H, lq, Lk, D) and offset[-2:] == ofs_body
 
 
 # ---------------------------------------------------------------------------

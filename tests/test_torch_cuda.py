@@ -940,7 +940,7 @@ def test_embedding_ids_outside_the_table_on_card(cuda_device):
 
 
 # ---------------------------------------------------------------------------
-# flash attention's bodies (decode, tile, v1) in fp32 and bf16
+# flash attention's bodies (decode, tile, wgmma, v1) in fp32 and bf16
 # ---------------------------------------------------------------------------
 FLASH_DTYPES = (torch.float32, torch.bfloat16)
 
@@ -984,19 +984,20 @@ def test_flash_bodies_match_plain_v1_and_themselves(cuda_device, monkeypatch,
     tol = (bf16_ulp(want.abs().max().item()) if dtype == torch.bfloat16
            else 0.0) + 1e-4
     name = flash_attention._VARIANTS[dtype][1 if offset else 0][0]
-    plan = flash_attention._plan(B, H, lq, lk, D, dtype, 132)
+    plan = flash_attention._plan(B, H, lq, lk, D, dtype, 132, offset=offset)
+    wgmma = dtype == torch.bfloat16 and not offset
     assert plan.path == ("v1" if D > 128 else "decode"
                          if lq <= flash_attention.DECODE_MAX_LQ[dtype]
-                         else "tile")
+                         else "wgmma" if wgmma else "tile")
     outs = {}
     plan_fn = flash_attention._plan
-    for path in ("planned", "v1", "decode", "tile"):
+    for path in ("planned", "v1", "decode", "tile", "wgmma"):
         if path != "planned":
-            if D > 128 and path != "v1":
+            if (D > 128 and path != "v1") or (path == "wgmma" and not wgmma):
                 continue
             monkeypatch.setattr(
                 flash_attention, "_plan",
-                lambda B, H, Lq, Lk, D, dt, sms, p=path:
+                lambda B, H, Lq, Lk, D, dt, sms, offset=False, p=path:
                 flash_attention._path_plan(p, B, H, Lq))
         before = kernels.launch_counts()[name]
         got = _flash_run(offset, q, k, v, ofs)
@@ -1028,7 +1029,7 @@ def test_fp32_offset_decode_body_agrees_with_v1(cuda_device, monkeypatch, B,
                                  132).path == "decode"
     got = flash_attention.flash_attention_offset(q, k, v, ofs)
     monkeypatch.setattr(flash_attention, "_plan",
-                        lambda B, H, Lq, Lk, D, dt, sms:
+                        lambda B, H, Lq, Lk, D, dt, sms, offset=False:
                         flash_attention._path_plan("v1", B, H, Lq))
     v1 = flash_attention.flash_attention_offset(q, k, v, ofs)
     torch.cuda.synchronize()
@@ -1038,6 +1039,48 @@ def test_fp32_offset_decode_body_agrees_with_v1(cuda_device, monkeypatch, B,
     _within_bf16_ulp(flash_attention.flash_attention_offset(qb, kb, vb, ofs),
                      flash_attention.offset_attention_reference(qb, kb, vb,
                                                                 ofs), 1e-4)
+
+
+# bf16 flash_attention's wgmma body at chip_smoke.py phase 2's shapes:
+# (B, H, Lq, Lk, D, causal), the paths' and the ragged edges
+WGMMA_CASES = [(4, 8, 512, 512, 64, True), (16, 8, 512, 512, 64, True),
+               (16, 8, 256, 256, 64, True), (16, 8, 256, 256, 64, False),
+               (2, 2, 70, 70, 16, True), (2, 2, 33, 100, 64, False),
+               (2, 2, 20, 20, 128, True), (3, 2, 130, 300, 128, False)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,Lq,Lk,D,causal", WGMMA_CASES)
+def test_wgmma_body_matches_plain_and_tile(cuda_device, monkeypatch, B, H, Lq,
+                                           Lk, D, causal):
+    """The wgmma body against the plain version and the mma.sync tile
+    (one bf16 ulp of max|ref| plus 1e-4); one launch a call, the same
+    bits twice."""
+    rs = np.random.RandomState(B + Lq + Lk + D)
+    q = rs.randn(B, H, Lq, D).astype(np.float32)
+    k, v = (rs.randn(B, H, Lk, D).astype(np.float32) for _ in range(2))
+    q, k, v = (t.to(torch.bfloat16) for t in _on(cuda_device, q, k, v))
+    want = flash_attention.blockwise_attention(q, k, v, causal).float()
+    tol = bf16_ulp(want.abs().max().item()) + 1e-4
+    plan = flash_attention._plan(B, H, Lq, Lk, D, torch.bfloat16, 132)
+    assert (plan.path, plan.block_q) == ("wgmma", 64)
+    outs = {}
+    for path in ("wgmma", "tile"):
+        if path == "tile":
+            monkeypatch.setattr(
+                flash_attention, "_plan",
+                lambda B, H, Lq, Lk, D, dt, sms, offset=False:
+                flash_attention._path_plan("tile", B, H, Lq))
+        before = kernels.launch_counts()["flash_attention_bf16"]
+        got = flash_attention.flash_attention(q, k, v, causal)
+        again = flash_attention.flash_attention(q, k, v, causal)
+        torch.cuda.synchronize()
+        monkeypatch.undo()
+        assert kernels.launch_counts()["flash_attention_bf16"] == before + 2
+        assert got.dtype == torch.bfloat16 and torch.equal(got, again)
+        assert (got.float() - want).abs().max().item() <= tol, path
+        outs[path] = got.float()
+    assert (outs["wgmma"] - outs["tile"]).abs().max().item() <= tol
 
 
 @pytest.mark.cuda
