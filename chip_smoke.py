@@ -97,9 +97,10 @@ sources in this checkout on first use.  Phases, each fatal on failure:
    fused softmax's forward and backward at 4096 x 8192 (1e-5 x max|ref|),
    flash attention at B16 H8 L256 D64, causal and not (1e-4 absolute);
    the bf16 training kernels within one bf16 ulp of max|ref|: both norm
-   backwards at widths 4, 512 and 1024 (v2, also 8 bytes off 16-byte
-   alignment) and 513, 1028 and rows 2 bytes off (v1), dx, dgamma and
-   dbeta; the head's bf16 softmax and gradient at 2, 8192 and 8193
+   backwards at widths 8, 512 and 1024 and at 1, 33, 4096 and 4097 rows
+   (v3), at widths 4 and 516 and rows 8 bytes off 16-byte alignment
+   (v2), and at widths 513 and 1028 and rows 2 bytes off (v1), dx,
+   dgamma and dbeta; the head's bf16 softmax and gradient at 2, 8192 and 8193
    classes, float32 labels random, at the last column and outside; the
    bf16 cross-entropy loss and gradient at 4096 x 8192 (the registers
    body), 64 x 8193 and 4096 x 2 (scalar and narrow) and rows 2 bytes
@@ -114,8 +115,11 @@ sources in this checkout on first use.  Phases, each fatal on failure:
 6b. phase 6 under ``Module(compute_dtype='bfloat16')``: fp32 master
    weights, bf16 forward and backward; exact bf16 kernel launches per
    step, none of the fp32 ones, and no wrapper's plain version reached;
-   perplexity falling; outputs bf16, and the parameters, gradients,
-   momenta and ``get_params`` float32 after the fit; ms per step,
+   every bf16 norm backward launch on v3 (``nb_census``: each launch
+   counted by (name, rows, width, path) and held to ``_bwd_plan``; the
+   same census runs over phases 6, 8 and 8b); perplexity falling;
+   outputs bf16, and the parameters, gradients, momenta and
+   ``get_params`` float32 after the fit; ms per step,
    samples/s and tokens/s beside phase 6's;
 7. one training step from identical parameters on the card and on the
    CPU (TF32 off): probabilities and every gradient within 1e-3 x
@@ -154,7 +158,9 @@ sources in this checkout on first use.  Phases, each fatal on failure:
    bf16 rows also with the bf16 mma.sync tile (``tile_ms``) and the
    wrapper's host microseconds a call on wgmma and on the tile),
    phase 6b's bf16 kernels at its shapes (the norm backwards at 4096 x
-   512 with their v1 path beside, the head's two bodies at 4096 x 8192,
+   512 on v3, L2 warm and cold, with the v2 body (``v2_ms``), the v1
+   path, the fp32 row of the same call (``fp32_ms``) and the call on 8
+   rows (``floor_ms``) beside, the head's two bodies at 4096 x 8192,
    ``flash_attention_bf16`` at B16 H8 L256 D64 causal; library calls in
    bf16), then the imperative plane's: the cross-entropy loss and
    gradient, the fused softmax's backward, phase 8b's bf16 loss and
@@ -349,12 +355,14 @@ TRAIN_BF16_LAUNCHES_PER_STEP = {
 # loss, 5e-2 for each gradient; an array that bf16 itself moves further
 # from fp32 is held to that distance instead (hold_bf16)
 BF16_STEP_TOL = {"probabilities": 2e-2, "loss": 2e-2, "gradient": 5e-2}
-# phase 2's bf16 norm backward edges (rows, width, element offset): v2
-# at widths 4, 512 and 1024 and 8 bytes off 16-byte alignment; v1 at
-# widths 513 and 1028 and rows 2 bytes off
+# phase 2's bf16 norm backward edges (rows, width, element offset): v3
+# at widths 8, 512 and 1024 and at 1, 33, 4096 and 4097 rows; v2 at
+# widths 4 and 516 and 8 bytes off 16-byte alignment; v1 at widths 513
+# and 1028 and rows 2 bytes off
 NORM_BWD_BF16_EDGES = ((64, 4, 0), (4096, 512, 0), (64, 1024, 0),
                        (33, 513, 0), (64, 1028, 0), (300, 512, 4),
-                       (300, 512, 1))
+                       (300, 512, 1), (64, 8, 0), (64, 516, 0),
+                       (1, 512, 0), (33, 512, 0), (4097, 512, 0))
 # phase 2's bf16 head: (rows, classes) at 2, 8192 and 8193 classes
 HEAD_BF16_CASES = ((4096, 2), (TRAIN_ROWS, 8192), (64, 8193))
 # phase 2's bf16 cross-entropy loss and gradient (rows, classes, element
@@ -987,8 +995,7 @@ def phase_compare_train_bf16(dev):
         x, g, dy = norm_bwd_edge_inputs(rows, width, 0, dev)
         x, dy = bf16_offset_copy(x, offset), bf16_offset_copy(dy, offset)
         g = g.to(torch.bfloat16)
-        plan = norm._bwd_plan(rows, width, norm._bwd_aligned(x, g, dy),
-                              _build.sm_count(dev.index))
+        align = norm._bwd_align(x, g, dy)
         for name, got, want in (
                 ("rms_norm_bwd_bf16", norm.rms_norm_bwd(x, g, dy, 1e-6),
                  norm.rms_norm_bwd_reference(x, g, dy, 1e-6)),
@@ -997,6 +1004,9 @@ def phase_compare_train_bf16(dev):
             if any(a.dtype != torch.bfloat16 for a in got):
                 raise SystemExit("chip_smoke: %s wrote %s" % (
                     name, [a.dtype for a in got]))
+            plan = norm._bwd_plan(rows, width, align,
+                                  _build.sm_count(dev.index), torch.bfloat16,
+                                  name.startswith("layer"))
             err = max(agree_bf16("%s %s" % (name, out), "rows=%d width=%d "
                                  "offset=%d bf16 (%s, %d CTAs)" % (
                                      rows, width, 2 * offset, plan.path,
@@ -1092,13 +1102,15 @@ def phase_compare_norm_bwd_edges(dev):
     errs = {}
     for rows, width, offset in NORM_BWD_EDGES:
         x, g, dy = norm_bwd_edge_inputs(rows, width, offset, dev)
-        plan = norm._bwd_plan(rows, width, offset == 0,
-                              _build.sm_count(dev.index))
+        align = norm._bwd_align(x, g, dy)
         for name, got, want in (
                 ("rms_norm_bwd", norm.rms_norm_bwd(x, g, dy, 1e-6),
                  norm.rms_norm_bwd_reference(x, g, dy, 1e-6)),
                 ("layer_norm_bwd", norm.layer_norm_bwd(x, g, dy, 1e-5),
                  norm.layer_norm_bwd_reference(x, g, dy, 1e-5))):
+            plan = norm._bwd_plan(rows, width, align,
+                                  _build.sm_count(dev.index),
+                                  layer=name.startswith("layer"))
             err = max(agree("%s %s" % (name, out), "rows=%d width=%d "
                             "offset=%d (%s, %d CTAs)" % (
                                 rows, width, offset, plan.path, plan.ctas),
@@ -1268,6 +1280,77 @@ def check_fa_census(tag, fa_shapes, counts):
     if off:
         raise SystemExit("chip_smoke: phase %s bf16 flash_attention "
                          "launches off the wgmma body: %s" % (tag, off))
+
+
+# the norm backwards' launch names, and their paths by the C entry
+# points' path argument
+NB_NAMES = ("rms_norm_bwd", "layer_norm_bwd", "rms_norm_bwd_bf16",
+            "layer_norm_bwd_bf16")
+NB_PATHS = {v: k for k, v in norm._BWD_PATH.items()}
+
+
+@contextlib.contextmanager
+def nb_census():
+    """Count each norm backward launch by (name, rows, width, path): a
+    counting shim around the wrapper's ``launch`` sees every launch it
+    makes (a dict update each, on the host); fatal when a launch's path
+    and rows a warp are not the ones ``_bwd_plan`` names."""
+    shapes, launch = collections.Counter(), norm.launch
+
+    def counted(x, name, entry, *args):
+        if name in NB_NAMES:
+            # x, gamma, dy, dx, grads..., partials..., rows, width, eps,
+            # path, rows_per_warp
+            rows, width = args[-5:-3]
+            align = min([16] + [p & -p for p in args[:4] if p])
+            plan = norm._bwd_plan(rows, width, align,
+                                  _build.sm_count(x.device.index), x.dtype,
+                                  name.startswith("layer"))
+            if tuple(args[-2:]) != (norm._BWD_PATH[plan.path],
+                                    plan.rows_per_warp):
+                raise SystemExit("chip_smoke: %s launched path %s, %s rows "
+                                 "a warp; _bwd_plan names %s"
+                                 % (name, args[-2], args[-1], plan))
+            shapes[name, rows, width, NB_PATHS[args[-2]]] += 1
+        return launch(x, name, entry, *args)
+
+    norm.launch = counted
+    try:
+        yield shapes
+    finally:
+        norm.launch = launch
+
+
+def check_nb_census(tag, nb_shapes, counts):
+    """Log phase ``tag``'s norm backward launches by (name, rows, width,
+    path); fatal when the census missed a launch or a bf16 launch ran
+    on another path than v3 (``nb_census`` already held each launch to
+    ``_bwd_plan``)."""
+    log("phase %s norm backward launches by (name, rows, width, path) %s"
+        % (tag, dict(sorted(nb_shapes.items()))))
+    if sum(nb_shapes.values()) != sum(counts[k] for k in NB_NAMES):
+        raise SystemExit("chip_smoke: %d norm backward shapes, %d launches "
+                         "in phase %s" % (sum(nb_shapes.values()),
+                                          sum(counts[k] for k in NB_NAMES),
+                                          tag))
+    off = {k: n for k, n in nb_shapes.items()
+           if k[0].endswith("_bf16") and k[-1] != "v3"}
+    if off:
+        raise SystemExit("chip_smoke: phase %s bf16 norm backward launches "
+                         "off v3: %s" % (tag, off))
+
+
+@contextlib.contextmanager
+def norm_path(path):
+    """Every norm backward launch inside takes ``path`` ("v1", "v2" or
+    "v3"), with that path's grid."""
+    plan = norm._bwd_plan
+    norm._bwd_plan = lambda rows, width, align, sms, dtype, layer: \
+        norm._bwd_grid(path, rows, width, sms, layer)
+    try:
+        yield
+    finally:
+        norm._bwd_plan = plan
 
 
 @contextlib.contextmanager
@@ -1653,7 +1736,8 @@ def phase_train(dev, card, compute_dtype=None, step_ms_fp32=None):
     kernels.reset_launch_counts()
     last.update(kernels.launch_counts())
     tic = time.perf_counter()
-    with plain_guard() as plain, fa_census() as fa_shapes:
+    with plain_guard() as plain, fa_census() as fa_shapes, \
+            nb_census() as nb_shapes:
         mod.fit(it, num_epoch=1, optimizer="sgd",
                 optimizer_params=TRAIN_OPT, initializer=mx.init.Xavier(),
                 eval_metric=mx.metric.Perplexity(ignore_label=None),
@@ -1661,6 +1745,7 @@ def phase_train(dev, card, compute_dtype=None, step_ms_fp32=None):
         torch.cuda.synchronize()
     counts = kernels.launch_counts()
     check_fa_census(tag, fa_shapes, counts)
+    check_nb_census(tag, nb_shapes, counts)
     wall = time.perf_counter() - tic
     if plain:
         raise SystemExit("chip_smoke: phase %s reached plain versions: %s"
@@ -1974,7 +2059,8 @@ def phase_imperative(card, step_ms_module, compute_dtype=None,
     kernels.reset_launch_counts()
     last = kernels.launch_counts()
     tic = time.perf_counter()
-    with plain_guard() as plain, fa_census() as fa_shapes:
+    with plain_guard() as plain, fa_census() as fa_shapes, \
+            nb_census() as nb_shapes:
         for i in range(TRAIN_STEPS):
             lo = i * TRAIN_BATCH
             loss = imperative_step(w, mom, X[lo:lo + TRAIN_BATCH],
@@ -1990,6 +2076,7 @@ def phase_imperative(card, step_ms_module, compute_dtype=None,
     counts = kernels.launch_counts()
     wall = time.perf_counter() - tic
     check_fa_census(tag, fa_shapes, counts)
+    check_nb_census(tag, nb_shapes, counts)
     if plain:
         raise SystemExit("chip_smoke: phase %s reached plain versions: %s"
                          % (tag, dict(plain)))
@@ -2142,23 +2229,28 @@ def norm_bwd_cold_and_v1(row, kern, library, t, eps, card):
     """Add ``ms_cold`` and ``library_ms_cold`` to a norm backward's row,
     timed with L2 cold: ``COLD_L2_BYTES`` written before each launch,
     outside its events (which leaves L2 full of dirty lines); and
-    ``v1_ms``: the v1 path, which the planner gives the same inputs 4
-    bytes off 16-byte alignment."""
+    ``v1_ms``: the v1 path, which the planner gives the same inputs one
+    element (4 bytes fp32, 2 bf16) off 16-byte alignment, agreeing with
+    the planned path within 1e-5 x max|ref| (fp32) or one bf16 ulp."""
     x1, dy1 = offset_copy(t["x"], 1), offset_copy(t["dy"], 1)
     fn = getattr(norm, kern)
+    bf16 = t["x"].dtype == torch.bfloat16
     for a, b in zip(fn(x1, t["g"], dy1, eps), fn(t["x"], t["g"], t["dy"],
                                                  eps)):
-        agree(kern + " v1 vs v2", row["shape"], a, b,
-              1e-5 * b.abs().max().item())
+        if bf16:
+            agree_bf16(kern + "_bf16 v1 vs v3", row["shape"], a, b)
+        else:
+            agree(kern + " v1 vs v2", row["shape"], a, b,
+                  1e-5 * b.abs().max().item())
     scratch = torch.empty(COLD_L2_BYTES // 4, device=t["x"].device)
     row["ms_cold"] = time_ms(lambda: fn(t["x"], t["g"], t["dy"], eps),
                              flush=scratch.zero_)
     row["library_ms_cold"] = time_ms(library, flush=scratch.zero_)
     row["v1_ms"] = time_ms(lambda: fn(x1, t["g"], dy1, eps))
-    log("phase 5 %s %s: L2 cold: kernel %.6f ms, library %.6f ms; v1 path "
-        "%.6f ms (warm) beside the kernel's %.6f [%s]"
-        % (kern, row["shape"], row["ms_cold"], row["library_ms_cold"],
-           row["v1_ms"], row["ms"], card))
+    log("phase 5 %s%s %s: L2 cold: kernel %.6f ms, library %.6f ms; v1 "
+        "path %.6f ms (warm) beside the kernel's %.6f [%s]"
+        % (kern, "_bf16" if bf16 else "", row["shape"], row["ms_cold"],
+           row["library_ms_cold"], row["v1_ms"], row["ms"], card))
 
 
 def library_paged(q, kp, vp, tbl, pos, bs, kv_scales=None):
@@ -2567,11 +2659,15 @@ def phase_times_train(dev, card, errs, fa_shapes):
 def bf16_train_rows(dev, card, errs, t, entries):
     """Phase 6b's kernels at its shapes, in bf16 (two bytes an element;
     the bf16 tensor-core rate for operations): the norm backwards at
-    4096 x 512 beside their v1 path (rows 2 bytes off alignment), the
-    head's softmax and gradient at 4096 x 8192, ``flash_attention_bf16``
-    at B16 H8 L256 D64 causal.  Yardsticks in bf16: the autograd
-    backward of ``F.rms_norm`` / ``F.layer_norm``, ``torch.softmax``,
-    SDPA; the gradient has no single-call yardstick."""
+    4096 x 512 on v3, with L2 cold and beside their v1 path (rows 2 bytes
+    off alignment) as ``norm_bwd_cold_and_v1`` adds them, the v2 body on
+    the same inputs (``v2_ms``), the fp32 row of this call (``fp32_ms``)
+    and the same call on 8 rows (``floor_ms``: two dependent launches
+    that move almost no bytes); the head's softmax and gradient at 4096
+    x 8192, ``flash_attention_bf16`` at B16 H8 L256 D64 causal.
+    Yardsticks in bf16: the autograd backward of ``F.rms_norm`` /
+    ``F.layer_norm``, ``torch.softmax``, SDPA; the gradient has no
+    single-call yardstick."""
     F = torch.nn.functional
     W, V = SPEC["num_hidden"], SPEC["vocab_size"]
     n, nv = TRAIN_ROWS * W, TRAIN_ROWS * V
@@ -2598,14 +2694,31 @@ def bf16_train_rows(dev, card, errs, t, entries):
                             b["x"], b["g"], b["dy"], eps),
                         lib, nbytes, flops, errs[name + "_bf16"], card,
                         bf16=True)
-        x1, dy1 = offset_copy(b["x"], 1), offset_copy(b["dy"], 1)
-        for a, ref in zip(fn(x1, b["g"], dy1, eps),
-                          fn(b["x"], b["g"], b["dy"], eps)):
-            agree_bf16(name + "_bf16 v1 vs v2", shape_n, a, ref)
-        row["v1_ms"] = time_ms(lambda fn=fn, eps=eps: fn(x1, b["g"], dy1,
-                                                         eps))
-        log("phase 5 %s_bf16 %s: v1 path %.6f ms beside the kernel's %.6f "
-            "[%s]" % (name, shape_n, row["v1_ms"], row["ms"], card))
+        row["path"] = norm._bwd_path(
+            W, norm._bwd_align(b["x"], b["g"], b["dy"]), torch.bfloat16)
+        if row["path"] != "v3":
+            raise SystemExit("chip_smoke: %s_bf16 %s planned on %s"
+                             % (name, shape_n, row["path"]))
+        norm_bwd_cold_and_v1(row, name, lib, b, eps, card)
+        with norm_path("v2"):
+            for a, ref in zip(fn(b["x"], b["g"], b["dy"], eps),
+                              plain(b["x"], b["g"], b["dy"], eps)):
+                agree_bf16(name + "_bf16 v2", shape_n, a, ref)
+            row["v2_ms"] = time_ms(lambda fn=fn, eps=eps: fn(
+                b["x"], b["g"], b["dy"], eps))
+        row["fp32_ms"] = entries[name][0]["ms"]
+        # the floor of the call's two dependent launches: the same call on
+        # 8 of the rows, which move almost no bytes
+        x8, dy8 = b["x"][:8], b["dy"][:8]
+        row["floor_ms"] = time_ms(lambda fn=fn, eps=eps: fn(x8, b["g"], dy8,
+                                                            eps))
+        log("phase 5 %s_bf16 %s: v3 %.6f ms beside, in this call, the v2 "
+            "body's %.6f (%.3f of it) and the fp32 row's %.6f (%.3f of it); "
+            "%.2f x its bound; the same call on 8 rows %.6f [%s]"
+            % (name, shape_n, row["ms"], row["v2_ms"],
+               row["ms"] / row["v2_ms"], row["fp32_ms"],
+               row["ms"] / row["fp32_ms"], row["ms"] / row["bound_ms"],
+               row["floor_ms"], card))
         entries[name + "_bf16"] = [row]
     entries["softmax_rows_bf16"] = [timed_row(
         "softmax_rows_bf16", shape_v,
@@ -2694,7 +2807,8 @@ def kernel_rows(entries, counts):
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
             "library_ms": head["library_ms"], "shape": head["shape"],
             "shapes": rows})
-        for key in ("bound_cuda_core_ms", "v1_ms", "ms_cold",
+        for key in ("bound_cuda_core_ms", "v1_ms", "v2_ms", "floor_ms",
+                    "ms_cold",
                     "library_ms_cold", "path", "other_path", "other_ms",
                     "fp32_ms", "tile_ms", "host_us", "tile_host_us"):
             if key in head:

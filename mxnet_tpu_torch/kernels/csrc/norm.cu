@@ -36,8 +36,9 @@
 // halves the bytes, so its bound halves with them.
 //
 // The backwards are bound by bytes too: x and dy read once, dx written
-// once.  Two paths, which the wrapper's planner picks
-// (kernels/norm.py::_bwd_plan) and the entry point checks:
+// once.  Three paths, which the wrapper's planner picks
+// (kernels/norm.py::_bwd_plan) and the entry point checks: v3 (below)
+// for bf16 rows on 16-byte chunks, and
 //   v2, for rows of width <= 1024, width % 4 == 0 and every pointer on
 //     a 4-element chunk (16 bytes fp32, 8 bytes bf16): a warp holds its
 //     row of x and dy in registers as fp32, loaded a 4-column chunk at a
@@ -66,8 +67,38 @@
 // fp32 body's arithmetic in the same order; dx is rounded to nearest
 // even once, the per-CTA partials stay fp32, and sum_partials_kernel
 // rounds dgamma and dbeta once after the fp32 sum, as the reference
-// takes jnp.sum(partials).astype(gamma.dtype).  The row held in
-// registers is the widened fp32 row, so v2's register budget is fp32's.
+// takes jnp.sum(partials).astype(gamma.dtype).  v2's row held in
+// registers is the widened fp32 row, so its register budget is fp32's.
+//
+// v3, the bf16 backward (the TPU kernels _rms_bwd_kernel and
+// _ln_bwd_kernel on bf16 tiles), for bf16 rows of width <= 1024, width
+// % 8 == 0 and x, gamma, dy and dx 16-byte aligned.  Bound: bytes, 2
+// an element: x and dy read once, dx written once (at 4096 x 512, 12.6
+// MB, 3.8 us at 3.35 TB/s).  v2 widened a bf16 row into fp32's
+// registers, so an SM held one 8-warp CTA, each warp one row ahead:
+// about 16 KB of loads in flight an SM, where keeping HBM busy takes
+// about 25 KB.  v3 holds the rows packed instead:
+//   * each lane moves 16 bytes (8 values) an access (uint4), chunk c =
+//     lane + 32 j of the row's width / 8;
+//   * x and dy stay bf16 bits in registers (a 512-wide row of both: 16
+//     registers a lane, against 32 widened) and are widened, a shift,
+//     at each use; the passes read the registers, never memory again;
+//   * a warp keeps a ring of v3_depth rows in registers: every ring
+//     row's loads are issued before the first row's reductions, and a
+//     row's slot is refilled as soon as the row is done;
+//   * RMSNorm fits two 8-warp CTAs an SM under a 128-register cap
+//     (__launch_bounds__(256, 2), width <= 512): at 4096 x 512, 16
+//     warps an SM with both their rows in flight, 64 KB of loads an SM.
+//     LayerNorm spills under that cap and takes one CTA an SM (157
+//     registers), 4 rows a warp, 2 in flight; it folds the variance and
+//     mean(w * xhat) = r * mean(w * (x - mu)) into one pass, so a row
+//     takes two rounds of shuffles, not three.  Width 1024 takes one
+//     CTA an SM for both.
+// The weight gradients leave the CTA as v2's do: each lane's fp32
+// column sums, the warps added in warp order through shared memory, one
+// partial row a CTA, sum_partials_kernel, one rounding.  At the
+// training shape the call sits about 2.5 (RMSNorm) and 3.5 (LayerNorm)
+// us above the floor of its two dependent launches (PERF.md, section 6).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -80,6 +111,8 @@ namespace {
 constexpr int kWarpsPerBlock = 4;   // forwards and the v1 backward
 constexpr int kV2Warps = 8;         // the v2 backward's CTA
 constexpr int kV2MaxChunks = 8;     // float4 chunks a lane: width <= 1024
+constexpr int kV3Warps = 8;         // the v3 backward's CTA
+constexpr int kV3MaxChunks = 4;     // 16-byte chunks a lane: width <= 1024
 constexpr int kSumWarps = 16;       // sum_partials_kernel's CTA
 constexpr unsigned kFull = 0xffffffffu;
 
@@ -102,8 +135,7 @@ __device__ __forceinline__ void narrow(__nv_bfloat16* p, float v) {
 // store.  A bf16 is the top half of an fp32, so widening is a shift.
 constexpr int kVec = 8;
 
-__device__ __forceinline__ void load8(const __nv_bfloat16* p, float* v) {
-  const uint4 u = *reinterpret_cast<const uint4*>(p);
+__device__ __forceinline__ void unpack8(const uint4& u, float* v) {
   const uint32_t w[4] = {u.x, u.y, u.z, u.w};
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -112,7 +144,7 @@ __device__ __forceinline__ void load8(const __nv_bfloat16* p, float* v) {
   }
 }
 
-__device__ __forceinline__ void store8(__nv_bfloat16* p, const float* v) {
+__device__ __forceinline__ uint4 pack8(const float* v) {
   uint4 u;
   uint32_t* w = reinterpret_cast<uint32_t*>(&u);
 #pragma unroll
@@ -120,7 +152,15 @@ __device__ __forceinline__ void store8(__nv_bfloat16* p, const float* v) {
     const __nv_bfloat162 h = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
     w[i] = *reinterpret_cast<const uint32_t*>(&h);
   }
-  *reinterpret_cast<uint4*>(p) = u;
+  return u;
+}
+
+__device__ __forceinline__ void load8(const __nv_bfloat16* p, float* v) {
+  unpack8(*reinterpret_cast<const uint4*>(p), v);
+}
+
+__device__ __forceinline__ void store8(__nv_bfloat16* p, const float* v) {
+  *reinterpret_cast<uint4*>(p) = pack8(v);
 }
 
 // y = x * r * gamma with r = rsqrt(mean(x^2) + eps); vec: 16-byte
@@ -230,6 +270,16 @@ __device__ __forceinline__ void warp_sum2(float& a, float& b) {
   for (int o = 16; o > 0; o >>= 1) {
     a += __shfl_xor_sync(kFull, a, o);
     b += __shfl_xor_sync(kFull, b, o);
+  }
+}
+
+// three sums side by side
+__device__ __forceinline__ void warp_sum3(float& a, float& b, float& c) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    a += __shfl_xor_sync(kFull, a, o);
+    b += __shfl_xor_sync(kFull, b, o);
+    c += __shfl_xor_sync(kFull, c, o);
   }
 }
 
@@ -379,6 +429,32 @@ __device__ __forceinline__ void bwd_row_v2(const float (&xv)[NV][4],
   store_chunks<NV>(dxr, n4, lane, o);
 }
 
+// the CTA's partial weight-gradient rows, from each warp's column sums in
+// wrows ([LN ? 2 : 1][W][n4] float4s): thread t adds the W warps' rows
+// of its columns in warp order and writes partial row blockIdx.x
+template <int W, bool LN>
+__device__ __forceinline__ void write_partials(const float4* wrows, int n4,
+                                               float* __restrict__ dg_part,
+                                               float* __restrict__ db_part) {
+  for (int c = threadIdx.x; c < n4; c += 32 * W) {
+#pragma unroll
+    for (int t = 0; t < (LN ? 2 : 1); ++t) {
+      const float4* src = wrows + t * W * n4 + c;
+      float4 s = src[0];
+#pragma unroll
+      for (int w = 1; w < W; ++w) {
+        const float4 a = src[w * n4];
+        s.x += a.x;
+        s.y += a.y;
+        s.z += a.z;
+        s.w += a.w;
+      }
+      reinterpret_cast<float4*>(t ? db_part : dg_part)
+          [static_cast<size_t>(blockIdx.x) * n4 + c] = s;
+    }
+  }
+}
+
 // v2 (see the head of the file).  Warp w of CTA b takes rows
 // b * kV2Warps * rows_per_warp + w + i * kV2Warps, i < rows_per_warp;
 // the CTA writes partial row b of dg_part (and db_part).  NV: 4-element
@@ -434,23 +510,197 @@ norm_bwd_v2_kernel(const E* __restrict__ x, const E* __restrict__ gamma,
   if constexpr (LN) store_chunks<NV>(wrows + (kV2Warps + warp) * n4, n4,
                                      lane, ab);
   __syncthreads();
-  for (int c = threadIdx.x; c < n4; c += 32 * kV2Warps) {
+  write_partials<kV2Warps, LN>(wrows, n4, dg_part, db_part);
+}
+
+// ---- v3: bf16 rows held packed (see the head of the file) --------------
+
+// rows a warp holds in registers (32 registers of ring at every width),
+// and CTAs an SM: two under a 128-register cap for RMSNorm to width 512;
+// one for LayerNorm, whose extra column sums and statistics spill under
+// that cap, and for width 1024
+template <int NV>
+__host__ __device__ constexpr int v3_depth() { return NV == 1 ? 4 : 2; }
+template <int NV, bool LN>
+__host__ __device__ constexpr int v3_ctas_per_sm() {
+  return !LN && NV <= 2 ? 2 : 1;
+}
+
+// a lane's NV 16-byte chunks of a row (chunk c = lane + 32 j of n8),
+// packed; chunks past the row read as 0
+template <int NV>
+__device__ __forceinline__ void load_packed(const uint4* __restrict__ src,
+                                            int n8, int lane,
+                                            uint4 (&v)[NV]) {
 #pragma unroll
-    for (int t = 0; t < (LN ? 2 : 1); ++t) {
-      const float4* src = wrows + t * kV2Warps * n4 + c;
-      float4 s = src[0];
+  for (int j = 0; j < NV; ++j) {
+    const int c = lane + 32 * j;
+    v[j] = c < n8 ? src[c] : make_uint4(0u, 0u, 0u, 0u);
+  }
+}
+
+// one row of dx from the packed row (xs, ds; gamma g widened), adding
+// the row's dgamma (ag) and dbeta (ab, LayerNorm) contributions to the
+// lane's column sums: v2's arithmetic in v2's order, 8 columns a chunk,
+// but for LayerNorm's mean(w * xhat), taken as r * mean(w * (x - mu)) in
+// the variance's pass.  Chunks past the row hold x = dy = gamma = 0,
+// which add nothing to any sum but (x - mu)^2, where they are masked.
+template <int NV, bool LN>
+__device__ __forceinline__ void bwd_row_v3(const uint4 (&xs)[NV],
+                                           const uint4 (&ds)[NV],
+                                           const float (&g)[NV][kVec],
+                                           float (&ag)[NV][kVec],
+                                           float (&ab)[NV][kVec],
+                                           uint4* __restrict__ dxr, int n8,
+                                           int lane, int width, float eps) {
+  float v[kVec], d[kVec], o[kVec];
+  if constexpr (LN) {
+    float s = 0.f;
 #pragma unroll
-      for (int w = 1; w < kV2Warps; ++w) {
-        const float4 a = src[w * n4];
-        s.x += a.x;
-        s.y += a.y;
-        s.z += a.z;
-        s.w += a.w;
+    for (int j = 0; j < NV; ++j) {
+      unpack8(xs[j], v);
+#pragma unroll
+      for (int k = 0; k < kVec; ++k) s += v[k];
+    }
+    const float mu = warp_sum(s) / width;
+    // the variance and both means of dx's formula in one pass and one
+    // round of shuffles: mean(w * xhat) = r * mean(w * (x - mu))
+    float sq = 0.f, sw = 0.f, swe = 0.f;
+#pragma unroll
+    for (int j = 0; j < NV; ++j) {
+      const bool in = lane + 32 * j < n8;
+      unpack8(xs[j], v);
+      unpack8(ds[j], d);
+#pragma unroll
+      for (int k = 0; k < kVec; ++k) {
+        const float e = v[k] - mu;
+        const float w = d[k] * g[j][k];
+        if (in) sq += e * e;
+        sw += w;
+        swe += w * e;
       }
-      reinterpret_cast<float4*>(t ? db_part : dg_part)
-          [static_cast<size_t>(blockIdx.x) * n4 + c] = s;
+    }
+    warp_sum3(sq, sw, swe);
+    const float r = rsqrtf(sq / width + eps);
+    const float mw = sw / width;
+    const float mwx = r * swe / width;
+#pragma unroll
+    for (int j = 0; j < NV; ++j) {
+      unpack8(xs[j], v);
+      unpack8(ds[j], d);
+#pragma unroll
+      for (int k = 0; k < kVec; ++k) {
+        const float xhat = (v[k] - mu) * r;
+        o[k] = r * (d[k] * g[j][k] - mw - xhat * mwx);
+        ag[j][k] += d[k] * xhat;
+        ab[j][k] += d[k];
+      }
+      if (lane + 32 * j < n8) dxr[lane + 32 * j] = pack8(o);
+    }
+  } else {
+    float ss = 0.f, swx = 0.f;
+#pragma unroll
+    for (int j = 0; j < NV; ++j) {
+      unpack8(xs[j], v);
+      unpack8(ds[j], d);
+#pragma unroll
+      for (int k = 0; k < kVec; ++k) {
+        ss += v[k] * v[k];
+        swx += d[k] * g[j][k] * v[k];
+      }
+    }
+    warp_sum2(ss, swx);
+    const float r = rsqrtf(ss / width + eps);
+    const float mwx = swx / width;
+    const float r3 = r * r * r;
+#pragma unroll
+    for (int j = 0; j < NV; ++j) {
+      unpack8(xs[j], v);
+      unpack8(ds[j], d);
+#pragma unroll
+      for (int k = 0; k < kVec; ++k) {
+        o[k] = r * (d[k] * g[j][k]) - r3 * v[k] * mwx;
+        ag[j][k] += d[k] * v[k] * r;
+      }
+      if (lane + 32 * j < n8) dxr[lane + 32 * j] = pack8(o);
     }
   }
+}
+
+// v3.  Warp w of CTA b takes rows b * kV3Warps * rows_per_warp + w + i *
+// kV3Warps, i < rows_per_warp, as v2; the CTA writes partial row b of
+// dg_part (and db_part).  NV: 16-byte chunks a lane, a power of two with
+// 256 NV >= width.
+template <int NV, bool LN>
+__global__ void __launch_bounds__(32 * kV3Warps, v3_ctas_per_sm<NV, LN>())
+norm_bwd_v3_kernel(const __nv_bfloat16* __restrict__ x,
+                   const __nv_bfloat16* __restrict__ gamma,
+                   const __nv_bfloat16* __restrict__ dy,
+                   __nv_bfloat16* __restrict__ dx,
+                   float* __restrict__ dg_part, float* __restrict__ db_part,
+                   int rows, int width, float eps, int rows_per_warp) {
+  constexpr int D = v3_depth<NV>();
+  extern __shared__ float4 wrows[];   // [LN ? 2 : 1][kV3Warps][width / 4]
+  release_dependents();
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int n8 = width / kVec;
+  const int n4 = width / 4;
+  const uint4* x8 = reinterpret_cast<const uint4*>(x);
+  const uint4* dy8 = reinterpret_cast<const uint4*>(dy);
+  uint4* dx8 = reinterpret_cast<uint4*>(dx);
+  const int first = blockIdx.x * kV3Warps * rows_per_warp + warp;
+  // this warp's rows: first + i * kV3Warps < rows, i < rows_per_warp
+  const int n = first < rows
+      ? min(rows_per_warp, (rows - first + kV3Warps - 1) / kV3Warps) : 0;
+  uint4 xs[D][NV], ds[D][NV];
+#pragma unroll
+  for (int s = 0; s < D; ++s)
+    if (s < n) {
+      const size_t off = static_cast<size_t>(first + s * kV3Warps) * n8;
+      load_packed<NV>(x8 + off, n8, lane, xs[s]);
+      load_packed<NV>(dy8 + off, n8, lane, ds[s]);
+    }
+  float g[NV][kVec], ag[NV][kVec], ab[NV][kVec];
+  uint4 gp[NV];
+  load_packed<NV>(reinterpret_cast<const uint4*>(gamma), n8, lane, gp);
+#pragma unroll
+  for (int j = 0; j < NV; ++j) {
+    unpack8(gp[j], g[j]);
+#pragma unroll
+    for (int k = 0; k < kVec; ++k) ag[j][k] = ab[j][k] = 0.f;
+  }
+  for (int i = 0; i < n; i += D) {
+#pragma unroll
+    for (int s = 0; s < D; ++s) {
+      if (i + s < n) {
+        const size_t row = first + (i + s) * kV3Warps;
+        bwd_row_v3<NV, LN>(xs[s], ds[s], g, ag, ab, dx8 + row * n8, n8,
+                           lane, width, eps);
+        if (i + s + D < n) {   // refill the slot: D - 1 rows stay ahead
+          const size_t off = (row + D * kV3Warps) * n8;
+          load_packed<NV>(x8 + off, n8, lane, xs[s]);
+          load_packed<NV>(dy8 + off, n8, lane, ds[s]);
+        }
+      }
+    }
+  }
+  // the lane's column sums as float4 pairs: chunk c is float4s 2c, 2c+1
+#pragma unroll
+  for (int j = 0; j < NV; ++j) {
+    const int c = lane + 32 * j;
+    if (c < n8) {
+#pragma unroll
+      for (int t = 0; t < (LN ? 2 : 1); ++t) {
+        const float* a = t ? ab[j] : ag[j];
+        float4* dst = wrows + (t * kV3Warps + warp) * n4 + 2 * c;
+        dst[0] = make_float4(a[0], a[1], a[2], a[3]);
+        dst[1] = make_float4(a[4], a[5], a[6], a[7]);
+      }
+    }
+  }
+  __syncthreads();
+  write_partials<kV3Warps, LN>(wrows, n4, dg_part, db_part);
 }
 
 // v1 (see the head of the file): warp w of CTA b takes rows
@@ -645,26 +895,63 @@ cudaError_t launch_v2(const E* x, const E* gamma, const E* dy, E* dx,
   return cudaGetLastError();
 }
 
+// v3 takes bf16 rows of width <= 1024, width % 8 == 0 and the row
+// tensors (x, gamma, dy, dx) and the fp32 partials 16-byte aligned
+template <typename E>
+bool v3_rows(int width, std::initializer_list<const void*> row_ptrs,
+             std::initializer_list<const void*> part_ptrs) {
+  return sizeof(E) == 2 && width <= 32 * kVec * kV3MaxChunks &&
+         width % kVec == 0 && aligned16(row_ptrs) && aligned16(part_ptrs);
+}
+
+template <int NV, bool LN>
+cudaError_t launch_v3(const __nv_bfloat16* x, const __nv_bfloat16* gamma,
+                      const __nv_bfloat16* dy, __nv_bfloat16* dx,
+                      float* dg_part, float* db_part, int rows, int width,
+                      float eps, int rows_per_warp, int ctas,
+                      cudaStream_t stream) {
+  const size_t smem = sizeof(float) * (LN ? 2 : 1) * kV3Warps * width;
+  const cudaError_t err = allow_smem(norm_bwd_v3_kernel<NV, LN>, smem);
+  if (err != cudaSuccess) return err;
+  norm_bwd_v3_kernel<NV, LN><<<ctas, 32 * kV3Warps, smem, stream>>>(
+      x, gamma, dy, dx, dg_part, db_part, rows, width, eps, rows_per_warp);
+  return cudaGetLastError();
+}
+
 // dx, and the (width,) weight gradients dg (and db, LayerNorm): the
 // path's kernel writes one fp32 partial row a CTA into dg_part
 // (db_part), then sum_partials_kernel adds them and rounds once to E.
-// path 0: v1, 1: v2; the partial buffers hold ceil(rows / (warps *
-// rows_per_warp)) rows, warps 4 (v1) or 8 (v2).
+// path 0: v1, 1: v2, 2: v3 (bf16 only); the partial buffers hold
+// ceil(rows / (warps * rows_per_warp)) rows, warps 4 (v1) or 8 (v2, v3).
 template <bool LN, typename E>
 int norm_bwd(const E* x, const E* gamma, const E* dy, E* dx, E* dg, E* db,
              float* dg_part, float* db_part, int rows, int width, float eps,
              int path, int rows_per_warp, cudaStream_t stream) {
-  if (rows < 0 || width < 0 || rows_per_warp < 1 || (path != 0 && path != 1))
+  if (rows < 0 || width < 0 || rows_per_warp < 1 || path < 0 || path > 2)
     return static_cast<int>(cudaErrorInvalidValue);
   if (path == 1 &&
       !v2_rows<E>(width, {x, gamma, dy, dx}, {dg_part, db_part}))
     return static_cast<int>(cudaErrorInvalidValue);
+  if (path == 2 &&
+      !v3_rows<E>(width, {x, gamma, dy, dx}, {dg_part, db_part}))
+    return static_cast<int>(cudaErrorInvalidValue);
   if (width == 0) return static_cast<int>(cudaGetLastError());
-  const int per_cta = (path == 1 ? kV2Warps : kWarpsPerBlock) * rows_per_warp;
+  const int warps = path == 0 ? kWarpsPerBlock : path == 1 ? kV2Warps
+                                                           : kV3Warps;
+  const int per_cta = warps * rows_per_warp;
   const int ctas = static_cast<int>((static_cast<long long>(rows) + per_cta -
                                      1) / per_cta);
   cudaError_t err = cudaSuccess;
-  if (ctas > 0 && path == 1) {
+  if (ctas > 0 && path == 2) {
+    if constexpr (sizeof(E) == 2) {   // v3_rows refused fp32 above
+      const int chunks = (width / kVec + 31) / 32;
+#define MXT_V3(NV)                                                         \
+  launch_v3<NV, LN>(x, gamma, dy, dx, dg_part, db_part, rows, width, eps,  \
+                    rows_per_warp, ctas, stream)
+      err = chunks <= 1 ? MXT_V3(1) : chunks <= 2 ? MXT_V3(2) : MXT_V3(4);
+#undef MXT_V3
+    }
+  } else if (ctas > 0 && path == 1) {
     const int chunks = (width / 4 + 31) / 32;
 #define MXT_V2(NV)                                                         \
   launch_v2<NV, LN, E>(x, gamma, dy, dx, dg_part, db_part, rows, width,    \
@@ -672,7 +959,7 @@ int norm_bwd(const E* x, const E* gamma, const E* dy, E* dx, E* dg, E* db,
     err = chunks <= 1 ? MXT_V2(1) : chunks <= 2 ? MXT_V2(2)
         : chunks <= 4 ? MXT_V2(4) : MXT_V2(8);
 #undef MXT_V2
-  } else if (ctas > 0) {
+  } else if (ctas > 0 && path == 0) {
     const size_t smem =
         sizeof(float) * (LN ? 2 : 1) * kWarpsPerBlock * width;
     err = allow_smem(norm_bwd_v1_kernel<LN, E>, smem);
@@ -759,7 +1046,8 @@ extern "C" int mxt_layer_norm_bwd_f32(const float* x, const float* gamma,
 }
 
 // the same in bf16: x, gamma, dy, dx and the weight gradients bf16, the
-// partials fp32 (v2 takes x, gamma, dy and dx 8-byte aligned)
+// partials fp32 (v2 takes x, gamma, dy and dx 8-byte aligned, v3
+// 16-byte)
 extern "C" int mxt_rms_norm_bwd_bf16(const __nv_bfloat16* x,
                                      const __nv_bfloat16* gamma,
                                      const __nv_bfloat16* dy,

@@ -10,9 +10,10 @@ launches count as ``rms_norm_bf16`` and ``layer_norm_bf16``.
 ``dx`` in the input's dtype and the weight gradients in gamma's, summed
 in fp32 and rounded once (the bf16 launches count as
 ``rms_norm_bwd_bf16`` and ``layer_norm_bwd_bf16``); :func:`_bwd_plan`
-picks their kernel's path (v2, the row in registers, or v1, any row) and
-grid.  A CPU tensor runs the plain version beside each; a CUDA tensor
-launches ``csrc/norm.cu`` or raises.
+picks their kernel's path (v3, bf16 rows held packed; v2, the row in
+registers; or v1, any row) and grid.  A CPU tensor runs the plain
+version beside each; a CUDA tensor launches ``csrc/norm.cu`` or
+raises.
 :class:`RMSNorm` and :class:`LayerNorm` pair each forward with its
 backward as one ``torch.autograd.Function`` whose residuals are ``(x,
 gamma)``, as the reference's ``custom_vjp``.
@@ -31,13 +32,14 @@ __all__ = ["rms_norm", "layer_norm", "rms_norm_bwd", "layer_norm_bwd",
            "rms_norm_bwd_reference", "layer_norm_bwd_reference",
            "RMSNorm", "LayerNorm"]
 
-# the backward's paths (csrc/norm.cu): CTA warps, the widest v2 row (32
-# lanes x 8 float4 chunks in registers), v1's rows a warp and most CTAs
-BWD_WARPS = {"v1": 4, "v2": 8}
+# the backward's paths (csrc/norm.cu): CTA warps, the widest v2 and v3
+# row (32 lanes x 8 float4 chunks, or 4 chunks of 8 bf16, in registers),
+# v1's rows a warp and most CTAs
+BWD_WARPS = {"v1": 4, "v2": 8, "v3": 8}
 BWD_V2_MAX_WIDTH = 1024
 BWD_V1_ROWS_PER_WARP = 4
 BWD_V1_MAX_CTAS = 1024
-_BWD_PATH = {"v1": 0, "v2": 1}   # the C entry points' path argument
+_BWD_PATH = {"v1": 0, "v2": 1, "v3": 2}   # the C entry points' path
 BwdPlan = collections.namedtuple("BwdPlan", "path ctas rows_per_warp")
 
 
@@ -128,32 +130,67 @@ def layer_norm(x, gamma, beta, eps=1e-5):
     return y
 
 
-def _bwd_aligned(*tensors):
-    """True when every tensor starts on a v2 chunk, 4 elements: 16 bytes
-    in fp32, 8 in bf16 (the kernel widens a bf16 chunk in registers, so
-    its row and its arithmetic are fp32's)."""
-    return all(t.data_ptr() % (4 * t.element_size()) == 0 for t in tensors)
+def _bwd_align(*tensors):
+    """The bytes every tensor's start is a multiple of, up to 16 (the
+    widest chunk a backward path loads)."""
+    align = 16
+    while any(t.data_ptr() % align for t in tensors):
+        align //= 2
+    return align
 
 
-def _bwd_plan(rows, width, aligned, sms):
-    """The launch of a norm backward on ``rows`` x ``width`` on a card
-    of ``sms`` SMs, fp32 or bf16.  ``path`` ``"v2"`` (the row in
-    registers) for ``width <= 1024``, ``width % 4 == 0`` and ``aligned``
-    pointers (:func:`_bwd_aligned`, which knows the dtype's chunk):
-    one wave of one CTA an SM (at width 512 a v2 thread holds
-    144-169 registers, so one 8-warp CTA fills an SM's register file),
-    each warp taking as many rows as that needs.  Else ``"v1"``: 4 rows a
-    warp, more where the CTAs would pass ``BWD_V1_MAX_CTAS``.  Each CTA
-    writes one partial weight-gradient row, which the entry point
-    sums."""
-    if aligned and width % 4 == 0 and width <= BWD_V2_MAX_WIDTH:
-        path, max_ctas, min_rpw = "v2", sms, 1
+def _v3_ctas_per_sm(width, layer):
+    """v3's CTAs an SM (``v3_ctas_per_sm`` of csrc/norm.cu): two under a
+    128-register cap for RMSNorm up to width 512; one for LayerNorm
+    (``layer``), whose extra column sums spill under that cap, and for
+    widths to 1024."""
+    return 1 if layer or width > 512 else 2
+
+
+def _bwd_path(width, align, dtype):
+    """The norm backward's path for rows of ``width`` and ``dtype``
+    (fp32 or bf16) whose tensors start on multiples of ``align`` bytes
+    (:func:`_bwd_align`): ``"v3"`` (bf16 rows held packed) for bf16 rows
+    of ``width <= 1024``, ``width % 8 == 0`` and 16-byte alignment;
+    else ``"v2"`` (the row in registers, widened to fp32) for ``width <=
+    1024``, ``width % 4 == 0`` and pointers on a 4-element chunk (16
+    bytes fp32, 8 bf16); else ``"v1"``."""
+    elem = torch.empty((), dtype=dtype).element_size()
+    if width % 4 or width > BWD_V2_MAX_WIDTH or align % (4 * elem):
+        return "v1"
+    if dtype == torch.bfloat16 and width % 8 == 0 and align % 16 == 0:
+        return "v3"
+    return "v2"
+
+
+def _bwd_grid(path, rows, width, sms, layer=False):
+    """``path``'s launch on ``rows`` x ``width`` on a card of ``sms``
+    SMs, for LayerNorm's backward if ``layer``, else RMSNorm's.  v3: one
+    wave of :func:`_v3_ctas_per_sm` CTAs an SM; v2: one wave of one CTA
+    an SM (at width 512 a v2 thread holds 144-169
+    registers, so one 8-warp CTA fills an SM's register file); in both
+    each warp takes as many rows as the wave needs.  v1: 4 rows a warp,
+    more where the CTAs would pass ``BWD_V1_MAX_CTAS``.  Each CTA writes
+    one partial weight-gradient row, which the entry point sums."""
+    if path == "v3":
+        max_ctas, min_rpw = _v3_ctas_per_sm(width, layer) * sms, 1
+    elif path == "v2":
+        max_ctas, min_rpw = sms, 1
     else:
-        path, max_ctas, min_rpw = "v1", BWD_V1_MAX_CTAS, BWD_V1_ROWS_PER_WARP
+        max_ctas, min_rpw = BWD_V1_MAX_CTAS, BWD_V1_ROWS_PER_WARP
     warps = BWD_WARPS[path]
     rpw = max(min_rpw, -(-rows // (warps * max_ctas)))
     ctas = -(-rows // (warps * rpw))
     return BwdPlan(path, ctas, rpw)
+
+
+def _bwd_plan(rows, width, align, sms, dtype=torch.float32, layer=False):
+    """The launch of a norm backward (LayerNorm's if ``layer``) on
+    ``rows`` x ``width`` of ``dtype`` on a card of ``sms`` SMs, its row
+    tensors on multiples of ``align`` bytes: :func:`_bwd_path`'s path on
+    :func:`_bwd_grid`'s grid."""
+    return _bwd_grid(_bwd_path(width, align, dtype), rows, width, sms,
+                     layer)
 
 
 def _bwd_launch(name, x, gamma, dy, eps, grads):
@@ -161,9 +198,9 @@ def _bwd_launch(name, x, gamma, dy, eps, grads):
     (dgamma, or dgamma and dbeta) summed from per-CTA partial rows, all
     inside the entry point."""
     rows, width = x.shape
-    plan = _bwd_plan(rows, width, _bwd_aligned(x, gamma, dy),
-                     sm_count(x.device.index))
     dx = torch.empty_like(x)
+    plan = _bwd_plan(rows, width, _bwd_align(x, gamma, dy, dx),
+                     sm_count(x.device.index), x.dtype, grads == 2)
     outs = [torch.empty_like(gamma) for _ in range(grads)]
     parts = torch.empty(grads, plan.ctas, width, dtype=torch.float32,
                         device=x.device)

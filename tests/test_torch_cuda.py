@@ -174,7 +174,7 @@ def test_norm_bwd_unaligned_rows_take_v1(cuda_device):
     """Contiguous rows 4 bytes off 16-byte alignment (a slice of a larger
     buffer) take the v1 path and agree with the plain versions."""
     rows, width = 300, 512
-    assert norm._bwd_plan(rows, width, False,
+    assert norm._bwd_plan(rows, width, 4,
                           norm.sm_count(cuda_device.index)).path == "v1"
     rs = np.random.RandomState(3)
     buf = torch.zeros(2, rows * width + 1, device=cuda_device)
@@ -198,18 +198,60 @@ def test_norm_bwd_unaligned_rows_take_v1(cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("width", [512, 1002])
-def test_norm_bwd_is_deterministic(cuda_device, width):
+def test_norm_bwd_is_deterministic(cuda_device, width, dtype):
     """The weight gradients sum fixed partials in a fixed order, with no
-    atomics: two launches give the same bits, on either path."""
+    atomics: two launches give the same bits, on every path (fp32: v2 at
+    512, v1 at 1002; bf16: v3 at 512, v1 at 1002)."""
     rs = np.random.RandomState(0)
-    x, g, dy = _on(cuda_device, rs.randn(4096, width).astype(np.float32),
-                   rs.rand(width).astype(np.float32),
-                   rs.randn(4096, width).astype(np.float32))
+    x, g, dy = (t.to(dtype) for t in _on(
+        cuda_device, rs.randn(4096, width).astype(np.float32),
+        rs.rand(width).astype(np.float32),
+        rs.randn(4096, width).astype(np.float32)))
     for bwd in (norm.rms_norm_bwd, norm.layer_norm_bwd):
         a = bwd(x, g, dy)
         b = bwd(x, g, dy)
         assert all(torch.equal(p, q) for p, q in zip(a, b))
+
+
+@pytest.fixture
+def forced_path(monkeypatch):
+    """``forced_path(path)``: every norm backward launch from here on
+    takes ``path`` with that path's grid."""
+    def force(path):
+        monkeypatch.setattr(
+            norm, "_bwd_plan", lambda rows, width, align, sms, dtype, layer:
+            norm._bwd_grid(path, rows, width, sms, layer))
+    return force
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,width", [(4096, 512), (4097, 1024), (33, 8)])
+def test_fp32_bits_equal_a_forced_v2_launch_and_v3_agrees(
+        cuda_device, forced_path, rows, width):
+    """fp32 rows stay on v2: the wrapper's bits equal a launch forced onto
+    v2.  bf16 rows on v3 agree with a launch forced onto v2 within one
+    bf16 ulp of max|ref| (both sum in fp32 and round once)."""
+    rs = np.random.RandomState(rows + width)
+    x, g, dy = _on(cuda_device, rs.randn(rows, width).astype(np.float32),
+                   rs.uniform(0.5, 1.5, width).astype(np.float32),
+                   rs.randn(rows, width).astype(np.float32))
+    xb, gb, dyb = (t.to(torch.bfloat16) for t in (x, g, dy))
+    planned = [bwd(a, b, c) for bwd in (norm.rms_norm_bwd,
+                                        norm.layer_norm_bwd)
+               for a, b, c in ((x, g, dy), (xb, gb, dyb))]
+    forced_path("v2")
+    forced = [bwd(a, b, c) for bwd in (norm.rms_norm_bwd,
+                                       norm.layer_norm_bwd)
+              for a, b, c in ((x, g, dy), (xb, gb, dyb))]
+    torch.cuda.synchronize()
+    for i, (got, want) in enumerate(zip(planned, forced)):
+        for a, b in zip(got, want):
+            if i % 2 == 0:                     # fp32
+                assert torch.equal(a, b)
+            else:
+                _within_bf16_ulp(a, b)
 
 
 @pytest.mark.cuda
@@ -1148,11 +1190,13 @@ def test_bf16_contiguous_engine_on_card(cuda_device, compute, kv):
 # ---------------------------------------------------------------------------
 # bf16 training: the norm backwards, SoftmaxOutput's head and the step
 # ---------------------------------------------------------------------------
-# (rows, width, element offset): v2 at widths 4, 512, 1024 and 8 bytes
-# off 16-byte alignment; v1 at widths 513 and 1028 and rows 2 bytes off
+# (rows, width, element offset): v3 at widths 8, 512 and 1024 and at 1,
+# 33, 4096 and 4097 rows; v2 at widths 4 and 516 and 8 bytes off 16-byte
+# alignment; v1 at widths 513 and 1028 and rows 2 bytes off
 BF16_NORM_BWD_CASES = [(4096, 512, 0), (64, 4, 0), (64, 1024, 0),
                        (33, 513, 0), (64, 1028, 0), (300, 512, 4),
-                       (300, 512, 1), (4097, 512, 0)]
+                       (300, 512, 1), (4097, 512, 0), (64, 8, 0),
+                       (64, 516, 0), (1, 512, 0), (33, 512, 0)]
 
 
 def _bf16_offset(t, offset):
@@ -1178,10 +1222,13 @@ def test_bf16_norm_bwd_kernels_match_plain(cuda_device, rows, width, offset):
                     rs.uniform(0.5, 1.5, width).astype(np.float32))
     x, dy = _bf16_offset(xa, offset), _bf16_offset(dya, offset)
     x3 = _bf16_offset((xa.float() + 3.0).to(torch.bfloat16), offset)
-    path = norm._bwd_plan(rows, width, norm._bwd_aligned(x, g, dy),
-                          norm.sm_count(cuda_device.index)).path
-    assert path == ("v2" if width % 4 == 0 and width <= 1024 and
-                    offset % 4 == 0 else "v1")
+    path = norm._bwd_plan(rows, width, norm._bwd_align(x, g, dy),
+                          norm.sm_count(cuda_device.index),
+                          torch.bfloat16).path
+    fits = width <= 1024
+    assert path == ("v3" if fits and width % 8 == 0 and offset % 8 == 0
+                    else "v2" if fits and width % 4 == 0 and offset % 4 == 0
+                    else "v1")
     before = kernels.launch_counts()
     for got, want in ((norm.rms_norm_bwd(x, g, dy),
                        norm.rms_norm_bwd_reference(x, g, dy)),

@@ -41,6 +41,18 @@ RELABEL = [0, 2, 4, 6, 1, 3, 5, 7]
 TOL = 1e-4
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One intra-op thread for this module: its tests make thousands of
+    tiny torch ops, and under a parallel run (several workers on the
+    same cores) handing each op to a team of threads costs many times
+    the op.  Restored when the module ends."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def tf32_rna(x):
     """Round fp32 to TF32 as ``cvt.rna.tf32.f32``: to the nearest value
     with 10 mantissa bits, halves away from zero (add half a TF32 ulp to

@@ -21,6 +21,18 @@ PKGS = (jmx, tmx)
 REL = 1e-5   # of max|ref|: the two packages sum in another order
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One intra-op thread for this module: its tests make thousands of
+    tiny torch ops, and under a parallel run (several workers on the
+    same cores) handing each op to a team of threads costs many times
+    the op.  Restored when the module ends."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(autouse=True)
 def _plain_reference(monkeypatch):
     monkeypatch.setenv("MXNET_PALLAS", "0")

@@ -42,6 +42,18 @@ GRAD_TOL = 5e-2    # of max|ref| per gradient (tests/test_torch_train_bf16.py)
 PARAM_TOL = 1e-2   # of max|ref| per parameter after three steps (the same)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One intra-op thread for this module: its tests make thousands of
+    tiny torch ops, and under a parallel run (several workers on the
+    same cores) handing each op to a team of threads costs many times
+    the op.  Restored when the module ends."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _f32(a):
     """An array of either package (bf16 widened) as fp32 numpy."""
     return np.asarray(a.asnumpy(), np.float32)

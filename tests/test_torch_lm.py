@@ -27,6 +27,18 @@ SPEC = tlm.lm_spec(num_layers=2, num_hidden=32, num_heads=4, vocab_size=50)
 BS, NB, T = 8, 16, 5
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One intra-op thread for this module: its tests make thousands of
+    tiny torch ops, and under a parallel run (several workers on the
+    same cores) handing each op to a team of threads costs many times
+    the op.  Restored when the module ends."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.mark.parametrize("spec,seed", [
     (SPEC, 3), (tlm.lm_spec(1, 16, 2, 20), 0),
     (tlm.lm_spec(3, 24, 3, 37), 11)])

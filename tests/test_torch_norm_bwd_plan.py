@@ -4,10 +4,12 @@ on the CPU.
 The kernels themselves run only on a card (``tests/test_torch_cuda.py``).
 What decides their launch and their numbers is checked here:
 
-* ``_bwd_plan``: v2 (the row in registers) up to the register cap, for
-  widths that are a multiple of 4 and 16-byte aligned pointers, v1 for
-  every other row; the grid the C entry point expects (one partial
-  weight-gradient row a CTA);
+* ``_bwd_plan``: v3 (bf16 rows held packed, 16-byte chunks) for bf16
+  widths that are a multiple of 8 up to 1024 on 16-byte aligned
+  pointers; v2 (the row in registers) up to the register cap, for
+  widths that are a multiple of 4 and pointers on a 4-element chunk; v1
+  for every other row; fp32 never v3; the grid the C entry point
+  expects (one partial weight-gradient row a CTA, at most one wave);
 * the wrapper's card route: one launch with the plan's path and rows a
   warp, no ``torch.sum`` around it;
 * the kernels' arithmetic in their order, emulated in torch fp32: each
@@ -15,7 +17,9 @@ What decides their launch and their numbers is checked here:
   gradients as each lane's column sums over its warp's rows, the warps
   in CTA order and the CTAs' partial rows in the fixed order of the sum
   kernel; held within 1e-5 x max|ref| of ``jax.vjp`` of the Pallas
-  kernels in interpret mode and of the plain versions.
+  kernels in interpret mode and of the plain versions; v3's order on
+  bf16 inputs, rounded once to bf16, also within one bf16 ulp of the
+  plain versions on bf16 tensors.
 """
 import jax
 import numpy as np
@@ -24,47 +28,88 @@ import torch
 
 from mxnet_tpu.pallas_ops import norm as jax_norm
 from mxnet_tpu_torch.kernels import norm
+from test_torch_cuda import bf16_ulp
 
 CAP = norm.BWD_V2_MAX_WIDTH
 SUM_WARPS = 16   # kSumWarps of csrc/norm.cu
 H100_SMS = 132
+F32, BF16 = torch.float32, torch.bfloat16
 
 
-@pytest.mark.parametrize("width,aligned,path", [
-    (CAP, True, "v2"), (CAP + 4, True, "v1"), (1000, True, "v2"),
-    (1002, True, "v1"), (7, True, "v1"), (40, True, "v2"),
-    (512, True, "v2"), (512, False, "v1"), (4, True, "v2")])
-def test_plan_picks_the_path(width, aligned, path):
-    assert norm._bwd_plan(64, width, aligned, H100_SMS).path == path
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One intra-op thread for this module: its tests make thousands of
+    tiny torch ops, and under a parallel run (several workers on the
+    same cores) handing each op to a team of threads costs many times
+    the op.  Restored when the module ends."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+# align: the bytes every row tensor's start is a multiple of
+@pytest.mark.parametrize("width,align,dtype,path", [
+    (CAP, 16, F32, "v2"), (CAP + 4, 16, F32, "v1"), (1000, 16, F32, "v2"),
+    (1002, 16, F32, "v1"), (7, 16, F32, "v1"), (40, 16, F32, "v2"),
+    (512, 16, F32, "v2"), (512, 4, F32, "v1"), (512, 8, F32, "v1"),
+    (4, 16, F32, "v2"),
+    (512, 16, BF16, "v3"), (8, 16, BF16, "v3"), (CAP, 16, BF16, "v3"),
+    (1000, 16, BF16, "v3"), (CAP + 8, 16, BF16, "v1"),
+    (516, 16, BF16, "v2"), (4, 16, BF16, "v2"), (512, 8, BF16, "v2"),
+    (512, 4, BF16, "v1"), (512, 2, BF16, "v1"), (513, 16, BF16, "v1"),
+    (1002, 16, BF16, "v1")])
+def test_plan_picks_the_path(width, align, dtype, path):
+    assert norm._bwd_plan(64, width, align, H100_SMS, dtype).path == path
+
+
+def test_plan_never_gives_fp32_v3():
+    assert {norm._bwd_path(w, a, F32) for w in range(1, CAP + 64)
+            for a in (1, 2, 4, 8, 16)} == {"v1", "v2"}
 
 
 @pytest.mark.parametrize("rows", [0, 1, 7, 17, 33, 64, 300, 4096, 4097,
                                   100_000, 1_000_000])
-@pytest.mark.parametrize("width,aligned", [(512, True), (1000, False)])
+@pytest.mark.parametrize("width,align,dtype", [
+    (512, 16, F32), (1000, 4, F32), (512, 16, BF16), (CAP, 16, BF16)])
 @pytest.mark.parametrize("sms", [H100_SMS, 7])
-def test_plan_grid_covers_the_rows_once(rows, width, aligned, sms):
-    plan = norm._bwd_plan(rows, width, aligned, sms)
+@pytest.mark.parametrize("layer", [False, True])
+def test_plan_grid_covers_the_rows_once(rows, width, align, dtype, sms,
+                                        layer):
+    plan = norm._bwd_plan(rows, width, align, sms, dtype, layer)
     per_cta = norm.BWD_WARPS[plan.path] * plan.rows_per_warp
     assert plan.ctas == -(-rows // per_cta)
-    if plan.path == "v2":                      # at most one wave
-        assert plan.ctas <= sms
+    wave = {"v2": sms, "v3": norm._v3_ctas_per_sm(width, layer) * sms}
+    if plan.path in wave:                      # at most one wave
+        assert plan.ctas <= wave[plan.path]
     else:
         assert plan.rows_per_warp >= norm.BWD_V1_ROWS_PER_WARP
         assert plan.ctas <= norm.BWD_V1_MAX_CTAS
     if rows:                                   # no CTA without a row
         assert (plan.ctas - 1) * per_cta < rows <= plan.ctas * per_cta
         # as few rows a warp as fill the wave
-        if plan.path == "v2" and plan.rows_per_warp > 1:
-            assert -(-rows // (per_cta - 8)) > sms
+        if plan.path in wave and plan.rows_per_warp > 1:
+            warps = norm.BWD_WARPS[plan.path]
+            assert -(-rows // (per_cta - warps)) > wave[plan.path]
 
 
 def test_plan_at_the_training_shape():
-    # 4096 x 512: 128 CTAs of 8 warps, 4 rows a warp, one wave of one CTA
-    # on each of 128 of an H100's 132 SMs
-    assert norm._bwd_plan(4096, 512, True, H100_SMS) == \
+    # 4096 x 512 fp32: 128 CTAs of 8 warps, 4 rows a warp, one wave of one
+    # CTA on each of 128 of an H100's 132 SMs; bf16: v3, for RMSNorm 256
+    # CTAs of 8 warps, 2 rows a warp, one wave of two CTAs an SM, for
+    # LayerNorm (one CTA an SM) as fp32's grid
+    assert norm._bwd_plan(4096, 512, 16, H100_SMS) == \
         norm.BwdPlan("v2", 128, 4)
-    assert norm._bwd_plan(4097, 512, True, H100_SMS).ctas == 129
-    assert norm._bwd_plan(1024, 512, True, H100_SMS).rows_per_warp == 1
+    assert norm._bwd_plan(4097, 512, 16, H100_SMS).ctas == 129
+    assert norm._bwd_plan(1024, 512, 16, H100_SMS).rows_per_warp == 1
+    assert norm._bwd_plan(4096, 512, 16, H100_SMS, BF16) == \
+        norm.BwdPlan("v3", 256, 2)
+    assert norm._bwd_plan(4096, 512, 16, H100_SMS, BF16, True) == \
+        norm.BwdPlan("v3", 128, 4)
+    assert norm._bwd_plan(4096, 512, 8, H100_SMS, BF16) == \
+        norm.BwdPlan("v2", 128, 4)
+    assert norm._bwd_plan(4096, 1024, 16, H100_SMS, BF16) == \
+        norm.BwdPlan("v3", 128, 4)
 
 
 @pytest.fixture
@@ -93,53 +138,62 @@ def test_card_route_is_one_launch_of_the_plan(card_route, offset, path):
     dx, dg = norm.rms_norm_bwd(x, g, dy)
     dx2, dg2, db2 = norm.layer_norm_bwd(x, g, dy)
     assert [a[1] for a in card_route] == ["rms_norm_bwd", "layer_norm_bwd"]
-    plan = norm._bwd_plan(rows, width, offset == 0, H100_SMS)
-    for args, eps in zip(card_route, (1e-6, 1e-5)):
+    for args, eps, layer in zip(card_route, (1e-6, 1e-5), (False, True)):
+        plan = norm._bwd_plan(rows, width, 16 if offset == 0 else 4,
+                              H100_SMS, layer=layer)
         assert args[-5:] == (rows, width, eps, path, plan.rows_per_warp)
     assert dx.shape == dx2.shape == (rows, width)
     assert dg.shape == dg2.shape == db2.shape == (width,)
 
 
-@pytest.mark.parametrize("offset,path", [(0, 1), (4, 1), (2, 0), (1, 0)])
+@pytest.mark.parametrize("offset,path", [(0, 2), (4, 1), (2, 0), (1, 0)])
 def test_bf16_card_route_takes_v2_on_8_byte_chunks(card_route, offset,
                                                    path):
-    """bf16 rows take v2 when every row tensor starts on a 4-element
-    chunk, 8 bytes (offsets 0 and 4 elements), else v1 (2 and 1); each
-    launch is one call of the bf16 entry point under the bf16 name, and
-    the outputs are bf16."""
+    """bf16 rows take v3 when every row tensor starts on 16 bytes (offset
+    0), v2 on a 4-element chunk, 8 bytes (offset 4 elements), else v1
+    (2 and 1); each launch is one call of the bf16 entry point under the
+    bf16 name with the plan's path and rows a warp, and the outputs are
+    bf16."""
     rows, width = 33, 512
     buf = torch.zeros(2, rows * width + offset, dtype=torch.bfloat16)
     x, dy = (b[offset:].view(rows, width) for b in buf)
     g = torch.ones(width, dtype=torch.bfloat16)
-    assert norm._bwd_aligned(x, g, dy) == (path == 1)
+    align = norm._bwd_align(x, g, dy)
+    assert align == {0: 16, 4: 8, 2: 4, 1: 2}[offset]
     # 8 bytes in: a bf16 chunk, not an fp32 one (16 bytes)
-    assert norm._bwd_aligned(torch.zeros(9, dtype=torch.bfloat16)[4:])
-    assert not norm._bwd_aligned(torch.zeros(9)[2:])
+    assert norm._bwd_path(width, norm._bwd_align(
+        torch.zeros(9, dtype=torch.bfloat16)[4:]), torch.bfloat16) == "v2"
+    assert norm._bwd_path(width, norm._bwd_align(torch.zeros(9)[2:]),
+                          torch.float32) == "v1"
     outs = norm.rms_norm_bwd(x, g, dy) + norm.layer_norm_bwd(x, g, dy)
     assert [a[1:3] for a in card_route] == [
         ("rms_norm_bwd_bf16", "mxt_rms_norm_bwd_bf16"),
         ("layer_norm_bwd_bf16", "mxt_layer_norm_bwd_bf16")]
-    plan = norm._bwd_plan(rows, width, path == 1, H100_SMS)
-    for args in card_route:
+    for args, layer in zip(card_route, (False, True)):
+        plan = norm._bwd_plan(rows, width, align, H100_SMS, torch.bfloat16,
+                              layer)
+        assert norm._BWD_PATH[plan.path] == path
         assert args[-2:] == (path, plan.rows_per_warp)
     assert all(t.dtype == torch.bfloat16 for t in outs)
 
 
 def _layout(path, width):
     """``idx[lane, k]``: the column a lane holds k-th, in the order it
-    sums them (-1 past the row).  v1: columns lane, lane + 32, ...; v2:
-    float4 chunks lane, lane + 32, ... of a power-of-two count, the four
-    columns of a chunk in turn."""
+    sums them (-1 past the row).  v1: columns lane, lane + 32, ...; v2
+    and v3: chunks lane, lane + 32, ... of a power-of-two count, of 4
+    columns (v2, a float4 or 8 bytes of bf16) or 8 (v3, 16 bytes of
+    bf16), the columns of a chunk in turn."""
     if path == "v1":
         idx = np.arange(32)[:, None] + 32 * np.arange(-(-width // 32))
         return np.where(idx < width, idx, -1)
-    n4 = width // 4
+    size = {"v2": 4, "v3": 8}[path]
+    n = width // size
     nv = 1
-    while 32 * nv < n4:
+    while 32 * nv < n:
         nv *= 2
     chunk = np.arange(32)[:, None] + 32 * np.arange(nv)        # (32, nv)
-    idx = (4 * chunk[:, :, None] + np.arange(4)).reshape(32, 4 * nv)
-    return np.where(np.repeat(chunk < n4, 4, axis=1), idx, -1)
+    idx = (size * chunk[:, :, None] + np.arange(size)).reshape(32, -1)
+    return np.where(np.repeat(chunk < n, size, axis=1), idx, -1)
 
 
 def _row_sum(v, idx):
@@ -164,7 +218,7 @@ def _weight_grad(contrib, plan):
     warps, rpw = norm.BWD_WARPS[plan.path], plan.rows_per_warp
     pad = torch.zeros(plan.ctas * warps * rpw, width)
     pad[:rows] = contrib
-    if plan.path == "v2":     # warp w of CTA b: rows b*8*rpw + w + 8i
+    if plan.path != "v1":     # warp w of CTA b: rows b*8*rpw + w + 8i
         t = pad.view(plan.ctas, rpw, warps, width)
     else:                     # rows (b*4 + w)*rpw + i
         t = pad.view(plan.ctas, warps, rpw, width).transpose(1, 2)
@@ -186,19 +240,24 @@ def _weight_grad(contrib, plan):
     return out
 
 
-def emulate_bwd(x, g, dy, eps, layer, aligned=True):
+def emulate_bwd(x, g, dy, eps, layer, align=16, dtype=F32):
     """The CUDA backward of ``rms_norm`` (``layer`` False: ``(dx, dg)``)
-    or ``layer_norm`` (``(dx, dg, db)``) as the planned path computes
-    it, in torch fp32."""
+    or ``layer_norm`` (``(dx, dg, db)``) as the path planned for
+    ``dtype`` rows computes it, in torch fp32 (bf16 inputs widened; the
+    outputs before their one rounding)."""
     rows, width = x.shape
-    plan = norm._bwd_plan(rows, width, aligned, H100_SMS)
+    plan = norm._bwd_plan(rows, width, align, H100_SMS, dtype, layer)
     idx = _layout(plan.path, width)
     w = dy * g
     if layer:
         mu = _row_sum(x, idx) / width
         r = torch.rsqrt(_row_sum((x - mu) * (x - mu), idx) / width + eps)
         xhat = (x - mu) * r
-        mw, mwx = (_row_sum(v, idx) / width for v in (w, w * xhat))
+        mw = _row_sum(w, idx) / width
+        if plan.path == "v3":      # r * mean(w * (x - mu)), one pass
+            mwx = r * _row_sum(w * (x - mu), idx) / width
+        else:
+            mwx = _row_sum(w * xhat, idx) / width
         dx = r * (w - mw - xhat * mwx)
         return dx, _weight_grad(dy * xhat, plan), _weight_grad(dy, plan)
     r = torch.rsqrt(_row_sum(x * x, idx) / width + eps)
@@ -248,6 +307,42 @@ def test_emulation_matches_plain(rows, width, aligned):
     for layer, ref in ((False, norm.rms_norm_bwd_reference(x, g, dy, 1e-6)),
                        (True, norm.layer_norm_bwd_reference(x, g, dy,
                                                             1e-5))):
-        got = emulate_bwd(x, g, dy, 1e-5 if layer else 1e-6, layer, aligned)
+        got = emulate_bwd(x, g, dy, 1e-5 if layer else 1e-6, layer,
+                          16 if aligned else 4)
         for a, b in zip(got, ref):
             _close(a, b)
+
+
+def _bf16_case(rows, width):
+    """``_case`` rounded to bf16: the bf16 tensors, and the same values
+    widened to fp32 numpy for the Pallas kernels."""
+    t = [torch.from_numpy(a).to(BF16) for a in _case(rows, width)]
+    return t, [a.float().numpy() for a in t]
+
+
+@pytest.mark.parametrize("rows", [1, 33, 4096, 4097])
+def test_v3_emulation_matches_pallas_interpret_and_plain(rows):
+    """v3's order on bf16 inputs widened (each lane's 16-byte chunks, the
+    warps in CTA order, the CTAs' partial rows in the fixed order) within
+    1e-5 x max|ref| of ``jax.vjp`` of the Pallas kernels on the same
+    widened values; rounded once to bf16, within one bf16 ulp of the
+    plain versions on the bf16 tensors.  One Pallas block of all the
+    rows: its grid does not change the function."""
+    width = 512
+    assert norm._bwd_plan(rows, width, 16, H100_SMS, BF16).path == "v3"
+    (tx, tg, tb, tdy), (x, g, b, dy) = _bf16_case(rows, width)
+    wide = [torch.from_numpy(a) for a in (x, g, dy)]
+    for layer, eps in ((False, 1e-6), (True, 1e-5)):
+        got = emulate_bwd(*wide, eps, layer, 16, BF16)
+        if layer:
+            _, vjp = jax.vjp(lambda a, c, d: jax_norm.layer_norm(
+                a, c, d, eps, rows, True), x, g, b)
+            plain = norm.layer_norm_bwd_reference(tx, tg, tdy, eps)
+        else:
+            _, vjp = jax.vjp(lambda a, c: jax_norm.rms_norm(
+                a, c, eps, rows, True), x, g)
+            plain = norm.rms_norm_bwd_reference(tx, tg, tdy, eps)
+        for a, ref, p in zip(got, vjp(dy), plain):
+            _close(a, ref)
+            err = (a.to(BF16).float() - p.float()).abs().max().item()
+            assert err <= bf16_ulp(p.float().abs().max().item()), err

@@ -10,6 +10,7 @@ optimizer multipliers and Xavier, and checkpoints in both directions.
 """
 import numpy as np
 import pytest
+import torch
 
 import mxnet_tpu as jmx
 import mxnet_tpu_torch as tmx
@@ -17,6 +18,18 @@ import mxnet_tpu_torch as tmx
 LM = dict(seq_len=16, num_layers=2, num_hidden=32, num_heads=2,
           vocab_size=64)
 BATCH = 8
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One intra-op thread for this module: its tests make thousands of
+    tiny torch ops, and under a parallel run (several workers on the
+    same cores) handing each op to a team of threads costs many times
+    the op.  Restored when the module ends."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.fixture(autouse=True)

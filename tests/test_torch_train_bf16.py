@@ -49,6 +49,18 @@ PARAM_TOL = 1e-2   # of max|ref| per parameter after three steps
 BF16 = torch.bfloat16
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One intra-op thread for this module: its tests make thousands of
+    tiny torch ops, and under a parallel run (several workers on the
+    same cores) handing each op to a team of threads costs many times
+    the op.  Restored when the module ends."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _bf16(*arrays):
     """fp32 numpy arrays rounded to bf16 on both sides (the same RNE)."""
     return ([jnp.asarray(a).astype(jnp.bfloat16) for a in arrays],
