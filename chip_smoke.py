@@ -30,7 +30,9 @@ sources in this checkout on first use.  Phases, each fatal on failure:
    plus 1e-4); the wgmma body at phase 3e's and 6b's shapes (B16 L256
    causal and not) and at its ragged edges
    (Lq 70, 33, 20, 130 and 7; Lk 100 and 300; D 16, 104 and 128), two
-   launches bit-equal;
+   launches bit-equal; the speculative verify's paged attention (B16
+   H8 Lq5 D64) in each pool dtype on both bodies, with windows that
+   cross a block boundary (positions bs - 2 and 3 * bs - 2);
 3. serve the transformer LM at full width (4 layers, hidden 512, 8
    heads, vocab 8192, random weights from seed 0) through
    ``ModelRegistry`` + ``GenerationEngine`` with the default knobs: 16
@@ -65,6 +67,21 @@ sources in this checkout on first use.  Phases, each fatal on failure:
    each on the body ``_plan`` names, every bf16 ``flash_attention``
    launch above the decode threshold on wgmma (the same census runs
    over phases 6, 6b, 8 and 8b);
+3f. phase 3's mix, speculative (``add_draft_model``, ``spec_k`` 4) with
+   the target's own weights as the draft: target decode steps per
+   generated token at most 0.6x phase 3's, the acceptance printed, the
+   greedy streams equal phase 3's but where the CPU's top-2 margin is
+   below 1e-3 (the CPU's top-2 logits printed at the first differing
+   position), every verify launch (Lq 5) on the body ``_plan`` names and
+   every Lq 1 launch on the decode body; then the same on phase 3b's
+   int8 store with an int8 self-draft (the verify on the int8 kernel,
+   ``draft_pool_bytes`` printed, its streams against phase 3b's reported
+   only: its blocks are requantized once a window);
+3g. phase 3's mix with a friendly draft (the target's weights plus 3%
+   relative noise) and an adversarial one (an independent random LM of
+   2 layers, hidden 256, 4 heads): the acceptance, the greedy streams as
+   3f, tokens/s and inter-token latency beside phase 3's, and the
+   adversarial draft's fallback engaged (``spec_fallback_steps`` > 0);
 4b. the same for phase 3b's int8 store;
 4c. the same for phase 3d's bf16 store, with the bounds of bf16: logits
    within 2e-2 x max|ref|, and a stream may differ only where the CPU's
@@ -81,8 +98,10 @@ sources in this checkout on first use.  Phases, each fatal on failure:
    beside it the fp32 CUDA-core bound of earlier runs), and phase 3b's
    ms per step beside phase 3's; paged attention at each (B, Lq) of the
    serving phases' launches and at B=32 with Lq 1, 32 and each side of
-   the decode threshold, with v1 (the CUDA-core body of earlier slices)
-   and the other new body (decode or tile) timed beside each row;
+   the decode threshold, and at the speculative verify's B16 Lq5, with
+   v1 (the CUDA-core body of earlier slices) and the other new body
+   (decode or tile) timed beside each row (the faster body at Lq5
+   printed beside ``DECODE_MAX_LQ``);
    ``flash_attention_offset`` in fp32 and bf16 at B32 Lk1024 and at each
    (B, Lk) of phases 3c's and 3e's launches, and at Lq 2 and each
    side of its decode threshold, with v1 and the other body beside each
@@ -106,7 +125,11 @@ sources in this checkout on first use.  Phases, each fatal on failure:
    body), 64 x 8193 and 4096 x 2 (scalar and narrow) and rows 2 bytes
    off 16-byte alignment, float32 labels random, at 0, at the last
    column and outside (-1 and the class count): the loss within 1e-5 x
-   max|ref|, the gradient within one bf16 ulp of max|ref|;
+   max|ref|, the gradient within one bf16 ulp of max|ref|; float-to-
+   integer ``Cast``, ``cast`` and ``astype`` on the card, fp32 and bf16
+   to uint8, int8 and int32, saturating (equal to the CPU's casts and
+   to the reference's values on NaN, infinities and out-of-range
+   inputs);
 6. train the transformer LM at full width (4 layers, hidden 512, 8 heads,
    vocab 8192, seq_len 256, batch 16) through ``Module.fit`` for 20 SGD
    steps (momentum 0.9, learning rate 0.005) on a successor language:
@@ -333,6 +356,22 @@ SERVE_PHASES = {
             "flash_attention_offset", "flash_attention_paged",
             "flash_attention_paged_bf16")),
 }
+# speculative decoding (phases 3f, 3g): the window, and the phases' store
+# arguments (phase 3's, phase 3b's) with the self-draft; phase 3g's two
+# other drafts ride phase 3's store.  Kernels as in SERVE_PHASES.
+SPEC_K = 4
+SERVE_PHASES.update({
+    "3f": SERVE_PHASES["3"],
+    "3f8": SERVE_PHASES["3b"],
+    "3g": SERVE_PHASES["3"],
+    "3ga": SERVE_PHASES["3"],
+})
+# the adversarial draft of phase 3g: an independent random LM
+ADV_SPEC = tlm.lm_spec(num_layers=2, num_hidden=256, num_heads=4,
+                       vocab_size=8192)
+# the verify step's paged attention shape (phase 5; phase 2 with windows
+# that cross a block boundary)
+VERIFY_B, VERIFY_LQ = 16, SPEC_K + 1
 MARGIN = 1e-3   # a card stream may leave the CPU's only at a near tie
 # card vs CPU (phase 4*): serving phase, and the logits' bound and the
 # near-tie margin, absolute (fp32 and int8 stores) or relative to the
@@ -462,9 +501,11 @@ def pa_geometry(bs, B):
 
 def paged_inputs(lq, dev, bs=PA["bs"], edges=False, B=PA["B"]):
     """A paged case at the serving shapes: ragged positions (``edges``:
-    the first at 0, the second at T * bs - lq), every sequence after the
-    first sharing sequence 0's first physical block, unused table
-    entries at the trash block 0, junk in every pool row."""
+    the first at 0, the second at T * bs - lq, the third and fourth at
+    bs - 2 and 3 * bs - 2, windows that cross a block boundary), every
+    sequence after the first sharing sequence 0's first physical block,
+    unused table entries at the trash block 0, junk in every pool row
+    (so a key read past a row's frontier shows)."""
     H, D = PA["H"], PA["D"]
     T, nb = pa_geometry(bs, B)
     rs = np.random.RandomState(100 + lq)
@@ -474,6 +515,7 @@ def paged_inputs(lq, dev, bs=PA["bs"], edges=False, B=PA["B"]):
     pos = rs.randint(0, T * bs - lq + 1, B).astype(np.int32)
     if edges:
         pos[0], pos[1] = 0, T * bs - lq
+        pos[2], pos[3] = bs - 2, 3 * bs - 2
     tables = np.zeros((B, T), np.int32)
     nxt = 1
     for b in range(B):
@@ -664,6 +706,7 @@ def phase_compare(dev):
             1e-4)
     errs.update(phase_compare_bf16(dev))
     errs.update(phase_compare_paged_edges(dev))
+    errs.update(phase_compare_verify(dev))
     errs.update(phase_compare_flash(dev))
     for M in DQ_M:
         for N, K in DQ_NK:
@@ -750,6 +793,71 @@ def phase_compare_paged_edges(dev):
                     paged_attention.flash_attention_paged(*args, **kw),
                     paged_attention.paged_attention_reference(*args, **kw))
     return errs
+
+
+def phase_compare_verify(dev):
+    """The speculative verify's paged attention (B16 H8 Lq5 D64, blocks
+    of 64) in each pool dtype against the plain version, on the planned
+    body and on the other one: positions 0 and T * bs - Lq, and windows
+    from bs - 2 and 3 * bs - 2, whose rows r = 0..4 see keys up to
+    position + r across a block boundary."""
+    errs = {}
+    for name, dtype in PA_DTYPES.items():
+        args, kw = paged_case(name, VERIFY_LQ, dev, B=VERIFY_B, edges=True)
+        plan = paged_attention._plan(VERIFY_B, PA["H"], VERIFY_LQ, PA["D"],
+                                     dtype, _build.sm_count(dev.index))
+        want = paged_attention.paged_attention_reference(*args, **kw)
+        for path in (plan.path, "tile" if plan.path == "decode"
+                     else "decode"):
+            with paged_path(path):
+                got = paged_attention.flash_attention_paged(*args, **kw)
+            errs[(name, "verify", path)] = agree_paged(
+                name, "B=%d H=%d Lq=%d D=%d bs=%d, windows across a block "
+                "boundary (%s%s)" % (VERIFY_B, PA["H"], VERIFY_LQ, PA["D"],
+                                     PA["bs"], path,
+                                     ", planned" if path == plan.path
+                                     else ""), got, want)
+    return errs
+
+
+def phase_compare_cast(dev):
+    """Phase 2+: float-to-integer ``Cast``, ``cast`` and ``astype`` on CUDA
+    tensors, from fp32 and bf16 to uint8, int8 and int32, saturating as
+    the reference's convert: equal to the same casts on the CPU and, from
+    fp32, to the reference's values on the out-of-range inputs."""
+    edges = np.float32([-2.7, 300.7, np.nan, np.inf, -np.inf, 3e9])
+    src = np.concatenate([edges, np.float32([0.49, -0.51, 1.5, -1.5, 126.9,
+                                             -127.9, 254.6])])
+    want_edges = {"uint8": [0, 255, 0, 255, 0, 255],
+                  "int8": [-2, 127, 0, 127, -128, 127],
+                  "int32": [-2, 300, 0, 2 ** 31 - 1, -2 ** 31, 2 ** 31 - 1]}
+    n = 0
+    for src_dtype in ("float32", "bfloat16"):
+        for dtype in ("uint8", "int8", "int32"):
+            for how in ("Cast", "cast", "astype"):
+                out = []
+                for card in (True, False):
+                    x = mx.nd.array(src, ctx=mx.gpu(0) if card else mx.cpu())
+                    if src_dtype != "float32":
+                        x = x.astype(src_dtype)
+                    y = x.astype(dtype) if how == "astype" else \
+                        getattr(mx.nd, how)(x, dtype=dtype)
+                    if y._data.device.type != ("cuda" if card else "cpu"):
+                        raise SystemExit("chip_smoke: %s ran off the card"
+                                         % how)
+                    out.append(y.asnumpy())
+                if str(out[0].dtype) != dtype or \
+                        not np.array_equal(out[0], out[1]) or \
+                        (src_dtype == "float32" and
+                         out[0][:len(edges)].tolist() != want_edges[dtype]):
+                    raise SystemExit(
+                        "chip_smoke: %s %s -> %s on the card gave %s, the "
+                        "CPU %s" % (how, src_dtype, dtype, out[0].tolist(),
+                                    out[1].tolist()))
+                n += 1
+    log("phase 2+ Cast/cast/astype float32 and bfloat16 -> uint8, int8, "
+        "int32 on the card: %d cases saturate, equal to the CPU's and, from "
+        "float32, to the reference's values on %s" % (n, edges.tolist()))
 
 
 def agree_fa(name, shape, got, want):
@@ -973,6 +1081,7 @@ def phase_compare_train(dev):
         errs[name] = max(errs[name], err)
     errs.update(phase_compare_train_bf16(dev))
     errs["rtc"] = phase_compare_rtc(t)
+    phase_compare_cast(dev)
     return errs
 
 
@@ -1393,11 +1502,13 @@ def paged_path(path):
         paged_attention._plan = plan
 
 
-def phase_serve(tag, name, params, reqs):
+def phase_serve(tag, name, params, reqs, draft=None):
     """Serve ``reqs`` on a new registry with phase ``tag``'s store
     arguments (``SERVE_PHASES``), the launch counts set to 0 just before
     and read just after; fatal when a kernel of the path did not launch
-    or one that must not did.  Returns a dict of the run."""
+    or one that must not did.  ``draft``: ``add_draft_model``'s
+    arguments (params, spec, compute_dtype) for speculative decoding
+    with ``SPEC_K`` proposals a tick.  Returns a dict of the run."""
     kw, must, must_not = SERVE_PHASES[tag]
     tic = time.perf_counter()
     reg = ModelRegistry()
@@ -1408,6 +1519,16 @@ def phase_serve(tag, name, params, reqs):
         % (tag, store.device, time.perf_counter() - tic,
            st["compute_dtype"] or "float32", st["kv_dtype"], st["paged"],
            st["weight_bytes"]["total"], st["weight_bytes"]["by_dtype"]))
+    if draft is not None:
+        tic = time.perf_counter()
+        d = reg.add_draft_model(name, draft["params"], draft["spec"],
+                                spec_k=SPEC_K,
+                                compute_dtype=draft.get("compute_dtype"))
+        log("phase %s draft (%d layers, hidden %d, compute %s) attached with "
+            "spec_k %d, both sides warmed: %.2f s"
+            % (tag, d.spec["num_layers"], d.spec["num_hidden"],
+               d.stats()["compute_dtype"] or "float32", SPEC_K,
+               time.perf_counter() - tic))
     kernels.reset_launch_counts()
     with dq_census() as shapes, fa_census() as fa_shapes, \
             pa_census() as pa_shapes:
@@ -1462,9 +1583,69 @@ def phase_serve(tag, name, params, reqs):
         raise SystemExit("chip_smoke: the shared-prefix requests did not "
                          "share blocks in phase %s" % tag)
     return dict(reg=reg, store=store, results=results, counts=counts,
-                fa_shapes=fa_shapes, pa_shapes=pa_shapes,
+                fa_shapes=fa_shapes, pa_shapes=pa_shapes, stats=stats,
                 tok_s=ntok / seconds, step_ms=seconds * 1e3 / steps,
                 cache=stats["cache_hwm"].get(name, {}))
+
+
+def itl_ms(results):
+    """(p50, p99, mean) inter-token gaps in ms over every stream."""
+    gaps = np.array([g for r in results for g in r.itl_s()]) * 1e3
+    return (float(np.percentile(gaps, 50)), float(np.percentile(gaps, 99)),
+            float(gaps.mean()))
+
+
+def phase_spec(tag, served, base, reqs, margin, self_draft):
+    """A speculative run (``served``) against its non-speculative base:
+    target decode steps per generated token against the base's (at most
+    0.6x with a self-draft), the acceptance, tokens/s and ITL beside the
+    base's, the greedy streams equal the base's but at a near tie
+    (``margin``, as ``compare_streams``), the paged launches by (name,
+    Lq, body): every verify (Lq = SPEC_K + 1) on its planned body
+    (``pa_census`` held each launch to ``_plan``) and every Lq 1 launch on
+    the decode body."""
+    st, bst = served["stats"], base["stats"]
+    ratio = (st["decode_steps"] / st["generated_tokens"]) / \
+        (bst["decode_steps"] / bst["generated_tokens"])
+    acc = st["spec_accepted"] / max(st["spec_proposed"], 1)
+    desc = served["cache"]
+    log("phase %s target decode steps %d for %d tokens vs base %d for %d: "
+        "%.4fx steps per token%s; spec_steps %d spec_proposed %d "
+        "spec_accepted %d (acceptance %.4f) spec_draft_steps %d "
+        "spec_fallback_steps %d; spec_k %s draft_pool_bytes %s (target "
+        "pool_bytes %s)"
+        % (tag, st["decode_steps"], st["generated_tokens"],
+           bst["decode_steps"], bst["generated_tokens"], ratio,
+           " (gate 0.6x)" if self_draft else "", st["spec_steps"],
+           st["spec_proposed"], st["spec_accepted"], acc,
+           st["spec_draft_steps"], st["spec_fallback_steps"],
+           desc.get("spec_k"), desc.get("draft_pool_bytes"),
+           desc.get("pool_bytes")))
+    log("phase %s generated tokens/s %.1f vs base %.1f (%.4fx); ITL p50 "
+        "%.3f p99 %.3f mean %.3f ms vs base p50 %.3f p99 %.3f mean %.3f ms "
+        "(host clock)" % ((tag, served["tok_s"], base["tok_s"],
+                           served["tok_s"] / base["tok_s"]) +
+                          itl_ms(served["results"]) + itl_ms(base["results"])))
+    if st["spec_steps"] <= 0 or desc.get("spec_k") != SPEC_K:
+        raise SystemExit("chip_smoke: phase %s never speculated" % tag)
+    if self_draft and not ratio <= 0.6:
+        raise SystemExit("chip_smoke: phase %s took %.4fx the target steps "
+                         "per token (gate 0.6x)" % (tag, ratio))
+    by_lq = collections.Counter()
+    for (kname, _b, lq, path), c in served["pa_shapes"].items():
+        by_lq[kname, lq, path] += c
+        if lq == 1 and path != "decode":
+            raise SystemExit("chip_smoke: phase %s ran an Lq 1 launch on %s"
+                             % (tag, path))
+    log("phase %s paged launches by (name, Lq, body) %s"
+        % (tag, dict(sorted(by_lq.items()))))
+    if not any(lq == SPEC_K + 1 for _k, lq, _p in by_lq):
+        raise SystemExit("chip_smoke: phase %s made no verify launch" % tag)
+    same, n = compare_streams(tag, served["results"], base["results"], reqs,
+                              margin)
+    log("phase %s greedy streams speculative == non-speculative: %d of %d"
+        % (tag, same, n))
+    return acc
 
 
 def phase_int8_bytes(fp, i8):
@@ -1563,7 +1744,11 @@ def top2_margin(model_cpu, prompt, gen, kv_dtype=torch.float32):
                            np.asarray([p0], np.int32),
                            np.asarray([len(toks)], np.int32), bs,
                            scales=scales)[0]
-    top = torch.topk(logits[0], 2).values
+    top = torch.topk(logits[0], 2)
+    log("  CPU top-2 logits after %d generated tokens: token %d %.6f, token "
+        "%d %.6f" % (len(gen), top.indices[0].item(), top.values[0].item(),
+                     top.indices[1].item(), top.values[1].item()))
+    top = top.values
     return (top[0] - top[1]).item(), logits.abs().max().item()
 
 
@@ -1662,6 +1847,53 @@ def phase_card_vs_cpu(tag, name, params, served, reqs):
                               margin)
     log("phase %s greedy streams card == CPU: %d of %d (CPU engine %.1f s)"
         % (tag, same, n, time.perf_counter() - tic))
+
+
+def friendly_params(params):
+    """Phase 3g's friendly draft: the target's weights plus 3% relative
+    noise from a fixed seed, as the reference's load generator makes a
+    draft that agrees with a random target (``serving/loadgen.py``)."""
+    rs = np.random.RandomState(7)
+    return {k: v + np.asarray(0.03 * (float(np.std(v)) or 1.0) *
+                              rs.standard_normal(v.shape), v.dtype)
+            for k, v in params.items()}
+
+
+def phase_spec_runs(params, reqs, served):
+    """Phases 3f and 3g: phase 3's mix, speculative, on phase 3's store
+    with a self-draft (3f), on phase 3b's int8 store with an int8
+    self-draft (3f, int8), and on phase 3's store with a friendly and an
+    adversarial draft (3g).  The fp32 runs' greedy streams must equal
+    phase 3's but at a near tie; the int8 run's are compared and
+    reported only, since its pool blocks are requantized once a window
+    rather than once a token, so its KV codes differ from phase 3b's by
+    design.  Adds the runs to ``served``."""
+    model_cpu = tlm.TransformerLM.from_numpy(params, SPEC, device="cpu")
+    cpu8 = ModelRegistry()
+    cpu8.add_generative_model("lm8", params, SPEC, device="cpu",
+                              warmup=False, **SERVE_PHASES["3b"][0])
+    model_cpu8 = cpu8.gen_store("lm8").model
+
+    def fp_margin(i, gen):
+        return top2_margin(model_cpu, reqs[i]["tokens"], gen)[0], MARGIN
+
+    def i8_margin(i, gen):
+        return top2_margin(model_cpu8, reqs[i]["tokens"], gen,
+                           torch.int8)[0], float("inf")
+
+    runs = (("3f", "lm", "3", dict(params=params, spec=SPEC), fp_margin,
+             True),
+            ("3f8", "lm8", "3b", dict(params=params, spec=SPEC,
+                                      compute_dtype="int8"), i8_margin, True),
+            ("3g", "lm", "3", dict(params=friendly_params(params),
+                                   spec=SPEC), fp_margin, False),
+            ("3ga", "lm", "3", dict(params=tlm.random_params(ADV_SPEC, 9),
+                                    spec=ADV_SPEC), fp_margin, False))
+    for tag, name, base, draft, margin, self_draft in runs:
+        served[tag] = phase_serve(tag, name, params, reqs, draft=draft)
+        phase_spec(tag, served[tag], served[base], reqs, margin, self_draft)
+    if not served["3ga"]["stats"]["spec_fallback_steps"] > 0:
+        raise SystemExit("chip_smoke: the adversarial draft never fell back")
 
 
 def train_data(n):
@@ -2457,7 +2689,17 @@ def phase_times(dev, card, errs, pa_shapes, fa_shapes):
         entries[name] = [
             paged_row(dev, card, name, lq, B, " (serving census, %d "
                       "launches)" % n) for n, B, lq in census] + [
+            paged_row(dev, card, name, VERIFY_LQ, VERIFY_B,
+                      " (the speculative verify, spec_k %d)" % SPEC_K)] + [
             paged_row(dev, card, name, lq) for lq in PA_TIMED_LQ[name]]
+        row = entries[name][len(census)]
+        log("phase 5 %s verify B%d Lq%d: planned %s %.6f ms, %s %.6f ms: "
+            "%s faster (DECODE_MAX_LQ %d) [%s]"
+            % (name, VERIFY_B, VERIFY_LQ, row["path"], row["ms"],
+               row["other_path"], row["other_ms"],
+               row["path"] if row["ms"] <= row["other_ms"]
+               else row["other_path"],
+               paged_attention.DECODE_MAX_LQ[PA_DTYPES[name]], card))
     for M in DQ_M:
         for N, K in DQ_NK:
             x, c, sc, w = dq_inputs(M, N, K, dev)
@@ -2847,6 +3089,7 @@ def main(argv):
     phase_contiguous_vs_paged(
         served["3c"], served["3"], reqs,
         tlm.TransformerLM.from_numpy(params, SPEC, device="cpu"))
+    phase_spec_runs(params, reqs, served)
     for tag, name in (("4", "lm"), ("4b", "lm8"), ("4c", "lm16"),
                       ("4d", "lmc16")):
         phase_card_vs_cpu(tag, name, params,
@@ -2876,7 +3119,11 @@ def main(argv):
     kern += kernel_rows(phase_times_train(dev, card, errs, fa_shapes), counts)
     for tag, what in (("3", "paged fp32"), ("3b", "paged int8"),
                       ("3c", "contiguous fp32"), ("3d", "paged bf16"),
-                      ("3e", "contiguous bf16")):
+                      ("3e", "contiguous bf16"),
+                      ("3f", "paged fp32, self-draft"),
+                      ("3f8", "paged int8, self-draft"),
+                      ("3g", "paged fp32, friendly draft"),
+                      ("3ga", "paged fp32, adversarial draft")):
         log("phase 5 engine %s: %.1f generated tokens/s at full width [%s]"
             % (what, served[tag]["tok_s"], card))
     print(json.dumps({"kernels": kern}))

@@ -109,6 +109,18 @@ register_env("MXNET_SERVE_PROMPT_BUCKETS", str, "16,32,64,128",
              "its longest prompt and refuses longer prompts; the paged "
              "plane chunks prompts and only checks that the largest edge "
              "fits MXNET_SERVE_KV_MAX.")
+register_env("MXNET_SERVE_SPEC", str, "auto",
+             "Speculative decoding on the paged plane: 'auto' (default) "
+             "speculates for any model with a draft attached through "
+             "registry.add_draft_model and falls back to plain decode "
+             "steps while the rolling acceptance stays below a floor, "
+             "probing a speculative tick now and then; '1'/'on'/'force'/"
+             "'always' always drafts; '0'/'off'/'false' never does.  "
+             "Greedy streams stay identical to non-speculative decoding, "
+             "sampled ones equal in distribution.")
+register_env("MXNET_SERVE_SPEC_K", int, 4,
+             "Draft tokens proposed a speculative tick by default (the "
+             "target verifies K+1 positions in one paged step).")
 register_env("MXNET_SERVE_MAX_INFLIGHT", int, 0,
              "Admission budget of a generation engine: accepted but "
              "unresolved requests beyond it are shed with "

@@ -38,8 +38,10 @@ V1_ROWS = 16             # v1: query rows a CTA at most
 TILE_ROWS = 32           # the tile: query rows a CTA, or half of them
 # the largest Lq that takes the decode body (one query row a CTA, so Lq
 # CTAs a sequence and head), by pool dtype: above it the tile is faster
-# (PERF.md §6, chip_smoke.py phase 5)
-DECODE_MAX_LQ = {torch.float32: 1, torch.bfloat16: 1, torch.int8: 4}
+# (PERF.md §6, chip_smoke.py phase 5).  int8 takes the speculative
+# verify (Lq 5 at B16, 128 tile CTAs with 5 of 16 rows live) on the
+# decode body, which phase 5 timed 1.27x faster there
+DECODE_MAX_LQ = {torch.float32: 1, torch.bfloat16: 1, torch.int8: 5}
 _PATH = {"v1": 0, "decode": 1, "tile": 2}   # the entry points' path
 Plan = collections.namedtuple("Plan", "path block_q grid")
 # pool dtype -> (launch name, C entry point, head-dim multiple: one

@@ -41,6 +41,7 @@ from . import engine as _engine
 from . import ops as _ops  # noqa: F401  (registers every op)
 from .base import MXNetError
 from .context import Context, context_of, cpu, default_device
+from .ops.elemwise import saturating_cast
 from .ops.registry import get_op, list_ops
 
 __all__ = ["NDArray", "array", "empty", "zeros", "ones", "full",
@@ -225,8 +226,8 @@ class NDArray:
         """A copy converted to ``dtype``, outside the tape as the
         reference's: no gradient flows through it under ``record()``
         (``Cast`` is the recorded cast)."""
-        return NDArray(self._data.detach().to(_torch_dtype(dtype),
-                                              copy=True))
+        return NDArray(saturating_cast(self._data.detach(),
+                                       _torch_dtype(dtype)))
 
     def broadcast_to(self, shape):
         """A copy broadcast to ``shape`` (a 0 keeps this array's

@@ -42,12 +42,31 @@ for _name, _fn in (("relu", torch.relu), ("sigmoid", torch.sigmoid),
     _unary(_name, _fn)
 
 
+def saturating_cast(x, dtype):
+    """A copy of ``x`` in ``dtype``.  From a floating ``x`` to an integer
+    ``dtype`` it saturates, as the reference's XLA convert does:
+    truncated toward zero, clamped to the dtype's range, NaN to 0
+    (PyTorch's own conversion wraps there, or gives the dtype's minimum
+    for what it cannot hold).  The arithmetic runs in float64, which
+    holds every int32 bound exactly; int64's top, 2**63 - 1, is set
+    apart.  Every other pair of dtypes converts as ``Tensor.to``."""
+    if not x.is_floating_point() or dtype.is_floating_point or \
+            dtype.is_complex or dtype == torch.bool:
+        return x.to(dtype, copy=True)
+    info = torch.iinfo(dtype)
+    t = torch.nan_to_num(torch.trunc(x.detach().double()), nan=0.0)
+    out = t.clamp(info.min, info.max).to(dtype)
+    if info.max >= 2 ** 53:
+        out = torch.where(t >= float(info.max), info.max, out)
+    return out
+
+
 # the recorded cast (NDArray.astype is a copy outside the tape); its
 # backward casts the cotangent back to the input's dtype, so an fp32
 # leaf cast to bf16 gets an fp32 gradient
 register("Cast",
-         fcompute=lambda attrs, x: x.to(getattr(torch, attrs["dtype"]),
-                                        copy=True),
+         fcompute=lambda attrs, x: saturating_cast(
+             x, getattr(torch, attrs["dtype"])),
          attrs={"dtype": Dtype(required=True)},
          doc="Cast `data` to `dtype`; the gradient is cast back to the "
              "input's dtype.")

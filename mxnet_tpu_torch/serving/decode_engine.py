@@ -1,9 +1,10 @@
 """Autoregressive generation engine, in PyTorch.
 
 Counterpart of ``mxnet_tpu/serving/decode_engine.py`` (continuous
-batching on the paged and the contiguous KV planes, without metrics,
-tracing, priority tiers, tenant quotas or speculative decoding).  One
-daemon engine thread owns the loop; on the paged plane (the default):
+batching on the paged and the contiguous KV planes, with speculative
+decoding on the paged plane; without metrics, tracing, priority tiers
+or tenant quotas).  One daemon engine thread owns the loop; on the
+paged plane (the default):
 
 * **pump** — drain the submit queue into per-model FIFO waiting deques
   (blocking only when there is no admitted work at all);
@@ -22,6 +23,18 @@ daemon engine thread owns the loop; on the paged plane (the default):
 * **retire** — a sequence reaching its ``eos_id`` or ``max_tokens``
   resolves its Future with a :class:`GenerationResult` (and closes its
   :class:`TokenStream`); its blocks return to the pool.
+
+With a draft model attached (``registry.add_draft_model``) and
+``MXNET_SERVE_SPEC`` not off, the decode step becomes a speculative tick:
+the draft proposes up to ``spec_k`` tokens a generating slot in lq=1
+micro-steps on its own KV pool (which rides the target's block tables),
+the target verifies all K+1 positions in one paged step, and the
+accept/reject rule runs on the device; the tick's one blocking fetch
+brings the emitted tokens and their counts to the host.  Greedy streams
+equal non-speculative decoding token for token, sampled ones in
+distribution; rejected proposals roll back by the frontier alone.
+Under ``auto`` the engine falls back to plain decode steps while the
+rolling acceptance stays below a floor.
 
 The KV pool is one global pair of tensors on the model's device,
 ``(layers, heads, pool_blocks * kv_block, head_dim)``, updated in place;
@@ -67,7 +80,29 @@ _COUNTERS = ("requests", "prefills", "prefill_seqs", "decode_steps",
              "generated_tokens", "finished", "timeouts", "cancelled",
              "errors", "shed", "slot_grows", "prefix_hits",
              "prefix_hit_blocks", "prefix_hit_tokens", "cow_forks",
-             "prefill_chunks", "shed_pool", "cache_grows")
+             "prefill_chunks", "shed_pool", "cache_grows",
+             # speculative decoding (zero without a draft): spec_steps
+             # counts verify steps (each one target step emitting 1..K+1
+             # tokens, also counted in decode_steps), spec_proposed /
+             # spec_accepted the draft tokens offered / accepted,
+             # spec_draft_steps the draft's micro-steps by slot plus its
+             # catch-up dispatches, spec_fallback_steps the ticks that
+             # MXNET_SERVE_SPEC=auto served without drafting
+             "spec_steps", "spec_proposed", "spec_accepted",
+             "spec_draft_steps", "spec_fallback_steps")
+
+# MXNET_SERVE_SPEC=auto's fallback, as the reference's: while the rolling
+# acceptance EMA is below the floor the engine serves plain decode steps
+# and probes one speculative tick every _SPEC_PROBE_EVERY ticks, doubling
+# the gap after each failed probe up to _SPEC_PROBE_MAX (a recovery
+# resets it)
+_SPEC_EMA_DECAY = 0.75
+_SPEC_EMA_FLOOR = 0.125
+_SPEC_PROBE_EVERY = 128
+_SPEC_PROBE_MAX = 2048
+# xor'ed into a request's seed for its draft generator, so the target's
+# and the draft's draws never come from one stream
+_DRAFT_SEED_SALT = 0x5BEC5BEC9E3779B9
 
 
 class GenerationResult:
@@ -353,7 +388,7 @@ class _PagedModelState:
 
     paged = True
 
-    def __init__(self, store):
+    def __init__(self, store, draft=None, spec_k=0):
         self.store = store
         self.pool = _BlockPool(store.pool_blocks)
         self.prefix = _PrefixStore(self.pool, store.kv_block)
@@ -373,6 +408,28 @@ class _PagedModelState:
         self.top_ks = np.zeros(0, np.int32)
         self.resv = np.zeros(0, np.int32)      # reserved-unallocated
         self.gens = []                         # torch.Generator or None
+        # speculative decoding: the draft's own pools ride the target's
+        # block tables (one allocator, two KV planes); dlen is the
+        # draft's KV frontier per slot, dgens its generators
+        self.draft = draft
+        self.spec_k = int(spec_k)
+        if draft is not None:
+            self.dpool_k, self.dpool_v = draft.new_pool()
+            self.dscales = draft.new_scale_pool() if draft.kv_int8 else None
+            self.dlen = np.zeros(0, np.int32)
+            self.dgens = []
+            # MXNET_SERVE_SPEC=auto: the rolling acceptance and the probe
+            # countdown while speculation is suspended
+            self.spec_ema = 1.0
+            self.spec_probe = _SPEC_PROBE_EVERY
+            self.spec_probe_every = _SPEC_PROBE_EVERY
+            self.spec_forced = False
+
+    def spec_mirror(self):
+        """Whether prompt chunks are mirrored into the draft's KV plane:
+        while speculating, not while the fallback has it suspended (a
+        probe's catch-up then rebuilds the draft KV from the prompt)."""
+        return self.spec_forced or self.spec_ema >= _SPEC_EMA_FLOOR
 
     def active(self):
         return [i for i, r in enumerate(self.slots) if r is not None]
@@ -395,22 +452,30 @@ class _PagedModelState:
                 self.scales[0].element_size()
         per_block = pool_bytes // self.store.pool_blocks
         used = self.pool.used()
-        return {"slots": len(self.slots), "active": len(self.active()),
-                "paged": True,
-                "block_size": self.store.kv_block,
-                "prefill_chunk": self.store.prefill_chunk,
-                "pool_blocks": self.pool.capacity(),
-                "pool_blocks_used": used,
-                "pool_blocks_hwm": self.pool.hwm,
-                "pool_blocks_shared": self.pool.shared(),
-                "pool_blocks_reserved": self.reserved_total(),
-                "prefix_entries": len(self.prefix),
-                "cache_mb": round(pool_bytes / 2**20, 3),
-                "pool_bytes": pool_bytes,
-                "pool_bytes_used": used * per_block,
-                "pool_bytes_per_token": per_block / self.store.kv_block,
-                "block_bytes": per_block,
-                "cache_dtype": str(self.pool_k.dtype).replace("torch.", "")}
+        d = {"slots": len(self.slots), "active": len(self.active()),
+             "paged": True,
+             "block_size": self.store.kv_block,
+             "prefill_chunk": self.store.prefill_chunk,
+             "pool_blocks": self.pool.capacity(),
+             "pool_blocks_used": used,
+             "pool_blocks_hwm": self.pool.hwm,
+             "pool_blocks_shared": self.pool.shared(),
+             "pool_blocks_reserved": self.reserved_total(),
+             "prefix_entries": len(self.prefix),
+             "cache_mb": round(pool_bytes / 2**20, 3),
+             "pool_bytes": pool_bytes,
+             "pool_bytes_used": used * per_block,
+             "pool_bytes_per_token": per_block / self.store.kv_block,
+             "block_bytes": per_block,
+             "cache_dtype": str(self.pool_k.dtype).replace("torch.", "")}
+        if self.draft is not None:
+            dbytes = 2 * self.dpool_k.numel() * self.dpool_k.element_size()
+            if self.dscales is not None:
+                dbytes += 2 * self.dscales[0].numel() * \
+                    self.dscales[0].element_size()
+            d.update(spec_k=self.spec_k, draft_pool_bytes=dbytes,
+                     spec_acceptance_ema=round(float(self.spec_ema), 4))
+        return d
 
 
 class GenerationEngine:
@@ -519,8 +584,10 @@ class GenerationEngine:
     def stats(self):
         """Counters (``requests``, ``decode_steps``, ``generated_tokens``,
         ``finished``, ``prefix_hits``, ``cow_forks``, ``prefill_chunks``,
-        ``shed_pool``, ``cache_grows``, ...), per-model KV state and each
-        model's KV state at its largest cache (``cache_hwm``)."""
+        ``shed_pool``, ``cache_grows``, the ``spec_*`` counters of
+        speculative decoding, ...), per-model KV state (with a draft:
+        ``spec_k``, ``draft_pool_bytes``, ``spec_acceptance_ema``) and
+        each model's KV state at its largest cache (``cache_hwm``)."""
         with self._stats_lock:
             out = dict(self._stats)
             out["max_active"] = self._max_active_seen
@@ -633,7 +700,21 @@ class GenerationEngine:
     def _paged_state(self, model, store):
         st = self._states.get(model)
         if st is None:
-            st = self._states[model] = _PagedModelState(store)
+            # speculative decoding's gate, resolved once, when the state
+            # is made: a draft attached through registry.add_draft_model
+            # and MXNET_SERVE_SPEC not off.  Attach drafts before the
+            # model's first request.
+            spec = str(get_env("MXNET_SERVE_SPEC") or "auto").lower()
+            draft = None
+            if spec not in ("0", "off", "false"):
+                draft = self._registry.draft_store(model)
+            st = self._states[model] = _PagedModelState(
+                store, draft=draft,
+                spec_k=draft.spec_k if draft is not None else 0)
+            if draft is not None:
+                # auto degrades to plain decode when the rolling
+                # acceptance collapses; on/force always drafts
+                st.spec_forced = spec in ("1", "on", "force", "always")
             store.cache_state = st
         return st
 
@@ -731,6 +812,14 @@ class GenerationEngine:
             st.top_ks[slot] = r.top_k
             st.resv[slot] = needed
             st.gens[slot] = self._generator(store, r)
+            if st.draft is not None:
+                # the draft's frontier starts at the shared-prefix
+                # coverage like the target's (its rows were mirrored when
+                # those blocks were prefilled); with the mirror off they
+                # are unwritten, so it claims none and a probe's catch-up
+                # rebuilds them from the prompt
+                st.dlen[slot] = prog if st.spec_mirror() else 0
+                st.dgens[slot] = self._generator(store, r, _DRAFT_SEED_SALT)
             admitted += 1
         if admitted:
             self._inc("prefill_seqs", admitted)
@@ -822,13 +911,14 @@ class GenerationEngine:
                                         len(st.active()))
 
     @staticmethod
-    def _generator(store, r):
-        """The request's own sampling generator, seeded with its seed
-        (None for a greedy request)."""
+    def _generator(store, r, salt=0):
+        """The request's own sampling generator, seeded on the host with
+        its seed xor ``salt`` (the draft's generator takes a fixed salt;
+        None for a greedy request)."""
         if r.temperature <= 0:
             return None
         g = torch.Generator(device=store.device)
-        g.manual_seed(r.seed & 0xFFFFFFFFFFFFFFFF)
+        g.manual_seed((r.seed ^ salt) & 0xFFFFFFFFFFFFFFFF)
         return g
 
     def _note_cache_hwm(self, model, st):
@@ -929,8 +1019,12 @@ class GenerationEngine:
         st.gens.extend([None] * grow)
         st.tables = np.concatenate(
             [st.tables, np.zeros((grow, st.tb), np.int32)])
-        for name in ("lengths", "prog", "chunks_done", "next_tok",
-                     "top_ks", "resv", "temps", "decoding"):
+        names = ("lengths", "prog", "chunks_done", "next_tok", "top_ks",
+                 "resv", "temps", "decoding")
+        if st.draft is not None:
+            names += ("dlen",)
+            st.dgens.extend([None] * grow)
+        for name in names:
             arr = getattr(st, name)
             setattr(st, name, np.concatenate(
                 [arr, np.zeros(grow, arr.dtype)]))
@@ -954,6 +1048,9 @@ class GenerationEngine:
         st.temps[i] = 0.0
         st.top_ks[i] = 0
         st.resv[i] = 0
+        if st.draft is not None:
+            st.dlen[i] = 0
+            st.dgens[i] = None
 
     # -- ticks ---------------------------------------------------------
     def _decode_tick(self):
@@ -963,7 +1060,10 @@ class GenerationEngine:
                 continue
             dec = [i for i in st.active() if st.decoding[i]]
             if dec:
-                self._decode_step(model, st, dec)
+                if st.draft is not None and self._spec_active(st):
+                    self._spec_step(model, st, dec)
+                else:
+                    self._decode_step(model, st, dec)
             pre = [i for i in st.active() if not st.decoding[i]]
             if pre:
                 self._prefill_chunk(model, st, pre)
@@ -985,6 +1085,11 @@ class GenerationEngine:
                 # int8: codes and per-block scales fork together
                 st.store.copy_block(st.pool_k, st.pool_v, b, nb,
                                     scales=st.scales)
+                if st.draft is not None:
+                    # the draft plane shares the block tables, so its
+                    # pool forks the same physical block
+                    st.draft.copy_block(st.dpool_k, st.dpool_v, b, nb,
+                                        scales=st.dscales)
                 st.pool.deref(b)
                 st.tables[i, j] = nb
                 st.resv[i] = max(0, int(st.resv[i]) - 1)
@@ -1075,8 +1180,15 @@ class GenerationEngine:
             pos[i] = p0
             val[i] = ntok
             do[i] = (p0 + ntok == len(r.prompt))
+        mirror = st.draft is not None and st.spec_mirror()
         try:
             sampled = self._dispatch(st, tables, toks, pos, val, do)
+            if mirror:
+                # the same chunk into the draft's KV plane (logits
+                # discarded): same tables, same tokens, so prefix-shared
+                # blocks hold valid draft rows for every adopter
+                st.draft.run_paged_step(st.dpool_k, st.dpool_v, tables,
+                                        toks, pos, val, scales=st.dscales)
         except Exception as e:  # noqa: BLE001 — forwarded to the futures
             self._fail_rows(st, [i for i, _r, _p, _n in rows], e,
                             "prefill")
@@ -1086,6 +1198,8 @@ class GenerationEngine:
         for i, r, p0, ntok in rows:
             st.prog[i] = p0 + ntok
             st.lengths[i] = p0 + ntok
+            if mirror:
+                st.dlen[i] = p0 + ntok
             st.chunks_done[i] += 1
             if p0 + ntok < len(r.prompt):
                 continue
@@ -1100,6 +1214,218 @@ class GenerationEngine:
                 st.decoding[i] = True
                 st.next_tok[i] = tok
         self._note_cache_hwm(model, st)
+
+    # -- speculative decoding ------------------------------------------
+    def _spec_active(self, st):
+        """MXNET_SERVE_SPEC=auto's gate, checked once a tick: speculate
+        while the rolling acceptance holds; else serve a plain decode
+        step (the same streams), probing a speculative tick on a
+        backing-off cadence to notice recovery."""
+        if st.spec_forced or st.spec_ema >= _SPEC_EMA_FLOOR:
+            st.spec_probe_every = _SPEC_PROBE_EVERY
+            st.spec_probe = _SPEC_PROBE_EVERY
+            return True
+        st.spec_probe -= 1
+        if st.spec_probe <= 0:
+            # the probe's acceptance lands in the EMA before the next
+            # gate: a recovered draft re-engages (and resets the cadence
+            # above), a hostile one waits twice as long for the next
+            st.spec_probe_every = min(2 * st.spec_probe_every,
+                                      _SPEC_PROBE_MAX)
+            st.spec_probe = st.spec_probe_every
+            return True
+        self._inc("spec_fallback_steps")
+        return False
+
+    @staticmethod
+    def _history(r, idx):
+        """Token at position ``idx`` of request ``r``'s sequence: the
+        prompt, then the emitted tokens."""
+        n = len(r.prompt)
+        return r.prompt[idx] if idx < n else r.tokens[idx - n]
+
+    def _spec_catch_up(self, st, dec, gap):
+        """Bring the draft's KV frontier up to the target's when some
+        slot lags by more than one token (after fallback ticks, or a slot
+        admitted with the mirror off): the tokens are known, so they go
+        through the draft's prefill door teacher-forced, one call a
+        ``prefill_chunk`` (a per-row ``valid`` masks ragged gaps), the
+        logits discarded.  Leaves every gap at 0."""
+        draft = st.draft
+        n = len(st.slots)
+        chunk = draft.prefill_chunk
+        done = 0
+        while done < max(gap.values()):
+            tables = np.zeros((n, st.tb), np.int32)
+            toks = np.zeros((n, chunk), np.int32)
+            pos = np.zeros((n,), np.int32)
+            val = np.ones((n,), np.int32)
+            for i in dec:
+                take = min(chunk, gap[i] - done)
+                if take <= 0:
+                    continue
+                base = int(st.dlen[i]) + done
+                for c in range(take):
+                    toks[i, c] = self._history(st.slots[i], base + c)
+                tables[i] = st.tables[i]
+                pos[i] = base
+                val[i] = take
+            draft.run_paged_step(st.dpool_k, st.dpool_v, tables, toks, pos,
+                                 val, scales=st.dscales)
+            self._inc("spec_draft_steps")
+            done += chunk
+        for i in dec:
+            st.dlen[i] += gap[i]
+            gap[i] = 0
+
+    def _spec_propose(self, st, dec, win):
+        """The draft's micro-steps of one speculative tick: each slot
+        first feeds what its draft KV lacks (at most the last emitted
+        token once caught up; those rows do not sample, so their
+        generators do not advance), then samples ``win[i]`` proposals,
+        each fed back on the device as the next micro-step's token.
+        Returns ``(prop_toks (n, K), prop_q (n, K, vocab))`` on the
+        device; no value crosses to the host between micro-steps.  Rows
+        past a slot's window hold clamped leftovers that the verify's
+        ``valid`` masks."""
+        draft = st.draft
+        n = len(st.slots)
+        K = st.spec_k
+        dev = draft.device
+        gap = {i: int(st.lengths[i]) - int(st.dlen[i]) for i in dec}
+        if max(gap.values()) > 1:
+            self._spec_catch_up(st, dec, gap)
+        steps = {i: gap[i] + win[i] for i in dec}
+        tok_rows, q_rows = [], []
+        prev = None
+        for t in range(max(steps.values())):
+            tables = np.zeros((n, st.tb), np.int32)
+            toks = np.zeros((n,), np.int32)
+            fed_back = np.zeros((n,), bool)
+            pos = np.zeros((n,), np.int32)
+            do = np.zeros((n,), bool)
+            live = 0
+            for i in dec:
+                if t >= steps[i]:
+                    continue
+                idx = int(st.dlen[i]) + t     # the position fed this step
+                if t <= gap[i]:
+                    # history: up to the last emitted token, at position
+                    # lengths[i], which the target's KV lacks as well
+                    toks[i] = self._history(st.slots[i], idx)
+                else:
+                    fed_back[i] = True        # the previous proposal
+                tables[i] = st.tables[i]
+                pos[i] = idx
+                do[i] = t >= gap[i]
+                live += 1
+            toks_in = torch.as_tensor(toks, device=dev)
+            if fed_back.any():
+                toks_in = torch.where(torch.as_tensor(fed_back, device=dev),
+                                      prev, toks_in)
+            out = draft.run_paged_step_sample_p(
+                st.dpool_k, st.dpool_v, tables, toks_in[:, None], pos,
+                np.ones((n,), np.int32), st.dgens, st.temps, st.top_ks, do,
+                scales=st.dscales)
+            prev, q = out[:2]
+            tok_rows.append(prev)
+            q_rows.append(q)
+            self._inc("spec_draft_steps", live)
+        for i in dec:
+            st.dlen[i] += steps[i]        # draft frontier = lengths + win
+        if not q_rows:
+            return (torch.zeros((n, K), dtype=torch.int32, device=dev),
+                    torch.zeros((n, K, draft.spec["vocab_size"]),
+                                device=dev))
+        # slot i's proposals are micro-steps gap[i] .. gap[i] + win[i] - 1
+        g = np.zeros((n,), np.int64)
+        for i in dec:
+            g[i] = gap[i]
+        idx = torch.as_tensor(np.minimum(g[:, None] + np.arange(K)[None, :],
+                                         len(q_rows) - 1), device=dev)
+        rows = torch.arange(n, device=dev)[:, None]
+        return (torch.stack(tok_rows, dim=1)[rows, idx],
+                torch.stack(q_rows, dim=1)[rows, idx])
+
+    def _spec_step(self, model, st, dec):
+        """One speculative decode tick: the draft proposes up to
+        ``spec_k`` tokens a generating slot, the target verifies all K+1
+        positions in one paged step with the accept/reject rule on the
+        device, and each slot emits 1..K+1 tokens.  One blocking fetch:
+        the emitted tokens with their counts.  Rejected proposals roll
+        back by the frontier alone: ``lengths`` stops at the emitted
+        count, and the rows written past it are never read before a
+        later step rewrites them."""
+        K = st.spec_k
+        win = {}
+        for i in dec:
+            r = st.slots[i]
+            # never propose past the budget: a verify emits at most the
+            # window and the bonus token
+            win[i] = max(0, min(K, r.max_tokens - len(r.tokens) - 1))
+            L = int(st.lengths[i])
+            # the verify writes positions L..L+win: allocate or fork
+            # first, since the draft's micro-steps write the same blocks
+            self._write_ready(st, i, list(range(L, L + win[i] + 1)))
+        n = len(st.slots)
+        try:
+            prop_toks, prop_q = self._spec_propose(st, dec, win)
+            tables = np.zeros((n, st.tb), np.int32)
+            first = np.zeros((n, 1), np.int32)
+            pos = np.zeros((n,), np.int32)
+            val = np.ones((n,), np.int32)
+            do = np.zeros((n,), bool)
+            for i in dec:
+                tables[i] = st.tables[i]
+                first[i, 0] = st.next_tok[i]
+                pos[i] = st.lengths[i]
+                val[i] = win[i] + 1
+                do[i] = True
+            vtoks = torch.cat([torch.as_tensor(first, device=prop_toks.device),
+                               prop_toks], dim=1)
+            out = st.store.run_paged_verify(
+                st.pool_k, st.pool_v, tables, vtoks, pos, val, prop_q,
+                st.gens, st.temps, st.top_ks, do, scales=st.scales)
+            out_dev, ne_dev, st.pool_k, st.pool_v = out[:4]
+            if st.scales is not None:
+                st.scales = out[4:]
+            fetched = torch.cat([out_dev, ne_dev[:, None]],
+                                dim=1).cpu().numpy()
+        except Exception as e:  # noqa: BLE001 — forwarded to the futures
+            self._fail_rows(st, dec, e, "speculative")
+            return
+        emitted = proposed = accepted = 0
+        for i in dec:
+            r = st.slots[i]
+            ne = int(fetched[i, -1])
+            proposed += win[i]
+            accepted += ne - 1
+            for j in range(ne):
+                tok = int(fetched[i, j])
+                self._push_token(r, tok)
+                st.lengths[i] += 1
+                emitted += 1
+                st.next_tok[i] = tok
+                reason = self._finished_reason(r, tok)
+                if reason:
+                    # EOS mid-window: the rest of the window goes with
+                    # the slot
+                    self._release_slot(st, i)
+                    self._finish(r, reason)
+                    break
+            else:
+                # the draft's KV holds only what matches the accepted
+                # stream: clamp it to the new frontier (a full accept
+                # leaves a one-token gap, the bonus token)
+                st.dlen[i] = min(int(st.dlen[i]), int(st.lengths[i]))
+        self._inc("decode_steps")
+        self._inc("spec_steps")
+        self._inc("spec_proposed", proposed)
+        self._inc("spec_accepted", accepted)
+        self._inc("generated_tokens", emitted)
+        if proposed:
+            st.spec_ema = (_SPEC_EMA_DECAY * st.spec_ema +
+                           (1.0 - _SPEC_EMA_DECAY) * accepted / proposed)
 
     # -- retirement ----------------------------------------------------
     @staticmethod

@@ -22,8 +22,17 @@ index on ties); temperature / top-k rows draw from per-slot
 ``torch.Generator`` objects seeded from the request seed.  Those give
 other numbers than the reference's threefry keys, so sampled streams
 equal the reference's only in distribution; greedy streams are exact.
+
+Speculative decoding (paged plane only) adds two step kinds: the draft
+model's proposal step (:meth:`GenerativeProgramStore.
+run_paged_step_sample_p`, an lq=1 step that also returns the proposal
+distribution) and the target's verify step (:meth:`GenerativeProgramStore.
+run_paged_verify`, all K+1 positions in one paged step with the
+accept/reject rule, :func:`spec_verify`, on the device).
 """
 from __future__ import annotations
+
+import time
 
 import numpy as np
 import torch
@@ -38,7 +47,7 @@ from ..models.transformer_lm import (TransformerLM, decode_apply,
                                      quantize_lm_params)
 
 __all__ = ["GenerativeProgramStore", "bucket_edges", "bucket_for",
-           "sample_tokens"]
+           "sample_tokens", "sample_tokens_p", "spec_verify"]
 
 _KV_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
               "int8": torch.int8}
@@ -103,6 +112,109 @@ def sample_tokens(logits, temps, top_ks, generators, do_sample=None):
         out[i] = torch.multinomial(torch.softmax(z, dim=-1), 1,
                                    generator=generators[i])[0]
     return out.to(torch.int32)
+
+
+def _masked_dist(logits, temps, top_ks):
+    """The distribution :func:`sample_tokens` draws from, as explicit
+    fp32 probabilities over ``(S, V)`` rows: the temperature and top-k
+    masked softmax (values tied with the k-th stay in); greedy rows
+    (``temps <= 0``) are one-hot at the argmax.  Speculative decoding's
+    shared density: the draft's proposal distribution q and the
+    target's acceptance distribution p both come from this function, so
+    the rejection rule compares the densities the two samplers use.
+    ``temps`` / ``top_ks`` are host arrays."""
+    logits = logits.float()
+    S, V = logits.shape
+    dev = logits.device
+    temps = torch.as_tensor(np.asarray(temps, np.float32), device=dev)
+    k = torch.as_tensor(np.asarray(top_ks, np.int64), device=dev)
+    z = logits / torch.clamp(temps, min=1e-6)[:, None]
+    k = torch.clamp(torch.where(k <= 0, V, k), 1, V)
+    kth = torch.sort(z, dim=-1, descending=True).values.gather(
+        1, (k - 1)[:, None])
+    z = torch.where(z >= kth, z, torch.full_like(z, -float("inf")))
+    probs = torch.softmax(z, dim=-1)
+    onehot = torch.nn.functional.one_hot(torch.argmax(logits, dim=-1),
+                                         V).float()
+    return torch.where((temps <= 0)[:, None], onehot, probs)
+
+
+def sample_tokens_p(logits, temps, top_ks, generators, do_sample=None):
+    """:func:`sample_tokens` that also returns the distribution ``q (S,
+    V)`` each token was drawn from (:func:`_masked_dist`): the draft
+    model's sampling step.  The tokens are the ones :func:`sample_tokens`
+    draws from the same generator states.  Returns ``(tokens, q)``, both
+    on the logits' device."""
+    toks = sample_tokens(logits, temps, top_ks, generators, do_sample)
+    return toks, _masked_dist(logits, temps, top_ks)
+
+
+def spec_verify(logits_all, prop_toks, prop_q, generators, temps, top_ks,
+                valid):
+    """Speculative accept/reject (the standard rejection-sampling rule)
+    over one verify step's logits, on their device.
+
+    logits_all: (B, K+1, V) — the target's logits at the K+1 verified
+    positions (row j conditions on the prompt and the first j
+    proposals); prop_toks: (B, K) int — the draft's proposals; prop_q:
+    (B, K, V) fp32 — the draft's distribution for each proposal
+    (:func:`sample_tokens_p`); generators: per-slot ``torch.Generator``
+    (None for greedy rows); temps / top_ks / valid: (B,) host arrays —
+    row b verifies ``valid[b] - 1`` proposals (``1 <= valid <= K+1``).
+
+    Greedy rows (``temps <= 0``) accept the longest prefix of proposals
+    that equal the target's argmax and emit the argmax at the first
+    mismatch: the tokens of non-speculative greedy decoding.  A sampled
+    row draws K uniforms from its generator and accepts proposal j iff
+    ``u_j * q_j(d_j) <= p_j(d_j)``; the first rejection resamples (one
+    more draw) from ``max(p - q, 0)`` renormalized (from p itself where
+    that sums to 0), and a window accepted in full draws the bonus token
+    from p: streams distribution-identical to sampling from p alone.
+    Greedy rows draw nothing.
+
+    Returns ``(out_toks (B, K+1) int32, n_emit (B,) int32)`` on the
+    device: row b emits ``out_toks[b, :n_emit[b]]``, ``1 <= n_emit <=
+    valid``."""
+    logits_all = logits_all.float()
+    B, K1, V = logits_all.shape
+    K = K1 - 1
+    dev = logits_all.device
+    temps = np.asarray(temps, np.float32)
+    top_ks = np.asarray(top_ks, np.int64)
+    prop_toks = torch.as_tensor(prop_toks, device=dev).long()
+    prop_q = torch.as_tensor(prop_q, device=dev).float()
+    valid = torch.as_tensor(np.asarray(valid), device=dev).long()
+    greedy = torch.as_tensor(temps <= 0, device=dev)
+    sampled = [b for b in range(B) if temps[b] > 0]
+    p_full = _masked_dist(logits_all.reshape(B * K1, V),
+                          np.repeat(temps, K1),
+                          np.repeat(top_ks, K1)).reshape(B, K1, V)
+    greedy_all = torch.argmax(logits_all, dim=-1)              # (B, K+1)
+    u = torch.zeros((B, K), device=dev)
+    for b in sampled:
+        u[b] = torch.rand(K, generator=generators[b], device=dev)
+    pd = p_full[:, :K].gather(-1, prop_toks[..., None])[..., 0]
+    qd = prop_q.gather(-1, prop_toks[..., None])[..., 0]
+    acc = torch.where(greedy[:, None], prop_toks == greedy_all[:, :K],
+                      u * qd <= pd)
+    acc &= torch.arange(1, K + 1, device=dev)[None, :] < valid[:, None]
+    a = torch.cumprod(acc.long(), dim=1).sum(dim=1)             # (B,)
+    rows = torch.arange(B, device=dev)
+    p_a = p_full[rows, a]                                       # (B, V)
+    q_ext = torch.cat([prop_q, prop_q.new_zeros((B, 1, V))], dim=1)
+    # the bonus position (a full accept) has no proposal: its residual
+    # is p itself
+    q_a = torch.where((a >= valid - 1)[:, None], 0.0, q_ext[rows, a])
+    res = torch.clamp(p_a - q_a, min=0.0)
+    tot = res.sum(dim=-1, keepdim=True)
+    res = torch.where(tot > 0, res / torch.where(tot > 0, tot, 1.0), p_a)
+    corrected = greedy_all[rows, a]
+    for b in sampled:
+        corrected[b] = torch.multinomial(res[b], 1,
+                                         generator=generators[b])[0]
+    out = torch.cat([prop_toks, prop_toks.new_zeros((B, 1))], dim=1)
+    out[rows, a] = corrected
+    return out.to(torch.int32), (a + 1).to(torch.int32)
 
 
 class GenerativeProgramStore:
@@ -341,6 +453,96 @@ class GenerativeProgramStore:
             toks = sample_tokens(out[0], temps, top_ks, generators,
                                  do_sample)
         return (toks,) + tuple(out[1:])
+
+    def _need_paged(self):
+        if not self.paged:
+            raise MXNetError(
+                "speculative decoding needs the paged plane (store %r has "
+                "paged=False)" % self.name)
+
+    def run_paged_step_sample_p(self, pool_k, pool_v, tables, tokens,
+                                positions, valid, generators, temps,
+                                top_ks, do_sample, scales=None):
+        """The draft model's proposal step: one paged step (lq=1) with
+        sampling on the device that also returns the proposal
+        distribution.  Returns ``(tokens (bb,) int32, q (bb, vocab) fp32,
+        pool_k, pool_v)`` (int8 KV: the scale pools after the pools).
+        ``tokens`` may be a device tensor (the previous proposal);
+        ``q`` stays on the device for :meth:`run_paged_verify`."""
+        self._need_paged()
+        out = self.run_paged_step(pool_k, pool_v, tables, tokens, positions,
+                                  valid, scales)
+        with torch.no_grad():
+            toks, q = sample_tokens_p(out[0], temps, top_ks, generators,
+                                      do_sample)
+        return (toks, q) + tuple(out[1:])
+
+    def run_paged_verify(self, pool_k, pool_v, tables, tokens, positions,
+                         valid, prop_q, generators, temps, top_ks,
+                         do_sample, scales=None):
+        """The target model's speculative verify: ``tokens`` (bb, K+1)
+        holds each slot's pending token followed by its K proposals
+        (numpy or a device tensor), ``prop_q`` (bb, K, vocab) the
+        draft's distributions, ``valid`` each slot's window + 1.  All K+1
+        positions run in one paged step (``all_logits``), and
+        :func:`spec_verify` accepts or rejects on the device; rows with
+        ``do_sample`` False are verified as greedy rows and draw
+        nothing (their output is discarded).  Returns ``(out_toks (bb,
+        K+1), n_emit (bb,), pool_k, pool_v)`` on the device (int8 KV:
+        the scale pools after the pools); row b emits ``out_toks[b,
+        :n_emit[b]]``."""
+        self._need_paged()
+        with torch.no_grad():
+            out = paged_step_apply(self.model.params(), pool_k, pool_v,
+                                   tables, tokens, positions, valid,
+                                   self._spec, self.kv_block,
+                                   scales=self._pool_scales(scales),
+                                   all_logits=True)
+            temps = np.where(np.asarray(do_sample, bool), temps, 0.0)
+            prop = torch.as_tensor(tokens, device=self.device)[:, 1:]
+            out_toks, n_emit = spec_verify(out[0], prop, prop_q, generators,
+                                           temps, top_ks, valid)
+        return (out_toks, n_emit) + tuple(out[1:])
+
+    def warm_spec_programs(self, spec_k, draft=False):
+        """Run the speculative step kinds once before traffic, as
+        :meth:`warmup` does the plain ones: the target's verify (lq =
+        spec_k + 1), or with ``draft=True`` the draft's proposal step
+        (lq=1, ``paged_step_sample_p``) and its logits-discarded
+        prefill-mirror chunk (lq = prefill_chunk, ``paged_step``), for
+        every batch bucket, on a throwaway pool with all-zero tables.
+        Returns ``{(kind, bb, lq): ms}``, the host milliseconds of each
+        call.  Raises :class:`MXNetError` on the contiguous plane."""
+        self._need_paged()
+        kinds = ([("paged_step_sample_p", 1),
+                  ("paged_step", self.prefill_chunk)] if draft
+                 else [("paged_verify", int(spec_k) + 1)])
+        out = {}
+        pools = self.new_pool()
+        scales = self.new_scale_pool() if self.kv_int8 else None
+        tb = self.table_width()
+        vocab = self._spec["vocab_size"]
+        for bb in self._batch_edges:
+            for kind, lq in kinds:
+                args = (np.zeros((bb, tb), np.int32),
+                        np.zeros((bb, lq), np.int32), np.zeros(bb, np.int32),
+                        np.ones(bb, np.int32))
+                samp = ([None] * bb, np.zeros(bb, np.float32),
+                        np.zeros(bb, np.int32), np.zeros(bb, bool))
+                tic = time.perf_counter()
+                if kind == "paged_verify":
+                    q = torch.zeros((bb, lq - 1, vocab), device=self.device)
+                    self.run_paged_verify(*pools, *args, q, *samp,
+                                          scales=scales)
+                elif kind == "paged_step_sample_p":
+                    self.run_paged_step_sample_p(*pools, *args, *samp,
+                                                 scales=scales)
+                else:
+                    self.run_paged_step(*pools, *args, scales=scales)
+                if self.device.type == "cuda":
+                    torch.cuda.synchronize(self.device)
+                out[(kind, bb, lq)] = (time.perf_counter() - tic) * 1e3
+        return out
 
     def pad_prompts(self, prompts):
         """A list of token id sequences -> bucket-shaped ``(tokens (bb,

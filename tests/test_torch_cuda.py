@@ -12,8 +12,8 @@ import torch
 
 import mxnet_tpu_torch as mx
 from mxnet_tpu_torch import kernels
-from mxnet_tpu_torch.kernels import (dequant_matmul, flash_attention, norm,
-                                     paged_attention, softmax_xent)
+from mxnet_tpu_torch.kernels import (_build, dequant_matmul, flash_attention,
+                                     norm, paged_attention, softmax_xent)
 from mxnet_tpu_torch.models import transformer_lm as tlm
 from mxnet_tpu_torch.serving import GenerationEngine, ModelRegistry
 
@@ -1437,3 +1437,88 @@ def test_imperative_bf16_lm_step_on_card_matches_cpu_and_launches(
     assert _rel(res["gpu"][0], res["cpu"][0]) <= 2e-2
     for a, b in zip(res["gpu"][1:], res["cpu"][1:]):
         assert _rel(a, b) <= 5e-2
+
+
+# ---------------------------------------------------------------------------
+# speculative decoding, and the saturating float-to-integer casts
+# ---------------------------------------------------------------------------
+SPEC_REQS = [dict(tokens=[7, 3, 11, 29, 4], max_tokens=12, seed=1),
+             dict(tokens=[7, 3, 11, 29, 4], max_tokens=9, seed=2),
+             dict(tokens=[2, 5], max_tokens=14, seed=3),
+             dict(tokens=[1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11], max_tokens=7,
+                  seed=4)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv", ["float32", "bfloat16", "int8"])
+def test_spec_engine_on_card_keeps_the_greedy_streams(cuda_device,
+                                                      monkeypatch, kv):
+    """``tests/test_torch_spec_decode.py``'s sizes on the card (int8: hidden
+    64, a head dim of 16): greedy streams with a self-draft and with a
+    random draft equal the non-speculative engine's on the card and the
+    CPU's, and every paged launch runs on the body ``_plan`` names, the
+    verify at Lq 5."""
+    hidden = 64 if kv == "int8" else 32
+    spec = tlm.lm_spec(num_layers=2, num_hidden=hidden, num_heads=4,
+                       vocab_size=50)
+    params = tlm.random_params(spec, seed=3)
+    dspec = tlm.lm_spec(num_layers=1, num_hidden=hidden // 2, num_heads=2,
+                        vocab_size=50)
+    dparams = tlm.random_params(dspec, seed=7)
+    kw = dict(batch_buckets=(1, 2, 4), prompt_buckets=(4, 8, 24),
+              kv_block=8, kv_max=64, paged=True, prefill_chunk=8,
+              kv_dtype=kv)
+    shapes = []
+    launch = paged_attention.launch
+    dtypes = {v[0]: k for k, v in paged_attention._VARIANTS.items()}
+
+    def census(x, name, entry, *args):
+        B, H, Lq, D = args[-10:-6]
+        plan = paged_attention._plan(B, H, Lq, D, dtypes[name],
+                                     _build.sm_count(x.device.index))
+        shapes.append((Lq, tuple(args[-2:]) == (
+            paged_attention._PATH[plan.path], plan.block_q)))
+        return launch(x, name, entry, *args)
+    monkeypatch.setattr(paged_attention, "launch", census)
+    streams = {}
+    for tag, dev, draft in (("cpu", "cpu", None), ("base", None, None),
+                            ("self", None, (params, spec)),
+                            ("rand", None, (dparams, dspec))):
+        reg = ModelRegistry()
+        reg.add_generative_model("m", params, spec, device=dev, **kw)
+        if draft is not None:
+            reg.add_draft_model("m", *draft, spec_k=4)
+        with GenerationEngine(reg) as eng:
+            streams[tag] = [f.result(120).tokens for f in
+                            [eng.submit("m", **r) for r in SPEC_REQS]]
+            st = eng.stats()
+        assert (st["spec_steps"] > 0) == (draft is not None)
+    assert streams["self"] == streams["rand"] == streams["base"] == \
+        streams["cpu"]
+    assert all(ok for _lq, ok in shapes)
+    assert {lq for lq, _ok in shapes} >= {1, 5, 8}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["uint8", "int8", "int32"])
+@pytest.mark.parametrize("src_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("how", ["Cast", "cast", "astype"])
+def test_float_to_int_cast_saturates_on_card(cuda_device, how, src_dtype,
+                                             dtype):
+    """CUDA's conversion under the saturating cast: the card's result
+    equals the CPU's (held to the reference's in
+    ``tests/test_torch_cast_saturate.py``), NaN, infinities and
+    out-of-range values included."""
+    src = np.float32([-2.7, 300.7, np.nan, np.inf, -np.inf, 3e9, 0.49,
+                      -0.51, 126.9, -127.9, 254.6, -3e9])
+    out = []
+    for ctx in (mx.gpu(0), mx.cpu()):
+        x = mx.nd.array(src, ctx=ctx)
+        if src_dtype != "float32":
+            x = x.astype(src_dtype)
+        y = x.astype(dtype) if how == "astype" else \
+            getattr(mx.nd, how)(x, dtype=dtype)
+        out.append((y._data.device.type, y.asnumpy()))
+    assert [d for d, _ in out] == ["cuda", "cpu"]
+    assert out[0][1].dtype == np.dtype(dtype)
+    np.testing.assert_array_equal(out[0][1], out[1][1])

@@ -58,7 +58,7 @@ F32, BF16, I8 = torch.float32, torch.bfloat16, torch.int8
     (32, 8, 2, 64, F32, ("tile", 32, (1, 8, 32))),
     (32, 8, 2, 64, BF16, ("tile", 32, (1, 8, 32))),
     (32, 8, 4, 64, I8, ("decode", 1, (4, 8, 32))),
-    (32, 8, 5, 64, I8, ("tile", 32, (1, 8, 32))),
+    (32, 8, 5, 64, I8, ("decode", 1, (5, 8, 32))),
     (32, 8, 33, 64, F32, ("tile", 32, (2, 8, 32))),
     # too few 32-row CTAs for the card: 16 rows a CTA
     (1, 8, 32, 64, F32, ("tile", 16, (2, 8, 1))),
@@ -70,6 +70,11 @@ F32, BF16, I8 = torch.float32, torch.bfloat16, torch.int8
     (32, 8, 1, 136, F32, ("v1", 1, (1, 8, 32))),
     (32, 8, 32, 256, BF16, ("v1", 16, (2, 8, 32))),
     (3, 2, 33, 256, I8, ("v1", 16, (3, 2, 3))),
+    # the speculative verify (spec_k 4): Lq 5 at B16, and int8's edge
+    (16, 8, 5, 64, F32, ("tile", 16, (1, 8, 16))),
+    (16, 8, 5, 64, BF16, ("tile", 16, (1, 8, 16))),
+    (16, 8, 5, 64, I8, ("decode", 1, (5, 8, 16))),
+    (32, 8, 6, 64, I8, ("tile", 32, (1, 8, 32))),
 ])
 def test_plan_path_rows_and_grid(B, H, Lq, D, dtype, want):
     assert tuple(pa._plan(B, H, Lq, D, dtype, H100_SMS)) == want
