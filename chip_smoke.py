@@ -192,10 +192,43 @@ sources in this checkout on first use.  Phases, each fatal on failure:
    kernel (``fma1``, checked in phase 2+ against ``torch.addcmul``
    within 2 ulp).
 
+10. the op library (the op-library slice's 136 op names) on the card
+   against the CPU, on the same inputs from seed 10 at realistic sizes
+   (the elementwise ops on 4096 x 512, ``dot`` of 1024 x 1024 by 1024 x
+   1024, ``batch_dot`` of 16 x 256 x 64 by 16 x 64 x 256, ``topk`` and
+   the sorts over 8192 columns), with the edge inputs: indices past
+   either end, negative and fractional for ``take``, ``pick``,
+   ``batch_take`` and ``one_hot``, rows full of ties for ``sort``,
+   ``argsort`` and ``topk``, integer ``_power`` with negative exponents,
+   ``gamma`` of negative non-integers; synchronised after each op, so a
+   device-side assert names its op; integer, bool, index and ordering
+   results and IEEE-exact arithmetic bit-equal, the rest within the CPU
+   tests' bounds (1e-5 x max|ref|, bf16 2^-8 x max|ref|); the worst
+   ratio to its bound for each family;
+11. the matrix-factorization recommender of
+   ``examples/recommenders/matrix_fact.py`` (two ``Embedding``s, ``*``,
+   ``sum(axis=1)``, ``LinearRegressionOutput``; factor 16, batch 256,
+   Adam at learning rate 0.01 and wd 1e-5, ``Normal(0.1)``, ``rmse``) at
+   MovieLens-1M's id space (6,040 users, 3,952 items, 1,000,209
+   synthetic rank-8 ratings from seed 11, split 90/10) through
+   ``Module.fit`` for ``MF_EPOCHS`` epochs, its parameters, executor
+   arrays, optimizer state and iterator batches on the card: held-out
+   RMSE after each epoch, falling each epoch and ending below the rating
+   std (three epochs reach about 0.6 x it; the example's bar of 0.5 x
+   needs more); steps/s, samples/s and ms per step; no hand kernel
+   launched (none lies on this path) and no plain version reached;
+12. one recommender step on the card against the CPU's from the same
+   parameters and batch: each gradient within 1e-5 x max|ref|, each
+   parameter after Adam within 1e-4 x max|ref|.
+
+Phase 5 also gives the norm forwards' rows (fp32 and bf16 ``rms_norm``
+and ``layer_norm``) ``floor_ms``: the same call on one row, the floor
+of one launch.
+
 ``python3 chip_smoke.py --profile`` adds, after phases 6 and 6b, a
-``torch.profiler`` window over five training steps of each: device time
-and launches per step, the device's busy share, and the ops with the
-most device time.
+``torch.profiler`` window over five training steps of each, and after
+phase 11 one over 100 recommender steps: device time and launches per
+step, the device's busy share, and the ops with the most device time.
 
 The last lines are a JSON object of per-kernel numbers, the card's name
 and power limit as nvidia-smi reports them, and the result object.
@@ -410,6 +443,43 @@ HEAD_BF16_CASES = ((4096, 2), (TRAIN_ROWS, 8192), (64, 8193))
 XENT_BF16_CASES = ((TRAIN_ROWS, 8192, 0), (64, 8193, 0), (4096, 2, 0),
                    (300, 8192, 1))
 TRAIN_STEPS, TRAIN_WARMUP = 20, 5
+# phase 10: every op the op-library slice added, each run by the sweep
+SWEEP_OPS = (
+    "Concat", "ElementWiseSum", "Flatten", "IdentityAttachKLSparseReg",
+    "LinearRegressionOutput", "LogisticRegressionOutput",
+    "MAERegressionOutput", "Pad", "SVMOutput", "SequenceLast",
+    "SequenceMask", "SequenceReverse", "SliceChannel", "SwapAxis",
+    "_arange", "_copy", "_div", "_div_scalar", "_equal", "_equal_scalar",
+    "_grad_add", "_greater", "_greater_equal", "_greater_equal_scalar",
+    "_greater_scalar", "_hypot", "_hypot_scalar", "_lesser",
+    "_lesser_equal", "_lesser_equal_scalar", "_lesser_scalar", "_maximum",
+    "_maximum_scalar", "_minimum", "_minimum_scalar", "_minus",
+    "_minus_scalar", "_mod", "_mod_scalar", "_mul", "_mul_scalar",
+    "_not_equal", "_not_equal_scalar", "_ones", "_power", "_power_scalar",
+    "_rdiv_scalar", "_rminus_scalar", "_rmod_scalar", "_rpower_scalar",
+    "_sub", "_sum", "_zeros", "add_n", "arccos", "arccosh", "arcsin",
+    "arcsinh", "arctan", "arctanh", "argmax_channel", "argsort",
+    "batch_dot", "batch_take", "broadcast_add", "broadcast_axes",
+    "broadcast_axis", "broadcast_div", "broadcast_equal",
+    "broadcast_greater", "broadcast_greater_equal", "broadcast_hypot",
+    "broadcast_lesser", "broadcast_lesser_equal", "broadcast_maximum",
+    "broadcast_minimum", "broadcast_minus", "broadcast_mod",
+    "broadcast_mul", "broadcast_not_equal", "broadcast_plus",
+    "broadcast_power", "broadcast_sub", "broadcast_to", "cbrt", "ceil",
+    "clip", "concat", "cosh", "crop", "degrees", "dot", "elemwise_div",
+    "elemwise_mul", "elemwise_sub", "erf", "expand_dims", "expm1", "fix",
+    "flatten", "flip", "floor", "gamma", "gammaln", "identity", "log10",
+    "log1p", "log2", "norm", "one_hot", "ones_like", "pad", "pick",
+    "radians", "rcbrt", "repeat", "reverse", "rint", "round", "rsqrt",
+    "sign", "sinh", "slice", "slice_axis", "smooth_l1", "softsign",
+    "sort", "split", "swapaxes", "take", "tan", "tile", "topk", "trunc",
+    "where", "zeros_like")
+# phases 11-12: examples/recommenders/matrix_fact.py's model and defaults
+# at MovieLens-1M's id space (6,040 users, movie ids up to 3,952,
+# 1,000,209 ratings; synthetic, rank 8, from a seed)
+MF = dict(users=6040, items=3952, ratings=1000209, rank=8, factor=16,
+          batch=256, lr=0.01, wd=1e-5, sigma=0.1)
+MF_EPOCHS = 3
 # bench.py's SGD with momentum 0.9, at a tenth of its learning rate: its
 # 0.05 was set for random tokens, whose loss nobody reads; on the
 # successor language at this width it diverges by the fourth step.
@@ -2076,6 +2146,13 @@ def profile_train(dev, card, step_ms, compute_dtype=None, warmup=3,
             eval_metric=mx.metric.Perplexity(ignore_label=None),
             batch_end_callback=on_batch)
     window_ms = (clock[warmup + steps - 1] - clock[warmup - 1]) * 1e3 / steps
+    report_profile(tag, prof, steps, step_ms, window_ms, card)
+
+
+def report_profile(tag, prof, steps, step_ms, window_ms, card):
+    """Print a profiler window of ``steps`` steps: the device time and
+    launches per step, the device's busy share of the phase's unprofiled
+    ``step_ms``, and the ops with the most device and host time."""
     avgs = prof.key_averages()
     on_card = [e for e in avgs
                if e.device_type == torch.autograd.DeviceType.CUDA]
@@ -2437,6 +2514,530 @@ def phase_imperative_bf16_vs(params, module_card_bf16, cpu32):
                if k != "probabilities"}, cpu32)
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the op library on the card against the CPU
+# ---------------------------------------------------------------------------
+SWEEP_EXACT, SWEEP_REL, SWEEP_BF16 = 0.0, 1e-5, 2.0 ** -8
+SWEEP_ARITH = ("elemwise_add", "elemwise_sub", "elemwise_mul", "elemwise_div",
+               "_plus", "_add", "_minus", "_sub", "_mul", "_div", "_grad_add",
+               "_maximum", "_minimum")
+SWEEP_COMPARE = ("equal", "not_equal", "greater", "greater_equal", "lesser",
+                 "lesser_equal")
+SWEEP_SCALAR = ("plus", "minus", "rminus", "mul", "div", "rdiv", "maximum",
+                "minimum", "power", "rpower", "mod", "rmod", "hypot")
+
+
+def sweep_inputs():
+    """The sweep's inputs, torch CPU tensors from seed 10: the
+    elementwise shape 4096 x 512 in each domain the ops need, and the
+    other ops' operands at the sizes a model gives them."""
+    rs = np.random.RandomState(10)
+    E = (4096, 512)
+
+    def f32(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.float32))
+
+    def i32(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.int32))
+
+    def signed(shape, lo, hi):
+        return rs.choice([-1.0, 1.0], shape) * rs.uniform(lo, hi, shape)
+
+    # indices in range, past the end, negative (in [-n, 0) and below),
+    # fractional
+    edge = [4096, 9000, -1, -4096, -4097, 5.5, 4095.9, -0.5]
+    return {
+        "f": f32(rs.randn(*E)), "f2": f32(rs.randn(*E)),
+        "pos": f32(rs.uniform(0.5, 3.0, E)),
+        "unit": f32(rs.uniform(-0.9, 0.9, E)),
+        "gt1": f32(rs.uniform(1.1, 3.0, E)), "nz": f32(signed(E, 0.25, 2.0)),
+        "quarter": f32(rs.randint(-20, 21, E) / 4.0),
+        "negfrac": f32(-(rs.randint(0, 4, E) + rs.uniform(0.1, 0.9, E))),
+        "ties": f32(rs.randint(-2, 3, E) / 2.0),
+        "ties_row": f32(rs.randint(-2, 3, (1, E[1])) / 2.0),
+        "row": f32(signed((1, E[1]), 0.25, 2.0)),
+        "col": f32(rs.randn(E[0], 1)),
+        "i": i32(rs.randint(-9, 10, E)),
+        "inz": i32(rs.choice([-1, 1], E) * rs.randint(1, 6, E)),
+        # integer powers with negative exponents: trunc of the real power
+        "ibase": i32(rs.choice([-3, -1, 1, 2, 3], E)),
+        "iexp": i32(rs.randint(-4, 4, E)),
+        "m1": f32(rs.randn(1024, 1024)), "m2": f32(rs.randn(1024, 1024)),
+        "b1": f32(rs.randn(16, 256, 64)), "b2": f32(rs.randn(16, 64, 256)),
+        "img": f32(rs.randn(16, 32, 64, 64)),
+        "ids": f32(np.concatenate([rs.randint(0, 4096, 8192 - len(edge)),
+                                   edge])),
+        "row_ids": f32(np.concatenate([rs.randint(0, 512, 4088),
+                                       [512, 600, -1, -512, -513, 7.5, 0,
+                                        511]])),
+        "class_ids": f32(rs.randint(0, 1000, 4096)),
+        "sort_ties": f32(rs.randint(-3, 4, (64, 8192)) / 2.0),
+        "seq": f32(rs.randn(64, 256, 128)),
+        "seq_len": f32(np.concatenate([[1, 64, 63.5, 0.5],
+                                       rs.randint(1, 65, 252)])),
+        "logits": f32(rs.randn(4096, 1000)),
+    }
+
+
+def sweep_cases():
+    """(family, op, input names, attrs, tolerance, bf16 inputs?) for every
+    op the op-library slice added, at realistic sizes, with the edge
+    inputs: indices out of range and negative, rows full of ties, integer
+    powers with negative exponents, gamma of negative non-integers."""
+    R, X, B = SWEEP_REL, SWEEP_EXACT, SWEEP_BF16
+    cases = []
+    unary = {"softsign": "f", "sign": "nz", "round": "quarter",
+             "rint": "quarter", "ceil": "quarter", "floor": "quarter",
+             "trunc": "quarter", "fix": "quarter", "rsqrt": "pos",
+             "cbrt": "nz", "rcbrt": "nz", "log10": "pos", "log2": "pos",
+             "log1p": "pos", "expm1": "f", "tan": "unit", "arcsin": "unit",
+             "arccos": "unit", "arctan": "f", "sinh": "f", "cosh": "f",
+             "arcsinh": "f", "arccosh": "gt1", "arctanh": "unit",
+             "degrees": "f", "radians": "f", "gamma": "negfrac",
+             "gammaln": "pos", "erf": "f", "_copy": "f", "identity": "f"}
+    exact = {"sign", "round", "rint", "ceil", "floor", "trunc", "fix",
+             "_copy", "identity"}
+    for op, d in unary.items():
+        cases.append(("unary", op, [d], {}, X if op in exact else R, False))
+    cases.append(("unary", "gamma", ["pos"], {}, R, False))
+    cases.append(("unary", "smooth_l1", ["f"], {"scalar": 2.0}, R, False))
+    for op in SWEEP_ARITH:
+        cases.append(("binary", op, ["f", "nz"], {}, X, False))
+        if op.startswith("elemwise"):
+            cases.append(("binary bf16", op, ["f", "nz"], {}, B, True))
+            cases.append(("binary int32", op, ["i", "inz"], {}, X, False))
+    cases += [("binary", "_power", ["pos", "f"], {}, R, False),
+              ("binary", "_hypot", ["f", "f2"], {}, R, False),
+              ("binary", "_mod", ["f", "nz"], {}, R, False),
+              ("binary int32", "_power", ["ibase", "iexp"], {}, X, False),
+              ("binary int32", "_mod", ["i", "inz"], {}, X, False),
+              ("binary bf16", "_power", ["pos", "f"], {}, B, True)]
+    for op in ("add", "plus", "sub", "minus", "mul", "div", "maximum",
+               "minimum", "power", "hypot", "mod"):
+        lhs = "pos" if op == "power" else "f"
+        tol = R if op in ("power", "hypot", "mod") else X
+        cases.append(("broadcast", "broadcast_" + op, [lhs, "row"], {}, tol,
+                      False))
+        cases.append(("broadcast", "broadcast_" + op, ["col", "row"], {},
+                      tol, False))
+        cases.append(("broadcast bf16", "broadcast_" + op, [lhs, "row"], {},
+                      B, True))
+    for op in SWEEP_COMPARE:
+        cases.append(("compare", "broadcast_" + op, ["ties", "ties_row"], {},
+                      X, False))
+        cases.append(("compare", "_" + op, ["ties", "f2"], {}, X, False))
+        cases.append(("compare bf16", "broadcast_" + op, ["ties", "ties_row"],
+                      {}, B, True))
+        cases.append(("compare", "_%s_scalar" % op, ["ties"],
+                      {"scalar": 0.5}, X, False))
+        cases.append(("compare int32", "_%s_scalar" % op, ["i"],
+                      {"scalar": 2.7}, X, False))
+    for op in SWEEP_SCALAR:
+        name = "_%s_scalar" % op
+        d = {"power": "pos", "rdiv": "nz", "rmod": "nz"}.get(op, "f")
+        tol = R if op in ("power", "rpower", "mod", "rmod", "hypot") else X
+        cases.append(("scalar", name, [d], {"scalar": 1.5}, tol, False))
+        cases.append(("scalar int32", name,
+                      ["inz" if op in ("rdiv", "rmod", "power") else "i"],
+                      {"scalar": 2.7}, R if op == "hypot" else X, False))
+    cases.append(("scalar bf16", "_mul_scalar", ["nz"], {"scalar": 1.5}, B,
+                  True))
+    for op in ("add_n", "ElementWiseSum", "_sum"):
+        cases.append(("binary", op, ["f", "nz", "pos"], {}, X, False))
+    cases += [
+        ("dot", "dot", ["m1", "m2"], {}, R, False),
+        ("dot", "dot", ["m1", "m2"], {"transpose_a": True,
+                                      "transpose_b": True}, R, False),
+        ("dot", "batch_dot", ["b1", "b2"], {}, R, False),
+        ("dot", "batch_dot", ["b2", "b1"], {"transpose_a": True,
+                                            "transpose_b": True}, R, False),
+        ("shape", "Concat", ["f", "nz", "pos"], {"dim": 1}, X, False),
+        ("shape", "concat", ["f", "nz"], {"dim": 0}, X, False),
+        ("shape", "Flatten", ["b1"], {}, X, False),
+        ("shape", "flatten", ["img"], {}, X, False),
+        ("shape", "expand_dims", ["f"], {"axis": 1}, X, False),
+        ("shape", "SwapAxis", ["b1"], {"dim1": 0, "dim2": 2}, X, False),
+        ("shape", "swapaxes", ["img"], {"dim1": 1, "dim2": 3}, X, False),
+        ("shape", "slice", ["f"], {"begin": (7, -300), "end": (4000, -1)}, X,
+         False),
+        ("shape", "crop", ["img"], {"begin": (0, 3, 5), "end": (8, 30, 60)},
+         X, False),
+        ("shape", "slice_axis", ["f"], {"axis": 1, "begin": -200,
+                                        "end": None}, X, False),
+        ("shape", "clip", ["f"], {"a_min": -0.5, "a_max": 0.7}, X, False),
+        ("shape", "repeat", ["b1"], {"repeats": 2, "axis": 1}, X, False),
+        ("shape", "tile", ["b1"], {"reps": (1, 2, 3)}, X, False),
+        ("shape", "reverse", ["img"], {"axis": (1, 3)}, X, False),
+        ("shape", "flip", ["f"], {"axis": 0}, X, False),
+        ("shape", "where", ["ties", "f", "nz"], {}, X, False),
+        ("shape", "SliceChannel", ["f"], {"num_outputs": 4}, X, False),
+        ("shape", "split", ["img"], {"num_outputs": 2, "axis": 1}, X, False),
+        ("shape", "Pad", ["img"], {"pad_width": (0, 0, 0, 0, 2, 3, 1, 4),
+                                   "constant_value": 0.5}, X, False),
+        ("shape", "pad", ["img"], {"mode": "edge",
+                                   "pad_width": (0, 0, 0, 0, 2, 3, 1, 4)}, X,
+         False),
+        ("shape", "Pad", ["img"], {"mode": "reflect",
+                                   "pad_width": (0, 0, 0, 0, 3, 2, 4, 1)}, X,
+         False),
+        ("reduce", "norm", ["f"], {}, R, False),
+        ("reduce", "broadcast_to", ["row"], {"shape": (4096, 0)}, X, False),
+        ("reduce", "broadcast_axis", ["col"], {"axis": (1,), "size": (512,)},
+         X, False),
+        ("reduce", "broadcast_axes", ["row"], {"axis": 0, "size": 4096}, X,
+         False),
+        ("reduce", "argmax_channel", ["ties"], {}, X, False),
+        ("index", "take", ["f", "ids"], {}, X, False),
+        ("index", "take", ["f", "ids"], {"mode": "wrap"}, X, False),
+        ("index", "take", ["f", "ids"], {"mode": "raise"}, X, False),
+        ("index", "take", ["f", "row_ids"], {"axis": 1}, X, False),
+        ("index", "batch_take", ["f", "row_ids"], {}, X, False),
+        ("index", "one_hot", ["ids"], {"depth": 4096}, X, False),
+        ("index", "pick", ["f", "row_ids"], {}, X, False),
+        ("index", "pick", ["f", "row_ids"], {"mode": "wrap",
+                                             "keepdims": True}, X, False),
+        ("order", "sort", ["sort_ties"], {}, X, False),
+        ("order", "sort", ["sort_ties"], {"is_ascend": False}, X, False),
+        ("order", "argsort", ["sort_ties"], {}, X, False),
+        ("order", "argsort", ["sort_ties"], {"is_ascend": False}, X, False),
+        ("order", "argsort", ["sort_ties"], {"axis": 0}, X, False),
+        ("order", "topk", ["sort_ties"], {"k": 64}, X, False),
+        ("order", "topk", ["sort_ties"], {"k": 64, "is_ascend": True}, X,
+         False),
+        ("order", "topk", ["sort_ties"], {"k": 10, "ret_typ": "value"}, X,
+         False),
+        ("order", "topk", ["sort_ties"], {"k": 10, "ret_typ": "both"}, X,
+         False),
+        ("order", "topk", ["sort_ties"], {"k": 10, "ret_typ": "mask"}, X,
+         False),
+        ("order", "topk", ["sort_ties"], {"k": 100, "axis": None}, X, False),
+        ("init", "_zeros", [], {"shape": (4096, 512)}, X, False),
+        ("init", "_ones", [], {"shape": (4096, 512), "dtype": "int32"}, X,
+         False),
+        ("init", "_arange", [], {"start": -3.0, "stop": 4093.0, "step": 0.5,
+                                 "repeat": 2}, X, False),
+        ("init", "zeros_like", ["f"], {}, X, False),
+        ("init", "ones_like", ["i"], {}, X, False),
+        ("sequence", "SequenceLast", ["seq"], {}, X, False),
+        ("sequence", "SequenceLast", ["seq", "seq_len"],
+         {"use_sequence_length": True}, X, False),
+        ("sequence", "SequenceMask", ["seq", "seq_len"],
+         {"use_sequence_length": True, "value": -1.5}, X, False),
+        ("sequence", "SequenceReverse", ["seq"], {}, X, False),
+        ("sequence", "SequenceReverse", ["seq", "seq_len"],
+         {"use_sequence_length": True}, X, False),
+        ("heads", "LinearRegressionOutput", ["f", "f2"], {}, X, False),
+        ("heads", "LogisticRegressionOutput", ["f", "f2"], {}, R, False),
+        ("heads", "MAERegressionOutput", ["f", "f2"], {}, X, False),
+        ("heads", "SVMOutput", ["logits", "class_ids"], {"margin": 0.5}, X,
+         False),
+        ("heads", "IdentityAttachKLSparseReg", ["f"], {}, X, False),
+    ]
+    return cases
+
+
+def sweep_run(op, tensors, attrs, dev):
+    """``mx.nd.<op>`` on ``tensors`` moved to ``dev``, under ``dev``'s
+    context (the init ops take it); synchronised after a card's call, so
+    a device-side assert is reported at the op that raised it."""
+    with mx.cpu() if dev.type == "cpu" else mx.gpu(dev.index or 0):
+        out = getattr(mx.nd, op)(*[mx.nd.NDArray(t.to(dev)) for t in tensors],
+                                 **attrs)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    outs = out if isinstance(out, list) else [out]
+    on_device(dev, "phase 10 %s's result" % op,
+              [(i, o._data) for i, o in enumerate(outs)])
+    return [o._data for o in outs]
+
+
+def sweep_agree(op, got, want, tol):
+    """The card's outputs against the CPU's: dtype and shape equal, bit
+    for bit (``tol`` 0), else within ``tol`` x max|ref| with NaN where the
+    CPU has NaN; returns the error's ratio to its bound (0 where
+    bit-equal)."""
+    worst = 0.0
+    for g, w in zip(got, want):
+        g = g.detach().cpu()
+        if g.dtype != w.dtype or g.shape != w.shape:
+            raise SystemExit("chip_smoke: phase 10 %s: card %s %s, CPU %s %s"
+                             % (op, g.dtype, tuple(g.shape), w.dtype,
+                                tuple(w.shape)))
+        g, w = g.double(), w.double()
+        if not torch.equal(torch.isnan(g), torch.isnan(w)):
+            raise SystemExit("chip_smoke: phase 10 %s: NaN at other places"
+                             % op)
+        ok = ~torch.isnan(w)
+        g, w = g[ok], w[ok]
+        if tol == SWEEP_EXACT or not w.numel():
+            if not torch.equal(g, w):
+                raise SystemExit("chip_smoke: phase 10 %s is not bit-equal: "
+                                 "%d elements differ"
+                                 % (op, int((g != w).sum())))
+            continue
+        bound = tol * max(float(w.abs().max()), 1e-30)
+        err = float((g - w).abs().max())
+        if not err <= bound:
+            raise SystemExit("chip_smoke: phase 10 %s: %.3e past its bound "
+                             "%.3e" % (op, err, bound))
+        worst = max(worst, err / bound)
+    return worst
+
+
+def phase_op_sweep(dev, card):
+    """Phase 10: every op of the op-library slice on the card and on the
+    CPU on the same inputs: bit-equal integer, bool, index and ordering
+    results and IEEE-exact arithmetic, the rest within the CPU tests'
+    bounds; the worst ratio to its bound for each family."""
+    tic = time.perf_counter()
+    x = sweep_inputs()
+    cases = sweep_cases()
+    worst, ops = collections.defaultdict(float), set()
+    for family, op, names, attrs, tol, bf16 in cases:
+        ins = [x[n].to(torch.bfloat16) if bf16 else x[n] for n in names]
+        want = sweep_run(op, ins, attrs, torch.device("cpu"))
+        got = sweep_run(op, ins, attrs, dev)
+        worst[family] = max(worst[family], sweep_agree(op, got, want, tol))
+        ops.add(op)
+    missing = set(SWEEP_OPS) - ops
+    if missing:
+        raise SystemExit("chip_smoke: phase 10 did not run %s"
+                         % sorted(missing))
+    log("phase 10 op sweep: %d cases over %d ops, card vs CPU, in %.1f s; "
+        "worst ratio to its bound by family (0: bit-equal): %s [%s]"
+        % (len(cases), len(ops), time.perf_counter() - tic,
+           ", ".join("%s %.3f" % kv for kv in sorted(worst.items())), card))
+
+
+# ---------------------------------------------------------------------------
+# phases 11 and 12: the matrix-factorization recommender through
+# Module.fit (examples/recommenders/matrix_fact.py at MovieLens-1M's
+# id space)
+# ---------------------------------------------------------------------------
+def make_ratings(rs, num_users, num_items, n, rank):
+    """``examples/recommenders/matrix_fact.py``'s synthetic ratings: a
+    rank-``rank`` ground truth plus noise."""
+    U = rs.randn(num_users, rank).astype(np.float32) / np.sqrt(rank)
+    V = rs.randn(num_items, rank).astype(np.float32) / np.sqrt(rank)
+    users = rs.randint(0, num_users, n)
+    items = rs.randint(0, num_items, n)
+    r = (U[users] * V[items]).sum(axis=1) + 0.05 * rs.randn(n)
+    return (users.astype(np.float32), items.astype(np.float32),
+            r.astype(np.float32))
+
+
+def mf_symbol(num_users, num_items, factor):
+    """The example's graph: two ``Embedding``s, ``*``, ``sum(axis=1)``,
+    ``LinearRegressionOutput``."""
+    user = mx.sym.Variable("user")
+    item = mx.sym.Variable("item")
+    u = mx.sym.Embedding(user, input_dim=num_users, output_dim=factor,
+                         name="user_embed")
+    v = mx.sym.Embedding(item, input_dim=num_items, output_dim=factor,
+                         name="item_embed")
+    pred = mx.sym.sum(u * v, axis=1)
+    return mx.sym.LinearRegressionOutput(pred, name="score")
+
+
+def mf_data():
+    """The ratings at MovieLens-1M's size, split 90/10 as the example
+    splits them, and the rating std."""
+    rs = np.random.RandomState(11)
+    users, items, r = make_ratings(rs, MF["users"], MF["items"],
+                                   MF["ratings"], MF["rank"])
+    n = int(0.9 * MF["ratings"])
+    return ((users[:n], items[:n], r[:n]), (users[n:], items[n:], r[n:]),
+            float(r.std()))
+
+
+def mf_iter(part, dev, shuffle=False):
+    """An ``NDArrayIter`` over ``part`` held on ``dev``: its batches are
+    gathered there."""
+    users, items, r = (mx.nd.array(a, ctx=dev) for a in part)
+    return mx.io.NDArrayIter({"user": users, "item": items}, r,
+                             batch_size=MF["batch"], shuffle=shuffle,
+                             label_name="score_label")
+
+
+def mf_module(dev):
+    return mx.Module(mf_symbol(MF["users"], MF["items"], MF["factor"]),
+                     data_names=("user", "item"),
+                     label_names=("score_label",), context=dev)
+
+
+def on_device(dev, what, tensors):
+    """Fatal unless every (name, tensor) lies on ``dev``'s device type."""
+    off = [n for n, t in tensors if t.device.type != dev.type]
+    if off:
+        raise SystemExit("chip_smoke: %s not on %s: %s" % (what, dev, off))
+
+
+def phase_recommender(dev, card):
+    """Phase 11: the recommender through ``Module.fit`` (Adam, learning
+    rate 0.01, wd 1e-5, Normal(0.1), ``eval_metric='rmse'``) for
+    ``MF_EPOCHS`` epochs with the parameters, the executor's arrays, the
+    optimizer's state and the iterator's batches on the card; the
+    held-out RMSE after each epoch, steps/s, samples/s and ms per step;
+    the RMSE falling each epoch and ending below the rating std (three
+    epochs, the most this phase's time allows, reach about 0.6 x the std
+    in the CPU rehearsal, not the 0.5 x that the example's twelve
+    reach at its size).
+    No hand kernel lies on this path: every launch count stays 0, and no
+    wrapper's plain version is reached.  Returns the launch counts and
+    the ms per step."""
+    train_part, val_part, std = mf_data()
+    train = mf_iter(train_part, dev, shuffle=True)
+    val = mf_iter(val_part, dev)
+    mx.random.seed(0)
+    mod = mf_module(dev)
+    rmse, marks = [], {}
+
+    def on_batch(param):
+        if param.nbatch == 0:
+            if param.epoch == 0:
+                batch = param.locals["data_batch"]
+                on_device(dev, "phase 11 batch", [
+                    (d.name, a._data) for d, a in zip(
+                        train.provide_data + train.provide_label,
+                        batch.data + batch.label)])
+            torch.cuda.synchronize()
+            marks[param.epoch] = [time.perf_counter(), 0]
+        marks[param.epoch][1] = param.nbatch
+
+    def on_epoch(epoch, *_):
+        torch.cuda.synchronize()
+        start, last = marks[epoch]
+        marks[epoch].append(time.perf_counter())
+        sec = marks[epoch][2] - start
+        rmse.append(dict(mod.score(val, mx.metric.RMSE()))["rmse"])
+        log("phase 11 epoch %d: held-out RMSE %.6f (rating std %.6f); "
+            "steps 2..%d: %.3f ms per step, %.1f steps/s, %.0f samples/s "
+            "[%s]" % (epoch, rmse[-1], std, last + 1, sec * 1e3 / last,
+                      last / sec, last * MF["batch"] / sec, card))
+
+    kernels.reset_launch_counts()
+    tic = time.perf_counter()
+    with plain_guard() as plain:
+        mod.fit(train, num_epoch=MF_EPOCHS, optimizer="adam",
+                optimizer_params={"learning_rate": MF["lr"], "wd": MF["wd"]},
+                initializer=mx.init.Normal(sigma=MF["sigma"]),
+                eval_metric="rmse", kvstore="local",
+                batch_end_callback=on_batch, epoch_end_callback=on_epoch)
+        torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    wall = time.perf_counter() - tic
+    ex = mod._exec_group.executor
+    on_device(dev, "phase 11 executor arrays and optimizer state",
+              list(zip(ex._arg_names, (a._data for a in ex.arg_arrays))) +
+              [(n, g._data) for n, g in ex.grad_dict.items()] +
+              [("adam state of %d" % i, s._data)
+               for i, st in mod._updater.states.items() for s in st])
+    if plain:
+        raise SystemExit("chip_smoke: phase 11 reached plain versions: %s"
+                         % dict(plain))
+    if any(counts.values()):
+        raise SystemExit("chip_smoke: phase 11 launched hand kernels off its "
+                         "path: %s" % {k: v for k, v in counts.items() if v})
+    if len(rmse) != MF_EPOCHS or not np.isfinite(rmse).all():
+        raise SystemExit("chip_smoke: phase 11 RMSE per epoch %s" % rmse)
+    if any(b >= a for a, b in zip(rmse, rmse[1:])):
+        raise SystemExit("chip_smoke: phase 11 held-out RMSE did not fall "
+                         "each epoch: %s" % rmse)
+    if not rmse[-1] < std:
+        raise SystemExit("chip_smoke: phase 11 held-out RMSE %.6f is not "
+                         "below the rating std, %.6f" % (rmse[-1], std))
+    steps = sum(m[1] for m in marks.values())
+    sec = sum(m[2] - m[0] for m in marks.values())
+    log("phase 11 recommender (%d users, %d items, factor %d, %d ratings, "
+        "batch %d): %d epochs in %.1f s with bind, init and scoring; "
+        "held-out RMSE %s, final %.6f < %.6f, the rating std (%.3f x it; "
+        "the example's 12 epochs are held to 0.5 x); %.3f ms "
+        "per step, %.1f steps/s, %.0f samples/s (host clock behind "
+        "synchronize, each epoch's first step left out) [%s]"
+        % (MF["users"], MF["items"], MF["factor"], MF["ratings"],
+           MF["batch"], MF_EPOCHS, wall, " ".join("%.6f" % v for v in rmse),
+           rmse[-1], std, rmse[-1] / std, sec * 1e3 / steps, steps / sec,
+           steps * MF["batch"] / sec, card))
+    return counts, sec * 1e3 / steps
+
+
+def profile_recommender(dev, card, step_ms, warmup=20, steps=100):
+    """``--profile``: ``torch.profiler`` over ``steps`` recommender steps
+    of ``Module.fit`` after ``warmup`` (phase 11's setup on the first
+    rows of its training split): the device's busy share of phase 11's
+    unprofiled ``step_ms``."""
+    (users, items, r), _, _ = mf_data()
+    n = (warmup + steps) * MF["batch"]
+    it = mf_iter((users[:n], items[:n], r[:n]), dev)
+    mx.random.seed(0)
+    mod = mf_module(dev)
+    prof = torch.profiler.profile(activities=[
+        torch.profiler.ProfilerActivity.CPU,
+        torch.profiler.ProfilerActivity.CUDA])
+    clock = {}
+
+    def on_batch(param):
+        if param.nbatch in (warmup - 1, warmup + steps - 1):
+            torch.cuda.synchronize()
+            clock[param.nbatch] = time.perf_counter()
+            (prof.start if param.nbatch == warmup - 1 else prof.stop)()
+
+    mod.fit(it, num_epoch=1, optimizer="adam",
+            optimizer_params={"learning_rate": MF["lr"], "wd": MF["wd"]},
+            initializer=mx.init.Normal(sigma=MF["sigma"]),
+            eval_metric="rmse", batch_end_callback=on_batch)
+    window_ms = (clock[warmup + steps - 1] - clock[warmup - 1]) * 1e3 / steps
+    report_profile("11", prof, steps, step_ms, window_ms, card)
+
+
+def mf_step(dev, params, part):
+    """One recommender step (``forward_backward`` + Adam ``update``) on
+    ``dev`` from ``params`` on the batch ``part``: the gradients and the
+    updated parameters, as numpy by name."""
+    it = mf_iter(part, dev)
+    mod = mf_module(dev)
+    mod.bind(it.provide_data, it.provide_label)
+    mod.init_params(arg_params=params)
+    mod.init_optimizer(optimizer="adam", optimizer_params={
+        "learning_rate": MF["lr"], "wd": MF["wd"]})
+    mod.forward_backward(next(iter(it)))
+    out = {"grad " + n: g.asnumpy() for n, g in
+           mod._exec_group.executor.grad_dict.items() if n in params}
+    mod.update()
+    arg, _ = mod.get_params()
+    out.update(("param " + n, v.asnumpy()) for n, v in arg.items())
+    return out
+
+
+def phase_recommender_vs_cpu(dev):
+    """Phase 12: one recommender step on the card against the CPU's from
+    the same Normal(0.1) parameters and batch: every gradient within
+    1e-5 x max|ref|, every parameter after Adam within 1e-4 x max|ref|
+    (Adam's standing bound: its step has the size of the learning rate
+    whatever the gradient's)."""
+    (users, items, r), _, _ = mf_data()
+    b = MF["batch"]
+    part = (users[:b], items[:b], r[:b])
+    rs = np.random.RandomState(12)
+    params = {name: (MF["sigma"] * rs.randn(rows, MF["factor"]))
+              .astype(np.float32) for name, rows in (
+                  ("user_embed_weight", MF["users"]),
+                  ("item_embed_weight", MF["items"]))}
+    card = mf_step(dev, params, part)
+    cpu = mf_step(torch.device("cpu"), params, part)
+    ratios = []
+    for name, ref in sorted(cpu.items()):
+        tol = 1e-4 if name.startswith("param") else 1e-5
+        got = card[name]
+        err = float(np.abs(got - ref).max())
+        bound = tol * max(float(np.abs(ref).max()), 1e-30)
+        if not (np.isfinite(got).all() and err <= bound):
+            raise SystemExit("chip_smoke: phase 12 %s: card vs CPU %.3e past "
+                             "%.3e" % (name, err, bound))
+        ratios.append("%s %.3f of %g x max|ref|" % (name, err / bound, tol))
+    log("phase 12 recommender step card vs CPU: %s" % "; ".join(ratios))
+
+
 def time_ms(fn, n=60, flush=None):
     """Median device milliseconds of ``fn`` over ``n`` launches, queued
     behind a GPU spin so the launches run back to back; ``flush``: a call
@@ -2639,6 +3240,26 @@ def offset_row(dev, card, dtype, B, Lk, lq, note=""):
     return row
 
 
+def norm_floors(dev, card, entries):
+    """``floor_ms`` on every row of the norm forwards (rows 1, 1b, 3, 3b):
+    the same call on one row, the floor of one launch: a body can take
+    a row's time no lower, so a floor above twice a row's bound means
+    no body brings that row to half its bound."""
+    x, g, b = norm_inputs(1, dev)
+    calls = {"rms_norm": lambda x, g, b: norm.rms_norm(x, g, 1e-6),
+             "layer_norm": lambda x, g, b: norm.layer_norm(x, g, b, 1e-5)}
+    for name, call in calls.items():
+        for suffix, ins in (("", (x, g, b)), ("_bf16", bf16_inputs(x, g, b))):
+            floor = time_ms(lambda call=call, ins=ins: call(*ins))
+            for row in entries[name + suffix]:
+                row["floor_ms"] = floor
+            top = entries[name + suffix][-1]
+            log("phase 5 %s%s on 1 row: %.6f ms (the launch floor); %s: "
+                "%.6f ms, at half its bound (twice the bound's time) "
+                "%.6f ms [%s]" % (name, suffix, floor, top["shape"],
+                                  top["ms"], 2 * top["bound_ms"], card))
+
+
 def phase_times(dev, card, errs, pa_shapes, fa_shapes):
     """The serving kernels at the serving path's shapes; paged attention
     also at each (B, Lq) of the serving phases' launches (``pa_shapes``,
@@ -2682,6 +3303,7 @@ def phase_times(dev, card, errs, pa_shapes, fa_shapes):
                lambda: F.layer_norm(x, (NORM_W,), g, b, 1e-5),
                2 * (2 * n + 2 * NORM_W), 8 * n,
                errs[("layer_norm_bf16", rows)], bf16=True)
+    norm_floors(dev, card, entries)
     for name in PA_DTYPES:
         census = sorted(((n, B, lq) for (kname, B, lq, _p), n
                          in pa_shapes.items() if kname == name),
@@ -3109,6 +3731,11 @@ def main(argv):
         card, step_ms_bf16, "bfloat16", step_ms_imp)
     cpu32 = phase_imperative_vs(params7, module_card)
     phase_imperative_bf16_vs(params7, module_card_bf16, cpu32)
+    phase_op_sweep(dev, card)
+    counts["recommender"], step_ms_mf = phase_recommender(dev, card)
+    if argv:
+        profile_recommender(dev, card, step_ms_mf)
+    phase_recommender_vs_cpu(dev)
     pa_shapes, fa_shapes = collections.Counter(), collections.Counter()
     for tag in ("3", "3b", "3d"):
         pa_shapes.update(served[tag]["pa_shapes"])

@@ -67,7 +67,9 @@ class Executor:
                 continue
             ins = [vals[(id(n), oi)] for n, oi in node.inputs]
             out = node.op.fcompute(node.attrs, *ins)
-            vals[(id(node), 0)] = out
+            for oi, o in enumerate(out if isinstance(out, (tuple, list))
+                                   else (out,)):
+                vals[(id(node), oi)] = o
         return [vals[k] for k in self._heads]
 
     def _cast_args(self, vals):
@@ -114,8 +116,13 @@ class Executor:
             out_grads = [None] * len(outs)
         elif isinstance(out_grads, (NDArray, torch.Tensor)):
             out_grads = [out_grads]
+        # an output that depends on no argument with a gradient (a
+        # comparison, an index, a data variable among get_internals'
+        # outputs) sends nothing back
+        pairs = [(o, g) for o, g in zip(outs, out_grads) if o.requires_grad]
+        outs = [o for o, _ in pairs]
         cots = []
-        for o, g in zip(outs, out_grads):
+        for o, g in pairs:
             if g is None:
                 cots.append(torch.ones((), dtype=o.dtype,
                                        device=o.device).expand(o.shape))
@@ -124,7 +131,8 @@ class Executor:
                 cots.append(g.to(device=o.device, dtype=o.dtype))
         idx = list(leaves)
         grads = torch.autograd.grad(outs, [leaves[i] for i in idx], cots,
-                                    allow_unused=True)
+                                    allow_unused=True) if outs else \
+            [None] * len(idx)
         for i, g in zip(idx, grads):
             gbuf = self.grad_arrays[i]
             if g is None:

@@ -1,6 +1,6 @@
 """Weight initializers (counterpart of ``mxnet_tpu/initializer.py``):
-``InitDesc``, the name rules of ``Initializer``, ``Uniform`` and
-``Xavier``.
+``InitDesc``, the name rules of ``Initializer``, ``Zero``, ``One``,
+``Constant``, ``Uniform``, ``Normal`` and ``Xavier``.
 
 Random draws come from the port's explicit generator
 (:mod:`mxnet_tpu_torch.random`) on the host and are copied into the
@@ -16,8 +16,8 @@ import torch
 from . import random as _random
 from .base import MXNetError
 
-__all__ = ["InitDesc", "Initializer", "Uniform", "Xavier", "init_registry",
-           "register"]
+__all__ = ["InitDesc", "Initializer", "Zero", "One", "Constant", "Uniform",
+           "Normal", "Xavier", "init_registry", "register"]
 
 init_registry = {}
 
@@ -78,6 +78,34 @@ class Initializer:
 
 
 @register
+class Zero(Initializer):
+    """Fill with zeros."""
+
+    def _init_weight(self, _, arr):
+        arr[:] = 0.0
+
+
+@register
+class One(Initializer):
+    """Fill with ones."""
+
+    def _init_weight(self, _, arr):
+        arr[:] = 1.0
+
+
+@register
+class Constant(Initializer):
+    """Fill with ``value``."""
+
+    def __init__(self, value=0.0):
+        super().__init__(value=value)
+        self.value = value
+
+    def _init_weight(self, _, arr):
+        arr[:] = self.value
+
+
+@register
 class Uniform(Initializer):
     """Draw from Uniform(-scale, scale)."""
 
@@ -87,6 +115,19 @@ class Uniform(Initializer):
 
     def _init_weight(self, _, arr):
         arr[:] = _uniform(arr.shape, -self.scale, self.scale)
+
+
+@register
+class Normal(Initializer):
+    """Draw from Normal(0, sigma)."""
+
+    def __init__(self, sigma=0.01):
+        super().__init__(sigma=sigma)
+        self.sigma = sigma
+
+    def _init_weight(self, _, arr):
+        arr[:] = torch.empty(arr.shape, dtype=torch.float32).normal_(
+            0.0, self.sigma, generator=_random.generator())
 
 
 def xavier_scale(shape, factor_type="avg", magnitude=3.0):

@@ -5,8 +5,9 @@
 the last batch (``pad`` wraps around to the first rows, ``discard``
 drops the remainder, ``roll_over`` carries it into the next epoch), and
 shuffles once, at construction, from the port's explicit generator
-(:mod:`mxnet_tpu_torch.random`).  Batches are host NDArrays; the module
-copies them to its device.
+(:mod:`mxnet_tpu_torch.random`).  Batches of numpy data are host
+NDArrays, which the module copies to its device; data given as NDArrays
+on a GPU stays there, and its batches are gathered on that device.
 """
 from __future__ import annotations
 
@@ -96,8 +97,20 @@ def _init_data(data, allow_empty, default_name):
     if not isinstance(data, dict):
         raise TypeError("Input must be NDArray, numpy.ndarray, a list of "
                         "them or dict with them as values")
-    return [(k, v.asnumpy() if isinstance(v, NDArray) else np.asarray(v))
+    return [(k, v if isinstance(v, NDArray) and v.context.device_type == "gpu"
+             else v.asnumpy() if isinstance(v, NDArray) else np.asarray(v))
             for k, v in data.items()]
+
+
+def _rows(v, sel):
+    """Rows ``sel`` (a slice or an index array) of a source: a host
+    NDArray of a numpy source, an NDArray on the source's device of a
+    device NDArray."""
+    if isinstance(v, NDArray):
+        if isinstance(sel, slice):
+            return NDArray(v._data[sel].clone())
+        return NDArray(v._data[torch.from_numpy(sel).to(v._data.device)])
+    return array(v[sel], ctx=cpu())
 
 
 class NDArrayIter(DataIter):
@@ -157,19 +170,15 @@ class NDArrayIter(DataIter):
         assert self.cursor < self.num_data, "DataIter needs reset."
         end = self.cursor + self.batch_size
         if self._order is not None:
-            if end <= self.num_data:
-                sel = self._order[self.cursor:end]
-            else:
-                sel = np.concatenate((self._order[self.cursor:],
-                                      self._order[:end - self.num_data]))
-            return [array(v.take(sel, axis=0), ctx=cpu())
-                    for _, v in data_source]
-        if end <= self.num_data:
-            return [array(v[self.cursor:end], ctx=cpu())
-                    for _, v in data_source]
-        pad = end - self.num_data
-        return [array(np.concatenate((v[self.cursor:], v[:pad]), axis=0),
-                      ctx=cpu()) for _, v in data_source]
+            sel = self._order[self.cursor:end]
+            if end > self.num_data:
+                sel = np.concatenate((sel, self._order[:end - self.num_data]))
+        elif end <= self.num_data:
+            sel = slice(self.cursor, end)
+        else:   # the last batch wraps around to the first rows
+            sel = np.concatenate((np.arange(self.cursor, self.num_data),
+                                  np.arange(end - self.num_data)))
+        return [_rows(v, sel) for _, v in data_source]
 
     def getdata(self):
         return self._getdata(self.data)

@@ -1,12 +1,15 @@
 """Evaluation metrics (counterpart of ``mxnet_tpu/metric.py``):
-``EvalMetric``, ``Accuracy``, ``Perplexity``, ``CrossEntropy`` and
-``create``.
+``EvalMetric``, ``CompositeEvalMetric``, ``Accuracy``, ``Perplexity``,
+``CrossEntropy``, the regression metrics ``MAE``, ``MSE`` and ``RMSE``,
+and ``create`` (of a name, a metric, or a list of either).
 
-Each metric first reduces on the predictions' device to the numbers it
-needs per row (the argmax, or the probability of the label), fetches
-those to the host, and then does the reference's numpy arithmetic on
-them, so the values equal the reference's on the same arrays while a
-training step fetches one value per row instead of the whole output.
+Each classification metric first reduces on the predictions' device to
+the numbers it needs per row (the argmax, or the probability of the
+label), fetches those to the host, and then does the reference's numpy
+arithmetic on them, so the values equal the reference's on the same
+arrays while a training step fetches one value per row instead of the
+whole output.  The regression metrics fetch their one value per row as
+it is and do the reference's arithmetic: one batch's error per update.
 """
 from __future__ import annotations
 
@@ -15,8 +18,8 @@ import torch
 
 from .ndarray import NDArray, host_numpy
 
-__all__ = ["EvalMetric", "Accuracy", "Perplexity", "CrossEntropy",
-           "create"]
+__all__ = ["EvalMetric", "CompositeEvalMetric", "Accuracy", "Perplexity",
+           "CrossEntropy", "MAE", "MSE", "RMSE", "create"]
 
 
 def check_label_shapes(labels, preds):
@@ -70,6 +73,40 @@ class EvalMetric:
 
     def __str__(self):
         return "EvalMetric: {}".format(dict(self.get_name_value()))
+
+
+class CompositeEvalMetric(EvalMetric):
+    """Several metrics updated together; ``get`` gives their names and
+    values as two lists."""
+
+    def __init__(self, metrics=None):
+        self.metrics = [create(m) for m in metrics or []]
+        super().__init__("composite")
+
+    def add(self, metric):
+        self.metrics.append(create(metric))
+
+    def get_metric(self, index):
+        return self.metrics[index]
+
+    def update(self, labels, preds):
+        for metric in self.metrics:
+            metric.update(labels, preds)
+
+    def reset(self):
+        for metric in self.metrics:
+            metric.reset()
+
+    def get(self):
+        names, values = [], []
+        for metric in self.metrics:
+            name, value = metric.get()
+            names.append(name)
+            values.append(value)
+        return names, values
+
+    def get_name_value(self):
+        return list(zip(*self.get()))
 
 
 class Accuracy(EvalMetric):
@@ -140,13 +177,71 @@ class CrossEntropy(EvalMetric):
             self.num_inst += label.shape[0]
 
 
+def _as_columns(label, pred):
+    """Host numpy copies, a 1-D side as (n, 1): an (n, 1) - (n,)
+    difference would broadcast into an (n, n) matrix."""
+    label, pred = host_numpy(_tensor(label)), host_numpy(_tensor(pred))
+    if label.ndim == 1:
+        label = label.reshape(label.shape[0], 1)
+    if pred.ndim == 1:
+        pred = pred.reshape(pred.shape[0], 1)
+    return label, pred
+
+
+class _Regression(EvalMetric):
+    """One batch's ``_error(label, pred)`` per update."""
+
+    def update(self, labels, preds):
+        check_label_shapes(labels, preds)
+        for label, pred in zip(labels, preds):
+            self.sum_metric += self._error(*_as_columns(label, pred))
+            self.num_inst += 1
+
+
+class MAE(_Regression):
+    """Mean absolute error."""
+
+    def __init__(self):
+        super().__init__("mae")
+
+    @staticmethod
+    def _error(label, pred):
+        return _np.abs(label - pred).mean()
+
+
+class MSE(_Regression):
+    """Mean squared error."""
+
+    def __init__(self):
+        super().__init__("mse")
+
+    @staticmethod
+    def _error(label, pred):
+        return ((label - pred) ** 2.0).mean()
+
+
+class RMSE(_Regression):
+    """Root of the mean squared error, per batch."""
+
+    def __init__(self):
+        super().__init__("rmse")
+
+    @staticmethod
+    def _error(label, pred):
+        return _np.sqrt(((label - pred) ** 2.0).mean())
+
+
 def create(metric, **kwargs):
     """A metric by name (``acc``, ``accuracy``, ``ce``, ``cross-entropy``,
-    ``perplexity``), or ``metric`` itself when it is one."""
+    ``perplexity``, ``mae``, ``mse``, ``rmse``), ``metric`` itself when it
+    is one, or a :class:`CompositeEvalMetric` of a list of either."""
     if isinstance(metric, EvalMetric):
         return metric
+    if isinstance(metric, list):
+        return CompositeEvalMetric(metric)
     metrics = {"acc": Accuracy, "accuracy": Accuracy, "ce": CrossEntropy,
-               "cross-entropy": CrossEntropy, "perplexity": Perplexity}
+               "cross-entropy": CrossEntropy, "perplexity": Perplexity,
+               "mae": MAE, "mse": MSE, "rmse": RMSE}
     try:
         return metrics[metric.lower()](**kwargs)
     except KeyError:

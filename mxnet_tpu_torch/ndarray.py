@@ -577,16 +577,21 @@ def load(fname):
 def imperative_invoke(op_name, args, kwargs):
     """Run registered op ``op_name`` on NDArrays: the engine behind every
     ``mx.nd.<op>`` function.  NDArray inputs come positionally or by
-    argument name, the rest of ``kwargs`` are the op's attributes.  The
-    op's ``mutate`` outputs are written into their state inputs in place;
-    ``out=`` (an NDArray or a list) receives the remaining outputs and is
-    returned."""
+    argument name, the rest of ``kwargs`` are the op's attributes; a
+    variadic op (``Concat``, ``add_n``) counts its positional inputs
+    into its ``num_args``.  The op's ``mutate`` outputs are written into
+    their state inputs in place; ``out=`` (an NDArray or a list)
+    receives the remaining outputs and is returned.  Otherwise one
+    output comes back as an NDArray, several as a list."""
     op = get_op(op_name)
     out = kwargs.pop("out", None)
     kwargs.pop("name", None)
     nd_kwargs = {k: v for k, v in kwargs.items() if isinstance(v, NDArray)}
-    attrs = op.parse_attrs({k: v for k, v in kwargs.items()
-                            if not isinstance(v, NDArray)})
+    attr_kwargs = {k: v for k, v in kwargs.items()
+                   if not isinstance(v, NDArray)}
+    if op.key_var_num_args and op.key_var_num_args not in attr_kwargs:
+        attr_kwargs[op.key_var_num_args] = len(args)
+    attrs = op.parse_attrs(attr_kwargs)
     arg_names = op.arguments(attrs)
     if len(args) > len(arg_names):
         raise MXNetError("op %s takes %d inputs (%s), got %d"

@@ -1,6 +1,7 @@
 """Operators of the port.  Importing the package registers every op."""
-from . import (attention, elemwise, indexing, nn, optimizer_op, reduce,
-               registry, softmax, tensor)
+from . import (attention, elemwise, indexing, init_ops, nn, optimizer_op,
+               ordering, reduce, registry, sequence, softmax, tensor)
 
-__all__ = ["attention", "elemwise", "indexing", "nn", "optimizer_op",
-           "reduce", "registry", "softmax", "tensor"]
+__all__ = ["attention", "elemwise", "indexing", "init_ops", "nn",
+           "optimizer_op", "ordering", "reduce", "registry", "sequence",
+           "softmax", "tensor"]

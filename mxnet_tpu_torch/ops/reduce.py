@@ -1,13 +1,16 @@
 """Reduction operators (counterpart of ``mxnet_tpu/ops/reduce.py``):
 ``sum``/``sum_axis``, ``mean``, ``prod``, ``nansum``, ``nanprod``,
 ``max``/``max_axis``, ``min``/``min_axis`` over ``axis`` (all axes when
-None; ``exclude`` reduces the others), and ``argmax``/``argmin`` with the
-reference's float32 output."""
+None; ``exclude`` reduces the others), ``norm`` (the L2 norm of every
+element), ``argmax``/``argmin``/``argmax_channel`` with the reference's
+float32 output, and ``broadcast_to`` / ``broadcast_axis``
+(``broadcast_axes``)."""
 from __future__ import annotations
 
 import torch
 
-from .registry import Bool, Shape, register, register_alias, AttrSpec
+from ..base import MXNetError
+from .registry import Bool, IntOrNone, Shape, register, register_alias
 
 
 def _norm_axes(axis, ndim):
@@ -121,12 +124,6 @@ _register_reduce("min", lambda x, a, k: torch.amin(x, dim=a, keepdim=k),
                  aliases=("min_axis",))
 
 
-def _parse_int_or_none(v):
-    if v is None or v == "None":
-        return None
-    return int(v)
-
-
 def _arg_reduce_infer(attrs, in_shapes):
     (ds,) = in_shapes
     if ds is None:
@@ -136,6 +133,10 @@ def _arg_reduce_infer(attrs, in_shapes):
         return in_shapes, [() if not attrs["keepdims"]
                            else (1,) * len(ds)], []
     return in_shapes, [_reduce_out_shape(ds, ax, attrs["keepdims"])], []
+
+
+def _float32_type(attrs, in_types):
+    return in_types, ["float32"], []
 
 
 def _register_argreduce(name, fn):
@@ -150,9 +151,8 @@ def _register_argreduce(name, fn):
         return res.to(torch.float32)
 
     register(name, fcompute=fc,
-             attrs={"axis": AttrSpec(_parse_int_or_none, None, False),
-                    "keepdims": Bool(False)},
-             infer_shape=_arg_reduce_infer,
+             attrs={"axis": IntOrNone(None), "keepdims": Bool(False)},
+             infer_shape=_arg_reduce_infer, infer_type=_float32_type,
              doc="Index of the %s along `axis` (float32)."
                  % name[3:].replace("max", "maximum").replace(
                      "min", "minimum"))
@@ -160,3 +160,60 @@ def _register_argreduce(name, fn):
 
 _register_argreduce("argmax", torch.argmax)
 _register_argreduce("argmin", torch.argmin)
+
+register("argmax_channel",
+         fcompute=lambda attrs, x: torch.argmax(x, dim=1).to(torch.float32),
+         infer_shape=lambda attrs, ins: (
+             ins, [None if ins[0] is None else
+                   (ins[0][0],) + tuple(ins[0][2:])], []),
+         infer_type=_float32_type,
+         doc="Index of the maximum along axis 1 (float32).")
+
+register("norm",
+         fcompute=lambda attrs, x: torch.sqrt(torch.sum(torch.square(x))),
+         infer_shape=lambda attrs, ins: (ins, [()], []),
+         doc="The L2 norm of all elements, shape ().")
+
+
+def _broadcast_to_target(attrs, shape):
+    return tuple(t if t != 0 else d for t, d in zip(attrs["shape"], shape))
+
+
+def _broadcast_to_infer(attrs, in_shapes):
+    (ds,) = in_shapes
+    if ds is None:
+        return in_shapes, [tuple(attrs["shape"])], []
+    return in_shapes, [_broadcast_to_target(attrs, ds)], []
+
+
+# broadcasts are materialised: an expanded view would share one element
+# among many, which a later in-place write refuses
+register("broadcast_to",
+         fcompute=lambda attrs, x: x.expand(
+             _broadcast_to_target(attrs, x.shape)).contiguous(),
+         attrs={"shape": Shape(required=True)},
+         infer_shape=_broadcast_to_infer,
+         doc="Broadcast to `shape` (a 0 keeps the input's dimension).")
+
+
+def _broadcast_axis_target(attrs, shape):
+    tgt = list(shape)
+    for a, size in zip(attrs["axis"], attrs["size"]):
+        tgt[a] = size
+    return tuple(tgt)
+
+
+def _broadcast_axis_fc(attrs, x):
+    for a in attrs["axis"]:
+        if x.shape[a] != 1:
+            raise MXNetError("broadcast_axis: axis %d must have size 1" % a)
+    return x.expand(_broadcast_axis_target(attrs, x.shape)).contiguous()
+
+
+register("broadcast_axis", fcompute=_broadcast_axis_fc,
+         attrs={"axis": Shape(required=True), "size": Shape(required=True)},
+         infer_shape=lambda attrs, ins: (
+             ins, [None if ins[0] is None else
+                   _broadcast_axis_target(attrs, ins[0])], []),
+         doc="Broadcast the size-1 axes `axis` to `size`.")
+register_alias("broadcast_axis", "broadcast_axes")

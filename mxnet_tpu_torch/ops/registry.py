@@ -8,8 +8,13 @@ JSON holds, and shape inference for ``simple_bind``.  Gradients are not
 registered: the executor differentiates ``fcompute`` with
 ``torch.autograd``, and ops whose backward is not the derivative of
 their forward (SoftmaxOutput) or runs a kernel (the norms, attention)
-wrap an ``autograd.Function``.  An op may compute more outputs than it
-shows (``num_outputs``): ``mutate`` pairs ``(out_idx, arg_idx)`` name
+wrap an ``autograd.Function``.  ``key_var_num_args`` names the
+attribute that counts a variadic op's inputs (``Concat``'s
+``num_args``); ``outputs`` and ``num_outputs`` may be functions of the
+attributes (``SliceChannel``, ``topk(ret_typ='both')``); ``infer_type``
+gives the result dtypes where they are not the inputs'.  An op may
+compute more outputs than it shows (``num_outputs``): ``mutate`` pairs
+``(out_idx, arg_idx)`` name
 the extra outputs the imperative plane writes back into state inputs
 (the optimizer updates' momentum and moments, the reference's
 FMutateInputs).  ``index_inputs`` names the arguments an op reads as
@@ -28,7 +33,8 @@ from ..base import MXNetError
 
 __all__ = ["OpDef", "register", "register_alias", "get_op", "list_ops",
            "AttrSpec", "Int", "Float", "Bool", "Str", "Shape", "Dtype",
-           "unify_shapes", "elemwise_shape_infer"]
+           "IntOrNone", "FloatTuple", "unify_shapes", "elemwise_shape_infer",
+           "elemwise_type_infer"]
 
 _OP_REGISTRY: dict = {}
 
@@ -50,6 +56,22 @@ def _parse_shape(v):
     if isinstance(v, (int, np.integer)):
         return (int(v),)
     return tuple(int(x) for x in v)
+
+
+def _parse_int_or_none(v):
+    if v is None or v == "None":
+        return None
+    return int(v)
+
+
+def _parse_float_tuple(v):
+    if v is None:
+        return None
+    if isinstance(v, str):
+        v = ast.literal_eval(v)
+    if isinstance(v, (int, float)):
+        return (float(v),)
+    return tuple(float(x) for x in v)
 
 
 def _parse_dtype(v):
@@ -96,6 +118,14 @@ def Dtype(default=None, required=False):
     return AttrSpec(_parse_dtype, default, required)
 
 
+def IntOrNone(default=None):
+    return AttrSpec(_parse_int_or_none, default, False)
+
+
+def FloatTuple(default=None, required=False):
+    return AttrSpec(_parse_float_tuple, default, required)
+
+
 # ---------------------------------------------------------------------------
 # OpDef
 # ---------------------------------------------------------------------------
@@ -103,17 +133,21 @@ class OpDef:
     """A registered operator."""
 
     def __init__(self, name, fcompute, attrs=None, arguments=("data",),
-                 outputs=("output",), infer_shape=None,
-                 infer_shape_backward=None, num_outputs=1, mutate=(),
-                 index_inputs=(), doc=""):
+                 outputs=("output",), infer_shape=None, infer_type=None,
+                 infer_shape_backward=None, num_outputs=1,
+                 key_var_num_args=None, mutate=(), index_inputs=(), doc=""):
         self.name = name
         self.fcompute = fcompute
         self.attr_specs = dict(attrs or {})
         self._arguments = arguments
         self._outputs = outputs
         self._infer_shape = infer_shape
+        self._infer_type = infer_type
         self._infer_shape_backward = infer_shape_backward
         self._num_outputs = num_outputs
+        # the attribute holding a variadic op's input count (Concat:
+        # num_args); its arguments are then <first name>0, 1, ...
+        self.key_var_num_args = key_var_num_args
         # ((out_idx, arg_idx), ...): outputs written back into inputs
         self.mutate = tuple(mutate)
         # argument names read as integer indices, never cast
@@ -155,13 +189,21 @@ class OpDef:
 
     def arguments(self, attrs):
         args = self._arguments
-        return list(args(attrs)) if callable(args) else list(args)
+        if callable(args):
+            return list(args(attrs))
+        if self.key_var_num_args is not None:
+            base = args[0] if args else "arg"
+            return ["%s%d" % (base, i)
+                    for i in range(int(attrs[self.key_var_num_args]))]
+        return list(args)
 
     def outputs(self, attrs):
-        return list(self._outputs)
+        outs = self._outputs
+        return list(outs(attrs)) if callable(outs) else list(outs)
 
     def num_outputs(self, attrs):
-        return self._num_outputs
+        n = self._num_outputs
+        return int(n(attrs)) if callable(n) else int(n)
 
     def infer_shape(self, attrs, in_shapes):
         """``(in_shapes, out_shapes, aux_shapes)``; entries may stay None
@@ -169,6 +211,14 @@ class OpDef:
         if self._infer_shape is None:
             return elemwise_shape_infer(self, attrs, in_shapes)
         ins, outs, aux = self._infer_shape(attrs, list(in_shapes))
+        return list(ins), list(outs), list(aux)
+
+    def infer_type(self, attrs, in_types):
+        """``(in_types, out_types, aux_types)`` as dtype names; by
+        default every output takes the first known input's dtype."""
+        if self._infer_type is None:
+            return elemwise_type_infer(self, attrs, in_types)
+        ins, outs, aux = self._infer_type(attrs, list(in_types))
         return list(ins), list(outs), list(aux)
 
     def infer_shape_backward(self, attrs, out_shapes, in_shapes):
@@ -220,6 +270,14 @@ def elemwise_shape_infer(op, attrs, in_shapes):
     ins = [shape if s is None else unify_shapes(s, shape)
            for s in in_shapes]
     return ins, [shape] * op.num_outputs(attrs), []
+
+
+def elemwise_type_infer(op, attrs, in_types):
+    """Every input and output takes the first known input's dtype."""
+    known = [t for t in in_types if t is not None]
+    t = known[0] if known else None
+    return [t if x is None else x for x in in_types], \
+        [t] * op.num_outputs(attrs), []
 
 
 # ---------------------------------------------------------------------------

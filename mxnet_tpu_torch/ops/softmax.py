@@ -24,6 +24,14 @@ kernel pair of ``kernels/softmax_xent.py`` with ``normalization='batch'
 (``multi_output``, ``use_ignore``, ``smooth_alpha``, ``out_grad``,
 ``preserve_shape``) take :class:`_DecoratedSoftmaxOutput`, plain
 PyTorch with the reference's backward formulas.
+
+The regression heads ``LinearRegressionOutput`` (identity),
+``LogisticRegressionOutput`` (sigmoid) and ``MAERegressionOutput``
+(identity), ``SVMOutput`` (identity, hinge-loss gradient) and
+``IdentityAttachKLSparseReg`` (identity plus a sparsity penalty's
+gradient) are ``autograd.Function``s with the reference's
+``custom_vjp`` formulas: the heads ignore the head gradient, and their
+label gets a zero gradient.
 """
 from __future__ import annotations
 
@@ -184,3 +192,121 @@ register("SoftmaxOutput", fcompute=_softmax_output_fc,
          doc="Softmax forward; backward emits the softmax-cross-entropy "
              "gradient w.r.t. data (reference softmax_output.cc).")
 register_alias("SoftmaxOutput", "Softmax")
+
+
+# ---------------------------------------------------------------------------
+# Regression heads
+# ---------------------------------------------------------------------------
+_REGRESSION = {
+    # name: (forward, gradient of the output against the label)
+    "LinearRegressionOutput": (lambda d: d.view_as(d), lambda o, l: o - l),
+    "LogisticRegressionOutput": (torch.sigmoid, lambda o, l: o - l),
+    "MAERegressionOutput": (lambda d: d.view_as(d),
+                            lambda o, l: torch.sign(o - l)),
+}
+
+
+class _RegressionOutput(torch.autograd.Function):
+    """``out = forward(data)``; the backward emits ``grad(out, label) *
+    grad_scale / num_output``, ``num_output`` the elements of a row (the
+    reference's ``regression_output-inl.h``)."""
+
+    @staticmethod
+    def forward(ctx, data, label, name, grad_scale):
+        out = _REGRESSION[name][0](data)
+        ctx.save_for_backward(out, label)
+        ctx.name, ctx.grad_scale = name, grad_scale
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        out, label = ctx.saved_tensors
+        num_output = max(out.numel() // out.shape[0], 1)
+        grad = _REGRESSION[ctx.name][1](out, label.reshape(out.shape)) * \
+            (ctx.grad_scale / num_output)
+        return grad, torch.zeros_like(label), None, None
+
+
+def _same_shape_label(attrs, in_shapes):
+    if in_shapes[0] is not None:
+        in_shapes[1] = in_shapes[0]
+    return in_shapes, [in_shapes[0]], []
+
+
+for _name in _REGRESSION:
+    register(_name,
+             fcompute=lambda attrs, d, l, n=_name: _RegressionOutput.apply(
+                 d, l, n, attrs["grad_scale"]),
+             arguments=("data", "label"), attrs={"grad_scale": Float(1.0)},
+             infer_shape=_same_shape_label,
+             doc="Regression head (%s); the label has the data's shape."
+                 % _name[:-len("RegressionOutput")].lower())
+
+
+class _SVMOutput(torch.autograd.Function):
+    """Identity forward; the hinge loss's gradient against one-hot
+    labels backward (the reference's ``svm_output.cc``: squared hinge,
+    or linear with ``use_linear``)."""
+
+    @staticmethod
+    def forward(ctx, data, label, margin, reg_coef, use_linear):
+        ctx.save_for_backward(data, label)
+        ctx.cfg = (margin, reg_coef, use_linear)
+        return data.view_as(data)
+
+    @staticmethod
+    def backward(ctx, g):
+        data, label = ctx.saved_tensors
+        margin, reg_coef, use_linear = ctx.cfg
+        onehot = _onehot(label, data.shape[-1], data.dtype)
+        sign = torch.where(onehot > 0, -1.0, 1.0).to(data.dtype)
+        viol = (margin + sign * data) > 0
+        if use_linear:
+            grad = torch.where(viol, sign * reg_coef, 0.0)
+        else:
+            grad = torch.where(
+                viol, 2.0 * reg_coef * (margin + sign * data) * sign, 0.0)
+        return (grad.to(data.dtype), torch.zeros_like(label), None, None,
+                None)
+
+
+register("SVMOutput",
+         fcompute=lambda attrs, d, l: _SVMOutput.apply(
+             d, l, attrs["margin"], attrs["regularization_coefficient"],
+             attrs["use_linear"]),
+         arguments=("data", "label"),
+         attrs={"margin": Float(1.0), "regularization_coefficient": Float(1.0),
+                "use_linear": Bool(False)},
+         infer_shape=lambda attrs, ins: (
+             [ins[0], None if ins[0] is None else (ins[0][0],)],
+             [ins[0]], []),
+         doc="Hinge-loss head over integer labels (one per row).")
+
+
+class _KLSparseReg(torch.autograd.Function):
+    """Identity forward; the backward adds the gradient of a KL penalty
+    pulling each unit's mean sigmoid activation toward
+    ``sparseness_target``."""
+
+    @staticmethod
+    def forward(ctx, data, sparseness_target, penalty):
+        ctx.save_for_backward(data)
+        ctx.cfg = (sparseness_target, penalty)
+        return data.view_as(data)
+
+    @staticmethod
+    def backward(ctx, g):
+        (data,) = ctx.saved_tensors
+        rho, penalty = ctx.cfg
+        rho_hat = torch.mean(torch.sigmoid(data), dim=0, keepdim=True)
+        grad_reg = penalty * (-rho / rho_hat + (1 - rho) / (1 - rho_hat))
+        return g + grad_reg * torch.ones_like(data) / data.shape[0], None, \
+            None
+
+
+register("IdentityAttachKLSparseReg",
+         fcompute=lambda attrs, x: _KLSparseReg.apply(
+             x, attrs["sparseness_target"], attrs["penalty"]),
+         attrs={"sparseness_target": Float(0.1), "penalty": Float(0.001),
+                "momentum": Float(0.9)},
+         doc="Identity with a KL sparsity penalty's gradient.")

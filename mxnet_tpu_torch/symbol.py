@@ -4,10 +4,18 @@
 A graph is a Python DAG of :class:`_Node` objects, each an op of
 :mod:`.ops.registry` with typed attributes, or a variable.  Composition,
 auto-naming (``fullyconnected0``, ...), ``list_arguments`` /
-``list_outputs`` / ``list_auxiliary_states``, ``infer_shape``,
-``attr_dict`` and the JSON format are the reference's, so a graph
-written by ``mxnet_tpu``'s ``Symbol.tojson`` loads here and the reverse.
-``bind`` / ``simple_bind`` return an :class:`~.executor.Executor`.
+``list_outputs`` / ``list_auxiliary_states``, ``infer_shape`` /
+``infer_type``, ``attr_dict`` / ``list_attr``, ``get_internals``,
+indexing an output (``sym[0]``, ``sym['fc1_output']``), ``Group``, the
+arithmetic operators (``+ - * / **`` and unary ``-`` between Symbols,
+through ``elemwise_*`` / ``_power``, or with a scalar on either side,
+through the ``*_scalar`` ops) and the JSON format are the reference's,
+so a graph written by ``mxnet_tpu``'s ``Symbol.tojson`` loads here and
+the reverse.  A variadic op (``Concat``, ``add_n``) takes its inputs
+positionally and counts them into its ``num_args``; an op with several
+outputs (``SliceChannel``, ``topk(ret_typ='both')``) gives a Symbol of
+that many outputs.  ``bind`` / ``simple_bind`` return an
+:class:`~.executor.Executor`.
 """
 from __future__ import annotations
 
@@ -22,7 +30,8 @@ from . import ops as _ops  # noqa: F401  (registers every op)
 from .base import MXNetError
 from .ops.registry import get_op, list_ops, unify_shapes
 
-__all__ = ["Symbol", "Variable", "load", "load_json", "NameManager"]
+__all__ = ["Symbol", "Variable", "Group", "load", "load_json",
+           "NameManager"]
 
 
 class NameManager:
@@ -108,6 +117,19 @@ class Symbol:
     def __len__(self):
         return len(self._outputs)
 
+    def __getitem__(self, index):
+        """Output ``index`` (a position or an output name) as a
+        Symbol of its own."""
+        if isinstance(index, str):
+            names = self.list_outputs()
+            if index not in names:
+                raise MXNetError("output %r not found" % index)
+            index = names.index(index)
+        return Symbol([self._outputs[index]])
+
+    def __iter__(self):
+        return (self[i] for i in range(len(self)))
+
     def _nodes(self):
         return _topo_sort([n for n, _ in self._outputs])
 
@@ -149,6 +171,15 @@ class Symbol:
         """Auxiliary states; no op of the port has any yet."""
         return []
 
+    def get_internals(self):
+        """A Symbol whose outputs are every node's outputs, variables
+        included, in topological order (``fc1_output``, ...)."""
+        outs = []
+        for node in self._nodes():
+            n = 1 if node.is_variable else node.op.num_outputs(node.attrs)
+            outs.extend((node, i) for i in range(n))
+        return Symbol(outs)
+
     def attr_dict(self):
         """{node name: {attr: value}} for every node in the graph."""
         ret = {}
@@ -160,14 +191,47 @@ class Symbol:
                 ret[node.name] = d
         return ret
 
+    def list_attr(self):
+        """The head node's own attributes, with the ``__key__`` wrapping
+        stripped."""
+        return {k[2:-2] if k.startswith("__") and k.endswith("__") else k: v
+                for k, v in self._outputs[0][0].extra_attrs.items()}
+
     # -- arithmetic sugar ---------------------------------------------------
-    def __add__(self, other):
+    def _binary(self, op_name, scalar_op_name, other):
         if isinstance(other, Symbol):
-            return _invoke("elemwise_add", [self, other], {})
-        return _invoke("_plus_scalar", [self], {"scalar": float(other)})
+            return _invoke(op_name, [self, other], {})
+        return _invoke(scalar_op_name, [self], {"scalar": float(other)})
+
+    def __add__(self, other):
+        return self._binary("elemwise_add", "_plus_scalar", other)
 
     def __radd__(self, other):
         return self.__add__(other)
+
+    def __sub__(self, other):
+        return self._binary("elemwise_sub", "_minus_scalar", other)
+
+    def __rsub__(self, other):
+        return _invoke("_rminus_scalar", [self], {"scalar": float(other)})
+
+    def __mul__(self, other):
+        return self._binary("elemwise_mul", "_mul_scalar", other)
+
+    def __rmul__(self, other):
+        return self.__mul__(other)
+
+    def __truediv__(self, other):
+        return self._binary("elemwise_div", "_div_scalar", other)
+
+    def __rtruediv__(self, other):
+        return _invoke("_rdiv_scalar", [self], {"scalar": float(other)})
+
+    def __pow__(self, other):
+        return self._binary("_power", "_power_scalar", other)
+
+    def __neg__(self):
+        return _invoke("negative", [self], {})
 
     # -- inference ---------------------------------------------------------
     def infer_shape(self, *args, **kwargs):
@@ -188,7 +252,18 @@ class Symbol:
                  if s is not None}
         known.update({k: tuple(v) for k, v in kwargs.items()
                       if v is not None})
-        return _infer_shapes(self, known)
+        return _infer_pass(self, known, "shape")
+
+    def infer_type(self, *args, **kwargs):
+        """``(arg_types, out_types, aux_types)`` as dtype names from
+        known input dtypes (positional or by keyword); unknown ones
+        come back as None."""
+        known = {nm: _dtype_name(t)
+                 for nm, t in zip(self.list_arguments(), args)
+                 if t is not None}
+        known.update({k: _dtype_name(v) for k, v in kwargs.items()
+                      if v is not None})
+        return _infer_pass(self, known, "type")
 
     # -- serialization ------------------------------------------------------
     def tojson(self):
@@ -269,20 +344,40 @@ def _grad_reqs(arg_names, grad_req):
     return dict(grad_req)
 
 
+def _dtype_name(t):
+    """A dtype (a name, numpy's, or bf16's stand-in) as its name."""
+    return "bfloat16" if str(t) == "bfloat16" else np.dtype(t).name
+
+
 # ---------------------------------------------------------------------------
-# Shape inference: forward propagation plus write-back of filled inputs,
-# iterated to a fixpoint (the role of nnvm's InferShape)
+# Shape and type inference: forward propagation plus write-back of
+# filled inputs, iterated to a fixpoint (the role of nnvm's InferShape
+# and InferType)
 # ---------------------------------------------------------------------------
-def _infer_shapes(symbol, known):
+def _merge(kind, prev, v):
+    """Two partial results in one: shapes unify (0 is a wildcard), a
+    known type stays."""
+    if kind == "shape":
+        return unify_shapes(prev, v)
+    return prev if prev is not None else v
+
+
+def _infer_pass(symbol, known, kind):
     nodes = symbol._nodes()
-    node_out = {}   # (node id, out_idx) -> shape
-    var_val = {}    # node id -> shape of a variable
+    node_out = {}   # (node id, out_idx) -> shape or type
+    var_val = {}    # node id -> shape or type of a variable
+    attr_key = "__shape__" if kind == "shape" else "__dtype__"
     for n in nodes:
         if n.is_variable:
             v = known.get(n.name)
-            if v is None and "__shape__" in n.extra_attrs:
-                v = tuple(ast.literal_eval(n.extra_attrs["__shape__"]))
+            if v is None and attr_key in n.extra_attrs:
+                v = n.extra_attrs[attr_key]
+                if kind == "shape":
+                    v = tuple(ast.literal_eval(v))
             var_val[id(n)] = v
+
+    def fix(v):
+        return tuple(v) if kind == "shape" else v
 
     for _ in range(4):
         changed = False
@@ -291,29 +386,32 @@ def _infer_shapes(symbol, known):
                 node_out[(id(n), 0)] = var_val[id(n)]
                 continue
             in_vals = [node_out.get((id(i), oi)) for i, oi in n.inputs]
-            ins, outs, _ = n.op.infer_shape(n.attrs, in_vals)
-            cur = [node_out.get((id(n), oi)) for oi in range(len(outs))]
-            merged_outs = [unify_shapes(a, b) for a, b in zip(cur, outs)]
-            back = n.op.infer_shape_backward(n.attrs, merged_outs, ins)
-            ins = [unify_shapes(a, b) for a, b in zip(ins, back)]
+            if kind == "shape":
+                ins, outs, _ = n.op.infer_shape(n.attrs, in_vals)
+                cur = [node_out.get((id(n), oi)) for oi in range(len(outs))]
+                merged_outs = [unify_shapes(a, b) for a, b in zip(cur, outs)]
+                back = n.op.infer_shape_backward(n.attrs, merged_outs, ins)
+                ins = [unify_shapes(a, b) for a, b in zip(ins, back)]
+            else:
+                ins, outs, _ = n.op.infer_type(n.attrs, in_vals)
             for (inp, oi), v in zip(n.inputs, ins):
                 if v is None:
                     continue
-                v = tuple(v)
+                v = fix(v)
                 if inp.is_variable:
-                    merged = unify_shapes(var_val.get(id(inp)), v)
+                    merged = _merge(kind, var_val.get(id(inp)), v)
                     if merged != var_val.get(id(inp)):
                         var_val[id(inp)] = merged
                         changed = True
                 prev = node_out.get((id(inp), oi))
-                merged = unify_shapes(prev, v)
+                merged = _merge(kind, prev, v)
                 if merged != prev:
                     node_out[(id(inp), oi)] = merged
                     changed = True
             for oi, v in enumerate(outs):
                 if v is not None:
                     prev = node_out.get((id(n), oi))
-                    merged = unify_shapes(prev, tuple(v))
+                    merged = _merge(kind, prev, fix(v))
                     if merged != prev:
                         node_out[(id(n), oi)] = merged
                         changed = True
@@ -348,10 +446,20 @@ def Variable(name, attr=None, shape=None, lr_mult=None, wd_mult=None,
     return Symbol([(_Node(None, name, {}, [], attr), 0)])
 
 
+def Group(symbols):
+    """One Symbol whose outputs are the given symbols' outputs, in
+    order."""
+    return Symbol([o for s in symbols for o in s._outputs])
+
+
 def _invoke(op_name, sym_inputs, raw_attrs, name=None):
     """A node applying ``op_name`` to symbol inputs; missing inputs
-    become variables named ``<node>_<argument>``."""
+    become variables named ``<node>_<argument>``.  A variadic op counts
+    its inputs into ``key_var_num_args`` unless the caller set it."""
     op = get_op(op_name)
+    if op.key_var_num_args and op.key_var_num_args not in raw_attrs:
+        raw_attrs = dict(raw_attrs)
+        raw_attrs[op.key_var_num_args] = len(sym_inputs)
     extra = {k: str(v) for k, v in raw_attrs.items() if k.startswith("__")}
     attrs = op.parse_attrs({k: v for k, v in raw_attrs.items()
                             if not k.startswith("__")})
@@ -410,6 +518,8 @@ def _make_sym_func(op_name):
                      if not isinstance(v, Symbol)}
         inputs = [a for a in args if isinstance(a, Symbol)]
         if sym_kwargs:
+            if op.key_var_num_args and op.key_var_num_args not in raw_attrs:
+                raw_attrs[op.key_var_num_args] = len(inputs) + len(sym_kwargs)
             arg_names = op.arguments(op.parse_attrs(raw_attrs))
             inputs += [sym_kwargs.get(nm) for nm in arg_names[len(inputs):]]
         raw_attrs.update(attr)

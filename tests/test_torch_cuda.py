@@ -1522,3 +1522,63 @@ def test_float_to_int_cast_saturates_on_card(cuda_device, how, src_dtype,
     assert [d for d, _ in out] == ["cuda", "cpu"]
     assert out[0][1].dtype == np.dtype(dtype)
     np.testing.assert_array_equal(out[0][1], out[1][1])
+
+
+# ---------------------------------------------------------------------------
+# the op library on the card: indices out of range and the tie orders
+# ---------------------------------------------------------------------------
+def _card_and_cpu(op, arrays, **attrs):
+    """``mx.nd.<op>`` on the card and on the CPU, synchronised after the
+    card's call so a device-side assert fails here; numpy outputs."""
+    outs = []
+    for ctx in (mx.gpu(0), mx.cpu()):
+        with ctx:
+            res = getattr(mx.nd, op)(*[mx.nd.array(a, dtype=a.dtype)
+                                       for a in arrays], **attrs)
+            if ctx == mx.gpu(0):
+                torch.cuda.synchronize()
+        outs.append([r.asnumpy() for r in
+                     (res if isinstance(res, list) else [res])])
+    return outs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op,attrs", [
+    ("take", {}), ("take", {"mode": "wrap"}), ("take", {"mode": "raise"}),
+    ("take", {"axis": 1}), ("pick", {"axis": 1}), ("pick", {"mode": "wrap"}),
+    ("batch_take", {}), ("one_hot", {"depth": 6})])
+def test_indices_out_of_range_on_card(cuda_device, op, attrs):
+    """Indices past either end and negative give the CPU's values, with
+    no device-side assert, and the context lives on."""
+    rs = np.random.RandomState(0)
+    data = rs.randn(5, 6).astype(np.float32)
+    idx = np.array([0, 9, -1, -7, 5.5], np.float32)
+    arrays = {"one_hot": [idx]}.get(op, [data, idx])
+    card, cpu = _card_and_cpu(op, arrays, **attrs)
+    for c, h in zip(card, cpu):
+        np.testing.assert_array_equal(c, h)
+    with mx.gpu(0):
+        assert (mx.nd.array(data) * 2).asnumpy().tolist() == \
+            (data * 2).tolist()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op,attrs", [
+    ("sort", {}), ("sort", {"is_ascend": False}), ("argsort", {}),
+    ("argsort", {"is_ascend": False}), ("topk", {"k": 5}),
+    ("topk", {"k": 5, "is_ascend": True}),
+    ("topk", {"k": 7, "ret_typ": "both"}), ("topk", {"k": 3,
+                                                     "ret_typ": "mask"})])
+def test_tie_order_on_card(cuda_device, op, attrs):
+    """Rows full of ties, 8192 columns: the card's order is the CPU's
+    bit for bit (descending argsort: ties higher index first; topk:
+    lower index first)."""
+    rs = np.random.RandomState(1)
+    x = (rs.randint(-2, 3, (4, 8192)) / 2.0).astype(np.float32)
+    card, cpu = _card_and_cpu(op, [x], **attrs)
+    for c, h in zip(card, cpu):
+        np.testing.assert_array_equal(c, h)
+    row = np.array([[1, 0, 1, 0, 1]], np.float32)
+    (a,), _ = _card_and_cpu("argsort", [row], is_ascend=False)
+    (t,), _ = _card_and_cpu("topk", [row], k=2)
+    assert a.tolist() == [[4, 2, 0, 3, 1]] and t.tolist() == [[0, 2]]
