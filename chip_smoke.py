@@ -205,6 +205,20 @@ sources in this checkout on first use.  Phases, each fatal on failure:
    results and IEEE-exact arithmetic bit-equal, the rest within the CPU
    tests' bounds (1e-5 x max|ref|, bf16 2^-8 x max|ref|); the worst
    ratio to its bound for each family;
+   then the image-classification slice's 32 names: every layer op
+   (``Convolution``/``_v1`` 1-, 2- and 3-D with groups and dilation,
+   ``Deconvolution`` with ``adj`` below and past the stride,
+   ``Pooling``/``_v1`` max, avg and sum, ``full``, global, explicit
+   padding, 1-D and 3-D, ``BatchNorm`` in training, inference,
+   ``use_global_stats`` and ``output_mean_var`` with its moving
+   statistics, ``LeakyReLU``'s four types, ``LRN``, ``InstanceNorm``,
+   ``L2Normalization``, ``UpSampling``, ``Dropout`` outside training)
+   card against CPU at ResNet-50's sizes, max-pools, slopes and
+   upsampling bit-equal, the rest within 1e-5 x max|ref|; Dropout's
+   rate and ``1/(1-p)`` scale and rrelu's slopes in training on the
+   card; every one of the 20 sampler names' mean and variance over
+   10**6 draws on the card within six standard errors of the
+   distribution's, the draws reproduced by a seed;
 11. the matrix-factorization recommender of
    ``examples/recommenders/matrix_fact.py`` (two ``Embedding``s, ``*``,
    ``sum(axis=1)``, ``LinearRegressionOutput``; factor 16, batch 256,
@@ -219,15 +233,41 @@ sources in this checkout on first use.  Phases, each fatal on failure:
    launched (none lies on this path) and no plain version reached;
 12. one recommender step on the card against the CPU's from the same
    parameters and batch: each gradient within 1e-5 x max|ref|, each
-   parameter after Adam within 1e-4 x max|ref|.
+   parameter after Adam within 1e-4 x max|ref|;
+13. ResNet-50 (``mx.models.resnet(num_classes=1000, num_layers=50)``,
+   pre-activation, 3 x 224 x 224, batch 32, fp32, TF32 off) through
+   ``Module.fit`` for 30 steps on ``SyntheticDataIter``'s one fixed
+   batch on the card, with
+   ``examples/image-classification/common/fit.py``'s settings (SGD lr
+   0.1, momentum 0.9, wd 1e-4, ``MultiFactorScheduler`` at ImageNet's
+   epochs 30 and 60, gaussian Xavier, accuracy, ``Speedometer``): every
+   argument, gradient, moving statistic and momentum on the card; the
+   loss head's kernel pair (``softmax_rows``, ``xent_grad_from_probs``)
+   launched once a step and no other kernel, no plain version reached;
+   the cross-entropy on the batch finite and its mean over the last
+   five steps below the first step's; all 102 moving statistics finite
+   and moved; ms per step and images/s;
+14. one ResNet-50 step at batch 4 on the card from the initializer's
+   parameters, against the CPU's step in float64, both CPU steps
+   replaying the card's decisions at every ReLU and max pool (an input
+   within rounding of the kink goes one way on the card and may go the
+   other on the CPU, passing or stopping one of as few as 196 summed
+   terms): probabilities, updated parameters and moving statistics
+   within 1e-4 x max|ref|, every gradient within 1e-3 x its max|ref|,
+   or, where larger, within 4 x the CPU's own float32 distance from
+   float64 (a sum that cancels, such as ``bn0_gamma``'s gradient); each
+   kind's worst ratio, and the count of decisions the CPU steps would
+   have taken otherwise.
 
-Phase 5 also gives the norm forwards' rows (fp32 and bf16 ``rms_norm``
+Phase 5 also times row 10's kernel pair at phase 13's head, 32 x
+1000.  Phase 5 also gives the norm forwards' rows (fp32 and bf16 ``rms_norm``
 and ``layer_norm``) ``floor_ms``: the same call on one row, the floor
 of one launch.
 
 ``python3 chip_smoke.py --profile`` adds, after phases 6 and 6b, a
 ``torch.profiler`` window over five training steps of each, and after
-phase 11 one over 100 recommender steps: device time and launches per
+phase 11 one over 100 recommender steps, and after phase 13 one over
+five ResNet-50 steps: device time and launches per
 step, the device's busy share, and the ops with the most device time.
 
 The last lines are a JSON object of per-kernel numbers, the card's name
@@ -250,6 +290,8 @@ from mxnet_tpu_torch import kernels
 from mxnet_tpu_torch.kernels import (_build, dequant_matmul, flash_attention,
                                      norm, paged_attention, softmax_xent)
 from mxnet_tpu_torch.models import transformer_lm as tlm
+from mxnet_tpu_torch.ops import nn as layer_ops
+from mxnet_tpu_torch.ops.registry import get_op
 from mxnet_tpu_torch.serving import GenerationEngine, ModelRegistry, TokenStream
 
 SPEC = tlm.lm_spec(num_layers=4, num_hidden=512, num_heads=8,
@@ -3038,6 +3080,583 @@ def phase_recommender_vs_cpu(dev):
     log("phase 12 recommender step card vs CPU: %s" % "; ".join(ratios))
 
 
+# ---------------------------------------------------------------------------
+# phase 10, the layers and the samplers: every op name of the image
+# classification slice, card against CPU at ResNet's sizes, and the
+# samplers' moments over 10**6 draws on the card
+# ---------------------------------------------------------------------------
+LAYER_OPS = ("BatchNorm", "Convolution", "Convolution_v1", "Deconvolution",
+             "Dropout", "InstanceNorm", "L2Normalization", "LRN", "LeakyReLU",
+             "Pooling", "Pooling_v1", "UpSampling")
+# sampler -> (its aliases, attributes, the distribution's mean, variance)
+SAMPLERS = {
+    "_sample_uniform": (("uniform", "_random_uniform", "random_uniform"),
+                        {"low": -1.0, "high": 3.0}, 1.0, 16.0 / 12),
+    "_sample_normal": (("normal", "_random_normal", "random_normal"),
+                       {"loc": 1.0, "scale": 2.0}, 1.0, 4.0),
+    "_sample_gamma": (("_random_gamma", "random_gamma"),
+                      {"alpha": 2.5, "beta": 1.5}, 3.75, 2.5 * 1.5 ** 2),
+    "_sample_exponential": (("_random_exponential", "random_exponential"),
+                            {"lam": 2.0}, 0.5, 0.25),
+    "_sample_poisson": (("_random_poisson", "random_poisson"),
+                        {"lam": 3.5}, 3.5, 3.5),
+    "_sample_negbinomial": (("_random_negbinomial",
+                             "random_negative_binomial"),
+                            {"k": 3.0, "p": 0.4}, 4.5, 3.0 * 0.6 / 0.16),
+}
+SAMPLE_N = 10 ** 6
+DROP_P = 0.3
+
+
+def layer_inputs():
+    """The layer cases' inputs, torch CPU tensors from seed 10 at the
+    sizes ResNet-50 gives these ops (batch 8): its stem, a stage-1 3 x 3
+    convolution, a strided 1 x 1 shortcut, the last stage's global
+    pool."""
+    rs = np.random.RandomState(10)
+
+    def f32(*shape, lo=None):
+        a = rs.randn(*shape) if lo is None else rs.uniform(lo, 1.5, shape)
+        return torch.from_numpy(np.ascontiguousarray(a, np.float32))
+
+    return {
+        "img": f32(8, 3, 224, 224), "stem_w": f32(64, 3, 7, 7) * 0.1,
+        "a56": f32(8, 64, 56, 56), "w3": f32(64, 64, 3, 3) * 0.05,
+        "a256": f32(8, 256, 56, 56), "w1": f32(512, 256, 1, 1) * 0.06,
+        "b512": f32(512), "a28": f32(8, 128, 28, 28),
+        "wg": f32(128, 4, 3, 3) * 0.2, "s1d": f32(8, 64, 1024),
+        "w1d": f32(128, 64, 5) * 0.05, "v3d": f32(2, 16, 16, 32, 32),
+        "w3d": f32(32, 16, 3, 3, 3) * 0.05, "d28": f32(8, 64, 28, 28),
+        "wd": f32(64, 32, 3, 3) * 0.05, "wd4": f32(64, 32, 4, 4) * 0.05,
+        "b32": f32(32), "d1d": f32(8, 32, 256), "wd1d": f32(32, 8, 4) * 0.1,
+        "a112": f32(8, 64, 112, 112), "a55": f32(8, 64, 55, 55),
+        "a28p": f32(8, 64, 28, 28), "a7": f32(8, 2048, 7, 7),
+        "p1d": f32(8, 64, 1001), "g256": f32(256, lo=0.5),
+        "c256": f32(256), "m256": f32(256) * 0.1, "v256": f32(256, lo=0.5),
+        "g64": f32(64, lo=0.5), "c64": f32(64), "lrn": f32(8, 96, 55, 55),
+        "u32": f32(8, 32, 28, 28),
+    }
+
+
+def layer_cases():
+    """(op, input names, auxiliary-state names, attrs, train, tolerance)
+    for every layer op name at ResNet's sizes, over the modes the CPU
+    tests cover: max-pool results and nearest upsampling bit-equal, the
+    rest within 1e-5 x max|ref| (BatchNorm's new moving statistics
+    too)."""
+    R, X = SWEEP_REL, SWEEP_EXACT
+    k3 = {"kernel": (3, 3)}
+    cases = [
+        ("Convolution", ["img", "stem_w"], [],
+         {"kernel": (7, 7), "num_filter": 64, "stride": (2, 2),
+          "pad": (3, 3), "no_bias": True}, False, R),
+        ("Convolution", ["a56", "w3"], [],
+         dict(k3, num_filter=64, pad=(1, 1), no_bias=True), False, R),
+        ("Convolution_v1", ["a256", "w1", "b512"], [],
+         {"kernel": (1, 1), "num_filter": 512, "stride": (2, 2)}, False, R),
+        ("Convolution", ["a28", "wg"], [],
+         dict(k3, num_filter=128, num_group=32, dilate=(2, 2), pad=(2, 2),
+              no_bias=True), False, R),
+        ("Convolution", ["s1d", "w1d"], [],
+         {"kernel": (5,), "num_filter": 128, "stride": (2,), "pad": (2,),
+          "no_bias": True}, False, R),
+        ("Convolution", ["v3d", "w3d"], [],
+         {"kernel": (3, 3, 3), "num_filter": 32, "pad": (1, 1, 1),
+          "no_bias": True}, False, R),
+        ("Deconvolution", ["d28", "wd", "b32"], [],
+         dict(k3, num_filter=32, stride=(2, 2), pad=(1, 1), adj=(1, 1)),
+         False, R),
+        # target 60 = 56 + adj 4, past the stride: the cropped route
+        ("Deconvolution", ["d28", "wd4"], [],
+         {"kernel": (4, 4), "num_filter": 32, "stride": (2, 2),
+          "pad": (1, 1), "target_shape": (60, 60), "no_bias": True}, False,
+         R),
+        ("Deconvolution", ["d1d", "wd1d"], [],
+         {"kernel": (4,), "num_filter": 16, "num_group": 2, "stride": (2,),
+          "no_bias": True}, False, R),
+        ("Pooling", ["a112"], [], dict(k3, stride=(2, 2), pad=(1, 1)),
+         False, X),
+        ("Pooling", ["a55"], [], dict(k3, stride=(2, 2), pad=(1, 1),
+                                      pool_type="avg",
+                                      pooling_convention="full"), False, R),
+        ("Pooling", ["a55"], [], dict(k3, stride=(2, 2), pad=(1, 1),
+                                      pooling_convention="full"), False, X),
+        ("Pooling_v1", ["a28p"], [], dict(k3, stride=(2, 2), pad=(2, 2),
+                                          pool_type="sum"), False, R),
+        ("Pooling", ["a7"], [], {"kernel": (7, 7), "global_pool": True,
+                                 "pool_type": "avg"}, False, R),
+        ("Pooling", ["p1d"], [], {"kernel": (3,), "stride": (2,),
+                                  "pooling_convention": "full"}, False, X),
+        ("Pooling", ["v3d"], [], {"kernel": (2, 2, 2), "stride": (2, 2, 2),
+                                  "pool_type": "avg"}, False, R),
+        ("LeakyReLU", ["a56"], [], {"act_type": "leaky", "slope": 0.1},
+         False, X),
+        ("LeakyReLU", ["a56"], [], {"act_type": "elu", "slope": 0.3}, False,
+         R),
+        ("LeakyReLU", ["a56", "g64"], [], {"act_type": "prelu"}, False, X),
+        ("LeakyReLU", ["a56"], [], {"act_type": "rrelu"}, False, X),
+        ("LRN", ["lrn"], [], {"nsize": 5}, False, R),
+        ("InstanceNorm", ["a56", "g64", "c64"], [], {}, False, R),
+        ("UpSampling", ["d28", "u32"], [], {"scale": 2, "num_args": 2},
+         False, X),
+        ("Dropout", ["a56"], [], {"p": DROP_P}, False, X),
+    ]
+    for mode in ("instance", "channel", "spatial"):
+        cases.append(("L2Normalization", ["a28"], [], {"mode": mode}, False,
+                      R))
+    for attrs, train in (({"fix_gamma": False}, True),
+                         ({"fix_gamma": True, "eps": 2e-5}, True),
+                         ({"fix_gamma": False, "output_mean_var": True},
+                          True),
+                         ({"fix_gamma": False, "use_global_stats": True},
+                          True),
+                         ({"fix_gamma": False}, False)):
+        cases.append(("BatchNorm", ["a256", "g256", "c256"],
+                      ["m256", "v256"], attrs, train, R))
+    return cases
+
+
+def layer_run(op, tensors, aux, attrs, train, dev):
+    """``mx.nd.<op>`` on ``tensors`` and the auxiliary states ``aux``
+    (copies) on ``dev``, in train mode or not: the outputs and then the
+    auxiliary states after the call, synchronised on the card."""
+    scope = mx.autograd.train_mode() if train else contextlib.nullcontext()
+    with (mx.cpu() if dev.type == "cpu" else mx.gpu(dev.index or 0)), scope:
+        auxs = [mx.nd.NDArray(t.to(dev).clone()) for t in aux]
+        out = getattr(mx.nd, op)(*[mx.nd.NDArray(t.to(dev)) for t in tensors],
+                                 *auxs, **attrs)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    outs = (out if isinstance(out, list) else [out]) + auxs
+    on_device(dev, "phase 10 %s's result" % op,
+              [(i, o._data) for i, o in enumerate(outs)])
+    return [o._data for o in outs]
+
+
+def moments_ok(draws, mean, var):
+    """The sample mean and variance of ``draws`` (float64) within six
+    standard errors of ``mean`` and ``var``; returns the larger of the
+    two distances in standard errors."""
+    n = draws.numel()
+    m = float(draws.mean())
+    v = float(draws.var(unbiased=False))
+    se_v = float((((draws - m) ** 4).mean() - v ** 2).clamp(min=0)) ** 0.5
+    se_v /= n ** 0.5
+    return max(abs(m - mean) / (var / n) ** 0.5, abs(v - var) / se_v)
+
+
+def phase_layer_sweep(dev, card):
+    """Phase 10's layer and sampler cases: every layer op card against
+    CPU (bounds as ``layer_cases``), Dropout's rate, scale and identity
+    outside training on the card, rrelu's slopes in training, and each of
+    the 20 sampler names' moments over 10**6 draws on the card within six
+    standard errors of the distribution's, reproducible from a seed."""
+    tic = time.perf_counter()
+    x = layer_inputs()
+    worst, ops = collections.defaultdict(float), set()
+    for op, names, aux, attrs, train, tol in layer_cases():
+        ins, auxs = [x[n] for n in names], [x[n] for n in aux]
+        want = layer_run(op, ins, auxs, attrs, train, torch.device("cpu"))
+        got = layer_run(op, ins, auxs, attrs, train, dev)
+        worst[op] = max(worst[op], sweep_agree(op, got, want, tol))
+        ops.add(op)
+    # training-mode draws on the card: Dropout's mask and scale, rrelu
+    twos = torch.full((SAMPLE_N,), 2.0, device=dev)
+    with mx.gpu(dev.index or 0), mx.autograd.train_mode():
+        mx.random.seed(10)
+        y = mx.nd.Dropout(mx.nd.NDArray(twos), p=DROP_P)._data
+        mx.random.seed(10)
+        y2 = mx.nd.Dropout(mx.nd.NDArray(twos), p=DROP_P)._data
+        slope = -mx.nd.LeakyReLU(mx.nd.NDArray(-twos), act_type="rrelu",
+                                 lower_bound=0.1, upper_bound=0.3)._data / 2
+    torch.cuda.synchronize()
+    rate = float((y == 0).double().mean())
+    kept = y[y != 0]
+    se = (DROP_P * (1 - DROP_P) / SAMPLE_N) ** 0.5
+    scale_err = float((kept / 2.0 - 1 / (1 - DROP_P)).abs().max())
+    if not (abs(rate - DROP_P) < 6 * se and scale_err < 1e-6 and
+            torch.equal(y, y2)):
+        raise SystemExit("chip_smoke: phase 10 Dropout on the card: rate %.6f"
+                         " (p %.2f), scale error %.3e, seeded draws equal %s"
+                         % (rate, DROP_P, scale_err, torch.equal(y, y2)))
+    if not (float(slope.min()) >= 0.1 and float(slope.max()) <= 0.3 and
+            abs(float(slope.mean()) - 0.2) <
+            6 * 0.2 / (12 * SAMPLE_N) ** 0.5):
+        raise SystemExit("chip_smoke: phase 10 rrelu slopes in training: "
+                         "%.4f..%.4f, mean %.6f" % (
+                             float(slope.min()), float(slope.max()),
+                             float(slope.mean())))
+    draws_sd = {}
+    for name, (aliases, attrs, mean, var) in SAMPLERS.items():
+        for op in (name,) + aliases:
+            with mx.gpu(dev.index or 0):
+                mx.random.seed(10)
+                d = getattr(mx.nd, op)(shape=(SAMPLE_N,), **attrs)._data
+                mx.random.seed(10)
+                again = getattr(mx.nd, op)(shape=(SAMPLE_N,), **attrs)._data
+            torch.cuda.synchronize()
+            if d.device != dev or d.dtype != torch.float32 or \
+                    tuple(d.shape) != (SAMPLE_N,) or not torch.equal(d, again):
+                raise SystemExit("chip_smoke: phase 10 %s drew %s %s on %s "
+                                 "(seeded draws equal: %s)" % (
+                                     op, d.dtype, tuple(d.shape), d.device,
+                                     torch.equal(d, again)))
+            sd = moments_ok(d.double(), mean, var)
+            if not sd < 6:
+                raise SystemExit("chip_smoke: phase 10 %s's moments are %.2f"
+                                 " standard errors off" % (op, sd))
+            draws_sd[op] = sd
+            ops.add(op)
+    names = set(LAYER_OPS) | {a for n, (al, *_) in SAMPLERS.items()
+                              for a in (n,) + al}
+    if len(names) != 32 or names - ops:
+        raise SystemExit("chip_smoke: phase 10 did not run %s"
+                         % sorted(names - ops))
+    log("phase 10 layers and samplers: %d layer cases over %d ops card vs "
+        "CPU, worst ratio to its bound by op (0: bit-equal): %s; Dropout "
+        "p %.1f on %d elements: rate %.6f, kept x 1/(1-p) within %.1e; "
+        "rrelu slopes %.4f..%.4f; %d sampler names, %d draws each on the "
+        "card, worst moment %.2f standard errors off (%s); in %.1f s [%s]"
+        % (len(layer_cases()), len(LAYER_OPS),
+           ", ".join("%s %.3f" % kv for kv in sorted(worst.items())), DROP_P,
+           SAMPLE_N, rate, scale_err, float(slope.min()),
+           float(slope.max()), len(draws_sd), SAMPLE_N,
+           max(draws_sd.values()), max(draws_sd, key=draws_sd.get),
+           time.perf_counter() - tic, card))
+
+
+# ---------------------------------------------------------------------------
+# phases 13 and 14: ResNet-50 through Module.fit (bench.py's
+# train.resnet-50.module_fit protocol, in fp32)
+# ---------------------------------------------------------------------------
+RESNET = dict(num_classes=1000, num_layers=50, batch=32,
+              image=(3, 224, 224))
+RESNET_STEPS, RESNET_WARMUP = 30, 5
+# examples/image-classification/common/fit.py: lr 0.1, momentum 0.9, wd
+# 1e-4, the lr decaying by 0.1 at epochs 30 and 60 of ImageNet
+# (1,281,167 images) at batch 32
+RESNET_OPT = {"learning_rate": 0.1, "momentum": 0.9, "wd": 1e-4}
+RESNET_EPOCH = 1281167 // 32
+# the loss head's kernel pair, once each a step
+RESNET_LAUNCHES_PER_STEP = {"softmax_rows": 1, "xent_grad_from_probs": 1}
+# phase 14: one step at batch 4, the card against the CPU's float64 step,
+# each array within its bound x its max|ref|, or within
+# RESNET_STEP_ROUNDING x the CPU's own float32 distance from its float64
+# step where that is larger, both CPU steps on the card's ReLU and
+# max-pool decisions (see phase_resnet_vs_cpu)
+RESNET_STEP_BATCH = 4
+RESNET_STEP_TOL = {"output": 1e-4, "gradient": 1e-3, "parameter": 1e-4,
+                   "aux": 1e-4}
+RESNET_STEP_ROUNDING = 4.0
+
+
+def resnet_module(dev):
+    return mx.Module(mx.models.resnet(num_classes=RESNET["num_classes"],
+                                      num_layers=RESNET["num_layers"]),
+                     context=dev)
+
+
+def resnet_opt():
+    return dict(RESNET_OPT, lr_scheduler=mx.lr_scheduler.MultiFactorScheduler(
+        step=[RESNET_EPOCH * 30, RESNET_EPOCH * 60], factor=0.1))
+
+
+def resnet_init():
+    return mx.init.Xavier(rnd_type="gaussian", factor_type="in", magnitude=2)
+
+
+def synthetic_iter(dev, steps):
+    """``SyntheticDataIter``'s one fixed batch on the card, drawn from
+    numpy's generator seeded at 13."""
+    np.random.seed(13)
+    with mx.gpu(dev.index):
+        return mx.io.SyntheticDataIter(RESNET["num_classes"],
+                                       (RESNET["batch"],) + RESNET["image"],
+                                       max_iter=steps)
+
+
+def phase_resnet(dev, card):
+    """Phase 13: ResNet-50 (3 x 224 x 224, 1000 classes, batch 32, fp32)
+    through ``Module.fit`` on the card for RESNET_STEPS steps, with
+    ``fit.py``'s settings (SGD, momentum 0.9, wd 1e-4, lr 0.1,
+    ``MultiFactorScheduler``, gaussian Xavier, accuracy, a
+    ``Speedometer``) on ``SyntheticDataIter``'s one fixed batch on the
+    card.  Fatal unless every bound array, auxiliary state and momentum
+    lies on the card, the head's kernel pair launches once a step and
+    nothing else does, no wrapper reaches its plain version, the
+    cross-entropy on the batch is finite and its mean over the last five
+    steps is below the first step's, and every moving statistic is
+    finite and has moved.  Returns the launch counts and ms per step."""
+    mx.random.seed(0)
+    it = synthetic_iter(dev, RESNET_STEPS)
+    mod = resnet_module(dev)
+    label = it.label._data.long()
+    ce, clock, start = [], {}, {}
+
+    def on_batch(param):
+        # the loss of this step's forward on the fixed batch; its host
+        # fetch synchronises every step
+        p = mod.get_outputs()[0]._data
+        ce.append(float(-torch.log(p[torch.arange(p.shape[0],
+                                                  device=p.device),
+                                      label]).mean()))
+        if param.nbatch in (RESNET_WARMUP - 1, RESNET_STEPS - 1):
+            torch.cuda.synchronize()
+            clock[param.nbatch] = time.perf_counter()
+
+    kernels.reset_launch_counts()
+    tic = time.perf_counter()
+    with plain_guard() as plain:
+        mod.bind(it.provide_data, it.provide_label)
+        mod.init_params(resnet_init())
+        start.update((k, v.asnumpy()) for k, v in mod.get_params()[1].items())
+        mod.fit(it, num_epoch=1, optimizer="sgd",
+                optimizer_params=resnet_opt(), eval_metric="accuracy",
+                batch_end_callback=[on_batch, mx.callback.Speedometer(
+                    RESNET["batch"], 10)])
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - tic
+    counts = kernels.launch_counts()
+    ex = mod._exec_group.executor
+    on_device(dev, "phase 13 arrays, auxiliary states and momenta",
+              list(zip(ex._arg_names, (a._data for a in ex.arg_arrays))) +
+              [(n, g._data) for n, g in ex.grad_dict.items()] +
+              [(n, a._data) for n, a in ex.aux_dict.items()] +
+              [("momentum of %d" % i, s._data)
+               for i, s in mod._updater.states.items()])
+    if plain:
+        raise SystemExit("chip_smoke: phase 13 reached plain versions: %s"
+                         % dict(plain))
+    want = dict.fromkeys(kernels.KERNELS, 0)
+    want.update({k: v * RESNET_STEPS
+                 for k, v in RESNET_LAUNCHES_PER_STEP.items()})
+    if counts != want:
+        raise SystemExit("chip_smoke: phase 13 launches %s, want %s"
+                         % ({k: v for k, v in counts.items() if v},
+                            {k: v for k, v in want.items() if v}))
+    first, last5 = ce[0], float(np.mean(ce[-5:]))
+    if len(ce) != RESNET_STEPS or not np.isfinite(ce).all() or \
+            not last5 < first:
+        raise SystemExit("chip_smoke: phase 13 cross-entropy per step %s"
+                         % ce)
+    arg, aux = mod.get_params()
+    still = [k for k, v in aux.items()
+             if not np.isfinite(v.asnumpy()).all() or
+             np.array_equal(v.asnumpy(), start[k])]
+    if len(aux) != 2 * 51 or still:
+        raise SystemExit("chip_smoke: phase 13 moving statistics not finite "
+                         "or unmoved: %s (of %d)" % (still[:8], len(aux)))
+    sec = clock[RESNET_STEPS - 1] - clock[RESNET_WARMUP - 1]
+    timed = RESNET_STEPS - RESNET_WARMUP
+    step_ms = sec * 1e3 / timed
+    log("phase 13 cross-entropy per step: %s"
+        % " ".join("%.4f" % v for v in ce))
+    log("phase 13 ResNet-50 (%d parameters in %d arrays, %d moving "
+        "statistics) trained %d steps at batch %d, %s, fp32 (fit %.2f s with "
+        "bind and init): cross-entropy step 1 %.4f, last 5 %.4f; head "
+        "launches per step %s; steps %d..%d: %.3f ms per step, %.1f "
+        "images/s [%s]"
+        % (sum(v.size for v in arg.values()), len(arg), len(aux),
+           RESNET_STEPS, RESNET["batch"], "x".join(map(str, RESNET["image"])),
+           wall, first, last5, RESNET_LAUNCHES_PER_STEP, RESNET_WARMUP + 1,
+           RESNET_STEPS, step_ms, timed * RESNET["batch"] / sec, card))
+    return counts, step_ms
+
+
+def profile_resnet(dev, card, step_ms, warmup=3, steps=5):
+    """``--profile``: ``torch.profiler`` over ``steps`` steps of phase 13's
+    fit after ``warmup``: device time, the busy share of phase 13's
+    unprofiled ``step_ms``, the top device ops."""
+    mx.random.seed(0)
+    it = synthetic_iter(dev, warmup + steps)
+    mod = resnet_module(dev)
+    prof = torch.profiler.profile(activities=[
+        torch.profiler.ProfilerActivity.CPU,
+        torch.profiler.ProfilerActivity.CUDA])
+    clock = {}
+
+    def on_batch(param):
+        if param.nbatch in (warmup - 1, warmup + steps - 1):
+            torch.cuda.synchronize()
+            clock[param.nbatch] = time.perf_counter()
+            (prof.start if param.nbatch == warmup - 1 else prof.stop)()
+
+    mod.fit(it, num_epoch=1, optimizer="sgd", optimizer_params=resnet_opt(),
+            initializer=resnet_init(), eval_metric="accuracy",
+            batch_end_callback=on_batch)
+    window_ms = (clock[warmup + steps - 1] - clock[warmup - 1]) * 1e3 / steps
+    report_profile("13", prof, steps, step_ms, window_ms, card)
+
+
+class KinkDecisions:
+    """The decisions a step's ReLUs (which inputs pass) and max pools
+    (which element of each window is the max) take, in the order the
+    executor runs them, recorded; or those of another step's record
+    replayed, with the step's own decisions still recorded.  A replayed
+    ReLU is ``x * mask`` and a replayed max pool gathers the recorded
+    elements, so the backward follows the same decisions."""
+
+    def __init__(self, replay=None):
+        self.relu, self.pool = [], []
+        self.replay = replay
+
+    @contextlib.contextmanager
+    def patched(self):
+        act, pool = get_op("Activation"), get_op("Pooling")
+        act_fc, pool_fc = act.fcompute, pool.fcompute
+        rec = self.replay
+
+        def relu(attrs, x):
+            if attrs["act_type"] != "relu":
+                return act_fc(attrs, x)
+            self.relu.append((x > 0).cpu())
+            if rec is None:
+                return act_fc(attrs, x)
+            mask = rec.relu[len(self.relu) - 1]
+            assert mask.shape == x.shape
+            return x * mask.to(x.device, x.dtype)
+
+        def max_pool(attrs, x):
+            if attrs["pool_type"] != "max" or attrs["global_pool"]:
+                return pool_fc(attrs, x)
+            kernel = tuple(attrs["kernel"])
+            assert len(kernel) == 2
+            stride = attrs["stride"] or (1, 1)
+            padded = layer_ops.pool_pad(attrs, x, kernel, stride,
+                                        attrs["pad"] or (0, 0))
+            with torch.no_grad():
+                _, own = torch.nn.functional.max_pool2d(
+                    padded, kernel, stride, return_indices=True)
+            self.pool.append(own.cpu())
+            if rec is None:
+                return pool_fc(attrs, x)
+            idx = rec.pool[len(self.pool) - 1].to(x.device)
+            assert idx.shape == own.shape
+            return padded.flatten(2).gather(2, idx.flatten(2)).view(
+                idx.shape)
+
+        act.fcompute, pool.fcompute = relu, max_pool
+        try:
+            yield self
+        finally:
+            act.fcompute, pool.fcompute = act_fc, pool_fc
+        if rec is not None:
+            assert (len(self.relu), len(self.pool)) == \
+                (len(rec.relu), len(rec.pool))
+
+    def differ(self, other):
+        """ReLU inputs and max-pool windows where two records' own
+        decisions disagree, and the totals of each."""
+        return (sum(int((a != b).sum()) for a, b in zip(self.relu,
+                                                        other.relu)),
+                sum(a.numel() for a in self.relu),
+                sum(int((a != b).sum()) for a, b in zip(self.pool,
+                                                        other.pool)),
+                sum(a.numel() for a in self.pool))
+
+
+def resnet_step(dev, params, aux, X, y, kinks, compute_dtype=None):
+    """One ``forward_backward`` + SGD ``update`` of ResNet-50 on ``dev``
+    from ``params`` / ``aux`` on the batch (X, y), its ReLU and max-pool
+    decisions recorded into or replayed from ``kinks``: the
+    probabilities, every gradient, every updated parameter and moving
+    statistic, as numpy by kind and name.  ``compute_dtype='float64'``
+    runs the step in float64 over float32 master arrays."""
+    mod = mx.Module(mx.models.resnet(num_classes=RESNET["num_classes"],
+                                     num_layers=RESNET["num_layers"]),
+                    context=dev, compute_dtype=compute_dtype)
+    it = mx.io.NDArrayIter(X, y, batch_size=RESNET_STEP_BATCH)
+    mod.bind(it.provide_data, it.provide_label)
+    mod.init_params(arg_params=params, aux_params=aux)
+    mod.init_optimizer(optimizer="sgd", optimizer_params=resnet_opt())
+    tic = time.perf_counter()
+    with kinks.patched():
+        mod.forward_backward(next(iter(it)))
+    mod.update()
+    out = {("output", "probabilities"): mod.get_outputs()[0].asnumpy()}
+    out.update((("gradient", n), g.asnumpy()) for n, g in
+               mod._exec_group.executor.grad_dict.items() if n in params)
+    arg, auxs = mod.get_params()
+    out.update((("parameter", n), v.asnumpy()) for n, v in arg.items())
+    out.update((("aux", n), v.asnumpy()) for n, v in auxs.items())
+    log("phase 14 one %s step on %s (%s decisions): %.2f s" % (
+        compute_dtype or "float32", dev,
+        "recorded" if kinks.replay is None else "replayed",
+        time.perf_counter() - tic))
+    return out
+
+
+def phase_resnet_vs_cpu(dev, card):
+    """Phase 14: one ResNet-50 step at full width, batch 4, on the card
+    from the initializer's parameters (gaussian Xavier, BatchNorm's
+    gamma 1 and beta 0) and moving statistics, against the CPU's step in
+    float64: the probabilities, every updated parameter and moving
+    statistic within 1e-4 x max|ref|, every gradient within 1e-3 x its
+    max|ref|; or, where that is larger, within RESNET_STEP_ROUNDING x
+    the distance of the CPU's float32 step from its float64 step (a sum
+    such as ``bn0_gamma``'s gradient cancels to a small fraction of its
+    terms, and its rounding with it).  Both CPU steps replay the card's
+    decisions at every ReLU and max pool: an input within rounding of
+    the kink, or two near-equal elements of a pooling window, goes one
+    way on the card and may go the other on the CPU, passing or
+    stopping a whole term; replayed, the three steps differ by rounding
+    alone.  Prints each kind's worst ratio to its bound, the arrays
+    held to the CPU's own distance, and the count of decisions the CPU
+    steps would have taken otherwise."""
+    mx.random.seed(14)
+    with mx.cpu():
+        init = resnet_module(mx.cpu())
+        rs = np.random.RandomState(14)
+        shape = (RESNET_STEP_BATCH,) + RESNET["image"]
+        X = rs.uniform(-1, 1, shape).astype(np.float32)
+        y = rs.randint(0, RESNET["num_classes"],
+                       RESNET_STEP_BATCH).astype(np.float32)
+        init.bind([("data", shape)], [("softmax_label",
+                                       (RESNET_STEP_BATCH,))])
+        init.init_params(resnet_init())
+        arg, aux = init.get_params()
+    params = {k: v.asnumpy() for k, v in arg.items()}
+    auxs = {k: v.asnumpy() for k, v in aux.items()}
+    cpu = torch.device("cpu")
+    card_kinks = KinkDecisions()
+    card_out = resnet_step(dev, params, auxs, X, y, card_kinks)
+    cpu32_kinks = KinkDecisions(replay=card_kinks)
+    cpu_out = resnet_step(cpu, params, auxs, X, y, cpu32_kinks)
+    cpu64_kinks = KinkDecisions(replay=card_kinks)
+    cpu64 = resnet_step(cpu, params, auxs, X, y, cpu64_kinks, "float64")
+    worst, rounding = {}, []
+    for (kind, name), ref in cpu64.items():
+        got = card_out[(kind, name)]
+        bound = RESNET_STEP_TOL[kind] * max(float(np.abs(ref).max()), 1e-30)
+        own = RESNET_STEP_ROUNDING * float(np.abs(
+            cpu_out[(kind, name)].astype(np.float64) - ref).max())
+        if own > bound:
+            bound = own
+            rounding.append("%s:%s" % (kind, name))
+        err = float(np.abs(got.astype(np.float64) - ref).max())
+        if not (np.isfinite(got).all() and err <= bound):
+            raise SystemExit("chip_smoke: phase 14 %s %s: card vs the CPU's "
+                             "float64 step %.3e past %.3e"
+                             % (kind, name, err, bound))
+        if err / bound >= worst.get(kind, (0.0, ""))[0]:
+            worst[kind] = (err / bound, name)
+    flips32 = card_kinks.differ(cpu32_kinks)
+    flips64 = card_kinks.differ(cpu64_kinks)
+    log("phase 14 ResNet-50 step at batch %d, card vs the CPU's float64 "
+        "step, both CPU steps on the card's decisions: %d arrays agree; "
+        "worst ratio to its bound by kind: %s; %d arrays held to %g x the "
+        "CPU's own float32-vs-float64 distance, larger than their bound: "
+        "%s; decisions the CPU would have taken otherwise: float32 %d of "
+        "%d ReLU inputs and %d of %d max-pool windows, float64 %d and %d "
+        "[%s]"
+        % (RESNET_STEP_BATCH, len(cpu64), "; ".join(
+            "%s %.3f (%s, bound %g x max|ref|)" % (
+                k, worst[k][0], worst[k][1], RESNET_STEP_TOL[k])
+            for k in sorted(worst)), len(rounding), RESNET_STEP_ROUNDING,
+            " ".join(rounding[:12]), flips32[0], flips32[1], flips32[2],
+            flips32[3], flips64[0], flips64[2], card))
+
+
 def time_ms(fn, n=60, flush=None):
     """Median device milliseconds of ``fn`` over ``n`` launches, queued
     behind a GPU spin so the launches run back to back; ``flush``: a call
@@ -3510,6 +4129,7 @@ def phase_times_train(dev, card, errs, fa_shapes):
            autograd_backward(lambda x: torch.softmax(x, -1), (t["logits"],),
                              t["dyv"]), 4 * 3 * nv, 4 * nv)
     xent_bf16_rows(card, errs, t, entries)
+    resnet_head_rows(dev, card, entries)
     k, xs, ys, out = rtc_fma1(t["logits"], t["dyv"])
     one = torch.ones((), device=dev)
     entries["rtc"] = [timed_row(
@@ -3518,6 +4138,40 @@ def phase_times_train(dev, card, errs, fa_shapes):
         lambda: torch.addcmul(one, t["logits"], t["dyv"]), 4 * 3 * nv,
         2 * nv, errs["rtc"], card)]
     return entries
+
+
+def resnet_head_rows(dev, card, entries):
+    """Row 10's kernel pair at phase 13's head, 32 x 1000 (ResNet-50's
+    logits at batch 32), beside the 4096 x 8192 rows: the kernels held
+    against their plain versions (1e-5 x max|ref|), then timed with
+    ``torch.softmax`` as the forward's yardstick."""
+    rows, classes = RESNET["batch"], RESNET["num_classes"]
+    g = torch.Generator(device="cpu").manual_seed(5)
+    logits = torch.randn(rows, classes, generator=g).to(dev)
+    label = torch.randint(0, classes, (rows,), generator=g).float().to(dev)
+    p = softmax_xent.softmax_rows(logits)
+    scale = 1.0 / rows
+    shape = "rows=%d classes=%d (phase 13's head)" % (rows, classes)
+    n = rows * classes
+    errs = {}
+    for name, got, want in (
+            ("softmax_rows", p, softmax_xent.softmax_rows_reference(logits)),
+            ("xent_grad_from_probs",
+             softmax_xent.xent_grad_from_probs(p, label, scale),
+             softmax_xent.xent_grad_from_probs_reference(p, label, scale))):
+        errs[name] = agree(name, shape, got, want,
+                           1e-5 * float(want.abs().max()))
+    entries["softmax_rows"].append(timed_row(
+        "softmax_rows", shape, lambda: softmax_xent.softmax_rows(logits),
+        lambda: softmax_xent.softmax_rows_reference(logits),
+        lambda: torch.softmax(logits, -1), 4 * 2 * n, 5 * n,
+        errs["softmax_rows"], card))
+    entries["xent_grad_from_probs"].append(timed_row(
+        "xent_grad_from_probs", shape,
+        lambda: softmax_xent.xent_grad_from_probs(p, label, scale),
+        lambda: softmax_xent.xent_grad_from_probs_reference(p, label, scale),
+        None, 4 * (2 * n + rows), 2 * n, errs["xent_grad_from_probs"],
+        card))
 
 
 def bf16_train_rows(dev, card, errs, t, entries):
@@ -3666,6 +4320,8 @@ def kernel_rows(entries, counts):
                 IMPERATIVE_LAUNCHES_PER_STEP.get(name, 0),
             "imperative_bf16_launches_per_step":
                 IMPERATIVE_BF16_LAUNCHES_PER_STEP.get(name, 0),
+            "resnet_launches_per_step":
+                RESNET_LAUNCHES_PER_STEP.get(name, 0),
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             "ms": head["ms"], "plain_ms": head["plain_ms"],
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
@@ -3732,10 +4388,15 @@ def main(argv):
     cpu32 = phase_imperative_vs(params7, module_card)
     phase_imperative_bf16_vs(params7, module_card_bf16, cpu32)
     phase_op_sweep(dev, card)
+    phase_layer_sweep(dev, card)
     counts["recommender"], step_ms_mf = phase_recommender(dev, card)
     if argv:
         profile_recommender(dev, card, step_ms_mf)
     phase_recommender_vs_cpu(dev)
+    counts["resnet"], step_ms_rn = phase_resnet(dev, card)
+    if argv:
+        profile_resnet(dev, card, step_ms_rn)
+    phase_resnet_vs_cpu(dev, card)
     pa_shapes, fa_shapes = collections.Counter(), collections.Counter()
     for tag in ("3", "3b", "3d"):
         pa_shapes.update(served[tag]["pa_shapes"])

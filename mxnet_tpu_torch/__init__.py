@@ -1,7 +1,7 @@
 """PyTorch/CUDA port of ``mxnet_tpu`` for one NVIDIA H100.
 
 The port imports ``torch`` and never ``jax`` or ``mxnet_tpu``; the JAX
-package stays the reference it is tested against.  Three paths are
+package stays the reference it is tested against.  Four paths are
 ported.  Training the transformer LM through ``Module.fit``:
 
     import mxnet_tpu_torch as mx
@@ -26,7 +26,22 @@ training it imperatively, with ``mx.nd`` ops under ``mx.autograd``:
     loss.backward()
     mx.nd.sgd_mom_update(w, w.grad, mom, lr=0.005, momentum=0.9, out=w)
 
-and serving it, on the paged KV plane by default:
+training an image classifier, ResNet-50 with BatchNorm's moving
+statistics as auxiliary states, as
+``examples/image-classification/common/fit.py`` does:
+
+    net = mx.models.resnet(num_classes=1000, num_layers=50)
+    it = mx.io.SyntheticDataIter(1000, (32, 3, 224, 224), max_iter=100)
+    mod = mx.mod.Module(net, context=mx.gpu(0))
+    mod.fit(it, num_epoch=1, optimizer="sgd", optimizer_params={
+                "learning_rate": 0.1, "momentum": 0.9, "wd": 1e-4,
+                "lr_scheduler": mx.lr_scheduler.MultiFactorScheduler(
+                    step=[30000, 60000], factor=0.1)},
+            initializer=mx.init.Xavier(rnd_type="gaussian",
+                                       factor_type="in", magnitude=2),
+            batch_end_callback=mx.callback.Speedometer(32, 20))
+
+and serving the LM, on the paged KV plane by default:
 
     from mxnet_tpu_torch.models import transformer_lm
     from mxnet_tpu_torch.serving import ModelRegistry, GenerationEngine
@@ -51,8 +66,9 @@ kernels on a CUDA tensor (``mxnet_tpu_torch/kernels``) and as their
 plain PyTorch versions on a CPU tensor; ``mx.rtc.CudaKernel`` compiles
 and launches a user's CUDA source on NDArrays.
 """
-from . import (autograd, contrib, engine, initializer, io, kernels, metric,
-               models, ndarray, optimizer, random, rtc, symbol)
+from . import (autograd, callback, contrib, engine, initializer, io, kernels,
+               lr_scheduler, metric, models, ndarray, optimizer, random, rtc,
+               symbol)
 from . import module
 from .base import MXNetError
 from .context import Context, cpu, current_context, gpu
@@ -68,5 +84,6 @@ mod = module
 __all__ = ["MXNetError", "ModelRegistry", "GenerationEngine", "TokenStream",
            "transformer_lm", "kernels", "models", "symbol", "sym", "ndarray",
            "nd", "io", "initializer", "init", "metric", "optimizer",
+           "lr_scheduler", "callback",
            "random", "module", "mod", "Module", "cpu", "gpu", "autograd",
            "contrib", "rtc", "engine", "Context", "current_context"]

@@ -7,7 +7,10 @@ runs with grad enabled, so PyTorch builds the graph; outside it ops run
 under ``torch.no_grad()`` and no graph is built.  :func:`backward` calls
 ``torch.autograd.grad`` from the outputs to every marked variable and
 writes (``'write'``), adds (``'add'``) or drops (``'null'``) the result
-into the variable's gradient buffer.
+into the variable's gradient buffer.  ``record()`` also sets train mode
+(``is_training``), under which the stateful ops train: BatchNorm
+normalises with the batch statistics and updates its moving statistics
+in place, Dropout and rrelu draw.
 
 Where PyTorch's semantics differ from the reference's tape, the
 reference's are kept:

@@ -99,8 +99,10 @@ def default_device(device=None):
     as asked.  A CUDA device raises :class:`MXNetError` when CUDA is
     unavailable.  Choosing a CUDA device also pins fp32 matrix products
     to full fp32 (``torch.backends.cuda.matmul.allow_tf32 = False``,
-    PyTorch's default, set explicitly), so the projections the port
-    leaves to ``torch.matmul`` keep fp32 precision, and makes bf16
+    PyTorch's default, set explicitly) and fp32 convolutions too
+    (``torch.backends.cudnn.allow_tf32 = False``, where PyTorch's
+    default is True), so the projections and convolutions the port
+    leaves to ``torch.matmul`` and cuDNN keep fp32 precision, and makes bf16
     products accumulate in fp32 to the end
     (``torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
     = False``), as the reference's bf16 products do."""
@@ -124,5 +126,6 @@ def default_device(device=None):
     if dev.index is None:
         dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     return dev

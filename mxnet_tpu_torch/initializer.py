@@ -42,11 +42,20 @@ def _uniform(shape, low, high):
         low, high, generator=_random.generator())
 
 
+_ZERO_SUFFIXES = ("bias", "beta", "moving_mean", "running_mean",
+                  "moving_inv_var", "moving_avg")
+_ONE_SUFFIXES = ("gamma", "moving_var", "running_var")
+
+
 class Initializer:
     """Called as ``init(desc, arr)``, fills ``arr`` in place by the
-    parameter name's suffix: ``*weight`` -> :meth:`_init_weight`,
-    ``*bias`` and ``*beta`` -> 0, ``*gamma`` -> 1.  A ``__init__``
-    attribute on the variable names another initializer for it."""
+    parameter name's suffix, as the reference's: ``*weight`` ->
+    :meth:`_init_weight`, ``*bias`` and ``*beta`` -> 0, ``*gamma`` -> 1,
+    and BatchNorm's auxiliary states ``*moving_mean`` /
+    ``*running_mean`` -> 0, ``*moving_var`` / ``*running_var`` -> 1,
+    ``*moving_inv_var`` and ``*moving_avg`` -> 0; any other name ->
+    :meth:`_init_weight`.  A ``__init__`` attribute on the variable
+    names another initializer for it."""
 
     def __init__(self, **kwargs):
         self._kwargs = kwargs
@@ -66,9 +75,9 @@ class Initializer:
         name = desc.lower()
         if name.endswith("weight"):
             self._init_weight(desc, arr)
-        elif name.endswith("bias") or name.endswith("beta"):
+        elif name.endswith(_ZERO_SUFFIXES):
             arr[:] = 0.0
-        elif name.endswith("gamma"):
+        elif name.endswith(_ONE_SUFFIXES):
             arr[:] = 1.0
         else:
             self._init_weight(desc, arr)

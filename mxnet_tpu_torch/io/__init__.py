@@ -1,4 +1,6 @@
 """Data iterators of the port."""
-from .io import DataBatch, DataDesc, DataIter, NDArrayIter
+from .io import (DataBatch, DataDesc, DataIter, NDArrayIter,
+                 SyntheticDataIter)
 
-__all__ = ["DataBatch", "DataDesc", "DataIter", "NDArrayIter"]
+__all__ = ["DataBatch", "DataDesc", "DataIter", "NDArrayIter",
+           "SyntheticDataIter"]

@@ -1,5 +1,9 @@
 """Data iterators (counterpart of ``mxnet_tpu/io/io.py``): ``DataDesc``,
-``DataBatch`` and ``NDArrayIter`` over in-memory arrays.
+``DataBatch`` and ``NDArrayIter`` over in-memory arrays, and
+``SyntheticDataIter``, the image-classification benchmark's iterator
+(a copy of ``examples/image-classification/common/data.py``'s): one
+fixed batch of ``uniform(-1, 1)`` images and random labels, made once on
+the device and handed out ``max_iter`` times.
 
 ``NDArrayIter`` keeps the reference's batch order and its handling of
 the last batch (``pad`` wraps around to the first rows, ``discard``
@@ -20,7 +24,8 @@ from .. import random as _random
 from ..context import cpu
 from ..ndarray import NDArray, array
 
-__all__ = ["DataDesc", "DataBatch", "DataIter", "NDArrayIter"]
+__all__ = ["DataDesc", "DataBatch", "DataIter", "NDArrayIter",
+           "SyntheticDataIter"]
 
 
 class DataDesc(namedtuple("DataDesc", ["name", "shape"])):
@@ -191,3 +196,30 @@ class NDArrayIter(DataIter):
                 self.cursor + self.batch_size > self.num_data:
             return self.cursor + self.batch_size - self.num_data
         return 0
+
+
+class SyntheticDataIter(DataIter):
+    """``max_iter`` batches of one fixed batch held on the current
+    context: ``data_shape`` images drawn from ``uniform(-1, 1)`` and
+    labels in ``[0, num_classes)``, from numpy's global generator."""
+
+    def __init__(self, num_classes, data_shape, max_iter, dtype="float32"):
+        super().__init__(data_shape[0])
+        self.cur_iter = 0
+        self.max_iter = max_iter
+        self.dtype = dtype
+        label = np.random.randint(0, num_classes, (self.batch_size,))
+        data = np.random.uniform(-1, 1, data_shape)
+        self.data = array(data.astype(dtype))
+        self.label = array(label.astype(np.float32))
+        self.provide_data = [DataDesc("data", tuple(data_shape))]
+        self.provide_label = [DataDesc("softmax_label", (self.batch_size,))]
+
+    def next(self):
+        self.cur_iter += 1
+        if self.cur_iter > self.max_iter:
+            raise StopIteration
+        return DataBatch(data=[self.data], label=[self.label], pad=0)
+
+    def reset(self):
+        self.cur_iter = 0

@@ -1,7 +1,8 @@
 """Evaluation metrics (counterpart of ``mxnet_tpu/metric.py``):
-``EvalMetric``, ``CompositeEvalMetric``, ``Accuracy``, ``Perplexity``,
-``CrossEntropy``, the regression metrics ``MAE``, ``MSE`` and ``RMSE``,
-and ``create`` (of a name, a metric, or a list of either).
+``EvalMetric``, ``CompositeEvalMetric``, ``Accuracy``, ``TopKAccuracy``,
+``Perplexity``, ``CrossEntropy``, the regression metrics ``MAE``, ``MSE``
+and ``RMSE``, and ``create`` (of a name, a metric, or a list of
+either).
 
 Each classification metric first reduces on the predictions' device to
 the numbers it needs per row (the argmax, or the probability of the
@@ -18,8 +19,8 @@ import torch
 
 from .ndarray import NDArray, host_numpy
 
-__all__ = ["EvalMetric", "CompositeEvalMetric", "Accuracy", "Perplexity",
-           "CrossEntropy", "MAE", "MSE", "RMSE", "create"]
+__all__ = ["EvalMetric", "CompositeEvalMetric", "Accuracy", "TopKAccuracy",
+           "Perplexity", "CrossEntropy", "MAE", "MSE", "RMSE", "create"]
 
 
 def check_label_shapes(labels, preds):
@@ -134,6 +135,34 @@ class Accuracy(EvalMetric):
             self.num_inst += len(pred_label)
 
 
+class TopKAccuracy(EvalMetric):
+    """Share of rows whose label is among the ``top_k`` largest
+    predictions (``top_k_accuracy_<k>``); the top k are found on the
+    predictions' device and one hit count a row is fetched."""
+
+    def __init__(self, top_k=1):
+        super().__init__("top_k_accuracy")
+        self.top_k = top_k
+        assert self.top_k > 1, "Please use Accuracy if top_k is no more than 1"
+        self.name += "_%d" % self.top_k
+
+    def update(self, labels, preds):
+        check_label_shapes(labels, preds)
+        for label, pred in zip(labels, preds):
+            pred = _tensor(pred)
+            assert pred.dim() <= 2, "Predictions should be no more than 2 dims"
+            lbl = _tensor(label).reshape(-1).to(device=pred.device,
+                                                dtype=torch.int32)
+            if pred.dim() == 1:
+                hits = pred.to(torch.int32) == lbl
+            else:
+                k = min(pred.shape[1], self.top_k)
+                top = torch.topk(pred.float(), k, dim=1).indices
+                hits = (top == lbl[:, None]).sum(dim=1)
+            self.sum_metric += host_numpy(hits).astype("int64").sum()
+            self.num_inst += int(lbl.shape[0])
+
+
 class Perplexity(EvalMetric):
     """``exp(mean(-log p[label]))`` per update, weighted by rows;
     ``ignore_label`` rows count for nothing."""
@@ -232,14 +261,16 @@ class RMSE(_Regression):
 
 
 def create(metric, **kwargs):
-    """A metric by name (``acc``, ``accuracy``, ``ce``, ``cross-entropy``,
-    ``perplexity``, ``mae``, ``mse``, ``rmse``), ``metric`` itself when it
-    is one, or a :class:`CompositeEvalMetric` of a list of either."""
+    """A metric by name (``acc``, ``accuracy``, ``top_k_accuracy``,
+    ``ce``, ``cross-entropy``, ``perplexity``, ``mae``, ``mse``,
+    ``rmse``), ``metric`` itself when it is one, or a
+    :class:`CompositeEvalMetric` of a list of either."""
     if isinstance(metric, EvalMetric):
         return metric
     if isinstance(metric, list):
         return CompositeEvalMetric(metric)
     metrics = {"acc": Accuracy, "accuracy": Accuracy, "ce": CrossEntropy,
+               "top_k_accuracy": TopKAccuracy,
                "cross-entropy": CrossEntropy, "perplexity": Perplexity,
                "mae": MAE, "mse": MSE, "rmse": RMSE}
     try:

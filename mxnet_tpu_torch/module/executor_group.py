@@ -1,8 +1,9 @@
 """The executor group of a Module (counterpart of
 ``mxnet_tpu/module/executor_group.py``), for one device: it binds one
 executor, loads batches into it, and exposes the parameter and gradient
-arrays the optimizer updates.  Splitting a batch over several devices
-is later work.
+arrays the optimizer updates and the auxiliary states (BatchNorm's
+moving statistics) that a train forward updates.  Splitting a batch
+over several devices is later work.
 
 ``compute_dtype`` threads the module's mixed-precision policy into the
 executor; the labels keep their master dtype, as in the reference, and
@@ -49,6 +50,8 @@ class DataParallelExecutorGroup:
             **shapes)
         args = self.executor.arg_dict
         self.param_arrays = [args[n] for n in param_names]
+        self.aux_names = symbol.list_auxiliary_states()
+        self.aux_arrays = self.executor.aux_arrays
 
     @property
     def grad_arrays(self):
@@ -57,8 +60,9 @@ class DataParallelExecutorGroup:
         grads = self.executor.grad_dict
         return [grads.get(n) for n in self.param_names]
 
-    def set_params(self, arg_params):
-        self.executor.copy_params_from(arg_params, allow_extra_params=True)
+    def set_params(self, arg_params, aux_params=None):
+        self.executor.copy_params_from(arg_params, aux_params,
+                                       allow_extra_params=True)
 
     def _load(self, names, arrays):
         args = self.executor.arg_dict

@@ -3,11 +3,12 @@
 executor-group semantics: ``forward_backward`` fills the gradients and
 ``update`` steps the optimizer on the host side of each parameter).
 
-``init_params`` takes ``arg_params`` as NDArrays or numpy arrays, which
-is how weights cross from the JAX package; ``save_checkpoint`` and
-``load`` read and write the reference's checkpoint files
-(``prefix-symbol.json`` and ``prefix-NNNN.params``), so a checkpoint
-moves between the packages in both directions.
+``init_params`` takes ``arg_params`` and ``aux_params`` as NDArrays or
+numpy arrays, which is how weights and BatchNorm's moving statistics
+cross from the JAX package; ``save_checkpoint`` and ``load`` read and
+write the reference's checkpoint files (``prefix-symbol.json`` and
+``prefix-NNNN.params``, with ``arg:`` and ``aux:`` keys), so a
+checkpoint moves between the packages in both directions.
 
 Without a context the module runs on ``cuda:0`` and raises when there is
 no GPU; pass ``context=cpu()`` for the plain versions on the host.
@@ -37,7 +38,17 @@ from ..symbol import load as load_symbol
 from .base_module import BaseModule
 from .executor_group import DataParallelExecutorGroup
 
-__all__ = ["Module", "load_checkpoint"]
+__all__ = ["Module", "load_checkpoint", "save_checkpoint"]
+
+
+def save_checkpoint(prefix, epoch, symbol, arg_params, aux_params):
+    """Write ``prefix-symbol.json`` and ``prefix-NNNN.params`` (keys
+    ``arg:<name>`` and ``aux:<name>``), as both packages'
+    ``save_checkpoint`` do."""
+    symbol.save("%s-symbol.json" % prefix)
+    save = {"arg:%s" % k: v for k, v in arg_params.items()}
+    save.update(("aux:%s" % k, v) for k, v in aux_params.items())
+    nd.save("%s-%04d.params" % (prefix, epoch), save)
 
 
 def load_checkpoint(prefix, epoch):
@@ -87,9 +98,11 @@ class Module(BaseModule):
                                  "symbol" % name)
         input_names = self._data_names + self._label_names
         self._param_names = [x for x in arg_names if x not in input_names]
+        self._aux_names = symbol.list_auxiliary_states()
         self._fixed_param_names = list(fixed_param_names or [])
         self._output_names = symbol.list_outputs()
         self._arg_params = None
+        self._aux_params = None
         self._params_dirty = False
         self._optimizer = None
         self._updater = None
@@ -102,21 +115,24 @@ class Module(BaseModule):
     def load(prefix, epoch, **kwargs):
         """A Module over a checkpoint's symbol, with its parameters;
         ``bind`` it before use."""
-        sym, args, _ = load_checkpoint(prefix, epoch)
+        sym, args, auxs = load_checkpoint(prefix, epoch)
         mod = Module(symbol=sym, **kwargs)
         mod._arg_params = args
+        mod._aux_params = auxs
         mod.params_initialized = True
         return mod
 
     def save_checkpoint(self, prefix, epoch):
         """Write ``prefix-symbol.json`` and ``prefix-NNNN.params``."""
-        self._symbol.save("%s-symbol.json" % prefix)
-        self.save_params("%s-%04d.params" % (prefix, epoch))
+        arg_params, aux_params = self.get_params()
+        save_checkpoint(prefix, epoch, self._symbol, arg_params, aux_params)
 
     def save_params(self, fname):
         """Parameters under the ``arg:``/``aux:`` key convention."""
-        arg_params, _ = self.get_params()
-        nd.save(fname, {"arg:%s" % k: v for k, v in arg_params.items()})
+        arg_params, aux_params = self.get_params()
+        save = {"arg:%s" % k: v for k, v in arg_params.items()}
+        save.update(("aux:%s" % k, v) for k, v in aux_params.items())
+        nd.save(fname, save)
 
     # -- properties --------------------------------------------------------
     @property
@@ -152,25 +168,36 @@ class Module(BaseModule):
         """``(arg_params, aux_params)`` as host NDArrays."""
         assert self.binded and self.params_initialized
         if self._params_dirty:
+            group = self._exec_group
             self._arg_params = {
                 n: nd.array(a._data, ctx=cpu()) for n, a in
-                zip(self._param_names, self._exec_group.param_arrays)}
+                zip(self._param_names, group.param_arrays)}
+            self._aux_params = {
+                n: nd.array(a._data, ctx=cpu()) for n, a in
+                zip(group.aux_names, group.aux_arrays)}
             self._params_dirty = False
-        return self._arg_params, {}
+        return self._arg_params, self._aux_params
 
     def init_params(self, initializer=None, arg_params=None, aux_params=None,
                     allow_missing=False, force_init=False):
-        """Parameters from ``arg_params`` (NDArrays or numpy arrays) where
-        given, else drawn by ``initializer``."""
+        """Parameters and auxiliary states from ``arg_params`` /
+        ``aux_params`` (NDArrays or numpy arrays) where given, else
+        drawn by ``initializer`` (which sets ``moving_var`` to 1 and
+        ``moving_mean`` to 0 by their names)."""
         if self.params_initialized and not force_init:
             return
         assert self.binded, "call bind before initializing the parameters"
         if initializer is None and (arg_params is None or not force_init):
             initializer = Uniform(0.01)
+        group = self._exec_group
         if self._arg_params is None:
             self._arg_params = {
                 n: nd.zeros(a.shape, cpu(), dtype=str(a.dtype)) for n, a in
-                zip(self._param_names, self._exec_group.param_arrays)}
+                zip(self._param_names, group.param_arrays)}
+        if self._aux_params is None:
+            self._aux_params = {
+                n: nd.zeros(a.shape, cpu(), dtype=str(a.dtype)) for n, a in
+                zip(group.aux_names, group.aux_arrays)}
         attrs = self._symbol.attr_dict()
         for name, arr in self._arg_params.items():
             if arg_params is not None and name in arg_params:
@@ -180,9 +207,14 @@ class Module(BaseModule):
                 raise MXNetError("%s is not presented" % name)
             elif initializer is not None:
                 initializer(InitDesc(name, attrs.get(name)), arr)
+        for name, arr in self._aux_params.items():
+            if aux_params is not None and name in aux_params:
+                arr[:] = aux_params[name]
+            elif initializer is not None:
+                initializer(InitDesc(name, attrs.get(name)), arr)
         self.params_initialized = True
         self._params_dirty = False
-        self._exec_group.set_params(self._arg_params)
+        group.set_params(self._arg_params, self._aux_params)
 
     # -- binding -----------------------------------------------------------
     def bind(self, data_shapes, label_shapes=None, for_training=True,
@@ -205,7 +237,7 @@ class Module(BaseModule):
             self._compute_dtype)
         self.binded = True
         if self.params_initialized:
-            self._exec_group.set_params(self._arg_params)
+            self._exec_group.set_params(self._arg_params, self._aux_params)
 
     # -- optimizer ---------------------------------------------------------
     def init_optimizer(self, kvstore="local", optimizer="sgd",
@@ -239,7 +271,10 @@ class Module(BaseModule):
 
     # -- computation -------------------------------------------------------
     def forward(self, data_batch, is_train=None):
+        """A train forward updates the auxiliary states on the device."""
         assert self.binded and self.params_initialized
+        if is_train or (is_train is None and self.for_training):
+            self._params_dirty = True
         self._exec_group.forward(data_batch, is_train)
 
     def backward(self, out_grads=None):

@@ -38,6 +38,7 @@ import torch
 
 from . import autograd as _autograd
 from . import engine as _engine
+from . import random as _random
 from . import ops as _ops  # noqa: F401  (registers every op)
 from .base import MXNetError
 from .context import Context, context_of, cpu, default_device
@@ -579,9 +580,15 @@ def imperative_invoke(op_name, args, kwargs):
     ``mx.nd.<op>`` function.  NDArray inputs come positionally or by
     argument name, the rest of ``kwargs`` are the op's attributes; a
     variadic op (``Concat``, ``add_n``) counts its positional inputs
-    into its ``num_args``.  The op's ``mutate`` outputs are written into
-    their state inputs in place; ``out=`` (an NDArray or a list)
-    receives the remaining outputs and is returned.  Otherwise one
+    into its ``num_args``.  An op's auxiliary states come after its
+    arguments, positionally or by name (BatchNorm's ``moving_mean``,
+    ``moving_var``); under ``autograd.train_mode()`` (which ``record()``
+    sets) the op trains, and the new values are written into them in
+    place, outside the tape.  An op that draws (the samplers, Dropout)
+    draws from the generator of its device: its first input's, else its
+    ``ctx``'s or the current context's.  The op's ``mutate`` outputs are
+    written into their state inputs in place; ``out=`` (an NDArray or a
+    list) receives the remaining outputs and is returned.  Otherwise one
     output comes back as an NDArray, several as a list."""
     op = get_op(op_name)
     out = kwargs.pop("out", None)
@@ -592,13 +599,13 @@ def imperative_invoke(op_name, args, kwargs):
     if op.key_var_num_args and op.key_var_num_args not in attr_kwargs:
         attr_kwargs[op.key_var_num_args] = len(args)
     attrs = op.parse_attrs(attr_kwargs)
-    arg_names = op.arguments(attrs)
-    if len(args) > len(arg_names):
+    names = op.arguments(attrs) + op.aux_states(attrs)
+    if len(args) > len(names):
         raise MXNetError("op %s takes %d inputs (%s), got %d"
-                         % (op_name, len(arg_names), ", ".join(arg_names),
+                         % (op_name, len(names), ", ".join(names),
                             len(args)))
     inputs = list(args)
-    for nm in arg_names[len(inputs):]:
+    for nm in names[len(inputs):]:
         if nm not in nd_kwargs:
             raise MXNetError("op %s: input %r missing" % (op_name, nm))
         inputs.append(nd_kwargs[nm])
@@ -606,13 +613,24 @@ def imperative_invoke(op_name, args, kwargs):
         if not isinstance(x, NDArray):
             raise MXNetError("op %s takes NDArray inputs, got %s"
                              % (op_name, type(x).__name__))
+    nargs = len(names) - len(op.aux_states(attrs))
+    aux_nds = inputs[nargs:]
+    inputs = inputs[:nargs]
     recording = _autograd.is_recording()
     tensors = [_autograd.op_input(x) if recording else x._data
                for x in inputs]
+    training = _autograd.is_training()
+    gen = None
+    if op.needs_rng and (training or op.rng_at_eval):
+        gen = _random.generator(tensors[0].device if tensors else
+                                default_device(attrs.get("ctx")))
     with torch.set_grad_enabled(recording):
-        outs = _engine.get().dispatch(op_name, op.fcompute, attrs, *tensors)
-    if not isinstance(outs, (tuple, list)):
-        outs = (outs,)
+        outs, new_aux = _engine.get().dispatch(
+            op_name, op.apply, attrs, tensors, [a._data for a in aux_nds],
+            training, gen)
+    for a, u in zip(aux_nds, new_aux):
+        if u is not a._data:
+            _assign(a, u.detach())
     if op.mutate:
         mutated = set()
         for out_idx, arg_idx in op.mutate:

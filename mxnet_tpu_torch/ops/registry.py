@@ -4,7 +4,19 @@
 Every operator is one :class:`OpDef`: a forward function
 ``fcompute(attrs, *tensors)`` on ``torch.Tensor``s, its argument names,
 typed attributes parsed from Python values or the strings a symbol's
-JSON holds, and shape inference for ``simple_bind``.  Gradients are not
+JSON holds, and shape inference for ``simple_bind``.  An op with
+auxiliary states or train-mode behaviour (BatchNorm, Dropout, rrelu)
+has ``fstateful(attrs, inputs, aux, is_train, generator) -> (outputs,
+new_aux)`` in its place and names its states in ``aux_states``
+(``moving_mean``, ``moving_var``): they come after the arguments among
+a node's inputs, take no gradient, and their shapes come from
+``infer_shape``.  ``needs_rng`` marks an op that draws random numbers:
+the sampling ops get a ``generator=`` keyword in ``fcompute``, a
+stateful op its ``generator`` argument (a ``torch.Generator`` on the
+device the op runs on, :func:`mxnet_tpu_torch.random.generator`);
+``rng_at_eval`` says whether it also draws outside training (the
+samplers do, Dropout does not).  :meth:`OpDef.apply` is the one entry
+both the executor and ``imperative_invoke`` call.  Gradients are not
 registered: the executor differentiates ``fcompute`` with
 ``torch.autograd``, and ops whose backward is not the derivative of
 their forward (SoftmaxOutput) or runs a kernel (the norms, attention)
@@ -132,15 +144,19 @@ def FloatTuple(default=None, required=False):
 class OpDef:
     """A registered operator."""
 
-    def __init__(self, name, fcompute, attrs=None, arguments=("data",),
-                 outputs=("output",), infer_shape=None, infer_type=None,
+    def __init__(self, name, fcompute=None, fstateful=None, attrs=None,
+                 arguments=("data",), outputs=("output",), aux_states=(),
+                 infer_shape=None, infer_type=None,
                  infer_shape_backward=None, num_outputs=1,
-                 key_var_num_args=None, mutate=(), index_inputs=(), doc=""):
+                 key_var_num_args=None, needs_rng=False, rng_at_eval=None,
+                 mutate=(), index_inputs=(), doc=""):
         self.name = name
         self.fcompute = fcompute
+        self.fstateful = fstateful
         self.attr_specs = dict(attrs or {})
         self._arguments = arguments
         self._outputs = outputs
+        self._aux_states = aux_states
         self._infer_shape = infer_shape
         self._infer_type = infer_type
         self._infer_shape_backward = infer_shape_backward
@@ -148,6 +164,9 @@ class OpDef:
         # the attribute holding a variadic op's input count (Concat:
         # num_args); its arguments are then <first name>0, 1, ...
         self.key_var_num_args = key_var_num_args
+        self.needs_rng = needs_rng
+        # draws at inference too (the samplers); Dropout does not
+        self.rng_at_eval = needs_rng if rng_at_eval is None else rng_at_eval
         # ((out_idx, arg_idx), ...): outputs written back into inputs
         self.mutate = tuple(mutate)
         # argument names read as integer indices, never cast
@@ -205,6 +224,10 @@ class OpDef:
         n = self._num_outputs
         return int(n(attrs)) if callable(n) else int(n)
 
+    def aux_states(self, attrs):
+        aux = self._aux_states
+        return list(aux(attrs)) if callable(aux) else list(aux)
+
     def infer_shape(self, attrs, in_shapes):
         """``(in_shapes, out_shapes, aux_shapes)``; entries may stay None
         when underdetermined."""
@@ -215,11 +238,24 @@ class OpDef:
 
     def infer_type(self, attrs, in_types):
         """``(in_types, out_types, aux_types)`` as dtype names; by
-        default every output takes the first known input's dtype."""
+        default every output and auxiliary state takes the first known
+        input's dtype."""
         if self._infer_type is None:
             return elemwise_type_infer(self, attrs, in_types)
         ins, outs, aux = self._infer_type(attrs, list(in_types))
         return list(ins), list(outs), list(aux)
+
+    def apply(self, attrs, inputs, aux=(), is_train=False, generator=None):
+        """Run the op: ``(outputs, new_aux)``, both tuples (``new_aux``
+        empty for an op without auxiliary states)."""
+        if self.fstateful is not None:
+            outs, new_aux = self.fstateful(attrs, tuple(inputs), tuple(aux),
+                                           is_train, generator)
+            return _as_tuple(outs), _as_tuple(new_aux)
+        if self.needs_rng:
+            return _as_tuple(self.fcompute(attrs, *inputs,
+                                           generator=generator)), ()
+        return _as_tuple(self.fcompute(attrs, *inputs)), ()
 
     def infer_shape_backward(self, attrs, out_shapes, in_shapes):
         """Known output shapes back into inputs: elementwise ops unify
@@ -273,17 +309,22 @@ def elemwise_shape_infer(op, attrs, in_shapes):
 
 
 def elemwise_type_infer(op, attrs, in_types):
-    """Every input and output takes the first known input's dtype."""
+    """Every input, output and auxiliary state takes the first known
+    input's dtype."""
     known = [t for t in in_types if t is not None]
     t = known[0] if known else None
     return [t if x is None else x for x in in_types], \
-        [t] * op.num_outputs(attrs), []
+        [t] * op.num_outputs(attrs), [t] * len(op.aux_states(attrs))
+
+
+def _as_tuple(x):
+    return tuple(x) if isinstance(x, (tuple, list)) else (x,)
 
 
 # ---------------------------------------------------------------------------
 # Registration
 # ---------------------------------------------------------------------------
-def register(name, fcompute, **kwargs):
+def register(name, fcompute=None, **kwargs):
     """Register an op under ``name``."""
     if name in _OP_REGISTRY:
         raise MXNetError("op %s already registered" % name)

@@ -1,6 +1,8 @@
 """Optimizers (counterpart of ``mxnet_tpu/optimizer.py``): the base
-class's learning-rate and weight-decay multipliers, ``SGD`` with
-momentum, ``Adam``, ``create`` and ``get_updater``.
+class's learning-rate and weight-decay multipliers and its
+``lr_scheduler`` (asked for the rate at each update, from the update
+count), ``SGD`` with momentum, ``Adam``, ``create`` and
+``get_updater``.
 
 Updates write the weight and state tensors in place, with the
 arithmetic of the reference's fused update ops
@@ -39,10 +41,13 @@ class Optimizer:
         raise ValueError("Cannot find optimizer %s" % name)
 
     def __init__(self, rescale_grad=1.0, param_idx2name=None, wd=0.0,
-                 clip_gradient=None, learning_rate=0.01, sym=None,
-                 begin_num_update=0):
+                 clip_gradient=None, learning_rate=0.01, lr_scheduler=None,
+                 sym=None, begin_num_update=0):
         self.rescale_grad = rescale_grad
         self.lr = learning_rate
+        self.lr_scheduler = lr_scheduler
+        if lr_scheduler is not None:
+            lr_scheduler.base_lr = learning_rate
         self.wd = wd
         self.begin_num_update = begin_num_update
         self.num_update = begin_num_update
@@ -92,7 +97,8 @@ class Optimizer:
                               self.num_update)
 
     def _get_lr(self, index):
-        lr = self.lr
+        lr = self.lr if self.lr_scheduler is None else \
+            self.lr_scheduler(self.num_update)
         if index in self.lr_mult:
             lr *= self.lr_mult[index]
         elif index in self.idx2name:

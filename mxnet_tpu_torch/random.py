@@ -1,9 +1,15 @@
 """The port's random state (counterpart of ``mxnet_tpu/random.py``).
 
-One explicit ``torch.Generator`` on the host, seeded by :func:`seed`,
-is what initializers and ``NDArrayIter(shuffle=True)`` draw from; the
-global torch RNG is never used.  Draws happen on the host and are
-copied to the device, so a seed gives the same numbers on every device.
+One explicit ``torch.Generator`` a device, all seeded by :func:`seed`;
+the global torch RNG is never used.  The host's generator is what
+initializers and ``NDArrayIter(shuffle=True)`` draw from: they draw on
+the host and copy to the device, so a seed gives the same weights on
+every device.  The sampling ops, ``Dropout`` and ``LeakyReLU``'s rrelu
+draw on the device they run on, from that device's generator, so a seed
+reproduces their draws on one device; a CUDA generator (Philox) gives
+other numbers than the host's (Mersenne Twister) from the same seed,
+and both give other numbers than the reference's ``jax.random`` keys:
+the streams agree with the reference's in distribution only.
 """
 from __future__ import annotations
 
@@ -14,23 +20,29 @@ import torch
 __all__ = ["seed", "generator"]
 
 _lock = threading.Lock()
-_gen = None
+_seed = 0
+_gens = {}   # torch.device -> torch.Generator
 
 
 def seed(seed_state):
-    """Seed the port's generator (``mx.random.seed``)."""
-    global _gen
+    """Seed every device's generator (``mx.random.seed``): each starts
+    afresh from ``seed_state`` at its next use."""
+    global _seed
     with _lock:
-        _gen = torch.Generator(device="cpu")
-        _gen.manual_seed(int(seed_state))
+        _seed = int(seed_state)
+        _gens.clear()
 
 
-def generator():
-    """The port's generator, seeded with 0 until :func:`seed` is
+def generator(device=None):
+    """The port's generator on ``device`` (a ``torch.device`` or its
+    name; the host's when None), seeded with 0 until :func:`seed` is
     called."""
-    global _gen
+    dev = torch.device("cpu" if device is None else device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", 0)
     with _lock:
-        if _gen is None:
-            _gen = torch.Generator(device="cpu")
-            _gen.manual_seed(0)
-        return _gen
+        gen = _gens.get(dev)
+        if gen is None:
+            gen = _gens[dev] = torch.Generator(device=dev)
+            gen.manual_seed(_seed)
+        return gen

@@ -14,8 +14,13 @@ so a graph written by ``mxnet_tpu``'s ``Symbol.tojson`` loads here and
 the reverse.  A variadic op (``Concat``, ``add_n``) takes its inputs
 positionally and counts them into its ``num_args``; an op with several
 outputs (``SliceChannel``, ``topk(ret_typ='both')``) gives a Symbol of
-that many outputs.  ``bind`` / ``simple_bind`` return an
-:class:`~.executor.Executor`.
+that many outputs.  An op's auxiliary states (BatchNorm's
+``moving_mean`` and ``moving_var``) are variables too, named
+``<node>_<state>`` unless given, and follow its arguments among the
+node's inputs, as in the reference's graph and JSON; a variable that
+feeds only such slots is listed by :meth:`Symbol.list_auxiliary_states`
+and not by :meth:`Symbol.list_arguments`.  ``bind`` / ``simple_bind``
+return an :class:`~.executor.Executor`.
 """
 from __future__ import annotations
 
@@ -80,6 +85,25 @@ class _Node:
     def is_variable(self):
         return self.op is None
 
+    def num_args(self):
+        return len(self.op.arguments(self.attrs)) if self.op else 0
+
+    def arg_inputs(self):
+        return self.inputs[:self.num_args()]
+
+    def aux_inputs(self):
+        return self.inputs[self.num_args():]
+
+
+def _aux_ids(nodes):
+    """Ids of the variables that feed only auxiliary-state slots."""
+    aux, arg = set(), set()
+    for n in nodes:
+        if not n.is_variable:
+            aux.update(id(i) for i, _ in n.aux_inputs())
+            arg.update(id(i) for i, _ in n.arg_inputs())
+    return aux - arg
+
 
 def _topo_sort(head_nodes):
     """Post-order DFS over the DAG (stable, iterative)."""
@@ -136,7 +160,9 @@ class Symbol:
     def list_arguments(self):
         """Input arguments (data variables and parameters), in
         topological order."""
-        return [n.name for n in self._nodes() if n.is_variable]
+        nodes = self._nodes()
+        aux = _aux_ids(nodes)
+        return [n.name for n in nodes if n.is_variable and id(n) not in aux]
 
     def list_outputs(self):
         """Output names (``<node>_<output>``)."""
@@ -168,8 +194,11 @@ class Symbol:
                 if n not in heads and readers.get(n) and all(readers[n])]
 
     def list_auxiliary_states(self):
-        """Auxiliary states; no op of the port has any yet."""
-        return []
+        """Auxiliary states (BatchNorm's moving statistics): buffers
+        that take no gradient, in topological order."""
+        nodes = self._nodes()
+        aux = _aux_ids(nodes)
+        return [n.name for n in nodes if id(n) in aux]
 
     def get_internals(self):
         """A Symbol whose outputs are every node's outputs, variables
@@ -295,12 +324,13 @@ class Symbol:
     def simple_bind(self, ctx, grad_req="write", type_dict=None,
                     compute_dtype=None, keep_dtype=(), **kwargs):
         """Infer every argument's shape from the given input shapes,
-        allocate arguments and gradients on ``ctx`` and bind;
+        allocate arguments, gradients and auxiliary states on ``ctx``
+        and bind;
         ``compute_dtype`` and ``keep_dtype`` as :class:`Executor`'s (the
         arrays stay in their own dtypes, float32 by default)."""
         from . import ndarray as nd
         from .executor import Executor
-        arg_shapes, _, _ = self.infer_shape(**kwargs)
+        arg_shapes, _, aux_shapes = self.infer_shape(**kwargs)
         arg_names = self.list_arguments()
         type_dict = type_dict or {}
         args = [nd.zeros(s, ctx, dtype=type_dict.get(n, "float32"))
@@ -309,13 +339,16 @@ class Symbol:
         grads = {n: nd.zeros(s, ctx, dtype=type_dict.get(n, "float32"))
                  for n, s in zip(arg_names, arg_shapes)
                  if reqs.get(n, "null") != "null"}
+        aux = [nd.zeros(s, ctx, dtype=type_dict.get(n, "float32"))
+               for n, s in zip(self.list_auxiliary_states(), aux_shapes)]
         return Executor(self, ctx, args, grads, reqs, compute_dtype,
-                        keep_dtype)
+                        keep_dtype, aux)
 
     def bind(self, ctx, args, args_grad=None, grad_req="write",
-             compute_dtype=None, keep_dtype=()):
+             aux_states=None, compute_dtype=None, keep_dtype=()):
         """Bind caller-provided argument arrays (a list in
-        ``list_arguments`` order or a dict by name); ``compute_dtype``
+        ``list_arguments`` order or a dict by name) and auxiliary states
+        (the same, in ``list_auxiliary_states`` order); ``compute_dtype``
         and ``keep_dtype`` as :class:`Executor`'s."""
         from .executor import Executor
         arg_names = self.list_arguments()
@@ -328,9 +361,11 @@ class Symbol:
         else:
             grads = {n: g for n, g in zip(arg_names, args_grad)
                      if g is not None}
+        if isinstance(aux_states, dict):
+            aux_states = [aux_states[n] for n in self.list_auxiliary_states()]
         return Executor(self, ctx, list(args), grads,
                         _grad_reqs(arg_names, grad_req), compute_dtype,
-                        keep_dtype)
+                        keep_dtype, list(aux_states or []))
 
     def __repr__(self):
         return "<Symbol %s>" % (self.name or self.list_outputs())
@@ -385,16 +420,18 @@ def _infer_pass(symbol, known, kind):
             if n.is_variable:
                 node_out[(id(n), 0)] = var_val[id(n)]
                 continue
-            in_vals = [node_out.get((id(i), oi)) for i, oi in n.inputs]
+            nargs = n.num_args()
+            in_vals = [node_out.get((id(i), oi))
+                       for i, oi in n.inputs[:nargs]]
             if kind == "shape":
-                ins, outs, _ = n.op.infer_shape(n.attrs, in_vals)
+                ins, outs, aux = n.op.infer_shape(n.attrs, in_vals)
                 cur = [node_out.get((id(n), oi)) for oi in range(len(outs))]
                 merged_outs = [unify_shapes(a, b) for a, b in zip(cur, outs)]
                 back = n.op.infer_shape_backward(n.attrs, merged_outs, ins)
                 ins = [unify_shapes(a, b) for a, b in zip(ins, back)]
             else:
-                ins, outs, _ = n.op.infer_type(n.attrs, in_vals)
-            for (inp, oi), v in zip(n.inputs, ins):
+                ins, outs, aux = n.op.infer_type(n.attrs, in_vals)
+            for (inp, oi), v in zip(n.inputs, list(ins) + list(aux)):
                 if v is None:
                     continue
                 v = fix(v)
@@ -417,9 +454,12 @@ def _infer_pass(symbol, known, kind):
                         changed = True
         if not changed:
             break
-    arg_res = [var_val.get(id(n)) for n in nodes if n.is_variable]
+    aux_ids = _aux_ids(nodes)
+    arg_res = [var_val.get(id(n)) for n in nodes
+               if n.is_variable and id(n) not in aux_ids]
+    aux_res = [var_val.get(id(n)) for n in nodes if id(n) in aux_ids]
     out_res = [node_out.get((id(n), oi)) for n, oi in symbol._outputs]
-    return arg_res, out_res, []
+    return arg_res, out_res, aux_res
 
 
 # ---------------------------------------------------------------------------
@@ -452,9 +492,10 @@ def Group(symbols):
     return Symbol([o for s in symbols for o in s._outputs])
 
 
-def _invoke(op_name, sym_inputs, raw_attrs, name=None):
-    """A node applying ``op_name`` to symbol inputs; missing inputs
-    become variables named ``<node>_<argument>``.  A variadic op counts
+def _invoke(op_name, sym_inputs, raw_attrs, name=None, aux_syms=()):
+    """A node applying ``op_name`` to symbol inputs and auxiliary states
+    (``aux_syms``); missing ones become variables named
+    ``<node>_<argument>`` / ``<node>_<state>``.  A variadic op counts
     its inputs into ``key_var_num_args`` unless the caller set it."""
     op = get_op(op_name)
     if op.key_var_num_args and op.key_var_num_args not in raw_attrs:
@@ -475,6 +516,10 @@ def _invoke(op_name, sym_inputs, raw_attrs, name=None):
             inputs.append(s._outputs[0])
         else:
             inputs.append(Variable("%s_%s" % (name, nm))._outputs[0])
+    for i, nm in enumerate(op.aux_states(attrs)):
+        s = aux_syms[i] if i < len(aux_syms) else None
+        inputs.append((s if s is not None else
+                       Variable("%s_%s" % (name, nm)))._outputs[0])
     node = _Node(op, name, attrs, inputs, extra)
     return Symbol([(node, i) for i in range(op.num_outputs(attrs))])
 
@@ -517,13 +562,16 @@ def _make_sym_func(op_name):
         raw_attrs = {k: v for k, v in kwargs.items()
                      if not isinstance(v, Symbol)}
         inputs = [a for a in args if isinstance(a, Symbol)]
+        aux = []
         if sym_kwargs:
             if op.key_var_num_args and op.key_var_num_args not in raw_attrs:
                 raw_attrs[op.key_var_num_args] = len(inputs) + len(sym_kwargs)
-            arg_names = op.arguments(op.parse_attrs(raw_attrs))
+            parsed = op.parse_attrs(raw_attrs)
+            arg_names = op.arguments(parsed)
             inputs += [sym_kwargs.get(nm) for nm in arg_names[len(inputs):]]
+            aux = [sym_kwargs.get(nm) for nm in op.aux_states(parsed)]
         raw_attrs.update(attr)
-        return _invoke(op_name, inputs, raw_attrs, name=name)
+        return _invoke(op_name, inputs, raw_attrs, name=name, aux_syms=aux)
 
     fn.__name__ = op_name
     fn.__doc__ = get_op(op_name).doc or "%s symbol." % op_name

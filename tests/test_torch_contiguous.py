@@ -10,6 +10,7 @@ reference engine's (``paged=False``).  Sizes are those of
 """
 import importlib
 
+import jax
 import numpy as np
 import pytest
 import torch
@@ -81,6 +82,15 @@ def _param_sets():
     return {"fp32": (PARAMS, PARAMS), "int8": (jq, qpairs)}
 
 
+def _program(fn, *example):
+    """``fn`` compiled for arguments like ``example`` as one program with
+    XLA's algebraic simplifier off, so it computes what the reference
+    computes op by op, at one compile in place of one a primitive and
+    shape."""
+    return jax.jit(fn).lower(*example).compile(
+        compiler_options={"xla_disable_hlo_passes": "algsimp"})
+
+
 @pytest.mark.parametrize("weights", ["fp32", "int8"])
 def test_prefill_and_decode_match_jax(monkeypatch, weights):
     """A padded prompt batch with ragged lengths, then three decode steps
@@ -95,7 +105,9 @@ def test_prefill_and_decode_match_jax(monkeypatch, weights):
     tokens[1, 3:] = 0
     tokens[2, 5:] = 0
     C = 16
-    jl, jk, jv = jlm.prefill_apply(jparams, tokens, lengths, C, SPEC)
+    jl, jk, jv = _program(
+        lambda t, n: jlm.prefill_apply(jparams, t, n, C, SPEC), tokens,
+        lengths)(tokens, lengths)
     with torch.no_grad():
         tl, tk, tv = tlm.prefill_apply(model.params(), tokens, lengths, C,
                                        SPEC)
@@ -108,9 +120,12 @@ def test_prefill_and_decode_match_jax(monkeypatch, weights):
     for got, want in ((tl, jl), (tk, jk), (tv, jv)):
         close(got, want)
     lens = lengths.copy()
+    decode = _program(
+        lambda k, v, t, n: jlm.decode_apply(jparams, k, v, t, n, SPEC), jk,
+        jv, lens, lens)
     for step in range(3):
         toks = rs.randint(0, 50, 3).astype(np.int32)
-        jl, jk, jv = jlm.decode_apply(jparams, jk, jv, toks, lens, SPEC)
+        jl, jk, jv = decode(jk, jv, toks, lens)
         with torch.no_grad():
             tl, tk2, tv2 = tlm.decode_apply(model.params(), tk, tv, toks,
                                             lens, SPEC)

@@ -1582,3 +1582,136 @@ def test_tie_order_on_card(cuda_device, op, attrs):
     (a,), _ = _card_and_cpu("argsort", [row], is_ascend=False)
     (t,), _ = _card_and_cpu("topk", [row], k=2)
     assert a.tolist() == [[4, 2, 0, 3, 1]] and t.tolist() == [[0, 2]]
+
+
+# ---------------------------------------------------------------------------
+# the image-classification slice: layers, BatchNorm's moving statistics,
+# TF32 off, a ResNet step
+# ---------------------------------------------------------------------------
+def _rel_np(got, want):
+    return float(np.abs(got - want).max() / max(np.abs(want).max(), 1e-30))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op,shapes,attrs", [
+    ("Convolution", [(4, 16, 28, 28), (32, 16, 3, 3), (32,)],
+     {"kernel": (3, 3), "num_filter": 32, "stride": (2, 2), "pad": (1, 1)}),
+    ("Convolution", [(4, 16, 28, 28), (32, 4, 3, 3)],
+     {"kernel": (3, 3), "num_filter": 32, "num_group": 4, "dilate": (2, 2),
+      "pad": (2, 2), "no_bias": True}),
+    ("Convolution", [(4, 8, 100), (16, 8, 5)],
+     {"kernel": (5,), "num_filter": 16, "stride": (2,), "no_bias": True}),
+    ("Convolution", [(2, 4, 8, 16, 16), (8, 4, 3, 3, 3)],
+     {"kernel": (3, 3, 3), "num_filter": 8, "pad": (1, 1, 1),
+      "no_bias": True}),
+    ("Deconvolution", [(4, 16, 14, 14), (16, 8, 3, 3), (8,)],
+     {"kernel": (3, 3), "num_filter": 8, "stride": (2, 2), "pad": (1, 1),
+      "adj": (1, 1)}),
+    ("Deconvolution", [(4, 16, 14, 14), (16, 8, 4, 4)],
+     {"kernel": (4, 4), "num_filter": 8, "stride": (2, 2), "pad": (1, 1),
+      "target_shape": (32, 32), "no_bias": True}),
+    ("Pooling", [(4, 16, 28, 28)],
+     {"kernel": (3, 3), "stride": (2, 2), "pad": (1, 1)}),
+    ("Pooling", [(4, 16, 27, 27)],
+     {"kernel": (3, 3), "stride": (2, 2), "pad": (1, 1), "pool_type": "avg",
+      "pooling_convention": "full"}),
+    ("Pooling", [(4, 16, 28, 28)],
+     {"kernel": (3, 3), "stride": (2, 2), "pad": (2, 2), "pool_type": "sum"}),
+    ("Pooling", [(4, 64, 7, 7)],
+     {"kernel": (7, 7), "global_pool": True, "pool_type": "avg"}),
+    ("Pooling", [(4, 8, 101)],
+     {"kernel": (3,), "stride": (2,), "pooling_convention": "full"}),
+])
+def test_layers_on_card_match_cpu(cuda_device, op, shapes, attrs):
+    """The convolution, deconvolution and pooling modes on the card
+    (cuDNN, TF32 off) against the CPU: within 1e-5 x max|ref|."""
+    rs = np.random.RandomState(len(shapes) * 7 + len(attrs))
+    arrays = [rs.randn(*s).astype(np.float32) for s in shapes]
+    card, cpu = _card_and_cpu(op, arrays, **attrs)
+    assert torch.backends.cudnn.allow_tf32 is False
+    for c, h in zip(card, cpu):
+        assert c.shape == h.shape
+        assert _rel_np(c, h) <= 1e-5
+
+
+@pytest.mark.cuda
+def test_default_device_turns_cudnn_tf32_off(cuda_device):
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = True
+    assert mx.context.default_device("cuda") == cuda_device
+    assert torch.backends.cudnn.allow_tf32 is False
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("train", [True, False])
+def test_batchnorm_moving_stats_update_on_card(cuda_device, train):
+    """BatchNorm under ``autograd.record()`` (or at inference) on the
+    card: its output, its gradients and its moving statistics, updated
+    in place on the card, within 1e-5 x max|ref| of the CPU's."""
+    rs = np.random.RandomState(3)
+    vals = [rs.randn(8, 16, 14, 14).astype(np.float32) * 2 + 0.5,
+            rs.uniform(0.5, 1.5, 16).astype(np.float32),
+            rs.randn(16).astype(np.float32),
+            rs.uniform(-0.2, 0.2, 16).astype(np.float32),
+            rs.uniform(0.5, 1.5, 16).astype(np.float32)]
+    head = rs.randn(8, 16, 14, 14).astype(np.float32)
+    res = []
+    for ctx in (mx.gpu(0), mx.cpu()):
+        with ctx:
+            data, gamma, beta, mm, mv = [mx.nd.array(v) for v in vals]
+            for x in (data, gamma, beta):
+                x.attach_grad()
+            with mx.autograd.record(train_mode_=train):
+                out = mx.nd.BatchNorm(data, gamma, beta, mm, mv,
+                                      fix_gamma=False, momentum=0.9)
+            out.backward(mx.nd.array(head))
+            assert mm._data.device.type == ctx.device_type.replace(
+                "gpu", "cuda")
+            res.append([a.asnumpy() for a in (out, data.grad, gamma.grad,
+                                              beta.grad, mm, mv)])
+    for c, h in zip(*res):
+        assert _rel_np(c, h) <= 1e-5
+    assert train == (not np.array_equal(res[0][4], vals[3]))
+
+
+@pytest.mark.cuda
+def test_tiny_resnet_step_on_card_matches_cpu(cuda_device):
+    """One SGD step of the cifar ResNet (8 layers, batch 4) on the card
+    against the CPU from the same parameters: probabilities, updated
+    parameters and moving statistics within 1e-4 x max|ref|; the
+    head's kernel pair launched once."""
+    net = mx.models.resnet(num_classes=10, num_layers=8,
+                           image_shape="3,28,28")
+    rs = np.random.RandomState(4)
+    X = rs.uniform(-1, 1, (4, 3, 28, 28)).astype(np.float32)
+    y = rs.randint(0, 10, 4).astype(np.float32)
+    mx.random.seed(4)
+    res = []
+    for ctx in (mx.cpu(), mx.gpu(0)):
+        mod = mx.Module(net, context=ctx)
+        it = mx.io.NDArrayIter(X, y, batch_size=4)
+        mod.bind(it.provide_data, it.provide_label)
+        if not res:
+            mod.init_params(mx.init.Xavier(rnd_type="gaussian",
+                                           factor_type="in", magnitude=2))
+            start = mod.get_params()
+        else:
+            mod.init_params(arg_params=start[0], aux_params=start[1])
+        mod.init_optimizer(optimizer="sgd", optimizer_params={
+            "learning_rate": 0.1, "momentum": 0.9, "wd": 1e-4})
+        before = kernels.launch_counts()
+        mod.forward_backward(next(iter(it)))
+        mod.update()
+        after = kernels.launch_counts()
+        arg, aux = mod.get_params()
+        res.append((mod.get_outputs()[0].asnumpy(),
+                    {k: v.asnumpy() for k, v in arg.items()},
+                    {k: v.asnumpy() for k, v in aux.items()}))
+    assert after["softmax_rows"] - before["softmax_rows"] == 1
+    assert after["xent_grad_from_probs"] - before["xent_grad_from_probs"] == 1
+    (hp, harg, haux), (cp, carg, caux) = res
+    assert _rel_np(cp, hp) <= 1e-4
+    for got, want in ((carg, harg), (caux, haux)):
+        for k, w in want.items():
+            assert _rel_np(got[k], w) <= 1e-4, k

@@ -207,17 +207,6 @@ def case_id(case):
 # The reference's op names the port does not have yet, each with the
 # slice that brings it: ROADMAP.md Queue 1 item 4 lists the same set.
 STILL_TO_PORT = {
-    # ops/sampling.py (20): with Dropout, from the port's generators
-    "_random_exponential", "_random_gamma", "_random_negbinomial",
-    "_random_normal", "_random_poisson", "_random_uniform",
-    "_sample_exponential", "_sample_gamma", "_sample_negbinomial",
-    "_sample_normal", "_sample_poisson", "_sample_uniform", "normal",
-    "random_exponential", "random_gamma", "random_negative_binomial",
-    "random_normal", "random_poisson", "random_uniform", "uniform",
-    # ops/nn.py (12): layers with auxiliary states and the convolutions
-    "BatchNorm", "Convolution", "Convolution_v1", "Deconvolution",
-    "Dropout", "InstanceNorm", "L2Normalization", "LRN", "LeakyReLU",
-    "Pooling", "Pooling_v1", "UpSampling",
     # ops/vision.py (6)
     "BilinearSampler", "Correlation", "Crop", "GridGenerator",
     "ROIPooling", "SpatialTransformer",
@@ -235,10 +224,10 @@ STILL_TO_PORT = {
 
 def test_registry_holds_every_reference_op_but_the_listed_ones():
     ref, port = set(jreg.list_ops()), set(treg.list_ops())
-    assert len(STILL_TO_PORT) == 61
+    assert len(STILL_TO_PORT) == 29
     assert ref - port == STILL_TO_PORT
     assert port - ref == set()
-    assert len(port) == 189
+    assert len(port) == 221
 
 
 def test_roadmap_lists_the_same_ops_still_to_port():
@@ -270,3 +259,4 @@ def test_every_port_op_keeps_the_reference_arguments(name):
     assert top.arguments(ta) == jop.arguments(ja), name
     assert top.num_outputs(ta) == jop.num_outputs(ja), name
     assert top.outputs(ta) == jop.outputs(ja), name
+    assert top.aux_states(ta) == jop.aux_states(ja), name

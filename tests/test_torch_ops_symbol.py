@@ -76,10 +76,15 @@ def _spec(name):
     return [S] * n, attrs
 
 
+def _module_of(op):
+    """The module that defines an op (its ``fstateful`` where it has no
+    ``fcompute``)."""
+    return (op.fcompute or op.fstateful).__module__.rsplit(".", 1)[-1]
+
+
 def _ported_ops():
     return sorted(n for n in treg.list_ops()
-                  if n in _HEADS or treg.get_op(n).fcompute.__module__
-                  .rsplit(".", 1)[-1] in _MODULES)
+                  if n in _HEADS or _module_of(treg.get_op(n)) in _MODULES)
 
 
 def _infer(pkg, name):

@@ -12,6 +12,7 @@ bytes.  Sizes are those of ``tests/test_torch_serving.py``.
 """
 import importlib
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -235,6 +236,47 @@ def _fresh_mm(monkeypatch, module, params, wrap, fresh):
     monkeypatch.setattr(module, "_mm", fake)
 
 
+def _jax_paged_steps(params, tables, steps, fresh=None):
+    """The reference's ``paged_step_apply`` over ``steps`` on int8
+    pools, each step one compiled program with XLA's algebraic
+    simplifier off: no rewrite of its arithmetic (a division by a
+    constant into a product by its reciprocal), so the program computes
+    what the op-by-op eager reference computes, bit for bit (checked on
+    these steps), at one compile a step shape in place of one a
+    primitive and shape.  ``fresh``: the K/V projections' rows a step
+    (name -> list), fed in place of the products.  Returns each step's
+    logits and its pools and scales after it."""
+    real = jlm._mm
+    names = {id(v): k for k, v in params.items()}
+
+    def step(jk, jv, jsk, jsv, tokens, positions, valid, rows):
+        def mm(x, w):
+            name = names.get(id(w))
+            return rows[name] if name in rows else real(x, w)
+
+        jlm._mm = mm
+        try:
+            return jlm.paged_step_apply(params, jk, jv, tables, tokens,
+                                        positions, valid, SPEC, BS,
+                                        scales=(jsk, jsv))
+        finally:
+            jlm._mm = real
+
+    jk, jv = jlm.init_pool(SPEC, NB, BS, dtype="int8")
+    jsk, jsv = jlm.init_scale_pool(SPEC, NB)
+    programs, out = {}, []
+    for i, st in enumerate(steps):
+        args = (jk, jv, jsk, jsv, st["tokens"], st["positions"],
+                st["valid"], {k: v[i] for k, v in (fresh or {}).items()})
+        key = st["tokens"].shape
+        if key not in programs:
+            programs[key] = jax.jit(step).lower(*args).compile(
+                compiler_options={"xla_disable_hlo_passes": "algsimp"})
+        lg, jk, jv, jsk, jsv = programs[key](*args)
+        out.append((np.asarray(lg), (jk, jv, jsk, jsv)))
+    return out
+
+
 def test_requant_bit_identical_to_jax(monkeypatch):
     """Identical fresh K/V rows in both packages (each K/V projection
     replaced by the same arrays): codes and scales of every block but
@@ -255,13 +297,8 @@ def test_requant_bit_identical_to_jax(monkeypatch):
             fresh["blk%d_%s_weight" % (i, w)] = rows
     copy = {k: [a.copy() for a in v] for k, v in fresh.items()}
 
-    _fresh_mm(monkeypatch, jlm, PARAMS, jnp.asarray, fresh)
-    jk, jv = jlm.init_pool(SPEC, NB, BS, dtype="int8")
-    jsk, jsv = jlm.init_scale_pool(SPEC, NB)
-    for st in steps:
-        _, jk, jv, jsk, jsv = jlm.paged_step_apply(
-            PARAMS, jk, jv, tables, st["tokens"], st["positions"],
-            st["valid"], SPEC, BS, scales=(jsk, jsv))
+    _, (jk, jv, jsk, jsv) = _jax_paged_steps(PARAMS, tables, steps,
+                                             fresh)[-1]
 
     tparams = {k: torch.from_numpy(v) for k, v in PARAMS.items()}
     _fresh_mm(monkeypatch, tlm, tparams, torch.from_numpy, copy)
@@ -272,7 +309,7 @@ def test_requant_bit_identical_to_jax(monkeypatch):
                                    st["positions"], st["valid"], SPEC, BS,
                                    scales=(sk, sv))
         assert out[1] is pk and out[3] is sk     # updated in place
-    assert not any(fresh.values()) and not any(copy.values())
+    assert not any(copy.values())
     rows = slice(BS, None)             # every block but the trash block 0
     for got, want in ((pk, jk), (pv, jv)):
         assert got.dtype == torch.int8
@@ -301,17 +338,12 @@ def test_int8_paged_step_matches_jax():
     model = tlm.TransformerLM.from_numpy(
         {k: (v.codes, v.scales) if isinstance(v, jdq.QuantizedWeight)
          else v for k, v in jparams.items()}, SPEC, device="cpu")
-    jk, jv = jlm.init_pool(SPEC, NB, BS, dtype="int8")
-    jsk, jsv = jlm.init_scale_pool(SPEC, NB)
     pk, pv = tlm.init_pool(SPEC, NB, BS, dtype=torch.int8)
     sk, sv = tlm.init_scale_pool(SPEC, NB)
-    for st in steps:
-        jl, jk, jv, jsk, jsv = jlm.paged_step_apply(
-            jparams, jk, jv, tables, st["tokens"], st["positions"],
-            st["valid"], SPEC, BS, scales=(jsk, jsv))
+    for st, (jl, (jk, jv, jsk, jsv)) in zip(
+            steps, _jax_paged_steps(jparams, tables, steps)):
         tl = model(pk, pv, tables, st["tokens"], st["positions"],
                    st["valid"], BS, scales=(sk, sv))[0]
-        jl = np.asarray(jl)
         assert np.abs(tl.numpy() - jl).max() <= 1e-4 * np.abs(jl).max()
         for got, want in ((sk, jsk), (sv, jsv)):
             want = np.asarray(want)[:, :, 1:]
