@@ -257,17 +257,57 @@ sources in this checkout on first use.  Phases, each fatal on failure:
    or, where larger, within 4 x the CPU's own float32 distance from
    float64 (a sum that cancels, such as ``bn0_gamma``'s gradient); each
    kind's worst ratio, and the count of decisions the CPU steps would
-   have taken otherwise.
+   have taken otherwise;
+13b. phase 13 under ``Module(compute_dtype='bfloat16')``, as bench.py's
+   ``train.resnet-50.module_fit`` row runs it: the head's bf16 pair
+   (``softmax_rows_bf16``, ``xent_grad_from_probs_bf16``) once a step
+   and no other kernel, no plain version reached; outputs bf16, every
+   parameter, gradient, momentum and moving statistic float32 on the
+   card; the moving statistics finite and moved, the cross-entropy
+   falling; ms per step, images/s and the ratio to phase 13;
+14b. phase 14 in bf16: the card's bf16 step against the CPU's float64
+   step, both CPU steps (bf16 and float64) replaying the card's
+   decisions; outputs within 2e-2, gradients 5e-2, parameters and
+   moving statistics 1e-2 x max|ref|, or within 4 x the CPU's own
+   bf16-vs-float64 distance where that is larger (16 x for an array of
+   fewer than 64 elements, whose maximum is a poor estimate of bf16's
+   noise); how far the card's distance is from the CPU's, by
+   percentile;
+15. scoring, ``examples/image-classification/benchmark_score.py``'s
+   protocol for alexnet, vgg-16, inception-bn, inception-v3 (3 x 299 x
+   299), resnet-50 and resnet-152: ``Module(label_names=None)`` (its
+   Xavier-initialised ``softmax_label`` parameter ignored by the head),
+   ``bind(for_training=False)``, ``Xavier(magnitude=2.0)``, fp32 with
+   TF32 off, batch 32, two warm-up and ten timed batches; the head's
+   forward kernel once a batch and nothing else; images/s; each network
+   reshaped to batch 2 against the CPU's forward from the same
+   parameters within 1e-4 x max|ref|;
+16. the zoo trains: each of those six and googlenet, resnext-50 and
+   inception-resnet-v2 takes two bf16 ``Module.fit`` steps at batch 8:
+   the loss finite, every parameter and moving statistic moved, the bf16
+   head pair once a step, float32 master arrays;
+17. resume and predict: bf16 ResNet-50 at batch 32, two steps,
+   ``module_checkpoint(..., save_optimizer_states=True)``,
+   ``Module.load(..., load_optimizer_states=True)`` and a third step (at
+   a learning rate the restored update count decays), against the same
+   three steps uninterrupted, taken twice for the card's own
+   run-to-run distance: outputs, parameters, moving statistics and
+   momenta within 2 x that distance of their kind; the ``.states`` file
+   unpickled with pickle and numpy alone; ``predict`` equal to
+   ``iter_predict``'s batches with the padding stripped, and its
+   accuracy equal to ``score``'s.
 
 Phase 5 also times row 10's kernel pair at phase 13's head, 32 x
-1000.  Phase 5 also gives the norm forwards' rows (fp32 and bf16 ``rms_norm``
+1000, and row 10b's bf16 pair at phase 13b's (the registers body,
+one 16-byte load a lane, confirmed from the pointers).  Phase 5 also
+gives the norm forwards' rows (fp32 and bf16 ``rms_norm``
 and ``layer_norm``) ``floor_ms``: the same call on one row, the floor
 of one launch.
 
 ``python3 chip_smoke.py --profile`` adds, after phases 6 and 6b, a
 ``torch.profiler`` window over five training steps of each, and after
-phase 11 one over 100 recommender steps, and after phase 13 one over
-five ResNet-50 steps: device time and launches per
+phase 11 one over 100 recommender steps, and after phases 13 and 13b
+one over five ResNet-50 steps each: device time and launches per
 step, the device's busy share, and the ops with the most device time.
 
 The last lines are a JSON object of per-kernel numbers, the card's name
@@ -280,6 +320,7 @@ import json
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -3348,12 +3389,31 @@ RESNET_STEP_BATCH = 4
 RESNET_STEP_TOL = {"output": 1e-4, "gradient": 1e-3, "parameter": 1e-4,
                    "aux": 1e-4}
 RESNET_STEP_ROUNDING = 4.0
+# phases 13b and 14b: the same under Module(compute_dtype='bfloat16'), as
+# bench.py's train.resnet-50.module_fit row runs it: the head's bf16 pair
+# once a step; phase 14b's bounds are phase 7b's (outputs 2e-2,
+# gradients 5e-2 x max|ref|), 1e-2 for the parameters and moving
+# statistics after the step, or RESNET_STEP_ROUNDING x the CPU's own
+# bf16-vs-float64 distance where that is larger
+RESNET_BF16_LAUNCHES_PER_STEP = {"softmax_rows_bf16": 1,
+                                 "xent_grad_from_probs_bf16": 1}
+RESNET_BF16_STEP_TOL = {"output": 2e-2, "gradient": 5e-2,
+                        "parameter": 1e-2, "aux": 1e-2}
+# phase 14b: the maximum over fewer than RESNET_FEW elements is a poor
+# estimate of bf16's noise (bn_data_beta, 3 elements: the border terms of
+# conv0's data gradient, the rest cancels); such an array is held to
+# RESNET_FEW_ROUNDING x the CPU's own distance.  Over six seeds the card's
+# distance was 1.10-1.89 x the CPU's (10th-90th percentile of 929
+# gradient arrays), at most 3.13 x for 64 elements or more and 4.90 x for
+# bn_data_beta; a noise 1.5 x the CPU's passes 4 x in 7.7% of 3-element
+# arrays, and 16 x in 0.16%
+RESNET_FEW, RESNET_FEW_ROUNDING = 64, 16.0
 
 
-def resnet_module(dev):
+def resnet_module(dev, compute_dtype=None):
     return mx.Module(mx.models.resnet(num_classes=RESNET["num_classes"],
                                       num_layers=RESNET["num_layers"]),
-                     context=dev)
+                     context=dev, compute_dtype=compute_dtype)
 
 
 def resnet_opt():
@@ -3375,7 +3435,7 @@ def synthetic_iter(dev, steps):
                                        max_iter=steps)
 
 
-def phase_resnet(dev, card):
+def phase_resnet(dev, card, compute_dtype=None, step_ms_fp32=None):
     """Phase 13: ResNet-50 (3 x 224 x 224, 1000 classes, batch 32, fp32)
     through ``Module.fit`` on the card for RESNET_STEPS steps, with
     ``fit.py``'s settings (SGD, momentum 0.9, wd 1e-4, lr 0.1,
@@ -3386,17 +3446,24 @@ def phase_resnet(dev, card):
     nothing else does, no wrapper reaches its plain version, the
     cross-entropy on the batch is finite and its mean over the last five
     steps is below the first step's, and every moving statistic is
-    finite and has moved.  Returns the launch counts and ms per step."""
+    finite and has moved.  ``compute_dtype='bfloat16'`` is phase 13b:
+    the head's bf16 pair in place of the fp32 one, the outputs bf16, and
+    every parameter, gradient, momentum and moving statistic float32;
+    its times beside phase 13's (``step_ms_fp32``).  Returns the launch
+    counts and ms per step."""
+    tag = "13b" if compute_dtype else "13"
+    table = (RESNET_BF16_LAUNCHES_PER_STEP if compute_dtype
+             else RESNET_LAUNCHES_PER_STEP)
     mx.random.seed(0)
     it = synthetic_iter(dev, RESNET_STEPS)
-    mod = resnet_module(dev)
+    mod = resnet_module(dev, compute_dtype)
     label = it.label._data.long()
     ce, clock, start = [], {}, {}
 
     def on_batch(param):
         # the loss of this step's forward on the fixed batch; its host
         # fetch synchronises every step
-        p = mod.get_outputs()[0]._data
+        p = mod.get_outputs()[0]._data.float()
         ce.append(float(-torch.log(p[torch.arange(p.shape[0],
                                                   device=p.device),
                                       label]).mean()))
@@ -3418,58 +3485,96 @@ def phase_resnet(dev, card):
     wall = time.perf_counter() - tic
     counts = kernels.launch_counts()
     ex = mod._exec_group.executor
-    on_device(dev, "phase 13 arrays, auxiliary states and momenta",
+    on_device(dev, "phase %s arrays, auxiliary states and momenta" % tag,
               list(zip(ex._arg_names, (a._data for a in ex.arg_arrays))) +
               [(n, g._data) for n, g in ex.grad_dict.items()] +
               [(n, a._data) for n, a in ex.aux_dict.items()] +
               [("momentum of %d" % i, s._data)
                for i, s in mod._updater.states.items()])
     if plain:
-        raise SystemExit("chip_smoke: phase 13 reached plain versions: %s"
-                         % dict(plain))
+        raise SystemExit("chip_smoke: phase %s reached plain versions: %s"
+                         % (tag, dict(plain)))
     want = dict.fromkeys(kernels.KERNELS, 0)
-    want.update({k: v * RESNET_STEPS
-                 for k, v in RESNET_LAUNCHES_PER_STEP.items()})
+    want.update({k: v * RESNET_STEPS for k, v in table.items()})
     if counts != want:
-        raise SystemExit("chip_smoke: phase 13 launches %s, want %s"
-                         % ({k: v for k, v in counts.items() if v},
+        raise SystemExit("chip_smoke: phase %s launches %s, want %s"
+                         % (tag, {k: v for k, v in counts.items() if v},
                             {k: v for k, v in want.items() if v}))
     first, last5 = ce[0], float(np.mean(ce[-5:]))
     if len(ce) != RESNET_STEPS or not np.isfinite(ce).all() or \
             not last5 < first:
-        raise SystemExit("chip_smoke: phase 13 cross-entropy per step %s"
-                         % ce)
+        raise SystemExit("chip_smoke: phase %s cross-entropy per step %s"
+                         % (tag, ce))
     arg, aux = mod.get_params()
     still = [k for k, v in aux.items()
              if not np.isfinite(v.asnumpy()).all() or
              np.array_equal(v.asnumpy(), start[k])]
     if len(aux) != 2 * 51 or still:
-        raise SystemExit("chip_smoke: phase 13 moving statistics not finite "
-                         "or unmoved: %s (of %d)" % (still[:8], len(aux)))
+        raise SystemExit("chip_smoke: phase %s moving statistics not finite "
+                         "or unmoved: %s (of %d)" % (tag, still[:8],
+                                                     len(aux)))
+    if compute_dtype:
+        check_resnet_master_fp32(tag, mod)
     sec = clock[RESNET_STEPS - 1] - clock[RESNET_WARMUP - 1]
     timed = RESNET_STEPS - RESNET_WARMUP
     step_ms = sec * 1e3 / timed
-    log("phase 13 cross-entropy per step: %s"
-        % " ".join("%.4f" % v for v in ce))
-    log("phase 13 ResNet-50 (%d parameters in %d arrays, %d moving "
-        "statistics) trained %d steps at batch %d, %s, fp32 (fit %.2f s with "
+    beside = "" if step_ms_fp32 is None else (
+        "; phase 13 (fp32) %.3f ms per step, %.1f images/s; ratio %.3f"
+        % (step_ms_fp32, RESNET["batch"] * 1e3 / step_ms_fp32,
+           step_ms / step_ms_fp32))
+    log("phase %s cross-entropy per step: %s"
+        % (tag, " ".join("%.4f" % v for v in ce)))
+    log("phase %s ResNet-50 (%d parameters in %d arrays, %d moving "
+        "statistics) trained %d steps at batch %d, %s, %s (fit %.2f s with "
         "bind and init): cross-entropy step 1 %.4f, last 5 %.4f; head "
         "launches per step %s; steps %d..%d: %.3f ms per step, %.1f "
-        "images/s [%s]"
-        % (sum(v.size for v in arg.values()), len(arg), len(aux),
+        "images/s%s [%s]"
+        % (tag, sum(v.size for v in arg.values()), len(arg), len(aux),
            RESNET_STEPS, RESNET["batch"], "x".join(map(str, RESNET["image"])),
-           wall, first, last5, RESNET_LAUNCHES_PER_STEP, RESNET_WARMUP + 1,
-           RESNET_STEPS, step_ms, timed * RESNET["batch"] / sec, card))
+           compute_dtype or "fp32", wall, first, last5, table,
+           RESNET_WARMUP + 1, RESNET_STEPS, step_ms,
+           timed * RESNET["batch"] / sec, beside, card))
     return counts, step_ms
 
 
-def profile_resnet(dev, card, step_ms, warmup=3, steps=5):
+def check_resnet_master_fp32(tag, mod):
+    """A bf16 image module's outputs bf16; its bound parameters,
+    gradients, momenta, moving statistics and ``get_params`` arrays
+    float32."""
+    group = mod._exec_group
+    out = mod.get_outputs()[0]._data
+    if out.dtype != torch.bfloat16:
+        raise SystemExit("chip_smoke: phase %s output is %s" % (tag,
+                                                                out.dtype))
+    arrays = {"parameter " + n: a._data for n, a in
+              zip(group.param_names, group.param_arrays)}
+    arrays.update(("gradient " + n, g._data) for n, g in
+                  zip(group.param_names, group.grad_arrays) if g is not None)
+    arrays.update(("momentum %d" % i, st._data) for i, st in
+                  mod._updater.states.items() if st is not None)
+    arrays.update(("moving statistic " + n, a._data) for n, a in
+                  zip(group.aux_names, group.aux_arrays))
+    arg, aux = mod.get_params()
+    arrays.update(("get_params " + n, a._data) for n, a in
+                  list(arg.items()) + list(aux.items()))
+    wrong = {k: t.dtype for k, t in arrays.items()
+             if t.dtype != torch.float32}
+    if wrong:
+        raise SystemExit("chip_smoke: phase %s master arrays not float32: "
+                         "%s" % (tag, dict(list(wrong.items())[:8])))
+    log("phase %s: outputs bf16; %d parameters, gradients, momenta, moving "
+        "statistics and get_params arrays float32" % (tag, len(arrays)))
+
+
+def profile_resnet(dev, card, step_ms, compute_dtype=None, warmup=3,
+                   steps=5):
     """``--profile``: ``torch.profiler`` over ``steps`` steps of phase 13's
-    fit after ``warmup``: device time, the busy share of phase 13's
-    unprofiled ``step_ms``, the top device ops."""
+    fit (13b's with ``compute_dtype``) after ``warmup``: device time, the
+    busy share of the phase's unprofiled ``step_ms``, the top device
+    ops."""
     mx.random.seed(0)
     it = synthetic_iter(dev, warmup + steps)
-    mod = resnet_module(dev)
+    mod = resnet_module(dev, compute_dtype)
     prof = torch.profiler.profile(activities=[
         torch.profiler.ProfilerActivity.CPU,
         torch.profiler.ProfilerActivity.CUDA])
@@ -3485,7 +3590,8 @@ def profile_resnet(dev, card, step_ms, warmup=3, steps=5):
             initializer=resnet_init(), eval_metric="accuracy",
             batch_end_callback=on_batch)
     window_ms = (clock[warmup + steps - 1] - clock[warmup - 1]) * 1e3 / steps
-    report_profile("13", prof, steps, step_ms, window_ms, card)
+    report_profile("13b" if compute_dtype else "13", prof, steps, step_ms,
+                   window_ms, card)
 
 
 class KinkDecisions:
@@ -3555,7 +3661,8 @@ class KinkDecisions:
                 sum(a.numel() for a in self.pool))
 
 
-def resnet_step(dev, params, aux, X, y, kinks, compute_dtype=None):
+def resnet_step(dev, params, aux, X, y, kinks, compute_dtype=None,
+                tag="14"):
     """One ``forward_backward`` + SGD ``update`` of ResNet-50 on ``dev``
     from ``params`` / ``aux`` on the batch (X, y), its ReLU and max-pool
     decisions recorded into or replayed from ``kinks``: the
@@ -3579,14 +3686,14 @@ def resnet_step(dev, params, aux, X, y, kinks, compute_dtype=None):
     arg, auxs = mod.get_params()
     out.update((("parameter", n), v.asnumpy()) for n, v in arg.items())
     out.update((("aux", n), v.asnumpy()) for n, v in auxs.items())
-    log("phase 14 one %s step on %s (%s decisions): %.2f s" % (
-        compute_dtype or "float32", dev,
+    log("phase %s one %s step on %s (%s decisions): %.2f s" % (
+        tag, compute_dtype or "float32", dev,
         "recorded" if kinks.replay is None else "replayed",
         time.perf_counter() - tic))
     return out
 
 
-def phase_resnet_vs_cpu(dev, card):
+def phase_resnet_vs_cpu(dev, card, compute_dtype=None):
     """Phase 14: one ResNet-50 step at full width, batch 4, on the card
     from the initializer's parameters (gaussian Xavier, BatchNorm's
     gamma 1 and beta 0) and moving statistics, against the CPU's step in
@@ -3602,7 +3709,15 @@ def phase_resnet_vs_cpu(dev, card):
     stopping a whole term; replayed, the three steps differ by rounding
     alone.  Prints each kind's worst ratio to its bound, the arrays
     held to the CPU's own distance, and the count of decisions the CPU
-    steps would have taken otherwise."""
+    steps would have taken otherwise.  ``compute_dtype='bfloat16'`` is
+    phase 14b: the card's and the CPU's bf16 steps, held to
+    ``RESNET_BF16_STEP_TOL`` or to RESNET_STEP_ROUNDING x the CPU's own
+    bf16 distance from its float64 step, as phase 7b holds the LM's
+    (RESNET_FEW_ROUNDING x for an array of fewer than RESNET_FEW
+    elements); it prints how the card's distance compares with the
+    CPU's over the arrays held so."""
+    tag = "14b" if compute_dtype else "14"
+    tols = RESNET_BF16_STEP_TOL if compute_dtype else RESNET_STEP_TOL
     mx.random.seed(14)
     with mx.cpu():
         init = resnet_module(mx.cpu())
@@ -3619,42 +3734,446 @@ def phase_resnet_vs_cpu(dev, card):
     auxs = {k: v.asnumpy() for k, v in aux.items()}
     cpu = torch.device("cpu")
     card_kinks = KinkDecisions()
-    card_out = resnet_step(dev, params, auxs, X, y, card_kinks)
+    card_out = resnet_step(dev, params, auxs, X, y, card_kinks,
+                           compute_dtype, tag)
     cpu32_kinks = KinkDecisions(replay=card_kinks)
-    cpu_out = resnet_step(cpu, params, auxs, X, y, cpu32_kinks)
+    cpu_out = resnet_step(cpu, params, auxs, X, y, cpu32_kinks,
+                          compute_dtype, tag)
     cpu64_kinks = KinkDecisions(replay=card_kinks)
-    cpu64 = resnet_step(cpu, params, auxs, X, y, cpu64_kinks, "float64")
-    worst, rounding = {}, []
+    cpu64 = resnet_step(cpu, params, auxs, X, y, cpu64_kinks, "float64",
+                        tag)
+    worst, rounding, failed, ratios = {}, [], [], []
     for (kind, name), ref in cpu64.items():
         got = card_out[(kind, name)]
-        bound = RESNET_STEP_TOL[kind] * max(float(np.abs(ref).max()), 1e-30)
-        own = RESNET_STEP_ROUNDING * float(np.abs(
-            cpu_out[(kind, name)].astype(np.float64) - ref).max())
+        bound = tols[kind] * max(float(np.abs(ref).max()), 1e-30)
+        times = (RESNET_FEW_ROUNDING if compute_dtype and
+                 ref.size < RESNET_FEW else RESNET_STEP_ROUNDING)
+        cpu_err = float(np.abs(cpu_out[(kind, name)].astype(np.float64) -
+                               ref).max())
+        own = times * cpu_err
         if own > bound:
             bound = own
             rounding.append("%s:%s" % (kind, name))
         err = float(np.abs(got.astype(np.float64) - ref).max())
         if not (np.isfinite(got).all() and err <= bound):
-            raise SystemExit("chip_smoke: phase 14 %s %s: card vs the CPU's "
-                             "float64 step %.3e past %.3e"
-                             % (kind, name, err, bound))
+            failed.append("%s %s (%d elements): %.3e past %.3e" % (
+                kind, name, ref.size, err, bound))
+        if own == bound:
+            ratios.append((err / cpu_err, kind, name, ref.size))
         if err / bound >= worst.get(kind, (0.0, ""))[0]:
             worst[kind] = (err / bound, name)
+    if ratios:
+        r = sorted(ratios)
+        log("phase %s the card's distance from the CPU's float64 step over "
+            "the CPU's own %s distance, %d arrays held to the latter: 10th "
+            "percentile %.3f, median %.3f, 90th %.3f, largest %s [%s]"
+            % (tag, compute_dtype or "float32", len(r),
+               r[len(r) // 10][0], r[len(r) // 2][0], r[len(r) * 9 // 10][0],
+               ", ".join("%.3f (%s %s, %d elements)" % x for x in r[-3:]),
+               card))
+    if failed:
+        raise SystemExit("chip_smoke: phase %s, card vs the CPU's float64 "
+                         "step: %s" % (tag, "; ".join(failed)))
     flips32 = card_kinks.differ(cpu32_kinks)
     flips64 = card_kinks.differ(cpu64_kinks)
-    log("phase 14 ResNet-50 step at batch %d, card vs the CPU's float64 "
+    own = compute_dtype or "float32"
+    log("phase %s ResNet-50 %s step at batch %d, card vs the CPU's float64 "
         "step, both CPU steps on the card's decisions: %d arrays agree; "
         "worst ratio to its bound by kind: %s; %d arrays held to %g x the "
-        "CPU's own float32-vs-float64 distance, larger than their bound: "
-        "%s; decisions the CPU would have taken otherwise: float32 %d of "
+        "CPU's own %s-vs-float64 distance%s, larger than their bound: "
+        "%s; decisions the CPU would have taken otherwise: %s %d of "
         "%d ReLU inputs and %d of %d max-pool windows, float64 %d and %d "
         "[%s]"
-        % (RESNET_STEP_BATCH, len(cpu64), "; ".join(
+        % (tag, own, RESNET_STEP_BATCH, len(cpu64), "; ".join(
             "%s %.3f (%s, bound %g x max|ref|)" % (
-                k, worst[k][0], worst[k][1], RESNET_STEP_TOL[k])
+                k, worst[k][0], worst[k][1], tols[k])
             for k in sorted(worst)), len(rounding), RESNET_STEP_ROUNDING,
-            " ".join(rounding[:12]), flips32[0], flips32[1], flips32[2],
-            flips32[3], flips64[0], flips64[2], card))
+            own, " (%g x under %d elements)" % (
+                RESNET_FEW_ROUNDING, RESNET_FEW) if compute_dtype else "",
+            " ".join(rounding[:12]), own, flips32[0], flips32[1],
+            flips32[2], flips32[3], flips64[0], flips64[2], card))
+
+
+# ---------------------------------------------------------------------------
+# phases 15-17: the image-classification user's path: scoring the zoo
+# (examples/image-classification/benchmark_score.py's protocol), the zoo
+# training in bf16, and a bf16 ResNet-50 run checkpointed with its
+# optimizer state, resumed, and used to predict
+# ---------------------------------------------------------------------------
+# (label, builder, its arguments, image shape): benchmark_score.py's
+# networks, then the rest of the zoo
+SCORE_NETS = (("alexnet", "alexnet", {}, (3, 224, 224)),
+              ("vgg-16", "vgg", {"num_layers": 16}, (3, 224, 224)),
+              ("inception-bn", "inception_bn", {}, (3, 224, 224)),
+              ("inception-v3", "inception_v3", {}, (3, 299, 299)),
+              ("resnet-50", "resnet", {"num_layers": 50}, (3, 224, 224)),
+              ("resnet-152", "resnet", {"num_layers": 152}, (3, 224, 224)))
+ZOO_NETS = SCORE_NETS + (
+    ("googlenet", "googlenet", {}, (3, 224, 224)),
+    ("resnext-50", "resnext", {"num_layers": 50}, (3, 224, 224)),
+    ("inception-resnet-v2", "inception_resnet_v2", {}, (3, 299, 299)))
+SCORE_BATCH, SCORE_WARMUP, SCORE_BATCHES = 32, 2, 10
+# phase 15's card forward at batch 2 against the CPU's, of max|ref|
+SCORE_CHECK_BATCH, SCORE_TOL = 2, 1e-4
+# phase 16: two bf16 fit steps of each network at batch 8, fit.py's
+# settings at a hundredth of its learning rate: from the He-scaled start
+# the nets without BatchNorm have logits of 10-15 nats, and one step at
+# 0.01 took AlexNet's cross-entropy from 10.4 to 69 (batch 2, CPU)
+ZOO_BATCH, ZOO_STEPS = 8, 2
+ZOO_OPT = {"learning_rate": 0.001, "momentum": 0.9, "wd": 1e-4}
+# phase 17: bf16 ResNet-50 at batch 32, RESUME_K steps, a checkpoint with
+# the optimizer state, then one more step; the learning rate drops
+# tenfold after update RESUME_K, so a resumed run that lost the update
+# count takes its step at the wrong rate
+RESUME_K = 2
+RESUME_PREDICT_ROWS, RESUME_SCORE_ROWS = 40, 64
+
+
+def zoo_symbol(builder, kwargs):
+    return getattr(mx.models, builder)(num_classes=1000, **kwargs)
+
+
+def head_probs(mod):
+    return mod.get_outputs()[0]._data.float()
+
+
+def phase_score(dev, card):
+    """Phase 15: ``benchmark_score.py`` on the card for SCORE_NETS:
+    ``Module(label_names=None)`` (``softmax_label`` becomes a parameter,
+    which Xavier initialises and the eval forward ignores),
+    ``bind(for_training=False)``, ``Xavier(magnitude=2.0)``, fp32 with
+    TF32 off, batch 32, two warm-up batches, then ten timed between
+    host fetches of the output.  Fatal unless the head's forward kernel
+    launches once a batch and nothing else does, no plain version runs,
+    the probabilities are finite rows that sum to 1, and the module
+    reshaped to batch 2 gives, on the first two images, the CPU
+    module's probabilities from the same parameters within SCORE_TOL x
+    max|ref|.  Returns the launch counts and images/s by network."""
+    cpu = torch.device("cpu")
+    kernels.reset_launch_counts()
+    rates, total = {}, dict.fromkeys(kernels.KERNELS, 0)
+    for label, builder, kwargs, shape in SCORE_NETS:
+        mx.random.seed(15)
+        mod = mx.Module(zoo_symbol(builder, kwargs), context=dev,
+                        label_names=None)
+        mod.bind(data_shapes=[("data", (SCORE_BATCH,) + shape)],
+                 for_training=False)
+        mod.init_params(initializer=mx.init.Xavier(magnitude=2.0))
+        arg, aux = mod.get_params()
+        if not np.abs(arg["softmax_label"].asnumpy()).max() > 0:
+            raise SystemExit("chip_smoke: phase 15 %s: softmax_label was "
+                             "not initialised as a parameter" % label)
+        rs = np.random.RandomState(0)
+        X = rs.uniform(-1, 1, (SCORE_BATCH,) + shape).astype(np.float32)
+        batch = mx.io.DataBatch(data=[mx.nd.array(X, ctx=dev)], label=[])
+        kernels.reset_launch_counts()
+        with plain_guard() as plain:
+            for _ in range(SCORE_WARMUP):
+                mod.forward(batch, is_train=False)
+            mod.get_outputs()[0].asnumpy()
+            tic = time.perf_counter()
+            for _ in range(SCORE_BATCHES):
+                mod.forward(batch, is_train=False)
+            probs = mod.get_outputs()[0].asnumpy()
+            sec = time.perf_counter() - tic
+            mod.reshape([("data", (SCORE_CHECK_BATCH,) + shape)])
+            mod.forward(mx.io.DataBatch(data=[mx.nd.array(
+                X[:SCORE_CHECK_BATCH], ctx=dev)], label=[]), is_train=False)
+            got = mod.get_outputs()[0].asnumpy()
+        counts = kernels.launch_counts()
+        want = dict.fromkeys(kernels.KERNELS, 0)
+        want["softmax_rows"] = SCORE_WARMUP + SCORE_BATCHES + 1
+        if plain or counts != want:
+            raise SystemExit("chip_smoke: phase 15 %s launches %s, plain %s"
+                             % (label, {k: v for k, v in counts.items()
+                                        if v}, dict(plain)))
+        if probs.shape != (SCORE_BATCH, 1000) or \
+                not np.isfinite(probs).all() or \
+                np.abs(probs.sum(axis=1) - 1).max() > 1e-4:
+            raise SystemExit("chip_smoke: phase 15 %s probabilities %s"
+                             % (label, probs.shape))
+        ref_mod = mx.Module(zoo_symbol(builder, kwargs), context=cpu,
+                            label_names=None)
+        ref_mod.bind(data_shapes=[("data", (SCORE_CHECK_BATCH,) + shape)],
+                     for_training=False)
+        ref_mod.set_params({k: v for k, v in arg.items()
+                            if k != "softmax_label"}, aux,
+                           allow_missing=True)
+        ref_mod.forward(mx.io.DataBatch(data=[mx.nd.array(
+            X[:SCORE_CHECK_BATCH], ctx=cpu)], label=[]), is_train=False)
+        ref = ref_mod.get_outputs()[0].asnumpy()
+        rel = float(np.abs(got - ref).max() / np.abs(ref).max())
+        if not rel <= SCORE_TOL:
+            raise SystemExit("chip_smoke: phase 15 %s: the card's forward at "
+                             "batch %d %.3e x max|ref| from the CPU's"
+                             % (label, SCORE_CHECK_BATCH, rel))
+        for k, v in counts.items():
+            total[k] += v
+        rates[label] = SCORE_BATCHES * SCORE_BATCH / sec
+        log("phase 15 scoring %s (%d parameters, %s): %.1f images/s at "
+            "batch %d, fp32 (%d timed batches); the card's forward at batch "
+            "%d %.3e x max|ref| from the CPU's (tol %g); head forward "
+            "launches %d [%s]"
+            % (label, sum(v.size for k, v in arg.items()
+                          if k != "softmax_label"),
+               "x".join(map(str, shape)), rates[label], SCORE_BATCH,
+               SCORE_BATCHES, SCORE_CHECK_BATCH, rel, SCORE_TOL,
+               counts["softmax_rows"], card))
+        del mod, ref_mod
+    return total, rates
+
+
+def phase_zoo_train(dev, card):
+    """Phase 16: every network of ZOO_NETS takes ZOO_STEPS bf16
+    ``Module.fit`` steps at batch ZOO_BATCH on random images from seed
+    16 (gaussian Xavier, SGD with ZOO_OPT).  Fatal unless the
+    cross-entropy of each step is finite, every parameter and every
+    moving statistic has moved, the head's bf16 pair launches once a
+    step and nothing else does, and no plain version runs.  Returns the
+    launch counts."""
+    total = dict.fromkeys(kernels.KERNELS, 0)
+    for label, builder, kwargs, shape in ZOO_NETS:
+        rs = np.random.RandomState(16)
+        X = rs.uniform(-1, 1, (ZOO_STEPS * ZOO_BATCH,) + shape).astype(
+            np.float32)
+        y = rs.randint(0, 1000, ZOO_STEPS * ZOO_BATCH).astype(np.float32)
+        it = mx.io.NDArrayIter(X, y, batch_size=ZOO_BATCH)
+        mx.random.seed(16)
+        mod = mx.Module(zoo_symbol(builder, kwargs), context=dev,
+                        compute_dtype="bfloat16")
+        mod.bind(it.provide_data, it.provide_label)
+        mod.init_params(resnet_init())
+        arg0, aux0 = ({k: v.asnumpy() for k, v in d.items()}
+                      for d in mod.get_params())
+        ce = []
+
+        def on_batch(param):
+            p = head_probs(mod)
+            lbl = torch.as_tensor(y[param.nbatch * ZOO_BATCH:
+                                    (param.nbatch + 1) * ZOO_BATCH],
+                                  device=p.device).long()
+            ce.append(float(-torch.log(p[torch.arange(ZOO_BATCH,
+                                                      device=p.device),
+                                         lbl]).mean()))
+
+        kernels.reset_launch_counts()
+        tic = time.perf_counter()
+        with plain_guard() as plain:
+            mod.fit(it, num_epoch=1, optimizer="sgd",
+                    optimizer_params=ZOO_OPT, eval_metric="accuracy",
+                    batch_end_callback=on_batch)
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - tic
+        counts = kernels.launch_counts()
+        want = dict.fromkeys(kernels.KERNELS, 0)
+        want.update({k: v * ZOO_STEPS
+                     for k, v in RESNET_BF16_LAUNCHES_PER_STEP.items()})
+        if plain or counts != want:
+            raise SystemExit("chip_smoke: phase 16 %s launches %s, plain %s"
+                             % (label, {k: v for k, v in counts.items()
+                                        if v}, dict(plain)))
+        check_resnet_master_fp32("16 " + label, mod)
+        arg, aux = mod.get_params()
+        still = [k for k, v in list(arg.items()) + list(aux.items())
+                 if np.array_equal(v.asnumpy(), arg0.get(k, aux0.get(k)))]
+        bad = [k for k, v in list(arg.items()) + list(aux.items())
+               if not np.isfinite(v.asnumpy()).all()]
+        if len(ce) != ZOO_STEPS or not np.isfinite(ce).all() or still or \
+                bad:
+            raise SystemExit("chip_smoke: phase 16 %s: cross-entropy %s; "
+                             "unmoved %s; not finite %s"
+                             % (label, ce, still[:8], bad[:8]))
+        for k, v in counts.items():
+            total[k] += v
+        log("phase 16 %s (%s) took %d bf16 fit steps at batch %d: "
+            "cross-entropy %s; %d parameters and %d moving statistics all "
+            "moved; head launches %s; %.2f s with bind and init [%s]"
+            % (label, "x".join(map(str, shape)), ZOO_STEPS, ZOO_BATCH,
+               " ".join("%.4f" % c for c in ce), len(arg), len(aux),
+               {k: v for k, v in counts.items() if v}, wall, card))
+        del mod
+    return total
+
+
+def resume_data():
+    """RESUME_K + 1 training batches and RESUME_SCORE_ROWS labelled
+    images to predict and score, from seed 17."""
+    rs = np.random.RandomState(17)
+    n = (RESUME_K + 1) * RESNET["batch"]
+    X = rs.uniform(-1, 1, (n,) + RESNET["image"]).astype(np.float32)
+    y = rs.randint(0, RESNET["num_classes"], n).astype(np.float32)
+    P = rs.uniform(-1, 1, (RESUME_SCORE_ROWS,) + RESNET["image"]).astype(
+        np.float32)
+    q = rs.randint(0, RESNET["num_classes"],
+                   RESUME_SCORE_ROWS).astype(np.float32)
+    return X, y, P, q
+
+
+def resume_opt():
+    return dict(RESNET_OPT, lr_scheduler=mx.lr_scheduler.MultiFactorScheduler(
+        step=[RESUME_K], factor=0.1))
+
+
+def resume_state(mod):
+    """The module's outputs, parameters, moving statistics and momenta,
+    as numpy by kind and name."""
+    out = {("output", "probabilities"): mod.get_outputs()[0].asnumpy()}
+    arg, aux = mod.get_params()
+    out.update((("parameter", n), v.asnumpy()) for n, v in arg.items())
+    out.update((("aux", n), v.asnumpy()) for n, v in aux.items())
+    out.update((("momentum", str(i)), s.asnumpy())
+               for i, s in mod._updater.states.items())
+    return out
+
+
+def resume_fit(mod, X, y, begin, end, epoch=0, callbacks=()):
+    """``fit`` over batches ``begin`` to ``end`` of (X, y) as epoch
+    ``epoch``, with phase 17's optimizer."""
+    b = RESNET["batch"]
+    it = mx.io.NDArrayIter(X[begin * b:end * b], y[begin * b:end * b],
+                           batch_size=b)
+    mod.fit(it, begin_epoch=epoch, num_epoch=epoch + 1, optimizer="sgd",
+            optimizer_params=resume_opt(), eval_metric="accuracy",
+            epoch_end_callback=list(callbacks))
+
+
+def states_are_numpy(fname):
+    """Unpickle a ``.states`` file in a fresh interpreter that cannot
+    import torch, and walk it: True when it holds only the v2 envelope's
+    dicts, tuples, numbers, None and numpy arrays."""
+    code = (
+        "import pickle, sys\n"
+        "sys.modules['torch'] = None\n"
+        "import numpy as np\n"
+        "obj = pickle.load(open(sys.argv[1], 'rb'))\n"
+        "def ok(v):\n"
+        "    if isinstance(v, dict):\n"
+        "        return all(ok(k) and ok(x) for k, x in v.items())\n"
+        "    if isinstance(v, (tuple, list)):\n"
+        "        return all(ok(x) for x in v)\n"
+        "    return v is None or isinstance(v, (int, float, str, np.ndarray,"
+        " np.generic))\n"
+        "assert obj['__updater_format__'] == 2 and ok(obj)\n"
+        "print(len(obj['states']), obj['num_update'])\n")
+    res = subprocess.run([sys.executable, "-c", code, fname],
+                         capture_output=True, text=True, timeout=120)
+    return res.returncode == 0, (res.stdout + res.stderr).strip()
+
+
+def phase_resume(dev, card, workdir):
+    """Phase 17: bf16 ResNet-50 at batch 32 from one Xavier start,
+    uninterrupted for RESUME_K + 1 fit steps (twice: cuDNN's backward
+    convolutions need not be deterministic, and the two runs measure
+    the card's own run-to-run distance), and interrupted: RESUME_K steps,
+    ``module_checkpoint(..., save_optimizer_states=True)``,
+    ``Module.load(..., load_optimizer_states=True)``, ``fit(begin_epoch=
+    RESUME_K)`` over the last batch.  Fatal unless the interrupted run's
+    outputs, parameters, moving statistics and momenta equal the first
+    uninterrupted run's within 2 x the worst run-to-run distance of
+    their kind (of each array's max|ref|; bit for bit where the two
+    uninterrupted runs are), the ``.states`` file unpickles with pickle
+    and numpy alone, holding no torch object, and on the resumed module
+    ``predict`` equals ``iter_predict``'s batches (the padding rows
+    stripped, RESUME_PREDICT_ROWS rows in batches of 32) and, over
+    RESUME_SCORE_ROWS rows, the accuracy of ``predict``'s outputs equals
+    ``score``'s.  Returns the launch counts."""
+    X, y, P, q = resume_data()
+    mx.random.seed(17)
+    with mx.cpu():
+        init = resnet_module(mx.cpu())
+        init.bind([("data", (RESNET["batch"],) + RESNET["image"])],
+                  [("softmax_label", (RESNET["batch"],))])
+        init.init_params(resnet_init())
+        arg0, aux0 = init.get_params()
+    start = dict(arg_params={k: v.asnumpy() for k, v in arg0.items()},
+                 aux_params={k: v.asnumpy() for k, v in aux0.items()})
+    kernels.reset_launch_counts()
+    runs = []
+    with plain_guard() as plain:
+        for _ in range(2):
+            mod = resnet_module(dev, "bfloat16")
+            mod.bind([("data", (RESNET["batch"],) + RESNET["image"])],
+                     [("softmax_label", (RESNET["batch"],))])
+            mod.init_params(**start)
+            resume_fit(mod, X, y, 0, RESUME_K + 1)
+            runs.append(resume_state(mod))
+        prefix = "%s/resnet50" % workdir
+        mod = resnet_module(dev, "bfloat16")
+        mod.bind([("data", (RESNET["batch"],) + RESNET["image"])],
+                 [("softmax_label", (RESNET["batch"],))])
+        mod.init_params(**start)
+        resume_fit(mod, X, y, 0, RESUME_K, callbacks=[
+            mx.callback.module_checkpoint(mod, prefix,
+                                          save_optimizer_states=True)])
+        saved = {str(i): s.asnumpy() for i, s in mod._updater.states.items()}
+        mod = mx.Module.load(prefix, 1, load_optimizer_states=True,
+                             context=dev, compute_dtype="bfloat16")
+        resume_fit(mod, X, y, RESUME_K, RESUME_K + 1, epoch=1)
+        resumed = resume_state(mod)
+        torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    want = dict.fromkeys(kernels.KERNELS, 0)
+    want.update({k: v * 3 * (RESUME_K + 1)
+                 for k, v in RESNET_BF16_LAUNCHES_PER_STEP.items()})
+    if plain or counts != want:
+        raise SystemExit("chip_smoke: phase 17 launches %s, plain %s"
+                         % ({k: v for k, v in counts.items() if v},
+                            dict(plain)))
+    ok, said = states_are_numpy("%s-0001.states" % prefix)
+    if not ok:
+        raise SystemExit("chip_smoke: phase 17 .states file: %s" % said)
+    with open("%s-0001.states" % prefix, "rb") as f:
+        states, counts_saved, num_update = \
+            mx.optimizer.unpack_updater_states(f.read())
+    if num_update != RESUME_K or any(
+            not np.array_equal(states[int(i)], v) for i, v in saved.items()):
+        raise SystemExit("chip_smoke: phase 17 .states file holds num_update "
+                         "%s and other momenta than the run's" % num_update)
+    a, b = runs
+    noise = collections.defaultdict(float)
+    for key, ref in a.items():
+        scale = max(float(np.abs(ref).max()), 1e-30)
+        noise[key[0]] = max(noise[key[0]],
+                            float(np.abs(b[key] - ref).max()) / scale)
+    worst = collections.defaultdict(lambda: (0.0, ""))
+    for key, ref in a.items():
+        got = resumed[key]
+        scale = max(float(np.abs(ref).max()), 1e-30)
+        rel = float(np.abs(got - ref).max()) / scale
+        if not (np.isfinite(got).all() and rel <= 2 * noise[key[0]]):
+            raise SystemExit("chip_smoke: phase 17 resumed %s %s %.3e x "
+                             "max|ref| from the uninterrupted run's; the "
+                             "card's run-to-run distance %.3e"
+                             % (key[0], key[1], rel, noise[key[0]]))
+        worst[key[0]] = max(worst[key[0]], (rel, key[1]))
+    it = mx.io.NDArrayIter(P[:RESUME_PREDICT_ROWS], q[:RESUME_PREDICT_ROWS],
+                           batch_size=RESNET["batch"])
+    pred = mod.predict(it).asnumpy()
+    parts = [outs[0].asnumpy() for outs, _, _ in mod.iter_predict(it)]
+    whole = mx.io.NDArrayIter(P, q, batch_size=RESNET["batch"])
+    pred64 = mod.predict(whole).asnumpy()
+    acc = dict(mod.score(whole, "acc"))["accuracy"]
+    mine = float((pred64.argmax(axis=1) == q).mean())
+    if pred.shape != (RESUME_PREDICT_ROWS, RESNET["num_classes"]) or \
+            not np.array_equal(pred, np.concatenate(parts)) or \
+            abs(acc - mine) > 1e-12:
+        raise SystemExit("chip_smoke: phase 17 predict %s vs iter_predict "
+                         "%s; score %s vs predict's accuracy %s" % (
+                             pred.shape, [p.shape for p in parts], acc,
+                             mine))
+    log("phase 17 bf16 ResNet-50 resumed after %d steps (module_checkpoint "
+        "with optimizer states, Module.load(load_optimizer_states=True), "
+        "num_update %d restored): step %d against the uninterrupted run's, "
+        "worst of each kind %s (bound 2 x the card's run-to-run distance: "
+        "%s); .states file unpickled without torch (%s); predict of %d rows "
+        "equals iter_predict's %d batches (the padding stripped); over %d "
+        "rows predict's accuracy %.4f equals score's [%s]"
+        % (RESUME_K, num_update, RESUME_K + 1, "; ".join(
+            "%s %.3e (%s)" % (k, v[0], v[1]) for k, v in sorted(
+                worst.items())), "; ".join(
+            "%s %.3e" % kv for kv in sorted(noise.items())), said,
+            RESUME_PREDICT_ROWS, len(parts), len(q), acc, card))
+    return counts
 
 
 def time_ms(fn, n=60, flush=None):
@@ -4172,6 +4691,48 @@ def resnet_head_rows(dev, card, entries):
         lambda: softmax_xent.xent_grad_from_probs_reference(p, label, scale),
         None, 4 * (2 * n + rows), 2 * n, errs["xent_grad_from_probs"],
         card))
+    # row 10b: the bf16 pair at phase 13b's head (bf16 logits, p and
+    # gradient, float32 labels), held to one bf16 ulp of max|ref|; 1000
+    # classes on 16-byte aligned rows take the registers body with one
+    # 16-byte load a lane (the .cu's bf16_row_loads, mirrored)
+    xb = logits.to(torch.bfloat16)
+    pb = softmax_xent.softmax_rows(xb)
+    loads = bf16_row_loads(classes, xb, pb)
+    if loads != 1:
+        raise SystemExit("chip_smoke: softmax_rows_bf16 at %d x %d takes %d "
+                         "loads a lane, not the registers body's one"
+                         % (rows, classes, loads))
+    shape_b = "rows=%d classes=%d bf16 (phase 13b's head; registers body, " \
+        "%d 16-byte load a lane)" % (rows, classes, loads)
+    for name, got, want in (
+            ("softmax_rows_bf16", pb,
+             softmax_xent.softmax_rows_reference(xb)),
+            ("xent_grad_from_probs_bf16",
+             softmax_xent.xent_grad_from_probs(pb, label, scale),
+             softmax_xent.xent_grad_from_probs_reference(pb, label, scale))):
+        errs[name] = agree_bf16(name, shape_b, got, want)
+    entries["softmax_rows_bf16"].append(timed_row(
+        "softmax_rows_bf16", shape_b, lambda: softmax_xent.softmax_rows(xb),
+        lambda: softmax_xent.softmax_rows_reference(xb),
+        lambda: torch.softmax(xb, -1), 2 * 2 * n, 5 * n,
+        errs["softmax_rows_bf16"], card, bf16=True))
+    entries["xent_grad_from_probs_bf16"].append(timed_row(
+        "xent_grad_from_probs_bf16", shape_b,
+        lambda: softmax_xent.xent_grad_from_probs(pb, label, scale),
+        lambda: softmax_xent.xent_grad_from_probs_reference(pb, label,
+                                                            scale),
+        None, 2 * 2 * n + 4 * rows, 2 * n, errs["xent_grad_from_probs_bf16"],
+        card, bf16=True))
+
+
+def bf16_row_loads(cols, *tensors):
+    """The 16-byte loads a lane of the bf16 registers kernels makes on
+    rows of ``cols`` at ``tensors`` (``bf16_row_loads`` of
+    ``csrc/softmax_xent.cu``: 8 elements a load, 256 threads, at most 4
+    loads, every base 16-byte aligned), or 0 where the scalar body runs."""
+    loads = (cols // 8 + 255) // 256
+    aligned = cols % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in tensors)
+    return loads if cols % 8 == 0 and loads <= 4 and aligned else 0
 
 
 def bf16_train_rows(dev, card, errs, t, entries):
@@ -4322,6 +4883,8 @@ def kernel_rows(entries, counts):
                 IMPERATIVE_BF16_LAUNCHES_PER_STEP.get(name, 0),
             "resnet_launches_per_step":
                 RESNET_LAUNCHES_PER_STEP.get(name, 0),
+            "resnet_bf16_launches_per_step":
+                RESNET_BF16_LAUNCHES_PER_STEP.get(name, 0),
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             "ms": head["ms"], "plain_ms": head["plain_ms"],
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
@@ -4397,6 +4960,15 @@ def main(argv):
     if argv:
         profile_resnet(dev, card, step_ms_rn)
     phase_resnet_vs_cpu(dev, card)
+    counts["resnet_bf16"], step_ms_rn16 = phase_resnet(dev, card, "bfloat16",
+                                                       step_ms_rn)
+    if argv:
+        profile_resnet(dev, card, step_ms_rn16, "bfloat16")
+    phase_resnet_vs_cpu(dev, card, "bfloat16")
+    counts["score"], score_rates = phase_score(dev, card)
+    counts["zoo"] = phase_zoo_train(dev, card)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
+        counts["resume"] = phase_resume(dev, card, workdir)
     pa_shapes, fa_shapes = collections.Counter(), collections.Counter()
     for tag in ("3", "3b", "3d"):
         pa_shapes.update(served[tag]["pa_shapes"])
@@ -4414,6 +4986,9 @@ def main(argv):
                       ("3ga", "paged fp32, adversarial draft")):
         log("phase 5 engine %s: %.1f generated tokens/s at full width [%s]"
             % (what, served[tag]["tok_s"], card))
+    log("phase 15 scoring images/s at batch %d, fp32: %s [%s]"
+        % (SCORE_BATCH, "; ".join("%s %.1f" % kv
+                                  for kv in score_rates.items()), card))
     print(json.dumps({"kernels": kern}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -67,8 +67,8 @@ plain PyTorch versions on a CPU tensor; ``mx.rtc.CudaKernel`` compiles
 and launches a user's CUDA source on NDArrays.
 """
 from . import (autograd, callback, contrib, engine, initializer, io, kernels,
-               lr_scheduler, metric, models, ndarray, optimizer, random, rtc,
-               symbol)
+               lr_scheduler, metric, model, models, ndarray, optimizer,
+               random, rtc, symbol)
 from . import module
 from .base import MXNetError
 from .context import Context, cpu, current_context, gpu
@@ -83,7 +83,7 @@ mod = module
 
 __all__ = ["MXNetError", "ModelRegistry", "GenerationEngine", "TokenStream",
            "transformer_lm", "kernels", "models", "symbol", "sym", "ndarray",
-           "nd", "io", "initializer", "init", "metric", "optimizer",
+           "nd", "io", "initializer", "init", "metric", "optimizer", "model",
            "lr_scheduler", "callback",
            "random", "module", "mod", "Module", "cpu", "gpu", "autograd",
            "contrib", "rtc", "engine", "Context", "current_context"]

@@ -8,11 +8,13 @@ they are documented in ``docs/port/env_vars.md``.
 """
 from __future__ import annotations
 
+import contextlib
+import itertools
 import os
 import threading
 
 __all__ = ["MXNetError", "EnvVar", "env_registry", "register_env",
-           "get_env"]
+           "get_env", "atomic_write"]
 
 
 class MXNetError(Exception):
@@ -125,3 +127,27 @@ register_env("MXNET_SERVE_MAX_INFLIGHT", int, 0,
              "Admission budget of a generation engine: accepted but "
              "unresolved requests beyond it are shed with "
              "ServeOverloaded.  0 = unbounded.")
+
+
+_ATOMIC_WRITE_SEQ = itertools.count()
+
+
+@contextlib.contextmanager
+def atomic_write(path, mode="wb"):
+    """Yield a handle onto a temporary file beside ``path``; on success
+    it is flushed, fsynced and renamed over ``path``, so a reader never
+    sees a half-written checkpoint and a crash keeps the old one.  The
+    temporary name is unique per write (process id and a counter)."""
+    tmp = "%s.tmp%d.%d" % (path, os.getpid(), next(_ATOMIC_WRITE_SEQ))
+    f = open(tmp, mode)
+    try:
+        yield f
+        f.flush()
+        os.fsync(f.fileno())
+    except BaseException:
+        f.close()
+        with contextlib.suppress(OSError):
+            os.remove(tmp)
+        raise
+    f.close()
+    os.replace(tmp, path)

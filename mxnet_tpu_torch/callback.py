@@ -12,8 +12,6 @@ from __future__ import annotations
 import logging
 import time
 
-from .base import MXNetError
-
 __all__ = ["do_checkpoint", "module_checkpoint", "log_train_metric",
            "Speedometer"]
 
@@ -27,24 +25,22 @@ def _log_metric(prefix_fmt, prefix_args, metric, reset=False):
 
 
 def module_checkpoint(mod, prefix, period=1, save_optimizer_states=False):
-    """Epoch-end callback: ``mod.save_checkpoint(prefix, epoch + 1)``
-    every ``period`` epochs.  The port does not save optimizer states
-    yet, and refuses to be asked to."""
-    if save_optimizer_states:
-        raise MXNetError("the port's Module does not save optimizer states "
-                         "yet")
+    """Epoch-end callback: ``mod.save_checkpoint(prefix, epoch + 1,
+    save_optimizer_states)`` every ``period`` epochs; resume with
+    ``Module.load(prefix, epoch, load_optimizer_states=True)`` or
+    ``Module.load_latest``."""
     period = max(1, int(period))
 
     def _callback(iter_no, sym=None, arg=None, aux=None):
         if (iter_no + 1) % period == 0:
-            mod.save_checkpoint(prefix, iter_no + 1)
+            mod.save_checkpoint(prefix, iter_no + 1, save_optimizer_states)
     return _callback
 
 
 def do_checkpoint(prefix, period=1):
     """Epoch-end callback writing ``(symbol, arg_params, aux_params)``
     as a checkpoint of epoch ``iter_no + 1`` every ``period`` epochs."""
-    from .module.module import save_checkpoint
+    from .model import save_checkpoint
     period = max(1, int(period))
 
     def _callback(iter_no, sym, arg, aux):

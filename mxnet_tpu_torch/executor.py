@@ -207,6 +207,37 @@ class Executor:
         """Auxiliary states by name."""
         return dict(zip(self._aux_names, self.aux_arrays))
 
+    def reshape(self, partial_shaping=False, allow_up_sizing=False,
+                **kwargs):
+        """A new executor at the input shapes ``kwargs``: arguments,
+        gradients and auxiliary states whose shapes stay are shared with
+        this one, the others are zeros.  An argument not named in
+        ``kwargs`` may change shape only with ``partial_shaping``.
+        ``allow_up_sizing`` is MXNet's, and has nothing to allow here:
+        no memory pool is shared, so any size is allocated anew."""
+        from . import ndarray as nd
+        arg_shapes, _, aux_shapes = self._symbol.infer_shape_partial(
+            **kwargs)
+
+        def _same_or_new(cur, shape, name=None):
+            if shape is None or tuple(shape) == cur.shape:
+                return cur
+            if name is not None and not (partial_shaping or name in kwargs):
+                raise MXNetError("argument %s changes shape without "
+                                 "partial_shaping" % name)
+            return nd.zeros(shape, self._ctx, dtype=str(cur.dtype))
+
+        args, grads = [], {}
+        for name, cur, g, shape in zip(self._arg_names, self.arg_arrays,
+                                       self.grad_arrays, arg_shapes):
+            args.append(_same_or_new(cur, shape, name))
+            if g is not None:
+                grads[name] = _same_or_new(g, shape)
+        aux = [_same_or_new(cur, shape)
+               for cur, shape in zip(self.aux_arrays, aux_shapes)]
+        return Executor(self._symbol, self._ctx, args, grads, self.grad_req,
+                        self._compute_dtype, self._keep_dtype, aux)
+
     def copy_params_from(self, arg_params, aux_params=None,
                          allow_extra_params=False):
         """Copy named values into the bound argument and auxiliary

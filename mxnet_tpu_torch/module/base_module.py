@@ -1,13 +1,17 @@
 """The module API contract and the training loop (counterpart of
-``mxnet_tpu/module/base_module.py``): ``fit`` and ``score`` on top of
-``bind`` / ``init_params`` / ``init_optimizer`` / ``forward`` /
-``backward`` / ``update``, which concrete modules provide."""
+``mxnet_tpu/module/base_module.py``): ``fit``, ``score``,
+``iter_predict`` and ``predict`` on top of ``bind`` / ``init_params`` /
+``init_optimizer`` / ``forward`` / ``backward`` / ``update``, which
+concrete modules provide."""
 from __future__ import annotations
 
 import logging
 import time
 
+import numpy as np
+
 from .. import metric as metric_mod
+from .. import ndarray as nd
 
 __all__ = ["BaseModule", "BatchEndParam"]
 
@@ -59,14 +63,16 @@ class BaseModule:
                          force_init=force_init)
 
     def score(self, eval_data, eval_metric, num_batch=None,
-              batch_end_callback=None, reset=True, epoch=0):
-        """``eval_metric`` over ``eval_data``, forward only; returns
-        ``[(name, value)]``."""
+              batch_end_callback=None, score_end_callback=None, reset=True,
+              epoch=0):
+        """``eval_metric`` over ``eval_data`` (the first ``num_batch``
+        batches), forward only; returns ``[(name, value)]``."""
         assert self.binded and self.params_initialized
         if reset:
             eval_data.reset()
         eval_metric = metric_mod.create(eval_metric)
         eval_metric.reset()
+        actual_num_batch = 0
         for nbatch, eval_batch in enumerate(eval_data):
             if num_batch is not None and nbatch == num_batch:
                 break
@@ -76,7 +82,47 @@ class BaseModule:
                 callback(BatchEndParam(epoch=epoch, nbatch=nbatch,
                                        eval_metric=eval_metric,
                                        locals=None))
+            actual_num_batch += 1
+        for callback in _as_list(score_end_callback):
+            callback(BatchEndParam(epoch=epoch, nbatch=actual_num_batch,
+                                   eval_metric=eval_metric, locals=None))
         return eval_metric.get_name_value()
+
+    def iter_predict(self, eval_data, num_batch=None, reset=True):
+        """Yield ``(outputs, batch_index, batch)`` for each batch of a
+        forward-only pass, the padding rows stripped."""
+        assert self.binded and self.params_initialized
+        if reset:
+            eval_data.reset()
+        for nbatch, eval_batch in enumerate(eval_data):
+            if num_batch is not None and nbatch == num_batch:
+                break
+            self.forward(eval_batch, is_train=False)
+            pad = eval_batch.pad or 0
+            yield ([out[0:out.shape[0] - pad] for out in self.get_outputs()],
+                   nbatch, eval_batch)
+
+    def predict(self, eval_data, num_batch=None, merge_batches=True,
+                reset=True, always_output_list=False):
+        """The outputs of a forward-only pass over ``eval_data`` (an
+        iterator, or an NDArray or numpy array that is wrapped in an
+        ``NDArrayIter``), the padding rows stripped.  With
+        ``merge_batches`` each output's batches are concatenated: one
+        NDArray for a one-output net unless ``always_output_list``, else
+        a list; without it, a list of each batch's outputs."""
+        if isinstance(eval_data, (nd.NDArray, np.ndarray)):
+            from ..io.io import NDArrayIter
+            eval_data = NDArrayIter(eval_data)
+        output_list = [[out.copy() for out in outputs] for outputs, _, _ in
+                       self.iter_predict(eval_data, num_batch, reset)]
+        if not output_list or not merge_batches:
+            return output_list
+        num_outputs = len(output_list[0])
+        merged = [nd.concatenate([out[i] for out in output_list])
+                  for i in range(num_outputs)]
+        if num_outputs == 1 and not always_output_list:
+            return merged[0]
+        return merged
 
     def fit(self, train_data, eval_data=None, eval_metric="acc",
             epoch_end_callback=None, batch_end_callback=None,

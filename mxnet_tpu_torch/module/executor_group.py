@@ -42,16 +42,37 @@ class DataParallelExecutorGroup:
                 self.grad_req[k] = grad_req if inputs_need_grad else "null"
             else:
                 self.grad_req[k] = "null"
-        shapes = {d.name: tuple(d.shape)
-                  for d in list(data_shapes) + self.label_shapes}
         self.executor = symbol.simple_bind(
             context, grad_req=self.grad_req, compute_dtype=compute_dtype,
             keep_dtype=self.label_names + symbol.list_index_arguments(),
-            **shapes)
-        args = self.executor.arg_dict
-        self.param_arrays = [args[n] for n in param_names]
+            **self._shapes(data_shapes, self.label_shapes))
         self.aux_names = symbol.list_auxiliary_states()
+        self._arrays()
+
+    @staticmethod
+    def _shapes(data_shapes, label_shapes):
+        return {d.name: tuple(d.shape)
+                for d in list(data_shapes) + list(label_shapes)}
+
+    def _arrays(self):
+        args = self.executor.arg_dict
+        self.param_arrays = [args[n] for n in self.param_names]
         self.aux_arrays = self.executor.aux_arrays
+
+    def reshape(self, data_shapes, label_shapes):
+        """Rebind to new input shapes: the executor's arrays whose shapes
+        stay (the parameters, their gradients, the auxiliary states) are
+        shared, the others made anew."""
+        label_shapes = list(label_shapes or [])
+        if data_shapes == self.data_shapes and \
+                label_shapes == self.label_shapes:
+            return
+        self.executor = self.executor.reshape(
+            partial_shaping=True, **self._shapes(data_shapes, label_shapes))
+        self.data_shapes = data_shapes
+        self.label_shapes = label_shapes
+        self.batch_size = data_shapes[0].shape[0]
+        self._arrays()
 
     @property
     def grad_arrays(self):
@@ -82,6 +103,12 @@ class DataParallelExecutorGroup:
 
     def get_outputs(self):
         return self.executor.outputs
+
+    def get_input_grads(self):
+        """The data inputs' gradients, in ``data_names`` order."""
+        assert self.inputs_need_grad
+        grads = self.executor.grad_dict
+        return [grads[n] for n in self.data_names]
 
     def update_metric(self, eval_metric, labels):
         eval_metric.update(labels, self.executor.outputs)

@@ -7,8 +7,13 @@ executor-group semantics: ``forward_backward`` fills the gradients and
 numpy arrays, which is how weights and BatchNorm's moving statistics
 cross from the JAX package; ``save_checkpoint`` and ``load`` read and
 write the reference's checkpoint files (``prefix-symbol.json`` and
-``prefix-NNNN.params``, with ``arg:`` and ``aux:`` keys), so a
-checkpoint moves between the packages in both directions.
+``prefix-NNNN.params``, with ``arg:`` and ``aux:`` keys, and with
+``save_optimizer_states`` ``prefix-NNNN.states``, the pickled v2
+envelope of :mod:`..optimizer`, numpy arrays only), so a checkpoint and
+its optimizer state move between the packages in both directions.
+``reshape`` rebinds to new input shapes over the same parameter,
+gradient and auxiliary arrays; ``get_input_grads`` returns the data
+gradients of a module bound with ``inputs_need_grad``.
 
 Without a context the module runs on ``cuda:0`` and raises when there is
 no GPU; pass ``context=cpu()`` for the plain versions on the host.
@@ -25,46 +30,22 @@ the port has the executor-group path only (the reference's
 from __future__ import annotations
 
 import logging
+import os
 
 import torch
 
 from .. import ndarray as nd
 from .. import optimizer as opt
-from ..base import MXNetError
+from ..base import MXNetError, atomic_write
 from ..context import cpu, default_device
 from ..initializer import InitDesc, Uniform
 from ..io.io import DataDesc
-from ..symbol import load as load_symbol
+from ..model import (join_params, latest_checkpoint, load_checkpoint,
+                     split_params)
 from .base_module import BaseModule
 from .executor_group import DataParallelExecutorGroup
 
-__all__ = ["Module", "load_checkpoint", "save_checkpoint"]
-
-
-def save_checkpoint(prefix, epoch, symbol, arg_params, aux_params):
-    """Write ``prefix-symbol.json`` and ``prefix-NNNN.params`` (keys
-    ``arg:<name>`` and ``aux:<name>``), as both packages'
-    ``save_checkpoint`` do."""
-    symbol.save("%s-symbol.json" % prefix)
-    save = {"arg:%s" % k: v for k, v in arg_params.items()}
-    save.update(("aux:%s" % k, v) for k, v in aux_params.items())
-    nd.save("%s-%04d.params" % (prefix, epoch), save)
-
-
-def load_checkpoint(prefix, epoch):
-    """``(symbol, arg_params, aux_params)`` of a checkpoint written by
-    either package's ``save_checkpoint``."""
-    symbol = load_symbol("%s-symbol.json" % prefix)
-    arg_params, aux_params = {}, {}
-    for k, value in nd.load("%s-%04d.params" % (prefix, epoch)).items():
-        kind, name = k.split(":", 1)
-        if kind == "arg":
-            arg_params[name] = value
-        elif kind == "aux":
-            aux_params[name] = value
-        else:
-            raise MXNetError("invalid param file key %r" % k)
-    return symbol, arg_params, aux_params
+__all__ = ["Module"]
 
 
 def _as_data_desc(x):
@@ -109,30 +90,70 @@ class Module(BaseModule):
         self._exec_group = None
         self._data_shapes = None
         self._label_shapes = None
+        self._preload_opt_states = None
 
     # -- checkpointing -----------------------------------------------------
     @staticmethod
-    def load(prefix, epoch, **kwargs):
+    def load(prefix, epoch, load_optimizer_states=False, **kwargs):
         """A Module over a checkpoint's symbol, with its parameters;
-        ``bind`` it before use."""
+        ``bind`` it before use.  With ``load_optimizer_states`` the
+        checkpoint's ``.states`` file is restored by ``init_optimizer``;
+        a checkpoint saved without one is refused here."""
+        states = "%s-%04d.states" % (prefix, epoch)
+        if load_optimizer_states and not os.path.exists(states):
+            raise MXNetError(
+                "checkpoint epoch %d under %r has no optimizer states (%s "
+                "missing); load with load_optimizer_states=False, or save "
+                "with save_optimizer_states=True" % (epoch, prefix, states))
         sym, args, auxs = load_checkpoint(prefix, epoch)
         mod = Module(symbol=sym, **kwargs)
         mod._arg_params = args
         mod._aux_params = auxs
         mod.params_initialized = True
+        if load_optimizer_states:
+            mod._preload_opt_states = states
         return mod
 
-    def save_checkpoint(self, prefix, epoch):
-        """Write ``prefix-symbol.json`` and ``prefix-NNNN.params``."""
-        arg_params, aux_params = self.get_params()
-        save_checkpoint(prefix, epoch, self._symbol, arg_params, aux_params)
+    @staticmethod
+    def load_latest(prefix, load_optimizer_states=False, **kwargs):
+        """``(module, epoch)`` of the newest checkpoint under ``prefix``,
+        or None when there is none yet (train from epoch 0 then)."""
+        epoch = latest_checkpoint(prefix)
+        if epoch is None:
+            return None
+        return Module.load(prefix, epoch, load_optimizer_states,
+                           **kwargs), epoch
+
+    def save_checkpoint(self, prefix, epoch, save_optimizer_states=False):
+        """Write ``prefix-symbol.json`` and ``prefix-NNNN.params``, and
+        ``prefix-NNNN.states`` when asked."""
+        self._symbol.save("%s-symbol.json" % prefix)
+        self.save_params("%s-%04d.params" % (prefix, epoch))
+        if save_optimizer_states:
+            self.save_optimizer_states("%s-%04d.states" % (prefix, epoch))
 
     def save_params(self, fname):
         """Parameters under the ``arg:``/``aux:`` key convention."""
-        arg_params, aux_params = self.get_params()
-        save = {"arg:%s" % k: v for k, v in arg_params.items()}
-        save.update(("aux:%s" % k, v) for k, v in aux_params.items())
-        nd.save(fname, save)
+        nd.save(fname, join_params(*self.get_params()))
+
+    def load_params(self, fname):
+        """Set the parameters from a file written by ``save_params`` (of
+        either package)."""
+        self.set_params(*split_params(nd.load(fname), fname))
+
+    def save_optimizer_states(self, fname):
+        """Write the optimizer's state and update counters (the pickled
+        v2 envelope, numpy arrays only) atomically to ``fname``."""
+        assert self.optimizer_initialized
+        with atomic_write(fname, "wb") as fout:
+            fout.write(self._updater.get_states())
+
+    def load_optimizer_states(self, fname):
+        """Restore what ``save_optimizer_states`` (of either package)
+        wrote."""
+        assert self.optimizer_initialized
+        with open(fname, "rb") as f:
+            self._updater.set_states(f.read())
 
     # -- properties --------------------------------------------------------
     @property
@@ -239,6 +260,16 @@ class Module(BaseModule):
         if self.params_initialized:
             self._exec_group.set_params(self._arg_params, self._aux_params)
 
+    def reshape(self, data_shapes, label_shapes=None):
+        """Rebind to new input shapes, keeping the parameters, their
+        gradients, the auxiliary states and the optimizer's state."""
+        assert self.binded
+        self._data_shapes = [_as_data_desc(x) for x in data_shapes]
+        self._label_shapes = [_as_data_desc(x) for x in label_shapes or []
+                              if _as_data_desc(x).name in self._label_names]
+        self._exec_group.reshape(self._data_shapes, self._label_shapes)
+        self._params_dirty = True
+
     # -- optimizer ---------------------------------------------------------
     def init_optimizer(self, kvstore="local", optimizer="sgd",
                        optimizer_params=(("learning_rate", 0.01),),
@@ -268,6 +299,9 @@ class Module(BaseModule):
         self._optimizer = optimizer
         self._updater = opt.get_updater(optimizer)
         self.optimizer_initialized = True
+        if self._preload_opt_states is not None:
+            self.load_optimizer_states(self._preload_opt_states)
+            self._preload_opt_states = None
 
     # -- computation -------------------------------------------------------
     def forward(self, data_batch, is_train=None):
@@ -295,6 +329,13 @@ class Module(BaseModule):
     def get_outputs(self, merge_multi_context=True):
         assert self.binded and self.params_initialized
         return self._exec_group.get_outputs()
+
+    def get_input_grads(self, merge_multi_context=True):
+        """The data inputs' gradients of the last ``backward``, in
+        ``data_names`` order (bind with ``inputs_need_grad=True``)."""
+        assert self.binded and self.params_initialized and \
+            self.inputs_need_grad
+        return self._exec_group.get_input_grads()
 
     def update_metric(self, eval_metric, labels):
         self._exec_group.update_metric(eval_metric, labels)

@@ -31,7 +31,6 @@ from __future__ import annotations
 import builtins
 import os
 import sys
-import tempfile
 
 import numpy as np
 import torch
@@ -40,7 +39,7 @@ from . import autograd as _autograd
 from . import engine as _engine
 from . import random as _random
 from . import ops as _ops  # noqa: F401  (registers every op)
-from .base import MXNetError
+from .base import MXNetError, atomic_write
 from .context import Context, context_of, cpu, default_device
 from .ops.elemwise import saturating_cast
 from .ops.registry import get_op, list_ops
@@ -545,18 +544,8 @@ def save(fname, data):
         fmt = "list"
     else:
         raise MXNetError("save requires NDArray, list or dict")
-    path = _npz_save_name(fname)
-    fd, tmp = tempfile.mkstemp(dir=os.path.dirname(os.path.abspath(path)),
-                               prefix=".tmp-")
-    try:
-        with os.fdopen(fd, "wb") as f:
-            np.savez(f, __mx_format__=np.array(fmt), **arrays)
-            f.flush()
-            os.fsync(f.fileno())
-        os.replace(tmp, path)
-    except BaseException:
-        os.unlink(tmp)
-        raise
+    with atomic_write(_npz_save_name(fname)) as f:
+        np.savez(f, __mx_format__=np.array(fmt), **arrays)
 
 
 def load(fname):

@@ -2,7 +2,8 @@
 class's learning-rate and weight-decay multipliers and its
 ``lr_scheduler`` (asked for the rate at each update, from the update
 count), ``SGD`` with momentum, ``Adam``, ``create`` and
-``get_updater``.
+``get_updater``; ``Updater.get_states`` / ``set_states`` and the
+``.states`` envelope they read and write.
 
 Updates write the weight and state tensors in place, with the
 arithmetic of the reference's fused update ops
@@ -13,13 +14,15 @@ step.
 from __future__ import annotations
 
 import math
+import pickle
 
+import numpy as np
 import torch
 
-from .ndarray import zeros
+from .ndarray import NDArray, array, zeros
 
 __all__ = ["Optimizer", "SGD", "Adam", "create", "get_updater", "Updater",
-           "register"]
+           "register", "pack_updater_states", "unpack_updater_states"]
 
 
 class Optimizer:
@@ -191,7 +194,9 @@ def create(name, **kwargs):
 
 class Updater:
     """Applies an optimizer with per-index state: ``updater(index, grad,
-    weight)``."""
+    weight)``.  A state restored by :meth:`set_states` is held as numpy
+    until its index is first updated, and then moves to the weight's
+    device."""
 
     def __init__(self, optimizer):
         self.optimizer = optimizer
@@ -200,7 +205,67 @@ class Updater:
     def __call__(self, index, grad, weight):
         if index not in self.states:
             self.states[index] = self.optimizer.create_state(index, weight)
+        else:
+            self.states[index] = _state_from_host(self.states[index],
+                                                  weight.context)
         self.optimizer.update(index, weight, grad, self.states[index])
+
+    def set_states(self, states):
+        """Restore what :meth:`get_states` (of either package) wrote; the
+        v2 envelope's update counters resume Adam's bias correction and
+        the ``lr_scheduler``'s step."""
+        states, counts, num_update = unpack_updater_states(states)
+        if counts is not None:
+            self.optimizer._index_update_count = dict(counts)
+            self.optimizer.num_update = num_update
+        self.states = dict(states)
+
+    def get_states(self):
+        """The v2 envelope of every state, pickled: numpy arrays only."""
+        return pack_updater_states({k: _state_to_host(v)
+                                    for k, v in self.states.items()},
+                                   self.optimizer)
+
+
+def unpack_updater_states(obj):
+    """``(states, counts, num_update)`` of an optimizer-states payload
+    (pickled bytes or the unpickled object): the v2 envelope
+    ``{"__updater_format__": 2, "states", "index_update_count",
+    "num_update"}``, or a bare ``{index: state}`` dict, whose counts
+    come back None."""
+    if isinstance(obj, bytes):
+        obj = pickle.loads(obj)
+    if isinstance(obj, dict) and obj.get("__updater_format__") == 2:
+        return obj["states"], obj["index_update_count"], obj["num_update"]
+    return obj, None, None
+
+
+def pack_updater_states(states, optimizer):
+    """The pickled v2 envelope of a ``{index: state}`` dict of numpy
+    arrays (tuples of them, or None), with ``optimizer``'s update
+    counters."""
+    return pickle.dumps({
+        "__updater_format__": 2,
+        "states": states,
+        "index_update_count": dict(optimizer._index_update_count),
+        "num_update": optimizer.num_update,
+    })
+
+
+def _state_to_host(v):
+    if isinstance(v, NDArray):
+        return v.asnumpy()
+    if isinstance(v, (tuple, list)):
+        return tuple(_state_to_host(x) for x in v)
+    return v
+
+
+def _state_from_host(v, ctx):
+    if isinstance(v, np.ndarray):
+        return array(v, ctx=ctx)
+    if isinstance(v, (tuple, list)):
+        return tuple(_state_from_host(x, ctx) for x in v)
+    return v
 
 
 def get_updater(optimizer):

@@ -1715,3 +1715,98 @@ def test_tiny_resnet_step_on_card_matches_cpu(cuda_device):
     for got, want in ((carg, harg), (caux, haux)):
         for k, w in want.items():
             assert _rel_np(got[k], w) <= 1e-4, k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("train", [True, False])
+def test_batchnorm_bf16_on_card_matches_cpu(cuda_device, train):
+    """BatchNorm on bf16 data with bf16 gamma, beta and moving statistics
+    (as a ``compute_dtype='bfloat16'`` executor feeds it), in training
+    and at inference: the output, the gradients and the moving
+    statistics bf16 on both devices, the card within two bf16 ulps of
+    max|ref| of the CPU."""
+    rs = np.random.RandomState(5)
+    vals = [rs.randn(8, 16, 14, 14).astype(np.float32) * 2 + 0.5,
+            rs.uniform(0.5, 1.5, 16).astype(np.float32),
+            rs.randn(16).astype(np.float32),
+            rs.uniform(-0.2, 0.2, 16).astype(np.float32),
+            rs.uniform(0.5, 1.5, 16).astype(np.float32)]
+    head = rs.randn(8, 16, 14, 14).astype(np.float32)
+    res = []
+    for ctx in (mx.gpu(0), mx.cpu()):
+        with ctx:
+            data, gamma, beta, mm, mv = [mx.nd.array(v, dtype="bfloat16")
+                                         for v in vals]
+            for x in (data, gamma, beta):
+                x.attach_grad()
+            with mx.autograd.record(train_mode_=train):
+                out = mx.nd.BatchNorm(data, gamma, beta, mm, mv,
+                                      fix_gamma=False, momentum=0.9)
+            out.backward(mx.nd.array(head, dtype="bfloat16"))
+            arrays = (out, data.grad, gamma.grad, beta.grad, mm, mv)
+            assert {a._data.dtype for a in arrays} == {torch.bfloat16}
+            res.append([a.asnumpy() for a in arrays])
+    for c, h in zip(*res):
+        assert np.abs(c - h).max() <= 2 * bf16_ulp(np.abs(h).max())
+    assert train == (not np.array_equal(
+        res[0][4], torch.tensor(vals[3]).bfloat16().float().numpy()))
+
+
+@pytest.mark.cuda
+def test_bf16_head_pair_at_the_resnet_head_matches_plain(cuda_device):
+    """Row 10b at ResNet-50's head, 32 x 1000 bf16 (float32 labels): the
+    probabilities and the gradient within one bf16 ulp of max|ref| of
+    the plain versions, one launch each under the bf16 names; 1000
+    classes on 16-byte aligned rows are the registers body's (8-element
+    loads, one a lane)."""
+    rs = np.random.RandomState(6)
+    (x,) = _on(cuda_device, rs.randn(32, 1000).astype(np.float32))
+    (label,) = _on(cuda_device, rs.randint(0, 1000, 32).astype(np.float32))
+    x = x.to(torch.bfloat16)
+    assert x.data_ptr() % 16 == 0 and 1000 % 8 == 0
+    before = kernels.launch_counts()
+    p = softmax_xent.softmax_rows(x)
+    grad = softmax_xent.xent_grad_from_probs(p, label, 1.0 / 32)
+    after = kernels.launch_counts()
+    assert after["softmax_rows_bf16"] - before["softmax_rows_bf16"] == 1
+    assert after["xent_grad_from_probs_bf16"] - \
+        before["xent_grad_from_probs_bf16"] == 1
+    assert p.dtype == grad.dtype == torch.bfloat16
+    for got, want in ((p, softmax_xent.softmax_rows_reference(x)),
+                      (grad, softmax_xent.xent_grad_from_probs_reference(
+                          p, label, 1.0 / 32))):
+        ref = want.float().abs().max().item()
+        assert (got.float() - want.float()).abs().max().item() <= \
+            bf16_ulp(ref)
+
+
+@pytest.mark.cuda
+def test_bf16_tiny_resnet_predict_on_card_matches_cpu(cuda_device):
+    """``predict`` of a ``compute_dtype='bfloat16'`` cifar ResNet (8
+    layers) over 10 rows in batches of 4 on the card against the CPU's
+    from the same parameters and moving statistics: bf16 outputs of 10
+    rows, within 2e-2 x max|ref|; the head's bf16 forward launched once
+    a batch."""
+    net = mx.models.resnet(num_classes=10, num_layers=8,
+                           image_shape="3,28,28")
+    rs = np.random.RandomState(7)
+    X = rs.uniform(-1, 1, (10, 3, 28, 28)).astype(np.float32)
+    mx.random.seed(7)
+    res = []
+    for ctx in (mx.cpu(), mx.gpu(0)):
+        mod = mx.Module(net, context=ctx, label_names=None,
+                        compute_dtype="bfloat16")
+        mod.bind([("data", (4, 3, 28, 28))], for_training=False)
+        if not res:
+            mod.init_params(mx.init.Xavier(rnd_type="gaussian",
+                                           factor_type="in", magnitude=2))
+            start = mod.get_params()
+        else:
+            mod.init_params(arg_params=start[0], aux_params=start[1])
+        before = kernels.launch_counts()
+        out = mod.predict(mx.io.NDArrayIter(X, batch_size=4))
+        after = kernels.launch_counts()
+        assert out._data.dtype == torch.bfloat16 and out.shape == (10, 10)
+        res.append(out.asnumpy())
+    assert after["softmax_rows_bf16"] - before["softmax_rows_bf16"] == 3
+    assert _rel_np(res[1], res[0]) <= 2e-2
