@@ -297,9 +297,43 @@ sources in this checkout on first use.  Phases, each fatal on failure:
    ``iter_predict``'s batches with the padding stripped, and its
    accuracy equal to ``score``'s.
 
+18. the LSTM language model as bench.py's ``train.lstm-bucketing`` row
+   runs it (``models/lstm_lm.py``: 3 LSTM layers, hidden and embed 200,
+   vocab 10000) through ``BucketingModule.fit`` at batch 32 on one
+   bucket of 32 for 20 steps: ``BucketSentenceIter(invalid_label=0)``,
+   SGD at learning rate 0.01, momentum 0, wd 1e-5,
+   ``Xavier(factor_type='in', magnitude=2.34)``,
+   ``Perplexity(ignore_label=0)``, ``kvstore='device'``, on Zipfian
+   sentences from seed 18 (bench.py's uniform tokens leave nothing to
+   learn): every array on the card; the head's kernel pair once a step
+   and no other kernel, no plain version reached; the perplexity finite
+   and falling; ms per step and samples/s (``synchronize()`` at both
+   ends of the window), and under ``torch.profiler`` for the last three
+   steps the device time, kernels and copies a step and the busy share;
+18b. ``examples/rnn/lstm_bucketing.py`` at the same width: a copy of
+   its ``synthetic_corpus`` (2000 sentences from seed 7, 200 held out
+   from seed 8), buckets 10, 20, 30 and 40, one epoch with the held-out
+   set scored at its end: the four bucket modules hold the same
+   parameter and gradient tensors (equal ``data_ptr()``) and one
+   updater, every parameter moved, the head's kernels once a step and
+   its forward once a scored batch, the objective's perplexity (every
+   label, the padding too) falling; the example's metric and the
+   held-out score printed;
+19. the LSTM LM's step at batch 4 on the card against the port's CPU
+   (fp32, TF32 off): one ``forward_backward`` and ``update`` (momentum
+   0.9) of buckets 10 and 20 from one Xavier start, every output,
+   gradient and parameter within 1e-4 x max|ref|; the ``RNN`` op at full
+   width (LSTM, 3 layers of 200, seq 32, batch 32), cuDNN against its
+   plain version (the per-step loop) on the card, the outputs, last
+   states and every gradient within 1e-4 x max|ref|, each forward
+   timed; ``Module(state_names=...)`` with ``set_states`` /
+   ``get_states`` and a ``Monitor`` on the card: the rows' names equal
+   the CPU run's, each statistic and the outputs within 1e-4.
+
 Phase 5 also times row 10's kernel pair at phase 13's head, 32 x
-1000, and row 10b's bf16 pair at phase 13b's (the registers body,
-one 16-byte load a lane, confirmed from the pointers).  Phase 5 also
+1000, and at phase 18's, 1024 x 10000, and row 10b's bf16 pair at
+phase 13b's (the registers body, one 16-byte load a lane, confirmed
+from the pointers).  Phase 5 also
 gives the norm forwards' rows (fp32 and bf16 ``rms_norm``
 and ``layer_norm``) ``floor_ms``: the same call on one row, the floor
 of one launch.
@@ -331,7 +365,9 @@ from mxnet_tpu_torch import kernels
 from mxnet_tpu_torch.kernels import (_build, dequant_matmul, flash_attention,
                                      norm, paged_attention, softmax_xent)
 from mxnet_tpu_torch.models import transformer_lm as tlm
+from mxnet_tpu_torch.models.lstm_lm import sym_gen_factory
 from mxnet_tpu_torch.ops import nn as layer_ops
+from mxnet_tpu_torch.ops import rnn_op
 from mxnet_tpu_torch.ops.registry import get_op
 from mxnet_tpu_torch.serving import GenerationEngine, ModelRegistry, TokenStream
 
@@ -4176,6 +4212,541 @@ def phase_resume(dev, card, workdir):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phases 18-19: the LSTM language model through BucketingModule
+# ---------------------------------------------------------------------------
+# bench.py:409-462, train.lstm-bucketing.module_fit: 3 layers, hidden and
+# embed 200, vocab 10000, batch 32, one bucket of 32; SGD at learning rate
+# 0.01, momentum 0, wd 1e-5; Xavier(factor_type='in', magnitude=2.34);
+# Perplexity(ignore_label=0); kvstore 'device'
+LSTM = dict(num_layers=3, num_hidden=200, num_embed=200, vocab_size=10000)
+LSTM_BATCH, LSTM_SEQ = 32, 32
+LSTM_OPT = {"learning_rate": 0.01, "momentum": 0.0, "wd": 1e-5}
+# phase 18: steps 1..LSTM_WARMUP warm up, the next ones up to
+# LSTM_STEPS - LSTM_PROFILED are timed, the last LSTM_PROFILED run under
+# torch.profiler (device time, launches, busy share)
+LSTM_STEPS, LSTM_WARMUP, LSTM_PROFILED = 20, 4, 3
+# the loss head's kernel pair (row 10), once each a step; its forward
+# kernel once a scored batch
+LSTM_LAUNCHES_PER_STEP = {"softmax_rows": 1, "xent_grad_from_probs": 1}
+LSTM_SCORE_LAUNCHES_PER_BATCH = {"softmax_rows": 1}
+# phase 18b: examples/rnn/lstm_bucketing.py's buckets and corpus (its
+# default 2000 training sentences from seed 7, max(4 x batch, 200)
+# held-out ones from seed 8), one epoch at phase 18's width
+LSTM_BUCKETS = [10, 20, 30, 40]
+LSTM_SENTENCES = 2000
+# phase 19: one step of each of two buckets at batch 4 on the card and on
+# the CPU from the same parameters, every array within LSTM_STEP_TOL x
+# max|ref|; the RNN op at full width, cuDNN against the per-step loop on
+# the card within RNN_OP_TOL x max|ref|
+LSTM_STEP_BATCH = 4
+LSTM_STEP_BUCKETS = (10, 20)
+LSTM_STEP_TOL = 1e-4
+RNN_OP = dict(mode="lstm", num_layers=3, state_size=200, seq=32, batch=32,
+              input=200)
+RNN_OP_TOL = 1e-4
+
+
+def lstm_sym_gen():
+    return sym_gen_factory(**LSTM)
+
+
+def zipf_sentences(n, length, seed):
+    """``n`` sentences of ``length`` tokens in [1, vocab) drawn with
+    Zipf's word frequencies (rank r with probability proportional to
+    1/r), as a text corpus's words are.  bench.py draws its tokens
+    uniformly; on those nothing can be learnt, and the perplexity stays
+    at the vocabulary's size."""
+    V = LSTM["vocab_size"]
+    rs = np.random.RandomState(seed)
+    w = 1.0 / np.arange(1, V)
+    return rs.choice(np.arange(1, V), (n, length), p=w / w.sum()).tolist()
+
+
+def synthetic_corpus(num_sentences, vocab_size, seed):
+    """A copy of ``examples/rnn/lstm_bucketing.py``'s corpus: sentences
+    of 5 to 34 tokens from a random start, each next token
+    ``(7 x + 3) mod vocab`` with probability 0.8, else random."""
+    rs = np.random.RandomState(seed)
+    out = []
+    for _ in range(num_sentences):
+        ln = rs.randint(5, 35)
+        start = rs.randint(1, vocab_size)
+        s = [start]
+        for _ in range(ln - 1):
+            s.append((s[-1] * 7 + 3) % vocab_size if rs.rand() < 0.8
+                     else rs.randint(1, vocab_size))
+        out.append(s)
+    return out
+
+
+def lstm_module(ctx, key):
+    return mx.mod.BucketingModule(lstm_sym_gen(), default_bucket_key=key,
+                                  context=ctx)
+
+
+def lstm_fit(mod, it, **kwargs):
+    mod.fit(it, num_epoch=1, eval_metric=mx.metric.Perplexity(ignore_label=0),
+            optimizer="sgd", optimizer_params=LSTM_OPT,
+            initializer=mx.init.Xavier(factor_type="in", magnitude=2.34),
+            kvstore="device", **kwargs)
+
+
+def lstm_arrays(mod):
+    """(name, tensor) of every executor array of every bucket, and of
+    the optimizer's state."""
+    out = []
+    for key, m in mod._buckets.items():
+        ex = m._exec_group.executor
+        out += [("%s@%s" % (n, key), a._data) for n, a in
+                zip(ex._arg_names, ex.arg_arrays)]
+        out += [("d%s@%s" % (n, key), g._data)
+                for n, g in ex.grad_dict.items()]
+    states = mod._buckets[mod._default_bucket_key]._updater.states
+    return out + [("state %s" % i, s._data) for i, s in states.items()
+                  if s is not None]
+
+
+def phase_lstm(dev, card):
+    """Phase 18: bench.py's ``train.lstm-bucketing`` row at full width
+    (3 x 200, vocab 10000, batch 32, one bucket of 32) through
+    ``BucketingModule.fit`` on the card for LSTM_STEPS steps, on Zipfian
+    sentences from seed 18.  Fatal unless every array lies on the card,
+    the head's kernel pair launches once a step and no other kernel
+    does, no wrapper reaches its plain version, and the perplexity is
+    finite and falls (mean of the last five steps below the first
+    step's).  Prints ms a step and samples/s over the timed window
+    (``synchronize()`` at both ends), and the device time, launches and
+    busy share of the profiled steps.  Returns the launch counts of the
+    run and the ms a step."""
+    sent = zipf_sentences(LSTM_BATCH * LSTM_STEPS, LSTM_SEQ, 18)
+    it = mx.rnn.BucketSentenceIter(sent, LSTM_BATCH, buckets=[LSTM_SEQ],
+                                   invalid_label=0)
+    mx.random.seed(18)
+    mod = lstm_module(dev, it.default_bucket_key)
+    prof = torch.profiler.profile(activities=[
+        torch.profiler.ProfilerActivity.CPU,
+        torch.profiler.ProfilerActivity.CUDA])
+    t0, t1 = LSTM_WARMUP, LSTM_STEPS - LSTM_PROFILED
+    ppl, steps, clock, last = [], [], {}, {}
+
+    def on_batch(param):
+        # the metric's host fetch synchronises every step
+        ppl.append(float(param.eval_metric.get()[1]))
+        param.eval_metric.reset()
+        now = kernels.launch_counts()
+        steps.append({k: now[k] - last[k] for k in now})
+        last.update(now)
+        n = param.nbatch + 1
+        if n in (t0, t1, LSTM_STEPS):
+            torch.cuda.synchronize()
+            clock[n] = time.perf_counter()
+        if n == t1:
+            prof.start()
+        elif n == LSTM_STEPS:
+            prof.stop()
+
+    kernels.reset_launch_counts()
+    last.update(kernels.launch_counts())
+    tic = time.perf_counter()
+    with plain_guard() as plain:
+        lstm_fit(mod, it, batch_end_callback=on_batch)
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - tic
+    counts = kernels.launch_counts()
+    on_device(dev, "phase 18 arrays and optimizer state", lstm_arrays(mod))
+    if plain:
+        raise SystemExit("chip_smoke: phase 18 reached plain versions: %s"
+                         % dict(plain))
+    want = dict.fromkeys(kernels.KERNELS, 0)
+    want.update(LSTM_LAUNCHES_PER_STEP)
+    bad = [(i, got) for i, got in enumerate(steps) if got != want]
+    if len(steps) != LSTM_STEPS or bad:
+        raise SystemExit("chip_smoke: phase 18 ran %d steps; launches %s, "
+                         "want %s a step" % (len(steps), bad[:2], want))
+    first, last5 = ppl[0], float(np.mean(ppl[-5:]))
+    if not (np.isfinite(ppl).all() and last5 < first):
+        raise SystemExit("chip_smoke: phase 18 perplexity per step %s"
+                         % ppl)
+    step_ms = (clock[t1] - clock[t0]) * 1e3 / (t1 - t0)
+    window_ms = (clock[LSTM_STEPS] - clock[t1]) * 1e3 / LSTM_PROFILED
+    arg, _ = mod.get_params()
+    log("phase 18 perplexity per step: %s"
+        % " ".join("%.1f" % p for p in ppl))
+    log("phase 18 LSTM LM (%s, %d parameters in %d arrays) trained %d "
+        "steps through BucketingModule.fit at batch %d, bucket %d, fp32 "
+        "(fit %.2f s with bind and init): perplexity step 1 %.2f, step %d "
+        "%.2f, last 5 %.2f; head launches per step %s; steps %d..%d: %.3f "
+        "ms per step, %.1f samples/s, %.0f tokens/s [%s]"
+        % (LSTM, sum(v.size for v in arg.values()), len(arg), LSTM_STEPS,
+           LSTM_BATCH, LSTM_SEQ, wall, first, LSTM_STEPS, ppl[-1], last5,
+           LSTM_LAUNCHES_PER_STEP, t0 + 1, t1, step_ms,
+           LSTM_BATCH * 1e3 / step_ms, LSTM_BATCH * LSTM_SEQ * 1e3 / step_ms,
+           card))
+    report_profile("18", prof, LSTM_PROFILED, step_ms, window_ms, card)
+    return counts, step_ms
+
+
+def phase_lstm_buckets(dev, card, step_ms_18):
+    """Phase 18b: ``examples/rnn/lstm_bucketing.py`` at phase 18's width:
+    its corpus (a copy of its ``synthetic_corpus``), buckets 10, 20, 30
+    and 40, one epoch of ``fit`` with ``eval_data`` scored at its end,
+    then ``score`` again.  Fatal unless the four bucket modules hold the
+    same parameter and gradient tensors (equal ``data_ptr()``) and share
+    one updater, every parameter moved, no plain version was reached,
+    the head's forward kernel launched once a training step and a scored
+    batch and its gradient kernel once a training step, and the
+    objective's perplexity (every label, the padding too: what
+    SoftmaxOutput trains) is finite and falls (mean of the last five
+    steps below the first step's).  The example's own metric
+    (``Perplexity(ignore_label=0)``) and the held-out score are printed
+    beside it.  Returns the launch counts."""
+    V = LSTM["vocab_size"]
+    train = synthetic_corpus(LSTM_SENTENCES, V, 7)
+    val = synthetic_corpus(max(LSTM_BATCH * 4, LSTM_SENTENCES // 10), V, 8)
+    it = mx.rnn.BucketSentenceIter(train, LSTM_BATCH, buckets=LSTM_BUCKETS,
+                                   invalid_label=0)
+    ev = mx.rnn.BucketSentenceIter(val, LSTM_BATCH, buckets=LSTM_BUCKETS,
+                                   invalid_label=0)
+    n_eval = len(ev._plan)
+    mx.random.seed(18)
+    mod = lstm_module(dev, it.default_bucket_key)
+    mod.bind(it.provide_data, it.provide_label)
+    mod.init_params(mx.init.Xavier(factor_type="in", magnitude=2.34))
+    start = {k: v.asnumpy() for k, v in mod.get_params()[0].items()}
+    objective, metric, keys = [], [], []
+
+    def on_batch(param):
+        batch = param.locals["data_batch"]
+        p = mod.get_outputs()[0]._data
+        lab = batch.label[0]._data.to(p.device).reshape(-1).long()
+        ce = -torch.log(p[torch.arange(p.shape[0], device=p.device),
+                          lab].clamp_min(1e-10)).mean()
+        objective.append(float(torch.exp(ce)))
+        metric.append(float(param.eval_metric.get()[1]))
+        keys.append(batch.bucket_key)
+        param.eval_metric.reset()
+
+    kernels.reset_launch_counts()
+    tic = time.perf_counter()
+    with plain_guard() as plain:
+        lstm_fit(mod, it, eval_data=ev, batch_end_callback=on_batch)
+        score = mod.score(ev, mx.metric.Perplexity(ignore_label=0))[0][1]
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - tic
+    counts = kernels.launch_counts()
+    on_device(dev, "phase 18b arrays and optimizer state", lstm_arrays(mod))
+    steps = len(objective)
+    want = dict.fromkeys(kernels.KERNELS, 0)
+    for table, n in ((LSTM_LAUNCHES_PER_STEP, steps),
+                     (LSTM_SCORE_LAUNCHES_PER_BATCH, 2 * n_eval)):
+        for k, v in table.items():
+            want[k] += v * n
+    if plain or counts != want:
+        raise SystemExit("chip_smoke: phase 18b launches %s, want %s; "
+                         "plain %s" % ({k: v for k, v in counts.items() if v},
+                                       {k: v for k, v in want.items() if v},
+                                       dict(plain)))
+    if sorted(mod._buckets) != LSTM_BUCKETS:
+        raise SystemExit("chip_smoke: phase 18b bound buckets %s"
+                         % sorted(mod._buckets))
+    default = mod._buckets[it.default_bucket_key]
+    split = []
+    for name in default._param_names:
+        ptrs = set()
+        for m in mod._buckets.values():
+            ex = m._exec_group.executor
+            ptrs.add((ex.arg_dict[name]._data.data_ptr(),
+                      ex.grad_dict[name]._data.data_ptr()))
+        if len(ptrs) != 1:
+            split.append(name)
+    if split or any(m._updater is not default._updater
+                    for m in mod._buckets.values()):
+        raise SystemExit("chip_smoke: phase 18b buckets hold their own "
+                         "tensors or updaters: %s" % split)
+    arg, _ = mod.get_params()
+    still = [k for k, v in arg.items() if np.array_equal(v.asnumpy(),
+                                                         start[k])]
+    first, last5 = objective[0], float(np.mean(objective[-5:]))
+    if still or not (np.isfinite(objective).all() and last5 < first and
+                     np.isfinite(metric).all() and np.isfinite(score)):
+        raise SystemExit("chip_smoke: phase 18b unmoved %s; objective "
+                         "perplexity %s; metric %s; score %s"
+                         % (still, objective, metric, score))
+    rows = sorted({k * LSTM_BATCH for k in keys})
+    log("phase 18b objective perplexity (pads included) per step: %s"
+        % " ".join("%d:%.1f" % kv for kv in zip(keys, objective)))
+    log("phase 18b Perplexity(ignore_label=0) per step: %s"
+        % " ".join("%.1f" % m for m in metric))
+    log("phase 18b lstm_bucketing.py at %s, buckets %s, batch %d: one epoch "
+        "of %d steps (%s a bucket) in %.2f s with bind, init and two "
+        "held-out scores (%.3f ms a step on average; phase 18 %.3f at "
+        "bucket 32); four bucket modules on one set of %d parameter and "
+        "gradient tensors (equal data_ptr) and one updater; every "
+        "parameter moved; objective perplexity step 1 %.1f, last 5 %.1f; "
+        "Perplexity(ignore_label=0) step 1 %.1f, last 5 %.1f, held-out "
+        "%.1f; head rows %s x %d [%s]"
+        % (LSTM, LSTM_BUCKETS, LSTM_BATCH, steps,
+           {k: keys.count(k) for k in LSTM_BUCKETS}, wall,
+           wall * 1e3 / steps, step_ms_18, len(default._param_names), first,
+           last5, metric[0], float(np.mean(metric[-5:])), score, rows, V,
+           card))
+    return counts
+
+
+def lstm_step_batches(state=None):
+    """Phase 19's batches: the first batch of each of LSTM_STEP_BUCKETS
+    at batch LSTM_STEP_BATCH from the example's corpus (seed 19), and the
+    iterator's epoch (``state_dict``)."""
+    sent = [s for s in synthetic_corpus(200, LSTM["vocab_size"], 19)
+            if len(s) <= max(LSTM_STEP_BUCKETS)]
+    it = mx.rnn.BucketSentenceIter(sent, LSTM_STEP_BATCH,
+                                   buckets=list(LSTM_STEP_BUCKETS),
+                                   invalid_label=0)
+    if state is not None:
+        it.load_state(state)
+    state = it.state_dict()
+    batches = {}
+    for b in it:
+        batches.setdefault(b.bucket_key, b)
+    return [batches[k] for k in LSTM_STEP_BUCKETS], it, state
+
+
+def lstm_steps(ctx, start, state):
+    """One ``forward_backward`` + ``update`` of each of phase 19's
+    buckets from ``start``: {array: numpy} of each step's outputs,
+    gradients and parameters after the update."""
+    batches, it, _ = lstm_step_batches(state)
+    mod = lstm_module(ctx, max(LSTM_STEP_BUCKETS))
+    mod.bind(it.provide_data, it.provide_label)
+    mod.init_params(arg_params=start)
+    mod.init_optimizer(kvstore="device", optimizer="sgd",
+                       optimizer_params=dict(LSTM_OPT, momentum=0.9))
+    out = {}
+    for batch in batches:
+        key = batch.bucket_key
+        mod.forward_backward(batch)
+        out["output@%d" % key] = mod.get_outputs()[0].asnumpy()
+        ex = mod._curr_module._exec_group.executor
+        out.update(("d%s@%d" % (n, key), g.asnumpy())
+                   for n, g in ex.grad_dict.items())
+        mod.update()
+        out.update(("%s@%d" % (n, key), v.asnumpy())
+                   for n, v in mod.get_params()[0].items())
+    return out
+
+
+def rnn_op_inputs(dev):
+    """The RNN op's inputs at full width from seed 19, on ``dev``, each
+    a leaf that takes a gradient; and a head gradient for each output."""
+    c = RNN_OP
+    g = torch.Generator().manual_seed(19)
+    n = rnn_op.rnn_param_size(c["num_layers"], c["input"], c["state_size"],
+                              c["mode"])
+    st = (c["num_layers"], c["batch"], c["state_size"])
+    ins = [torch.randn(c["seq"], c["batch"], c["input"], generator=g),
+           torch.empty(n).uniform_(-0.1, 0.1, generator=g),
+           0.5 * torch.randn(st, generator=g),
+           0.5 * torch.randn(st, generator=g)]
+    cots = [torch.randn(c["seq"], c["batch"], c["state_size"], generator=g),
+            torch.randn(st, generator=g), torch.randn(st, generator=g)]
+    return ([t.to(dev).requires_grad_(True) for t in ins],
+            [t.to(dev) for t in cots])
+
+
+def phase_rnn_op(dev, card):
+    """Phase 19, the ``RNN`` op at full width (LSTM, 3 layers of 200,
+    seq 32, batch 32, input 200, the last states as outputs): the op on
+    the card (cuDNN through ``torch._VF``) against its plain version (the
+    per-step loop) on the card, forward and the gradients of the data,
+    the packed parameters and both initial states, each within
+    RNN_OP_TOL x max|ref|; each fp32 route's distance from the loop in
+    float64 printed (cuDNN's sigmoid and tanh are approximations); each
+    route's forward timed."""
+    c = RNN_OP
+    attrs = dict(state_size=c["state_size"], num_layers=c["num_layers"],
+                 mode=c["mode"], bidirectional=False, p=0.0,
+                 state_outputs=True, pkeep_=1.0, lstm_q_=False)
+    ins, cots = rnn_op_inputs(dev)
+    ins64 = [t.detach().double().requires_grad_(True) for t in ins]
+    res = {}
+    for route, fn, xs, cs in (
+            ("cudnn", rnn_op.rnn_apply, ins, cots),
+            ("plain", rnn_op.rnn_plain, ins, cots),
+            ("float64", rnn_op.rnn_plain, ins64, [c.double() for c in cots])):
+        outs = fn(attrs, *xs, is_train=True)
+        grads = torch.autograd.grad(outs, xs, cs)
+        res[route] = [o.detach() for o in outs] + list(grads)
+    exact = {route: max(float((a.double() - b).abs().max()) /
+                        float(b.abs().max())
+                        for a, b in zip(res[route], res["float64"]))
+             for route in ("cudnn", "plain")}
+    names = ("output", "state", "state_cell", "d_data", "d_parameters",
+             "d_state", "d_state_cell")
+    worst = {}
+    for name, got, want in zip(names, res["cudnn"], res["plain"]):
+        err = float((got - want).abs().max())
+        worst[name] = err / (RNN_OP_TOL * float(want.abs().max()))
+        if not (bool(torch.isfinite(got).all()) and worst[name] <= 1.0):
+            raise SystemExit("chip_smoke: phase 19 RNN op %s: cuDNN off the "
+                             "per-step loop by %.3e (%.2f x its bound)"
+                             % (name, err, worst[name]))
+    with torch.no_grad():
+        ms = {route: time_ms(lambda f=fn: f(attrs, *ins), n=20)
+              for route, fn in (("cudnn", rnn_op.rnn_apply),
+                                ("plain", rnn_op.rnn_plain))}
+    log("phase 19 RNN op (%s) on the card: cuDNN against the per-step "
+        "loop, each error over its bound (%.0e x max|ref|): %s; worst "
+        "distance from the loop in float64, of max|ref|: cuDNN %.3e, loop "
+        "%.3e; forward %.3f ms (cuDNN) vs %.3f ms (loop) [%s]"
+        % (RNN_OP, RNN_OP_TOL, "; ".join("%s %.3f" % kv
+                                          for kv in worst.items()),
+           exact["cudnn"], exact["plain"], ms["cudnn"], ms["plain"], card))
+
+
+def state_net(batch):
+    """An LSTM cell of 200 unrolled over 5 steps from explicit state
+    inputs ``h0``/``c0`` (``state_names``); its outputs the merged
+    sequence and the last states."""
+    H = LSTM["num_hidden"]
+    with mx.symbol.NameManager():
+        cell = mx.rnn.LSTMCell(H, prefix="lstm_")
+        outs, states = cell.unroll(
+            5, inputs=mx.sym.Variable("data"), merge_outputs=True,
+            begin_state=[mx.sym.Variable("h0", shape=(batch, H)),
+                         mx.sym.Variable("c0", shape=(batch, H))])
+        return mx.sym.Group([outs] + list(states))
+
+
+def states_and_monitor(ctx, start, data, h0, c0):
+    """Phase 19's ``state_names`` module on ``ctx``: ``set_states``
+    (value, then arrays), ``get_states``, and one forward under a
+    ``Monitor`` of every tensor.  Returns the outputs and the monitor's
+    rows."""
+    mod = mx.Module(state_net(data.shape[0]), label_names=None,
+                    state_names=["h0", "c0"], context=ctx)
+    mod.bind([("data", data.shape)], for_training=False)
+    mod.init_params(arg_params=start)
+    mod.set_states(value=0.5)
+    got = [s.asnumpy() for s in mod.get_states()]
+    if not all((g == 0.5).all() for g in got):
+        raise SystemExit("chip_smoke: phase 19 set_states(value=0.5) read "
+                         "back %s" % [np.unique(g)[:4] for g in got])
+    mod.set_states(states=[mx.nd.array(h0, ctx=mx.cpu()),
+                           mx.nd.array(c0, ctx=mx.cpu())])
+    for g, w in zip(mod.get_states(), (h0, c0)):
+        if not np.array_equal(g.asnumpy(), w):
+            raise SystemExit("chip_smoke: phase 19 get_states differs "
+                             "from set_states")
+    mon = mx.monitor.Monitor(1, pattern=".*", sort=True)
+    mod.install_monitor(mon)
+    mon.tic()
+    mod.forward(mx.io.DataBatch([mx.nd.array(data, ctx=mx.cpu())], []),
+                is_train=False)
+    return [o.asnumpy() for o in mod.get_outputs()], mon.toc()
+
+
+def phase_lstm_vs_cpu(dev, card):
+    """Phase 19: the LSTM LM's step on the card against the port's CPU
+    (fp32, TF32 off): phase 18's width at batch 4, one ``forward_backward``
+    and ``update`` (SGD, momentum 0.9, so the second bucket's update reads
+    the first's momentum) of each of two buckets from the same Xavier
+    start; every output, gradient and parameter within LSTM_STEP_TOL x
+    max|ref|.  Then the RNN op (``phase_rnn_op``), and ``state_names``
+    with ``set_states`` / ``get_states`` and a ``Monitor`` on the card
+    against the CPU: the same rows, the outputs and every statistic
+    within LSTM_STEP_TOL."""
+    _, it, state = lstm_step_batches()
+    mx.random.seed(19)
+    init = lstm_module(mx.cpu(), max(LSTM_STEP_BUCKETS))
+    init.bind(it.provide_data, it.provide_label)
+    init.init_params(mx.init.Xavier(factor_type="in", magnitude=2.34))
+    start = {k: v.asnumpy() for k, v in init.get_params()[0].items()}
+    got, want = lstm_steps(dev, start, state), lstm_steps(mx.cpu(), start,
+                                                          state)
+    if sorted(got) != sorted(want):
+        raise SystemExit("chip_smoke: phase 19 arrays differ: %s"
+                         % sorted(set(got) ^ set(want)))
+    worst = (0.0, "")
+    for name, w in want.items():
+        err = float(np.abs(got[name].astype(np.float64) - w).max())
+        ratio = err / (LSTM_STEP_TOL * max(float(np.abs(w).max()), 1e-30))
+        worst = max(worst, (ratio, name))
+        if not ratio <= 1.0:
+            raise SystemExit("chip_smoke: phase 19 %s off the CPU's by %.3e"
+                             " (%.2f x its bound)" % (name, err, ratio))
+    log("phase 19 LSTM LM step at batch %d, buckets %s, card vs CPU (fp32, "
+        "TF32 off): %d outputs, gradients and parameters agree; worst %s at "
+        "%.3f of %.0e x max|ref| [%s]"
+        % (LSTM_STEP_BATCH, LSTM_STEP_BUCKETS, len(want), worst[1], worst[0],
+           LSTM_STEP_TOL, card))
+    phase_rnn_op(dev, card)
+    H = LSTM["num_hidden"]
+    rs = np.random.RandomState(19)
+    data = rs.randn(LSTM_STEP_BATCH, 5, H).astype(np.float32)
+    h0, c0 = (rs.randn(LSTM_STEP_BATCH, H).astype(np.float32)
+              for _ in range(2))
+    sstart = {k: v for k, v in start.items() if k.startswith("lstm_l0_")}
+    sstart = {k.replace("lstm_l0_", "lstm_"): v for k, v in sstart.items()}
+    (o_card, rows_card), (o_cpu, rows_cpu) = (
+        states_and_monitor(ctx, sstart, data, h0, c0)
+        for ctx in (dev, mx.cpu()))
+    if [r[:2] for r in rows_card] != [r[:2] for r in rows_cpu]:
+        raise SystemExit("chip_smoke: phase 19 monitor rows differ: %s vs "
+                         "%s" % ([r[1] for r in rows_card][:8],
+                                 [r[1] for r in rows_cpu][:8]))
+    for (_, name, g), (_, _, w) in zip(rows_card, rows_cpu):
+        g, w = float(g.split()[0]), float(w.split()[0])
+        if not abs(g - w) <= LSTM_STEP_TOL * max(abs(w), 1e-30):
+            raise SystemExit("chip_smoke: phase 19 monitor %s: %r vs %r"
+                             % (name, g, w))
+    for g, w in zip(o_card, o_cpu):
+        if not np.abs(g - w).max() <= LSTM_STEP_TOL * np.abs(w).max():
+            raise SystemExit("chip_smoke: phase 19 forward from set states "
+                             "differs from the CPU's")
+    log("phase 19 state_names h0/c0: set_states(value=) and "
+        "set_states(states=) read back by get_states on the card; the "
+        "forward from them equals the CPU's; Monitor: %d rows (%d op "
+        "outputs and the arguments) with the CPU's names, each mean |x| "
+        "within %.0e [%s]"
+        % (len(rows_card), sum(r[1].endswith("_output") for r in rows_card),
+           LSTM_STEP_TOL, card))
+
+
+def lstm_head_rows(dev, card, entries):
+    """Row 10's kernel pair at phase 18's head, 1024 x 10000 (batch 32 x
+    bucket 32 rows of the vocabulary's logits): the kernels held against
+    their plain versions (1e-5 x max|ref|), then timed with
+    ``torch.softmax`` as the forward's yardstick."""
+    rows, classes = LSTM_BATCH * LSTM_SEQ, LSTM["vocab_size"]
+    g = torch.Generator(device="cpu").manual_seed(18)
+    logits = torch.randn(rows, classes, generator=g).to(dev)
+    label = torch.randint(0, classes, (rows,), generator=g).float().to(dev)
+    p = softmax_xent.softmax_rows(logits)
+    scale = 1.0 / LSTM_BATCH
+    shape = "rows=%d classes=%d (phase 18's head)" % (rows, classes)
+    n = rows * classes
+    errs = {}
+    for name, got, want in (
+            ("softmax_rows", p, softmax_xent.softmax_rows_reference(logits)),
+            ("xent_grad_from_probs",
+             softmax_xent.xent_grad_from_probs(p, label, scale),
+             softmax_xent.xent_grad_from_probs_reference(p, label, scale))):
+        errs[name] = agree(name, shape, got, want,
+                           1e-5 * float(want.abs().max()))
+    entries["softmax_rows"].append(timed_row(
+        "softmax_rows", shape, lambda: softmax_xent.softmax_rows(logits),
+        lambda: softmax_xent.softmax_rows_reference(logits),
+        lambda: torch.softmax(logits, -1), 4 * 2 * n, 5 * n,
+        errs["softmax_rows"], card))
+    entries["xent_grad_from_probs"].append(timed_row(
+        "xent_grad_from_probs", shape,
+        lambda: softmax_xent.xent_grad_from_probs(p, label, scale),
+        lambda: softmax_xent.xent_grad_from_probs_reference(p, label, scale),
+        None, 4 * (2 * n + rows), 2 * n, errs["xent_grad_from_probs"],
+        card))
+
+
 def time_ms(fn, n=60, flush=None):
     """Median device milliseconds of ``fn`` over ``n`` launches, queued
     behind a GPU spin so the launches run back to back; ``flush``: a call
@@ -4649,6 +5220,7 @@ def phase_times_train(dev, card, errs, fa_shapes):
                              t["dyv"]), 4 * 3 * nv, 4 * nv)
     xent_bf16_rows(card, errs, t, entries)
     resnet_head_rows(dev, card, entries)
+    lstm_head_rows(dev, card, entries)
     k, xs, ys, out = rtc_fma1(t["logits"], t["dyv"])
     one = torch.ones((), device=dev)
     entries["rtc"] = [timed_row(
@@ -4885,6 +5457,7 @@ def kernel_rows(entries, counts):
                 RESNET_LAUNCHES_PER_STEP.get(name, 0),
             "resnet_bf16_launches_per_step":
                 RESNET_BF16_LAUNCHES_PER_STEP.get(name, 0),
+            "lstm_launches_per_step": LSTM_LAUNCHES_PER_STEP.get(name, 0),
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             "ms": head["ms"], "plain_ms": head["plain_ms"],
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
@@ -4969,6 +5542,9 @@ def main(argv):
     counts["zoo"] = phase_zoo_train(dev, card)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
         counts["resume"] = phase_resume(dev, card, workdir)
+    counts["lstm"], step_ms_lstm = phase_lstm(dev, card)
+    counts["lstm_buckets"] = phase_lstm_buckets(dev, card, step_ms_lstm)
+    phase_lstm_vs_cpu(dev, card)
     pa_shapes, fa_shapes = collections.Counter(), collections.Counter()
     for tag in ("3", "3b", "3d"):
         pa_shapes.update(served[tag]["pa_shapes"])

@@ -30,6 +30,14 @@ gradients to ``grad_dict``; the outputs stay in the compute dtype.
 Floating auxiliary states enter in the compute dtype too, and their
 new values are cast back to the aux arrays' own dtype before the write
 (the reference's ``_cast_aux`` / ``_uncast_aux``).
+
+An init op whose ``shape`` holds a 0 (``begin_state``'s ``(0, H)``
+zeros of an RNN cell) takes the shape that inference over the bound
+arguments gives its output (:func:`shape_overrides`), and an init op
+with no ``ctx`` makes its array on the executor's device.  With a
+monitor callback (:meth:`set_monitor_callback`) each forward hands it
+every node's outputs, named ``<node>_<output>``, in topological order;
+without one the forward runs no monitoring code.
 """
 from __future__ import annotations
 
@@ -40,7 +48,33 @@ from .base import MXNetError
 from .context import default_device
 from .ndarray import NDArray, _torch_dtype
 
-__all__ = ["Executor"]
+__all__ = ["Executor", "shape_overrides"]
+
+
+def shape_overrides(symbol, known_shapes, device=None):
+    """``{id(node): attrs}`` for the init ops that need other attributes
+    than they were built with: a 0 in ``shape`` replaced by the shape
+    inferred from ``known_shapes`` (``{argument name: shape}``), and
+    ``ctx`` set to ``device`` where it is None."""
+    from .symbol import infer_node_shapes
+    hints = None
+    overrides = {}
+    for node in symbol._nodes():
+        if node.is_variable:
+            continue
+        attrs = node.attrs
+        shape = attrs.get("shape")
+        if shape is not None and 0 in shape and "ctx" in attrs:
+            if hints is None:
+                hints = infer_node_shapes(symbol, dict(known_shapes))
+            hint = hints.get((id(node), 0))
+            if hint is not None and 0 not in hint:
+                attrs = dict(attrs, shape=tuple(hint))
+        if device is not None and "ctx" in attrs and attrs["ctx"] is None:
+            attrs = dict(attrs, ctx=device)
+        if attrs is not node.attrs:
+            overrides[id(node)] = attrs
+    return overrides
 
 
 class Executor:
@@ -75,17 +109,23 @@ class Executor:
         self._var_idx = {id(n): order[n.name] for n in self._nodes
                          if n.is_variable}
         self._heads = [(id(n), oi) for n, oi in symbol._outputs]
+        self._attrs = shape_overrides(
+            symbol, {n: a.shape for n, a in zip(self._arg_names,
+                                                self.arg_arrays)},
+            self._ctx)
         self.outputs = []
         self._train = None   # (outputs with autograd history, leaves)
+        self._monitor_cb = None
 
-    def _evaluate(self, var_vals, is_train):
+    def _evaluate(self, var_vals, is_train, tap=None):
         """The heads' values, and the auxiliary states' new values (by
         index into ``aux_arrays``; the topologically last writer of a
         shared state wins) from the arguments followed by the auxiliary
-        states."""
+        states.  ``tap(node, outs)`` sees each op node's outputs."""
         vals, new_aux = {}, {}
         nargs = len(self._arg_names)
         gen = None
+        attrs = self._attrs
         for node in self._nodes:
             if node.is_variable:
                 vals[(id(node), 0)] = var_vals[self._var_idx[id(node)]]
@@ -95,13 +135,32 @@ class Executor:
             if gen is None and op.needs_rng and (is_train or
                                                  op.rng_at_eval):
                 gen = _random.generator(self._ctx)
-            outs, upd = op.apply(node.attrs, ins[:na], ins[na:], is_train,
-                                 gen)
+            outs, upd = op.apply(attrs.get(id(node), node.attrs), ins[:na],
+                                 ins[na:], is_train, gen)
             for (an, _), u in zip(node.aux_inputs(), upd):
                 new_aux[self._var_idx[id(an)] - nargs] = u
             for oi, o in enumerate(outs):
                 vals[(id(node), oi)] = o
+            if tap is not None:
+                tap(node, outs)
         return [vals[k] for k in self._heads], new_aux
+
+    def set_monitor_callback(self, callback):
+        """Call ``callback(name, NDArray)`` after each forward for every
+        op node's outputs (``<node>_<output>``), in topological order."""
+        self._monitor_cb = callback
+
+    def _monitor_tap(self):
+        """A ``tap`` that keeps each output under its monitor name, and
+        the list it fills; (None, None) without a monitor."""
+        if self._monitor_cb is None:
+            return None, None
+        records = []
+
+        def tap(node, outs):
+            for nm, o in zip(node.op.outputs(node.attrs), outs):
+                records.append(("%s_%s" % (node.name, nm), o))
+        return tap, records
 
     def _cast_aux(self, vals):
         cdt = self._compute_dtype
@@ -138,6 +197,7 @@ class Executor:
         arg_vals = [a._data for a in self.arg_arrays]
         aux_vals = self._cast_aux([a._data for a in self.aux_arrays])
         self._train = None
+        tap, records = self._monitor_tap()
         if is_train:
             leaves = {i: arg_vals[i].detach().requires_grad_(True)
                       for i in self._diff_idx}
@@ -145,14 +205,16 @@ class Executor:
                 arg_vals[i] = t
             with torch.enable_grad():
                 outs, new_aux = self._evaluate(
-                    self._cast_args(arg_vals) + aux_vals, True)
+                    self._cast_args(arg_vals) + aux_vals, True, tap)
             self._train = (outs, leaves)
             self._write_aux(new_aux)
         else:
             with torch.no_grad():
                 outs, _ = self._evaluate(
-                    self._cast_args(arg_vals) + aux_vals, False)
+                    self._cast_args(arg_vals) + aux_vals, False, tap)
         self.outputs = [NDArray(o.detach()) for o in outs]
+        for nm, o in records or ():
+            self._monitor_cb(nm, NDArray(o.detach()))
         return self.outputs
 
     def backward(self, out_grads=None):

@@ -1,6 +1,8 @@
 """Weight initializers (counterpart of ``mxnet_tpu/initializer.py``):
 ``InitDesc``, the name rules of ``Initializer``, ``Zero``, ``One``,
-``Constant``, ``Uniform``, ``Normal`` and ``Xavier``.
+``Constant``, ``Uniform``, ``Normal``, ``Xavier``, ``LSTMBias`` (an LSTM
+cell's ``i2h_bias``, set through the variable's ``__init__``
+attribute) and ``FusedRNN`` (the ``RNN`` op's packed parameter vector).
 
 Random draws come from the port's explicit generator
 (:mod:`mxnet_tpu_torch.random`) on the host and are copied into the
@@ -17,7 +19,8 @@ from . import random as _random
 from .base import MXNetError
 
 __all__ = ["InitDesc", "Initializer", "Zero", "One", "Constant", "Uniform",
-           "Normal", "Xavier", "init_registry", "register"]
+           "Normal", "Xavier", "LSTMBias", "FusedRNN", "init_registry",
+           "register"]
 
 init_registry = {}
 
@@ -55,7 +58,8 @@ class Initializer:
     ``*running_mean`` -> 0, ``*moving_var`` / ``*running_var`` -> 1,
     ``*moving_inv_var`` and ``*moving_avg`` -> 0; any other name ->
     :meth:`_init_weight`.  A ``__init__`` attribute on the variable
-    names another initializer for it."""
+    names another initializer for it, which gets this one as the
+    descriptor's ``global_init`` when it has none."""
 
     def __init__(self, **kwargs):
         self._kwargs = kwargs
@@ -70,6 +74,8 @@ class Initializer:
         attrs = getattr(desc, "attrs", {})
         if attrs.get("__init__"):
             klass, kwargs = json.loads(attrs["__init__"])
+            if getattr(desc, "global_init", None) is None:
+                desc = InitDesc(desc, attrs, global_init=self)
             init_registry[klass.lower()](**kwargs)._init_weight(desc, arr)
             return
         name = desc.lower()
@@ -179,3 +185,77 @@ class Xavier(Initializer):
                 0.0, scale, generator=_random.generator())
         else:
             raise MXNetError("Unknown random type")
+
+
+@register
+class LSTMBias(Initializer):
+    """An LSTM cell's bias: zeros but the forget gate's slice (the
+    second of the ``i, f, c, o`` quarters), which is ``forget_bias``."""
+
+    def __init__(self, forget_bias=1.0):
+        super().__init__(forget_bias=forget_bias)
+        self.forget_bias = forget_bias
+
+    def _init_weight(self, _, arr):
+        v = torch.zeros(arr.shape, dtype=torch.float32)
+        num_hidden = arr.shape[0] // 4
+        v[num_hidden:2 * num_hidden] = self.forget_bias
+        arr[:] = v
+
+
+@register
+class FusedRNN(Initializer):
+    """The ``RNN`` op's packed parameter vector, piece by piece: each
+    layer's and direction's ``i2h_weight`` and ``h2h_weight`` drawn by
+    ``init`` (an initializer or its ``dumps()``; the descriptor's
+    ``global_init`` when None) under the names ``l<layer>_`` or
+    ``r<layer>_`` + ``i2h_weight`` / ``h2h_weight``, the biases zero, and
+    an LSTM's ``i2h_bias`` as :class:`LSTMBias` makes it, so the fused
+    op starts where the explicit cells would."""
+
+    def __init__(self, init, num_hidden, num_layers, mode,
+                 bidirectional=False, forget_bias=1.0):
+        if init is not None and not isinstance(init, str):
+            init = init.dumps()
+        super().__init__(init=init, num_hidden=num_hidden,
+                         num_layers=num_layers, mode=mode,
+                         bidirectional=bidirectional,
+                         forget_bias=forget_bias)
+        self._init = None
+        if init is not None:
+            klass, kwargs = json.loads(init)
+            self._init = init_registry[klass.lower()](**kwargs)
+        self._num_hidden = num_hidden
+        self._num_layers = num_layers
+        self._mode = mode
+        self._bidirectional = bidirectional
+        self._forget_bias = forget_bias
+
+    def _init_weight(self, desc, arr):
+        from . import ndarray as nd
+        from .context import cpu
+        from .ops.rnn_op import _GATES, unpack_params
+        init = self._init or getattr(desc, "global_init", None)
+        if init is None:
+            raise MXNetError("FusedRNN: no initializer for the weights "
+                             "(pass init=, or call through a global one)")
+        g, h = _GATES[self._mode], self._num_hidden
+        d = 2 if self._bidirectional else 1
+        n = arr.shape[0]
+        # the input width is what the packed length leaves for layer 0
+        rest = sum(d * g * h * (h * d + h + 2)
+                   for _ in range(self._num_layers - 1))
+        input_size = (n - rest) // (d * g * h) - h - 2
+        flat = torch.zeros(n, dtype=torch.float32)
+        layers = unpack_params(flat, self._num_layers, input_size, h,
+                               self._mode, self._bidirectional)
+        for li, dirs in enumerate(layers):
+            for di, (wi, wh, bi, _) in enumerate(dirs):
+                pre = "%s%d_" % ("lr"[di], li)
+                for nm, w in (("i2h_weight", wi), ("h2h_weight", wh)):
+                    piece = nd.zeros(tuple(w.shape), cpu())
+                    init(InitDesc(pre + nm), piece)
+                    w.copy_(piece._data)
+                if self._mode == "lstm":
+                    bi[h:2 * h] = self._forget_bias
+        arr[:] = flat

@@ -29,7 +29,9 @@ __all__ = ["DataDesc", "DataBatch", "DataIter", "NDArrayIter",
 
 
 class DataDesc(namedtuple("DataDesc", ["name", "shape"])):
-    """Name + shape (+dtype/layout) of one input."""
+    """Name + shape (+dtype/layout) of one input.  ``layout`` names the
+    axes (``"NCHW"``, ``"NT"``, ``"TN"``); its ``N`` is the batch
+    axis."""
 
     def __new__(cls, name, shape, dtype=np.float32, layout="NCHW"):
         ret = super().__new__(cls, name, shape)
@@ -37,16 +39,30 @@ class DataDesc(namedtuple("DataDesc", ["name", "shape"])):
         ret.layout = layout
         return ret
 
+    @staticmethod
+    def get_batch_axis(layout):
+        """The position of the batch axis (``N``) in ``layout``; 0 when
+        there is no layout."""
+        if layout is None:
+            return 0
+        return layout.find("N")
+
 
 class DataBatch:
     """One batch: ``data``/``label`` NDArray lists plus ``pad``, the
-    number of fill rows in the final batch."""
+    number of fill rows in the final batch; a bucketing iterator adds
+    the batch's ``bucket_key`` and its own ``provide_data`` /
+    ``provide_label``."""
 
-    def __init__(self, data, label=None, pad=None, index=None):
+    def __init__(self, data, label=None, pad=None, index=None,
+                 bucket_key=None, provide_data=None, provide_label=None):
         self.data = data
         self.label = label
         self.pad = pad
         self.index = index
+        self.bucket_key = bucket_key
+        self.provide_data = provide_data
+        self.provide_label = provide_label
 
 
 class DataIter:

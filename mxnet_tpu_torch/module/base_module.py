@@ -2,7 +2,10 @@
 ``mxnet_tpu/module/base_module.py``): ``fit``, ``score``,
 ``iter_predict`` and ``predict`` on top of ``bind`` / ``init_params`` /
 ``init_optimizer`` / ``forward`` / ``backward`` / ``update``, which
-concrete modules provide."""
+concrete modules provide.  A ``BucketingModule`` switches to each
+batch's bucket in ``prepare`` and ``forward``, so the same loops drive
+it over batches of several buckets, and an ``eval_data`` of other
+buckets than the training data's."""
 from __future__ import annotations
 
 import logging
@@ -48,6 +51,10 @@ class BaseModule:
     @property
     def symbol(self):
         return self._symbol
+
+    def prepare(self, data_batch):
+        """Get ready for ``data_batch`` before its forward (a
+        ``BucketingModule`` binds its bucket); nothing here."""
 
     def forward_backward(self, data_batch):
         """``forward(is_train=True)`` then ``backward`` on one batch."""
@@ -131,10 +138,13 @@ class BaseModule:
             eval_batch_end_callback=None,
             initializer=None, arg_params=None, aux_params=None,
             allow_missing=False, force_rebind=False, force_init=False,
-            begin_epoch=0, num_epoch=None, validation_metric=None):
+            begin_epoch=0, num_epoch=None, validation_metric=None,
+            monitor=None):
         """Train: bind, initialise parameters and optimizer, then per
         epoch one ``forward_backward`` + ``update`` + metric update per
-        batch, the callbacks, and a score on ``eval_data``."""
+        batch, the callbacks, and a score on ``eval_data``.  A
+        ``monitor`` is installed after the bind, armed before each
+        batch (``tic``) and printed after its update (``toc_print``)."""
         assert num_epoch is not None, "please specify number of epochs"
         from ..initializer import Uniform
         if initializer is None:
@@ -142,6 +152,8 @@ class BaseModule:
         self.bind(data_shapes=train_data.provide_data,
                   label_shapes=train_data.provide_label,
                   for_training=True, force_rebind=force_rebind)
+        if monitor is not None:
+            self.install_monitor(monitor)
         self.init_params(initializer=initializer, arg_params=arg_params,
                          aux_params=aux_params, allow_missing=allow_missing,
                          force_init=force_init)
@@ -155,9 +167,14 @@ class BaseModule:
             tic = time.time()
             eval_metric.reset()
             for nbatch, data_batch in enumerate(train_data):
+                if monitor is not None:
+                    monitor.tic()
+                self.prepare(data_batch)
                 self.forward_backward(data_batch)
                 self.update()
                 self.update_metric(eval_metric, data_batch.label)
+                if monitor is not None:
+                    monitor.toc_print()
                 for callback in _as_list(batch_end_callback):
                     callback(BatchEndParam(epoch=epoch, nbatch=nbatch,
                                            eval_metric=eval_metric,

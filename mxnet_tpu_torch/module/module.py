@@ -15,6 +15,15 @@ its optimizer state move between the packages in both directions.
 gradient and auxiliary arrays; ``get_input_grads`` returns the data
 gradients of a module bound with ``inputs_need_grad``.
 
+``bind(shared_module=)`` binds over another bound module's parameter,
+gradient and auxiliary arrays themselves (a ``BucketingModule``'s
+buckets), and ``borrow_optimizer`` takes its optimizer and updater, so
+every bucket steps one set of tensors with one optimizer state keyed by
+parameter index.  ``state_names`` are inputs that are neither data nor
+parameters (an RNN's carried state: ``get_states`` / ``set_states``);
+``install_monitor`` hands a :class:`~mxnet_tpu_torch.monitor.Monitor`
+the executor's outputs and arguments.
+
 Without a context the module runs on ``cuda:0`` and raises when there is
 no GPU; pass ``context=cpu()`` for the plain versions on the host.
 
@@ -59,7 +68,8 @@ def _as_data_desc(x):
 class Module(BaseModule):
     def __init__(self, symbol, data_names=("data",),
                  label_names=("softmax_label",), logger=logging,
-                 context=None, fixed_param_names=None, compute_dtype=None):
+                 context=None, fixed_param_names=None, compute_dtype=None,
+                 state_names=None):
         super().__init__(logger=logger)
         self._compute_dtype = compute_dtype
         if isinstance(context, (list, tuple)):
@@ -73,11 +83,15 @@ class Module(BaseModule):
         self._data_names = list(data_names or [])
         self._label_names = [n for n in (label_names or [])
                              if n in arg_names]
-        for name in self._data_names:
-            if name not in arg_names:
-                raise ValueError("data name %r is not an argument of the "
-                                 "symbol" % name)
-        input_names = self._data_names + self._label_names
+        self._state_names = list(state_names or [])
+        for kind, names in (("data", self._data_names),
+                            ("state", self._state_names)):
+            for name in names:
+                if name not in arg_names:
+                    raise ValueError("%s name %r is not an argument of the "
+                                     "symbol" % (kind, name))
+        input_names = self._data_names + self._label_names + \
+            self._state_names
         self._param_names = [x for x in arg_names if x not in input_names]
         self._aux_names = symbol.list_auxiliary_states()
         self._fixed_param_names = list(fixed_param_names or [])
@@ -169,6 +183,10 @@ class Module(BaseModule):
         return self._output_names
 
     @property
+    def state_names(self):
+        return self._state_names
+
+    @property
     def data_shapes(self):
         assert self.binded
         return self._data_shapes
@@ -239,7 +257,11 @@ class Module(BaseModule):
 
     # -- binding -----------------------------------------------------------
     def bind(self, data_shapes, label_shapes=None, for_training=True,
-             inputs_need_grad=False, force_rebind=False, grad_req="write"):
+             inputs_need_grad=False, force_rebind=False, shared_module=None,
+             grad_req="write"):
+        """Bind the executor group; with ``shared_module`` (bound, its
+        parameters initialized) over that module's parameter, gradient
+        and auxiliary arrays, whose values this module then has."""
         if force_rebind:
             self.binded = False
             self._exec_group = None
@@ -251,13 +273,23 @@ class Module(BaseModule):
         self._data_shapes = [_as_data_desc(x) for x in data_shapes]
         self._label_shapes = [_as_data_desc(x) for x in label_shapes or []
                               if _as_data_desc(x).name in self._label_names]
+        shared_group = None
+        if shared_module is not None:
+            assert shared_module.binded and \
+                shared_module.params_initialized
+            shared_group = shared_module._exec_group
         self._exec_group = DataParallelExecutorGroup(
             self._symbol, self._context, self._data_shapes,
             self._label_shapes, self._param_names, for_training,
             inputs_need_grad, self._fixed_param_names, grad_req,
-            self._compute_dtype)
+            self._compute_dtype, shared_group, self._state_names)
         self.binded = True
-        if self.params_initialized:
+        if shared_module is not None:
+            self.params_initialized = True
+            self._arg_params = shared_module._arg_params
+            self._aux_params = shared_module._aux_params
+            self._params_dirty = True
+        elif self.params_initialized:
             self._exec_group.set_params(self._arg_params, self._aux_params)
 
     def reshape(self, data_shapes, label_shapes=None):
@@ -303,6 +335,21 @@ class Module(BaseModule):
             self.load_optimizer_states(self._preload_opt_states)
             self._preload_opt_states = None
 
+    def borrow_optimizer(self, shared_module):
+        """Step with ``shared_module``'s optimizer and updater (one state
+        for both, keyed by parameter index: the parameters must be the
+        same names in the same order)."""
+        assert shared_module.optimizer_initialized
+        if shared_module._param_names != self._param_names:
+            raise MXNetError("borrow_optimizer: the modules' parameters "
+                             "differ (%s vs %s); the updater's state is "
+                             "keyed by their index" % (
+                                 self._param_names,
+                                 shared_module._param_names))
+        self._optimizer = shared_module._optimizer
+        self._updater = shared_module._updater
+        self.optimizer_initialized = True
+
     # -- computation -------------------------------------------------------
     def forward(self, data_batch, is_train=None):
         """A train forward updates the auxiliary states on the device."""
@@ -336,6 +383,22 @@ class Module(BaseModule):
         assert self.binded and self.params_initialized and \
             self.inputs_need_grad
         return self._exec_group.get_input_grads()
+
+    def get_states(self, merge_multi_context=True):
+        """The ``state_names`` arrays."""
+        assert self.binded and self.params_initialized
+        return self._exec_group.get_states(merge_multi_context)
+
+    def set_states(self, states=None, value=None):
+        """Set the ``state_names`` arrays from ``states`` or the scalar
+        ``value``."""
+        assert self.binded and self.params_initialized
+        self._exec_group.set_states(states, value)
+
+    def install_monitor(self, mon):
+        """Report this module's executor to ``mon`` (a ``Monitor``)."""
+        assert self.binded
+        self._exec_group.install_monitor(mon)
 
     def update_metric(self, eval_metric, labels):
         self._exec_group.update_metric(eval_metric, labels)

@@ -397,7 +397,7 @@ def _merge(kind, prev, v):
     return prev if prev is not None else v
 
 
-def _infer_pass(symbol, known, kind):
+def _infer_pass(symbol, known, kind, with_nodes=False):
     nodes = symbol._nodes()
     node_out = {}   # (node id, out_idx) -> shape or type
     var_val = {}    # node id -> shape or type of a variable
@@ -459,7 +459,17 @@ def _infer_pass(symbol, known, kind):
                if n.is_variable and id(n) not in aux_ids]
     aux_res = [var_val.get(id(n)) for n in nodes if id(n) in aux_ids]
     out_res = [node_out.get((id(n), oi)) for n, oi in symbol._outputs]
+    if with_nodes:
+        return arg_res, out_res, aux_res, node_out
     return arg_res, out_res, aux_res
+
+
+def infer_node_shapes(symbol, known):
+    """Every node's output shapes, ``{(id(node), out_idx): shape}``, from
+    the known input shapes ``{name: shape}``: where an init op's
+    ``shape`` holds a 0 (a wildcard, as ``begin_state``'s ``(0, H)``),
+    its entry is what its consumers made of it."""
+    return _infer_pass(symbol, known, "shape", with_nodes=True)[3]
 
 
 # ---------------------------------------------------------------------------
@@ -522,6 +532,17 @@ def _invoke(op_name, sym_inputs, raw_attrs, name=None, aux_syms=()):
                        Variable("%s_%s" % (name, nm)))._outputs[0])
     node = _Node(op, name, attrs, inputs, extra)
     return Symbol([(node, i) for i in range(op.num_outputs(attrs))])
+
+
+def zeros(shape, dtype="float32", **kwargs):
+    """A symbol of zeros of ``shape``; a 0 in it is resolved at bind
+    from the graph around it."""
+    return _invoke("_zeros", [], {"shape": shape, "dtype": dtype}, **kwargs)
+
+
+def ones(shape, dtype="float32", **kwargs):
+    """A symbol of ones of ``shape``, as :func:`zeros`."""
+    return _invoke("_ones", [], {"shape": shape, "dtype": dtype}, **kwargs)
 
 
 def load_json(json_str):

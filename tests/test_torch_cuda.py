@@ -1810,3 +1810,126 @@ def test_bf16_tiny_resnet_predict_on_card_matches_cpu(cuda_device):
         res.append(out.asnumpy())
     assert after["softmax_rows_bf16"] - before["softmax_rows_bf16"] == 3
     assert _rel_np(res[1], res[0]) <= 2e-2
+
+
+RNN_CASES = [(mode, bidir) for mode in ("lstm", "gru", "rnn_tanh",
+                                        "rnn_relu")
+             for bidir in (False, True)]
+
+
+def _rnn_case(dev, mode, bidir, seed):
+    from mxnet_tpu_torch.ops import rnn_op
+    dev = mx.context.default_device(dev)    # cuDNN's TF32 off, as a module
+    L, T, N, I, H = 2, 7, 3, 12, 16
+    d = 2 if bidir else 1
+    g = torch.Generator().manual_seed(seed)
+    n = rnn_op.rnn_param_size(L, I, H, mode, bidir)
+    ins = [torch.randn(T, N, I, generator=g),
+           torch.empty(n).uniform_(-0.3, 0.3, generator=g),
+           torch.randn(L * d, N, H, generator=g)]
+    if mode == "lstm":
+        ins.append(torch.randn(L * d, N, H, generator=g))
+    attrs = dict(state_size=H, num_layers=L, mode=mode, bidirectional=bidir,
+                 p=0.0, state_outputs=True, pkeep_=1.0, lstm_q_=False)
+    return attrs, [t.to(dev).requires_grad_(True) for t in ins]
+
+
+def _rnn_run(fn, attrs, ins, seed, **kw):
+    outs = fn(attrs, *ins, **kw)
+    g = torch.Generator().manual_seed(seed + 1)
+    cots = [torch.randn(o.shape, generator=g).to(o.device) for o in outs]
+    return [o.detach() for o in outs] + list(
+        torch.autograd.grad(outs, ins, cots))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode,bidir", RNN_CASES)
+def test_rnn_op_cudnn_matches_plain_on_card(cuda_device, mode, bidir):
+    """The ``RNN`` op's card route (cuDNN through ``torch._VF``) against
+    its plain version (the per-step loop) on the card: outputs, last
+    states and every input's gradient within 1e-4 x max|ref|, the bound
+    of ``chip_smoke.py`` phase 19.  cuDNN's sigmoid and tanh are
+    approximations: its fp32 route lies about 1e-5 of max|ref| from the
+    loop in float64 (phase 19 prints the distance), the fp32 loop a few
+    1e-7."""
+    from mxnet_tpu_torch.ops import rnn_op
+    attrs, ins = _rnn_case(cuda_device, mode, bidir, 20)
+    got = _rnn_run(rnn_op.rnn_apply, attrs, ins, 20, is_train=True)
+    want = _rnn_run(rnn_op.rnn_plain, attrs, ins, 20, is_train=True)
+    for i, (a, b) in enumerate(zip(got, want)):
+        assert a.is_cuda
+        err = float((a - b).abs().max())
+        assert err <= 1e-4 * float(b.abs().max()), (mode, bidir, i, err)
+
+
+@pytest.mark.cuda
+def test_rnn_op_dropout_between_layers_on_card(cuda_device):
+    """Training-time dropout between layers draws the same masks from
+    the card's generator on both routes, so cuDNN's output equals the
+    loop's with the same generator state (within the bound of the test
+    above)."""
+    from mxnet_tpu_torch.ops import rnn_op
+    attrs, ins = _rnn_case(cuda_device, "lstm", True, 21)
+    attrs = dict(attrs, p=0.4)
+    res = []
+    with torch.no_grad():
+        for fn in (rnn_op.rnn_apply, rnn_op.rnn_plain):
+            mx.random.seed(21)
+            res.append(fn(attrs, *ins, is_train=True,
+                          generator=mx.random.generator(cuda_device))[0])
+        infer = rnn_op.rnn_apply(attrs, *ins)[0]
+    err = float((res[0] - res[1]).abs().max())
+    assert err <= 1e-4 * float(res[1].abs().max())
+    assert not torch.allclose(infer, res[0])
+
+
+@pytest.mark.cuda
+def test_bucketing_lstm_step_on_card_matches_cpu(cuda_device):
+    """One ``forward_backward`` + ``update`` of each of two buckets of a
+    tiny LSTM LM through ``BucketingModule`` on the card against the CPU
+    from the same parameters: outputs, gradients and parameters within
+    1e-5 x max|ref|, and every bucket on the default bucket's tensors."""
+    from mxnet_tpu_torch.models.lstm_lm import sym_gen_factory
+    rs = np.random.RandomState(22)
+    sent = [list(rs.randint(1, 50, rs.randint(2, 9))) for _ in range(24)]
+    sym_gen = sym_gen_factory(num_layers=2, num_hidden=16, num_embed=16,
+                              vocab_size=50)
+    state, start, res = None, None, {}
+    for ctx in (mx.gpu(0), mx.cpu()):
+        it = mx.rnn.BucketSentenceIter(sent, 4, buckets=[4, 8],
+                                       invalid_label=0)
+        if state is not None:
+            it.load_state(state)
+        state = it.state_dict()
+        first = {}
+        for b in it:
+            first.setdefault(b.bucket_key, b)
+        mod = mx.mod.BucketingModule(sym_gen, default_bucket_key=8,
+                                     context=ctx)
+        mod.bind(it.provide_data, it.provide_label)
+        if start is None:
+            mod.init_params(mx.init.Xavier())
+            start = {k: v.asnumpy() for k, v in mod.get_params()[0].items()}
+        else:
+            mod.init_params(arg_params=start)
+        mod.init_optimizer(optimizer="sgd", optimizer_params={
+            "learning_rate": 0.1, "momentum": 0.9})
+        out = {}
+        for key in (4, 8):
+            mod.forward_backward(first[key])
+            out["out%d" % key] = mod.get_outputs()[0].asnumpy()
+            ex = mod._curr_module._exec_group.executor
+            out.update(("d%s%d" % (n, key), g.asnumpy())
+                       for n, g in ex.grad_dict.items())
+            mod.update()
+            out.update(("%s%d" % (n, key), v.asnumpy())
+                       for n, v in mod.get_params()[0].items())
+        ex4 = mod._buckets[4]._exec_group.executor
+        ex8 = mod._buckets[8]._exec_group.executor
+        for name in mod._buckets[8]._param_names:
+            assert ex4.arg_dict[name]._data.data_ptr() == \
+                ex8.arg_dict[name]._data.data_ptr()
+        res[ctx.device_type] = out
+    for name, want in res["cpu"].items():
+        err = float(np.abs(res["gpu"][name] - want).max())
+        assert err <= 1e-5 * float(np.abs(want).max()), (name, err)

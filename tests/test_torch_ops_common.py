@@ -217,17 +217,17 @@ STILL_TO_PORT = {
     "_contrib_Proposal", "_contrib_count_sketch", "_contrib_dequantize",
     "_contrib_fft", "_contrib_ifft", "_contrib_quantize", "count_sketch",
     "ctc_loss", "dequantize", "fft", "ifft", "quantize",
-    # ops/custom.py and ops/rnn_op.py
-    "Custom", "RNN",
+    # ops/custom.py
+    "Custom",
 }
 
 
 def test_registry_holds_every_reference_op_but_the_listed_ones():
     ref, port = set(jreg.list_ops()), set(treg.list_ops())
-    assert len(STILL_TO_PORT) == 29
+    assert len(STILL_TO_PORT) == 28
     assert ref - port == STILL_TO_PORT
     assert port - ref == set()
-    assert len(port) == 221
+    assert len(port) == 222
 
 
 def test_roadmap_lists_the_same_ops_still_to_port():
