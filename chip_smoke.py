@@ -333,7 +333,18 @@ sources in this checkout on first use.  Phases, each fatal on failure:
 Phase 5 also times row 10's kernel pair at phase 13's head, 32 x
 1000, and at phase 18's, 1024 x 10000, and row 10b's bf16 pair at
 phase 13b's (the registers body, one 16-byte load a lane, confirmed
-from the pointers).  Phase 5 also
+from the pointers).  At each of row 10's three shapes (32 x 1000, 1024
+x 10000, 4096 x 8192) ``softmax_rows`` runs its planned registers body
+(one launch, counted under ``softmax_rows[regs]``), and then every
+other body on the same rows, each held against the plain version and
+timed: the two-pass body forced, the rows one element off 16-byte
+alignment (the scalar two-pass body, by the plan) within 1e-5 x
+max|ref|, and the bf16 two-pass body within one bf16 ulp; at the two
+large shapes the kernel and ``torch.softmax`` also with L2 cold.
+Phases 6, 6b, 13, 13b, 15, 18 and 18b count their ``softmax_rows``
+launches by (name, rows, cols, body) (``sr_census``, each launch held
+to ``_plan``) and fail on a launch off the registers body.  Phase 5
+also
 gives the norm forwards' rows (fp32 and bf16 ``rms_norm``
 and ``layer_norm``) ``floor_ms``: the same call on one row, the floor
 of one launch.
@@ -1691,6 +1702,79 @@ def paged_path(path):
         paged_attention._plan = plan
 
 
+# softmax_rows' launch names; the C entry points' path back to its body
+ROWS_NAMES = ("softmax_rows", "softmax_rows_bf16")
+ROWS_BODIES = {v: k for k, v in softmax_xent._ROWS_PATH.items()}
+
+
+@contextlib.contextmanager
+def sr_census():
+    """Count each ``softmax_rows`` launch by (name, rows, cols, body): a
+    counting shim around the wrapper's ``launch`` sees every launch it
+    makes (a dict update each, on the host); fatal when a launch's path
+    and loads are not the ones ``_plan`` names."""
+    shapes, launch = collections.Counter(), softmax_xent.launch
+
+    def counted(x, name, entry, *args):
+        if name in ROWS_NAMES:
+            # x, p, rows, cols, path, loads
+            xp, pp, rows, cols, path, loads = args
+            align = min([16] + [q & -q for q in (xp, pp) if q])
+            plan = softmax_xent._plan(cols, align, x.dtype)
+            if (path, loads) != (softmax_xent._ROWS_PATH[plan.body],
+                                 plan.loads):
+                raise SystemExit("chip_smoke: %s launched path %s, %s "
+                                 "loads; _plan names %s"
+                                 % (name, path, loads, plan))
+            shapes[name, rows, cols, ROWS_BODIES[path]] += 1
+        return launch(x, name, entry, *args)
+
+    softmax_xent.launch = counted
+    try:
+        yield shapes
+    finally:
+        softmax_xent.launch = launch
+
+
+def check_sr_census(tag, sr_shapes, counts):
+    """Log phase ``tag``'s ``softmax_rows`` launches by (name, rows,
+    cols, body); fatal when the census or the wrapper's body counts
+    (``kernels.body_counts``, reset with the launch counts) missed a
+    launch, or a launch ran on another body than the registers body
+    (``sr_census`` already held each launch to ``_plan``)."""
+    log("phase %s softmax_rows launches by (name, rows, cols, body) %s"
+        % (tag, dict(sorted(sr_shapes.items()))))
+    bodies = kernels.body_counts()
+    for name in ROWS_NAMES:
+        seen = sum(n for k, n in sr_shapes.items() if k[0] == name)
+        if seen != counts[name] or \
+                bodies.get(name + "[regs]", 0) != counts[name]:
+            raise SystemExit("chip_smoke: phase %s: %d %s launches, %d in "
+                             "the census, body counts %s"
+                             % (tag, counts[name], name, seen, bodies))
+    off = {k: n for k, n in sr_shapes.items() if k[-1] != "regs"}
+    if off:
+        raise SystemExit("chip_smoke: phase %s softmax_rows launches off "
+                         "the registers body: %s" % (tag, off))
+
+
+@contextlib.contextmanager
+def rows_two_pass():
+    """Every ``softmax_rows`` launch inside takes the two-pass body, with
+    float4 accesses where fp32 rows allow them."""
+    plan = softmax_xent._plan
+
+    def forced(cols, align, dtype):
+        vec = dtype == torch.float32 and cols % 4 == 0 and align % 16 == 0
+        return softmax_xent.RowsPlan("two_pass", int(vec))
+
+    softmax_xent._plan = forced
+    try:
+        yield
+    finally:
+        softmax_xent._plan = plan
+
+
 def phase_serve(tag, name, params, reqs, draft=None):
     """Serve ``reqs`` on a new registry with phase ``tag``'s store
     arguments (``SERVE_PHASES``), the launch counts set to 0 just before
@@ -2158,7 +2242,7 @@ def phase_train(dev, card, compute_dtype=None, step_ms_fp32=None):
     last.update(kernels.launch_counts())
     tic = time.perf_counter()
     with plain_guard() as plain, fa_census() as fa_shapes, \
-            nb_census() as nb_shapes:
+            nb_census() as nb_shapes, sr_census() as sr_shapes:
         mod.fit(it, num_epoch=1, optimizer="sgd",
                 optimizer_params=TRAIN_OPT, initializer=mx.init.Xavier(),
                 eval_metric=mx.metric.Perplexity(ignore_label=None),
@@ -2167,6 +2251,7 @@ def phase_train(dev, card, compute_dtype=None, step_ms_fp32=None):
     counts = kernels.launch_counts()
     check_fa_census(tag, fa_shapes, counts)
     check_nb_census(tag, nb_shapes, counts)
+    check_sr_census(tag, sr_shapes, counts)
     wall = time.perf_counter() - tic
     if plain:
         raise SystemExit("chip_smoke: phase %s reached plain versions: %s"
@@ -3509,7 +3594,7 @@ def phase_resnet(dev, card, compute_dtype=None, step_ms_fp32=None):
 
     kernels.reset_launch_counts()
     tic = time.perf_counter()
-    with plain_guard() as plain:
+    with plain_guard() as plain, sr_census() as sr_shapes:
         mod.bind(it.provide_data, it.provide_label)
         mod.init_params(resnet_init())
         start.update((k, v.asnumpy()) for k, v in mod.get_params()[1].items())
@@ -3520,6 +3605,7 @@ def phase_resnet(dev, card, compute_dtype=None, step_ms_fp32=None):
         torch.cuda.synchronize()
     wall = time.perf_counter() - tic
     counts = kernels.launch_counts()
+    check_sr_census(tag, sr_shapes, counts)
     ex = mod._exec_group.executor
     on_device(dev, "phase %s arrays, auxiliary states and momenta" % tag,
               list(zip(ex._arg_names, (a._data for a in ex.arg_arrays))) +
@@ -3903,7 +3989,7 @@ def phase_score(dev, card):
         X = rs.uniform(-1, 1, (SCORE_BATCH,) + shape).astype(np.float32)
         batch = mx.io.DataBatch(data=[mx.nd.array(X, ctx=dev)], label=[])
         kernels.reset_launch_counts()
-        with plain_guard() as plain:
+        with plain_guard() as plain, sr_census() as sr_shapes:
             for _ in range(SCORE_WARMUP):
                 mod.forward(batch, is_train=False)
             mod.get_outputs()[0].asnumpy()
@@ -3917,6 +4003,7 @@ def phase_score(dev, card):
                 X[:SCORE_CHECK_BATCH], ctx=dev)], label=[]), is_train=False)
             got = mod.get_outputs()[0].asnumpy()
         counts = kernels.launch_counts()
+        check_sr_census("15 " + label, sr_shapes, counts)
         want = dict.fromkeys(kernels.KERNELS, 0)
         want["softmax_rows"] = SCORE_WARMUP + SCORE_BATCHES + 1
         if plain or counts != want:
@@ -4349,11 +4436,12 @@ def phase_lstm(dev, card):
     kernels.reset_launch_counts()
     last.update(kernels.launch_counts())
     tic = time.perf_counter()
-    with plain_guard() as plain:
+    with plain_guard() as plain, sr_census() as sr_shapes:
         lstm_fit(mod, it, batch_end_callback=on_batch)
         torch.cuda.synchronize()
     wall = time.perf_counter() - tic
     counts = kernels.launch_counts()
+    check_sr_census("18", sr_shapes, counts)
     on_device(dev, "phase 18 arrays and optimizer state", lstm_arrays(mod))
     if plain:
         raise SystemExit("chip_smoke: phase 18 reached plain versions: %s"
@@ -4429,12 +4517,13 @@ def phase_lstm_buckets(dev, card, step_ms_18):
 
     kernels.reset_launch_counts()
     tic = time.perf_counter()
-    with plain_guard() as plain:
+    with plain_guard() as plain, sr_census() as sr_shapes:
         lstm_fit(mod, it, eval_data=ev, batch_end_callback=on_batch)
         score = mod.score(ev, mx.metric.Perplexity(ignore_label=0))[0][1]
         torch.cuda.synchronize()
     wall = time.perf_counter() - tic
     counts = kernels.launch_counts()
+    check_sr_census("18b", sr_shapes, counts)
     on_device(dev, "phase 18b arrays and optimizer state", lstm_arrays(mod))
     steps = len(objective)
     want = dict.fromkeys(kernels.KERNELS, 0)
@@ -4739,12 +4828,72 @@ def lstm_head_rows(dev, card, entries):
         lambda: softmax_xent.softmax_rows_reference(logits),
         lambda: torch.softmax(logits, -1), 4 * 2 * n, 5 * n,
         errs["softmax_rows"], card))
+    softmax_rows_bodies(entries["softmax_rows"][-1], logits, card,
+                        cold=True)
     entries["xent_grad_from_probs"].append(timed_row(
         "xent_grad_from_probs", shape,
         lambda: softmax_xent.xent_grad_from_probs(p, label, scale),
         lambda: softmax_xent.xent_grad_from_probs_reference(p, label, scale),
         None, 4 * (2 * n + rows), 2 * n, errs["xent_grad_from_probs"],
         card))
+
+
+def softmax_rows_bodies(row, logits, card, cold=False):
+    """Row 10's ``softmax_rows`` at one of its path shapes (``row``, its
+    timed row; ``logits`` fp32 on the card): the census of one call (one
+    launch, on the registers body ``_plan`` names), then every other
+    body on the same rows, each held against the plain version within
+    1e-5 x max|ref| and timed: the two-pass body forced
+    (``two_pass_ms``), the same rows one element off 16-byte alignment,
+    which ``_plan`` sends to the scalar two-pass body
+    (``offset_ms``), and the bf16 two-pass body on the logits rounded
+    to bf16, within one bf16 ulp of max|ref| (``bf16_two_pass_ms``).
+    ``cold``: the kernel and ``torch.softmax`` also with L2 cold
+    (``ms_cold``, ``library_ms_cold``: ``COLD_L2_BYTES`` written before
+    each launch, outside its events)."""
+    rows, cols = logits.shape
+    shape = row["shape"]
+    fn = lambda: softmax_xent.softmax_rows(logits)   # noqa: E731
+    plan = softmax_xent._plan(cols, 16, torch.float32)
+    before = kernels.body_counts()
+    fn()
+    torch.cuda.synchronize()
+    census = {k: n - before.get(k, 0) for k, n in
+              kernels.body_counts().items() if n != before.get(k, 0)}
+    if plan.body != "regs" or census != {"softmax_rows[regs]": 1}:
+        raise SystemExit("chip_smoke: softmax_rows %s ran %s; _plan names "
+                         "%s" % (shape, census, plan))
+    want = softmax_xent.softmax_rows_reference(logits)
+    tol = 1e-5 * float(want.abs().max())
+    x1 = offset_copy(logits, 1)
+    xb = logits.to(torch.bfloat16)
+    with rows_two_pass():
+        err = agree("softmax_rows two_pass", shape,
+                    softmax_xent.softmax_rows(logits), want, tol)
+        row["two_pass_ms"] = time_ms(fn)
+        agree_bf16("softmax_rows_bf16 two_pass", shape + " bf16",
+                   softmax_xent.softmax_rows(xb),
+                   softmax_xent.softmax_rows_reference(xb))
+        row["bf16_two_pass_ms"] = time_ms(
+            lambda: softmax_xent.softmax_rows(xb))
+    err = max(err, agree("softmax_rows offset view (two_pass, scalar)",
+                         shape, softmax_xent.softmax_rows(x1), want, tol))
+    row["offset_ms"] = time_ms(lambda: softmax_xent.softmax_rows(x1))
+    row.update(body=plan.body, loads=plan.loads,
+               max_abs_err=max(row["max_abs_err"], err))
+    if cold:
+        scratch = torch.empty(COLD_L2_BYTES // 4, device=logits.device)
+        row["ms_cold"] = time_ms(fn, flush=scratch.zero_)
+        row["library_ms_cold"] = time_ms(lambda: torch.softmax(logits, -1),
+                                         flush=scratch.zero_)
+    log("phase 5 softmax_rows %s: registers body (%d float4 loads a "
+        "thread) %.6f ms%s; two-pass body %.6f ms, offset view %.6f ms, "
+        "bf16 two-pass %.6f ms; census %s [%s]"
+        % (shape, plan.loads, row["ms"], "" if not cold else
+           ", L2 cold %.6f ms (torch.softmax %.6f)" % (
+               row["ms_cold"], row["library_ms_cold"]),
+           row["two_pass_ms"], row["offset_ms"], row["bf16_two_pass_ms"],
+           census, card))
 
 
 def time_ms(fn, n=60, flush=None):
@@ -5184,6 +5333,8 @@ def phase_times_train(dev, card, errs, fa_shapes):
         norm_bwd_cold_and_v1(entries[kern][0], kern, library, t, eps, card)
     record("softmax_rows", "softmax_rows", shape_v,
            lambda: torch.softmax(t["logits"], -1), 4 * 2 * nv, 5 * nv)
+    softmax_rows_bodies(entries["softmax_rows"][0], t["logits"], card,
+                        cold=True)
     record("xent_grad_from_probs", "xent_grad_from_probs", shape_v, None,
            4 * (2 * nv + TRAIN_ROWS), 2 * nv)
     rows = entries.setdefault("flash_attention", [])
@@ -5257,6 +5408,7 @@ def resnet_head_rows(dev, card, entries):
         lambda: softmax_xent.softmax_rows_reference(logits),
         lambda: torch.softmax(logits, -1), 4 * 2 * n, 5 * n,
         errs["softmax_rows"], card))
+    softmax_rows_bodies(entries["softmax_rows"][-1], logits, card)
     entries["xent_grad_from_probs"].append(timed_row(
         "xent_grad_from_probs", shape,
         lambda: softmax_xent.xent_grad_from_probs(p, label, scale),

@@ -34,7 +34,7 @@ from ..base import MXNetError
 from . import count_launch
 
 __all__ = ["KernelError", "library", "check", "build_info", "route",
-           "check_args", "launch", "sm_count", "SUFFIX"]
+           "check_args", "align_bytes", "launch", "sm_count", "SUFFIX"]
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _CSRC = os.path.join(_HERE, "csrc")
@@ -71,12 +71,12 @@ _SIGNATURES = {
                               _P),
     "mxt_layer_norm_bwd_bf16": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _F,
                                 _I, _I, _P),
-    # x, p, rows, cols, stream
-    "mxt_softmax_rows_f32": (_P, _P, _I, _I, _P),
+    # x, p, rows, cols, path, loads, stream (softmax_xent.py::_plan)
+    "mxt_softmax_rows_f32": (_P, _P, _I, _I, _I, _I, _P),
     # p, label, grad, rows, cols, scale, stream
     "mxt_xent_grad_from_probs_f32": (_P, _P, _P, _I, _I, _F, _P),
     # the same two with bf16 x, p and grad (the label float32)
-    "mxt_softmax_rows_bf16": (_P, _P, _I, _I, _P),
+    "mxt_softmax_rows_bf16": (_P, _P, _I, _I, _I, _I, _P),
     "mxt_xent_grad_from_probs_bf16": (_P, _P, _P, _I, _I, _F, _P),
     # x, label, loss, rows, cols, stream
     "mxt_softmax_xent_loss_f32": (_P, _P, _P, _I, _I, _P),
@@ -259,6 +259,15 @@ def check_args(name, *tensors, dtypes=(torch.float32,)):
 def sm_count(index):
     """Streaming multiprocessors of CUDA device ``index``."""
     return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def align_bytes(*tensors):
+    """The bytes every tensor's start is a multiple of, up to 16 (the
+    widest access a kernel makes)."""
+    align = 16
+    while any(t.data_ptr() % align for t in tensors):
+        align //= 2
+    return align
 
 
 def launch(x, name, entry, *args):

@@ -25,10 +25,20 @@
 // when the max grows (one pass over the row instead of a max pass and a
 // sum pass), and merge the pairs across the block; the loss forward
 // never writes the probabilities.  The other kernels read their row a
-// second (the softmax forward a third) time to write it; those reads
-// hit L1/L2, since the block's 32 KB row was just read.  The TPU
-// kernels' (block_rows, classes) VMEM tile has no counterpart here: one
-// block is one row.
+// second time to write it.  The TPU kernels' (block_rows, classes) VMEM
+// tile has no counterpart here: one block is one row.
+//
+// The softmax forward (softmax_rows) has two bodies, picked on the host
+// by kernels/softmax_xent.py::_plan and passed as `path` and `loads`.
+// The registers body holds an fp32 row of up to 16384 classes (width a
+// multiple of 4, rows 16-byte aligned) in registers, 4 values a float4
+// and up to 16 a thread, and reads it from device memory once.  A row
+// read again goes back to L2 or device memory: at the LSTM LM's head
+// (1024 rows of 10000 classes, 40 KB a row, 82 MB of logits and
+// probabilities against a 50 MB L2) the earlier three-pass body took
+// 1.9 x the registers body's time (PERF.md row 10).  Other rows take
+// the two-pass body: the loss kernels' running (max, sum of exp) pass,
+// then a read that writes.
 //
 // bf16 (SoftmaxOutput's head under Module(compute_dtype='bfloat16'):
 // _softmax_fwd_kernel and _xent_grad_from_probs_kernel on bf16 tiles,
@@ -41,7 +51,8 @@
 // softmax holds its row in registers (8 values a 16-byte load, up to 4
 // loads a thread) and reads it from device memory once; the gradient
 // reads p and writes the gradient 16 bytes at a time.  Other rows take
-// the scalar loops of the fp32 kernels, widening each element.
+// the two-pass body and the scalar loops of the fp32 kernels, widening
+// each element.
 //
 // bf16 softmax_xent_loss (the imperative plane's mx.nd.softmax_cross_
 // entropy on bf16 logits: _xent_loss_kernel and _xent_loss_grad_kernel
@@ -132,25 +143,54 @@ __device__ __forceinline__ uint4 store8(const float (&v)[kVec]) {
   return u;
 }
 
-// three passes over the row: max, sum of exp, write
-template <typename E>
-__global__ void __launch_bounds__(kThreads)
-    softmax_rows_kernel(const E* __restrict__ x, E* __restrict__ p,
-                        int cols) {
+// fp32 rows of cols % 4 == 0, cols <= 4 * kThreads * NL, 16-byte
+// aligned, held in registers: thread t issues all of its float4 loads
+// (chunks t, t + kThreads, ..., NL of them) before the first reduction,
+// so the CTA has its whole row in flight at once; the max, exp(v - m)
+// in place, the sum, then v / s written as float4.  Each element is
+// read from device memory once and written once.  Chunks past the row
+// (the tail lanes) are skipped by every pass, so they enter neither
+// reduction.  Two CTAs an SM at least (NL 16: 64 floats of row a
+// thread).
+template <int NL>
+__global__ void __launch_bounds__(kThreads, 2)
+    softmax_rows_f32_regs_kernel(const float* __restrict__ x,
+                                 float* __restrict__ p, int cols) {
   __shared__ float scratch[kWarps];
   const size_t off = static_cast<size_t>(blockIdx.x) * cols;
-  const E* xr = x + off;
-  E* pr = p + off;
+  const float4* x4 = reinterpret_cast<const float4*>(x + off);
+  float4* p4 = reinterpret_cast<float4*>(p + off);
+  const int n4 = cols / 4;
+  float4 v[NL];
+#pragma unroll
+  for (int j = 0; j < NL; ++j) {
+    const int c = threadIdx.x + j * kThreads;
+    if (c < n4) v[j] = x4[c];
+  }
   float m = -INFINITY;
-  for (int c = threadIdx.x; c < cols; c += kThreads)
-    m = fmaxf(m, widen(xr[c]));
+#pragma unroll
+  for (int j = 0; j < NL; ++j)
+    if (threadIdx.x + j * kThreads < n4)
+      m = fmaxf(m, fmaxf(fmaxf(v[j].x, v[j].y), fmaxf(v[j].z, v[j].w)));
   m = block_reduce<true>(m, scratch);
   float s = 0.f;
-  for (int c = threadIdx.x; c < cols; c += kThreads)
-    s += expf(widen(xr[c]) - m);
+#pragma unroll
+  for (int j = 0; j < NL; ++j) {
+    if (threadIdx.x + j * kThreads < n4) {
+      v[j].x = expf(v[j].x - m);
+      v[j].y = expf(v[j].y - m);
+      v[j].z = expf(v[j].z - m);
+      v[j].w = expf(v[j].w - m);
+      s += (v[j].x + v[j].y) + (v[j].z + v[j].w);
+    }
+  }
   s = block_reduce<false>(s, scratch);
-  for (int c = threadIdx.x; c < cols; c += kThreads)
-    narrow(pr + c, expf(widen(xr[c]) - m) / s);
+#pragma unroll
+  for (int j = 0; j < NL; ++j) {
+    const int c = threadIdx.x + j * kThreads;
+    if (c < n4)
+      p4[c] = make_float4(v[j].x / s, v[j].y / s, v[j].z / s, v[j].w / s);
+  }
 }
 
 // one bf16 row of n8 8-value chunks at x8, read once: thread t loads
@@ -316,6 +356,37 @@ __device__ __forceinline__ void row_max_sum(const E* __restrict__ xr,
   block_reduce_ms(m, s, sm, ss);
 }
 
+// softmax rows that no registers body takes (unaligned views, widths
+// not a multiple of the 16-byte chunk, rows wider than the registers
+// bodies): one running (max, sum of exp) pass, then a second read that
+// writes exp(x - m) / s; vec: fp32 rows as float4 (every row start
+// 16-byte aligned), else one element at a time
+template <typename E>
+__global__ void __launch_bounds__(kThreads)
+    softmax_rows_two_pass_kernel(const E* __restrict__ x,
+                                 E* __restrict__ p, int cols, bool vec) {
+  __shared__ float sm[kWarps], ss[kWarps];
+  const size_t off = static_cast<size_t>(blockIdx.x) * cols;
+  const E* xr = x + off;
+  E* pr = p + off;
+  float m, s;
+  row_max_sum(xr, cols, vec, sm, ss, m, s);
+  if constexpr (sizeof(E) == 4) {
+    if (vec) {
+      const float4* x4 = reinterpret_cast<const float4*>(xr);
+      float4* p4 = reinterpret_cast<float4*>(pr);
+      for (int c = threadIdx.x; c < cols / 4; c += kThreads) {
+        const float4 v = x4[c];
+        p4[c] = make_float4(expf(v.x - m) / s, expf(v.y - m) / s,
+                            expf(v.z - m) / s, expf(v.w - m) / s);
+      }
+      return;
+    }
+  }
+  for (int c = threadIdx.x; c < cols; c += kThreads)
+    narrow(pr + c, expf(widen(xr[c]) - m) / s);
+}
+
 template <typename E>
 __global__ void __launch_bounds__(kThreads)
     xent_loss_kernel(const E* __restrict__ x,
@@ -473,12 +544,57 @@ __host__ int bf16_row_loads(int cols, const void* a, const void* b) {
              : 0;
 }
 
+// softmax_rows' bodies, the entry points' `path`
+// (kernels/softmax_xent.py::_ROWS_PATH)
+constexpr int kTwoPass = 0;
+constexpr int kRegs = 1;
+
 }  // namespace
 
+// fp32 x and p on the body kernels/softmax_xent.py::_plan names: path
+// kRegs with `loads` float4 loads a thread, or kTwoPass with float4
+// accesses (loads 1) or scalar ones (loads 0); a pair the row does not
+// allow is refused
 extern "C" int mxt_softmax_rows_f32(const float* x, float* p, int rows,
-                                    int cols, cudaStream_t stream) {
-  if (rows > 0 && cols > 0)
-    softmax_rows_kernel<float><<<rows, kThreads, 0, stream>>>(x, p, cols);
+                                    int cols, int path, int loads,
+                                    cudaStream_t stream) {
+  if (rows <= 0 || cols <= 0) return static_cast<int>(cudaGetLastError());
+  const bool vec = rows_vectorizable(cols, x, p, p);
+  if (path == kRegs && vec && cols <= 4 * kThreads * loads) {
+    switch (loads) {
+      case 1:
+        softmax_rows_f32_regs_kernel<1><<<rows, kThreads, 0, stream>>>(
+            x, p, cols);
+        break;
+      case 2:
+        softmax_rows_f32_regs_kernel<2><<<rows, kThreads, 0, stream>>>(
+            x, p, cols);
+        break;
+      case 4:
+        softmax_rows_f32_regs_kernel<4><<<rows, kThreads, 0, stream>>>(
+            x, p, cols);
+        break;
+      case 8:
+        softmax_rows_f32_regs_kernel<8><<<rows, kThreads, 0, stream>>>(
+            x, p, cols);
+        break;
+      case 10:
+        softmax_rows_f32_regs_kernel<10><<<rows, kThreads, 0, stream>>>(
+            x, p, cols);
+        break;
+      case 16:
+        softmax_rows_f32_regs_kernel<16><<<rows, kThreads, 0, stream>>>(
+            x, p, cols);
+        break;
+      default:
+        return static_cast<int>(cudaErrorInvalidValue);
+    }
+  } else if (path == kTwoPass && (loads == 0 || (loads == 1 && vec))) {
+    softmax_rows_two_pass_kernel<float><<<rows, kThreads, 0, stream>>>(
+        x, p, cols, loads == 1);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -492,24 +608,38 @@ extern "C" int mxt_xent_grad_from_probs_f32(const float* p,
   return static_cast<int>(cudaGetLastError());
 }
 
-// bf16 x and p; the registers kernel where the row fits it
+// bf16 x and p on the body _plan names: kRegs with `loads` 16-byte
+// loads a thread (8 values each), or kTwoPass (loads 0, one element at
+// a time); a pair the row does not allow is refused
 extern "C" int mxt_softmax_rows_bf16(const __nv_bfloat16* x,
                                      __nv_bfloat16* p, int rows, int cols,
+                                     int path, int loads,
                                      cudaStream_t stream) {
   if (rows <= 0 || cols <= 0) return static_cast<int>(cudaGetLastError());
-  const int loads = bf16_row_loads(cols, x, p);
-  if (loads == 1)
-    softmax_rows_bf16_regs_kernel<1><<<rows, kThreads, 0, stream>>>(
-        x, p, cols);
-  else if (loads == 2)
-    softmax_rows_bf16_regs_kernel<2><<<rows, kThreads, 0, stream>>>(
-        x, p, cols);
-  else if (loads > 2)
-    softmax_rows_bf16_regs_kernel<4><<<rows, kThreads, 0, stream>>>(
-        x, p, cols);
-  else
-    softmax_rows_kernel<__nv_bfloat16><<<rows, kThreads, 0, stream>>>(
-        x, p, cols);
+  if (path == kRegs && cols % kVec == 0 && rows_vectorizable(cols, x, p, p) &&
+      cols <= kVec * kThreads * loads) {
+    switch (loads) {
+      case 1:
+        softmax_rows_bf16_regs_kernel<1><<<rows, kThreads, 0, stream>>>(
+            x, p, cols);
+        break;
+      case 2:
+        softmax_rows_bf16_regs_kernel<2><<<rows, kThreads, 0, stream>>>(
+            x, p, cols);
+        break;
+      case 4:
+        softmax_rows_bf16_regs_kernel<4><<<rows, kThreads, 0, stream>>>(
+            x, p, cols);
+        break;
+      default:
+        return static_cast<int>(cudaErrorInvalidValue);
+    }
+  } else if (path == kTwoPass && loads == 0) {
+    softmax_rows_two_pass_kernel<__nv_bfloat16>
+        <<<rows, kThreads, 0, stream>>>(x, p, cols, false);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -25,7 +25,8 @@ import collections
 import torch
 
 from ._build import SUFFIX as _FWD
-from ._build import KernelError, check_args, launch, route, sm_count
+from ._build import (KernelError, align_bytes, check_args, launch, route,
+                     sm_count)
 
 __all__ = ["rms_norm", "layer_norm", "rms_norm_bwd", "layer_norm_bwd",
            "rms_norm_reference", "layer_norm_reference",
@@ -130,13 +131,9 @@ def layer_norm(x, gamma, beta, eps=1e-5):
     return y
 
 
-def _bwd_align(*tensors):
-    """The bytes every tensor's start is a multiple of, up to 16 (the
-    widest chunk a backward path loads)."""
-    align = 16
-    while any(t.data_ptr() % align for t in tensors):
-        align //= 2
-    return align
+# the bytes every row tensor's start is a multiple of, up to 16 (the
+# widest chunk a backward path loads)
+_bwd_align = align_bytes
 
 
 def _v3_ctas_per_sm(width, layer):

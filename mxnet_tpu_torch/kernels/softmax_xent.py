@@ -27,9 +27,12 @@ plain version beside each; a CUDA tensor launches
 """
 from __future__ import annotations
 
+import collections
+
 import torch
 
-from ._build import SUFFIX, KernelError, check_args, launch, route
+from . import count_body
+from ._build import SUFFIX, KernelError, align_bytes, check_args, launch, route
 
 __all__ = ["softmax_rows", "xent_grad_from_probs", "softmax_rows_reference",
            "xent_grad_from_probs_reference", "SoftmaxOutputHead",
@@ -124,16 +127,55 @@ def _check_loss_args(name, x, label, *per_row):
     _check_labels(name, x, label, *per_row)
 
 
+# softmax_rows' bodies (csrc/softmax_xent.cu), the C entry points' path
+_ROWS_PATH = {"two_pass": 0, "regs": 1}
+ROWS_THREADS = 256
+# the registers bodies' instances: 16-byte loads a thread (4 fp32 values
+# or 8 bf16 a load), smallest first; fp32 rows to 16384 classes (the LSTM
+# LM's 10000 take 10), bf16 to 8192
+ROWS_REGS_LOADS = {torch.float32: (1, 2, 4, 8, 10, 16),
+                   torch.bfloat16: (1, 2, 4)}
+RowsPlan = collections.namedtuple("RowsPlan", "body loads")
+
+
+def _plan(cols, align, dtype):
+    """The body of ``softmax_rows`` on rows of ``cols`` classes of
+    ``dtype`` (fp32 or bf16) whose tensors start on multiples of
+    ``align`` bytes (:func:`align_bytes`); every body runs one CTA of
+    ``ROWS_THREADS`` a row, so the rows do not enter the choice.
+
+    ``"regs"``, the row held in registers and read once, where ``cols``
+    is a multiple of the 16-byte chunk (4 fp32, 8 bf16), the rows are
+    16-byte aligned and one of ``ROWS_REGS_LOADS[dtype]`` holds the row:
+    ``loads`` is the smallest.  Else ``"two_pass"``: one running (max,
+    sum of exp) pass, then a read that writes; ``loads`` 1 where fp32
+    rows allow float4 accesses, 0 for one element at a time."""
+    chunk = 16 // torch.empty((), dtype=dtype).element_size()
+    if cols % chunk or align % 16:
+        return RowsPlan("two_pass", 0)
+    need = -(-cols // (chunk * ROWS_THREADS))
+    for loads in ROWS_REGS_LOADS[dtype]:
+        if loads >= need:
+            return RowsPlan("regs", loads)
+    return RowsPlan("two_pass", 1 if dtype == torch.float32 else 0)
+
+
 def softmax_rows(x):
-    """Row softmax of 2D ``x`` (fp32 or bf16), in ``x``'s dtype."""
+    """Row softmax of 2D ``x`` (fp32 or bf16), in ``x``'s dtype, on the
+    body :func:`_plan` names; each launch also counts under
+    ``softmax_rows[body]`` (``softmax_rows_bf16[body]``) in
+    :func:`~mxnet_tpu_torch.kernels.body_counts`."""
     if not route("softmax_rows", x):
         return softmax_rows_reference(x)
     _check_2d("softmax_rows", x)
     check_args("softmax_rows", x, dtypes=tuple(SUFFIX))
     tag, sfx = SUFFIX[x.dtype]
     p = torch.empty_like(x)
+    plan = _plan(x.shape[1], align_bytes(x, p), x.dtype)
     launch(x, "softmax_rows" + tag, "mxt_softmax_rows" + sfx, x.data_ptr(),
-           p.data_ptr(), x.shape[0], x.shape[1])
+           p.data_ptr(), x.shape[0], x.shape[1], _ROWS_PATH[plan.body],
+           plan.loads)
+    count_body("softmax_rows" + tag, plan.body)
     return p
 
 

@@ -14,6 +14,10 @@ the reference's ``jnp.sum(loss).astype(data.dtype)``; fp16 raises);
 other shapes take the reference's plain formula
 ``-sum(onehot(label) * log_softmax(data))``.
 
+``SoftmaxActivation`` and ``SoftmaxOutput`` (and its alias
+``Softmax``) widen integer data to float32 first and give float32
+probabilities, as the reference does.
+
 ``SoftmaxOutput``: softmax forward, implicit cross-entropy gradient
 backward.  The backward ignores the incoming head gradient and emits
 ``softmax(x) - onehot(label)`` (times the normalisation and
@@ -54,7 +58,15 @@ register("log_softmax",
          doc="Log-softmax over `axis` of `x / temperature`.")
 
 
+def _widened(x):
+    """Integer data as float32: the reference's ``jax.nn.softmax`` of an
+    integer array gives float32 probabilities (``exp`` widens), and
+    torch's softmax has no integer kernel."""
+    return x if x.is_floating_point() else x.to(torch.float32)
+
+
 def _softmax_act_fc(attrs, x):
+    x = _widened(x)
     if attrs["mode"] == "channel":
         return torch.softmax(x, dim=1)
     return torch.softmax(x.reshape(x.shape[0], -1), dim=-1).reshape(x.shape)
@@ -149,6 +161,7 @@ class _DecoratedSoftmaxOutput(torch.autograd.Function):
 
 
 def _softmax_output_fc(attrs, data, label):
+    data = _widened(data)
     if (data.dim() == 2 and label.dim() == 1
             and not attrs["multi_output"] and not attrs["use_ignore"]
             and not attrs["preserve_shape"] and not attrs["out_grad"]
@@ -159,7 +172,8 @@ def _softmax_output_fc(attrs, data, label):
             # without use_ignore, valid-normalization divides by
             # label.size == rows for a 2D head
             scale = scale / data.shape[0]
-        return softmax_output_head(data.contiguous(), label.contiguous(),
+        return softmax_output_head(data.contiguous(),
+                                   label.to(torch.float32).contiguous(),
                                    scale)
     cfg = (attrs["grad_scale"], attrs["ignore_label"], attrs["multi_output"],
            attrs["use_ignore"], attrs["preserve_shape"],

@@ -1933,3 +1933,134 @@ def test_bucketing_lstm_step_on_card_matches_cpu(cuda_device):
     for name, want in res["cpu"].items():
         err = float(np.abs(res["gpu"][name] - want).max())
         assert err <= 1e-5 * float(np.abs(want).max()), (name, err)
+
+
+# ---------------------------------------------------------------------------
+# softmax_rows' bodies (kernels/softmax_xent.py::_plan): the registers
+# body and the two-pass fallback
+# ---------------------------------------------------------------------------
+SOFTMAX_ROWS_WIDTHS = (1, 3, 1000, 1001, 8192, 10000, 16384, 16385)
+
+
+def _rows_on(dev, rows, cols, seed, offset=0):
+    """Seeded logits (3 x randn) as a contiguous (rows, cols) view
+    ``offset`` elements into a buffer on ``dev``; rows 0-2, where there
+    are four rows or more, hold the edges: all -inf, every third entry
+    -inf, and +-1e30 at alternate entries."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    buf = (3 * torch.randn(rows * cols + offset, generator=g)).to(dev)
+    x = buf[offset:].view(rows, cols)
+    if rows >= 4:
+        x[0] = -float("inf")
+        x[1, ::3] = -float("inf")
+        x[2, ::2] = 1e30
+        x[2, 1::2] = -1e30
+    return x
+
+
+def _softmax_close(got, want):
+    """NaN exactly where the plain version gives NaN (an all -inf row),
+    every other value within 1e-5 x max|ref|."""
+    torch.cuda.synchronize()
+    nan = torch.isnan(want)
+    assert torch.equal(torch.isnan(got), nan)
+    ok = want[~nan]
+    if ok.numel():
+        err = (got[~nan] - ok).abs().max().item()
+        assert err <= 1e-5 * ok.abs().max().item(), err
+
+
+def _bodies_since(before):
+    after = kernels.body_counts()
+    return {k: n - before.get(k, 0) for k, n in after.items()
+            if n != before.get(k, 0)}
+
+
+def _two_pass_plan(cols, align, dtype):
+    """The two-pass body on any row: float4 accesses where fp32 rows
+    allow them."""
+    vec = dtype == torch.float32 and cols % 4 == 0 and align % 16 == 0
+    return softmax_xent.RowsPlan("two_pass", int(vec))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cols", SOFTMAX_ROWS_WIDTHS)
+@pytest.mark.parametrize("rows", [1, 32, 1024, 4096])
+def test_softmax_rows_bodies_match_plain(cuda_device, monkeypatch, rows,
+                                         cols):
+    """Each fp32 body against the plain version: the planned body on
+    aligned rows, the two-pass body forced on the same rows, and an
+    offset view (one element off 16-byte alignment, which the plan sends
+    to the two-pass body); edge rows (all -inf, -inf entries, +-1e30)
+    where there are four rows or more; each launch on its body."""
+    x = _rows_on(cuda_device, rows, cols, rows + cols)
+    xo = _rows_on(cuda_device, rows, cols, rows + cols, offset=1)
+    plan = softmax_xent._plan(cols, 16, torch.float32)
+    before = kernels.body_counts()
+    _softmax_close(softmax_xent.softmax_rows(x),
+                   softmax_xent.softmax_rows_reference(x))
+    assert _bodies_since(before) == {"softmax_rows[%s]" % plan.body: 1}
+    before = kernels.body_counts()
+    _softmax_close(softmax_xent.softmax_rows(xo),
+                   softmax_xent.softmax_rows_reference(xo))
+    assert _bodies_since(before) == {"softmax_rows[two_pass]": 1}
+    monkeypatch.setattr(softmax_xent, "_plan", _two_pass_plan)
+    before = kernels.body_counts()
+    _softmax_close(softmax_xent.softmax_rows(x),
+                   softmax_xent.softmax_rows_reference(x))
+    assert _bodies_since(before) == {"softmax_rows[two_pass]": 1}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cols", [1001, 8200])
+@pytest.mark.parametrize("rows", [1, 32, 1024, 4096])
+def test_bf16_softmax_rows_fallback_matches_plain(cuda_device, rows, cols):
+    """bf16 rows the registers body refuses (a width not a multiple of 8,
+    one wider than 8192) take the two-pass body, within one bf16 ulp of
+    max|ref| of the plain version."""
+    g = torch.Generator(device="cpu").manual_seed(rows + cols)
+    x = (3 * torch.randn(rows, cols, generator=g)).to(cuda_device).to(
+        torch.bfloat16)
+    before = kernels.body_counts()
+    p = softmax_xent.softmax_rows(x)
+    assert p.dtype == torch.bfloat16
+    _within_bf16_ulp(p, softmax_xent.softmax_rows_reference(x))
+    assert _bodies_since(before) == {"softmax_rows_bf16[two_pass]": 1}
+
+
+@pytest.mark.cuda
+def test_softmax_rows_entry_point_refuses_a_plan_the_row_does_not_allow(
+        cuda_device):
+    """The C entry point refuses the registers body on an offset view
+    and too few loads for the row, instead of reading past it."""
+    regs = softmax_xent._ROWS_PATH["regs"]
+    before = kernels.launch_counts()["softmax_rows"]
+    for x, loads in ((_rows_on(cuda_device, 8, 1000, 3, offset=1), 1),
+                     (_rows_on(cuda_device, 8, 10000, 3), 8)):
+        p = torch.empty_like(x)
+        with pytest.raises(_build.KernelError, match="CUDA error"):
+            _build.launch(x, "softmax_rows", "mxt_softmax_rows_f32",
+                          x.data_ptr(), p.data_ptr(), *x.shape, regs, loads)
+    assert kernels.launch_counts()["softmax_rows"] == before
+
+
+@pytest.mark.cuda
+def test_softmax_layers_on_integer_data_on_card(cuda_device):
+    """``SoftmaxOutput`` of int32 data with int32 labels on the card:
+    widened to float32, the head's kernel on the registers body, equal
+    to the CPU's within 1e-6; ``SoftmaxActivation`` likewise."""
+    rs = np.random.RandomState(21)
+    x = rs.randint(-9, 10, (64, 1000)).astype(np.int32)
+    lbl = rs.randint(0, 1000, 64).astype(np.int32)
+    res = {}
+    before = kernels.body_counts()
+    for ctx in (mx.gpu(0), mx.cpu()):
+        data = mx.nd.array(x, ctx=ctx, dtype="int32")
+        label = mx.nd.array(lbl, ctx=ctx, dtype="int32")
+        res[ctx.device_type] = [
+            mx.nd.SoftmaxOutput(data, label), mx.nd.SoftmaxActivation(data)]
+    assert _bodies_since(before) == {"softmax_rows[regs]": 1}
+    for got, want in zip(res["gpu"], res["cpu"]):
+        assert got.dtype == want.dtype == np.float32
+        err = np.abs(got.asnumpy() - want.asnumpy()).max()
+        assert err <= 1e-6, err

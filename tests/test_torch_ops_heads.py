@@ -110,6 +110,60 @@ def test_identity_attach_kl_sparse_reg(attrs):
                                atol=REL * np.abs(want).max())
 
 
+# the softmax layers on integer data: (op, attrs, data shape, label
+# dtype or None); channel mode on 3D data, where it differs from instance
+INT_SOFTMAX = [("SoftmaxActivation", {}, (4, 5), None),
+               ("SoftmaxActivation", {"mode": "channel"}, (2, 3, 4), None)] + [
+    (op, {}, (4, 5), lt) for op in ("SoftmaxOutput", "Softmax")
+    for lt in ("float32", "int32")]
+
+
+def _int_softmax_values(shape, dtype, label_dtype):
+    rs = np.random.RandomState(21)
+    lo = 0 if dtype == "uint8" else -9
+    vals = [rs.randint(lo, 10, shape).astype(dtype)]
+    if label_dtype is not None:
+        vals.append(rs.randint(0, shape[-1], shape[0]).astype(label_dtype))
+    return vals
+
+
+def _int_softmax_id(case):
+    return "%s%s-label=%s" % (case[0], "".join(
+        "-%s=%s" % kv for kv in case[1].items()), case[3])
+
+
+@pytest.mark.parametrize("dtype", ["int32", "int8"])
+@pytest.mark.parametrize("case", INT_SOFTMAX,
+                         ids=[_int_softmax_id(c) for c in INT_SOFTMAX])
+def test_softmax_layers_on_integer_data_match_the_reference(case, dtype):
+    """Integer data is widened to float32 first: float32 probabilities
+    equal to the reference's within 1e-6."""
+    op, attrs, shape, label_dtype = case
+    vals = _int_softmax_values(shape, dtype, label_dtype)
+    got = run(tmx, op, [], attrs, values=vals)
+    assert got[0][1] == "float32"
+    agree(got, run(jmx, op, [], attrs, values=vals), 1e-6, op)
+
+
+@pytest.mark.parametrize("case", INT_SOFTMAX,
+                         ids=[_int_softmax_id(c) for c in INT_SOFTMAX])
+def test_softmax_layers_on_uint8_data_follow_the_formula(case):
+    """uint8 against the formula in float64: the reference computes
+    ``x - max`` in uint8, which wraps (ROADMAP Queue 3, traps)."""
+    op, attrs, shape, label_dtype = case
+    vals = _int_softmax_values(shape, "uint8", label_dtype)
+    ((got, dtype),) = run(tmx, op, [], attrs, values=vals)
+    x = vals[0].astype(np.float64)
+    if attrs.get("mode") == "channel":
+        e = np.exp(x - x.max(axis=1, keepdims=True))
+        want = e / e.sum(axis=1, keepdims=True)
+    else:
+        e = np.exp(x - x.max(axis=-1, keepdims=True))
+        want = e / e.sum(axis=-1, keepdims=True)
+    assert dtype == "float32"
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
+
+
 def test_regression_label_takes_the_data_shape():
     data = tmx.sym.Variable("data")
     net = tmx.sym.LinearRegressionOutput(data, name="lro")

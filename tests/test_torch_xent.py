@@ -22,6 +22,8 @@ import torch
 import mxnet_tpu as jmx
 import mxnet_tpu_torch as tmx
 from mxnet_tpu.pallas_ops import softmax_xent as jsx
+from mxnet_tpu_torch import kernels
+from mxnet_tpu_torch.kernels import _build
 from mxnet_tpu_torch.kernels import softmax_xent as tsx
 
 REL = 1e-5   # of max|ref|
@@ -184,3 +186,84 @@ def test_make_loss_of_softmax_cross_entropy_through_the_executor(
     for k in want_grads:
         _close(got_grads[k], want_grads[k])
     assert not np.any(got_grads["label"])
+
+
+# softmax_rows' planner: (classes, dtype) -> the body on 16-byte aligned
+# rows; the widths of the paths (ResNet-50's 1000, the transformer LM's
+# 8192, the LSTM LM's 10000), the chunk's edges, the widest registers
+# rows (fp32 16384, bf16 8192) and one past them
+F32, BF16 = torch.float32, torch.bfloat16
+ROWS_PLANS = [
+    (1, F32, ("two_pass", 0)), (3, F32, ("two_pass", 0)),
+    (1000, F32, ("regs", 1)), (1001, F32, ("two_pass", 0)),
+    (1024, F32, ("regs", 1)), (1028, F32, ("regs", 2)),
+    (8192, F32, ("regs", 8)), (10000, F32, ("regs", 10)),
+    (10240, F32, ("regs", 10)), (10244, F32, ("regs", 16)),
+    (16384, F32, ("regs", 16)), (16385, F32, ("two_pass", 0)),
+    (16388, F32, ("two_pass", 1)),
+    (1, BF16, ("two_pass", 0)), (3, BF16, ("two_pass", 0)),
+    (1000, BF16, ("regs", 1)), (1001, BF16, ("two_pass", 0)),
+    (6144, BF16, ("regs", 4)), (8192, BF16, ("regs", 4)),
+    (8200, BF16, ("two_pass", 0)), (10000, BF16, ("two_pass", 0)),
+    (16384, BF16, ("two_pass", 0))]
+
+
+@pytest.mark.parametrize("cols,dtype,want", ROWS_PLANS,
+                         ids=["%d-%s" % (c, str(d)[6:]) for c, d, _
+                              in ROWS_PLANS])
+def test_softmax_rows_plan(cols, dtype, want):
+    """The body for aligned rows, and the two-pass body for the same rows
+    one element off 16-byte alignment; a registers plan's loads hold the
+    row, and the next smaller instance would not."""
+    plan = tsx._plan(cols, 16, dtype)
+    assert tuple(plan) == want
+    elem = torch.empty((), dtype=dtype).element_size()
+    assert tuple(tsx._plan(cols, elem, dtype)) == ("two_pass", 0)
+    if plan.body == "regs":
+        held = 16 // elem * tsx.ROWS_THREADS
+        loads = tsx.ROWS_REGS_LOADS[dtype]
+        assert plan.loads in loads and cols <= held * plan.loads
+        i = loads.index(plan.loads)
+        assert i == 0 or cols > held * loads[i - 1]
+
+
+def test_softmax_rows_plan_reads_alignment_from_the_tensors():
+    """An aligned buffer and the same buffer offset by one element."""
+    for dtype in (F32, BF16):
+        buf = torch.zeros(4 * 1000 + 8, dtype=dtype)
+        aligned, offset = buf[:4000], buf[1:4001]
+        assert _build.align_bytes(aligned) == 16
+        assert _build.align_bytes(offset) == buf.element_size()
+        assert tsx._plan(1000, _build.align_bytes(aligned),
+                         dtype).body == "regs"
+        assert tsx._plan(1000, _build.align_bytes(offset),
+                         dtype).body == "two_pass"
+
+
+def test_softmax_rows_card_route_launches_the_planned_body(monkeypatch):
+    """The card route (faked on CPU tensors) makes one launch with the
+    plan's path and loads, and counts it under its body as well as
+    under its name."""
+    launches = []
+    monkeypatch.setattr(tsx, "route", lambda name, x: True)
+    monkeypatch.setattr(tsx, "launch", lambda *a: launches.append(a))
+    buf = torch.zeros(4 * 10000 + 8)
+    cases = [(buf[:40000].view(4, 10000), ("regs", 10)),
+             (buf[1:40001].view(4, 10000), ("two_pass", 0)),
+             (buf[:40000].view(4, 10000).to(BF16), ("two_pass", 0)),
+             (buf[:4000].view(4, 1000).to(BF16), ("regs", 1))]
+    kernels.reset_launch_counts()
+    for x, (body, loads) in cases:
+        launches.clear()
+        tsx.softmax_rows(x)
+        ((_, name, entry, _x, _p, rows, cols, path, got_loads),) = launches
+        tag, sfx = ("", "_f32") if x.dtype == F32 else ("_bf16", "_bf16")
+        assert (name, entry) == ("softmax_rows" + tag,
+                                 "mxt_softmax_rows" + sfx)
+        assert (rows, cols) == tuple(x.shape)
+        assert (path, got_loads) == (tsx._ROWS_PATH[body], loads)
+    assert kernels.body_counts() == {
+        "softmax_rows[regs]": 1, "softmax_rows[two_pass]": 1,
+        "softmax_rows_bf16[two_pass]": 1, "softmax_rows_bf16[regs]": 1}
+    kernels.reset_launch_counts()
+    assert kernels.body_counts() == {}
