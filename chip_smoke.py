@@ -328,32 +328,56 @@ sources in this checkout on first use.  Phases, each fatal on failure:
    states and every gradient within 1e-4 x max|ref|, each forward
    timed; ``Module(state_names=...)`` with ``set_states`` /
    ``get_states`` and a ``Monitor`` on the card: the rows' names equal
-   the CPU run's, each statistic and the outputs within 1e-4.
+   the CPU run's, each statistic and the outputs within 1e-4;
+20. bench.py's ``train.resnet-50.trainer_direct`` row
+   (``bench_trainer_direct``): bf16 ResNet-50 (3 x 224 x 224, 1000
+   classes) through ``mx.parallel.DataParallelTrainer`` at batch 32,
+   SGD (lr 0.1, momentum 0.9, wd 1e-4, rescale 1/batch), gaussian
+   Xavier (``in``, magnitude 2), one batch from
+   ``np.random.RandomState(0)`` (data cast to bf16 on the card, labels
+   float32), 5 warm-up and 25 timed ``step`` calls, then
+   ``step_cost_analysis``: every parameter, momentum and moving
+   statistic float32 on the card; the head's bf16 pair once a step and
+   no other kernel, no plain version reached; the cross-entropy finite
+   and its mean over the last five steps below step 1's; every moving
+   statistic finite and moved; the cost analysis counting FLOPs and
+   leaving the state and update counts as it found them; ms per step,
+   images/s, counted GFLOPs, ``mfu_proxy``, bench's analytic MFU, peak
+   memory and the ratio to phase 13b;
+20b. the same at batch 256 (``trainer_direct_b256``), 3 warm-up and 10
+   timed steps;
+21. the trainer against the classic ``Module`` on the card (the
+   bottleneck ResNet of ``tests/test_torch_resnet.py``, batch 4): three
+   fp32 steps, cuDNN deterministic, every parameter, moving statistic
+   and momentum within 1e-5 x max|ref|; one bf16 trainer step against
+   the CPU trainer's fp32 step, within phase 14b's bounds or 4 x the
+   CPU's own bf16 distance.
 
 Phase 5 also times row 10's kernel pair at phase 13's head, 32 x
 1000, and at phase 18's, 1024 x 10000, and row 10b's bf16 pair at
-phase 13b's (the registers body, one 16-byte load a lane, confirmed
-from the pointers).  At each of row 10's three shapes (32 x 1000, 1024
-x 10000, 4096 x 8192) ``softmax_rows`` runs its planned registers body
-(one launch, counted under ``softmax_rows[regs]``), and then every
+phase 13b's and at phase 20b's, 256 x 1000 (the registers body, one
+16-byte load a lane, confirmed from the pointers).  At each of row
+10's three shapes (32 x 1000, 1024 x 10000, 4096 x 8192)
+``softmax_rows`` runs its planned registers body (one launch, counted
+under ``softmax_rows[regs]``), and then every
 other body on the same rows, each held against the plain version and
 timed: the two-pass body forced, the rows one element off 16-byte
 alignment (the scalar two-pass body, by the plan) within 1e-5 x
 max|ref|, and the bf16 two-pass body within one bf16 ulp; at the two
 large shapes the kernel and ``torch.softmax`` also with L2 cold.
-Phases 6, 6b, 13, 13b, 15, 18 and 18b count their ``softmax_rows``
-launches by (name, rows, cols, body) (``sr_census``, each launch held
-to ``_plan``) and fail on a launch off the registers body.  Phase 5
-also
-gives the norm forwards' rows (fp32 and bf16 ``rms_norm``
-and ``layer_norm``) ``floor_ms``: the same call on one row, the floor
-of one launch.
+Phases 6, 6b, 13, 13b, 15, 18, 18b, 20 and 20b count their
+``softmax_rows`` launches by (name, rows, cols, body) (``sr_census``,
+each launch held to ``_plan``) and fail on a launch off the registers
+body.  Phase 5 also gives the norm forwards' rows (fp32 and bf16
+``rms_norm`` and ``layer_norm``) ``floor_ms``: the same call on one
+row, the floor of one launch.
 
 ``python3 chip_smoke.py --profile`` adds, after phases 6 and 6b, a
 ``torch.profiler`` window over five training steps of each, and after
 phase 11 one over 100 recommender steps, and after phases 13 and 13b
 one over five ResNet-50 steps each: device time and launches per
-step, the device's busy share, and the ops with the most device time.
+step, the device's busy share, and the ops with the most device time;
+after phases 20 and 20b one over five trainer steps each.
 
 The last lines are a JSON object of per-kernel numbers, the card's name
 and power limit as nvidia-smi reports them, and the result object.
@@ -361,6 +385,7 @@ Exits non-zero, printing no result, without a CUDA device.
 """
 import collections
 import contextlib
+import importlib
 import json
 import statistics
 import subprocess
@@ -372,7 +397,7 @@ import numpy as np
 import torch
 
 import mxnet_tpu_torch as mx
-from mxnet_tpu_torch import kernels
+from mxnet_tpu_torch import flops, kernels
 from mxnet_tpu_torch.kernels import (_build, dequant_matmul, flash_attention,
                                      norm, paged_attention, softmax_xent)
 from mxnet_tpu_torch.models import transformer_lm as tlm
@@ -380,6 +405,7 @@ from mxnet_tpu_torch.models.lstm_lm import sym_gen_factory
 from mxnet_tpu_torch.ops import nn as layer_ops
 from mxnet_tpu_torch.ops import rnn_op
 from mxnet_tpu_torch.ops.registry import get_op
+from mxnet_tpu_torch.parallel import DataParallelTrainer
 from mxnet_tpu_torch.serving import GenerationEngine, ModelRegistry, TokenStream
 
 SPEC = tlm.lm_spec(num_layers=4, num_hidden=512, num_heads=8,
@@ -4802,6 +4828,341 @@ def phase_lstm_vs_cpu(dev, card):
            LSTM_STEP_TOL, card))
 
 
+# ---------------------------------------------------------------------------
+# phases 20-21: bench.py's headline training rows (bench_trainer_direct,
+# bench.py:322-374): ResNet-50 in bf16 through DataParallelTrainer, one
+# step a call; then the trainer held against the classic Module
+# ---------------------------------------------------------------------------
+# tag -> (batch, warm-up steps, timed steps): trainer_direct and
+# trainer_direct_b256
+TRAINER_RUNS = {"20": (32, 5, 25), "20b": (256, 3, 10)}
+# bench_trainer_direct's optimizer (no scheduler; rescale 1/batch)
+TRAINER_OPT = {"learning_rate": 0.1, "momentum": 0.9, "wd": 1e-4}
+# the head's bf16 pair once a step, and no other kernel
+TRAINER_LAUNCHES_PER_STEP = {"softmax_rows_bf16": 1,
+                             "xent_grad_from_probs_bf16": 1}
+# bench.py:52: ResNet-50's analytic forward GFLOPs an image at 224 x 224;
+# bench's MFU takes a training step as 3 forwards
+RESNET50_FWD_GFLOPS = 8.2
+# phase 21: the bottleneck ResNet of tests/test_torch_resnet.py at batch 4,
+# three steps of SGD (momentum 0.9, wd 1e-4, lr 0.1, decayed by 0.1 after
+# the second update); fp32: trainer and Module within 1e-5 x max|ref|;
+# bf16: one step on the card against the CPU's fp32 step, each array
+# within RESNET_BF16_STEP_TOL (momenta as gradients) x max|ref| or within
+# RESNET_STEP_ROUNDING (RESNET_FEW_ROUNDING under RESNET_FEW elements) x
+# the CPU's own bf16 step's distance, as phase 14b holds its arrays
+TRAINER_STEP_NET = dict(units=[1, 1, 1, 1], num_stages=4,
+                        filter_list=[8, 16, 32, 64, 128], num_classes=10,
+                        image_shape=(3, 64, 64))
+TRAINER_STEP_BATCH, TRAINER_STEP_STEPS, TRAINER_STEP_TOL = 4, 3, 1e-5
+
+
+def trainer_direct(dev, batch):
+    """bench_trainer_direct's setup on ``dev``: bf16 ResNet-50 (3 x 224 x
+    224, 1000 classes) in a ``DataParallelTrainer``, gaussian Xavier
+    (factor ``in``, magnitude 2) from ``mx.random.seed(0)``, and its one
+    batch from ``np.random.RandomState(0)``: ``uniform(-1, 1)`` data
+    cast to bf16 on the card, ``randint(0, 1000)`` labels as float32."""
+    mx.random.seed(0)
+    tr = DataParallelTrainer(
+        mx.models.resnet(num_classes=RESNET["num_classes"],
+                         num_layers=RESNET["num_layers"]),
+        data_shapes={"data": (batch,) + RESNET["image"]},
+        label_shapes={"softmax_label": (batch,)}, mesh=dev,
+        optimizer="sgd", optimizer_params=dict(TRAINER_OPT),
+        initializer=resnet_init(), compute_dtype="bfloat16")
+    rs = np.random.RandomState(0)
+    data = torch.from_numpy(rs.uniform(-1, 1, (batch,) + RESNET["image"]))
+    label = rs.randint(0, RESNET["num_classes"], (batch,))
+    return tr, data.to(dev, torch.bfloat16), \
+        torch.from_numpy(label.astype(np.float32)).to(dev)
+
+
+def trainer_state(tr):
+    """(name, tensor) of every parameter, optimizer state and moving
+    statistic of trainer ``tr``."""
+    return ([("parameter " + n, t) for n, t in tr.params.items()] +
+            [("momentum %s %d" % (n, j), s)
+             for n, st in tr.opt_state.items() for j, s in enumerate(st)] +
+            [("moving statistic " + n, t) for n, t in tr.aux.items()])
+
+
+def phase_trainer(dev, card, tag, step_ms_module):
+    """Phase 20 (20b): bench.py's ``trainer_direct``
+    (``trainer_direct_b256``) on the card: ``trainer_direct``'s trainer
+    and batch, the warm-up steps and then the timed ones of
+    ``TRAINER_RUNS[tag]`` with ``synchronize()`` at both ends, then
+    ``step_cost_analysis``.  Fatal unless every parameter, momentum and
+    moving statistic is float32 on the card, the head's bf16 pair
+    launches once a step and no other kernel does, no wrapper reaches
+    its plain version, the cross-entropy on the batch is finite and its
+    mean over the last five steps is below step 1's, every moving
+    statistic is finite and has moved, and the cost analysis counts
+    FLOPs and leaves the state and the update counts as it found them.
+    Logs ms a step, images/s, counted GFLOPs a step, ``mfu_proxy``
+    against the card's bf16 peak, bench's analytic MFU, the peak memory
+    and the ratio to phase 13b's ``Module.fit`` (``step_ms_module``).
+    Returns the launch counts and ms a step."""
+    batch, warmup, steps = TRAINER_RUNS[tag]
+    tr, data, label = trainer_direct(dev, batch)
+    aux0 = {k: v.clone() for k, v in tr.aux.items()}
+    probs = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    kernels.reset_launch_counts()
+    with plain_guard() as plain, sr_census() as sr_shapes:
+        for _ in range(warmup):
+            probs.append(tr.step(data, label)[0])
+        torch.cuda.synchronize()
+        tic = time.perf_counter()
+        for _ in range(steps):
+            probs.append(tr.step(data, label)[0])
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - tic
+    counts = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    check_sr_census(tag, sr_shapes, counts)
+    on_device(dev, "phase %s trainer state" % tag, trainer_state(tr))
+    wrong = {n: t.dtype for n, t in trainer_state(tr)
+             if t.dtype != torch.float32}
+    if wrong or probs[-1].dtype != torch.bfloat16:
+        raise SystemExit("chip_smoke: phase %s master state not float32 (%s) "
+                         "or outputs %s" % (tag, dict(list(wrong.items())[:8]),
+                                            probs[-1].dtype))
+    if plain:
+        raise SystemExit("chip_smoke: phase %s reached plain versions: %s"
+                         % (tag, dict(plain)))
+    want = dict.fromkeys(kernels.KERNELS, 0)
+    want.update({k: v * (warmup + steps)
+                 for k, v in TRAINER_LAUNCHES_PER_STEP.items()})
+    if counts != want:
+        raise SystemExit("chip_smoke: phase %s launches %s, want %s"
+                         % (tag, {k: v for k, v in counts.items() if v},
+                            {k: v for k, v in want.items() if v}))
+    rows = torch.arange(batch, device=dev)
+    ce = [float(-torch.log(p.float()[rows, label.long()]).mean())
+          for p in probs]
+    first, last5 = ce[0], float(np.mean(ce[-5:]))
+    if not np.isfinite(ce).all() or not last5 < first:
+        raise SystemExit("chip_smoke: phase %s cross-entropy per step %s"
+                         % (tag, ce))
+    still = [k for k, v in tr.aux.items()
+             if not torch.isfinite(v).all() or torch.equal(v, aux0[k])]
+    if not tr.aux or still:
+        raise SystemExit("chip_smoke: phase %s moving statistics not finite "
+                         "or unmoved: %s (of %d)" % (tag, still[:8],
+                                                     len(tr.aux)))
+    snap = [(n, t.detach().clone()) for n, t in trainer_state(tr)]
+    updates = (dict(tr.optimizer._index_update_count),
+               tr.optimizer.num_update)
+    tic = time.perf_counter()
+    cost = tr.step_cost_analysis(data, label)
+    cost_s = time.perf_counter() - tic
+    now = dict(trainer_state(tr))
+    changed = [n for n, t in snap if not torch.equal(t, now[n])]
+    if not cost or not cost["flops"] or changed or updates != (
+            tr.optimizer._index_update_count, tr.optimizer.num_update):
+        raise SystemExit("chip_smoke: phase %s step_cost_analysis %s; state "
+                         "changed: %s" % (tag, cost, changed[:8]))
+    step_ms = sec * 1e3 / steps
+    ips = batch * steps / sec
+    peak_flops = flops.peak_bf16_flops(torch.cuda.get_device_name(0))
+    mfu = flops.mfu_proxy(cost["flops"], steps / sec, peak_flops)
+    analytic = None if peak_flops is None else \
+        round(3 * RESNET50_FWD_GFLOPS * 1e9 * ips / peak_flops, 4)
+    log("phase %s cross-entropy per step: %s"
+        % (tag, " ".join("%.4f" % v for v in ce)))
+    log("phase %s ResNet-50 bf16 through DataParallelTrainer, batch %d, %s: "
+        "cross-entropy step 1 %.4f, last 5 %.4f; head launches per step %s; "
+        "steps %d..%d: %.3f ms per step, %.1f images/s; counted %.3f GFLOPs "
+        "per step (step_cost_analysis, %.2f s; temp %.3f GB), mfu_proxy "
+        "%s of %s FLOP/s, bench's analytic MFU (3 x %.1f GFLOPs an image) "
+        "%s; peak memory %.3f GB; phase 13b (Module.fit, bf16, batch 32) "
+        "%.3f ms per step, ratio %.3f [%s]"
+        % (tag, batch, "x".join(map(str, RESNET["image"])), first, last5,
+           TRAINER_LAUNCHES_PER_STEP, warmup + 1, warmup + steps, step_ms,
+           ips, cost["flops"] / 1e9, cost_s, cost["temp_bytes"] / 1e9, mfu,
+           "%.4g" % peak_flops if peak_flops else "an unknown",
+           RESNET50_FWD_GFLOPS, analytic, peak / 1e9,
+           step_ms_module, step_ms / step_ms_module, card))
+    return counts, step_ms
+
+
+def profile_trainer(dev, card, tag, step_ms, warmup=3, steps=5):
+    """``--profile``: ``torch.profiler`` over ``steps`` steps of phase
+    ``tag``'s trainer after ``warmup``: device time and launches a step,
+    the busy share of the phase's unprofiled ``step_ms``, the top device
+    ops."""
+    tr, data, label = trainer_direct(dev, TRAINER_RUNS[tag][0])
+    for _ in range(warmup):
+        tr.step(data, label)
+    torch.cuda.synchronize()
+    prof = torch.profiler.profile(activities=[
+        torch.profiler.ProfilerActivity.CPU,
+        torch.profiler.ProfilerActivity.CUDA])
+    tic = time.perf_counter()
+    prof.start()
+    for _ in range(steps):
+        tr.step(data, label)
+    torch.cuda.synchronize()
+    prof.stop()
+    window_ms = (time.perf_counter() - tic) * 1e3 / steps
+    report_profile(tag, prof, steps, step_ms, window_ms, card)
+
+
+def trainer_step_start():
+    """Phase 21's symbol, parameters (He-scaled weights, gamma near 1),
+    moving statistics and batches, in numpy from seed 21."""
+    net = importlib.import_module("mxnet_tpu_torch.models.resnet").resnet(
+        **TRAINER_STEP_NET)
+    shape = (TRAINER_STEP_BATCH,) + TRAINER_STEP_NET["image_shape"]
+    arg_shapes, _, aux_shapes = net.infer_shape(data=shape)
+    rs = np.random.RandomState(21)
+    params = {}
+    for name, s in zip(net.list_arguments(), arg_shapes):
+        if name in ("data", "softmax_label"):
+            continue
+        if name.endswith("gamma"):
+            params[name] = rs.uniform(0.5, 1.5, s)
+        elif name.endswith("beta") or name.endswith("bias"):
+            params[name] = rs.uniform(-0.2, 0.2, s)
+        else:
+            params[name] = rs.randn(*s) * np.sqrt(2.0 / np.prod(s[1:]))
+    aux = {name: (rs.uniform(-0.1, 0.1, s) if name.endswith("mean") else
+                  rs.uniform(0.5, 1.5, s))
+           for name, s in zip(net.list_auxiliary_states(), aux_shapes)}
+    X = rs.uniform(-1, 1, (TRAINER_STEP_STEPS,) + shape)
+    y = rs.randint(0, TRAINER_STEP_NET["num_classes"],
+                   (TRAINER_STEP_STEPS, TRAINER_STEP_BATCH))
+    f32 = lambda d: {k: v.astype(np.float32) for k, v in d.items()}  # noqa
+    return net, f32(params), f32(aux), X.astype(np.float32), \
+        y.astype(np.float32)
+
+
+def trainer_step_opt():
+    return dict(RESNET_OPT, lr_scheduler=mx.lr_scheduler.MultiFactorScheduler(
+        step=[2], factor=0.1))
+
+
+def trainer_steps(dev, start, steps, compute_dtype=None):
+    """``steps`` trainer steps on ``dev`` from phase 21's start: the last
+    step's probabilities, the parameters, moving statistics and momenta
+    after it, as numpy by (kind, name)."""
+    net, params, aux, X, y = start
+    tr = DataParallelTrainer(
+        net, data_shapes={"data": X.shape[1:]},
+        label_shapes={"softmax_label": y.shape[1:]}, mesh=dev,
+        optimizer="sgd", optimizer_params=trainer_step_opt(),
+        compute_dtype=compute_dtype)
+    tr.set_params(params, aux)
+    for i in range(steps):
+        probs = tr.step(X[i], y[i])[0]
+    arg, auxs = tr.get_params()
+    out = {("output", "probabilities"): probs.float().cpu().numpy()}
+    out.update((("parameter", n), v.asnumpy()) for n, v in arg.items())
+    out.update((("aux", n), v.asnumpy()) for n, v in auxs.items())
+    out.update((("gradient", "momentum %d" % i), s.asnumpy())
+               for i, s in tr.get_updater_states().items())
+    return out
+
+
+def module_steps(dev, start, steps):
+    """The classic ``Module``'s ``forward_backward`` + ``update`` for
+    ``steps`` steps on ``dev`` from phase 21's start, numpy as
+    :func:`trainer_steps`'s."""
+    net, params, aux, X, y = start
+    mod = mx.Module(net, context=dev)
+    it = mx.io.NDArrayIter(X[:steps].reshape((-1,) + X.shape[2:]),
+                           y[:steps].reshape(-1),
+                           batch_size=TRAINER_STEP_BATCH)
+    mod.bind(it.provide_data, it.provide_label)
+    mod.init_params(arg_params=params, aux_params=aux)
+    mod.init_optimizer(optimizer="sgd", optimizer_params=trainer_step_opt())
+    for batch in it:
+        mod.forward_backward(batch)
+        mod.update()
+    arg, auxs = mod.get_params()
+    out = {("output", "probabilities"): mod.get_outputs()[0].asnumpy()}
+    out.update((("parameter", n), v.asnumpy()) for n, v in arg.items())
+    out.update((("aux", n), v.asnumpy()) for n, v in auxs.items())
+    out.update((("gradient", "momentum %d" % i), s.asnumpy())
+               for i, s in mod._updater.states.items())
+    return out
+
+
+def phase_trainer_vs_module(dev, card):
+    """Phase 21: the trainer against the port's classic ``Module`` on the
+    card (the bottleneck ResNet of ``tests/test_torch_resnet.py``, batch
+    4, one start and one set of batches from seed 21).  fp32: three
+    trainer steps against three ``forward_backward`` + ``update`` steps,
+    cuDNN deterministic for both: the last probabilities, every
+    parameter, moving statistic and momentum within TRAINER_STEP_TOL x
+    max|ref|.  bf16: one trainer step on the card against the CPU
+    trainer's fp32 step, each array within its RESNET_BF16_STEP_TOL
+    (momenta as gradients) x max|ref|, or within RESNET_STEP_ROUNDING x
+    the CPU's own bf16 step's distance from its fp32 step where that is
+    larger (RESNET_FEW_ROUNDING x under RESNET_FEW elements), as phase
+    14b holds its arrays.  Logs the worst distances."""
+    start = trainer_step_start()
+    flags = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+        True, False
+    try:
+        got = trainer_steps(dev, start, TRAINER_STEP_STEPS)
+        ref = module_steps(dev, start, TRAINER_STEP_STEPS)
+    finally:
+        torch.backends.cudnn.deterministic, \
+            torch.backends.cudnn.benchmark = flags
+    if sorted(got) != sorted(ref):
+        raise SystemExit("chip_smoke: phase 21 arrays differ: %s"
+                         % sorted(set(got) ^ set(ref)))
+    worst, failed = (0.0, ""), []
+    for key, want in ref.items():
+        rel = float(np.abs(got[key] - want).max()) / max(
+            float(np.abs(want).max()), 1e-30)
+        if not np.isfinite(got[key]).all() or rel > TRAINER_STEP_TOL:
+            failed.append("%s %s: %.3e" % (key + (rel,)))
+        worst = max(worst, (rel, "%s %s" % key))
+    if failed:
+        raise SystemExit("chip_smoke: phase 21 trainer vs Module, fp32, past "
+                         "%g x max|ref|: %s" % (TRAINER_STEP_TOL,
+                                                "; ".join(failed[:12])))
+    log("phase 21 DataParallelTrainer vs Module on the card, fp32, %d steps "
+        "at batch %d: %d arrays within %g x max|ref|, worst %.3e (%s) [%s]"
+        % (TRAINER_STEP_STEPS, TRAINER_STEP_BATCH, len(ref),
+           TRAINER_STEP_TOL, worst[0], worst[1], card))
+    cpu = torch.device("cpu")
+    card16 = trainer_steps(dev, start, 1, "bfloat16")
+    cpu16 = trainer_steps(cpu, start, 1, "bfloat16")
+    cpu32 = trainer_steps(cpu, start, 1)
+    worst, failed, rounding = {}, [], 0
+    for (kind, name), want in cpu32.items():
+        tol = RESNET_BF16_STEP_TOL[kind]
+        bound = tol * max(float(np.abs(want).max()), 1e-30)
+        times = RESNET_FEW_ROUNDING if want.size < RESNET_FEW else \
+            RESNET_STEP_ROUNDING
+        own = times * float(np.abs(cpu16[(kind, name)] - want).max())
+        if own > bound:
+            bound, rounding = own, rounding + 1
+        err = float(np.abs(card16[(kind, name)] - want).max())
+        if not np.isfinite(card16[(kind, name)]).all() or err > bound:
+            failed.append("%s %s (%d elements): %.3e past %.3e"
+                          % (kind, name, want.size, err, bound))
+        rel = err / max(float(np.abs(want).max()), 1e-30)
+        if rel >= worst.get(kind, (0.0, ""))[0]:
+            worst[kind] = (rel, name, err / bound)
+    if failed:
+        raise SystemExit("chip_smoke: phase 21 bf16 trainer step, card vs "
+                         "the CPU's fp32 step: %s" % "; ".join(failed[:12]))
+    log("phase 21 DataParallelTrainer bf16 step on the card vs the CPU "
+        "trainer's fp32 step: %d arrays agree (%d held to the CPU's own "
+        "bf16 distance); worst relative distance by kind: %s [%s]"
+        % (len(cpu32), rounding, "; ".join(
+            "%s %.3e (%s, %.3f of its bound)" % ((k,) + worst[k])
+            for k in sorted(worst)), card))
+
+
 def lstm_head_rows(dev, card, entries):
     """Row 10's kernel pair at phase 18's head, 1024 x 10000 (batch 32 x
     bucket 32 rows of the vocabulary's logits): the kernels held against
@@ -5371,6 +5732,7 @@ def phase_times_train(dev, card, errs, fa_shapes):
                              t["dyv"]), 4 * 3 * nv, 4 * nv)
     xent_bf16_rows(card, errs, t, entries)
     resnet_head_rows(dev, card, entries)
+    trainer_head_rows(dev, card, entries)
     lstm_head_rows(dev, card, entries)
     k, xs, ys, out = rtc_fma1(t["logits"], t["dyv"])
     one = torch.ones((), device=dev)
@@ -5415,10 +5777,29 @@ def resnet_head_rows(dev, card, entries):
         lambda: softmax_xent.xent_grad_from_probs_reference(p, label, scale),
         None, 4 * (2 * n + rows), 2 * n, errs["xent_grad_from_probs"],
         card))
-    # row 10b: the bf16 pair at phase 13b's head (bf16 logits, p and
-    # gradient, float32 labels), held to one bf16 ulp of max|ref|; 1000
-    # classes on 16-byte aligned rows take the registers body with one
-    # 16-byte load a lane (the .cu's bf16_row_loads, mirrored)
+    bf16_head_rows(card, entries, logits, label, "phase 13b's head")
+
+
+def trainer_head_rows(dev, card, entries):
+    """Row 10b's bf16 pair at phase 20b's head, 256 x 1000 (ResNet-50's
+    logits at bench.py's ``trainer_direct_b256`` batch)."""
+    rows, classes = TRAINER_RUNS["20b"][0], RESNET["num_classes"]
+    g = torch.Generator(device="cpu").manual_seed(20)
+    logits = torch.randn(rows, classes, generator=g).to(dev)
+    label = torch.randint(0, classes, (rows,), generator=g).float().to(dev)
+    bf16_head_rows(card, entries, logits, label, "phase 20b's head")
+
+
+def bf16_head_rows(card, entries, logits, label, what):
+    """Row 10b: the bf16 pair on ``logits`` (fp32 on the card) rounded
+    to bf16, at ``what`` (bf16 logits, p and gradient, float32 labels),
+    held to one bf16 ulp of max|ref| and timed, ``torch.softmax`` in
+    bf16 the forward's yardstick.  1000 classes on 16-byte aligned rows
+    take the registers body with one 16-byte load a lane (the .cu's
+    bf16_row_loads, mirrored)."""
+    rows, classes = logits.shape
+    n, scale = rows * classes, 1.0 / rows
+    errs = {}
     xb = logits.to(torch.bfloat16)
     pb = softmax_xent.softmax_rows(xb)
     loads = bf16_row_loads(classes, xb, pb)
@@ -5426,8 +5807,8 @@ def resnet_head_rows(dev, card, entries):
         raise SystemExit("chip_smoke: softmax_rows_bf16 at %d x %d takes %d "
                          "loads a lane, not the registers body's one"
                          % (rows, classes, loads))
-    shape_b = "rows=%d classes=%d bf16 (phase 13b's head; registers body, " \
-        "%d 16-byte load a lane)" % (rows, classes, loads)
+    shape_b = "rows=%d classes=%d bf16 (%s; registers body, %d 16-byte " \
+        "load a lane)" % (rows, classes, what, loads)
     for name, got, want in (
             ("softmax_rows_bf16", pb,
              softmax_xent.softmax_rows_reference(xb)),
@@ -5609,6 +5990,8 @@ def kernel_rows(entries, counts):
                 RESNET_LAUNCHES_PER_STEP.get(name, 0),
             "resnet_bf16_launches_per_step":
                 RESNET_BF16_LAUNCHES_PER_STEP.get(name, 0),
+            "trainer_bf16_launches_per_step":
+                TRAINER_LAUNCHES_PER_STEP.get(name, 0),
             "lstm_launches_per_step": LSTM_LAUNCHES_PER_STEP.get(name, 0),
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             "ms": head["ms"], "plain_ms": head["plain_ms"],
@@ -5697,6 +6080,11 @@ def main(argv):
     counts["lstm"], step_ms_lstm = phase_lstm(dev, card)
     counts["lstm_buckets"] = phase_lstm_buckets(dev, card, step_ms_lstm)
     phase_lstm_vs_cpu(dev, card)
+    for tag, key in (("20", "trainer"), ("20b", "trainer_b256")):
+        counts[key], step_ms_tr = phase_trainer(dev, card, tag, step_ms_rn16)
+        if argv:
+            profile_trainer(dev, card, tag, step_ms_tr)
+    phase_trainer_vs_module(dev, card)
     pa_shapes, fa_shapes = collections.Counter(), collections.Counter()
     for tag in ("3", "3b", "3d"):
         pa_shapes.update(served[tag]["pa_shapes"])

@@ -68,7 +68,7 @@ and launches a user's CUDA source on NDArrays.
 """
 from . import (autograd, callback, contrib, engine, initializer, io, kernels,
                lr_scheduler, metric, model, models, monitor, ndarray,
-               optimizer, random, rnn, rtc, symbol)
+               optimizer, parallel, random, rnn, rtc, symbol)
 from . import module
 from .base import MXNetError
 from .context import Context, cpu, current_context, gpu
@@ -84,6 +84,6 @@ mod = module
 __all__ = ["MXNetError", "ModelRegistry", "GenerationEngine", "TokenStream",
            "transformer_lm", "kernels", "models", "symbol", "sym", "ndarray",
            "nd", "io", "initializer", "init", "metric", "optimizer", "model",
-           "lr_scheduler", "callback", "rnn", "monitor",
+           "lr_scheduler", "callback", "rnn", "monitor", "parallel",
            "random", "module", "mod", "Module", "cpu", "gpu", "autograd",
            "contrib", "rtc", "engine", "Context", "current_context"]

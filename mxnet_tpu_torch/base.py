@@ -2,9 +2,10 @@
 typed environment-variable registry.
 
 Counterpart of ``mxnet_tpu/base.py``, reduced to what the port reads:
-the ``MXNET_SERVE_*`` knobs of the serving path and the engine's
-``MXNET_ENGINE_TYPE``, with the reference package's names and defaults;
-they are documented in ``docs/port/env_vars.md``.
+the ``MXNET_SERVE_*`` knobs of the serving path, the engine's
+``MXNET_ENGINE_TYPE`` and the trainer's ``MXNET_SPMD_PROGRAM_CACHE``,
+with the reference package's names and defaults; they are documented
+in ``docs/port/env_vars.md``.
 """
 from __future__ import annotations
 
@@ -66,6 +67,10 @@ register_env("MXNET_ENGINE_TYPE", str, "ThreadedEnginePerDevice",
              "Execution mode: 'NaiveEngine' synchronises the device after "
              "every imperative op (readable backtraces when debugging); "
              "anything else keeps PyTorch's asynchronous launches.")
+register_env("MXNET_SPMD_PROGRAM_CACHE", int, 64,
+             "Bound on the LRU of trainer step programs "
+             "(parallel/spmd.py): one entry per (symbol, device, input "
+             "shapes, dtypes, optimizer statics, fixed parameters).")
 register_env("MXNET_SERVE_BUCKETS", str, "1,2,4,8,16,32",
              "Comma-separated batch-size bucket edges of the generative "
              "program store: the decode engine's slot table grows to the "

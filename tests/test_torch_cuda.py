@@ -2064,3 +2064,96 @@ def test_softmax_layers_on_integer_data_on_card(cuda_device):
         assert got.dtype == want.dtype == np.float32
         err = np.abs(got.asnumpy() - want.asnumpy()).max()
         assert err <= 1e-6, err
+
+
+def _tiny_trainer(compute_dtype=None, seed=8):
+    """``DataParallelTrainer`` of the cifar ResNet (8 layers, batch 4)
+    on the default device, ``cuda:0``, and a seeded batch in numpy."""
+    from mxnet_tpu_torch.parallel import DataParallelTrainer
+    mx.random.seed(seed)
+    tr = DataParallelTrainer(
+        mx.models.resnet(num_classes=10, num_layers=8,
+                         image_shape="3,28,28"),
+        data_shapes={"data": (4, 3, 28, 28)},
+        label_shapes={"softmax_label": (4,)},
+        optimizer_params={"learning_rate": 0.1, "momentum": 0.9,
+                          "wd": 1e-4},
+        initializer=mx.init.Xavier(rnd_type="gaussian", factor_type="in",
+                                   magnitude=2),
+        compute_dtype=compute_dtype)
+    rs = np.random.RandomState(seed)
+    return tr, rs.uniform(-1, 1, (4, 3, 28, 28)).astype(np.float32), \
+        rs.randint(0, 10, 4).astype(np.float32)
+
+
+def _trainer_state(tr):
+    return ([("param " + n, t) for n, t in tr.params.items()] +
+            [("state %s %d" % (n, j), s) for n, st in tr.opt_state.items()
+             for j, s in enumerate(st)] +
+            [("aux " + n, t) for n, t in tr.aux.items()])
+
+
+@pytest.mark.cuda
+def test_trainer_state_lies_on_the_card(cuda_device):
+    """The trainer's default device is ``cuda:0``: every parameter,
+    momentum and moving statistic lies there in float32 before and
+    after a step, and the step's outputs are card tensors with no
+    autograd graph."""
+    tr, X, y = _tiny_trainer()
+    assert tr.device == cuda_device
+    for _ in range(2):
+        for name, t in _trainer_state(tr):
+            assert t.device == cuda_device and t.dtype == torch.float32, \
+                name
+        outs = tr.step(X, y)
+    assert outs[0].device == cuda_device and outs[0].grad_fn is None
+    assert all(t.grad is None for t in tr.params.values())
+
+
+@pytest.mark.cuda
+def test_trainer_bf16_step_reaches_the_heads_bf16_pair(cuda_device):
+    """One ``compute_dtype='bfloat16'`` step launches the head's bf16
+    pair once each and no other kernel of ``kernels.KERNELS``; its
+    outputs are bf16, its master state float32."""
+    tr, X, y = _tiny_trainer("bfloat16")
+    data = torch.from_numpy(X).to(cuda_device, torch.bfloat16)
+    label = torch.from_numpy(y).to(cuda_device)
+    tr.step(data, label)
+    before = kernels.launch_counts()
+    outs = tr.step(data, label)
+    after = kernels.launch_counts()
+    diff = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+    assert diff == {"softmax_rows_bf16": 1, "xent_grad_from_probs_bf16": 1}
+    assert outs[0].dtype == torch.bfloat16
+    assert {t.dtype for _, t in _trainer_state(tr)} == {torch.float32}
+
+
+@pytest.mark.cuda
+def test_trainer_updater_states_round_trip_on_card(cuda_device):
+    """``get_updater_states`` (host NDArrays) into another trainer's
+    ``set_updater_states``: the momenta land on the card, equal."""
+    tr, X, y = _tiny_trainer()
+    tr.step(X, y)
+    states = tr.get_updater_states()
+    assert all(s.context == mx.cpu() for s in states.values())
+    other, _, _ = _tiny_trainer(seed=9)
+    other.set_updater_states(states)
+    for name in tr.param_names:
+        (got,), (want,) = other.opt_state[name], tr.opt_state[name]
+        assert got.device == cuda_device and torch.equal(got, want), name
+
+
+@pytest.mark.cuda
+def test_trainer_step_cost_analysis_on_card(cuda_device):
+    """``step_cost_analysis`` on the card counts the step's products and
+    its temporary bytes, and leaves the parameters, momenta, moving
+    statistics and update counts as it found them."""
+    tr, X, y = _tiny_trainer("bfloat16")
+    tr.step(X, y)
+    snap = [(n, t.detach().clone()) for n, t in _trainer_state(tr)]
+    counts = dict(tr.optimizer._index_update_count)
+    cost = tr.step_cost_analysis(X, y)
+    assert cost["flops"] > 0 and cost["temp_bytes"] > 0
+    now = dict(_trainer_state(tr))
+    assert all(torch.equal(t, now[n]) for n, t in snap)
+    assert counts == tr.optimizer._index_update_count
