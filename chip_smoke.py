@@ -4900,11 +4900,19 @@ def phase_trainer(dev, card, tag, step_ms_module):
     statistic is finite and has moved, and the cost analysis counts
     FLOPs and leaves the state and the update counts as it found them.
     Logs ms a step, images/s, counted GFLOPs a step, ``mfu_proxy``
-    against the card's bf16 peak, bench's analytic MFU, the peak memory
-    and the ratio to phase 13b's ``Module.fit`` (``step_ms_module``).
+    against the card's bf16 peak, bench's analytic MFU, the peak memory,
+    the step program's build time and the ratio to phase 13b's
+    ``Module.fit`` (``step_ms_module``).
     Returns the launch counts and ms a step."""
     batch, warmup, steps = TRAINER_RUNS[tag]
     tr, data, label = trainer_direct(dev, batch)
+    # the step program's build (a cache miss) and a cache hit, on the host
+    mx.parallel.reset_program_cache()
+    build_ms = []
+    for _ in range(2):
+        tic = time.perf_counter()
+        tr._compile()
+        build_ms.append((time.perf_counter() - tic) * 1e3)
     aux0 = {k: v.clone() for k, v in tr.aux.items()}
     probs = []
     torch.cuda.synchronize()
@@ -4977,14 +4985,15 @@ def phase_trainer(dev, card, tag, step_ms_module):
         "steps %d..%d: %.3f ms per step, %.1f images/s; counted %.3f GFLOPs "
         "per step (step_cost_analysis, %.2f s; temp %.3f GB), mfu_proxy "
         "%s of %s FLOP/s, bench's analytic MFU (3 x %.1f GFLOPs an image) "
-        "%s; peak memory %.3f GB; phase 13b (Module.fit, bf16, batch 32) "
-        "%.3f ms per step, ratio %.3f [%s]"
+        "%s; peak memory %.3f GB; step program built in %.3f ms (a cache "
+        "hit %.3f ms); phase 13b (Module.fit, bf16, batch 32) %.3f ms per "
+        "step, ratio %.3f [%s]"
         % (tag, batch, "x".join(map(str, RESNET["image"])), first, last5,
            TRAINER_LAUNCHES_PER_STEP, warmup + 1, warmup + steps, step_ms,
            ips, cost["flops"] / 1e9, cost_s, cost["temp_bytes"] / 1e9, mfu,
            "%.4g" % peak_flops if peak_flops else "an unknown",
-           RESNET50_FWD_GFLOPS, analytic, peak / 1e9,
-           step_ms_module, step_ms / step_ms_module, card))
+           RESNET50_FWD_GFLOPS, analytic, peak / 1e9, build_ms[0],
+           build_ms[1], step_ms_module, step_ms / step_ms_module, card))
     return counts, step_ms
 
 

@@ -29,7 +29,9 @@ after the fp32 leaves are made, so the cast's backward hands fp32
 gradients to ``grad_dict``; the outputs stay in the compute dtype.
 Floating auxiliary states enter in the compute dtype too, and their
 new values are cast back to the aux arrays' own dtype before the write
-(the reference's ``_cast_aux`` / ``_uncast_aux``).
+(the reference's ``_cast_aux`` / ``_uncast_aux``).  The walk over the
+nodes and this cast rule are :func:`evaluate`, which the data-parallel
+trainer's step program (``parallel/spmd.py``) runs too.
 
 An init op whose ``shape`` holds a 0 (``begin_state``'s ``(0, H)``
 zeros of an RNN cell) takes the shape that inference over the bound
@@ -48,7 +50,8 @@ from .base import MXNetError
 from .context import default_device
 from .ndarray import NDArray, _torch_dtype
 
-__all__ = ["Executor", "shape_overrides"]
+__all__ = ["Executor", "evaluate", "ones_cotangent", "shape_overrides",
+           "write_aux"]
 
 
 def shape_overrides(symbol, known_shapes, device=None):
@@ -77,6 +80,65 @@ def shape_overrides(symbol, known_shapes, device=None):
     return overrides
 
 
+def evaluate(nodes, heads, attrs, values, is_train, device, rng=None,
+             compute_dtype=None, keep_dtype=frozenset(), tap=None):
+    """Evaluate a symbol's nodes (``symbol._nodes()``) in topological
+    order.
+
+    ``values`` maps each variable's name (arguments and auxiliary
+    states) to its tensor.  Under ``compute_dtype`` every floating one
+    not named in ``keep_dtype`` enters cast to it, differentiably, so
+    the cast's backward hands gradients back in the master dtype.
+    ``attrs`` is :func:`shape_overrides`' map.  Ops that draw take
+    ``rng``, or else the generator of ``device``
+    (:func:`mxnet_tpu_torch.random.generator`).  ``tap(node, outs)``
+    sees each op node's outputs.  Returns the values of ``heads``
+    (``(id(node), output index)``) and ``{aux name: new value}``; the
+    topologically last writer of a shared state wins."""
+    vals, new_aux = {}, {}
+    gen = rng
+    for node in nodes:
+        if node.is_variable:
+            v = values[node.name]
+            if compute_dtype is not None and v.is_floating_point() and \
+                    v.dtype != compute_dtype and node.name not in keep_dtype:
+                v = v.to(compute_dtype)
+            vals[(id(node), 0)] = v
+            continue
+        ins = [vals[(id(n), oi)] for n, oi in node.inputs]
+        op, na = node.op, node.num_args()
+        # Dropout draws in training only, the samplers always
+        if gen is None and op.needs_rng and (is_train or op.rng_at_eval):
+            gen = _random.generator(device)
+        outs, upd = op.apply(attrs.get(id(node), node.attrs), ins[:na],
+                             ins[na:], is_train, gen)
+        for (an, _), u in zip(node.aux_inputs(), upd):
+            new_aux[an.name] = u
+        for oi, o in enumerate(outs):
+            vals[(id(node), oi)] = o
+        if tap is not None:
+            tap(node, outs)
+    return [vals[k] for k in heads], new_aux
+
+
+def write_aux(bufs, new_aux):
+    """Copy a train forward's new auxiliary values into the tensors
+    ``bufs`` (``{aux name: tensor}``), in place, outside autograd and in
+    each tensor's own dtype."""
+    with torch.no_grad():
+        for name, u in new_aux.items():
+            buf = bufs[name]
+            if u is not buf:
+                buf.copy_(u.detach())
+
+
+def ones_cotangent(out):
+    """A cotangent of ones for ``out``: an expanded scalar, which costs
+    no memory."""
+    return torch.ones((), dtype=out.dtype, device=out.device).expand(
+        out.shape)
+
+
 class Executor:
     def __init__(self, symbol, ctx, args, grads, reqs, compute_dtype=None,
                  keep_dtype=(), aux=()):
@@ -102,12 +164,6 @@ class Executor:
                           if self.grad_req.get(n, "null") != "null"
                           and self.grad_arrays[i] is not None]
         self._nodes = symbol._nodes()
-        # variable node -> its index in the arguments followed by the
-        # auxiliary states
-        order = {n: i for i, n in enumerate(self._arg_names +
-                                            self._aux_names)}
-        self._var_idx = {id(n): order[n.name] for n in self._nodes
-                         if n.is_variable}
         self._heads = [(id(n), oi) for n, oi in symbol._outputs]
         self._attrs = shape_overrides(
             symbol, {n: a.shape for n, a in zip(self._arg_names,
@@ -116,34 +172,6 @@ class Executor:
         self.outputs = []
         self._train = None   # (outputs with autograd history, leaves)
         self._monitor_cb = None
-
-    def _evaluate(self, var_vals, is_train, tap=None):
-        """The heads' values, and the auxiliary states' new values (by
-        index into ``aux_arrays``; the topologically last writer of a
-        shared state wins) from the arguments followed by the auxiliary
-        states.  ``tap(node, outs)`` sees each op node's outputs."""
-        vals, new_aux = {}, {}
-        nargs = len(self._arg_names)
-        gen = None
-        attrs = self._attrs
-        for node in self._nodes:
-            if node.is_variable:
-                vals[(id(node), 0)] = var_vals[self._var_idx[id(node)]]
-                continue
-            ins = [vals[(id(n), oi)] for n, oi in node.inputs]
-            op, na = node.op, node.num_args()
-            if gen is None and op.needs_rng and (is_train or
-                                                 op.rng_at_eval):
-                gen = _random.generator(self._ctx)
-            outs, upd = op.apply(attrs.get(id(node), node.attrs), ins[:na],
-                                 ins[na:], is_train, gen)
-            for (an, _), u in zip(node.aux_inputs(), upd):
-                new_aux[self._var_idx[id(an)] - nargs] = u
-            for oi, o in enumerate(outs):
-                vals[(id(node), oi)] = o
-            if tap is not None:
-                tap(node, outs)
-        return [vals[k] for k in self._heads], new_aux
 
     def set_monitor_callback(self, callback):
         """Call ``callback(name, NDArray)`` after each forward for every
@@ -162,31 +190,6 @@ class Executor:
                 records.append(("%s_%s" % (node.name, nm), o))
         return tap, records
 
-    def _cast_aux(self, vals):
-        cdt = self._compute_dtype
-        if cdt is None:
-            return vals
-        return [v.to(cdt) if v.is_floating_point() else v for v in vals]
-
-    def _write_aux(self, new_aux):
-        """Copy a train forward's new auxiliary values into the aux
-        arrays, in place and in each array's own dtype."""
-        with torch.no_grad():
-            for i, u in new_aux.items():
-                buf = self.aux_arrays[i]._data
-                if u is not buf:
-                    buf.copy_(u.detach())
-
-    def _cast_args(self, vals):
-        """The compute dtype's view of the arguments: every floating one
-        not in ``keep_dtype`` cast (differentiably) to ``compute_dtype``."""
-        cdt = self._compute_dtype
-        if cdt is None:
-            return vals
-        return [v.to(cdt) if v.is_floating_point() and v.dtype != cdt and
-                name not in self._keep_dtype else v
-                for name, v in zip(self._arg_names, vals)]
-
     def forward(self, is_train=False, **kwargs):
         """Evaluate the graph; ``kwargs`` copy new values into named
         arguments first.  Returns the output NDArrays."""
@@ -195,7 +198,8 @@ class Executor:
                 raise MXNetError("unknown argument %r in forward" % k)
             self.arg_arrays[self._arg_names.index(k)][:] = v
         arg_vals = [a._data for a in self.arg_arrays]
-        aux_vals = self._cast_aux([a._data for a in self.aux_arrays])
+        aux_bufs = {n: a._data for n, a in zip(self._aux_names,
+                                               self.aux_arrays)}
         self._train = None
         tap, records = self._monitor_tap()
         if is_train:
@@ -203,15 +207,16 @@ class Executor:
                       for i in self._diff_idx}
             for i, t in leaves.items():
                 arg_vals[i] = t
-            with torch.enable_grad():
-                outs, new_aux = self._evaluate(
-                    self._cast_args(arg_vals) + aux_vals, True, tap)
+        values = dict(zip(self._arg_names, arg_vals))
+        values.update(aux_bufs)
+        with torch.set_grad_enabled(is_train):
+            outs, new_aux = evaluate(
+                self._nodes, self._heads, self._attrs, values, is_train,
+                self._ctx, compute_dtype=self._compute_dtype,
+                keep_dtype=self._keep_dtype, tap=tap)
+        if is_train:
             self._train = (outs, leaves)
-            self._write_aux(new_aux)
-        else:
-            with torch.no_grad():
-                outs, _ = self._evaluate(
-                    self._cast_args(arg_vals) + aux_vals, False, tap)
+            write_aux(aux_bufs, new_aux)
         self.outputs = [NDArray(o.detach()) for o in outs]
         for nm, o in records or ():
             self._monitor_cb(nm, NDArray(o.detach()))
@@ -236,8 +241,7 @@ class Executor:
         cots = []
         for o, g in pairs:
             if g is None:
-                cots.append(torch.ones((), dtype=o.dtype,
-                                       device=o.device).expand(o.shape))
+                cots.append(ones_cotangent(o))
             else:
                 g = g._data if isinstance(g, NDArray) else torch.as_tensor(g)
                 cots.append(g.to(device=o.device, dtype=o.dtype))

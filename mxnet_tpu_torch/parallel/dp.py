@@ -98,9 +98,7 @@ class DataParallelTrainer:
         self.batch_axis = batch_axis
         self._fixed = set(fixed_params)
         self._compute_dtype = compute_dtype or None
-        self._zero1 = bool(shard_optimizer_state)
         self._reduce_mode = reduce_mode
-        self._placement_cache = {}
 
         shapes = dict(data_shapes)
         if label_shapes:
@@ -153,7 +151,6 @@ class DataParallelTrainer:
                 raise MXNetError("share_state_with: the trainers' devices "
                                  "differ (%s vs %s)" % (self.device,
                                                         other.device))
-            self._zero1 = other._zero1
             self._st = other._st
         else:
             self._st = _TrainerState()
@@ -223,7 +220,6 @@ class DataParallelTrainer:
             dtype=self._dtype, compute_dtype=self._compute_dtype,
             optimizer=self.optimizer,
             fixed_params=tuple(sorted(self._fixed)),
-            shard_optimizer_state=self._zero1,
             reduce_mode=self._reduce_mode)
         self._train_step = self._program.train_step
         self._predict_step = self._program.predict_step
@@ -242,56 +238,25 @@ class DataParallelTrainer:
     def _shard_batch(self, batch):
         """Each input as a tensor on the device.
 
-        A tensor already on the device is used as it is, with no copy.
-        A device-side NDArray goes through :meth:`_place_cached`.  Host
-        data (numpy, a CPU tensor, a CPU NDArray) is copied to the
-        device on every step: the reference caches its placement by
-        the source's identity, which is sound only because jax arrays
-        are immutable, and a host source edited in place must be seen
-        at the next step."""
+        A tensor on the device, or an NDArray whose tensor is there, is
+        used as it is, with no copy.  Anything else (numpy, a tensor or
+        an NDArray elsewhere) is copied to the device on every step.
+        The reference caches its placements by the source's identity,
+        which is sound only because jax arrays are immutable: a torch
+        tensor edited in place must be seen at the next step."""
         out = {}
         for k, v in batch.items():
-            if isinstance(v, torch.Tensor) and v.device == self.device:
-                out[k] = v
-            elif isinstance(v, NDArray) and (
-                    v._data.device == self.device or
-                    v._data.device.type != "cpu"):
-                out[k] = self._place_cached(k, v)
-            else:
-                # a host source: drop any cache entry for this name, so
-                # a loop that switched from a device buffer to host
-                # batches does not keep a dead batch alive
-                self._placement_cache.pop(k, None)
-                t = v._data if isinstance(v, NDArray) else v
-                if not isinstance(t, torch.Tensor):
-                    t = _host_tensor(t)
-                out[k] = t.detach().to(self.device)
+            t = v._data if isinstance(v, NDArray) else v
+            if not isinstance(t, torch.Tensor):
+                t = _host_tensor(t)
+            out[k] = t if t.device == self.device else \
+                t.detach().to(self.device)
         return out
 
     def clear_placement_cache(self):
-        """Drop every cached input placement (each entry holds a batch's
-        tensors alive)."""
-        self._placement_cache = {}
-
-    def _place_cached(self, name, arr):
-        """The device tensor of a device-side NDArray, with a per-input
-        placement cache, as the reference keeps one for jax buffers.
-
-        An NDArray on the trainer's device is placed as its own tensor;
-        one on another device is copied once and reused while the
-        NDArray holds the same tensor at the same version counter.  An
-        NDArray is a mutable handle and a tensor is mutable, so the
-        entry is keyed on both, and on the tensor's ``_version``, which
-        every in-place op advances."""
-        t = arr._data
-        hit = self._placement_cache.get(name)
-        if hit is not None and hit[0] is arr and hit[1] is t and \
-                hit[2] == t._version:
-            return hit[3]
-        placed = t.detach() if t.device == self.device else \
-            t.detach().to(self.device)
-        self._placement_cache[name] = (arr, t, t._version, placed)
-        return placed
+        """The reference's: it drops the cached input placements.  The
+        port caches none (see :meth:`_shard_batch`), so there is nothing
+        to drop."""
 
     def step(self, data, label=None, rng=None):
         """Run one training step; returns the outputs as tensors on the

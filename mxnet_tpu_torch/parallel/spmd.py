@@ -4,7 +4,8 @@
 The reference compiles forward, backward and the in-graph optimizer
 update into one XLA program over a mesh.  The port's program is the
 same step run eagerly on one device, built once for each cache key
-into two closures over a plan of the graph's nodes:
+into two closures over the graph's nodes.  Both evaluate the graph
+with the port's ``Executor``'s own walk (:func:`..executor.evaluate`):
 
 * ``train_step(params, opt_state, aux, batch, lrs, wds, rng=None)``:
   cast the floating inputs and parameters (differentiably) to
@@ -28,8 +29,10 @@ Programs are cached in a bounded LRU keyed as the reference's is, with
 the device in the mesh's place: (symbol fingerprint, device, input
 shapes, dtypes, optimizer statics, fixed parameters), so trainers over
 the same setup share one program (``MXNET_SPMD_PROGRAM_CACHE`` bounds
-it).  The reference's ``reduce_mode='bucket'`` reduces gradients
-across a mesh's devices, and the port has one device.
+it).  The reference also keys on ``shard_optimizer_state``, which
+changes nothing on one device, so it keys nothing here.  The
+reference's ``reduce_mode='bucket'`` reduces gradients across a mesh's
+devices, and the port has one device.
 """
 from __future__ import annotations
 
@@ -39,9 +42,8 @@ from collections import OrderedDict
 
 import torch
 
-from .. import random as _random
 from ..base import MXNetError, get_env
-from ..executor import shape_overrides
+from ..executor import evaluate, ones_cotangent, shape_overrides, write_aux
 from ..ndarray import _torch_dtype
 from .ingraph_opt import InGraphOptimizer, ingraph_fingerprint
 
@@ -102,25 +104,6 @@ class StepProgram:
         self.label_names = label_names
 
 
-def _plan(symbol, device, arg_shapes):
-    """The graph as a list of steps, one a node, in topological order:
-    ``(key, None, name, is_aux)`` for a variable, ``(key, op, attrs,
-    input keys, num_args, aux names)`` for an op node."""
-    aux_set = set(symbol.list_auxiliary_states())
-    overrides = shape_overrides(symbol, arg_shapes, device)
-    steps = []
-    for node in symbol._nodes():
-        if node.is_variable:
-            steps.append((id(node), None, node.name, node.name in aux_set))
-            continue
-        steps.append((id(node), node.op,
-                      overrides.get(id(node), node.attrs),
-                      [(id(n), oi) for n, oi in node.inputs],
-                      node.num_args(),
-                      [an.name for an, _ in node.aux_inputs()]))
-    return steps
-
-
 def _build_program(key, symbol, device, data_shapes, label_shapes, dtype,
                    compute_dtype, optimizer, fixed_params):
     """The step's closures for one cache key."""
@@ -136,73 +119,45 @@ def _build_program(key, symbol, device, data_shapes, label_shapes, dtype,
     arg_shapes = dict(zip(arg_names, arg_shape_list))
     aux_shapes = dict(zip(aux_names, aux_shape_list))
 
-    steps = _plan(symbol, device, arg_shapes)
-    head = [(id(n), oi) for n, oi in symbol._outputs]
-
-    def trace(args_map, aux_map, is_train, rng):
-        vals, new_aux = {}, {}
-        gen = rng
-        for s in steps:
-            if s[1] is None:
-                vals[(s[0], 0)] = aux_map[s[2]] if s[3] else args_map[s[2]]
-                continue
-            nid, op, attrs, in_keys, na, aux_in = s
-            ins = [vals[k] for k in in_keys]
-            # Dropout draws in training only, the samplers always
-            if gen is None and op.needs_rng and (is_train or
-                                                 op.rng_at_eval):
-                gen = _random.generator(device)
-            outs, upd = op.apply(attrs, ins[:na], ins[na:], is_train, gen)
-            for name, u in zip(aux_in, upd):
-                new_aux[name] = u
-            for oi, o in enumerate(outs):
-                vals[(nid, oi)] = o
-        return [vals[k] for k in head], new_aux
-
+    nodes = symbol._nodes()
+    heads = [(id(n), oi) for n, oi in symbol._outputs]
+    attrs = shape_overrides(symbol, arg_shapes, device)
     opt_update = InGraphOptimizer(optimizer).update
     fixed = set(fixed_params)
     live = [n for n in param_names if n not in fixed]
     cdt = _torch_dtype(compute_dtype) if compute_dtype else None
-    keep = set(label_names) | set(symbol.list_index_arguments())
+    keep = frozenset(label_names) | frozenset(
+        symbol.list_index_arguments())
 
-    def _cast(tree):
-        if cdt is None:
-            return dict(tree)
-        return {k: (v.to(cdt) if v.is_floating_point() and v.dtype != cdt
-                    and k not in keep else v) for k, v in tree.items()}
+    def forward(params, aux, batch, is_train, rng):
+        values = dict(batch)
+        values.update(params)
+        values.update(aux)
+        return evaluate(nodes, heads, attrs, values, is_train, device,
+                        rng=rng, compute_dtype=cdt, keep_dtype=keep)
 
     def train_step(params, opt_state, aux, batch, lrs, wds, rng=None):
-        args = _cast(batch)
-        args.update(_cast(params))
         with torch.enable_grad():
-            outs, new_aux = trace(args, _cast(aux), True, rng)
-        heads = [o for o in outs if o.requires_grad]
-        if heads:
-            # a loss head (SoftmaxOutput) ignores its cotangent; an
-            # expanded scalar costs no memory
-            torch.autograd.backward(heads, [
-                torch.ones((), dtype=o.dtype, device=o.device).expand(
-                    o.shape) for o in heads])
+            outs, new_aux = forward(params, aux, batch, True, rng)
+        heads_ = [o for o in outs if o.requires_grad]
+        if heads_:
+            # a loss head (SoftmaxOutput) ignores its cotangent
+            torch.autograd.backward(heads_,
+                                    [ones_cotangent(o) for o in heads_])
         ws = [params[n] for n in live]
         gs = [w.grad if w.grad is not None else torch.zeros_like(w)
               for w in ws]
         if ws:
             opt_update(ws, gs, [opt_state[n] for n in live], lrs, wds)
-        with torch.no_grad():
-            for w in ws:
-                w.grad = None
-            # moving statistics stay in their master dtype across steps
-            for k, v in new_aux.items():
-                if v is not aux[k]:
-                    aux[k].copy_(v.detach())
+        for w in ws:
+            w.grad = None
+        # moving statistics stay in their master dtype across steps
+        write_aux(aux, new_aux)
         return tuple(o.detach() for o in outs)
 
     @torch.no_grad()
     def predict_step(params, aux, batch, rng=None):
-        args = _cast(batch)
-        args.update(_cast(params))
-        outs, _ = trace(args, _cast(aux), False, rng)
-        return tuple(outs)
+        return tuple(forward(params, aux, batch, False, rng)[0])
 
     return StepProgram(
         key=key, symbol=symbol, device=device, train_step=train_step,
@@ -219,52 +174,35 @@ class _ProgramCache:
     def __init__(self, max_size):
         self.max_size = max(1, int(max_size))
         self._entries = OrderedDict()
-        self._stats = [0, 0, 0]  # hits, misses, evictions
-        self.lock = threading.Lock()
+        self._stats = {"hits": 0, "misses": 0, "evictions": 0}
+        self._lock = threading.Lock()
 
     def acquire(self, key, builder):
-        with self.lock:
+        with self._lock:
             entry = self._entries.get(key)
             if entry is not None:
                 self._entries.move_to_end(key)
-                self._stats[0] += 1
+                self._stats["hits"] += 1
                 return entry
-            self._stats[1] += 1
-        # build outside the lock; re-check for a racing insert
-        entry = builder()
-        with self.lock:
-            raced = self._entries.get(key)
-            if raced is not None:
-                return raced
-            while len(self._entries) >= self.max_size:
+            self._stats["misses"] += 1
+            entry = self._entries[key] = builder()
+            while len(self._entries) > self.max_size:
                 self._entries.popitem(last=False)
-                self._stats[2] += 1
-            self._entries[key] = entry
+                self._stats["evictions"] += 1
             return entry
 
     def snapshot(self):
-        with self.lock:
-            return {"hits": self._stats[0], "misses": self._stats[1],
-                    "evictions": self._stats[2],
-                    "size": len(self._entries),
-                    "max_size": self.max_size}
-
-    def size(self):
-        with self.lock:
-            return len(self._entries)
+        with self._lock:
+            return dict(self._stats, size=len(self._entries),
+                        max_size=self.max_size)
 
 
 _cache = None
-_cache_lock = threading.Lock()
 
 
 def _get_cache():
-    global _cache
     if _cache is None:
-        with _cache_lock:
-            if _cache is None:
-                _cache = _ProgramCache(
-                    int(get_env("MXNET_SPMD_PROGRAM_CACHE") or 64))
+        reset_program_cache()
     return _cache
 
 
@@ -277,26 +215,23 @@ def program_cache_stats():
 def reset_program_cache(max_size=None):
     """Drop every cached step program (tests, reconfiguration)."""
     global _cache
-    with _cache_lock:
-        _cache = _ProgramCache(
-            int(max_size) if max_size is not None
-            else int(get_env("MXNET_SPMD_PROGRAM_CACHE") or 64))
+    _cache = _ProgramCache(
+        int(max_size) if max_size is not None
+        else int(get_env("MXNET_SPMD_PROGRAM_CACHE") or 64))
 
 
 def _cache_size():
     """Number of step programs currently cached."""
-    return _get_cache().size()
+    return program_cache_stats()["size"]
 
 
 def get_step_program(symbol, device, data_shapes, label_shapes=None,
                      dtype="float32", compute_dtype=None, optimizer=None,
-                     fixed_params=(), shard_optimizer_state=False,
-                     reduce_mode="fused"):
+                     fixed_params=(), reduce_mode="fused"):
     """The step program for this training setup on ``device`` (a
     ``torch.device``): the cached :class:`StepProgram` for (symbol,
     device, shapes, dtypes, optimizer statics, fixed parameters), built
-    on first use.  ``shard_optimizer_state`` keys the program as in the
-    reference; on one device the state stays whole either way."""
+    on first use."""
     if optimizer is None:
         raise ValueError("get_step_program requires an optimizer with a "
                          "multi-tensor update (parallel/ingraph_opt.py)")
@@ -314,8 +249,7 @@ def get_step_program(symbol, device, data_shapes, label_shapes=None,
            device_fingerprint(device), _shapes_key(data_shapes),
            _shapes_key(label_shapes), str(dtype),
            str(compute_dtype) if compute_dtype else None,
-           ingraph_fingerprint(optimizer), fixed,
-           bool(shard_optimizer_state), ("fused",))
+           ingraph_fingerprint(optimizer), fixed, ("fused",))
 
     def build():
         return _build_program(key, symbol, device, data_shapes,

@@ -350,18 +350,18 @@ def test_batch_placement_rules(sgd_runs):
     np.testing.assert_array_equal(_host(tr.predict(x)[0]),
                                   _host(tr.predict(X[1].copy())[0]))
     assert not np.array_equal(first, _host(tr.predict(x)[0]))
-    # a device-side NDArray is placed through the cache, and a write to
-    # it in place is seen; host data drops the entry
+    # an NDArray on the trainer's device is used as its own tensor, and
+    # a write to it in place is seen, before and after
+    # clear_placement_cache (the port caches no placement)
     a = tmx.nd.array(X[0], ctx=tmx.cpu())
+    assert tr._shard_batch({"data": a})["data"] is a._data
     tr.predict(a)
-    assert tr._placement_cache["data"][0] is a
     a[:] = X[1]
     np.testing.assert_array_equal(_host(tr.predict(a)[0]),
                                   _host(tr.predict(X[1].copy())[0]))
-    assert "data" not in tr._placement_cache
-    tr.predict(a)
     tr.clear_placement_cache()
-    assert tr._placement_cache == {}
+    a[:] = X[0]
+    np.testing.assert_array_equal(_host(tr.predict(a)[0]), first)
 
 
 def test_dropout_repeats_its_draws_after_seed():
@@ -405,11 +405,16 @@ def test_trainers_of_one_setup_share_one_program():
     b = DataParallelTrainer(tmx.sym.load_json(net.tojson()),
                             optimizer_params=SGD, **kw)
     assert a._program is b._program
+    # ZeRO-1 changes nothing on one device, so it keys no program
+    c = DataParallelTrainer(net, optimizer_params=SGD,
+                            shard_optimizer_state=True, **kw)
+    assert c._program is a._program
     DataParallelTrainer(net, optimizer="adam", **kw)
     DataParallelTrainer(net, compute_dtype="bfloat16", **kw)
     stats = spmd.program_cache_stats()
     assert (stats["hits"], stats["misses"], stats["evictions"],
-            stats["size"]) == (1, 3, 1, 2)
+            stats["size"]) == (2, 3, 1, 2)
+    assert spmd._cache_size() == 2
     spmd.reset_program_cache()
 
 
