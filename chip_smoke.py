@@ -131,7 +131,9 @@ sources in this checkout on first use.  Phases, each fatal on failure:
    to the reference's values on NaN, infinities and out-of-range
    inputs);
 6. train the transformer LM at full width (4 layers, hidden 512, 8 heads,
-   vocab 8192, seq_len 256, batch 16) through ``Module.fit`` for 20 SGD
+   vocab 8192, seq_len 256, batch 16) through ``Module.fit`` on its
+   default, fused route (``MXNET_MODULE_FUSED``: one
+   ``DataParallelTrainer`` step a batch) for 20 SGD
    steps (momentum 0.9, learning rate 0.005) on a successor language:
    exact kernel launches per step, finite loss, falling perplexity, ms
    per step and samples/s;
@@ -141,11 +143,12 @@ sources in this checkout on first use.  Phases, each fatal on failure:
    every bf16 norm backward launch on v3 (``nb_census``: each launch
    counted by (name, rows, width, path) and held to ``_bwd_plan``; the
    same census runs over phases 6, 8 and 8b); perplexity falling;
-   outputs bf16, and the parameters, gradients, momenta and
-   ``get_params`` float32 after the fit; ms per step,
-   samples/s and tokens/s beside phase 6's;
+   outputs bf16, and the trainer's parameters and momenta and
+   ``get_params`` float32 after the fit (it holds no gradients); ms per
+   step, samples/s and tokens/s beside phase 6's;
 7. one training step from identical parameters on the card and on the
-   CPU (TF32 off): probabilities and every gradient within 1e-3 x
+   CPU (TF32 off), ``forward_backward`` before any optimizer (so on the
+   executor group): probabilities and every gradient within 1e-3 x
    max|ref|;
 7b. phase 7 in bf16: probabilities within 2e-2 x max|ref| and every
    gradient within 5e-2 x its max|ref| (``BF16_STEP_TOL``), or within
@@ -228,11 +231,12 @@ sources in this checkout on first use.  Phases, each fatal on failure:
    ``Module.fit`` for ``MF_EPOCHS`` epochs, its parameters, executor
    arrays, optimizer state and iterator batches on the card: held-out
    RMSE after each epoch, falling each epoch and ending below the rating
-   std (three epochs reach about 0.6 x it; the example's bar of 0.5 x
+   std (two epochs reach about 0.63 x it; the example's bar of 0.5 x
    needs more); steps/s, samples/s and ms per step; no hand kernel
    launched (none lies on this path) and no plain version reached;
 12. one recommender step on the card against the CPU's from the same
-   parameters and batch: each gradient within 1e-5 x max|ref|, each
+   parameters and batch, on the classic route (the fused one keeps no
+   gradients): each gradient within 1e-5 x max|ref|, each
    parameter after Adam within 1e-4 x max|ref|;
 13. ResNet-50 (``mx.models.resnet(num_classes=1000, num_layers=50)``,
    pre-activation, 3 x 224 x 224, batch 32, fp32, TF32 off) through
@@ -248,7 +252,8 @@ sources in this checkout on first use.  Phases, each fatal on failure:
    five steps below the first step's; all 102 moving statistics finite
    and moved; ms per step and images/s;
 14. one ResNet-50 step at batch 4 on the card from the initializer's
-   parameters, against the CPU's step in float64, both CPU steps
+   parameters, on the classic route (it reads the gradients; 14b too),
+   against the CPU's step in float64, both CPU steps
    replaying the card's decisions at every ReLU and max pool (an input
    within rounding of the kink goes one way on the card and may go the
    other on the CPU, passing or stopping one of as few as 196 summed
@@ -320,7 +325,8 @@ sources in this checkout on first use.  Phases, each fatal on failure:
    label, the padding too) falling; the example's metric and the
    held-out score printed;
 19. the LSTM LM's step at batch 4 on the card against the port's CPU
-   (fp32, TF32 off): one ``forward_backward`` and ``update`` (momentum
+   (fp32, TF32 off), on the classic route (it reads the gradients):
+   one ``forward_backward`` and ``update`` (momentum
    0.9) of buckets 10 and 20 from one Xavier start, every output,
    gradient and parameter within 1e-4 x max|ref|; the ``RNN`` op at full
    width (LSTM, 3 layers of 200, seq 32, batch 32), cuDNN against its
@@ -346,12 +352,61 @@ sources in this checkout on first use.  Phases, each fatal on failure:
    memory and the ratio to phase 13b;
 20b. the same at batch 256 (``trainer_direct_b256``), 3 warm-up and 10
    timed steps;
-21. the trainer against the classic ``Module`` on the card (the
-   bottleneck ResNet of ``tests/test_torch_resnet.py``, batch 4): three
-   fp32 steps, cuDNN deterministic, every parameter, moving statistic
-   and momentum within 1e-5 x max|ref|; one bf16 trainer step against
-   the CPU trainer's fp32 step, within phase 14b's bounds or 4 x the
-   CPU's own bf16 distance.
+21. the trainer against ``Module`` on the card (the bottleneck ResNet
+   of ``tests/test_torch_resnet.py``, batch 4), one leg on the classic
+   route and one on the fused route: three fp32 steps, cuDNN
+   deterministic, every parameter, moving statistic and momentum within
+   1e-5 x max|ref| (the bit-equal arrays counted); one bf16 trainer step
+   against the CPU trainer's fp32 step, within phase 14b's bounds or 4 x
+   the CPU's own bf16 distance;
+22. bench.py's ``train.resnet-50.module_fit`` row as bench runs it
+   (``bench_fit``): bf16 ResNet-50, batch 32, 3 x 224 x 224, 1000
+   classes, on a copy of the example's ``SyntheticDataIter`` (one fixed
+   batch on the card: ``uniform(-1, 1)`` data, ``randint`` labels, from
+   seed 22), SGD lr 0.1 / momentum 0.9 / wd 1e-4, gaussian Xavier
+   (``in``, 2), kvstore ``device``, ``accuracy``; 3 warm-up and 20 timed
+   steps with the clock read after ``synchronize()`` and a host fetch of
+   the outputs; on the fused route (``_one_program_trainer()`` returns
+   the trainer): the head's bf16 pair once a step and no other kernel,
+   ms a step, images/s, accuracy, the last step's cross-entropy, peak
+   memory, ``step_cost_analysis``'s GFLOPs (0.95-1.05 x bench's 3 x 8.2
+   x 32), and ``_build_fused`` timed on a program miss and a hit,
+   moving no host random stream; the timed steps run under
+   ``set_sync_debug_mode('error')``, so a host sync a batch in the fit
+   loop fails the phase; then bench's ``trainer_direct`` at batch 32
+   (3 + 20 steps) back to back: ``ratio.fit_vs_direct``;
+22b. phase 22 on the classic route (``MXNET_MODULE_FUSED=0``), its
+   launches and times beside phase 22's and the direct trainer's;
+23. phase 18b's corpus and buckets 10-40 through ``BucketingModule.fit``
+   on the fused route: every bucket adopts the default bucket's trainer
+   (one state, one step program a bucket), the head's pair once a step,
+   the objective's perplexity falling; 23c, its classic twin, runs the
+   same epoch right after it, and both are timed over the same steps
+   (after every bucket's first); then the fused module's optimizer is
+   made again with momentum 0.9 (``force_init``), two fused steps fill
+   the momenta, and a monitor takes every bucket off the fused route
+   onto one updater holding every one of the trainer's momenta, and
+   four monitored steps train on: finite perplexity, monitor rows,
+   every parameter moved;
+24c. phase 6 on the classic route, its ms a step beside phase 6's;
+24. the transformer LM's fused ``Module`` beyond phases 6 and 6b: one
+   fused step from phase 7's parameters on the card against the port's
+   fused step on the CPU (probabilities and each momentum, which is -lr
+   x the rescaled gradient after one step) within phase 7's 1e-3 x
+   max|ref|, and in bf16 under phase 7b's bounds; a transient de-fuse
+   (two fused steps, one through ``forward(is_train=True)``,
+   ``backward``, ``update``, two fused steps on the same trainer)
+   against the same steps on the classic route: parameters within 1e-5
+   and momenta within 1e-3 x max|ref|, the update counts equal;
+24s. phase 6's setup (host batches, fused route) fit with
+   ``MXNET_IO_STAGE`` on, off, off, on, twice over, back to back with no
+   host fetch a step: ms a step and host syncs a step
+   (``set_sync_debug_mode('warn')``) of each, none allowed in a staged
+   fit.
+
+Phases 11, 13, 13b, 16, 17 and 18 run ``Module``'s default route, the
+fused one, and assert it; phases 12, 14, 14b, 18b and 19 are pinned to
+the classic route, whose arrays they read.
 
 Phase 5 also times row 10's kernel pair at phase 13's head, 32 x
 1000, and at phase 18's, 1024 x 10000, and row 10b's bf16 pair at
@@ -377,7 +432,8 @@ row, the floor of one launch.
 phase 11 one over 100 recommender steps, and after phases 13 and 13b
 one over five ResNet-50 steps each: device time and launches per
 step, the device's busy share, and the ops with the most device time;
-after phases 20 and 20b one over five trainer steps each.
+after phases 20 and 20b one over five trainer steps each, and after
+phase 22b one over five steps each of phases 22 and 22b.
 
 The last lines are a JSON object of per-kernel numbers, the card's name
 and power limit as nvidia-smi reports them, and the result object.
@@ -385,13 +441,16 @@ Exits non-zero, printing no result, without a CUDA device.
 """
 import collections
 import contextlib
+import gc
 import importlib
 import json
+import os
 import statistics
 import subprocess
 import sys
 import tempfile
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -635,7 +694,9 @@ SWEEP_OPS = (
 # 1,000,209 ratings; synthetic, rank 8, from a seed)
 MF = dict(users=6040, items=3952, ratings=1000209, rank=8, factor=16,
           batch=256, lr=0.01, wd=1e-5, sigma=0.1)
-MF_EPOCHS = 3
+# two epochs: the third (0.611 x the std against 0.633) cost 20-30 s of a
+# run that the fused route's phases (22-24) needed
+MF_EPOCHS = 2
 # bench.py's SGD with momentum 0.9, at a tenth of its learning rate: its
 # 0.05 was set for random tokens, whose loss nobody reads; on the
 # successor language at this width it diverges by the fourth step.
@@ -2234,15 +2295,80 @@ def plain_guard():
             m.route = r
 
 
-def phase_train(dev, card, compute_dtype=None, step_ms_fp32=None):
+@contextlib.contextmanager
+def env_flag(name, on):
+    """The bool knob ``name`` set to ``on`` for the block, restored
+    after it."""
+    saved = os.environ.get(name)
+    os.environ[name] = "1" if on else "0"
+    try:
+        yield
+    finally:
+        if saved is None:
+            os.environ.pop(name, None)
+        else:
+            os.environ[name] = saved
+
+
+def module_route(fused):
+    """``MXNET_MODULE_FUSED`` set to ``fused`` for the block (``Module``
+    takes its route in ``init_optimizer``)."""
+    return env_flag("MXNET_MODULE_FUSED", fused)
+
+
+def check_route(tag, mod, fused):
+    """Fatal unless ``mod`` (each bucket of a ``BucketingModule``) trains
+    on the route asked: the fused one holds its trainer
+    (``_one_program_trainer()``), the classic one none."""
+    mods = list(mod._buckets.values()) if hasattr(mod, "_buckets") \
+        else [mod]
+    got = [m._one_program_trainer() is not None for m in mods]
+    if got != [fused] * len(mods):
+        raise SystemExit("chip_smoke: phase %s trains on the %s route, not "
+                         "the %s one" % (tag, "fused" if got[0] else
+                                         "classic",
+                                         "fused" if fused else "classic"))
+
+
+def updater_states(mod):
+    """``{parameter index: state}`` of either route's optimizer (host
+    NDArrays from the trainer, device NDArrays from the updater)."""
+    tr = mod._one_program_trainer()
+    return tr.get_updater_states() if tr is not None else \
+        mod._updater.states
+
+
+def route_arrays(mod):
+    """(name, tensor) of what a module's route holds on its device: the
+    trainer's parameters, optimizer state and moving statistics, or the
+    executor's arrays, gradients and moving statistics and the
+    updater's state."""
+    tr = mod._one_program_trainer()
+    if tr is not None:
+        return trainer_state(tr)
+    ex = mod._exec_group.executor
+    out = [(n, a._data) for n, a in zip(ex._arg_names, ex.arg_arrays)]
+    out += [("gradient " + n, g._data) for n, g in ex.grad_dict.items()]
+    out += [("moving statistic " + n, a._data)
+            for n, a in ex.aux_dict.items()]
+    for i, st in mod._updater.states.items():
+        for j, s in enumerate(st if isinstance(st, tuple) else
+                              (() if st is None else (st,))):
+            out.append(("state %d %d" % (i, j), s._data))
+    return out
+
+
+def phase_train(dev, card, compute_dtype=None, step_ms_fp32=None,
+                fused=True, tag=None):
     """``Module.fit`` at full width for TRAIN_STEPS SGD steps, set up as
     the repo's on-chip training row (bench.py) but for the learning rate
-    (see TRAIN_OPT); returns the launch counts of the whole run and the
-    ms per step after the warmup.  ``compute_dtype='bfloat16'`` is phase
-    6b: the bf16 launch table, no plain version reached, and float32
-    parameters, gradients and momentum after the fit; its times beside
-    phase 6's (``step_ms_fp32``)."""
-    tag = "6b" if compute_dtype else "6"
+    (see TRAIN_OPT), on ``Module``'s default, fused route (``fused=False``:
+    the classic one, phase 24c); returns the launch counts of the whole
+    run and the ms per step after the warmup.  ``compute_dtype=
+    'bfloat16'`` is phase 6b: the bf16 launch table, no plain version
+    reached, and float32 parameters, momenta and moving statistics after
+    the fit; its times beside phase 6's (``step_ms_fp32``)."""
+    tag = tag or ("6b" if compute_dtype else "6")
     table = (TRAIN_BF16_LAUNCHES_PER_STEP if compute_dtype
              else TRAIN_LAUNCHES_PER_STEP)
     X, y = train_data(TRAIN_STEPS * TRAIN_BATCH)
@@ -2268,13 +2394,15 @@ def phase_train(dev, card, compute_dtype=None, step_ms_fp32=None):
     last.update(kernels.launch_counts())
     tic = time.perf_counter()
     with plain_guard() as plain, fa_census() as fa_shapes, \
-            nb_census() as nb_shapes, sr_census() as sr_shapes:
+            nb_census() as nb_shapes, sr_census() as sr_shapes, \
+            module_route(fused):
         mod.fit(it, num_epoch=1, optimizer="sgd",
                 optimizer_params=TRAIN_OPT, initializer=mx.init.Xavier(),
                 eval_metric=mx.metric.Perplexity(ignore_label=None),
                 batch_end_callback=on_batch)
         torch.cuda.synchronize()
     counts = kernels.launch_counts()
+    check_route(tag, mod, fused)
     check_fa_census(tag, fa_shapes, counts)
     check_nb_census(tag, nb_shapes, counts)
     check_sr_census(tag, sr_shapes, counts)
@@ -2297,7 +2425,7 @@ def phase_train(dev, card, compute_dtype=None, step_ms_fp32=None):
     if not (all(np.isfinite(ppl)) and bool(torch.isfinite(probs).all())):
         raise SystemExit("chip_smoke: training gave a non-finite loss")
     if compute_dtype:
-        check_master_fp32(mod, probs)
+        check_master_fp32(tag, mod, probs)
     first, final = (float(np.mean(ppl[:5])), float(np.mean(ppl[-5:])))
     log("phase %s perplexity per step: %s"
         % (tag, " ".join("%.1f" % p for p in ppl)))
@@ -2312,38 +2440,37 @@ def phase_train(dev, card, compute_dtype=None, step_ms_fp32=None):
         "ratio %.3f" % (step_ms_fp32, TRAIN_BATCH * 1e3 / step_ms_fp32,
                         TRAIN_ROWS * 1e3 / step_ms_fp32,
                         step_ms / step_ms_fp32))
-    log("phase %s trained %d steps%s (fit %.2f s with bind and init): "
-        "perplexity first 5 steps %.2f, last 5 %.2f; launches per step %s; "
-        "steps %d..%d: %.3f ms per step, %.1f samples/s, %.0f tokens/s%s "
-        "[%s]"
+    log("phase %s trained %d steps%s on the %s route (fit %.2f s with "
+        "bind and init): perplexity first 5 steps %.2f, last 5 %.2f; "
+        "launches per step %s; steps %d..%d: %.3f ms per step, %.1f "
+        "samples/s, %.0f tokens/s%s [%s]"
         % (tag, TRAIN_STEPS, " in %s" % compute_dtype if compute_dtype
-           else "", wall, first, final, table, TRAIN_WARMUP + 1, TRAIN_STEPS,
+           else "", "fused" if fused else "classic", wall, first, final,
+           table, TRAIN_WARMUP + 1, TRAIN_STEPS,
            step_ms, timed * TRAIN_BATCH / sec,
            timed * TRAIN_BATCH * TRAIN_SEQ / sec, beside, card))
     return counts, step_ms
 
 
-def check_master_fp32(mod, probs):
-    """Phase 6b: the outputs bf16; the bound parameters, their gradients,
-    the optimizer's momentum and ``get_params`` float32."""
+def check_master_fp32(tag, mod, probs):
+    """Phase 6b: the outputs bf16; what the route holds (the trainer's
+    parameters and momenta, or the executor's arguments, gradients and
+    the updater's momenta; the token grids are data) and ``get_params``
+    float32."""
     if probs.dtype != torch.bfloat16:
-        raise SystemExit("chip_smoke: phase 6b output is %s" % probs.dtype)
-    group = mod._exec_group
-    arrays = {"parameter " + n: a._data for n, a in
-              zip(group.param_names, group.param_arrays)}
-    arrays.update(("gradient " + n, g._data) for n, g in
-                  zip(group.param_names, group.grad_arrays))
-    arrays.update(("momentum %d" % i, st._data) for i, st in
-                  mod._updater.states.items() if st is not None)
+        raise SystemExit("chip_smoke: phase %s output is %s"
+                         % (tag, probs.dtype))
+    arrays = dict(route_arrays(mod))
     arrays.update(("get_params " + n, a._data) for n, a in
                   mod.get_params()[0].items())
     wrong = {k: t.dtype for k, t in arrays.items()
              if t.dtype != torch.float32}
     if wrong:
-        raise SystemExit("chip_smoke: phase 6b master arrays not float32: "
-                         "%s" % wrong)
-    log("phase 6b: outputs bf16; %d parameters, gradients, momenta and "
-        "get_params arrays float32" % len(arrays))
+        raise SystemExit("chip_smoke: phase %s master arrays not float32: "
+                         "%s" % (tag, wrong))
+    log("phase %s: outputs bf16; %d arrays of the %s route and "
+        "get_params float32" % (tag, len(arrays), "fused" if
+                                mod._one_program_trainer() else "classic"))
 
 
 def profile_train(dev, card, step_ms, compute_dtype=None, warmup=3,
@@ -3103,15 +3230,15 @@ def on_device(dev, what, tensors):
 
 
 def phase_recommender(dev, card):
-    """Phase 11: the recommender through ``Module.fit`` (Adam, learning
-    rate 0.01, wd 1e-5, Normal(0.1), ``eval_metric='rmse'``) for
-    ``MF_EPOCHS`` epochs with the parameters, the executor's arrays, the
-    optimizer's state and the iterator's batches on the card; the
+    """Phase 11: the recommender through ``Module.fit`` on its default,
+    fused route (Adam, learning rate 0.01, wd 1e-5, Normal(0.1),
+    ``eval_metric='rmse'``) for ``MF_EPOCHS`` epochs with the trainer's
+    parameters and Adam state and the iterator's batches on the card; the
     held-out RMSE after each epoch, steps/s, samples/s and ms per step;
-    the RMSE falling each epoch and ending below the rating std (three
-    epochs, the most this phase's time allows, reach about 0.6 x the std
-    in the CPU rehearsal, not the 0.5 x that the example's twelve
-    reach at its size).
+    the RMSE falling each epoch and ending below the rating std (two
+    epochs, the most this phase's time allows, reach about 0.63 x the
+    std on the card, not the 0.5 x that the example's twelve reach at
+    its size).
     No hand kernel lies on this path: every launch count stays 0, and no
     wrapper's plain version is reached.  Returns the launch counts and
     the ms per step."""
@@ -3156,12 +3283,9 @@ def phase_recommender(dev, card):
         torch.cuda.synchronize()
     counts = kernels.launch_counts()
     wall = time.perf_counter() - tic
-    ex = mod._exec_group.executor
-    on_device(dev, "phase 11 executor arrays and optimizer state",
-              list(zip(ex._arg_names, (a._data for a in ex.arg_arrays))) +
-              [(n, g._data) for n, g in ex.grad_dict.items()] +
-              [("adam state of %d" % i, s._data)
-               for i, st in mod._updater.states.items() for s in st])
+    check_route("11", mod, True)
+    on_device(dev, "phase 11 trainer's parameters and Adam state",
+              route_arrays(mod))
     if plain:
         raise SystemExit("chip_smoke: phase 11 reached plain versions: %s"
                          % dict(plain))
@@ -3223,13 +3347,15 @@ def profile_recommender(dev, card, step_ms, warmup=20, steps=100):
 def mf_step(dev, params, part):
     """One recommender step (``forward_backward`` + Adam ``update``) on
     ``dev`` from ``params`` on the batch ``part``: the gradients and the
-    updated parameters, as numpy by name."""
+    updated parameters, as numpy by name.  Phase 12 is pinned to the
+    classic route: the fused one keeps no gradients."""
     it = mf_iter(part, dev)
     mod = mf_module(dev)
     mod.bind(it.provide_data, it.provide_label)
     mod.init_params(arg_params=params)
-    mod.init_optimizer(optimizer="adam", optimizer_params={
-        "learning_rate": MF["lr"], "wd": MF["wd"]})
+    with module_route(False):   # the classic route: it reads gradients
+        mod.init_optimizer(optimizer="adam", optimizer_params={
+            "learning_rate": MF["lr"], "wd": MF["wd"]})
     mod.forward_backward(next(iter(it)))
     out = {"grad " + n: g.asnumpy() for n, g in
            mod._exec_group.executor.grad_dict.items() if n in params}
@@ -3584,12 +3710,13 @@ def synthetic_iter(dev, steps):
 
 def phase_resnet(dev, card, compute_dtype=None, step_ms_fp32=None):
     """Phase 13: ResNet-50 (3 x 224 x 224, 1000 classes, batch 32, fp32)
-    through ``Module.fit`` on the card for RESNET_STEPS steps, with
+    through ``Module.fit`` on its default, fused route on the card for
+    RESNET_STEPS steps, with
     ``fit.py``'s settings (SGD, momentum 0.9, wd 1e-4, lr 0.1,
     ``MultiFactorScheduler``, gaussian Xavier, accuracy, a
     ``Speedometer``) on ``SyntheticDataIter``'s one fixed batch on the
-    card.  Fatal unless every bound array, auxiliary state and momentum
-    lies on the card, the head's kernel pair launches once a step and
+    card.  Fatal unless the trainer's parameters, moving statistics and
+    momenta lie on the card, the head's kernel pair launches once a step and
     nothing else does, no wrapper reaches its plain version, the
     cross-entropy on the batch is finite and its mean over the last five
     steps is below the first step's, and every moving statistic is
@@ -3632,13 +3759,9 @@ def phase_resnet(dev, card, compute_dtype=None, step_ms_fp32=None):
     wall = time.perf_counter() - tic
     counts = kernels.launch_counts()
     check_sr_census(tag, sr_shapes, counts)
-    ex = mod._exec_group.executor
-    on_device(dev, "phase %s arrays, auxiliary states and momenta" % tag,
-              list(zip(ex._arg_names, (a._data for a in ex.arg_arrays))) +
-              [(n, g._data) for n, g in ex.grad_dict.items()] +
-              [(n, a._data) for n, a in ex.aux_dict.items()] +
-              [("momentum of %d" % i, s._data)
-               for i, s in mod._updater.states.items()])
+    check_route(tag, mod, True)
+    on_device(dev, "phase %s parameters, moving statistics and momenta"
+              % tag, route_arrays(mod))
     if plain:
         raise SystemExit("chip_smoke: phase %s reached plain versions: %s"
                          % (tag, dict(plain)))
@@ -3686,22 +3809,15 @@ def phase_resnet(dev, card, compute_dtype=None, step_ms_fp32=None):
 
 
 def check_resnet_master_fp32(tag, mod):
-    """A bf16 image module's outputs bf16; its bound parameters,
-    gradients, momenta, moving statistics and ``get_params`` arrays
-    float32."""
-    group = mod._exec_group
+    """A bf16 image module's outputs bf16; what its route holds (the
+    trainer's parameters, momenta and moving statistics, or the
+    executor's arrays, gradients and moving statistics and the updater's
+    momenta) and its ``get_params`` arrays float32."""
     out = mod.get_outputs()[0]._data
     if out.dtype != torch.bfloat16:
         raise SystemExit("chip_smoke: phase %s output is %s" % (tag,
                                                                 out.dtype))
-    arrays = {"parameter " + n: a._data for n, a in
-              zip(group.param_names, group.param_arrays)}
-    arrays.update(("gradient " + n, g._data) for n, g in
-                  zip(group.param_names, group.grad_arrays) if g is not None)
-    arrays.update(("momentum %d" % i, st._data) for i, st in
-                  mod._updater.states.items() if st is not None)
-    arrays.update(("moving statistic " + n, a._data) for n, a in
-                  zip(group.aux_names, group.aux_arrays))
+    arrays = dict(route_arrays(mod))
     arg, aux = mod.get_params()
     arrays.update(("get_params " + n, a._data) for n, a in
                   list(arg.items()) + list(aux.items()))
@@ -3710,8 +3826,9 @@ def check_resnet_master_fp32(tag, mod):
     if wrong:
         raise SystemExit("chip_smoke: phase %s master arrays not float32: "
                          "%s" % (tag, dict(list(wrong.items())[:8])))
-    log("phase %s: outputs bf16; %d parameters, gradients, momenta, moving "
-        "statistics and get_params arrays float32" % (tag, len(arrays)))
+    log("phase %s: outputs bf16; %d arrays of the %s route and "
+        "get_params float32" % (tag, len(arrays), "fused" if
+                                mod._one_program_trainer() else "classic"))
 
 
 def profile_resnet(dev, card, step_ms, compute_dtype=None, warmup=3,
@@ -3816,14 +3933,17 @@ def resnet_step(dev, params, aux, X, y, kinks, compute_dtype=None,
     decisions recorded into or replayed from ``kinks``: the
     probabilities, every gradient, every updated parameter and moving
     statistic, as numpy by kind and name.  ``compute_dtype='float64'``
-    runs the step in float64 over float32 master arrays."""
+    runs the step in float64 over float32 master arrays.  Phases 14
+    and 14b are pinned to the classic route: the fused one keeps no
+    gradients."""
     mod = mx.Module(mx.models.resnet(num_classes=RESNET["num_classes"],
                                      num_layers=RESNET["num_layers"]),
                     context=dev, compute_dtype=compute_dtype)
     it = mx.io.NDArrayIter(X, y, batch_size=RESNET_STEP_BATCH)
     mod.bind(it.provide_data, it.provide_label)
     mod.init_params(arg_params=params, aux_params=aux)
-    mod.init_optimizer(optimizer="sgd", optimizer_params=resnet_opt())
+    with module_route(False):   # the classic route: it reads gradients
+        mod.init_optimizer(optimizer="sgd", optimizer_params=resnet_opt())
     tic = time.perf_counter()
     with kinks.patched():
         mod.forward_backward(next(iter(it)))
@@ -4171,7 +4291,7 @@ def resume_state(mod):
     out.update((("parameter", n), v.asnumpy()) for n, v in arg.items())
     out.update((("aux", n), v.asnumpy()) for n, v in aux.items())
     out.update((("momentum", str(i)), s.asnumpy())
-               for i, s in mod._updater.states.items())
+               for i, s in updater_states(mod).items())
     return out
 
 
@@ -4254,10 +4374,12 @@ def phase_resume(dev, card, workdir):
         resume_fit(mod, X, y, 0, RESUME_K, callbacks=[
             mx.callback.module_checkpoint(mod, prefix,
                                           save_optimizer_states=True)])
-        saved = {str(i): s.asnumpy() for i, s in mod._updater.states.items()}
+        saved = {str(i): s.asnumpy()
+                 for i, s in updater_states(mod).items()}
         mod = mx.Module.load(prefix, 1, load_optimizer_states=True,
                              context=dev, compute_dtype="bfloat16")
         resume_fit(mod, X, y, RESUME_K, RESUME_K + 1, epoch=1)
+        check_route("17", mod, True)
         resumed = resume_state(mod)
         torch.cuda.synchronize()
     counts = kernels.launch_counts()
@@ -4406,18 +4528,13 @@ def lstm_fit(mod, it, **kwargs):
 
 
 def lstm_arrays(mod):
-    """(name, tensor) of every executor array of every bucket, and of
-    the optimizer's state."""
+    """(name, tensor) of what every bucket's route holds: its trainer's
+    (shared) parameters and optimizer state, or its executor's arrays
+    and gradients and the updater's state."""
     out = []
     for key, m in mod._buckets.items():
-        ex = m._exec_group.executor
-        out += [("%s@%s" % (n, key), a._data) for n, a in
-                zip(ex._arg_names, ex.arg_arrays)]
-        out += [("d%s@%s" % (n, key), g._data)
-                for n, g in ex.grad_dict.items()]
-    states = mod._buckets[mod._default_bucket_key]._updater.states
-    return out + [("state %s" % i, s._data) for i, s in states.items()
-                  if s is not None]
+        out += [("%s@%s" % (n, key), t) for n, t in route_arrays(m)]
+    return out
 
 
 def phase_lstm(dev, card):
@@ -4468,6 +4585,7 @@ def phase_lstm(dev, card):
     wall = time.perf_counter() - tic
     counts = kernels.launch_counts()
     check_sr_census("18", sr_shapes, counts)
+    check_route("18", mod, True)
     on_device(dev, "phase 18 arrays and optimizer state", lstm_arrays(mod))
     if plain:
         raise SystemExit("chip_smoke: phase 18 reached plain versions: %s"
@@ -4514,7 +4632,9 @@ def phase_lstm_buckets(dev, card, step_ms_18):
     SoftmaxOutput trains) is finite and falls (mean of the last five
     steps below the first step's).  The example's own metric
     (``Perplexity(ignore_label=0)``) and the held-out score are printed
-    beside it.  Returns the launch counts."""
+    beside it.  Pinned to the classic route (its checks are the shared
+    executor tensors and the one updater); phase 23 is its fused twin.
+    Returns the launch counts."""
     V = LSTM["vocab_size"]
     train = synthetic_corpus(LSTM_SENTENCES, V, 7)
     val = synthetic_corpus(max(LSTM_BATCH * 4, LSTM_SENTENCES // 10), V, 8)
@@ -4543,13 +4663,15 @@ def phase_lstm_buckets(dev, card, step_ms_18):
 
     kernels.reset_launch_counts()
     tic = time.perf_counter()
-    with plain_guard() as plain, sr_census() as sr_shapes:
+    with plain_guard() as plain, sr_census() as sr_shapes, \
+            module_route(False):
         lstm_fit(mod, it, eval_data=ev, batch_end_callback=on_batch)
         score = mod.score(ev, mx.metric.Perplexity(ignore_label=0))[0][1]
         torch.cuda.synchronize()
     wall = time.perf_counter() - tic
     counts = kernels.launch_counts()
     check_sr_census("18b", sr_shapes, counts)
+    check_route("18b", mod, False)
     on_device(dev, "phase 18b arrays and optimizer state", lstm_arrays(mod))
     steps = len(objective)
     want = dict.fromkeys(kernels.KERNELS, 0)
@@ -4630,13 +4752,15 @@ def lstm_step_batches(state=None):
 def lstm_steps(ctx, start, state):
     """One ``forward_backward`` + ``update`` of each of phase 19's
     buckets from ``start``: {array: numpy} of each step's outputs,
-    gradients and parameters after the update."""
+    gradients and parameters after the update, on the classic route
+    (the fused one keeps no gradients)."""
     batches, it, _ = lstm_step_batches(state)
     mod = lstm_module(ctx, max(LSTM_STEP_BUCKETS))
     mod.bind(it.provide_data, it.provide_label)
     mod.init_params(arg_params=start)
-    mod.init_optimizer(kvstore="device", optimizer="sgd",
-                       optimizer_params=dict(LSTM_OPT, momentum=0.9))
+    with module_route(False):   # the classic route: it reads gradients
+        mod.init_optimizer(kvstore="device", optimizer="sgd",
+                           optimizer_params=dict(LSTM_OPT, momentum=0.9))
     out = {}
     for batch in batches:
         key = batch.bucket_key
@@ -5075,10 +5199,10 @@ def trainer_steps(dev, start, steps, compute_dtype=None):
     return out
 
 
-def module_steps(dev, start, steps):
-    """The classic ``Module``'s ``forward_backward`` + ``update`` for
-    ``steps`` steps on ``dev`` from phase 21's start, numpy as
-    :func:`trainer_steps`'s."""
+def module_steps(dev, start, steps, fused=False):
+    """``Module``'s ``forward_backward`` + ``update`` for ``steps`` steps
+    on ``dev`` from phase 21's start on the classic route (``fused``:
+    the fused one), numpy as :func:`trainer_steps`'s."""
     net, params, aux, X, y = start
     mod = mx.Module(net, context=dev)
     it = mx.io.NDArrayIter(X[:steps].reshape((-1,) + X.shape[2:]),
@@ -5086,7 +5210,10 @@ def module_steps(dev, start, steps):
                            batch_size=TRAINER_STEP_BATCH)
     mod.bind(it.provide_data, it.provide_label)
     mod.init_params(arg_params=params, aux_params=aux)
-    mod.init_optimizer(optimizer="sgd", optimizer_params=trainer_step_opt())
+    with module_route(fused):
+        mod.init_optimizer(optimizer="sgd",
+                           optimizer_params=trainer_step_opt())
+    check_route("21", mod, fused)
     for batch in it:
         mod.forward_backward(batch)
         mod.update()
@@ -5095,19 +5222,20 @@ def module_steps(dev, start, steps):
     out.update((("parameter", n), v.asnumpy()) for n, v in arg.items())
     out.update((("aux", n), v.asnumpy()) for n, v in auxs.items())
     out.update((("gradient", "momentum %d" % i), s.asnumpy())
-               for i, s in mod._updater.states.items())
+               for i, s in updater_states(mod).items())
     return out
 
 
 def phase_trainer_vs_module(dev, card):
-    """Phase 21: the trainer against the port's classic ``Module`` on the
-    card (the bottleneck ResNet of ``tests/test_torch_resnet.py``, batch
-    4, one start and one set of batches from seed 21).  fp32: three
-    trainer steps against three ``forward_backward`` + ``update`` steps,
-    cuDNN deterministic for both: the last probabilities, every
-    parameter, moving statistic and momentum within TRAINER_STEP_TOL x
-    max|ref|.  bf16: one trainer step on the card against the CPU
-    trainer's fp32 step, each array within its RESNET_BF16_STEP_TOL
+    """Phase 21: the trainer against the port's ``Module`` on the card
+    (the bottleneck ResNet of ``tests/test_torch_resnet.py``, batch 4,
+    one start and one set of batches from seed 21).  fp32: three trainer
+    steps against three ``forward_backward`` + ``update`` steps on each
+    of ``Module``'s routes (one leg classic, one fused), cuDNN
+    deterministic for all: the last probabilities, every parameter,
+    moving statistic and momentum within TRAINER_STEP_TOL x max|ref|.
+    bf16: one trainer step on the card against the CPU trainer's fp32
+    step, each array within its RESNET_BF16_STEP_TOL
     (momenta as gradients) x max|ref|, or within RESNET_STEP_ROUNDING x
     the CPU's own bf16 step's distance from its fp32 step where that is
     larger (RESNET_FEW_ROUNDING x under RESNET_FEW elements), as phase
@@ -5119,28 +5247,34 @@ def phase_trainer_vs_module(dev, card):
         True, False
     try:
         got = trainer_steps(dev, start, TRAINER_STEP_STEPS)
-        ref = module_steps(dev, start, TRAINER_STEP_STEPS)
+        legs = {route: module_steps(dev, start, TRAINER_STEP_STEPS,
+                                    route == "fused")
+                for route in ("classic", "fused")}
     finally:
         torch.backends.cudnn.deterministic, \
             torch.backends.cudnn.benchmark = flags
-    if sorted(got) != sorted(ref):
-        raise SystemExit("chip_smoke: phase 21 arrays differ: %s"
-                         % sorted(set(got) ^ set(ref)))
-    worst, failed = (0.0, ""), []
-    for key, want in ref.items():
-        rel = float(np.abs(got[key] - want).max()) / max(
-            float(np.abs(want).max()), 1e-30)
-        if not np.isfinite(got[key]).all() or rel > TRAINER_STEP_TOL:
-            failed.append("%s %s: %.3e" % (key + (rel,)))
-        worst = max(worst, (rel, "%s %s" % key))
-    if failed:
-        raise SystemExit("chip_smoke: phase 21 trainer vs Module, fp32, past "
-                         "%g x max|ref|: %s" % (TRAINER_STEP_TOL,
-                                                "; ".join(failed[:12])))
-    log("phase 21 DataParallelTrainer vs Module on the card, fp32, %d steps "
-        "at batch %d: %d arrays within %g x max|ref|, worst %.3e (%s) [%s]"
-        % (TRAINER_STEP_STEPS, TRAINER_STEP_BATCH, len(ref),
-           TRAINER_STEP_TOL, worst[0], worst[1], card))
+    for route, ref in legs.items():
+        if sorted(got) != sorted(ref):
+            raise SystemExit("chip_smoke: phase 21 arrays differ: %s"
+                             % sorted(set(got) ^ set(ref)))
+        worst, failed, equal = (0.0, ""), [], 0
+        for key, want in ref.items():
+            rel = float(np.abs(got[key] - want).max()) / max(
+                float(np.abs(want).max()), 1e-30)
+            if not np.isfinite(got[key]).all() or rel > TRAINER_STEP_TOL:
+                failed.append("%s %s: %.3e" % (key + (rel,)))
+            worst = max(worst, (rel, "%s %s" % key))
+            equal += bool(np.array_equal(got[key], want))
+        if failed:
+            raise SystemExit("chip_smoke: phase 21 trainer vs %s Module, "
+                             "fp32, past %g x max|ref|: %s"
+                             % (route, TRAINER_STEP_TOL,
+                                "; ".join(failed[:12])))
+        log("phase 21 DataParallelTrainer vs Module (%s route) on the card, "
+            "fp32, %d steps at batch %d: %d arrays within %g x max|ref|, %d "
+            "bit-equal, worst %.3e (%s) [%s]"
+            % (route, TRAINER_STEP_STEPS, TRAINER_STEP_BATCH, len(ref),
+               TRAINER_STEP_TOL, equal, worst[0], worst[1], card))
     cpu = torch.device("cpu")
     card16 = trainer_steps(dev, start, 1, "bfloat16")
     cpu16 = trainer_steps(cpu, start, 1, "bfloat16")
@@ -5170,6 +5304,634 @@ def phase_trainer_vs_module(dev, card):
         % (len(cpu32), rounding, "; ".join(
             "%s %.3e (%s, %.3f of its bound)" % ((k,) + worst[k])
             for k in sorted(worst)), card))
+
+
+# phase 22: bench.py's train.resnet-50.module_fit row (bench_fit, called
+# with batch 32 at bench.py:2561): warm-up and timed steps, the clock
+# drained at both ends, and the trainer_direct row at bench's own count
+# (bench.py:2410-2415) run back to back for ratio.fit_vs_direct
+MODULE_FIT_WARMUP, MODULE_FIT_ITERS = 3, 20
+# phase 23: the fused buckets' monitored steps after the monitor goes in
+LSTM_MONITORED_STEPS = 4
+# phase 24: a transient de-fuse's steps (fused, the explicit split-API
+# step, fused again) and its bounds against the classic route's steps
+REFUSE_STEPS = (2, 1, 2)
+REFUSE_TOL = {"parameter": 1e-5, "momentum": 1e-3}
+
+
+class BenchSyntheticIter(mx.io.DataIter):
+    """A copy of ``examples/image-classification/common/data.py``'s
+    ``SyntheticDataIter`` (that file imports the JAX package), which
+    bench.py's ``bench_fit`` trains on: one fixed batch on the current
+    context, data ``uniform(-1, 1)`` and labels ``randint(0,
+    num_classes)`` from numpy's global generator, ``max_iter`` batches
+    an epoch."""
+
+    def __init__(self, num_classes, data_shape, max_iter, dtype="float32"):
+        super().__init__(data_shape[0])
+        self.cur_iter = 0
+        self.max_iter = max_iter
+        label = np.random.randint(0, num_classes, (self.batch_size,))
+        data = np.random.uniform(-1, 1, data_shape)
+        self.data = mx.nd.array(data.astype(dtype))
+        self.label = mx.nd.array(label.astype(np.float32))
+        self.provide_data = [mx.io.DataDesc("data", tuple(data_shape))]
+        self.provide_label = [mx.io.DataDesc("softmax_label",
+                                             (self.batch_size,))]
+
+    def next(self):
+        self.cur_iter += 1
+        if self.cur_iter > self.max_iter:
+            raise StopIteration
+        return mx.io.DataBatch(data=[self.data], label=[self.label], pad=0)
+
+    def reset(self):
+        self.cur_iter = 0
+
+
+def bench_fit_module(dev, steps, seed=22):
+    """``bench_fit``'s module and iterator on ``dev``: bf16 ResNet-50
+    (3 x 224 x 224, 1000 classes) and a ``BenchSyntheticIter`` of batch
+    32 on the card, from numpy's generator seeded at ``seed``."""
+    np.random.seed(seed)
+    mx.random.seed(seed)
+    with mx.gpu(dev.index):
+        train = BenchSyntheticIter(RESNET["num_classes"],
+                                   (RESNET["batch"],) + RESNET["image"],
+                                   max_iter=steps)
+    return resnet_module(dev, "bfloat16"), train
+
+
+def bench_fit(mod, train, batch_end_callback, metric="accuracy"):
+    """``bench_fit``'s ``fit`` call: SGD (lr 0.1, momentum 0.9, wd 1e-4),
+    gaussian Xavier (``in``, magnitude 2), kvstore ``device``."""
+    mod.fit(train, num_epoch=1, eval_metric=metric, optimizer="sgd",
+            optimizer_params=dict(TRAINER_OPT), initializer=resnet_init(),
+            kvstore="device", batch_end_callback=batch_end_callback)
+
+
+def host_draws():
+    """The state of every host random stream the port draws from: the
+    port's host generator and numpy's global one."""
+    return (mx.random.generator().get_state().clone(),
+            np.random.get_state()[1].copy())
+
+
+def phase_module_fit(dev, card, fused=True, step_ms_fused=None,
+                     ips_direct=None):
+    """Phase 22: bench.py's ``train.resnet-50.module_fit`` row as bench
+    runs it (``bench_fit``): ``Module(compute_dtype='bfloat16')`` over
+    ``BenchSyntheticIter``'s one fixed batch, ``fit`` with
+    ``eval_metric='accuracy'``, MODULE_FIT_WARMUP warm-up and
+    MODULE_FIT_ITERS timed steps, the clock read in the batch-end
+    callback after ``synchronize()`` and a host fetch of the step's
+    outputs; on ``Module``'s default, fused route (``fused=False`` is
+    phase 22b: the classic route under ``MXNET_MODULE_FUSED=0``, times
+    beside phase 22's ``step_ms_fused`` and its images/s over the direct
+    trainer's ``ips_direct``).  Fatal unless the route is the
+    one asked (phase 22: ``_one_program_trainer()`` returns the
+    trainer), every step ran, the head's bf16 pair launched once a step
+    and no other kernel (``sr_census`` on its registers body), no plain
+    version was reached, the outputs are bf16 and finite; on the fused
+    route also unless the timed steps ran with no host synchronisation
+    (``set_sync_debug_mode('error')`` over the fit loop between the two
+    clock readings), ``step_cost_analysis`` counts 0.95-1.05 x bench's
+    3 x 8.2 GFLOPs an image, and building the trainer again
+    (``_build_fused``: the host copy of the parameters and the step
+    program, a cache miss and a hit) moves no host random stream.
+    Logs ms a step, images/s, the accuracy and the last step's
+    cross-entropy, the peak memory, the counted GFLOPs and the build
+    times.  Returns the launch counts, ms a step and images/s."""
+    tag = "22" if fused else "22b"
+    steps = MODULE_FIT_WARMUP + MODULE_FIT_ITERS
+    mod, train = bench_fit_module(dev, steps)
+    acc = mx.metric.Accuracy()
+    seen, clock = [0], {}
+
+    def on_batch(param):
+        seen[0] += 1
+        if fused and seen[0] == steps:
+            torch.cuda.set_sync_debug_mode(0)
+        if seen[0] in (MODULE_FIT_WARMUP, steps):
+            torch.cuda.synchronize()
+            float(mod.get_outputs()[0]._data[0, 0])
+            clock[seen[0]] = time.perf_counter()
+        if fused and seen[0] == MODULE_FIT_WARMUP:
+            # the fused route's fit loop (next batch, step, device
+            # metric) must never wait for the card: a host sync inside
+            # the timed window raises
+            torch.cuda.set_sync_debug_mode("error")
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    kernels.reset_launch_counts()
+    tic = time.perf_counter()
+    with plain_guard() as plain, sr_census() as sr_shapes, \
+            module_route(fused):
+        try:
+            bench_fit(mod, train, on_batch, acc)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - tic
+    counts = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    check_sr_census(tag, sr_shapes, counts)
+    check_route(tag, mod, fused)
+    want = dict.fromkeys(kernels.KERNELS, 0)
+    want.update({k: v * steps
+                 for k, v in RESNET_BF16_LAUNCHES_PER_STEP.items()})
+    if seen[0] != steps or plain or counts != want:
+        raise SystemExit("chip_smoke: phase %s ran %d steps; launches %s, "
+                         "want %s; plain %s"
+                         % (tag, seen[0], {k: v for k, v in counts.items()
+                                           if v},
+                            {k: v for k, v in want.items() if v},
+                            dict(plain)))
+    probs = mod.get_outputs()[0]._data
+    label = train.label._data.long()
+    ce = float(-torch.log(probs.float()[torch.arange(
+        probs.shape[0], device=probs.device), label]).mean())
+    accuracy = acc.get()[1]
+    if probs.dtype != torch.bfloat16 or not np.isfinite(ce):
+        raise SystemExit("chip_smoke: phase %s outputs %s, cross-entropy %s"
+                         % (tag, probs.dtype, ce))
+    sec = clock[steps] - clock[MODULE_FIT_WARMUP]
+    step_ms = sec * 1e3 / MODULE_FIT_ITERS
+    ips = RESNET["batch"] * MODULE_FIT_ITERS / sec
+    extra = ""
+    if fused:
+        trainer = mod._one_program_trainer()
+        train.reset()
+        b0 = next(iter(train))
+        cost = trainer.step_cost_analysis(b0.data[0], b0.label[0])
+        gflops = cost["flops"] / 1e9
+        bench = 3 * RESNET50_FWD_GFLOPS * RESNET["batch"]
+        draws = host_draws()
+        mx.parallel.reset_program_cache()
+        build_ms = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            tic = time.perf_counter()
+            built = mod._build_fused(mod._optimizer)
+            torch.cuda.synchronize()
+            build_ms.append((time.perf_counter() - tic) * 1e3)
+        # the seeding alone: the device copies of the parameters and
+        # moving statistics and the optimizer state's zeros
+        tic = time.perf_counter()
+        built._init_params(mx.parallel.dp.SeedFrom(built.params, built.aux))
+        torch.cuda.synchronize()
+        build_ms.append((time.perf_counter() - tic) * 1e3)
+        after = host_draws()
+        moved = not (torch.equal(draws[0], after[0]) and
+                     np.array_equal(draws[1], after[1]))
+        if not 0.95 <= gflops / bench <= 1.05 or moved:
+            raise SystemExit("chip_smoke: phase %s counted %.3f GFLOPs a "
+                             "step (bench: %.1f); building the trainer "
+                             "moved a host random stream: %s"
+                             % (tag, gflops, bench, moved))
+        extra = ("; counted %.3f GFLOPs a step (step_cost_analysis), "
+                 "%.3f x bench's 3 x %.1f x %d; the trainer built again "
+                 "in %.3f ms (program cache miss) and %.3f ms (hit), of "
+                 "which seeding its state %.3f ms; no host random stream "
+                 "moved"
+                 % (gflops, gflops / bench, RESNET50_FWD_GFLOPS,
+                    RESNET["batch"], build_ms[0], build_ms[1], build_ms[2]))
+    else:
+        extra = ("; phase 22 (fused) %.3f ms a step, ratio %.3f; over the "
+                 "direct trainer's images/s %.3f"
+                 % (step_ms_fused, step_ms / step_ms_fused,
+                    ips / ips_direct))
+    log("phase %s bench.py's train.resnet-50.module_fit: bf16 ResNet-50, "
+        "batch %d, %s, %s route: %d steps (fit %.2f s with bind and "
+        "init), accuracy %.4f, last step's cross-entropy %.4f; head "
+        "launches a step %s; steps %d..%d%s: %.3f ms a step, %.1f "
+        "images/s; peak memory %.3f GB%s [%s]"
+        % (tag, RESNET["batch"], "x".join(map(str, RESNET["image"])),
+           "fused" if fused else "classic", steps, wall, accuracy, ce,
+           RESNET_BF16_LAUNCHES_PER_STEP, MODULE_FIT_WARMUP + 1, steps,
+           " with no host sync" if fused else "", step_ms, ips, peak / 1e9,
+           extra, card))
+    return counts, step_ms, ips
+
+
+def phase_fit_vs_direct(dev, card, ips_fit):
+    """bench.py's ``ratio.fit_vs_direct``: ``trainer_direct`` at batch 32
+    (its trainer and batch, bench's 3 warm-up and 20 timed steps) run
+    right after phase 22 in this process, and the images/s of phase 22
+    over its own.  Returns the direct trainer's images/s."""
+    tr, data, label = trainer_direct(dev, RESNET["batch"])
+    for _ in range(MODULE_FIT_WARMUP):
+        tr.step(data, label)
+    torch.cuda.synchronize()
+    tic = time.perf_counter()
+    for _ in range(MODULE_FIT_ITERS):
+        tr.step(data, label)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - tic
+    ips = RESNET["batch"] * MODULE_FIT_ITERS / sec
+    log("phase 22 ratio.fit_vs_direct %.3f: Module.fit %.1f images/s, "
+        "DataParallelTrainer.step %.1f images/s (%.3f ms a step) back to "
+        "back [%s]" % (ips_fit / ips, ips_fit, ips,
+                       sec * 1e3 / MODULE_FIT_ITERS, card))
+    return ips
+
+
+def profile_module_fit(dev, card, fused, step_ms, warmup=3, steps=5):
+    """``--profile``: ``torch.profiler`` over ``steps`` steps of phase 22
+    (22b) after ``warmup``: device time and launches a step, the busy
+    share of the phase's unprofiled ``step_ms``, the top ops."""
+    tag = "22" if fused else "22b"
+    mod, train = bench_fit_module(dev, warmup + steps)
+    prof = torch.profiler.profile(activities=[
+        torch.profiler.ProfilerActivity.CPU,
+        torch.profiler.ProfilerActivity.CUDA])
+    clock = {}
+
+    def on_batch(param):
+        if param.nbatch in (warmup - 1, warmup + steps - 1):
+            torch.cuda.synchronize()
+            clock[param.nbatch] = time.perf_counter()
+            (prof.start if param.nbatch == warmup - 1 else prof.stop)()
+
+    with module_route(fused):
+        bench_fit(mod, train, on_batch)
+    check_route(tag, mod, fused)
+    window_ms = (clock[warmup + steps - 1] - clock[warmup - 1]) * 1e3 / steps
+    report_profile(tag, prof, steps, step_ms, window_ms, card)
+
+
+def lstm_epoch(dev, fused):
+    """One epoch of phase 18b's corpus and buckets through
+    ``BucketingModule.fit`` at bench's settings (``lstm_fit``, no eval
+    data) on the route asked, the iterator and parameters from seed 23:
+    every step's objective perplexity (every label, the padding too) is
+    fetched in the batch-end callback, and the clock read right after
+    it.  Returns the module, its iterator, the perplexities, bucket keys
+    and clock readings by step, the launch counts, the wall time (bind,
+    init and the step programs included) and the ms a step over the
+    steps after every bucket has run once (its executor bound, and on
+    the fused route its step program built)."""
+    V = LSTM["vocab_size"]
+    train = synthetic_corpus(LSTM_SENTENCES, V, 7)
+    gc.collect()
+    mx.random.seed(23)
+    it = mx.rnn.BucketSentenceIter(train, LSTM_BATCH, buckets=LSTM_BUCKETS,
+                                   invalid_label=0)
+    mod = lstm_module(dev, it.default_bucket_key)
+    objective, keys, clock = [], [], []
+
+    def on_batch(param):
+        batch = param.locals["data_batch"]
+        objective.append(lstm_perplexity(mod, batch))
+        keys.append(batch.bucket_key)
+        clock.append(time.perf_counter())
+
+    tag = "23" if fused else "23c"
+    kernels.reset_launch_counts()
+    tic = time.perf_counter()
+    with plain_guard() as plain, sr_census() as sr_shapes, \
+            module_route(fused):
+        lstm_fit(mod, it, batch_end_callback=on_batch)
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - tic
+    counts = kernels.launch_counts()
+    check_sr_census(tag, sr_shapes, counts)
+    check_route(tag, mod, fused)
+    steps = len(objective)
+    want = dict.fromkeys(kernels.KERNELS, 0)
+    want.update({k: v * steps for k, v in LSTM_LAUNCHES_PER_STEP.items()})
+    first, last5 = objective[0], float(np.mean(objective[-5:]))
+    if sorted(mod._buckets) != LSTM_BUCKETS or plain or counts != want \
+            or not (np.isfinite(objective).all() and last5 < first):
+        raise SystemExit("chip_smoke: phase %s buckets %s; launches %s, "
+                         "want %s; plain %s; objective perplexity %s"
+                         % (tag, sorted(mod._buckets),
+                            {k: v for k, v in counts.items() if v},
+                            {k: v for k, v in want.items() if v},
+                            dict(plain), objective))
+    i0 = max(keys.index(k) for k in LSTM_BUCKETS)
+    step_ms = (clock[-1] - clock[i0]) * 1e3 / (steps - 1 - i0)
+    return dict(mod=mod, it=it, objective=objective, keys=keys,
+                counts=counts, wall=wall, step_ms=step_ms, i0=i0)
+
+
+def lstm_perplexity(mod, batch):
+    """exp of the mean cross-entropy of the module's last outputs over
+    every label of ``batch`` (the padding too)."""
+    p = mod.get_outputs()[0]._data
+    lab = batch.label[0]._data.to(p.device).reshape(-1).long()
+    return float(torch.exp(-torch.log(p[torch.arange(
+        p.shape[0], device=p.device), lab].clamp_min(1e-10)).mean()))
+
+
+def phase_lstm_fused(dev, card):
+    """Phase 23: phase 18b's ``lstm_bucketing.py`` setup (the example's
+    corpus, buckets 10, 20, 30 and 40, batch 32, one epoch, bench's SGD
+    without momentum) through ``BucketingModule.fit`` on the default,
+    fused route: every bucket adopts the default bucket's trainer (one
+    trainer a bucket, each with its own step program, over one state).
+    Its classic twin (23c, ``MXNET_MODULE_FUSED=0``) runs the same epoch
+    right after it, from the same seed and over the same steps, and the
+    two are timed over the same window (``lstm_epoch``).  Then the fused
+    module's optimizer is made again with momentum 0.9
+    (``init_optimizer(force_init=True)``), two fused steps fill the
+    momenta, and a monitor takes every bucket off the fused route, after
+    which LSTM_MONITORED_STEPS more steps train on the classic route from
+    the same state.  Fatal unless every bucket trained fused over one
+    state (after the re-init too), the two routes ran the same buckets
+    in the same order, each launched the head's pair once a step
+    (``sr_census``) and no other kernel, no plain version was reached,
+    each objective perplexity is finite and falls over the epoch (mean
+    of the last five steps below the first step's); after the monitor,
+    unless no bucket is fused, every bucket shares one updater holding
+    the trainer's momenta (every parameter's, equal to the bit), the
+    monitor reported rows, and the monitored steps' perplexity is finite
+    and every parameter moved.  Returns the launch counts of the fused
+    epoch."""
+    fz = lstm_epoch(dev, True)
+    cl = lstm_epoch(dev, False)
+    mod, it, keys = fz["mod"], fz["it"], fz["keys"]
+    if cl["keys"] != keys:
+        raise SystemExit("chip_smoke: phase 23 the two routes ran other "
+                         "buckets: %s against %s" % (keys, cl["keys"]))
+    pools = {id(m._fused._st) for m in mod._buckets.values()}
+    if len(pools) != 1:
+        raise SystemExit("chip_smoke: phase 23 buckets over %d states"
+                         % len(pools))
+    on_device(dev, "phase 23 trainer state", lstm_arrays(mod))
+    mod.init_optimizer(kvstore="device", optimizer="sgd",
+                       optimizer_params=dict(LSTM_OPT, momentum=0.9),
+                       force_init=True)
+    it.reset()
+    for i, batch in enumerate(it):
+        if i == 2:
+            break
+        mod.forward_backward(batch)
+        mod.update()
+    check_route("23", mod, True)
+    pools = {id(m._fused._st) for m in mod._buckets.values()}
+    default = mod._buckets[it.default_bucket_key]
+    held = {i: s.asnumpy() for i, s in updater_states(default).items()
+            if s is not None}
+    n_params = len(default._param_names)
+    if len(pools) != 1 or len(held) != n_params:
+        raise SystemExit("chip_smoke: phase 23 after init_optimizer("
+                         "force_init=True): buckets over %d states, %d "
+                         "momenta for %d parameters"
+                         % (len(pools), len(held), n_params))
+    start = {k: v.asnumpy() for k, v in mod.get_params()[0].items()}
+    mon = mx.monitor.Monitor(1, pattern=".*weight")
+    mod.install_monitor(mon)
+    check_route("23", mod, False)
+    got = {i: s for i, s in default._updater.states.items()
+           if s is not None}
+    moved_state = [i for i in held if i not in got or not np.array_equal(
+        held[i], got[i].asnumpy() if hasattr(got[i], "asnumpy")
+        else got[i])]
+    if any(m._updater is not default._updater
+           for m in mod._buckets.values()) or moved_state:
+        raise SystemExit("chip_smoke: phase 23 after the monitor: buckets "
+                         "on other updaters, or momenta %s not the "
+                         "trainer's" % moved_state[:8])
+    it.reset()
+    monitored, rows = [], 0
+    for batch in it:
+        if len(monitored) == LSTM_MONITORED_STEPS:
+            break
+        mon.tic()
+        mod.forward_backward(batch)
+        mod.update()
+        rows += len(mon.toc())
+        monitored.append(lstm_perplexity(mod, batch))
+    torch.cuda.synchronize()
+    arg = {k: v.asnumpy() for k, v in mod.get_params()[0].items()}
+    still = [k for k, v in arg.items() if np.array_equal(v, start[k])]
+    if not (np.isfinite(monitored).all() and rows) or still:
+        raise SystemExit("chip_smoke: phase 23 monitored steps: perplexity "
+                         "%s, %d monitor rows, unmoved %s"
+                         % (monitored, rows, still))
+    objective, steps, i0 = fz["objective"], len(keys), fz["i0"]
+    log("phase 23 objective perplexity (pads included) per fused step: %s"
+        % " ".join("%d:%.1f" % kv for kv in zip(keys, objective)))
+    log("phase 23c objective perplexity per classic step: %s"
+        % " ".join("%.1f" % p for p in cl["objective"]))
+    log("phase 23 lstm_bucketing.py at %s on the fused route, buckets %s, "
+        "batch %d: one epoch of %d steps (%s a bucket) in %.2f s with "
+        "bind, init and four step programs; four bucket trainers over one "
+        "state; objective perplexity step 1 %.1f, last 5 %.1f; after "
+        "init_optimizer(force_init=True) with momentum 0.9 and 2 fused "
+        "steps, a monitor: every bucket classic on one updater with the "
+        "trainer's %d momenta, %d steps, perplexity %s, %d monitor rows, "
+        "every parameter moved [%s]"
+        % (LSTM, LSTM_BUCKETS, LSTM_BATCH, steps,
+           {k: keys.count(k) for k in LSTM_BUCKETS}, fz["wall"],
+           objective[0], float(np.mean(objective[-5:])), len(held),
+           len(monitored), " ".join("%.1f" % p for p in monitored), rows,
+           card))
+    log("phase 23 fused against 23c classic, back to back over the same "
+        "%d steps (%d..%d, after every bucket's first): %.3f against "
+        "%.3f ms a step, ratio %.3f; whole epochs %.2f s and %.2f s with "
+        "bind, init and the first step of each bucket [%s]"
+        % (steps - 1 - i0, i0 + 2, steps, fz["step_ms"], cl["step_ms"],
+           fz["step_ms"] / cl["step_ms"], fz["wall"], cl["wall"], card))
+    return fz["counts"]
+
+
+def fused_step(dev, params, compute_dtype=None):
+    """One fused ``Module`` step (``forward_backward`` + SGD ``update``
+    with TRAIN_OPT) from phase 7's parameters and batch on ``dev``: the
+    probabilities and every parameter's momentum after it (the momentum
+    starts at 0 and TRAIN_OPT has no wd, so it is -lr x the rescaled
+    gradient: phase 7's gradients), numpy by name."""
+    X, y = train_data(TRAIN_BATCH)
+    it = mx.io.NDArrayIter(X, y, batch_size=TRAIN_BATCH)
+    mod = mx.Module(train_symbol(), context=dev, compute_dtype=compute_dtype)
+    mod.bind(it.provide_data, it.provide_label)
+    mod.init_params(arg_params=params)
+    with module_route(True):
+        mod.init_optimizer(optimizer="sgd", optimizer_params=TRAIN_OPT)
+    check_route("24", mod, True)
+    tic = time.perf_counter()
+    mod.forward_backward(next(iter(it)))
+    mod.update()
+    out = {"probabilities": mod.get_outputs()[0].asnumpy()}
+    tr = mod._one_program_trainer()
+    out.update(("momentum " + n, st[0].detach().float().cpu().numpy())
+               for n, st in tr.opt_state.items())
+    log("phase 24 one fused %s step on %s: %.2f s" % (
+        compute_dtype or "float32", dev, time.perf_counter() - tic))
+    return out
+
+
+def refuse_run(dev, params, fused):
+    """REFUSE_STEPS of phase 6's setup from ``params`` on ``dev``: on the
+    fused route, fused steps, then one step through the split API
+    (``forward(is_train=True)``, ``backward``, ``update``: a transient
+    de-fuse), then fused steps again on the same trainer; on the
+    classic route (``fused=False``) the same steps.  Returns the
+    parameters and momenta as numpy by (kind, name) and the update
+    counts."""
+    first, split, last = REFUSE_STEPS
+    X, y = train_data(sum(REFUSE_STEPS) * TRAIN_BATCH)
+    it = mx.io.NDArrayIter(X, y, batch_size=TRAIN_BATCH)
+    batches = list(it)
+    mod = mx.Module(train_symbol(), context=dev)
+    mod.bind(it.provide_data, it.provide_label)
+    mod.init_params(arg_params=params)
+    with module_route(fused):
+        mod.init_optimizer(optimizer="sgd", optimizer_params=TRAIN_OPT)
+    check_route("24", mod, fused)
+    trainer0 = mod._one_program_trainer()
+    for b in batches[:first]:
+        mod.forward_backward(b)
+        mod.update()
+    for b in batches[first:first + split]:
+        mod.forward(b, is_train=True)
+        mod.backward()
+        mod.update()
+    if fused and (mod._fused is not None or mod._fused_stash is not
+                  trainer0):
+        raise SystemExit("chip_smoke: phase 24 the split-API step did not "
+                         "leave the fused route for a while")
+    for b in batches[first + split:]:
+        mod.forward_backward(b)
+        mod.update()
+    if fused and mod._one_program_trainer() is not trainer0:
+        raise SystemExit("chip_smoke: phase 24 did not return to the same "
+                         "trainer")
+    out = {("parameter", n): v.asnumpy()
+           for n, v in mod.get_params()[0].items()}
+    out.update((("momentum", str(i)), s.asnumpy())
+               for i, s in updater_states(mod).items())
+    return out, dict(mod._optimizer._index_update_count)
+
+
+def phase_lm_fused(dev, card, params):
+    """Phase 24: the transformer LM's ``Module`` on the fused route beyond
+    phases 6 and 6b (which now run ``fit`` on it, their launches and
+    falling perplexity held there).  One fused step from phase 7's
+    parameters on the card against the port's fused step on the CPU:
+    fp32 within phase 7's 1e-3 x max|ref|, bf16 under phase 7b's bounds
+    (``hold_bf16``: probabilities 2e-2, each momentum as a gradient
+    5e-2, or bf16's own distance from the CPU's fp32 step where that is
+    larger).  Then a transient de-fuse on the card (REFUSE_STEPS: fused,
+    the split API, fused again on the same trainer) against the same
+    steps on the classic route: every parameter and momentum within
+    REFUSE_TOL x max|ref| and the update counts equal, so the momenta
+    and counts went over and came back."""
+    cpu = torch.device("cpu")
+    card32 = fused_step(dev, params)
+    cpu32 = fused_step(cpu, params)
+    worst, worst_name = 0.0, None
+    for name, ref in cpu32.items():
+        got = card32[name]
+        rel = float(np.abs(got - ref).max() / max(np.abs(ref).max(), 1e-30))
+        if not np.isfinite(got).all() or not rel <= 1e-3:
+            raise SystemExit("chip_smoke: phase 24 fused step %s: card vs "
+                             "CPU %.3e x max|ref| (tol 1e-3)" % (name, rel))
+        if rel > worst:
+            worst, worst_name = rel, name
+    log("phase 24 fused training step card vs CPU: probabilities and %d "
+        "momenta agree; worst %s at %.3e x max|ref| (tol 1e-3) [%s]"
+        % (len(cpu32) - 1, worst_name, worst, card))
+    card16 = fused_step(dev, params, "bfloat16")
+    cpu16 = fused_step(cpu, params, "bfloat16")
+    hold_bf16("24", "bf16 fused step card vs CPU", card16, cpu16, cpu32)
+    got, got_counts = refuse_run(dev, params, True)
+    ref, ref_counts = refuse_run(dev, params, False)
+    worst = {}
+    for key, want in ref.items():
+        rel = float(np.abs(got[key] - want).max()) / max(
+            float(np.abs(want).max()), 1e-30)
+        if not np.isfinite(got[key]).all() or rel > REFUSE_TOL[key[0]]:
+            raise SystemExit("chip_smoke: phase 24 after a transient "
+                             "de-fuse, %s %s is %.3e x max|ref| from the "
+                             "classic route's" % (key + (rel,)))
+        worst[key[0]] = max(worst.get(key[0], (0.0, "")), (rel, key[1]))
+    if got_counts != ref_counts or set(got_counts.values()) != {
+            sum(REFUSE_STEPS)}:
+        raise SystemExit("chip_smoke: phase 24 update counts %s, classic %s"
+                         % (got_counts, ref_counts))
+    log("phase 24 transient de-fuse on the card (%d fused steps, %d through "
+        "forward/backward/update, %d fused on the same trainer) against "
+        "the classic route: %d arrays within %s x max|ref|, worst %s; "
+        "update counts %d, as the classic route's [%s]"
+        % (REFUSE_STEPS + (len(ref), REFUSE_TOL,
+                           "; ".join("%s %.3e (%s)" % ((k,) + worst[k])
+                                     for k in sorted(worst)),
+                           sum(REFUSE_STEPS), card)))
+
+
+# phase 24s: MXNET_IO_STAGE on and off, in this order, each one fit of
+# phase 6's setup (alternated so that a drift over the run cancels)
+STAGE_ORDER = (True, False, False, True, True, False, False, True)
+
+
+def phase_stage_probe(dev, card):
+    """Phase 24s: what overlapped input staging does on a path whose
+    batches come from the host: phase 6's setup (the transformer LM in
+    fp32 on the fused route, ``NDArrayIter`` over host arrays) fit with
+    ``MXNET_IO_STAGE`` on and off in STAGE_ORDER, back to back (each
+    after ``gc.collect()``), with no host fetch a step (the perplexity
+    accumulates on the card): ms a step over steps TRAIN_WARMUP +
+    1..TRAIN_STEPS, the clock read after ``synchronize()``, and the host
+    synchronisations inside that window counted under
+    ``set_sync_debug_mode('warn')``.  Fatal unless every
+    fit took the fused route, ran every step and ended with a finite
+    perplexity, and every staged fit's timed steps ran with no host
+    sync (the unstaged ones wait for the card in their blocking batch
+    copies)."""
+    X, y = train_data(TRAIN_STEPS * TRAIN_BATCH)
+    rows = []
+    for on in STAGE_ORDER:
+        gc.collect()
+        it = mx.io.NDArrayIter(X, y, batch_size=TRAIN_BATCH)
+        mx.random.seed(0)
+        mod = mx.Module(train_symbol(), context=dev)
+        metric = mx.metric.Perplexity(ignore_label=None)
+        clock = {}
+
+        def on_batch(param):
+            n = param.nbatch
+            if n == TRAIN_STEPS - 1:
+                torch.cuda.set_sync_debug_mode(0)
+            if n in (TRAIN_WARMUP - 1, TRAIN_STEPS - 1):
+                torch.cuda.synchronize()
+                clock[n] = time.perf_counter()
+            if n == TRAIN_WARMUP - 1:
+                torch.cuda.set_sync_debug_mode("warn")
+
+        with warnings.catch_warnings(record=True) as caught, \
+                env_flag("MXNET_IO_STAGE", on), module_route(True):
+            warnings.simplefilter("always")
+            try:
+                mod.fit(it, num_epoch=1, optimizer="sgd",
+                        optimizer_params=TRAIN_OPT,
+                        initializer=mx.init.Xavier(), eval_metric=metric,
+                        batch_end_callback=on_batch)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        syncs = [w for w in caught if "synchroniz" in str(w.message)]
+        check_route("24s", mod, True)
+        ppl = metric.get()[1]
+        if len(clock) != 2 or not np.isfinite(ppl) or (on and syncs):
+            raise SystemExit("chip_smoke: phase 24s MXNET_IO_STAGE=%d: "
+                             "clock %s, perplexity %s, host syncs %s"
+                             % (on, clock, ppl, [str(w.message)
+                                                 for w in syncs][:3]))
+        timed = TRAIN_STEPS - TRAIN_WARMUP
+        rows.append((on, (clock[TRAIN_STEPS - 1] - clock[TRAIN_WARMUP - 1])
+                     * 1e3 / timed, len(syncs) / timed))
+    ms = {on: [r[1] for r in rows if r[0] == on] for on in (True, False)}
+    log("phase 24s input staging on phase 6's host batches (%d x %d "
+        "tokens, fused route), MXNET_IO_STAGE %s back to back: %s ms a "
+        "step over steps %d..%d, host syncs a step %s; staged / unstaged "
+        "%.3f (means) [%s]"
+        % (TRAIN_BATCH, TRAIN_SEQ, "/".join(str(int(r[0])) for r in rows),
+           " / ".join("%.3f" % r[1] for r in rows), TRAIN_WARMUP + 1,
+           TRAIN_STEPS, " / ".join("%.2f" % r[2] for r in rows),
+           np.mean(ms[True]) / np.mean(ms[False]), card))
 
 
 def lstm_head_rows(dev, card, entries):
@@ -6025,6 +6787,7 @@ def main(argv):
         return 2
     dev = torch.device("cuda", 0)
     card = card_line()
+    started = time.perf_counter()
     log("card: %s; torch %s, CUDA %s" % (card, torch.__version__,
                                          torch.version.cuda))
     # fp32 products on the card, as on the CPU and in the reference
@@ -6094,6 +6857,18 @@ def main(argv):
         if argv:
             profile_trainer(dev, card, tag, step_ms_tr)
     phase_trainer_vs_module(dev, card)
+    counts["module_fit"], step_ms_fit, ips_fit = phase_module_fit(dev, card)
+    ips_direct = phase_fit_vs_direct(dev, card, ips_fit)
+    counts["module_fit_classic"], step_ms_fit_c, _ = phase_module_fit(
+        dev, card, False, step_ms_fit, ips_direct)
+    if argv:
+        profile_module_fit(dev, card, True, step_ms_fit)
+        profile_module_fit(dev, card, False, step_ms_fit_c)
+    counts["lstm_fused"] = phase_lstm_fused(dev, card)
+    counts["train_classic"], _ = phase_train(dev, card, None, step_ms,
+                                             fused=False, tag="24c")
+    phase_lm_fused(dev, card, params7)
+    phase_stage_probe(dev, card)
     pa_shapes, fa_shapes = collections.Counter(), collections.Counter()
     for tag in ("3", "3b", "3d"):
         pa_shapes.update(served[tag]["pa_shapes"])
@@ -6114,6 +6889,8 @@ def main(argv):
     log("phase 15 scoring images/s at batch %d, fp32: %s [%s]"
         % (SCORE_BATCH, "; ".join("%s %.1f" % kv
                                   for kv in score_rates.items()), card))
+    log("chip_smoke: every phase passed in %.1f s [%s]"
+        % (time.perf_counter() - started, card))
     print(json.dumps({"kernels": kern}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -66,15 +66,23 @@ kernels on a CUDA tensor (``mxnet_tpu_torch/kernels``) and as their
 plain PyTorch versions on a CPU tensor; ``mx.rtc.CudaKernel`` compiles
 and launches a user's CUDA source on NDArrays.
 """
-from . import (autograd, callback, contrib, engine, initializer, io, kernels,
-               lr_scheduler, metric, model, models, monitor, ndarray,
-               optimizer, parallel, random, rnn, rtc, symbol)
+from . import (attribute, autograd, callback, contrib, engine, executor,
+               initializer, io, kernels, lr_scheduler, metric, model, models,
+               monitor, name, ndarray, optimizer, parallel, random, rnn, rtc,
+               symbol)
 from . import module
+from .attribute import AttrScope
 from .base import MXNetError
-from .context import Context, cpu, current_context, gpu
+from .context import (Context, cpu, cpu_pinned, current_context, gpu,
+                      num_devices)
+from .initializer import init_registry
 from .models import transformer_lm
 from .module import Module
+from .monitor import Monitor
+from .name import NameManager, Prefix
+from .optimizer import Optimizer
 from .serving import GenerationEngine, ModelRegistry, TokenStream
+from .symbol import Variable
 
 sym = symbol
 nd = ndarray
@@ -86,4 +94,7 @@ __all__ = ["MXNetError", "ModelRegistry", "GenerationEngine", "TokenStream",
            "nd", "io", "initializer", "init", "metric", "optimizer", "model",
            "lr_scheduler", "callback", "rnn", "monitor", "parallel",
            "random", "module", "mod", "Module", "cpu", "gpu", "autograd",
-           "contrib", "rtc", "engine", "Context", "current_context"]
+           "contrib", "rtc", "engine", "Context", "current_context",
+           "attribute", "AttrScope", "name", "NameManager", "Prefix",
+           "executor", "Variable", "Monitor", "Optimizer", "init_registry",
+           "cpu_pinned", "num_devices"]

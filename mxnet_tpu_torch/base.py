@@ -3,9 +3,11 @@ typed environment-variable registry.
 
 Counterpart of ``mxnet_tpu/base.py``, reduced to what the port reads:
 the ``MXNET_SERVE_*`` knobs of the serving path, the engine's
-``MXNET_ENGINE_TYPE`` and the trainer's ``MXNET_SPMD_PROGRAM_CACHE``,
-with the reference package's names and defaults; they are documented
-in ``docs/port/env_vars.md``.
+``MXNET_ENGINE_TYPE``, the trainer's ``MXNET_SPMD_PROGRAM_CACHE``,
+``Module``'s ``MXNET_MODULE_FUSED`` and the input stager's
+``MXNET_IO_STAGE`` / ``MXNET_IO_STAGE_DEPTH``, with the reference
+package's names and defaults; they are documented in
+``docs/port/env_vars.md``.
 """
 from __future__ import annotations
 
@@ -35,6 +37,8 @@ class EnvVar:
         raw = os.environ.get(self.name)
         if raw is None:
             return self.default
+        if self.type is bool:
+            return raw.lower() not in ("0", "false", "off", "")
         try:
             return self.type(raw)
         except (TypeError, ValueError):
@@ -71,6 +75,20 @@ register_env("MXNET_SPMD_PROGRAM_CACHE", int, 64,
              "Bound on the LRU of trainer step programs "
              "(parallel/spmd.py): one entry per (symbol, device, input "
              "shapes, dtypes, optimizer statics, fixed parameters).")
+register_env("MXNET_MODULE_FUSED", bool, True,
+             "Module.fit's fused route: forward, backward and the "
+             "optimizer update as one DataParallelTrainer step a batch "
+             "(parallel/dp.py).  '0' keeps the classic executor group "
+             "and host updater.")
+register_env("MXNET_IO_STAGE", bool, True,
+             "Overlapped input staging: Module.fit copies batch t+1 to "
+             "the device on a producer thread (pinned memory, a side "
+             "CUDA stream) while step t computes (io/stager.py).  '0' "
+             "feeds the iterator's batches to the step as they are.")
+register_env("MXNET_IO_STAGE_DEPTH", int, 2,
+             "Batches the input stager holds ahead of the step (each "
+             "holds one batch of device memory); 2 is double "
+             "buffering, below 1 counts as 1.")
 register_env("MXNET_SERVE_BUCKETS", str, "1,2,4,8,16,32",
              "Comma-separated batch-size bucket edges of the generative "
              "program store: the decode engine's slot table grows to the "

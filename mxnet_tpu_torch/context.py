@@ -1,6 +1,7 @@
 """Device contexts of the port (counterpart of ``mxnet_tpu/context.py``).
 
-A :class:`Context` names a device, ``cpu(0)`` or ``gpu(i)``, and works
+A :class:`Context` names a device, ``cpu(0)``, ``gpu(i)`` or
+``cpu_pinned(0)`` (host memory that CUDA copies read directly), and works
 both as a value (``ctx=``, ``context=``, ``device=``) and as a ``with``
 scope that sets the thread's current context.  Outside any scope the
 current context is ``gpu(0)``: every entry point of the port runs on the
@@ -17,15 +18,16 @@ import torch
 
 from .base import MXNetError
 
-__all__ = ["Context", "cpu", "gpu", "current_context", "default_device"]
+__all__ = ["Context", "cpu", "gpu", "cpu_pinned", "current_context",
+           "default_device", "num_devices"]
 
 
 class Context:
     """A device: type ``"cpu"`` or ``"gpu"`` and an id.  ``with ctx:``
     makes it the thread's current context."""
 
-    devtype2str = {1: "cpu", 2: "gpu"}
-    devstr2type = {"cpu": 1, "gpu": 2}
+    devtype2str = {1: "cpu", 2: "gpu", 3: "cpu_pinned"}
+    devstr2type = {"cpu": 1, "gpu": 2, "cpu_pinned": 3}
     _default_ctx = threading.local()
 
     __slots__ = ("device_typeid", "device_id", "_old_ctx")
@@ -72,9 +74,26 @@ def cpu(device_id=0):
     return Context("cpu", device_id)
 
 
+def cpu_pinned(device_id=0):
+    """Page-locked host memory (the reference's ``kCPUPinned``): an
+    array made there is a CPU tensor in pinned memory when a GPU is
+    present, so a copy to the card can run asynchronously."""
+    return Context("cpu_pinned", device_id)
+
+
 def gpu(device_id=0):
     """CUDA device ``device_id``."""
     return Context("gpu", device_id)
+
+
+def num_devices(device_type="gpu"):
+    """The number of devices of a type: the CUDA devices for ``"gpu"``,
+    one host for ``"cpu"`` and ``"cpu_pinned"``."""
+    if device_type in ("cpu", "cpu_pinned"):
+        return 1
+    if device_type != "gpu":
+        raise MXNetError("unknown device type %r" % (device_type,))
+    return torch.cuda.device_count()
 
 
 def current_context():
@@ -109,7 +128,7 @@ def default_device(device=None):
     if device is None:
         device = current_context()
     if isinstance(device, Context):
-        if device.device_type == "cpu":
+        if device.device_type in ("cpu", "cpu_pinned"):
             return torch.device("cpu")
         device = torch.device("cuda", device.device_id)
     dev = torch.device(device)

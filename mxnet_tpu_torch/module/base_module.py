@@ -56,6 +56,20 @@ class BaseModule:
         """Get ready for ``data_batch`` before its forward (a
         ``BucketingModule`` binds its bucket); nothing here."""
 
+    def _stage_train_data(self, train_data):
+        """``fit``'s hook for overlapped input staging: an iterator whose
+        batches are already on the device (``io.DeviceStager``), or
+        ``train_data`` itself, as here: a module without one target
+        device stages nothing."""
+        return train_data
+
+    def _epoch_end_param_sync(self):
+        """``fit``'s epoch-end read of the parameters.  The reference
+        also writes them back to its devices, which reconverges the
+        moving statistics of several devices; one device has nothing to
+        reconverge, so this only reads."""
+        return self.get_params()
+
     def forward_backward(self, data_batch):
         """``forward(is_train=True)`` then ``backward`` on one batch."""
         self.forward(data_batch, is_train=True)
@@ -144,7 +158,10 @@ class BaseModule:
         epoch one ``forward_backward`` + ``update`` + metric update per
         batch, the callbacks, and a score on ``eval_data``.  A
         ``monitor`` is installed after the bind, armed before each
-        batch (``tic``) and printed after its update (``toc_print``)."""
+        batch (``tic``) and printed after its update (``toc_print``).
+        After ``init_optimizer`` the module may wrap ``train_data`` in
+        an input stager (``_stage_train_data``), closed when the fit
+        ends."""
         assert num_epoch is not None, "please specify number of epochs"
         from ..initializer import Uniform
         if initializer is None:
@@ -162,7 +179,21 @@ class BaseModule:
         if validation_metric is None:
             validation_metric = eval_metric
         eval_metric = metric_mod.create(eval_metric)
+        source_data, train_data = train_data, \
+            self._stage_train_data(train_data)
+        try:
+            self._fit_epochs(train_data, eval_data, eval_metric,
+                             validation_metric, epoch_end_callback,
+                             batch_end_callback, eval_batch_end_callback,
+                             monitor, begin_epoch, num_epoch)
+        finally:
+            if train_data is not source_data:
+                train_data.close()
 
+    def _fit_epochs(self, train_data, eval_data, eval_metric,
+                    validation_metric, epoch_end_callback,
+                    batch_end_callback, eval_batch_end_callback, monitor,
+                    begin_epoch, num_epoch):
         for epoch in range(begin_epoch, num_epoch):
             tic = time.time()
             eval_metric.reset()
@@ -183,7 +214,7 @@ class BaseModule:
                 self.logger.info("Epoch[%d] Train-%s=%f", epoch, name, val)
             self.logger.info("Epoch[%d] Time cost=%.3f", epoch,
                              time.time() - tic)
-            arg_params_, aux_params_ = self.get_params()
+            arg_params_, aux_params_ = self._epoch_end_param_sync()
             for callback in _as_list(epoch_end_callback):
                 callback(epoch, self.symbol, arg_params_, aux_params_)
             if eval_data:

@@ -11,10 +11,17 @@ copied on a switch.  The optimizer and its updater are the default
 bucket's, borrowed by every other bucket (``Module.borrow_optimizer``):
 one optimizer state keyed by parameter index, as in the reference.
 
-The reference also lets its buckets adopt a fused trainer's pool
-(``_adopt_fused_from``, ``_handle_defuse``).  That has no counterpart:
-the port's modules have one classic executor group each, and the
-buckets share tensors through ``shared_module``.
+On the fused route (``MXNET_MODULE_FUSED``, the default) the default
+bucket's ``init_optimizer`` builds a trainer, and every other bucket
+adopts it (``Module._adopt_fused_from``): a trainer a bucket, each with
+its own step program, over one set of parameters, optimizer state and
+moving statistics (``share_state_with``).  A bucket first seen while
+the pool is fused joins it when it is switched to.  A bucket that
+cannot share the trainer, a monitor, or an explicit
+``forward``/``backward`` on any bucket takes the whole group off the
+fused route (``_handle_defuse``): the state goes to the shared executor
+arrays and one host updater, and the group goes on there, on the shared
+bind and ``borrow_optimizer`` described above.
 """
 from __future__ import annotations
 
@@ -109,10 +116,12 @@ class BucketingModule(BaseModule):
     # -- binding -----------------------------------------------------------
     def _module(self, bucket_key):
         symbol, data_names, label_names = self._sym_gen(bucket_key)
-        return Module(symbol, data_names, label_names, logger=self.logger,
-                      context=self._context,
-                      fixed_param_names=self._fixed_param_names,
-                      state_names=self._state_names)
+        module = Module(symbol, data_names, label_names, logger=self.logger,
+                        context=self._context,
+                        fixed_param_names=self._fixed_param_names,
+                        state_names=self._state_names)
+        module._on_defuse = self._handle_defuse
+        return module
 
     def bind(self, data_shapes, label_shapes=None, for_training=True,
              inputs_need_grad=False, force_rebind=False, shared_module=None,
@@ -140,20 +149,36 @@ class BucketingModule(BaseModule):
         """Make ``bucket_key``'s module current, binding it over the
         default bucket's tensors when the key is new."""
         assert self.binded, "call bind before switching bucket"
+        default = self._buckets[self._default_bucket_key]
         if bucket_key not in self._buckets:
-            default = self._buckets[self._default_bucket_key]
             module = self._module(bucket_key)
             module.bind(data_shapes, label_shapes,
                         self._curr_module.for_training,
                         self._curr_module.inputs_need_grad,
                         force_rebind=False, shared_module=default)
-            if default.optimizer_initialized:
-                module.borrow_optimizer(default)
             if self._monitor is not None:
                 module.install_monitor(self._monitor)
             self._buckets[bucket_key] = module
-        self._curr_module = self._buckets[bucket_key]
+        module = self._buckets[bucket_key]
+        if module is not default and not module.optimizer_initialized \
+                and default.optimizer_initialized:
+            self._join(module, default)
+        self._curr_module = module
         self._curr_bucket_key = bucket_key
+
+    @staticmethod
+    def _join(module, default):
+        """Give a bucket the default bucket's optimizer: its trainer's
+        pool on the fused route, else its updater.  A bucket that cannot
+        share the trainer gets the trainer's current parameters in its
+        (shared) executor arrays and stays out until its ``update``
+        takes the group off the fused route."""
+        if default._fused is None:
+            module.borrow_optimizer(default)
+        elif not module._adopt_fused_from(default):
+            default._sync_params_from_devices()
+            module._exec_group.set_params(default._arg_params,
+                                          default._aux_params)
 
     def prepare(self, data_batch):
         """Bind the batch's bucket before its forward."""
@@ -174,7 +199,7 @@ class BucketingModule(BaseModule):
                                force_init=force_init)
         for mod in self._buckets.values():
             if mod is not default:
-                mod.borrow_optimizer(default)
+                self._join(mod, default)
         self.optimizer_initialized = True
 
     # -- computation -------------------------------------------------------
@@ -193,10 +218,34 @@ class BucketingModule(BaseModule):
         self._curr_module.backward(out_grads=out_grads)
 
     def update(self):
+        """The current bucket's update; a bucket outside the default's
+        fused pool first takes the whole group off the fused route."""
         assert self.binded and self.params_initialized and \
             self.optimizer_initialized
         self._params_dirty = True
-        self._curr_module.update()
+        module = self._curr_module
+        if not module.optimizer_initialized:
+            default = self._buckets[self._default_bucket_key]
+            if default._fused is not None:
+                default._defuse("bucket %r cannot share the fused trainer"
+                                % (self._curr_bucket_key,))
+            module.borrow_optimizer(default)
+        module.update()
+
+    def _handle_defuse(self, source):
+        """One bucket left the fused pool: every bucket leaves with it,
+        onto ``source``'s host updater (``source`` has written the
+        shared state to the executor arrays every bucket holds)."""
+        for mod in self._buckets.values():
+            if mod is source or mod._fused is None:
+                continue
+            mod._fused = None
+            mod._fused_disabled = True
+            mod._fused_stash = None
+            mod._fused_batch = mod._fused_outputs = None
+            mod._optimizer = source._optimizer
+            mod._updater = source._updater
+            mod.optimizer_initialized = source.optimizer_initialized
 
     def get_outputs(self, merge_multi_context=True):
         assert self.binded and self.params_initialized

@@ -21,9 +21,40 @@ carries from batch to batch (``get_states`` / ``set_states``).
 """
 from __future__ import annotations
 
+from .. import ndarray as nd
+from ..context import cpu
 from ..io.io import DataDesc
 
 __all__ = ["DataParallelExecutorGroup"]
+
+
+def _pack_global_batch(data_batch, data_descs, label_descs, label_names,
+                       arg_shapes=None, fill_missing_labels=False):
+    """``{name: array}`` of one whole batch for the fused step.
+
+    ``batch.data`` follows the iterator's ``provide_data`` order (the
+    order the module was bound with), not the constructor's
+    ``data_names``: ``NDArrayIter`` sorts a dict of inputs, and pairing
+    the constructor's order with the iterator's would swap two inputs of
+    one shape (the recommender's user and item).  With
+    ``fill_missing_labels`` (a forward-only call through a training
+    symbol) a label the batch lacks is zeros of its bound shape."""
+    def _names(descs):
+        return [d.name if hasattr(d, "name") else d[0] for d in descs]
+
+    provide = getattr(data_batch, "provide_data", None)
+    batch = dict(zip(_names(provide if provide else data_descs),
+                     data_batch.data))
+    labels = getattr(data_batch, "label", None) or []
+    provide_l = getattr(data_batch, "provide_label", None)
+    lnames = (_names(provide_l) if provide_l
+              else _names(label_descs or []) or list(label_names))
+    batch.update(zip(lnames, labels))
+    if fill_missing_labels:
+        for name in label_names:
+            if name not in batch and arg_shapes and name in arg_shapes:
+                batch[name] = nd.zeros(arg_shapes[name], cpu())
+    return batch
 
 
 def _batch_size(data_shapes):

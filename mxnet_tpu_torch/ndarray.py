@@ -440,7 +440,8 @@ def array(source, ctx=None, dtype=None):
     """An NDArray holding a copy of ``source`` (numpy, tensor, NDArray,
     nested lists or a scalar) on ``ctx`` (the current context when
     None).  Without ``dtype``: lists and scalars become float32, float64
-    float32 and int64 int32; other dtypes stay."""
+    float32 and int64 int32; other dtypes stay.  On ``cpu_pinned()``
+    the copy lies in page-locked memory when a GPU is present."""
     dev = default_device(ctx)
     if isinstance(source, NDArray):
         source = source._data
@@ -448,13 +449,22 @@ def array(source, ctx=None, dtype=None):
         t = source.detach()
         dt = _NARROW_TORCH.get(t.dtype, t.dtype) if dtype is None \
             else _torch_dtype(dtype)
-        return NDArray(t.to(device=dev, dtype=dt, copy=True))
+        return NDArray(_pinned(t.to(device=dev, dtype=dt, copy=True), ctx))
     npv = np.array(source, copy=True)
     if dtype is None:
         dtype = _NARROW.get(npv.dtype, npv.dtype) \
             if isinstance(source, np.ndarray) else np.float32
-    return NDArray(torch.from_numpy(npv).to(device=dev,
-                                            dtype=_torch_dtype(dtype)))
+    return NDArray(_pinned(torch.from_numpy(npv).to(
+        device=dev, dtype=_torch_dtype(dtype)), ctx))
+
+
+def _pinned(t, ctx):
+    """``t`` in page-locked memory when ``ctx`` is ``cpu_pinned()`` and a
+    GPU is present (pinning needs the CUDA driver); else ``t``."""
+    if isinstance(ctx, Context) and ctx.device_type == "cpu_pinned" and \
+            torch.cuda.is_available():
+        return t.pin_memory()
+    return t
 
 
 def _shape(shape):

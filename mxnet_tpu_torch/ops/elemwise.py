@@ -171,10 +171,11 @@ for _name, _fn in _COMPARE.items():
 def _scalar(name, fn, doc):
     """A ``*_scalar`` op: the scalar is cast to ``x``'s dtype first, as
     the reference's ``jnp.asarray(scalar, dtype=x.dtype)`` (an int32
-    ``x`` plus 2.7 adds 2 and stays int32)."""
+    ``x`` plus 2.7 adds 2 and stays int32).  The scalar is filled in on
+    ``x``'s device, so no host copy waits for the device's queue."""
     register(name,
-             fcompute=lambda attrs, x: fn(x, torch.tensor(
-                 attrs["scalar"], dtype=torch.float64,
+             fcompute=lambda attrs, x: fn(x, torch.full(
+                 (), attrs["scalar"], dtype=torch.float64,
                  device=x.device).to(x.dtype)),
              attrs={"scalar": Float(required=True)}, doc=doc)
 

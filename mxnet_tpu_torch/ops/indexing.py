@@ -49,8 +49,10 @@ def _in_range(idx, n):
 
 
 def _filled(out, ok):
-    fill = torch.tensor(_fill_value(out.dtype), dtype=out.dtype,
-                        device=out.device)
+    # a fill on out's device: a tensor made from the host value would be
+    # a copy that waits for the device's queue, once a step
+    fill = torch.full((), _fill_value(out.dtype), dtype=out.dtype,
+                      device=out.device)
     return torch.where(ok, out, fill)
 
 

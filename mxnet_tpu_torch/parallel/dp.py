@@ -24,7 +24,20 @@ from ..initializer import InitDesc, Uniform
 from ..ndarray import NDArray
 from .ingraph_opt import InGraphOptimizer
 
-__all__ = ["DataParallelTrainer", "FusedDPTrainer"]
+__all__ = ["DataParallelTrainer", "FusedDPTrainer", "SeedFrom"]
+
+
+class SeedFrom:
+    """An ``initializer`` for :class:`DataParallelTrainer` that starts it
+    from given arrays instead of drawing: each parameter and moving
+    statistic is a copy of the array of its name (an NDArray or a
+    tensor, on any device; a device-to-device copy when it already lies
+    on the trainer's device), and no random stream moves.  ``Module``'s
+    fused route seeds its trainer so, from its executor's arrays."""
+
+    def __init__(self, arg_params, aux_params=None):
+        self.arg_params = dict(arg_params)
+        self.aux_params = dict(aux_params or {})
 
 
 class _TrainerState:
@@ -130,7 +143,6 @@ class DataParallelTrainer:
                 sym=symbol, **opt_params)
         self.optimizer = optimizer
         self._ingraph = InGraphOptimizer(optimizer)
-        self._opt_init = self._ingraph.init_state
         # positions in param_names that get updates
         self._live_idx = [i for i, n in enumerate(self.param_names)
                           if n not in self._fixed]
@@ -186,26 +198,52 @@ class DataParallelTrainer:
     def _init_params(self, initializer):
         """Draw every parameter, then every auxiliary state, on the host
         (the port's initializers draw from the host generator, as
-        ``Module.init_params`` does) and move them to the device; the
-        live parameters become autograd leaves."""
-        attrs = self.symbol.attr_dict()
-        params = {}
-        for name in self.param_names:
-            arr = nd.zeros(self._arg_shapes[name], cpu(), dtype=self._dtype)
-            initializer(InitDesc(name, attrs.get(name)), arr)
-            t = arr._data.to(self.device)
+        ``Module.init_params`` does) and move them to the device, or copy
+        them from a :class:`SeedFrom`'s arrays; the live parameters
+        become autograd leaves and the optimizer state starts at
+        zeros."""
+        if isinstance(initializer, SeedFrom):
+            params = self._copies(self.param_names, self._arg_shapes,
+                                  initializer.arg_params)
+            self.aux = self._copies(self.aux_names, self._aux_shapes,
+                                    initializer.aux_params)
+        else:
+            attrs = self.symbol.attr_dict()
+
+            def draw(name, shape):
+                arr = nd.zeros(shape, cpu(), dtype=self._dtype)
+                initializer(InitDesc(name, attrs.get(name)), arr)
+                return arr._data.to(self.device)
+
+            params = {n: draw(n, self._arg_shapes[n])
+                      for n in self.param_names}
+            self.aux = {n: draw(n, self._aux_shapes[n])
+                        for n in self.aux_names}
+        for name, t in params.items():
             if name not in self._fixed:
                 t.requires_grad_(True)
-            params[name] = t
         self.params = params
-        self.opt_state = {n: tuple(self._opt_init(params[n]))
-                          for n in self.param_names}
-        aux = {}
-        for name in self.aux_names:
-            arr = nd.zeros(self._aux_shapes[name], cpu(), dtype=self._dtype)
-            initializer(InitDesc(name, attrs.get(name)), arr)
-            aux[name] = arr._data.to(self.device)
-        self.aux = aux
+        self.opt_state = dict(zip(self.param_names, self._ingraph.init_states(
+            [params[n] for n in self.param_names])))
+
+    def _copies(self, names, shapes, given):
+        """Fresh device tensors of ``given``'s arrays of ``names`` (in the
+        trainer's dtype), filled by one multi-tensor copy."""
+        dtype = nd._torch_dtype(self._dtype)
+        srcs = []
+        for name in names:
+            src = given[name]
+            src = src._data if isinstance(src, NDArray) else src
+            if tuple(src.shape) != tuple(shapes[name]):
+                raise MXNetError("%s: shape %s, the trainer's is %s"
+                                 % (name, tuple(src.shape),
+                                    tuple(shapes[name])))
+            srcs.append(src.detach().to(self.device, dtype))
+        dsts = [torch.empty_like(t, memory_format=torch.contiguous_format)
+                for t in srcs]
+        if dsts:
+            torch._foreach_copy_(dsts, srcs)
+        return dict(zip(names, dsts))
 
     def _compile(self):
         """Fetch (or build) the shared step program for this trainer's

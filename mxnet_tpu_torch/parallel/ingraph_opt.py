@@ -214,6 +214,18 @@ class InGraphOptimizer:
         (self.init_state, self.update,
          self.state_to_host, self.state_from_host) = builder(optimizer)
 
+    def init_states(self, ws):
+        """``init_state`` of each tensor of ``ws`` (every entry's state is
+        zeros of the weight's shape), filled by one multi-tensor fill, so
+        the launches do not grow with the number of parameters."""
+        arity = len(self.init_state(torch.empty(0)))
+        flat = [torch.empty_like(w, memory_format=torch.contiguous_format)
+                for w in ws for _ in range(arity)]
+        if flat:
+            torch._foreach_zero_(flat)
+        return [tuple(flat[i * arity:(i + 1) * arity])
+                for i in range(len(ws))]
+
     def host_hyper(self, indices):
         """Advance update counts and compute (lrs, wds) float lists for
         ``indices``, as the Updater does: every ``_update_count`` first,

@@ -32,6 +32,7 @@ import threading
 import numpy as np
 
 from . import ops as _ops  # noqa: F401  (registers every op)
+from .attribute import AttrScope
 from .base import MXNetError
 from .ops.registry import get_op, list_ops, unify_shapes
 
@@ -477,10 +478,11 @@ def infer_node_shapes(symbol, known):
 # ---------------------------------------------------------------------------
 def Variable(name, attr=None, shape=None, lr_mult=None, wd_mult=None,
              dtype=None, init=None, **kwargs):
-    """A variable symbol."""
+    """A variable symbol; the current :class:`AttrScope`'s attributes
+    are its own under ``attr``'s."""
     if not isinstance(name, str):
         raise TypeError("Expect a string for variable name")
-    attr = dict(attr or {})
+    attr = AttrScope.current().get(attr)
     if shape is not None:
         attr["__shape__"] = str(tuple(shape))
     if lr_mult is not None:
@@ -515,6 +517,7 @@ def _invoke(op_name, sym_inputs, raw_attrs, name=None, aux_syms=()):
     attrs = op.parse_attrs({k: v for k, v in raw_attrs.items()
                             if not k.startswith("__")})
     name = NameManager.current().get(name, op_name.lower().lstrip("_"))
+    extra = AttrScope.current().get(extra)
     inputs = []
     for i, nm in enumerate(op.arguments(attrs)):
         if i < len(sym_inputs) and sym_inputs[i] is not None:

@@ -1884,11 +1884,13 @@ def test_rnn_op_dropout_between_layers_on_card(cuda_device):
 
 
 @pytest.mark.cuda
-def test_bucketing_lstm_step_on_card_matches_cpu(cuda_device):
+def test_bucketing_lstm_step_on_card_matches_cpu(cuda_device, monkeypatch):
     """One ``forward_backward`` + ``update`` of each of two buckets of a
     tiny LSTM LM through ``BucketingModule`` on the card against the CPU
     from the same parameters: outputs, gradients and parameters within
-    1e-5 x max|ref|, and every bucket on the default bucket's tensors."""
+    1e-5 x max|ref|, and every bucket on the default bucket's tensors.
+    The classic route: it reads each bucket's executor gradients."""
+    monkeypatch.setenv("MXNET_MODULE_FUSED", "0")
     from mxnet_tpu_torch.models.lstm_lm import sym_gen_factory
     rs = np.random.RandomState(22)
     sent = [list(rs.randint(1, 50, rs.randint(2, 9))) for _ in range(24)]
@@ -2157,3 +2159,132 @@ def test_trainer_step_cost_analysis_on_card(cuda_device):
     now = dict(_trainer_state(tr))
     assert all(torch.equal(t, now[n]) for n, t in snap)
     assert counts == tr.optimizer._index_update_count
+
+
+# ---------------------------------------------------------------------------
+# Module's fused route and the input stager
+# ---------------------------------------------------------------------------
+@pytest.mark.cuda
+def test_fused_module_step_on_card_matches_cpu(cuda_device):
+    """Two fused ``Module`` steps of a small LM (SGD, momentum 0.9) on the
+    card against the CPU's from the same parameters: the trainer holds
+    the state on the card, each training kernel launches as on the
+    classic route, and the probabilities, parameters and momenta agree
+    within 1e-3 x max|ref| (phase 7's bound)."""
+    L, nl = 32, 2
+    net = mx.models.transformer_lm(seq_len=L, num_layers=nl, num_hidden=64,
+                                   num_heads=2, vocab_size=97)
+    params = tlm.random_params(tlm.lm_spec(nl, 64, 2, 97), seed=1)
+    rs = np.random.RandomState(3)
+    X = rs.randint(0, 97, (8, L)).astype(np.float32)
+    y = ((X + 1) % 97).astype(np.float32)
+    res = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        it = mx.io.NDArrayIter(X, y, batch_size=4)
+        mod = mx.Module(net, context=dev)
+        mod.bind(it.provide_data, it.provide_label)
+        mod.init_params(arg_params=params)
+        mod.init_optimizer(optimizer="sgd", optimizer_params={
+            "learning_rate": 0.01, "momentum": 0.9})
+        tr = mod._one_program_trainer()
+        assert tr is not None and tr.device.type == dev.type
+        kernels.reset_launch_counts()
+        outs = []
+        for batch in it:
+            mod.forward_backward(batch)
+            mod.update()
+            outs.append(mod.get_outputs()[0]._data.cpu())
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        want = dict.fromkeys(counts, 0)
+        if dev.type == "cuda":
+            want.update({k: 2 * v for k, v in dict(
+                rms_norm=2 * nl, rms_norm_bwd=2 * nl, layer_norm=1,
+                layer_norm_bwd=1, softmax_rows=1, xent_grad_from_probs=1,
+                flash_attention=nl).items()})
+            assert all(t.device == cuda_device for t in tr.params.values())
+        assert counts == want
+        res[dev.type] = outs + [tr.params[n].detach().cpu()
+                                for n in sorted(tr.params)] + \
+            [tr.opt_state[n][0].cpu() for n in sorted(tr.opt_state)]
+    for a, b in zip(res["cuda"], res["cpu"]):
+        assert _rel(a, b) <= 1e-3
+
+
+@pytest.mark.cuda
+def test_stager_side_stream_matches_blocking_copy(cuda_device):
+    """Batches staged through pinned memory and the side stream equal a
+    blocking copy to the card bit for bit, each in fresh card memory;
+    an epoch whose first batch is already on the card passes through as
+    it is, with no producer thread."""
+    from mxnet_tpu_torch.io.stager import DeviceStager
+    rs = np.random.RandomState(5)
+    X = rs.uniform(-1, 1, (96, 3, 16, 16)).astype(np.float32)
+    y = rs.randint(0, 10, 96).astype(np.float64)
+    it = mx.io.NDArrayIter(X, y, batch_size=32)
+    stager = DeviceStager(it, cuda_device)
+    ptrs, kept = set(), []
+    for i, batch in enumerate(stager):
+        kept.append(batch)      # alive, so no memory is reused
+        for got, src in ((batch.data[0], X), (batch.label[0], y)):
+            want = mx.nd.array(src[32 * i:32 * (i + 1)], ctx=mx.gpu(0))
+            assert got._data.device == cuda_device
+            assert got._data.dtype == want._data.dtype
+            assert torch.equal(got._data, want._data)
+            ptrs.add(got._data.data_ptr())
+    assert len(ptrs) == 6
+    stager.close()
+    on_card = mx.nd.array(X[:32], ctx=mx.gpu(0))
+    batch = mx.io.DataBatch([on_card], [])
+    fixed = DeviceStager([batch, batch], torch.device("cuda"))
+    assert next(fixed) is batch and next(fixed) is batch
+    assert fixed._producer is None
+    with pytest.raises(StopIteration):
+        next(fixed)
+    fixed.close()
+
+
+@pytest.mark.cuda
+def test_device_metrics_need_no_host_sync_on_card(cuda_device):
+    """Every metric's ``update_device`` queues its work on the card with
+    no host synchronisation (``set_sync_debug_mode('error')`` raises on
+    one), and ``get()`` then equals the host ``update`` of the same
+    arrays: counts exact, sums within 1e-6 x max(|host|, 1)."""
+    rs = np.random.RandomState(6)
+    probs = rs.uniform(0.01, 1, (64, 10)).astype(np.float32)
+    probs /= probs.sum(1, keepdims=True)
+    cls = rs.randint(0, 10, 64).astype(np.float32)
+    cls[:5] = 0
+    reg = rs.randn(64, 3).astype(np.float32)
+    cases = [
+        (lambda: mx.metric.Accuracy(), cls, probs),
+        (lambda: mx.metric.TopKAccuracy(top_k=3), cls, probs),
+        (lambda: mx.metric.Perplexity(ignore_label=0), cls, probs),
+        (lambda: mx.metric.Perplexity(ignore_label=None), cls, probs),
+        (lambda: mx.metric.CrossEntropy(), cls, probs),
+        (lambda: mx.metric.MAE(), reg, reg[::-1].copy()),
+        (lambda: mx.metric.MSE(), reg, reg[::-1].copy()),
+        (lambda: mx.metric.RMSE(), reg, reg[::-1].copy()),
+        (lambda: mx.metric.CompositeEvalMetric(["acc", "ce"]), cls, probs),
+    ]
+    for make, label, pred in cases:
+        lab = [mx.nd.array(label, ctx=mx.gpu(0))]
+        prd = [mx.nd.array(pred, ctx=mx.gpu(0))]
+        dev, host = make(), make()
+        assert dev.update_device(lab, prd)    # warms the card's ops
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            for _ in range(2):
+                assert dev.update_device(lab, prd)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        for _ in range(3):
+            host.update(lab, prd)
+        got, want = dev.get(), host.get()
+        names = got[0] if isinstance(got[0], list) else [got[0]]
+        for m, h in zip(getattr(dev, "metrics", [dev]),
+                        getattr(host, "metrics", [host])):
+            assert m.num_inst == h.num_inst, names
+            assert abs(m.sum_metric - float(h.sum_metric)) <= \
+                1e-6 * max(abs(float(h.sum_metric)), 1.0), names

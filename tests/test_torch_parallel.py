@@ -245,7 +245,8 @@ def _module_steps(mod, X, y, steps):
 
 
 @pytest.mark.parametrize("kind", sorted(NETS))
-def test_trainer_matches_the_ports_classic_module(kind):
+def test_trainer_matches_the_ports_classic_module(kind, monkeypatch):
+    monkeypatch.setenv("MXNET_MODULE_FUSED", "0")   # the classic route
     params, aux, X, y = _start(kind, seed=9)
     _, touts, targ, taux, tst = _run(tmx, kind, (params, aux, X, y))
     mod = _module(params, aux, kind)
@@ -260,7 +261,9 @@ def test_trainer_matches_the_ports_classic_module(kind):
                                    atol=2e-6, err_msg="momentum %d" % i)
 
 
-def test_states_file_moves_between_trainer_and_module(tmp_path):
+def test_states_file_moves_between_trainer_and_module(tmp_path,
+                                                     monkeypatch):
+    monkeypatch.setenv("MXNET_MODULE_FUSED", "0")   # the host updater's file
     params, aux, X, y = _start("mlp", seed=4)
     tr = _trainer(tmx, "mlp", params, aux)
     for i in range(2):
