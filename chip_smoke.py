@@ -402,7 +402,38 @@ sources in this checkout on first use.  Phases, each fatal on failure:
    ``MXNET_IO_STAGE`` on, off, off, on, twice over, back to back with no
    host fetch a step: ms a step and host syncs a step
    (``set_sync_debug_mode('warn')``) of each, none allowed in a staged
-   fit.
+   fit;
+25. ResNet-50 at full width (phase 15's parameters, seed 15) served by
+   ``ModelRegistry.add_model`` + ``ServingEngine`` with the default
+   knobs in fp32, bf16 and int8: 96 single-image requests on an
+   open-loop schedule (seed 25) and 8 of 3 to 7 images, every result
+   held against ``Module.predict`` on the card (fp32 within 1e-5 and
+   bf16 within 2e-2 x max|ref| of the same dtype's predict; int8 within
+   0.05 of the fp32 predict, and with its top-1 and within 1e-5 x
+   max|ref| of the fp32 predict on the dequantized weights), nothing
+   dropped, ``store.run`` over every bucket free of host syncs
+   (``set_sync_debug_mode('error')``), the head's kernel once a batch
+   on the body ``_plan`` names and, in int8, ``dequant_matmul`` once a
+   batch at (M, 1000, 2048); images/s, p50, p99, batches and padded
+   rows printed;
+25b. bench.py's ``serving.latency.{fp32,bf16,int8}`` rows:
+   ``latency_protocol(mode)`` on the card, nothing dropped, the head's
+   kernel (two-pass body at 10 classes) and in int8 ``dequant_matmul``
+   launched, the int8 store's weight bytes at most 1 / 3.5 of fp32's;
+   ``qps_vs_per_request`` printed, not gated;
+25c. the forward store on the card against the store on the CPU:
+   ResNet-50 at 2 images, the latency MLP at every bucket and through a
+   ``.mxsrv`` artifact (``deploy.to_serving`` then ``load_artifact``),
+   fp32 within 1e-4 x max|ref|;
+25s. a hot swap under traffic: 64 requests, ``swap_params`` publishing
+   a second weight set once the first result is back; every result one
+   version's for all its rows, both versions serving, switching once in
+   submit order, the version rising by one.
+
+Phase 2 also holds ``dequant_matmul`` at the serving (N, K) (2048, 512),
+(10, 2048) and (1000, 2048) and both ``softmax_rows`` dtypes at 10 and
+1000 classes, for 1, 8 and 32 rows; phase 5 times them, each with its
+launches in phases 25 and 25b.
 
 Phases 11, 13, 13b, 16, 17 and 18 run ``Module``'s default route, the
 fused one, and assert it; phases 12, 14, 14b, 18b and 19 are pinned to
@@ -432,8 +463,10 @@ row, the floor of one launch.
 phase 11 one over 100 recommender steps, and after phases 13 and 13b
 one over five ResNet-50 steps each: device time and launches per
 step, the device's busy share, and the ops with the most device time;
-after phases 20 and 20b one over five trainer steps each, and after
-phase 22b one over five steps each of phases 22 and 22b.
+after phases 20 and 20b one over five trainer steps each, after
+phase 22b one over five steps each of phases 22 and 22b, and after
+phase 25 one over its fp32 traffic (the device's busy share of the
+schedule).
 
 The last lines are a JSON object of per-kernel numbers, the card's name
 and power limit as nvidia-smi reports them, and the result object.
@@ -449,6 +482,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import warnings
 
@@ -1823,24 +1857,27 @@ def sr_census():
         softmax_xent.launch = launch
 
 
-def check_sr_census(tag, sr_shapes, counts):
+def check_sr_census(tag, sr_shapes, counts, regs_only=True):
     """Log phase ``tag``'s ``softmax_rows`` launches by (name, rows,
     cols, body); fatal when the census or the wrapper's body counts
     (``kernels.body_counts``, reset with the launch counts) missed a
-    launch, or a launch ran on another body than the registers body
-    (``sr_census`` already held each launch to ``_plan``)."""
+    launch, or, with ``regs_only``, a launch ran on another body than
+    the registers body (``sr_census`` already held each launch to
+    ``_plan``; the forward serving phases' 10-class heads take its
+    two-pass body)."""
     log("phase %s softmax_rows launches by (name, rows, cols, body) %s"
         % (tag, dict(sorted(sr_shapes.items()))))
     bodies = kernels.body_counts()
     for name in ROWS_NAMES:
         seen = sum(n for k, n in sr_shapes.items() if k[0] == name)
-        if seen != counts[name] or \
-                bodies.get(name + "[regs]", 0) != counts[name]:
+        planned = sum(n for k, n in bodies.items()
+                      if k.startswith(name + "["))
+        if not seen == planned == counts[name]:
             raise SystemExit("chip_smoke: phase %s: %d %s launches, %d in "
                              "the census, body counts %s"
                              % (tag, counts[name], name, seen, bodies))
     off = {k: n for k, n in sr_shapes.items() if k[-1] != "regs"}
-    if off:
+    if regs_only and off:
         raise SystemExit("chip_smoke: phase %s softmax_rows launches off "
                          "the registers body: %s" % (tag, off))
 
@@ -6736,6 +6773,557 @@ def xent_bf16_rows(card, errs, t, entries):
         entries[name] = [row]
 
 
+# ---------------------------------------------------------------------------
+# phases 25, 25b, 25c and 25s: the forward serving plane (ProgramStore's
+# bucketed programs, ServingEngine, Predictor, the .mxsrv artifact and
+# bench.py's serving.latency protocol)
+# ---------------------------------------------------------------------------
+SERVE_FWD_DTYPES = (("fp32", None), ("bf16", "bfloat16"), ("int8", "int8"))
+# phase 25: 96 single-image requests on an open-loop schedule (seed 25)
+# at SERVE_FWD_QPS, and beside every 12th one a request of 3-7 images
+SERVE_FWD_N, SERVE_FWD_QPS, SERVE_FWD_SEED = 96, 1000.0, 25
+SERVE_FWD_MULTI = (3, 4, 5, 6, 7, 3, 5, 7)
+# bounds against Module.predict on the same images on the card (x
+# max|ref|; int8: absolute, tests/test_quant_serving.py's)
+SERVE_FWD_TOL = {"fp32": 1e-5, "bf16": 2e-2}
+SERVE_FWD_INT8_ABS = 0.05
+# phase 25c: the store on the card against the store on the CPU, x
+# max|ref|
+SERVE_CPU_TOL = 1e-4
+# phase 2's serving shapes: dequant_matmul's (N, K) (the latency MLP's
+# fc1 and fc2, ResNet-50's fc1) and softmax_rows' classes, at M rows
+SERVE_DQ_NK = ((2048, 512), (10, 2048), (1000, 2048))
+SERVE_ROWS_M = (1, 8, 32)
+SERVE_ROWS_COLS = (10, 1000)
+# phase 25b: the int8 store's weight bytes at most this fraction of
+# the fp32 store's
+INT8_BYTES_RATIO = 3.5
+SWAP_REQUESTS = 64
+
+
+def phase_compare_serving(dev):
+    """Phase 2 at the forward serving plane's shapes: ``dequant_matmul``
+    at each (N, K) of SERVE_DQ_NK and ``softmax_rows`` in fp32 (1e-5 x
+    max|ref|) and bf16 (one bf16 ulp of max|ref|) at SERVE_ROWS_COLS,
+    for M in SERVE_ROWS_M."""
+    errs = {}
+    for M in SERVE_ROWS_M:
+        for N, K in SERVE_DQ_NK:
+            x, c, s, _w = dq_inputs(M, N, K, dev)
+            want = dequant_matmul.dequant_matmul_dense(x, c, s)
+            errs[("dequant_matmul", M, N, K)] = agree(
+                "dequant_matmul", "M=%d N=%d K=%d (serving)" % (M, N, K),
+                dequant_matmul.dequant_matmul(x, c, s), want,
+                1e-5 * want.abs().max().item())
+        for cols in SERVE_ROWS_COLS:
+            logits = serve_logits(M, cols, dev)
+            shape = "rows=%d classes=%d (serving)" % (M, cols)
+            want = softmax_xent.softmax_rows_reference(logits)
+            errs[("softmax_rows", M, cols)] = agree(
+                "softmax_rows", shape, softmax_xent.softmax_rows(logits),
+                want, 1e-5 * want.abs().max().item())
+            xb = logits.to(torch.bfloat16)
+            errs[("softmax_rows_bf16", M, cols)] = agree_bf16(
+                "softmax_rows_bf16", shape + " bf16",
+                softmax_xent.softmax_rows(xb),
+                softmax_xent.softmax_rows_reference(xb))
+    return errs
+
+
+def serve_logits(rows, cols, dev):
+    g = torch.Generator(device="cpu").manual_seed(rows * 1000 + cols)
+    return (3 * torch.randn(rows, cols, generator=g)).to(dev)
+
+
+def serve_fwd_weights(dev):
+    """ResNet-50 (1000 classes, 3 x 224 x 224) with phase 15's
+    parameters (``mx.random.seed(15)``, ``Xavier(magnitude=2.0)``),
+    ``softmax_label`` left out: ``(symbol, arg_params, aux_params)``
+    on the host."""
+    mx.random.seed(15)
+    net = zoo_symbol("resnet", {"num_layers": 50})
+    mod = mx.Module(net, context=dev, label_names=None)
+    mod.bind(data_shapes=[("data", (SCORE_BATCH,) + RESNET["image"])],
+             for_training=False)
+    mod.init_params(initializer=mx.init.Xavier(magnitude=2.0))
+    arg, aux = mod.get_params()
+    return net, {k: v for k, v in arg.items() if k != "softmax_label"}, aux
+
+
+def predict_probs(dev, net, arg, aux, X, compute_dtype=None):
+    """``Module.predict`` on the card over ``X`` at batch SCORE_BATCH
+    (fp32 with TF32 off, or ``compute_dtype``), as float32 numpy."""
+    mod = mx.Module(net, context=dev, label_names=None,
+                    compute_dtype=compute_dtype)
+    mod.bind(data_shapes=[("data", (SCORE_BATCH,) + RESNET["image"])],
+             for_training=False)
+    mod.set_params(arg, aux, allow_missing=True)
+    out = mod.predict(mx.io.NDArrayIter(X, batch_size=SCORE_BATCH))
+    return out.asnumpy().astype(np.float32)
+
+
+def sync_free_runs(tag, store, X):
+    """``store.run`` at every bucket (full, and one row short) under
+    ``torch.cuda.set_sync_debug_mode('error')``: fatal on any host sync
+    on the dispatch path."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for b in store.edges:
+            for n in sorted({b, max(1, b - 1)}):
+                store.run({"data": X[:n]}, n=n)
+    except RuntimeError as e:
+        raise SystemExit("chip_smoke: phase %s: store.run synced with the "
+                         "host: %s" % (tag, e))
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    log("phase %s store.run over buckets %s: no host sync under "
+        "set_sync_debug_mode('error')" % (tag, list(store.edges)))
+
+
+def dispatch_costs(tag, store, X, card):
+    """Where a dispatch's time goes: ``store.run`` on this (warm) thread
+    at 1 and 32 images, host ms to return (median of 5) and ms to a
+    synchronised end; then its first and second runs at 32 images on a
+    fresh thread, which builds cuDNN's execution plans anew (PyTorch
+    keeps them per thread: why ``ServingEngine`` warms on its own
+    thread)."""
+    out = {}
+    for n in (1, 32):
+        host, done = [], []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            tic = time.perf_counter()
+            store.run({"data": X[:n]}, n=n)
+            host.append(time.perf_counter() - tic)
+            torch.cuda.synchronize()
+            done.append(time.perf_counter() - tic)
+        out[n] = (1e3 * statistics.median(host), 1e3 * statistics.median(done))
+    fresh = []
+
+    def on_fresh_thread():
+        for _ in range(2):
+            tic = time.perf_counter()
+            store.run({"data": X[:32]}, n=32)
+            torch.cuda.synchronize()
+            fresh.append(1e3 * (time.perf_counter() - tic))
+
+    t = threading.Thread(target=on_fresh_thread)
+    t.start()
+    t.join(120)
+    log("phase %s store.run: 1 image %.3f ms to return, %.3f ms to the "
+        "end; 32 images %.3f / %.3f ms; on a fresh thread, 32 images "
+        "%.3f ms the first run, %.3f the second [%s]"
+        % (tag, out[1][0], out[1][1], out[32][0], out[32][1], fresh[0],
+           fresh[1], card))
+
+
+def serve_fwd_images():
+    """The phase's images (uniform in [-1, 1] from seed 25): the
+    schedule's single images, then the larger requests' rows; and the
+    offset of each larger request."""
+    rs = np.random.RandomState(SERVE_FWD_SEED)
+    total = SERVE_FWD_N + sum(SERVE_FWD_MULTI)
+    X = rs.uniform(-1, 1, (total,) + RESNET["image"]).astype(np.float32)
+    ofs = SERVE_FWD_N + np.concatenate([[0], np.cumsum(SERVE_FWD_MULTI)])
+    return X, [int(o) for o in ofs[:-1]]
+
+
+def serve_traffic(eng, name, X, ofs):
+    """Drive phase 25's traffic through ``eng``: returns the loadgen
+    summary and every request's probabilities on the host, in X's row
+    order."""
+    sched = mx.serving.OpenLoopSchedule(SERVE_FWD_SEED, SERVE_FWD_N,
+                                        SERVE_FWD_QPS)
+    futs, multi = [None] * SERVE_FWD_N, []
+
+    def submit(i, n):
+        futs[i] = eng.submit(name, data=X[i:i + n])
+        if i % 12 == 5:
+            k = len(multi)
+            multi.append(eng.submit(
+                name, data=X[ofs[k]:ofs[k] + SERVE_FWD_MULTI[k]]))
+        return futs[i]
+
+    res = mx.serving.run_loadgen(submit, sched)
+    got = [f.result(60)[0].cpu().numpy() for f in futs + multi]
+    return res, np.concatenate(got)
+
+
+def hold_served(tag, dtype, got, refs):
+    """Hold phase 25's probabilities against Module.predict's: fp32 and
+    bf16 within SERVE_FWD_TOL x max|ref| of the same dtype's predict
+    (bf16's distance from the fp32 predict printed beside it); int8
+    within SERVE_FWD_INT8_ABS of the fp32 predict, and within 1e-5 x
+    max|ref| and with the same top-1 on every row as the fp32 predict
+    on the dequantized weights (the function the int8 store computes);
+    the top-1 agreement with the fp32 predict printed."""
+    if not np.isfinite(got).all() or \
+            np.abs(got.sum(axis=1) - 1).max() > 1e-2:
+        raise SystemExit("chip_smoke: phase %s %s: probabilities that are "
+                         "not finite rows summing to 1" % (tag, dtype))
+    ref32 = refs["fp32"]
+    d32 = float(np.abs(got - ref32).max())
+    top32 = int((got.argmax(1) == ref32.argmax(1)).sum())
+    top2 = np.sort(ref32, axis=1)[:, -2:]
+    log("phase %s %s: the fp32 predict's max %.4g, smallest top-2 gap "
+        "%.3e; %.3e x max|ref| from it" % (tag, dtype, ref32.max(),
+                                           (top2[:, 1] - top2[:, 0]).min(),
+                                           d32 / np.abs(ref32).max()))
+    if dtype == "int8":
+        refq = refs["int8"]
+        rel = float(np.abs(got - refq).max() / np.abs(refq).max())
+        same = bool((got.argmax(1) == refq.argmax(1)).all())
+        log("phase %s int8: %.3e x max|ref| from the fp32 predict on the "
+            "dequantized weights (tol 1e-5), top-1 equal there: %s; %.3e "
+            "absolute from the fp32 predict (tol %g), same top-1 as it on "
+            "%d of %d rows" % (tag, rel, same, d32, SERVE_FWD_INT8_ABS,
+                               top32, len(got)))
+        if not (rel <= 1e-5 and same and d32 <= SERVE_FWD_INT8_ABS):
+            raise SystemExit("chip_smoke: phase %s int8 results off their "
+                             "bounds" % tag)
+        return
+    ref = refs[dtype]
+    rel = float(np.abs(got - ref).max() / np.abs(ref).max())
+    log("phase %s %s: %.3e x max|ref| from Module.predict in %s (tol %g); "
+        "%.3e absolute from the fp32 predict, same top-1 as it on %d of %d "
+        "rows" % (tag, dtype, rel, dtype, SERVE_FWD_TOL[dtype], d32, top32,
+                  len(got)))
+    if not rel <= SERVE_FWD_TOL[dtype]:
+        raise SystemExit("chip_smoke: phase %s %s results off their bound"
+                         % (tag, dtype))
+
+
+def phase_serve_resnet(dev, card):
+    """Phase 25: ResNet-50 at full width served by ``ModelRegistry.
+    add_model`` + ``ServingEngine`` with the default knobs (buckets 1-32,
+    max batch 32, 5 ms budget) in fp32, bf16 and int8 from phase 15's
+    parameters: SERVE_FWD_N single-image requests on an open-loop
+    schedule and 8 larger ones, every result held against
+    ``Module.predict`` (``hold_served``); zero dropped; each store's
+    ``store.run`` over every bucket free of host syncs; the head's
+    kernel launched once a batch (``softmax_rows`` on its registers
+    body, bf16 in the bf16 store) and, in int8, ``dequant_matmul`` once
+    a batch at (M, 1000, 2048) for M a bucket; nothing else launched and
+    no plain version run.  Returns the launch counts by store, the
+    dequant_matmul and softmax_rows censuses, images/s and latencies,
+    and what 25c needs."""
+    net, arg, aux = serve_fwd_weights(dev)
+    X, ofs = serve_fwd_images()
+    refs = {"fp32": predict_probs(dev, net, arg, aux, X),
+            "bf16": predict_probs(dev, net, arg, aux, X, "bfloat16")}
+    counts, dq_all, sr_all, rates = {}, collections.Counter(), \
+        collections.Counter(), {}
+    for dtype, cdt in SERVE_FWD_DTYPES:
+        tag = "25 " + dtype
+        reg = ModelRegistry()
+        name = "resnet-50-" + dtype
+        tic = time.perf_counter()
+        store = reg.add_model(name, net, arg, aux,
+                              input_shapes={"data": (1,) + RESNET["image"]},
+                              compute_dtype=cdt, device=dev)
+        warm_s = time.perf_counter() - tic
+        if dtype == "int8":
+            fc = sorted(store._quant_names)
+            if fc != ["fc1_weight"]:
+                raise SystemExit("chip_smoke: phase 25 int8 quantizes %s"
+                                 % fc)
+            codes, scales = dequant_matmul.quantize_int8(
+                arg["fc1_weight"].asnumpy(), "row")
+            refs["int8"] = predict_probs(dev, net, dict(
+                arg, fc1_weight=mx.nd.array(dequant_matmul.dequantize_int8(
+                    codes, scales), ctx=mx.cpu())), aux, X)
+        sync_free_runs(tag, store, X)
+        if dtype == "fp32":
+            dispatch_costs(tag, store, X, card)
+        eng = mx.serving.ServingEngine(reg)
+        kernels.reset_launch_counts()
+        try:
+            with plain_guard() as plain, dq_census() as dq, \
+                    sr_census() as sr:
+                res, got = serve_traffic(eng, name, X, ofs)
+                torch.cuda.synchronize()
+            c = kernels.launch_counts()
+            st = eng.stats()
+        finally:
+            eng.close()
+        check_sr_census(tag, sr, c, regs_only=False)
+        head = "softmax_rows_bf16" if dtype == "bf16" else "softmax_rows"
+        want = dict.fromkeys(kernels.KERNELS, 0)
+        want[head] = st["batches"]
+        if dtype == "int8":
+            want["dequant_matmul"] = st["batches"]
+        dropped = st["timeouts"] + st["errors"] + st["cancelled"]
+        off = {k: n for k, n in dq.items()
+               if k[1:] != (1000, 2048) or k[0] not in store.edges}
+        if plain or c != want or dropped or res["ok"] != SERVE_FWD_N or off:
+            raise SystemExit(
+                "chip_smoke: phase %s launches %s (want %s), plain %s, "
+                "dropped %d, loadgen %s, dequant_matmul off its shapes %s"
+                % (tag, {k: v for k, v in c.items() if v},
+                   {k: v for k, v in want.items() if v}, dict(plain),
+                   dropped, res, off))
+        hold_served(tag, dtype, got, refs)
+        rows = SERVE_FWD_N + sum(SERVE_FWD_MULTI)
+        rates[dtype] = dict(images_s=rows / res["duration_s"],
+                            p50_ms=res["p50_ms"], p99_ms=res["p99_ms"],
+                            duration_s=res["duration_s"])
+        wb = st["models"][name]["weight_bytes"]
+        log("phase %s: %d requests (%d images) in %.3f s: %.1f images/s, "
+            "p50 %.3f ms, p99 %.3f ms (offered %.0f/s, submit slip %.3f ms); "
+            "%d batches, %d rows, %d padded rows, largest batch %d; head "
+            "launches %d, dequant_matmul %d; weight bytes %s (total %d); "
+            "warm-up (6 buckets) %.2f s; dequant_matmul by (M, N, K) %s "
+            "[%s]" % (tag, SERVE_FWD_N + len(SERVE_FWD_MULTI), rows,
+                      res["duration_s"], rates[dtype]["images_s"],
+                      res["p50_ms"], res["p99_ms"], res["qps_offered"],
+                      res["max_submit_slip_ms"], st["batches"], st["rows"],
+                      st["padded_rows"], st["max_rows_in_batch"], c[head],
+                      c["dequant_matmul"], wb["by_dtype"], wb["total"],
+                      warm_s, dict(sorted(dq.items())), card))
+        counts["serve_fwd_" + dtype] = c
+        dq_all.update(dq)
+        sr_all.update(sr)
+        del store, reg
+    return counts, dq_all, sr_all, rates, (net, arg, aux, X)
+
+
+def profile_serve(dev, card, weights, duration_s):
+    """``--profile``: ``torch.profiler`` over phase 25's fp32 traffic on
+    a fresh store: the device's busy share of the schedule's unprofiled
+    duration, and the top device ops."""
+    net, arg, aux, X = weights
+    _, ofs = serve_fwd_images()
+    reg = ModelRegistry()
+    reg.add_model("resnet-50", net, arg, aux,
+                  input_shapes={"data": (1,) + RESNET["image"]}, device=dev)
+    eng = mx.serving.ServingEngine(reg)
+    prof = torch.profiler.profile(activities=[
+        torch.profiler.ProfilerActivity.CPU,
+        torch.profiler.ProfilerActivity.CUDA])
+    try:
+        torch.cuda.synchronize()
+        prof.start()
+        tic = time.perf_counter()
+        serve_traffic(eng, "resnet-50", X, ofs)
+        torch.cuda.synchronize()
+        window_ms = (time.perf_counter() - tic) * 1e3
+        prof.stop()
+    finally:
+        eng.close()
+    report_profile("25", prof, 1, duration_s * 1e3, window_ms, card)
+
+
+def phase_serve_latency(dev, card):
+    """Phase 25b: bench.py's ``serving.latency.{fp32,bf16,int8}`` rows as
+    bench runs them: ``serving.loadgen.latency_protocol(mode)`` on the
+    card (the 512 -> 2048 -> 10 MLP; a per-request Predictor closed
+    loop, then the per-request server and the batcher on one seeded
+    open-loop schedule at 6 x its capacity).  Fatal unless nothing is
+    dropped, the head's kernel launched (bf16 in bf16) on the body
+    ``_plan`` names (the two-pass body at 10 classes), ``dequant_matmul``
+    launched in int8 only, at (M, N, K) with M <= 32 and (N, K) the
+    MLP's, no plain version ran, and the int8 store's weight bytes are
+    at most 1 / INT8_BYTES_RATIO of the fp32 store's.
+    ``qps_vs_per_request`` is printed beside the reference's banked CPU
+    figure (>= 3), not gated: on the card the MLP's forward takes tens
+    of microseconds and one Python thread paces the schedule."""
+    counts, dq_all, sr_all, out = {}, collections.Counter(), \
+        collections.Counter(), {}
+    for mode in ("fp32", "bf16", "int8"):
+        tag = "25b " + mode
+        kernels.reset_launch_counts()
+        with plain_guard() as plain, dq_census() as dq, sr_census() as sr:
+            res = mx.serving.latency_protocol(mode, device=dev)
+            torch.cuda.synchronize()
+        c = kernels.launch_counts()
+        check_sr_census(tag, sr, c, regs_only=False)
+        head = "softmax_rows_bf16" if mode == "bf16" else "softmax_rows"
+        b, so = res["batch"], res["serial_open"]
+        dropped = sum(r[k] for r in (b, so)
+                      for k in ("timeouts", "errors", "cancelled", "shed"))
+        off = {k: n for k, n in dq.items()
+               if k[0] > 32 or k[1:] not in ((2048, 512), (10, 2048))}
+        if plain or dropped or b["ok"] != b["n"] or not c[head] or \
+                bool(c["dequant_matmul"]) != (mode == "int8") or off:
+            raise SystemExit(
+                "chip_smoke: phase %s: launches %s, plain %s, dropped %d, "
+                "ok %d of %d, dequant_matmul off its shapes %s"
+                % (tag, {k: v for k, v in c.items() if v}, dict(plain),
+                   dropped, b["ok"], b["n"], off))
+        wb = b["engine"]["models"]["m"]["weight_bytes"]
+        out[mode] = res
+        log("phase %s: batcher %.1f QPS achieved, p50 %.3f ms, p99 %.3f ms; "
+            "per-request Predictor closed loop %.1f QPS (p50 %.3f ms), open "
+            "loop %.1f QPS achieved (p99 %.3f ms); qps_vs_per_request %.3f "
+            "(the reference's banked CPU figure: >= 3; not gated here); "
+            "offered %.1f/s, submit slip %.3f ms, so paced at about %.1f/s; "
+            "%d batches, %d rows, largest %d; weight bytes %s; launches %s "
+            "[%s]" % (tag, b["qps_achieved"], b["p50_ms"], b["p99_ms"],
+                      res["serial_closed"]["qps"],
+                      res["serial_closed"]["p50_ms"], so["qps_achieved"],
+                      so["p99_ms"], res["qps_vs_per_request"] or 0.0,
+                      b["qps_offered"], b["max_submit_slip_ms"],
+                      b["n"] / (b["n"] / b["qps_offered"]
+                                + b["max_submit_slip_ms"] / 1e3),
+                      b["engine"]["batches"], b["engine"]["rows"],
+                      b["engine"]["max_rows_in_batch"], wb["by_dtype"],
+                      {k: v for k, v in c.items() if v}, card))
+        counts["serve_latency_" + mode] = c
+        dq_all.update(dq)
+        sr_all.update(sr)
+    w32 = out["fp32"]["batch"]["engine"]["models"]["m"]["weight_bytes"]
+    w8 = out["int8"]["batch"]["engine"]["models"]["m"]["weight_bytes"]
+    ratio = w32["total"] / w8["total"]
+    log("phase 25b int8 weight bytes %d = 1 / %.3f of fp32's %d (gate: at "
+        "most 1 / %g)" % (w8["total"], ratio, w32["total"],
+                          INT8_BYTES_RATIO))
+    if not ratio >= INT8_BYTES_RATIO:
+        raise SystemExit("chip_smoke: phase 25b int8 weight bytes 1/%.3f of "
+                         "fp32's" % ratio)
+    return counts, dq_all, sr_all, out
+
+
+def hold_cpu(tag, what, got, want):
+    """fp32 ``got`` (card) within SERVE_CPU_TOL x max|want| (CPU)."""
+    got, want = got.cpu().numpy(), want.numpy()
+    rel = float(np.abs(got - want).max() / np.abs(want).max())
+    log("phase %s %s: the card %.3e x max|ref| from the CPU (tol %g)"
+        % (tag, what, rel, SERVE_CPU_TOL))
+    if not rel <= SERVE_CPU_TOL:
+        raise SystemExit("chip_smoke: phase %s %s: the card's store is "
+                         "%.3e x max|ref| from the CPU's" % (tag, what, rel))
+    return rel
+
+
+def phase_serve_vs_cpu(dev, weights):
+    """Phase 25c: the store on the card against the store on the CPU:
+    ResNet-50 with phase 25's parameters at 2 images, the latency MLP at
+    every bucket, fp32, within SERVE_CPU_TOL x max|ref|; and the MLP
+    written by ``deploy.to_serving`` into a ``.mxsrv`` artifact, read
+    back through ``ModelRegistry.load_artifact`` on the card, against the
+    CPU store."""
+    cpu = torch.device("cpu")
+    net, arg, aux, X = weights
+    shapes = {"data": (1,) + RESNET["image"]}
+    card = mx.serving.ProgramStore(net, arg, aux, shapes, buckets=(2,),
+                                   device=dev)
+    host = mx.serving.ProgramStore(net, arg, aux, shapes, buckets=(2,),
+                                   device=cpu)
+    hold_cpu("25c", "ResNet-50 at 2 images", card.run({"data": X[:2]})[0][0],
+             host.run({"data": X[:2]})[0][0])
+    del card, host
+    sym, args = mx.serving.loadgen._smoke_model(512, 2048, 11)
+    shapes = {"data": (1, 512)}
+    card = mx.serving.ProgramStore(sym, args, {}, shapes, device=dev)
+    host = mx.serving.ProgramStore(sym, args, {}, shapes, device=cpu)
+    xs = np.random.RandomState(27).uniform(-1, 1, (32, 512)).astype(
+        np.float32)
+    worst = max(hold_cpu("25c", "MLP at %d rows" % b,
+                         card.run({"data": xs[:b]})[0][0],
+                         host.run({"data": xs[:b]})[0][0])
+                for b in card.edges)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as d:
+        path = os.path.join(d, "mlp.mxsrv")
+        mx.deploy.to_serving(sym, args, {}, shapes, path)
+        reg = ModelRegistry()
+        art = reg.load_artifact("mlp", path, device=dev)
+    hold_cpu("25c", "MLP through the .mxsrv artifact at 5 rows",
+             art.run({"data": xs[:5]})[0][0],
+             host.run({"data": xs[:5]})[0][0])
+    log("phase 25c: the MLP on the card within %.3e x max|ref| of the CPU "
+        "over buckets %s" % (worst, list(card.edges)))
+
+
+def phase_serve_swap(dev, card):
+    """Phase 25s: a hot swap under traffic.  SWAP_REQUESTS requests of 1
+    to 4 rows to the latency MLP on the card; once the first request's
+    result is back, ``ModelRegistry.swap_params`` publishes a second
+    weight set while the rest of the first half may still queue, then
+    the second half is submitted.  Every result equals, for all its
+    rows, exactly one version's output (a store of each version on the
+    card, 1e-5 x max|ref|), both versions serve, they switch once in
+    submit order, and the version rises by one."""
+    sym, a1 = mx.serving.loadgen._smoke_model(512, 2048, 11)
+    _, a2 = mx.serving.loadgen._smoke_model(512, 2048, 12)
+    shapes = {"data": (1, 512)}
+    reg = ModelRegistry()
+    reg.add_model("m", sym, a1, input_shapes=shapes, device=dev)
+    ref = [mx.serving.ProgramStore(sym, a, {}, shapes, device=dev)
+           for a in (a1, a2)]
+    rs = np.random.RandomState(26)
+    xs = [rs.uniform(-1, 1, (1 + i % 4, 512)).astype(np.float32)
+          for i in range(SWAP_REQUESTS)]
+    eng = mx.serving.ServingEngine(reg)
+    try:
+        futs = []
+        for i, x in enumerate(xs):
+            futs.append(eng.submit("m", data=x))
+            if i == SWAP_REQUESTS // 2 - 1:
+                futs[0].result(60)
+                version = reg.swap_params("m", a2)
+        got = [f.result(60)[0].cpu().numpy() for f in futs]
+        st = eng.stats()
+    finally:
+        eng.close()
+    which = []
+    for x, g in zip(xs, got):
+        hits = []
+        for v, store in enumerate(ref):
+            w = store.run({"data": x})[0][0].cpu().numpy()
+            hits += [v] * bool(np.abs(g - w).max() <= 1e-5 * np.abs(w).max())
+        if len(hits) != 1:
+            raise SystemExit("chip_smoke: phase 25s: a result matches "
+                             "versions %s" % hits)
+        which.append(hits[0])
+    if which != sorted(which) or which[0] != 0 or which[-1] != 1 or \
+            version != 2 or st["models"]["m"]["version"] != 2:
+        raise SystemExit("chip_smoke: phase 25s: versions %s in submit "
+                         "order, version %d" % (which, version))
+    log("phase 25s: %d requests, %d served by version 1 and %d by version "
+        "2 in %d batches; each result one version's for all its rows; "
+        "version 1 -> %d [%s]" % (len(xs), which.count(0), which.count(1),
+                                  st["batches"], version, card))
+
+
+def serving_kernel_rows(dev, card, errs, dq_entries, sr_entries, dq_shapes,
+                        sr_shapes):
+    """Rows 8, 10 and 10b at the forward serving plane's shapes (phase 2's
+    SERVE_ROWS_M x SERVE_DQ_NK / SERVE_ROWS_COLS), each with its launches
+    in phases 25 and 25b (``dq_shapes``, ``sr_shapes``: their censuses);
+    yardsticks ``torch.matmul`` on the dequantized weight and
+    ``torch.softmax`` (bf16 in bf16)."""
+    for M in SERVE_ROWS_M:
+        for N, K in SERVE_DQ_NK:
+            x, c, sc, w = dq_inputs(M, N, K, dev)
+            dq_entries["dequant_matmul"].append(timed_row(
+                "dequant_matmul", "M=%d N=%d K=%d (served: %d launches in "
+                "phases 25 and 25b)" % (M, N, K, dq_shapes[M, N, K]),
+                lambda: dequant_matmul.dequant_matmul(x, c, sc),
+                lambda: dequant_matmul.dequant_matmul_dense(x, c, sc),
+                lambda: torch.matmul(x, w.t()),
+                4 * M * K + N * K + 4 * N + 4 * M * N, 2 * M * N * K,
+                errs[("dequant_matmul", M, N, K)], card, tf32=True))
+    for name, dtype, elem in (("softmax_rows", torch.float32, 4),
+                              ("softmax_rows_bf16", torch.bfloat16, 2)):
+        for M in SERVE_ROWS_M:
+            for cols in SERVE_ROWS_COLS:
+                x = serve_logits(M, cols, dev).to(dtype)
+                n = M * cols
+                body = softmax_xent._plan(cols, 16, dtype).body
+                served = sum(k for (nm, r, cc, _b), k in sr_shapes.items()
+                             if (nm, r, cc) == (name, M, cols))
+                sr_entries[name].append(timed_row(
+                    name, "rows=%d classes=%d%s (%s body; served: %d "
+                    "launches in phases 25 and 25b)"
+                    % (M, cols, " bf16" if elem == 2 else "", body, served),
+                    lambda: softmax_xent.softmax_rows(x),
+                    lambda: softmax_xent.softmax_rows_reference(x),
+                    lambda: torch.softmax(x, -1), elem * 2 * n, 5 * n,
+                    errs[(name, M, cols)], card, bf16=elem == 2))
+
+
 def kernel_rows(entries, counts):
     """The ``kernels`` JSON rows: the first shape of each kernel (the
     path's own) at the top level, every timed shape under ``shapes``;
@@ -6796,6 +7384,7 @@ def main(argv):
     phase_build()
     errs = phase_compare(dev)
     errs.update(phase_compare_train(dev))
+    errs.update(phase_compare_serving(dev))
     params = tlm.random_params(SPEC, seed=0)
     reqs = make_requests()
     served = {tag: phase_serve(tag, name, params, reqs)
@@ -6869,14 +7458,26 @@ def main(argv):
                                              fused=False, tag="24c")
     phase_lm_fused(dev, card, params7)
     phase_stage_probe(dev, card)
+    c25, dq25, sr25, rates25, weights25 = phase_serve_resnet(dev, card)
+    counts.update(c25)
+    if argv:
+        profile_serve(dev, card, weights25, rates25["fp32"]["duration_s"])
+    c25b, dq25b, sr25b, _ = phase_serve_latency(dev, card)
+    counts.update(c25b)
+    dq25.update(dq25b)
+    sr25.update(sr25b)
+    phase_serve_vs_cpu(dev, weights25)
+    del weights25
+    phase_serve_swap(dev, card)
     pa_shapes, fa_shapes = collections.Counter(), collections.Counter()
     for tag in ("3", "3b", "3d"):
         pa_shapes.update(served[tag]["pa_shapes"])
     for tag in ("3c", "3e"):
         fa_shapes.update(served[tag]["fa_shapes"])
-    kern = kernel_rows(phase_times(dev, card, errs, pa_shapes, fa_shapes),
-                       counts)
-    kern += kernel_rows(phase_times_train(dev, card, errs, fa_shapes), counts)
+    entries = phase_times(dev, card, errs, pa_shapes, fa_shapes)
+    entries_train = phase_times_train(dev, card, errs, fa_shapes)
+    serving_kernel_rows(dev, card, errs, entries, entries_train, dq25, sr25)
+    kern = kernel_rows(entries, counts) + kernel_rows(entries_train, counts)
     for tag, what in (("3", "paged fp32"), ("3b", "paged int8"),
                       ("3c", "contiguous fp32"), ("3d", "paged bf16"),
                       ("3e", "contiguous bf16"),
@@ -6889,6 +7490,11 @@ def main(argv):
     log("phase 15 scoring images/s at batch %d, fp32: %s [%s]"
         % (SCORE_BATCH, "; ".join("%s %.1f" % kv
                                   for kv in score_rates.items()), card))
+    for dtype, r in rates25.items():
+        log("phase 25 serving ResNet-50 %s: %.1f images/s over the schedule, "
+            "p50 %.3f ms, p99 %.3f ms [%s]" % (dtype, r["images_s"],
+                                               r["p50_ms"], r["p99_ms"],
+                                               card))
     log("chip_smoke: every phase passed in %.1f s [%s]"
         % (time.perf_counter() - started, card))
     print(json.dumps({"kernels": kern}))

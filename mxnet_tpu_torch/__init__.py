@@ -41,7 +41,21 @@ statistics as auxiliary states, as
                                        factor_type="in", magnitude=2),
             batch_end_callback=mx.callback.Speedometer(32, 20))
 
-and serving the LM, on the paged KV plane by default:
+serving ResNet-50 (or any symbol graph with batch-major outputs) on the
+forward plane, requests batched continuously into bucketed programs:
+
+    from mxnet_tpu_torch.serving import ModelRegistry, ServingEngine
+
+    reg = ModelRegistry()
+    reg.add_model("resnet", net, arg_params, aux_params,
+                  input_shapes={"data": (1, 3, 224, 224)},
+                  compute_dtype=None)     # or "bfloat16", "int8"
+    with ServingEngine(reg) as eng:
+        probs = eng.submit("resnet", data=images).result()[0].cpu()
+
+(``mx.Predictor(json, params, shapes, serving=True)`` is the one-request
+API over the same store), and serving the LM, on the paged KV plane by
+default:
 
     from mxnet_tpu_torch.models import transformer_lm
     from mxnet_tpu_torch.serving import ModelRegistry, GenerationEngine
@@ -66,10 +80,10 @@ kernels on a CUDA tensor (``mxnet_tpu_torch/kernels``) and as their
 plain PyTorch versions on a CPU tensor; ``mx.rtc.CudaKernel`` compiles
 and launches a user's CUDA source on NDArrays.
 """
-from . import (attribute, autograd, callback, contrib, engine, executor,
-               initializer, io, kernels, lr_scheduler, metric, model, models,
-               monitor, name, ndarray, optimizer, parallel, random, rnn, rtc,
-               symbol)
+from . import (attribute, autograd, callback, contrib, deploy, engine,
+               executor, initializer, io, kernels, lr_scheduler, metric,
+               model, models, monitor, name, ndarray, optimizer, parallel,
+               predictor, random, rnn, rtc, symbol, test_utils)
 from . import module
 from .attribute import AttrScope
 from .base import MXNetError
@@ -81,6 +95,7 @@ from .module import Module
 from .monitor import Monitor
 from .name import NameManager, Prefix
 from .optimizer import Optimizer
+from .predictor import Predictor
 from .serving import GenerationEngine, ModelRegistry, TokenStream
 from .symbol import Variable
 
@@ -97,4 +112,5 @@ __all__ = ["MXNetError", "ModelRegistry", "GenerationEngine", "TokenStream",
            "contrib", "rtc", "engine", "Context", "current_context",
            "attribute", "AttrScope", "name", "NameManager", "Prefix",
            "executor", "Variable", "Monitor", "Optimizer", "init_registry",
-           "cpu_pinned", "num_devices"]
+           "cpu_pinned", "num_devices", "Predictor", "predictor", "deploy",
+           "test_utils"]

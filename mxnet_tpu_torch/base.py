@@ -90,9 +90,11 @@ register_env("MXNET_IO_STAGE_DEPTH", int, 2,
              "holds one batch of device memory); 2 is double "
              "buffering, below 1 counts as 1.")
 register_env("MXNET_SERVE_BUCKETS", str, "1,2,4,8,16,32",
-             "Comma-separated batch-size bucket edges of the generative "
-             "program store: the decode engine's slot table grows to the "
-             "smallest edge >= the number of live sequences.")
+             "Comma-separated batch-size bucket edges.  The forward "
+             "ProgramStore pads a request of n rows to the smallest edge "
+             ">= n and runs that bucket's program; the decode engine's "
+             "slot table grows to the smallest edge >= the number of "
+             "live sequences.")
 register_env("MXNET_SERVE_DTYPE", str, "",
              "Default serving compute dtype of models registered without "
              "an explicit compute_dtype: empty or 'float32' serves fp32 "
@@ -147,9 +149,22 @@ register_env("MXNET_SERVE_SPEC_K", int, 4,
              "Draft tokens proposed a speculative tick by default (the "
              "target verifies K+1 positions in one paged step).")
 register_env("MXNET_SERVE_MAX_INFLIGHT", int, 0,
-             "Admission budget of a generation engine: accepted but "
-             "unresolved requests beyond it are shed with "
-             "ServeOverloaded.  0 = unbounded.")
+             "Admission budget of a serving engine (forward or "
+             "generation): accepted but unresolved requests beyond it "
+             "are shed with ServeOverloaded.  0 = unbounded.")
+register_env("MXNET_SERVE_MAX_DELAY_MS", float, 5.0,
+             "Latency budget (milliseconds) of the forward serving "
+             "engine's batcher: a batch is dispatched no later than this "
+             "long after its oldest member was submitted, even when the "
+             "largest bucket has not filled.  0 dispatches each request "
+             "at once.")
+register_env("MXNET_SERVE_MAX_BATCH", int, 32,
+             "Most rows the forward serving engine coalesces into one "
+             "dispatch (further capped by the model's largest bucket).")
+register_env("MXNET_SERVE_PROGRAM_CACHE", int, 32,
+             "Bucket programs a forward ProgramStore keeps in its LRU; "
+             "beyond it the least recently used is dropped and rebuilt "
+             "on its next use (stats count the evictions).")
 
 
 _ATOMIC_WRITE_SEQ = itertools.count()

@@ -100,8 +100,11 @@ def evaluate(nodes, heads, attrs, values, is_train, device, rng=None,
     for node in nodes:
         if node.is_variable:
             v = values[node.name]
-            if compute_dtype is not None and v.is_floating_point() and \
-                    v.dtype != compute_dtype and node.name not in keep_dtype:
+            # a QuantizedWeight (int8 serving) passes through untouched
+            if compute_dtype is not None and \
+                    isinstance(v, torch.Tensor) and v.is_floating_point() \
+                    and v.dtype != compute_dtype \
+                    and node.name not in keep_dtype:
                 v = v.to(compute_dtype)
             vals[(id(node), 0)] = v
             continue

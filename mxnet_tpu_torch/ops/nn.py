@@ -1,9 +1,13 @@
 """Layer operators (counterpart of ``mxnet_tpu/ops/nn.py``).
 
 ``FullyConnected`` is one ``torch.matmul`` (the reference leaves the
-product to XLA, outside any Pallas kernel) and ``Activation`` a
-pointwise op.  ``RMSNorm`` and last-axis ``LayerNorm`` normalise over
-the last axis through the doors :func:`rms_norm` / :func:`layer_norm`:
+product to XLA, outside any Pallas kernel), except for a weight that
+arrives as a :class:`~..kernels.dequant_matmul.QuantizedWeight` (int8
+serving, ``ProgramStore(compute_dtype='int8')``): that one goes through
+the ``dequant_matmul`` kernel on the flattened input made contiguous
+fp32, as the reference's door does.  ``Activation`` is a pointwise op.
+``RMSNorm`` and last-axis ``LayerNorm`` normalise over the last axis
+through the doors :func:`rms_norm` / :func:`layer_norm`:
 they view the input as 2D rows and call the kernels' autograd
 Functions (CUDA kernels forward and backward on a CUDA tensor, plain
 versions on a CPU tensor).  A ``LayerNorm`` over any other axis takes
@@ -51,6 +55,7 @@ import torch
 import torch.nn.functional as F
 
 from ..base import MXNetError
+from ..kernels import dequant_matmul as _dq
 from ..kernels import norm as _norm
 from .registry import (Bool, Float, Int, Shape, Str, register,
                        register_alias)
@@ -82,7 +87,14 @@ def _fc_args(attrs):
 
 
 def _fc_fcompute(attrs, data, weight, bias=None):
-    out = torch.matmul(data.reshape(data.shape[0], -1), weight.t())
+    x = data.reshape(data.shape[0], -1)
+    if isinstance(weight, _dq.QuantizedWeight):
+        # int8 weight-only serving: inference only, no training plane
+        # feeds a QuantizedWeight
+        out = _dq.dequant_matmul(x.float().contiguous(), weight.codes,
+                                 weight.scales)
+    else:
+        out = torch.matmul(x, weight.t())
     return out if bias is None else out + bias
 
 

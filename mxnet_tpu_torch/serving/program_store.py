@@ -1,7 +1,10 @@
-"""Generative program store of the serving plane, in PyTorch.
+"""Program stores of the serving plane, in PyTorch.
 
-Counterpart of ``GenerativeProgramStore`` in
-``mxnet_tpu/serving/program_store.py``, for both KV planes: the paged
+Counterpart of ``mxnet_tpu/serving/program_store.py``.  The forward
+plane's :class:`ProgramStore` (bucketed inference over a symbol graph,
+which ``ServingEngine`` and the serving ``Predictor`` run) is described
+in its class docstring.  The rest of this docstring is about
+``GenerativeProgramStore``, for both KV planes: the paged
 plane (the default) and the contiguous plane (``paged=False``).  The
 reference compiles one program per (kind, batch bucket, length bucket)
 ahead of time; the port runs eagerly, so a "program" here is one call of
@@ -32,33 +35,41 @@ accept/reject rule, :func:`spec_verify`, on the device).
 """
 from __future__ import annotations
 
+import collections
+import logging
+import threading
 import time
+from collections import OrderedDict
 
 import numpy as np
 import torch
 
 from ..base import MXNetError, get_env
 from ..context import default_device
-from ..kernels.dequant_matmul import QuantizedWeight
+from ..executor import evaluate, shape_overrides
+from ..kernels.dequant_matmul import QuantizedWeight, quantize_int8
+from ..ndarray import _torch_dtype
 from ..models.transformer_lm import (TransformerLM, decode_apply,
                                      init_cache, init_pool,
                                      init_scale_pool, lm_spec,
                                      paged_step_apply, prefill_apply,
                                      quantize_lm_params)
 
-__all__ = ["GenerativeProgramStore", "bucket_edges", "bucket_for",
-           "sample_tokens", "sample_tokens_p", "spec_verify"]
+__all__ = ["ProgramStore", "GenerativeProgramStore", "bucket_edges",
+           "bucket_for", "sample_tokens", "sample_tokens_p", "spec_verify"]
+
+log = logging.getLogger(__name__)
 
 _KV_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
               "int8": torch.int8}
 
 
-def _weight_bytes(params):
-    """Resident bytes of a param dict grouped by storage dtype (numpy
-    names, as the reference reports them): a QuantizedWeight counts its
-    int8 codes and its fp32 scales."""
+def _weight_bytes(values):
+    """Resident bytes of parameter tensors grouped by storage dtype
+    (numpy names, as the reference reports them): a QuantizedWeight
+    counts its int8 codes and its fp32 scales."""
     by_dtype = {}
-    for v in params.values():
+    for v in values:
         for t in ((v.codes, v.scales) if isinstance(v, QuantizedWeight)
                   else (v,)):
             dt = str(t.dtype).replace("torch.", "")
@@ -650,7 +661,8 @@ class GenerativeProgramStore:
                "kv_block": self.kv_block, "kv_max": self.kv_max,
                "compute_dtype": self._compute,
                "kv_dtype": str(self.kv_dtype).replace("torch.", ""),
-               "weight_bytes": _weight_bytes(self.model.params())}
+               "weight_bytes": _weight_bytes(
+                   self.model.params().values())}
         if self.paged:
             out.update(prefill_chunk=self.prefill_chunk,
                        pool_blocks=self.pool_blocks,
@@ -659,3 +671,500 @@ class GenerativeProgramStore:
         if state is not None:
             out["cache_state"] = state.describe()
         return out
+
+
+# ---------------------------------------------------------------------------
+# The forward plane: bucketed programs over a symbol graph.
+# ---------------------------------------------------------------------------
+def _fc_weight_only_params(symbol):
+    """Variables consumed only as a ``FullyConnected`` weight input: the
+    int8-quantizable set of a symbol graph.  Any other consumer (a norm,
+    an elementwise op, an output head) would receive a
+    :class:`QuantizedWeight` it does not understand, so shared variables
+    stay full precision."""
+    fc_w, other = set(), set()
+    for node in symbol._nodes():
+        if node.is_variable:
+            continue
+        is_fc = node.op.name == "FullyConnected"
+        for idx, (s, _oi) in enumerate(node.arg_inputs()):
+            if s.is_variable:
+                (fc_w if is_fc and idx == 1 else other).add(s.name)
+    for n, _oi in symbol._outputs:
+        if n.is_variable:
+            other.add(n.name)
+    return fc_w - other
+
+
+def _as_tensor(v):
+    """A parameter value (NDArray, tensor or numpy) as a tensor."""
+    v = getattr(v, "_data", v)
+    return v if isinstance(v, torch.Tensor) else torch.from_numpy(
+        np.ascontiguousarray(v))
+
+
+class _Program:
+    """One bucket's plan: the init ops' attributes resolved at the
+    bucket (:func:`~..executor.shape_overrides`), the zero-filled
+    arguments that are neither inputs nor parameters (loss-head
+    labels), which outputs carry the batch axis, and the milliseconds
+    the plan took to build."""
+
+    __slots__ = ("bucket", "attrs", "zeros", "out_batch_major",
+                 "compile_ms")
+
+    def __init__(self, bucket, attrs, zeros, out_batch_major, compile_ms):
+        self.bucket = bucket
+        self.attrs = attrs
+        self.zeros = zeros
+        self.out_batch_major = out_batch_major
+        self.compile_ms = compile_ms
+
+
+class ProgramStore:
+    """Bucketed inference programs for one model (counterpart of the
+    reference's ``ProgramStore``).
+
+    A request of ``n`` rows is zero-padded to the smallest bucket edge
+    ``>= n`` (``MXNET_SERVE_BUCKETS``) and runs that bucket's program.
+    The reference compiles one XLA executable a bucket ahead of time;
+    the port runs eagerly, so a bucket's "program" is its plan
+    (:class:`_Program`), built once and kept in an LRU of
+    ``MXNET_SERVE_PROGRAM_CACHE`` entries with the reference's counters
+    (hits, compiles, evictions, ``compile_ms_total``, which here times
+    the plan's construction).  Running one walks the graph with
+    :func:`~..executor.evaluate`, the walk that ``Executor`` and the
+    trainer's step run too, under ``torch.inference_mode()``.  The
+    reference's key also carries its Pallas dispatch fingerprint (the
+    ``MXNET_PALLAS`` flip); the port has no such flip, so its key is
+    (model, bucket, input signature, dtype tag).
+
+    Parameters are inputs of every bucket, not baked into it: all
+    buckets share one device-resident copy of the weights, and
+    :meth:`swap_params` republishes them atomically without rebuilding
+    anything.  ``compute_dtype='bfloat16'`` casts the floating weights
+    once at load and the floating inputs inside each run; ``'int8'``
+    quantizes the weights that only a ``FullyConnected`` consumes into
+    :class:`QuantizedWeight` pairs (the reference's ``quantize_int8``
+    bits), which the op hands to the ``dequant_matmul`` kernel, with
+    activations in fp32.  Outputs come back float32 either way.
+    ``stats()["weight_bytes"]`` measures the resident bytes by dtype.
+
+    A run pads its inputs on the host, copies each input to the device
+    once (on the card through a pinned buffer, ``non_blocking``; the
+    buffer is kept until an event recorded behind its copy has
+    completed) and enqueues the graph: nothing on the path waits for
+    the device.  The outputs are allocated anew by every run.  Bucket
+    padding changes the batch size the device's libraries see, and with
+    it their choice of algorithm, so a padded row agrees with an
+    unpadded forward within rounding, not bit for bit.  ``device``
+    defaults to ``cuda:0``; ``device='cpu'`` runs the plain versions.
+    """
+
+    def __init__(self, symbol, arg_params, aux_params, input_shapes,
+                 name="model", compute_dtype=None, buckets=None,
+                 max_programs=None, input_dtypes=None, device=None):
+        self._symbol = symbol
+        self.name = name
+        self._edges = bucket_edges(buckets)
+        self._quant8 = bool(compute_dtype) and \
+            str(compute_dtype).lower() == "int8"
+        self._cdt = (None if self._quant8 or not compute_dtype
+                     else _torch_dtype(compute_dtype))
+        self._dtype_tag = ("int8" if self._quant8 else
+                           str(self._cdt).replace("torch.", "")
+                           if self._cdt is not None else None)
+        self._input_names = list(input_shapes)
+        if not self._input_names:
+            raise MXNetError("serving needs at least one input")
+        self._input_tails = {n: tuple(input_shapes[n])[1:]
+                             for n in self._input_names}
+        self._input_dtypes = {
+            n: np.dtype((input_dtypes or {}).get(n, "float32"))
+            for n in self._input_names}
+        self._device = default_device(device)
+        # bucket padding and continuous batching need every output to
+        # carry the batch axis: probe the symbol at two batch sizes
+        probes = []
+        for b in (self._edges[-1], self._edges[-1] + 1):
+            probe = {n: (b,) + self._input_tails[n]
+                     for n in self._input_names}
+            probes.append(symbol.infer_shape_partial(**probe)[1])
+        for oname, s1, s2 in zip(symbol.list_outputs(), *probes):
+            if s1 is None or s2 is None or not len(s1) or not len(s2) \
+                    or s1[0] != self._edges[-1] \
+                    or s2[0] != self._edges[-1] + 1:
+                raise MXNetError(
+                    "output %r of serving model %r is not batch-major "
+                    "(shape %s at batch size %d): bucket padding and "
+                    "continuous batching require row-independent "
+                    "batch-major outputs — serve this model with the "
+                    "classic Predictor instead"
+                    % (oname, name, s1, self._edges[-1]))
+
+        arg_names = symbol.list_arguments()
+        aux_params = aux_params or {}
+        self._param_names = [n for n in arg_names
+                             if n not in input_shapes and n in arg_params]
+        self._zero_args = [n for n in arg_names
+                           if n not in input_shapes
+                           and n not in arg_params]
+        self._quant_names = (_fc_weight_only_params(symbol)
+                             if self._quant8 else frozenset())
+        self._aux_names = symbol.list_auxiliary_states()
+        self._params = {n: self._load_param(arg_params[n], n)
+                        for n in self._param_names}
+        # auxiliary states missing from the params are zero-filled at
+        # their inferred shape
+        shapes = {n: tuple(input_shapes[n]) for n in self._input_names}
+        aux_shapes = symbol.infer_shape_partial(**shapes)[2]
+        aux = []
+        for n, shape in zip(self._aux_names, aux_shapes):
+            if n in aux_params:
+                aux.append(self._load_param(aux_params[n]))
+            elif shape is not None:
+                aux.append(torch.zeros(tuple(shape),
+                                       dtype=self._cdt or torch.float32,
+                                       device=self._device))
+            else:
+                raise MXNetError("auxiliary state %r is not in the params "
+                                 "and its shape cannot be inferred" % n)
+        self._aux = tuple(aux)
+        # the published weight set: a run reads this tuple once, so a
+        # swap is atomic per request
+        self._version = 1
+        self._live = (self._params, self._aux, self._version)
+        self._nodes = symbol._nodes()
+        self._heads = [(id(n), oi) for n, oi in symbol._outputs]
+        if max_programs is None:
+            max_programs = int(get_env("MXNET_SERVE_PROGRAM_CACHE"))
+        self.max_programs = max(1, int(max_programs))
+        if self.max_programs < len(self._edges):
+            log.warning(
+                "serving model %r: program cache (%d) is smaller than "
+                "the bucket count (%d); warmed buckets will be evicted "
+                "and rebuilt inside served requests — raise "
+                "MXNET_SERVE_PROGRAM_CACHE or trim MXNET_SERVE_BUCKETS",
+                name, self.max_programs, len(self._edges))
+        self._programs = OrderedDict()   # key -> _Program
+        self._lock = threading.Lock()
+        self._stats = {"hits": 0, "compiles": 0, "evictions": 0,
+                       "compile_ms_total": 0.0}
+        self._staged = collections.deque()   # (event, pinned buffer)
+
+    def _load_param(self, v, name=None):
+        """One parameter through the serving dtype policy: int8 codes for
+        the FC-weight-only set, floats cast to the compute dtype, a copy
+        on the store's device.  Load and swap share it."""
+        t = _as_tensor(v).detach()
+        if name in self._quant_names and t.dim() == 2 and \
+                t.is_floating_point():
+            codes, scales = quantize_int8(t.float().cpu().numpy())
+            return QuantizedWeight(
+                torch.from_numpy(codes).to(self._device),
+                torch.from_numpy(scales).to(self._device))
+        dtype = self._cdt if self._cdt is not None and \
+            t.is_floating_point() else t.dtype
+        return t.to(device=self._device, dtype=dtype, copy=True)
+
+    # -- hot weight swap -----------------------------------------------
+    def swap_params(self, arg_params, aux_params=None):
+        """Atomically republish the weights.  ``arg_params`` must cover
+        every parameter the store serves, at the loaded shapes and
+        dtypes; ``aux_params=None`` keeps the auxiliary states.  The new
+        set goes through the load's dtype pipeline, then one reference
+        assignment publishes ``(params, aux, version)``: a run reads it
+        once, so no request sees a mix.  Returns the new version."""
+        missing = [n for n in self._param_names if n not in arg_params]
+        if missing:
+            raise MXNetError("swap_params for %r is missing %s"
+                             % (self.name, sorted(missing)))
+        new_params = {}
+        for n in self._param_names:
+            a = self._load_param(arg_params[n], n)
+            old = self._params[n]
+            quant = isinstance(old, QuantizedWeight)
+            if quant != isinstance(a, QuantizedWeight):
+                pairs = None
+            elif quant:
+                pairs = ((a.codes, old.codes), (a.scales, old.scales))
+            else:
+                pairs = ((a, old),)
+            if pairs is None or any(
+                    tuple(x.shape) != tuple(y.shape) or x.dtype != y.dtype
+                    for x, y in pairs):
+                raise MXNetError(
+                    "swap_params for %r: parameter %r does not match "
+                    "the compiled programs' signature (the serving "
+                    "programs are not recompiled on swap)" % (self.name,
+                                                              n))
+            new_params[n] = a
+        if aux_params is None:
+            new_aux = self._aux
+        else:
+            new_aux = []
+            for n, old in zip(self._aux_names, self._aux):
+                if n not in aux_params:
+                    new_aux.append(old)
+                    continue
+                a = self._load_param(aux_params[n])
+                if tuple(a.shape) != tuple(old.shape) or \
+                        a.dtype != old.dtype:
+                    raise MXNetError(
+                        "swap_params for %r: auxiliary state %r does "
+                        "not match the compiled programs' signature"
+                        % (self.name, n))
+                new_aux.append(a)
+            new_aux = tuple(new_aux)
+        with self._lock:
+            self._params = new_params
+            self._aux = new_aux
+            self._version += 1
+            self._live = (new_params, new_aux, self._version)
+        return self._version
+
+    @property
+    def version(self):
+        return self._version
+
+    def param_snapshot(self):
+        """Opaque handle to the live weight set, for
+        :meth:`restore_params`."""
+        params, aux, _ = self._live
+        return (params, aux)
+
+    def restore_params(self, snap):
+        """Atomically republish a :meth:`param_snapshot` (no dtype
+        pipeline, no signature check); the version still rises."""
+        params, aux = snap
+        with self._lock:
+            self._params = dict(params)
+            self._aux = aux
+            self._version += 1
+            self._live = (self._params, self._aux, self._version)
+        return self._version
+
+    # -- geometry ------------------------------------------------------
+    @property
+    def edges(self):
+        return self._edges
+
+    @property
+    def device(self):
+        return self._device
+
+    def max_bucket(self):
+        return self._edges[-1]
+
+    @property
+    def input_names(self):
+        return list(self._input_names)
+
+    def output_names(self):
+        return self._symbol.list_outputs()
+
+    def canon_inputs(self, inputs):
+        """Validate and canonicalize one request's inputs (client-thread
+        work: numpy conversion, dtype cast, shape checks).  Returns
+        ``(dict name -> np.ndarray, n_rows)``."""
+        got, want = set(inputs), set(self._input_names)
+        if got != want:
+            raise MXNetError("serving inputs mismatch for %r: got %s, "
+                             "want %s" % (self.name, sorted(got),
+                                          sorted(want)))
+        out = {}
+        n = None
+        for name in self._input_names:
+            v = getattr(inputs[name], "_data", inputs[name])
+            if isinstance(v, torch.Tensor):
+                v = v.detach().cpu().numpy()
+            a = np.asarray(v, dtype=self._input_dtypes[name])
+            tail = self._input_tails[name]
+            if a.ndim != len(tail) + 1 or tuple(a.shape[1:]) != tail:
+                raise MXNetError(
+                    "input %r has shape %s; want (n,%s)"
+                    % (name, a.shape, ",".join(map(str, tail))))
+            if n is None:
+                n = int(a.shape[0])
+            elif int(a.shape[0]) != n:
+                raise MXNetError("inputs disagree on batch rows: %d vs %d"
+                                 % (n, a.shape[0]))
+            out[name] = a
+        if n < 1:
+            raise MXNetError("empty request (0 rows)")
+        if bucket_for(n, self._edges) is None:
+            raise MXNetError(
+                "request of %d rows exceeds the largest serving bucket "
+                "(%d); raise MXNET_SERVE_BUCKETS or split the request"
+                % (n, self._edges[-1]))
+        return out, n
+
+    # -- programs ------------------------------------------------------
+    def _key(self, bucket):
+        sig = tuple((n, (bucket,) + self._input_tails[n],
+                     str(self._input_dtypes[n]))
+                    for n in self._input_names)
+        return ("serve", self.name, bucket, sig, self._dtype_tag)
+
+    def _compile(self, bucket):
+        """Build one bucket's plan."""
+        tic = time.perf_counter()
+        symbol = self._symbol
+        shapes = {n: (bucket,) + self._input_tails[n]
+                  for n in self._input_names}
+        arg_shapes, out_shapes, _ = symbol.infer_shape_partial(**shapes)
+        zeros = {}
+        for n, s in zip(symbol.list_arguments(), arg_shapes):
+            if n in self._zero_args:
+                if s is None:
+                    raise MXNetError(
+                        "argument %r is neither an input nor in the "
+                        "params and its shape cannot be inferred" % n)
+                zeros[n] = torch.zeros(tuple(s), device=self._device)
+        known = dict(shapes)
+        known.update({n: tuple(a.shape) for n, a in self._params.items()})
+        attrs = shape_overrides(symbol, known, self._device)
+        flags = tuple(s is not None and len(s) > 0 and s[0] == bucket
+                      for s in out_shapes)
+        ms = (time.perf_counter() - tic) * 1e3
+        return _Program(bucket, attrs, zeros, flags, ms)
+
+    def _acquire(self, bucket):
+        """LRU lookup, or build, of one bucket's plan (built outside the
+        lock; a build that lost a race is dropped)."""
+        key = self._key(bucket)
+        with self._lock:
+            prog = self._programs.get(key)
+            if prog is not None:
+                self._programs.move_to_end(key)
+                self._stats["hits"] += 1
+                return prog
+        prog = self._compile(bucket)
+        with self._lock:
+            raced = self._programs.get(key)
+            if raced is not None:
+                self._stats["hits"] += 1
+                return raced
+            self._stats["compiles"] += 1
+            self._stats["compile_ms_total"] += prog.compile_ms
+            while len(self._programs) >= self.max_programs:
+                self._programs.popitem(last=False)
+                self._stats["evictions"] += 1
+            self._programs[key] = prog
+            return prog
+
+    def warmup(self, execute=True):
+        """Build, and by default run once on zeros, every bucket ahead
+        of traffic: a bucket's first run loads kernels and picks cuDNN
+        algorithms, which must not land inside a served request.
+        Returns the per-bucket build times (ms)."""
+        out = {}
+        for b in self._edges:
+            prog = self._acquire(b)
+            out[b] = prog.compile_ms
+            if execute:
+                feed = {n: np.zeros((b,) + self._input_tails[n],
+                                    self._input_dtypes[n])
+                        for n in self._input_names}
+                self._execute(prog, feed, b)
+        if execute and self._device.type == "cuda":
+            torch.cuda.synchronize(self._device)
+        return out
+
+    # -- execution -----------------------------------------------------
+    def _stage(self, v, n, bucket):
+        """One input padded to ``bucket`` rows on the host and copied to
+        the device once."""
+        shape = (bucket,) + tuple(v.shape[1:])
+        if self._device.type == "cpu":
+            if n == bucket:
+                return torch.from_numpy(np.ascontiguousarray(v))
+            pad = np.zeros(shape, v.dtype)
+            pad[:n] = v
+            return torch.from_numpy(pad)
+        host = torch.empty(shape, dtype=_torch_dtype(v.dtype),
+                           pin_memory=True)
+        hv = host.numpy()
+        hv[:n] = v
+        hv[n:] = 0
+        t = host.to(self._device, non_blocking=True)
+        ev = torch.cuda.Event()
+        ev.record(torch.cuda.current_stream(self._device))
+        with self._lock:
+            self._staged.append((ev, host))
+        return t
+
+    def _release_staged(self):
+        """Drop the pinned buffers whose copies have completed (an event
+        query does not wait)."""
+        with self._lock:
+            while self._staged and self._staged[0][0].query():
+                self._staged.popleft()
+
+    def _execute(self, prog, inputs, n):
+        if self._device.type == "cuda":
+            self._release_staged()
+        feed = {name: self._stage(inputs[name], n, prog.bucket)
+                for name in self._input_names}
+        # one read of the published (params, aux, version): the request
+        # runs against one weight version
+        params, aux, _v = self._live
+        values = dict(params)
+        values.update(zip(self._aux_names, aux))
+        values.update(prog.zeros)
+        values.update(feed)
+        with torch.inference_mode():
+            outs, _ = evaluate(self._nodes, self._heads, prog.attrs, values,
+                               False, self._device,
+                               compute_dtype=self._cdt)
+            if self._cdt is not None:
+                outs = [o.float() if o.is_floating_point() else o
+                        for o in outs]
+        return outs
+
+    def run(self, inputs, n=None, slice_outputs=True):
+        """Run ``n`` rows of canonical inputs (:meth:`canon_inputs`)
+        through their bucket.  Returns ``(outputs, bucket,
+        batch_major)``: device tensors, the batch-major ones cut back to
+        ``n`` rows (a view) unless ``slice_outputs=False``, which leaves
+        them bucket-shaped (the engine cuts each request's rows itself);
+        ``batch_major`` flags the outputs that carry the batch axis.
+        The serving engine's dispatch calls this: nothing here waits for
+        the device."""
+        if n is None:
+            n = int(inputs[self._input_names[0]].shape[0])
+        bucket = bucket_for(n, self._edges)
+        if bucket is None:
+            raise MXNetError(
+                "request of %d rows exceeds the largest serving bucket "
+                "(%d)" % (n, self._edges[-1]))
+        prog = self._acquire(bucket)
+        outs = self._execute(prog, inputs, n)
+        if slice_outputs:
+            outs = [o[:n] if bm and n != bucket else o
+                    for o, bm in zip(outs, prog.out_batch_major)]
+        return list(outs), bucket, prog.out_batch_major
+
+    # -- introspection -------------------------------------------------
+    def stats(self):
+        """Build-cache counters, the resident buckets, the version and
+        the resident weight bytes by dtype."""
+        with self._lock:
+            out = dict(self._stats)
+            out["size"] = len(self._programs)
+            out["max_programs"] = self.max_programs
+            out["buckets_resident"] = sorted(
+                p.bucket for p in self._programs.values())
+        out["edges"] = list(self._edges)
+        out["compute_dtype"] = self._dtype_tag
+        params, aux, version = self._live
+        out["version"] = version
+        out["weight_bytes"] = _weight_bytes(list(params.values())
+                                            + list(aux))
+        return out
+
+    def reset_stats(self):
+        with self._lock:
+            for k in ("hits", "compiles", "evictions"):
+                self._stats[k] = 0
+            self._stats["compile_ms_total"] = 0.0

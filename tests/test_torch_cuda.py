@@ -2288,3 +2288,103 @@ def test_device_metrics_need_no_host_sync_on_card(cuda_device):
             assert m.num_inst == h.num_inst, names
             assert abs(m.sum_metric - float(h.sum_metric)) <= \
                 1e-6 * max(abs(float(h.sum_metric)), 1.0), names
+
+
+# ---------------------------------------------------------------------------
+# the forward serving plane
+# ---------------------------------------------------------------------------
+def _smoke_mlp_store(dev, **kw):
+    from mxnet_tpu_torch.serving import ProgramStore, loadgen
+    sym, args = loadgen._smoke_model(512, 2048, 11)
+    return ProgramStore(sym, args, {}, {"data": (1, 512)}, device=dev, **kw)
+
+
+@pytest.mark.cuda
+def test_fc_int8_door_matches_plain_on_card(cuda_device):
+    """``FullyConnected`` with a QuantizedWeight launches
+    ``dequant_matmul`` once, on the flattened input made contiguous
+    (here a transposed view), and equals its plain version: the same
+    op on the CPU (1e-5 x max|ref|)."""
+    from mxnet_tpu_torch.ops.registry import get_op
+    rs = np.random.RandomState(24)
+    x = rs.randn(8, 16, 2, 4).astype(np.float32)     # flattens to K 128
+    codes, scales = dequant_matmul.quantize_int8(
+        rs.uniform(-0.1, 0.1, (1000, 128)).astype(np.float32), "row")
+    bias = rs.randn(1000).astype(np.float32)
+    op = get_op("FullyConnected")
+    attrs = {"num_hidden": 1000, "no_bias": False}
+    outs = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        xt = torch.from_numpy(x).to(dev).permute(0, 1, 3, 2)
+        qw = dequant_matmul.QuantizedWeight(
+            torch.from_numpy(codes).to(dev), torch.from_numpy(scales).to(dev))
+        kernels.reset_launch_counts()
+        outs[dev.type] = op.apply(attrs, [xt, qw, torch.from_numpy(bias)
+                                          .to(dev)])[0][0]
+        torch.cuda.synchronize()
+        assert kernels.launch_counts()["dequant_matmul"] == \
+            (dev.type == "cuda")
+    want = outs["cpu"]
+    err = (outs["cuda"].cpu() - want).abs().max().item()
+    assert err <= 1e-5 * want.abs().max().item(), err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [None, "bfloat16", "int8"])
+def test_store_run_needs_no_host_sync_on_card(cuda_device, dtype):
+    """``ProgramStore.run`` at every bucket (full and one row short)
+    queues its copies and kernels with no host synchronisation, and
+    allocates its outputs anew each run."""
+    st = _smoke_mlp_store(cuda_device, compute_dtype=dtype)
+    st.warmup()
+    x = np.random.RandomState(3).uniform(-1, 1, (32, 512)).astype(np.float32)
+    outs = []
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for b in st.edges:
+            for n in sorted({b, max(1, b - 1)}):
+                outs.append((n, st.run({"data": x[:n]}, n=n)[0][0]))
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    ptrs = [o.data_ptr() for _, o in outs]
+    assert len(set(ptrs)) == len(ptrs)
+    full = st.run({"data": x})[0][0].cpu()
+    for n, o in outs:
+        assert o.shape == (n, 10) and o.dtype == torch.float32
+        tol = 1e-5 if dtype is None else 2e-2
+        assert (o.cpu() - full[:n]).abs().max().item() <= \
+            tol * full.abs().max().item()
+
+
+@pytest.mark.cuda
+def test_engine_serves_resnet50_as_predictor_on_card(cuda_device):
+    """ResNet-50 at full width through ``ModelRegistry.add_model`` and
+    ``ServingEngine`` on the card: two one-image requests against the
+    classic ``Predictor`` (card, batch 2) on the same parameters, fp32
+    within 1e-5 x max|ref|; the head's kernel launched."""
+    from mxnet_tpu_torch.serving import ModelRegistry, ServingEngine
+    mx.random.seed(15)
+    net = mx.models.resnet(num_classes=1000, num_layers=50)
+    mod = mx.Module(net, context=cuda_device, label_names=None)
+    mod.bind(data_shapes=[("data", (2, 3, 224, 224))], for_training=False)
+    mod.init_params(initializer=mx.init.Xavier(magnitude=2.0))
+    arg, aux = mod.get_params()
+    arg.pop("softmax_label")
+    x = np.random.RandomState(25).uniform(-1, 1, (2, 3, 224, 224)).astype(
+        np.float32)
+    params = {"arg:%s" % k: v for k, v in arg.items()}
+    params.update({"aux:%s" % k: v for k, v in aux.items()})
+    pred = mx.Predictor(net.tojson(), params, {"data": (2, 3, 224, 224)})
+    want = pred.forward(data=x)[0].asnumpy()
+    reg = ModelRegistry()
+    reg.add_model("resnet-50", net, arg, aux,
+                  input_shapes={"data": (1, 3, 224, 224)}, buckets=(1, 2))
+    kernels.reset_launch_counts()
+    with ServingEngine(reg, max_delay_ms=50.0) as eng:
+        futs = [eng.submit("resnet-50", data=x[i:i + 1]) for i in range(2)]
+        got = np.concatenate([f.result(60)[0].cpu().numpy() for f in futs])
+    assert kernels.launch_counts()["softmax_rows"] >= 1
+    rel = np.abs(got - want).max() / np.abs(want).max()
+    assert rel <= 1e-5, rel

@@ -881,12 +881,11 @@ def test_stager_runs_on_a_producer_thread_and_fit_is_unchanged(monkeypatch):
 # tooling); the TPU context has no counterpart
 STILL_TO_EXPORT = {
     "FeedForward", "operator", "visualization", "viz",  # 4
-    "Predictor", "predictor", "deploy",  # 5
     "data", "image", "recordio",  # 6
     "KVStore", "create_kvstore", "kv", "kvstore", "kvstore_server",
     "executor_manager",  # 7
     "metrics", "profiler", "tracing", "faultinject",  # 8
-    "test_utils", "pallas_ops",  # 9
+    "pallas_ops",  # 9
     "tpu",
 }
 PORT_ONLY = {"GenerationEngine", "ModelRegistry", "TokenStream", "kernels",
