@@ -468,6 +468,20 @@ phase 22b one over five steps each of phases 22 and 22b, and after
 phase 25 one over its fp32 traffic (the device's busy share of the
 schedule).
 
+Phases 26-26d drive the detection slice, SSD-VGG16 as
+``examples/ssd/train.py`` trains it (300 x 300, 20 classes, 8732
+anchors, batch 32, fp32; no hand kernel runs on this path): 26 trains
+on ``Module``'s fused route, 20 steps on one fixed synthetic batch with
+no host sync in the timed steps and both parts of the objective (class
+and box) falling, then one epoch through ``fit`` with ``metric.Loss``,
+and runs ``tests/ssd_loss_witness.py``'s batch-2 steps, whose box part
+must fall as a box branch that trains makes it fall; 26b holds the fused route's
+parameters to the classic route's after 3 steps; 26c holds a batch-2
+step on the card to the CPU's, the MultiBox decisions replayed on the
+CPU from the card's inputs bit for bit; 26d detects through
+``Module.predict`` and ``Predictor``.  ``--profile`` adds a profiler
+window over five of phase 26's steps.
+
 The last lines are a JSON object of per-kernel numbers, the card's name
 and power limit as nvidia-smi reports them, and the result object.
 Exits non-zero, printing no result, without a CUDA device.
@@ -494,6 +508,8 @@ from mxnet_tpu_torch import flops, kernels
 from mxnet_tpu_torch.kernels import (_build, dequant_matmul, flash_attention,
                                      norm, paged_attention, softmax_xent)
 from mxnet_tpu_torch.models import transformer_lm as tlm
+from mxnet_tpu_torch.models.ssd import _RATIOS as SSD_RATIOS
+from mxnet_tpu_torch.models.ssd import _SIZES as SSD_SIZES
 from mxnet_tpu_torch.models.lstm_lm import sym_gen_factory
 from mxnet_tpu_torch.ops import nn as layer_ops
 from mxnet_tpu_torch.ops import rnn_op
@@ -7287,6 +7303,735 @@ def phase_serve_swap(dev, card):
                                   st["batches"], version, card))
 
 
+# ---------------------------------------------------------------------------
+# phases 26-26d: the detection slice, SSD-VGG16 as examples/ssd/train.py
+# trains it (300 x 300, 20 classes + background, 8732 anchors, batch 32,
+# fp32): no hand kernel runs on this path (the MultiBox ops, the
+# multi-output softmax head and the smooth-L1 loss are plain PyTorch, as
+# the reference's are XLA; the convolutions cuDNN)
+# ---------------------------------------------------------------------------
+SSD = dict(num_classes=20, batch=32, image=(3, 300, 300), anchors=8732)
+SSD_OPT = {"learning_rate": 0.002, "momentum": 0.9, "wd": 5e-4}
+SSD_STEPS = 20          # updates on the fixed batch (seed 26)
+SSD_WARMUP = 3          # steps before the timed window
+SSD_EPOCH = 8           # fresh batches of the fit with metric.Loss
+SSD_PROFILE_STEPS = 2   # the profiler window that counts launches a step
+# phase 26's box witness: tests/ssd_loss_witness.py's run (batch 2, seed
+# 26, SSD_STEPS steps) on the card.  On the CPU its box part fell 1.72%
+# on the reference and on the port, and 0.16% with the box branch cut
+# (only the class part trained): the card's must fall by SSD_BOX_FALL
+SSD_WITNESS_BATCH = 2
+SSD_BOX_FALL = 0.008
+SSD_ROUTE_STEPS = 3     # phase 26b
+SSD_ROUTE_TOL = 1e-5
+SSD_CPU_BATCH = 2       # phase 26c
+SSD_CPU_TOL = 1e-4
+SSD_LOC_TOL = 1e-6      # replayed loc_target, scores, boxes: absolute
+SSD_PREDICT_BATCHES = 2     # phase 26d: batches of 32 through predict
+SSD_PREDICTOR_IMAGES = 8    # single images through Predictor
+SSD_PREDICT_TOL = 1e-5
+SSD_NMS_THRESH = 0.45
+SSD_NMS_TOPK = 400
+SSD_INTERNALS = ("multibox_anchors_output", "multibox_cls_pred_output",
+                 "multibox_loc_pred_output")
+
+
+class SyntheticDetIter(mx.io.DataIter):
+    """A copy of ``examples/ssd/train.py``'s ``SyntheticDetIter`` (that
+    file imports the JAX package): scenes with 1-2 axis-aligned colored
+    boxes on noise; label rows are [cls, xmin, ymin, xmax, ymax] padded
+    with -1 (reference det format)."""
+
+    def __init__(self, num_classes, batch_size, data_shape, num_batches,
+                 seed=0):
+        super().__init__(batch_size)
+        self.rs = np.random.RandomState(seed)
+        self.num_classes = num_classes
+        self.data_shape = data_shape
+        self.num_batches = num_batches
+        self.cur = 0
+        self.provide_data = [mx.io.DataDesc(
+            "data", (batch_size,) + data_shape)]
+        self.provide_label = [mx.io.DataDesc("label", (batch_size, 2, 5))]
+
+    def reset(self):
+        self.cur = 0
+
+    def next(self):
+        if self.cur >= self.num_batches:
+            raise StopIteration
+        self.cur += 1
+        b = self.batch_size
+        c, h, w = self.data_shape
+        data = self.rs.uniform(-1, 1, (b, c, h, w)).astype(np.float32) * 0.1
+        label = np.full((b, 2, 5), -1.0, dtype=np.float32)
+        for i in range(b):
+            for j in range(self.rs.randint(1, 3)):
+                cls = self.rs.randint(0, self.num_classes)
+                x0, y0 = self.rs.uniform(0.05, 0.5, 2)
+                bw, bh = self.rs.uniform(0.2, 0.45, 2)
+                x1, y1 = min(x0 + bw, 0.95), min(y0 + bh, 0.95)
+                px0, py0 = int(x0 * w), int(y0 * h)
+                px1, py1 = int(x1 * w), int(y1 * h)
+                data[i, cls % c, py0:py1, px0:px1] += 1.0
+                label[i, j] = [cls, x0, y0, x1, y1]
+        return mx.io.DataBatch(data=[mx.nd.array(data)],
+                               label=[mx.nd.array(label)], pad=0)
+
+
+def ssd_iter(batch, num_batches, seed):
+    return SyntheticDetIter(SSD["num_classes"], batch, SSD["image"],
+                            num_batches, seed=seed)
+
+
+def ssd_module(ctx, batch):
+    """The example's module: ``ssd_train(20)`` with ``data`` and
+    ``label``, bound for training at ``batch``."""
+    mod = mx.Module(mx.models.ssd_train(num_classes=SSD["num_classes"]),
+                    data_names=("data",), label_names=("label",),
+                    context=ctx)
+    it = ssd_iter(batch, 1, 0)
+    mod.bind(data_shapes=it.provide_data, label_shapes=it.provide_label)
+    return mod
+
+
+def ssd_batch(ctx, batch, seed):
+    """One batch of ``SyntheticDetIter`` (seed ``seed``) on ``ctx``."""
+    with ctx:
+        return next(iter(ssd_iter(batch, 1, seed)))
+
+
+def ssd_objective(outs):
+    """The step's objective from its outputs ``[cls_prob, loc_loss,
+    cls_label, det_out]``: the cross entropy over the anchors that are
+    not ignored (the softmax head's ``normalization='valid'``) plus the
+    smooth-L1 box loss over its non-zero elements (``MakeLoss``'s
+    ``valid``).  Returns (class part, box part) as floats."""
+    prob, loc, label = (o._data.float() for o in outs[:3])
+    valid = label >= 0
+    p = torch.gather(prob, 1, label.clamp(min=0).long().unsqueeze(1))[:, 0]
+    ce = -(torch.log(p) * valid).sum() / valid.sum().clamp(min=1)
+    box = loc.sum() / (loc != 0).sum().clamp(min=1)
+    return float(ce), float(box)
+
+
+def ssd_params(mod):
+    """A module's parameters as host numpy arrays."""
+    arg, _ = mod.get_params()
+    return {n: v.asnumpy() for n, v in arg.items()}
+
+
+def ssd_steps(mod, batch, steps):
+    for _ in range(steps):
+        mod.forward_backward(batch)
+        mod.update()
+
+
+def check_ssd_outputs(tag, outs, batch):
+    """Fatal unless the training group's outputs have the example's
+    shapes and are finite, ``cls_label`` holds positives, mined negatives
+    and ignored anchors, and ``det_out`` keeps some rows."""
+    a, c = SSD["anchors"], SSD["num_classes"] + 1
+    want = [(batch, c, a), (batch, a * 4), (batch, a), (batch, a, 6)]
+    got = [tuple(o.shape) for o in outs]
+    label = outs[2]._data
+    finite = all(bool(torch.isfinite(o._data).all()) for o in outs)
+    kinds = [int((label > 0).sum()), int((label == 0).sum()),
+             int((label == -1).sum())]
+    kept = int((outs[3]._data[..., 0] >= 0).sum())
+    if got != want or not finite or min(kinds) == 0 or kept == 0:
+        raise SystemExit("chip_smoke: phase %s outputs %s (want %s), finite "
+                         "%s, positive / mined / ignored anchors %s, "
+                         "detections kept %d" % (tag, got, want, finite,
+                                                 kinds, kept))
+    return kinds, kept
+
+
+def nms_cost(dev, cls_prob):
+    """``MultiBoxDetection`` alone on the class probabilities
+    ``cls_prob`` (a step's, or its first image's) and random box deltas:
+    its host ms to return a call, its device ms, and its launches (a
+    profiler window over one call)."""
+    op = get_op("MultiBoxDetection")
+    attrs = op.parse_attrs({"nms_threshold": 0.5, "nms_topk": SSD_NMS_TOPK,
+                            "variances": (0.1, 0.1, 0.2, 0.2)})
+    rs = np.random.RandomState(26)
+    loc = torch.from_numpy(rs.normal(0, 0.5, (cls_prob.shape[0],
+                                              SSD["anchors"] * 4))
+                           .astype(np.float32)).to(dev)
+    anchors = ssd_anchors(dev)
+    op.fcompute(attrs, cls_prob, loc, anchors)
+    torch.cuda.synchronize()
+    host, device = [], []
+    for _ in range(5):
+        start, end = (torch.cuda.Event(enable_timing=True)
+                      for _ in range(2))
+        tic = time.perf_counter()
+        start.record()
+        op.fcompute(attrs, cls_prob, loc, anchors)
+        end.record()
+        host.append((time.perf_counter() - tic) * 1e3)
+        torch.cuda.synchronize()
+        device.append(start.elapsed_time(end))
+    prof = torch.profiler.profile(activities=[
+        torch.profiler.ProfilerActivity.CPU,
+        torch.profiler.ProfilerActivity.CUDA])
+    with prof:
+        op.fcompute(attrs, cls_prob, loc, anchors)
+        torch.cuda.synchronize()
+    launches = sum(e.count for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    return statistics.median(host), statistics.median(device), launches
+
+
+def device_busy_ms(prof):
+    """The time a profiler window kept the device busy, in ms: the union
+    of its kernels' and copies' intervals (a copy on a side stream may
+    overlap a kernel)."""
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    busy, end = 0.0, -float("inf")
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return busy / 1e3
+
+
+def ssd_anchors(dev):
+    """The 8732 anchors of SSD-300's six feature maps, as the network's
+    ``MultiBoxPrior`` layers make them."""
+    op = get_op("MultiBoxPrior")
+    maps = ((38, 38), (19, 19), (10, 10), (5, 5), (3, 3), (1, 1))
+    parts = [op.fcompute(op.parse_attrs({"sizes": s, "ratios": r}),
+                         torch.empty((1, 1) + hw, device=dev))
+             for hw, s, r in zip(maps, SSD_SIZES, SSD_RATIOS)]
+    return torch.cat(parts, dim=1)
+
+
+def phase_ssd(dev, card):
+    """Phase 26: ``ssd_train(20)`` as ``examples/ssd/train.py`` trains it
+    (SGD lr 0.002, momentum 0.9, wd 5e-4, Xavier) on ``Module``'s
+    default, fused route: SSD_STEPS + 1 steps of
+    ``forward_backward`` + ``update`` on one fixed ``SyntheticDetIter``
+    batch of 32 (seed 26), the steps after SSD_WARMUP timed under
+    ``set_sync_debug_mode('error')`` (no host sync a step), then the
+    launches a step over a profiler window of SSD_PROFILE_STEPS steps,
+    ``MultiBoxDetection``'s cost alone (``nms_cost``), and one epoch of
+    SSD_EPOCH fresh batches (seed 27) through ``fit`` with the example's
+    ``metric.Loss`` and ``Speedometer``.  Fatal unless the route is the
+    fused one, no kernel wrapper is called (no hand kernel is on this
+    path), the outputs are ``check_ssd_outputs``'s, and each part of the
+    objective (``ssd_objective``: the class part and the box part) after
+    SSD_STEPS updates is below its value before the first.  Prints the
+    share of the matched box coordinates whose smooth-L1 fell, and the
+    device's busy share of the profiler window's own wall time
+    (``device_busy_ms``).  Returns the launch counts, the initial
+    parameters (for phases 26b and 26c), the trained ones (26d), ms a
+    step and ``MultiBoxDetection``'s host ms a call at batch 1."""
+    tag = "26"
+    ctx = mx.gpu(dev.index)
+    batch = ssd_batch(ctx, SSD["batch"], 26)
+    np.random.seed(26)
+    mx.random.seed(26)
+    mod = ssd_module(ctx, SSD["batch"])
+    mod.init_params(initializer=mx.init.Xavier())
+    start = ssd_params(mod)
+    with module_route(True):
+        mod.init_optimizer(optimizer="sgd", optimizer_params=dict(SSD_OPT))
+    check_route(tag, mod, True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    kernels.reset_launch_counts()
+    events = []
+    with plain_guard() as plain:
+        try:
+            for step in range(SSD_STEPS + 1):
+                if step == SSD_WARMUP:
+                    torch.cuda.synchronize()
+                    tic = time.perf_counter()
+                    # the timed steps must never wait for the card
+                    torch.cuda.set_sync_debug_mode("error")
+                if SSD_WARMUP <= step < SSD_STEPS:
+                    events.append(torch.cuda.Event(enable_timing=True))
+                    events[-1].record()
+                ssd_steps(mod, batch, 1)
+                if step == SSD_STEPS - 1:
+                    events.append(torch.cuda.Event(enable_timing=True))
+                    events[-1].record()
+                    torch.cuda.set_sync_debug_mode(0)
+                    torch.cuda.synchronize()
+                    sec = time.perf_counter() - tic
+                if step == 0:
+                    loss0 = ssd_objective(mod.get_outputs())
+                    box0 = mod.get_outputs()[1]._data.clone()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        outs = mod.get_outputs()
+        loss20 = ssd_objective(outs)
+    counts = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    timed = SSD_STEPS - SSD_WARMUP
+    step_ms = sec * 1e3 / timed
+    per_step = [a.elapsed_time(b) for a, b in zip(events, events[1:])]
+    kinds, kept = check_ssd_outputs(tag, outs, SSD["batch"])
+    if plain or any(counts.values()):
+        raise SystemExit("chip_smoke: phase %s reached a kernel wrapper: "
+                         "launches %s, plain %s" % (
+                             tag, {k: v for k, v in counts.items() if v},
+                             dict(plain)))
+    # matching depends on the anchors and the labels only: the same
+    # coordinates are matched at both steps
+    matched = box0 != 0
+    box_fell = float((outs[1]._data[matched] < box0[matched]).float().mean())
+    if not (np.isfinite(sum(loss0)) and loss20[0] < loss0[0] and
+            loss20[1] < loss0[1]):
+        raise SystemExit("chip_smoke: phase %s objective (class, box) %s at "
+                         "step 0, %s after %d steps: a part did not fall"
+                         % (tag, loss0, loss20, SSD_STEPS))
+    prof = torch.profiler.profile(activities=[
+        torch.profiler.ProfilerActivity.CPU,
+        torch.profiler.ProfilerActivity.CUDA])
+    with prof:
+        torch.cuda.synchronize()
+        tic = time.perf_counter()
+        ssd_steps(mod, batch, SSD_PROFILE_STEPS)
+        torch.cuda.synchronize()
+        window_ms = (time.perf_counter() - tic) * 1e3
+    on_card = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    launches = sum(e.count for e in on_card) / SSD_PROFILE_STEPS
+    busy_ms = device_busy_ms(prof)
+    nms_host, nms_dev, nms_launches = nms_cost(dev, outs[0]._data)
+    # at one image, as Predictor calls it (phase 26d)
+    nms1 = nms_cost(dev, outs[0]._data[:1].contiguous())
+    log("phase %s SSD-VGG16 training (examples/ssd/train.py): 20 classes, "
+        "batch %d, %s, %d anchors, fp32, fused route: objective %.4f + "
+        "%.6f at step 0, %.4f + %.6f after %d steps (cross entropy over "
+        "the anchors not ignored + smooth-L1 box loss; the smooth-L1 of "
+        "%.4f of the matched box coordinates fell); steps %d..%d with "
+        "no host sync: %.3f ms a step, %.1f images/s (per step on the "
+        "device's clock: min %.3f, median %.3f, max %.3f ms); a %d-step "
+        "profiler window: %.0f launches a step, the device busy %.3f of "
+        "its %.3f ms a step (%.1f%%; the union of the kernels' and "
+        "copies' intervals over the window's wall time); peak memory "
+        "%.3f GB; anchors positive / mined / ignored %s, detections kept "
+        "%d; MultiBoxDetection alone (top %d, %d NMS steps): %.3f ms of "
+        "host to return, %.3f ms on the device, %d launches a call; at "
+        "batch 1 %.3f ms of host, %.3f ms on the device, %d launches [%s]"
+        % (tag, SSD["batch"], "x".join(map(str, SSD["image"])),
+           SSD["anchors"], loss0[0], loss0[1], loss20[0], loss20[1],
+           SSD_STEPS, box_fell, SSD_WARMUP + 1, SSD_STEPS, step_ms,
+           SSD["batch"] * 1e3 / step_ms, min(per_step),
+           statistics.median(per_step), max(per_step), SSD_PROFILE_STEPS,
+           launches, busy_ms / SSD_PROFILE_STEPS,
+           window_ms / SSD_PROFILE_STEPS, 100 * busy_ms / window_ms,
+           peak / 1e9, kinds, kept, SSD_NMS_TOPK, SSD_NMS_TOPK, nms_host,
+           nms_dev, nms_launches, nms1[0], nms1[1], nms1[2], card))
+    # one epoch of fresh batches through fit, with the example's metric
+    metric = mx.metric.Loss()
+    train = ssd_iter(SSD["batch"], SSD_EPOCH, 27)
+    tic = time.perf_counter()
+    with ctx, plain_guard() as plain:
+        mod.fit(train, num_epoch=1, optimizer="sgd",
+                optimizer_params=dict(SSD_OPT),
+                initializer=mx.init.Xavier(), eval_metric=metric,
+                batch_end_callback=mx.callback.Speedometer(SSD["batch"], 2))
+        torch.cuda.synchronize()
+    fit_sec = time.perf_counter() - tic
+    outs = mod.get_outputs()
+    check_ssd_outputs(tag, outs, SSD["batch"])
+    torch.cuda.synchronize()
+    tic = time.perf_counter()
+    mx.metric.Loss().update(None, outs)
+    metric_ms = (time.perf_counter() - tic) * 1e3
+    value = metric.get()[1]
+    if plain or any(kernels.launch_counts().values()) or \
+            not np.isfinite(value):
+        raise SystemExit("chip_smoke: phase %s fit: metric.Loss %s, plain "
+                         "%s" % (tag, value, dict(plain)))
+    log("phase %s fit: one epoch of %d fresh batches (seed 27) with "
+        "metric.Loss in %.3f s, %.1f images/s with data made on the host "
+        "and the metric's host copy of every output each batch (%.3f ms "
+        "of it a batch, timed alone); metric.Loss %.4f [%s]"
+        % (tag, SSD_EPOCH, fit_sec, SSD_EPOCH * SSD["batch"] / fit_sec,
+           metric_ms, value, card))
+    return counts, start, ssd_params(mod), step_ms, nms1[0]
+
+
+def phase_ssd_box_witness(dev, card):
+    """Phase 26's box witness: ``tests/ssd_loss_witness.py``'s run on the
+    card, SSD_STEPS fused steps of ``ssd_train(20)`` at batch
+    SSD_WITNESS_BATCH on one ``SyntheticDetIter`` batch (seed 26) from
+    the port's ``Xavier()`` draw of seed 26.  MakeLoss's ``valid``
+    normalization divides the box gradient by the batch's matched
+    coordinates and ``rescale_grad`` by the batch again, so at batch 32
+    (phase 26) an update moves the box heads about 16 times less than
+    here, and the box part hardly moves in 20 steps.  Fatal unless the class part falls and the
+    box part falls by SSD_BOX_FALL of its first value, which a box branch
+    that trains meets and one that does not fails (the witness's
+    numbers, beside SSD_BOX_FALL).  Prints both parts at steps 0, 10
+    and 20, the share of the matched box coordinates whose smooth-L1
+    fell, and the sum of |conv1_1_weight| (the witness prints it: the
+    same draw)."""
+    ctx = mx.gpu(dev.index)
+    batch = ssd_batch(ctx, SSD_WITNESS_BATCH, 26)
+    mod = ssd_module(ctx, SSD_WITNESS_BATCH)
+    np.random.seed(26)
+    mx.random.seed(26)
+    mod.init_params(initializer=mx.init.Xavier())
+    draw = float(np.abs(ssd_params(mod)["conv1_1_weight"]).sum(
+        dtype=np.float64))
+    with module_route(True):
+        mod.init_optimizer(optimizer="sgd", optimizer_params=dict(SSD_OPT))
+    check_route("26", mod, True)
+    parts = []
+    for step in range(SSD_STEPS + 1):
+        mod.forward_backward(batch)
+        parts.append(ssd_objective(mod.get_outputs()))
+        if step == 0:
+            box0 = mod.get_outputs()[1]._data.clone()
+        mod.update()
+    box = mod.get_outputs()[1]._data
+    matched = box0 != 0
+    fell = float((box[matched] < box0[matched]).float().mean())
+    (c0, b0), (c1, b1) = parts[0], parts[-1]
+    line = ("phase 26 box witness (tests/ssd_loss_witness.py on the card): "
+            "batch %d, fused route, sum |conv1_1_weight| %.6f; class part "
+            "%.6f / %.6f / %.6f, box part %.6f / %.6f / %.6f at steps 0 / "
+            "%d / %d (the box part fell %.3f%%, gate %.1f%%); the smooth-L1 "
+            "of %.4f of the matched box coordinates fell [%s]"
+            % (SSD_WITNESS_BATCH, draw, c0, parts[SSD_STEPS // 2][0], c1,
+               b0, parts[SSD_STEPS // 2][1], b1, SSD_STEPS // 2, SSD_STEPS,
+               100 * (1 - b1 / b0), 100 * SSD_BOX_FALL, fell, card))
+    if not (c1 < c0 and b1 <= (1 - SSD_BOX_FALL) * b0):
+        raise SystemExit("chip_smoke: " + line)
+    log(line)
+
+
+def profile_ssd(dev, card, step_ms, start, warmup=3, steps=5):
+    """``--profile``: ``torch.profiler`` over ``steps`` fused steps of
+    phase 26 after ``warmup``, from its initial parameters: device time
+    and launches a step, the device's busy share of the window's own
+    wall time (``device_busy_ms``), the top ops."""
+    ctx = mx.gpu(dev.index)
+    batch = ssd_batch(ctx, SSD["batch"], 26)
+    mod = ssd_module(ctx, SSD["batch"])
+    mod.init_params(arg_params=start, aux_params={})
+    with module_route(True):
+        mod.init_optimizer(optimizer="sgd", optimizer_params=dict(SSD_OPT))
+    ssd_steps(mod, batch, warmup)
+    prof = torch.profiler.profile(activities=[
+        torch.profiler.ProfilerActivity.CPU,
+        torch.profiler.ProfilerActivity.CUDA])
+    with prof:
+        # the window: the steps, not the profiler's start and stop
+        torch.cuda.synchronize()
+        tic = time.perf_counter()
+        ssd_steps(mod, batch, steps)
+        torch.cuda.synchronize()
+        window_ms = (time.perf_counter() - tic) * 1e3 / steps
+    report_profile("26", prof, steps, step_ms, window_ms, card)
+    busy_ms = device_busy_ms(prof) / steps
+    log("profile 26: the device busy %.3f of the window's %.3f ms a step "
+        "(%.1f%%; the union of the kernels' and copies' intervals) [%s]"
+        % (busy_ms, window_ms, 100 * busy_ms / window_ms, card))
+
+
+def phase_ssd_routes(dev, card, start):
+    """Phase 26b: SSD_ROUTE_STEPS steps of phase 26's module from its
+    initial parameters on the fused route, then the same steps on the
+    classic route (``MXNET_MODULE_FUSED=0``), back to back, both with
+    cuDNN's deterministic algorithms: its default backward algorithms
+    sum in an order that changes from run to run, which moved a bias
+    that starts at 0 by 6e-4 x its max after 3 steps, and a logit's
+    noise can move a mining cut.  Fatal unless every parameter
+    (``0_scale``, whose ``wd_mult`` is 0.1, included) agrees within
+    SSD_ROUTE_TOL x max|classic|."""
+    ctx = mx.gpu(dev.index)
+    batch = ssd_batch(ctx, SSD["batch"], 26)
+    got, ms = {}, {}
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for fused in (True, False):
+            mod = ssd_module(ctx, SSD["batch"])
+            mod.init_params(arg_params=start, aux_params={})
+            with module_route(fused):
+                mod.init_optimizer(optimizer="sgd",
+                                   optimizer_params=dict(SSD_OPT))
+            check_route("26b", mod, fused)
+            ssd_steps(mod, batch, 1)
+            torch.cuda.synchronize()
+            tic = time.perf_counter()
+            ssd_steps(mod, batch, SSD_ROUTE_STEPS - 1)
+            torch.cuda.synchronize()
+            ms[fused] = (time.perf_counter() - tic) * 1e3 / \
+                (SSD_ROUTE_STEPS - 1)
+            got[fused] = ssd_params(mod)
+            del mod
+    finally:
+        torch.backends.cudnn.deterministic = saved
+    worst = max(((float(np.abs(got[True][n] - w).max() /
+                        max(np.abs(w).max(), 1e-30)), n)
+                 for n, w in got[False].items()))
+    moved = float(np.abs(got[False]["0_scale"] - start["0_scale"]).max())
+    if not worst[0] <= SSD_ROUTE_TOL or not moved > 0:
+        raise SystemExit("chip_smoke: phase 26b fused vs classic after %d "
+                         "steps: %s at %.3e x max|classic| (tol %g); 0_scale "
+                         "moved %.3e" % (SSD_ROUTE_STEPS, worst[1], worst[0],
+                                         SSD_ROUTE_TOL, moved))
+    log("phase 26b SSD fused vs classic route, %d steps from phase 26's "
+        "initial parameters, cuDNN deterministic: worst parameter %s at "
+        "%.3e x max|classic| "
+        "(tol %g; 0_scale moved %.3e); steps 2..%d %.3f ms a step fused, "
+        "%.3f classic, ratio %.3f [%s]"
+        % (SSD_ROUTE_STEPS, worst[1], worst[0], SSD_ROUTE_TOL, moved,
+           SSD_ROUTE_STEPS, ms[True], ms[False], ms[True] / ms[False], card))
+
+
+def ssd_step_on(ctx, start, batch, kinks, target=None):
+    """One classic-route ``forward_backward`` + ``update`` of
+    ``ssd_train(20)`` at SSD_CPU_BATCH on ``ctx`` from ``start``, its ReLU
+    and max-pool decisions recorded into or replayed from ``kinks``;
+    ``target`` (a MultiBoxTarget's outputs) replaces the op's own.
+    Returns the outputs, gradients and updated parameters as numpy, the
+    internals of SSD_INTERNALS and the op's own targets."""
+    mod = ssd_module(ctx, SSD_CPU_BATCH)
+    mod.init_params(arg_params=start, aux_params={})
+    with module_route(False):
+        mod.init_optimizer(optimizer="sgd", optimizer_params=dict(SSD_OPT))
+    exe = mod._exec_group.executor
+    seen = {}
+    exe.set_monitor_callback(
+        lambda name, a: seen.__setitem__(name, a._data.detach().clone())
+        if name in SSD_INTERNALS else None)
+    op = get_op("MultiBoxTarget")
+    own_fc = op.fcompute
+    own = []
+
+    def target_fc(attrs, *ins):
+        out = own_fc(attrs, *ins)
+        own.append(out)
+        if target is None:
+            return out
+        return tuple(t.to(ins[0].device) for t in target)
+
+    op.fcompute = target_fc
+    try:
+        with kinks.patched():
+            mod.forward_backward(batch)
+    finally:
+        op.fcompute = own_fc
+    mod.update()
+    out = {("output", i): o.asnumpy() for i, o in
+           enumerate(mod.get_outputs())}
+    out.update((("gradient", n), g.asnumpy()) for n, g in
+               exe.grad_dict.items() if n in start)
+    out.update((("parameter", n), v) for n, v in ssd_params(mod).items())
+    return out, seen, own[0]
+
+
+def phase_ssd_vs_cpu(dev, card, start):
+    """Phase 26c: one classic-route step of ``ssd_train(20)`` at batch
+    SSD_CPU_BATCH from phase 26's initial parameters on the card and on
+    the CPU.  The MultiBox decisions are replayed on the CPU from the
+    card's inputs (its anchors, label, class and box predictions and
+    probabilities): ``cls_target`` and ``loc_mask`` bit-equal, detection
+    ids and row order bit-equal, ``loc_target``, scores and boxes within
+    SSD_LOC_TOL.  The CPU step then replays the card's ReLU and max-pool
+    decisions (``KinkDecisions``) and its targets, and every output,
+    gradient and updated parameter must be within SSD_CPU_TOL x
+    max|cpu|; the decisions the CPU would have taken otherwise are
+    printed."""
+    ctx, cpu = mx.gpu(dev.index), mx.cpu()
+    card_kinks = KinkDecisions()
+    on_card, seen, card_target = ssd_step_on(
+        ctx, start, ssd_batch(ctx, SSD_CPU_BATCH, 262), card_kinks)
+    anchors, cls_pred, loc_pred = (seen[n].cpu() for n in SSD_INTERNALS)
+    label = torch.from_numpy(ssd_batch(cpu, SSD_CPU_BATCH, 262)
+                             .label[0].asnumpy())
+    t_op, d_op = get_op("MultiBoxTarget"), get_op("MultiBoxDetection")
+    t_attrs = t_op.parse_attrs(dict(
+        overlap_threshold=.5, ignore_label=-1, negative_mining_ratio=3,
+        minimum_negative_samples=0, negative_mining_thresh=.5,
+        variances=(0.1, 0.1, 0.2, 0.2)))
+    d_attrs = d_op.parse_attrs(dict(
+        nms_threshold=0.5, force_suppress=False,
+        variances=(0.1, 0.1, 0.2, 0.2), nms_topk=SSD_NMS_TOPK))
+    threads = torch.get_num_threads()
+    # one intra-op thread: a process's first multi-threaded CPU
+    # torch.log has returned values 4e-5 off in some runs
+    torch.set_num_threads(1)
+    try:
+        loc_t, loc_m, cls_t = t_op.fcompute(t_attrs, anchors, label,
+                                            cls_pred)
+        det = d_op.fcompute(d_attrs,
+                            torch.from_numpy(on_card[("output", 0)]),
+                            loc_pred, anchors)
+    finally:
+        torch.set_num_threads(threads)
+    card_det = on_card[("output", 3)]
+    replay = {
+        "cls_target": bool(np.array_equal(cls_t.numpy(),
+                                          on_card[("output", 2)])),
+        "loc_mask": bool(np.array_equal(loc_m.numpy(),
+                                        card_target[1].cpu().numpy())),
+        "detection ids": bool(np.array_equal(det[..., 0].numpy(),
+                                             card_det[..., 0]))}
+    loc_err = float(np.abs(loc_t.numpy() -
+                           card_target[0].cpu().numpy()).max())
+    det_err = float(np.abs(det[..., 1:].numpy() - card_det[..., 1:]).max())
+    if not all(replay.values()) or max(loc_err, det_err) > SSD_LOC_TOL:
+        raise SystemExit("chip_smoke: phase 26c MultiBox replay on the CPU "
+                         "from the card's inputs: bit-equal %s; loc_target "
+                         "%.3e, detections %.3e (tol %g)"
+                         % (replay, loc_err, det_err, SSD_LOC_TOL))
+    cpu_kinks = KinkDecisions(replay=card_kinks)
+    host, _, own = ssd_step_on(cpu, start, ssd_batch(cpu, SSD_CPU_BATCH, 262),
+                               cpu_kinks, target=card_target)
+    own_differ = int((own[2].numpy() != on_card[("output", 2)]).sum())
+    worst = {}
+    for key, want in host.items():
+        if key == ("output", 3):
+            continue            # the detections: replayed above
+        got = on_card[key]
+        err = float(np.abs(got - want).max() /
+                    max(np.abs(want).max(), 1e-30))
+        if err >= worst.get(key[0], (-1.0, None))[0]:
+            worst[key[0]] = (err, key[1])
+        if not err <= SSD_CPU_TOL:
+            raise SystemExit("chip_smoke: phase 26c %s %s: the card %.3e x "
+                             "max|cpu| from the CPU (tol %g)"
+                             % (key[0], key[1], err, SSD_CPU_TOL))
+    relu, relu_n, pool, pool_n = cpu_kinks.differ(card_kinks)
+    log("phase 26c SSD one step at batch %d, card vs CPU (the CPU "
+        "replaying the card's ReLU / max-pool decisions and MultiBox "
+        "targets): worst %s (tol %g x max|cpu|); MultiBox replayed on the "
+        "CPU from the card's inputs bit-equal (%s), loc_target %.3e, "
+        "detections %.3e (tol %g); decisions the CPU would have taken "
+        "otherwise: ReLU %d of %d, max pool %d of %d, class targets %d "
+        "of %d [%s]"
+        % (SSD_CPU_BATCH, ", ".join("%s %.3e (%s)" % (k, v[0], v[1])
+                                    for k, v in sorted(worst.items())),
+           SSD_CPU_TOL, ", ".join(sorted(replay)), loc_err, det_err,
+           SSD_LOC_TOL, relu, relu_n, pool, pool_n, own_differ,
+           on_card[("output", 2)].size, card))
+
+
+def phase_ssd_detect(dev, card, trained, nms1_ms):
+    """Phase 26d: ``ssd(20, nms_thresh=0.45)`` with phase 26's trained
+    weights: SSD_PREDICT_BATCHES batches of 32 fresh images (seed 28)
+    through ``Module.predict`` (bound for inference, one warm-up batch
+    first), then SSD_PREDICTOR_IMAGES of them one at a time through
+    ``Predictor`` (the classic route, batch 1), and the share of a
+    ``Predictor`` image that ``MultiBoxDetection`` alone takes at batch 1
+    (``nms1_ms``, phase 26's ``nms_cost``).  Fatal unless the
+    detections are (N, 8732, 6) finite rows, some kept, and each image's
+    kept Predictor rows match ``predict``'s one to one with the same
+    class id within SSD_PREDICT_TOL x max|predict|
+    (``match_detections``).  Prints images/s of both, the detections
+    kept an image and how many matched rows changed places."""
+    ctx = mx.gpu(dev.index)
+    net = mx.models.ssd(num_classes=SSD["num_classes"],
+                        nms_thresh=SSD_NMS_THRESH)
+    n = SSD_PREDICT_BATCHES * SSD["batch"]
+    it = ssd_iter(n, 1, 28)
+    with mx.cpu():
+        X = next(iter(it)).data[0].asnumpy()
+    mod = mx.Module(net, data_names=("data",), label_names=None,
+                    context=ctx)
+    mod.bind(data_shapes=[("data", (SSD["batch"],) + SSD["image"])],
+             for_training=False)
+    mod.set_params(trained, {})
+    warm = mx.io.NDArrayIter(X[:SSD["batch"]], batch_size=SSD["batch"])
+    mod.predict(warm).asnumpy()
+    kernels.reset_launch_counts()
+    with plain_guard() as plain:
+        torch.cuda.synchronize()
+        tic = time.perf_counter()
+        rows = mod.predict(mx.io.NDArrayIter(X, batch_size=SSD["batch"]))
+        rows = rows.asnumpy()
+        predict_s = time.perf_counter() - tic
+        pred = mx.Predictor(net.tojson(), {"arg:" + k: v for k, v in
+                                           trained.items()},
+                            {"data": (1,) + SSD["image"]}, dev_type="gpu",
+                            dev_id=dev.index)
+        pred.forward(data=X[:1])
+        pred.get_output(0)
+        single = []
+        tic = time.perf_counter()
+        for i in range(SSD_PREDICTOR_IMAGES):
+            pred.forward(data=X[i:i + 1])
+            single.append(pred.get_output(0))
+        predictor_s = time.perf_counter() - tic
+    single = np.concatenate(single)
+    ref = rows[:SSD_PREDICTOR_IMAGES]
+    kept = (rows[..., 0] >= 0).sum(axis=1)
+    tol = SSD_PREDICT_TOL * float(np.abs(ref[..., 1:]).max())
+    ids, err, moved = True, 0.0, 0
+    for got, want in zip(single, ref):
+        match = match_detections(got, want, tol)
+        if match is None:
+            ids = False
+            continue
+        err = max(err, match[0])
+        moved += match[1]
+    err /= float(np.abs(ref[..., 1:]).max())
+    if rows.shape != (n, SSD["anchors"], 6) or \
+            not np.isfinite(rows).all() or kept.min() == 0 or plain or \
+            any(kernels.launch_counts().values()) or not ids or \
+            not err <= SSD_PREDICT_TOL:
+        raise SystemExit("chip_smoke: phase 26d detections %s, kept an image "
+                         "%s..%s, Predictor ids equal %s, %.3e x max|ref| "
+                         "(tol %g), plain %s"
+                         % (rows.shape, kept.min(), kept.max(), ids, err,
+                            SSD_PREDICT_TOL, dict(plain)))
+    log("phase 26d SSD detection (ssd(20, nms_thresh=%.2f), phase 26's "
+        "weights): Module.predict %d images at batch %d %.1f images/s, "
+        "Predictor one image at a time %.1f images/s (%.3f ms an image, "
+        "of them MultiBoxDetection alone at batch 1 %.3f ms of host, "
+        "%.1f%%); detections kept an "
+        "image %d..%d (median %d of %d); Predictor vs predict on %d "
+        "images: the same kept rows and ids, %.3e x max|ref| (tol %g), %d "
+        "kept rows in another place among scores within the tolerance "
+        "[%s]"
+        % (SSD_NMS_THRESH, n, SSD["batch"], n / predict_s,
+           SSD_PREDICTOR_IMAGES / predictor_s,
+           predictor_s * 1e3 / SSD_PREDICTOR_IMAGES, nms1_ms,
+           100 * nms1_ms * SSD_PREDICTOR_IMAGES / (predictor_s * 1e3),
+           kept.min(), kept.max(),
+           int(np.median(kept)), SSD["anchors"], SSD_PREDICTOR_IMAGES, err,
+           SSD_PREDICT_TOL, moved, card))
+
+
+def match_detections(got, want, tol):
+    """One image's kept detection rows (class >= 0) of ``got`` matched one
+    to one to ``want``'s: the same class, score and box within ``tol``
+    absolute.  Rows are sorted by score, so two rows whose scores lie
+    within rounding of each other may change places between two batch
+    sizes (cuDNN picks its algorithms by shape); a row that has no match
+    fails.  Returns (the largest difference, rows matched at another
+    place), or None."""
+    got_rows = np.flatnonzero(got[:, 0] >= 0)
+    want_rows = np.flatnonzero(want[:, 0] >= 0)
+    if len(got_rows) != len(want_rows):
+        return None
+    free = set(want_rows.tolist())
+    worst, moved = 0.0, 0
+    for i in got_rows:
+        near = [j for j in free if want[j, 0] == got[i, 0] and
+                np.abs(want[j, 1:] - got[i, 1:]).max() <= tol]
+        if not near:
+            return None
+        j = i if i in near else min(near, key=lambda j: abs(j - i))
+        free.discard(j)
+        moved += int(j != i)
+        worst = max(worst, float(np.abs(want[j, 1:] - got[i, 1:]).max()))
+    return worst, moved
+
+
 def serving_kernel_rows(dev, card, errs, dq_entries, sr_entries, dq_shapes,
                         sr_shapes):
     """Rows 8, 10 and 10b at the forward serving plane's shapes (phase 2's
@@ -7469,6 +8214,14 @@ def main(argv):
     phase_serve_vs_cpu(dev, weights25)
     del weights25
     phase_serve_swap(dev, card)
+    counts["ssd"], ssd_start, ssd_trained, step_ms_ssd, nms1_ms = \
+        phase_ssd(dev, card)
+    phase_ssd_box_witness(dev, card)
+    if argv:
+        profile_ssd(dev, card, step_ms_ssd, ssd_start)
+    phase_ssd_routes(dev, card, ssd_start)
+    phase_ssd_vs_cpu(dev, card, ssd_start)
+    phase_ssd_detect(dev, card, ssd_trained, nms1_ms)
     pa_shapes, fa_shapes = collections.Counter(), collections.Counter()
     for tag in ("3", "3b", "3d"):
         pa_shapes.update(served[tag]["pa_shapes"])

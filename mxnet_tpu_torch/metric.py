@@ -1,7 +1,8 @@
 """Evaluation metrics (counterpart of ``mxnet_tpu/metric.py``):
 ``EvalMetric``, ``CompositeEvalMetric``, ``Accuracy``, ``TopKAccuracy``,
 ``Perplexity``, ``CrossEntropy``, the regression metrics ``MAE``, ``MSE``
-and ``RMSE``, and ``create`` (of a name, a metric, or a list of
+and ``RMSE``, ``Loss`` (the mean of the raw outputs, on the host), and
+``create`` (of a name, a metric, or a list of
 either).
 
 Each classification metric first reduces on the predictions' device to
@@ -29,7 +30,8 @@ import torch
 from .ndarray import NDArray, host_numpy
 
 __all__ = ["EvalMetric", "CompositeEvalMetric", "Accuracy", "TopKAccuracy",
-           "Perplexity", "CrossEntropy", "MAE", "MSE", "RMSE", "create"]
+           "Perplexity", "CrossEntropy", "MAE", "MSE", "RMSE", "Loss",
+           "create"]
 
 
 def check_label_shapes(labels, preds):
@@ -518,10 +520,25 @@ class RMSE(_Regression):
         return torch.sqrt(((label - pred) ** 2.0).mean())
 
 
+class Loss(EvalMetric):
+    """Average of the raw outputs (for ``MakeLoss``-style heads): every
+    output's elements summed on the host, over their count, as the
+    reference's; it has no device path."""
+
+    def __init__(self):
+        super().__init__("loss")
+
+    def update(self, _, preds):
+        for pred in preds:
+            pred = _tensor(pred)
+            self.sum_metric += host_numpy(pred).sum()
+            self.num_inst += pred.numel()
+
+
 def create(metric, **kwargs):
     """A metric by name (``acc``, ``accuracy``, ``top_k_accuracy``,
     ``ce``, ``cross-entropy``, ``perplexity``, ``mae``, ``mse``,
-    ``rmse``), ``metric`` itself when it is one, or a
+    ``rmse``, ``loss``), ``metric`` itself when it is one, or a
     :class:`CompositeEvalMetric` of a list of either."""
     if isinstance(metric, EvalMetric):
         return metric
@@ -530,7 +547,7 @@ def create(metric, **kwargs):
     metrics = {"acc": Accuracy, "accuracy": Accuracy, "ce": CrossEntropy,
                "top_k_accuracy": TopKAccuracy,
                "cross-entropy": CrossEntropy, "perplexity": Perplexity,
-               "mae": MAE, "mse": MSE, "rmse": RMSE}
+               "mae": MAE, "mse": MSE, "rmse": RMSE, "loss": Loss}
     try:
         return metrics[metric.lower()](**kwargs)
     except KeyError:

@@ -14,6 +14,8 @@ import mxnet_tpu_torch as mx
 from mxnet_tpu_torch import kernels
 from mxnet_tpu_torch.kernels import (_build, dequant_matmul, flash_attention,
                                      norm, paged_attention, softmax_xent)
+from mxnet_tpu_torch.models.ssd import _RATIOS as SSD_RATIOS
+from mxnet_tpu_torch.models.ssd import _SIZES as SSD_SIZES
 from mxnet_tpu_torch.models import transformer_lm as tlm
 from mxnet_tpu_torch.serving import GenerationEngine, ModelRegistry
 
@@ -2388,3 +2390,146 @@ def test_engine_serves_resnet50_as_predictor_on_card(cuda_device):
     assert kernels.launch_counts()["softmax_rows"] >= 1
     rel = np.abs(got - want).max() / np.abs(want).max()
     assert rel <= 1e-5, rel
+
+
+# ---------------------------------------------------------------------------
+# the detection slice: the MultiBox ops on the card against the port's
+# CPU results on the same inputs (bookkeeping bit-equal, floats within
+# 1e-6 absolute), with no host sync on the card
+# ---------------------------------------------------------------------------
+SSD_MAPS = ((38, 38), (19, 19), (10, 10), (5, 5), (3, 3), (1, 1))
+MULTIBOX_TOL = 1e-6
+
+
+def _multibox(name, raw, tensors, sync_free=False):
+    """The op on ``tensors``; on the CPU with one intra-op thread (a
+    process's first multi-threaded CPU ``torch.log`` has returned values
+    4e-5 off in some runs of torch 2.13's CPU build)."""
+    from mxnet_tpu_torch.ops.registry import get_op
+    op = get_op(name)
+    attrs = op.parse_attrs(raw)
+    threads = torch.get_num_threads()
+    if tensors[0].device.type == "cpu":
+        torch.set_num_threads(1)
+    if sync_free:
+        torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = op.fcompute(attrs, *tensors)
+        if tensors[0].is_cuda:
+            torch.cuda.synchronize()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+        torch.set_num_threads(threads)
+    out = out if isinstance(out, tuple) else (out,)
+    return [o.cpu().numpy() for o in out]
+
+
+def _ssd_anchors(device):
+    parts = [_multibox("MultiBoxPrior", {"sizes": s, "ratios": r},
+                       [torch.zeros((1, 2) + hw, device=device)])[0]
+             for hw, s, r in zip(SSD_MAPS, SSD_SIZES, SSD_RATIOS)]
+    return np.concatenate(parts, axis=1)
+
+
+def _det_labels(rs, n, rows=2):
+    """SSD's labels: 1-2 boxes an image, the padding rows last."""
+    label = np.full((n, rows, 5), -1.0, np.float32)
+    for i in range(n):
+        for j in range(rs.randint(1, rows + 1)):
+            x0, y0 = rs.uniform(0.05, 0.5, 2)
+            w, h = rs.uniform(0.2, 0.45, 2)
+            label[i, j] = [rs.randint(0, 20), x0, y0, min(x0 + w, 0.95),
+                           min(y0 + h, 0.95)]
+    return label
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hw,attrs", [
+    (hw, {"sizes": s, "ratios": r})
+    for hw, s, r in zip(SSD_MAPS, SSD_SIZES, SSD_RATIOS)] + [
+    ((5, 7), {}), ((3, 5), {"sizes": (0.7, 1.3), "ratios": (2.0, 0.5),
+                            "clip": True}),
+    ((6, 2), {"sizes": (0.3,), "steps": (0.1, 0.05),
+              "offsets": (0.25, 0.75)})])
+def test_multibox_prior_on_card_is_bit_equal(cuda_device, hw, attrs):
+    got = _multibox("MultiBoxPrior", attrs,
+                    [torch.zeros((2, 3) + hw, device=cuda_device)],
+                    sync_free=True)[0]
+    want = _multibox("MultiBoxPrior", attrs, [torch.zeros((2, 3) + hw)])[0]
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ties", [False, True])
+@pytest.mark.parametrize("attrs", [
+    dict(overlap_threshold=.5, negative_mining_ratio=3,
+         negative_mining_thresh=.5, minimum_negative_samples=0),
+    dict(negative_mining_ratio=2, minimum_negative_samples=50,
+         ignore_label=-2),
+    dict()])
+def test_multibox_target_on_card_matches_cpu(cuda_device, ties, attrs):
+    """SSD's 8732 anchors, batch 32, 21 class rows (``ties``: the
+    predictions rounded to halves, a third of them 0)."""
+    rs = np.random.RandomState(25)
+    anchors = _ssd_anchors(torch.device("cpu"))
+    label = _det_labels(rs, 32)
+    cls_pred = rs.randn(32, 21, anchors.shape[1]).astype(np.float32)
+    if ties:
+        cls_pred = np.round(cls_pred * 2) / 2
+        cls_pred[rs.uniform(size=cls_pred.shape) < 0.33] = 0.0
+    arrays = (anchors, label, cls_pred)
+    got = _multibox("MultiBoxTarget", attrs, _on(cuda_device, *arrays),
+                    sync_free=True)
+    want = _multibox("MultiBoxTarget", attrs,
+                     [torch.from_numpy(a) for a in arrays])
+    np.testing.assert_array_equal(got[1], want[1])
+    np.testing.assert_array_equal(got[2], want[2])
+    assert np.abs(got[0] - want[0]).max() <= MULTIBOX_TOL
+    assert (want[2] > 0).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [
+    ("ssd", dict(nms_threshold=0.5, nms_topk=400)),
+    ("ssd", dict(nms_threshold=0.45, nms_topk=400, force_suppress=True)),
+    ("small", dict()),
+    ("small", dict(nms_topk=25, background_id=2, clip=False)),
+    ("ties", dict(nms_topk=40, threshold=0.0)),
+    ("raw", dict(nms_topk=15, threshold=-0.5)),
+], ids=lambda c: c[0] + "-" + "-".join("%s=%s" % kv
+                                        for kv in sorted(c[1].items())))
+def test_multibox_detection_on_card_matches_cpu(cuda_device, case):
+    """Class ids and row order bit-equal, scores and boxes within 1e-6:
+    SSD's 8732 anchors at batch 32 with 21 class rows, and 200 clustered
+    anchors (``ties``: probabilities rounded to tenths; ``raw``: normal
+    draws, negative too)."""
+    kind, attrs = case
+    rs = np.random.RandomState(26)
+    if kind == "ssd":
+        anchors = _ssd_anchors(torch.device("cpu"))
+        n, classes = 32, 21
+    else:
+        centres = rs.uniform(0.2, 0.8, (6, 2))
+        xy = centres[rs.randint(0, 6, 200)] + rs.normal(0, 0.03, (200, 2))
+        wh = rs.uniform(0.1, 0.3, (200, 2))
+        anchors = np.concatenate([xy - wh / 2, xy + wh / 2], 1)[None] \
+            .astype(np.float32)
+        n, classes = 4, 4
+    a = anchors.shape[1]
+    if kind == "raw":
+        prob = rs.randn(n, classes, a)
+    else:
+        prob = rs.dirichlet(np.ones(classes) * 0.5, size=(n, a)) \
+            .transpose(0, 2, 1)
+        if kind == "ties":
+            prob = np.round(prob * 10) / 10
+    loc = rs.randn(n, a * 4) * 0.5
+    arrays = (prob.astype(np.float32), loc.astype(np.float32), anchors)
+    (got,) = _multibox("MultiBoxDetection", attrs,
+                       _on(cuda_device, *arrays), sync_free=True)
+    (want,) = _multibox("MultiBoxDetection", attrs,
+                        [torch.from_numpy(np.ascontiguousarray(x))
+                         for x in arrays])
+    np.testing.assert_array_equal(got[..., 0], want[..., 0])
+    assert np.abs(got[..., 1:] - want[..., 1:]).max() <= MULTIBOX_TOL
+    assert (want[..., 0] >= 0).any()
